@@ -1,0 +1,514 @@
+"""Wan2.1 block-causal DiT, inference half (port of
+``self_forcing_tpu/models/wan/dit.py``).
+
+Parameters are a plain dict with the JAX package's keys; the transformer
+blocks are stacked on axis 0 and linear weights are [in, out] (``x @ w +
+b``).  Videos are [B, F, C, H, W] at the API, tokens [B, L, D] inside.
+
+Only the global-cache branch of ``forward_inference`` is ported: the
+block's self-attention reads the cache window ``[attn_lo, write_at)`` plus
+its own fresh K/V, and the cache is written after the layer (or not at all
+with ``write_cache=False``).  Differences from the JAX mechanisms: the
+layer scan is a Python loop, and the KV cache tensors are updated in place
+(the returned ``KVCache`` shares them).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from self_forcing_tpu_torch.models.wan.configs import WanConfig
+from self_forcing_tpu_torch.models.wan.rope import (RopeTables,
+                                                    sinusoidal_embedding_1d)
+from self_forcing_tpu_torch.ops.attention import (cross_attention,
+                                                  decode_attention_fresh)
+
+Params = dict
+
+LOG2E = 1.4426950408889634  # the offset-free softmax works in base 2
+
+
+# =====================================================================
+# primitives
+# =====================================================================
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    out = x @ p["w"]
+    if "b" in p:
+        out = out + p["b"]
+    return out
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """WanRMSNorm: fp32 statistics, cast back, scale."""
+    xf = x.float()
+    n = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return n.to(x.dtype) * weight.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-6,
+               weight: torch.Tensor | None = None,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """WanLayerNorm: fp32 statistics, cast back, optional affine."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    n = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if weight is not None:
+        n = n * weight.to(x.dtype) + bias.to(x.dtype)
+    return n
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# =====================================================================
+# parameter init (random weights at any width)
+# =====================================================================
+
+def _linear_init(g: torch.Generator, d_in: int, d_out: int, dtype, device,
+                 zero: bool = False, std: float | None = None) -> Params:
+    if zero:
+        w = torch.zeros(d_in, d_out, device=device)
+    elif std is not None:
+        w = torch.randn(d_in, d_out, generator=g, device=device) * std
+    else:  # xavier uniform
+        lim = math.sqrt(6.0 / (d_in + d_out))
+        w = (torch.rand(d_in, d_out, generator=g, device=device) * 2 - 1) * lim
+    return {"w": w.to(dtype), "b": torch.zeros(d_out, dtype=dtype,
+                                               device=device)}
+
+
+def _block_init(g, cfg: WanConfig, dtype, device) -> Params:
+    d = cfg.dim
+
+    def attn():
+        p = {n: _linear_init(g, d, d, dtype, device) for n in "qkvo"}
+        if cfg.qk_norm:
+            p["norm_q"] = {"w": torch.ones(d, dtype=dtype, device=device)}
+            p["norm_k"] = {"w": torch.ones(d, dtype=dtype, device=device)}
+        return p
+
+    p = {
+        "self_attn": attn(),
+        "cross_attn": attn(),
+        "ffn": {"fc1": _linear_init(g, d, cfg.ffn_dim, dtype, device),
+                "fc2": _linear_init(g, cfg.ffn_dim, d, dtype, device)},
+        "modulation": (torch.randn(1, 6, d, generator=g, device=device)
+                       / d ** 0.5).to(dtype),
+    }
+    if cfg.cross_attn_norm:
+        p["norm3"] = {"w": torch.ones(d, dtype=dtype, device=device),
+                      "b": torch.zeros(d, dtype=dtype, device=device)}
+    return p
+
+
+def _stack(trees: list) -> Params:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
+                device: str | torch.device = "cuda") -> Params:
+    """Random t2v DiT parameters (blocks stacked on axis 0), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``.  As in the
+    JAX package the output layer starts at zero."""
+    if cfg.model_type != "t2v":
+        raise NotImplementedError("only the t2v model is ported")
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = cfg.dim
+    patch_in = cfg.in_dim * int(np.prod(cfg.patch_size))
+    params: Params = {
+        "patch_embedding": _linear_init(g, patch_in, d, dtype, device),
+        "text_embedding": {
+            "fc1": _linear_init(g, cfg.text_dim, d, dtype, device, std=0.02),
+            "fc2": _linear_init(g, d, d, dtype, device, std=0.02)},
+        "time_embedding": {
+            "fc1": _linear_init(g, cfg.freq_dim, d, dtype, device, std=0.02),
+            "fc2": _linear_init(g, d, d, dtype, device, std=0.02)},
+        "time_projection": {"fc": _linear_init(g, d, d * 6, dtype, device)},
+        "head": {
+            "head": _linear_init(g, d, cfg.out_dim * int(np.prod(
+                cfg.patch_size)), dtype, device, zero=True),
+            "modulation": (torch.randn(1, 2, d, generator=g, device=device)
+                           / d ** 0.5).to(dtype)},
+    }
+    params["blocks"] = _stack([_block_init(g, cfg, dtype, device)
+                               for _ in range(cfg.num_layers)])
+    return params
+
+
+def layer_params(blocks: Params, i: int) -> Params:
+    """Layer ``i``'s parameters out of the stacked block tree (views)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+# =====================================================================
+# pieces of the forward pass
+# =====================================================================
+
+def patchify(params: Params, cfg: WanConfig, x: torch.Tensor
+             ) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """[B, F, C, H, W] -> tokens [B, F*h*w, D]; feature layout (C, ph, pw)."""
+    B, Fr, C, H, W = x.shape
+    pf, ph, pw = cfg.patch_size
+    assert pf == 1, "Wan uses temporal patch 1"
+    h, w = H // ph, W // pw
+    xt = x.reshape(B, Fr, C, h, ph, w, pw).permute(0, 1, 3, 5, 2, 4, 6)
+    xt = xt.reshape(B, Fr * h * w, C * ph * pw)
+    return linear(params["patch_embedding"], xt), (Fr, h, w)
+
+
+def unpatchify(cfg: WanConfig, tokens: torch.Tensor,
+               grid: tuple[int, int, int]) -> torch.Tensor:
+    """tokens [B, L, pf*ph*pw*C] -> [B, F, C, H, W]."""
+    Fr, h, w = grid
+    pf, ph, pw = cfg.patch_size
+    C = cfg.out_dim
+    B = tokens.shape[0]
+    u = tokens.reshape(B, Fr, h, w, pf, ph, pw, C)
+    u = u.permute(0, 1, 4, 7, 2, 5, 3, 6)
+    return u.reshape(B, Fr * pf, C, h * ph, w * pw)
+
+
+def time_embed(params: Params, cfg: WanConfig, t: torch.Tensor, dtype
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """t [B, F] -> (e [B, F, D], e0 [B, F, 6, D])."""
+    B, Fr = t.shape
+    emb = sinusoidal_embedding_1d(cfg.freq_dim, t.reshape(-1)).to(dtype)
+    te = params["time_embedding"]
+    e = linear(te["fc2"], F.silu(linear(te["fc1"], emb)))
+    e0 = linear(params["time_projection"]["fc"], F.silu(e))
+    return e.reshape(B, Fr, cfg.dim), e0.reshape(B, Fr, 6, cfg.dim)
+
+
+def embed_text(params: Params, cfg: WanConfig,
+               context: torch.Tensor) -> torch.Tensor:
+    """Text MLP over the context zero-padded to text_len tokens."""
+    B, L, _ = context.shape
+    if L < cfg.text_len:
+        context = F.pad(context, (0, 0, 0, cfg.text_len - L))
+    h = gelu_tanh(linear(params["text_embedding"]["fc1"], context))
+    return linear(params["text_embedding"]["fc2"], h)
+
+
+def _heads(cfg: WanConfig, x: torch.Tensor) -> torch.Tensor:
+    B, L, _ = x.shape
+    return x.reshape(B, L, cfg.num_heads, cfg.head_dim)
+
+
+def _fold_heads(cfg: WanConfig, t: torch.Tensor) -> torch.Tensor:
+    """[B, L, N*D] -> the folded [B*N, L, D] layout."""
+    B, L, _ = t.shape
+    return t.reshape(B, L, cfg.num_heads, cfg.head_dim).permute(
+        0, 2, 1, 3).reshape(B * cfg.num_heads, L, cfg.head_dim)
+
+
+def _unfold_heads(cfg: WanConfig, t: torch.Tensor) -> torch.Tensor:
+    """Folded [B*N, L, D] back to [B, L, N*D]."""
+    BN, L, D = t.shape
+    B = BN // cfg.num_heads
+    return t.reshape(B, cfg.num_heads, L, D).permute(0, 2, 1, 3).reshape(
+        B, L, cfg.num_heads * D)
+
+
+def _rope_half(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE on [..., L, D] rows whose L axis is axis -2 of a
+    folded [BN, L, D] tensor or axis 1 of [B, L, N, D]; cos/sin [L, D/2].
+    q/k columns are stored in the half layout (pair element 0 at i,
+    element 1 at i + D/2)."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    if x.dim() == 4:      # [B, L, N, D]
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    else:                 # [BN, L, D]
+        c, s = cos[None], sin[None]
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def _free_softmax(cfg: WanConfig, x: torch.Tensor) -> bool:
+    """The offset-free softmax (and its q-gain fold) runs where the
+    kernels run: on CUDA tensors."""
+    return cfg.attn_softmax == "free" and x.is_cuda
+
+
+def _packed_ok(cfg: WanConfig) -> bool:
+    """The heads-packed [B, L, N*D] kernel layout is used for head_dim
+    multiples of 128 (production Wan); tiny geometries fold."""
+    return cfg.head_dim % 128 == 0
+
+
+def _qk_normed(p: Params, cfg: WanConfig, x: torch.Tensor,
+               q_gain: float | None):
+    q, k, v = linear(p["q"], x), linear(p["k"], x), linear(p["v"], x)
+    if cfg.qk_norm:
+        wq = p["norm_q"]["w"]
+        if q_gain is not None:
+            wq = wq * torch.tensor(q_gain, dtype=wq.dtype, device=wq.device)
+        q = rms_norm(q, wq, cfg.eps)
+        k = rms_norm(k, p["norm_k"]["w"], cfg.eps)
+    elif q_gain is not None:
+        q = q * torch.tensor(q_gain, dtype=q.dtype, device=q.device)
+    return q, k, v
+
+
+def _qkv_rope_packed(p: Params, cfg: WanConfig, x: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     q_gain: float | None = None):
+    """q/k/v in the [B, L, N*D] layout with RoPE applied to q and k.
+    ``q_gain`` is folded into the q-norm gain (the free softmax's
+    head_dim**-0.5 * log2(e); RoPE commutes with it)."""
+    q, k, v = _qk_normed(p, cfg, x, q_gain)
+    B, L, _ = q.shape
+
+    def rope(t):
+        return _rope_half(_heads(cfg, t), cos, sin).reshape(B, L, -1)
+
+    return rope(q), rope(k), v
+
+
+def _qkv_rope_folded(p: Params, cfg: WanConfig, x: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     q_gain: float | None = None):
+    """q/k/v in the folded [B*N, L, D] layout with RoPE applied."""
+    q, k, v = _qk_normed(p, cfg, x, q_gain)
+    return (_rope_half(_fold_heads(cfg, q), cos, sin),
+            _rope_half(_fold_heads(cfg, k), cos, sin),
+            _fold_heads(cfg, v))
+
+
+def precompute_context(params: Params, cfg: WanConfig,
+                       context: torch.Tensor) -> dict:
+    """Per-prompt cross-attention K/V of every layer, stacked
+    [layers, B, Lc, N, D] under "k_txt" / "v_txt"."""
+    ctx = embed_text(params, cfg, context)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        p = layer_params(params["blocks"]["cross_attn"], i)
+        k = linear(p["k"], ctx)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["norm_k"]["w"], cfg.eps)
+        ks.append(_heads(cfg, k))
+        vs.append(_heads(cfg, linear(p["v"], ctx)))
+    return {"k_txt": torch.stack(ks), "v_txt": torch.stack(vs)}
+
+
+def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
+                     ctx_kv_layer: dict, kernels: bool = True
+                     ) -> torch.Tensor:
+    """Text cross-attention with precomputed K/V."""
+    p = bp["cross_attn"]
+    q = linear(p["q"], x)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["norm_q"]["w"], cfg.eps)
+    if _packed_ok(cfg):
+        out = cross_attention(q, ctx_kv_layer["k_txt"],
+                              ctx_kv_layer["v_txt"],
+                              heads_packed=cfg.num_heads, kernels=kernels)
+        return linear(p["o"], out)
+    out = cross_attention(_heads(cfg, q), ctx_kv_layer["k_txt"],
+                          ctx_kv_layer["v_txt"], kernels=kernels)
+    B, Lq = out.shape[:2]
+    return linear(p["o"], out.reshape(B, Lq, cfg.num_heads * cfg.head_dim))
+
+
+def _modulate(x: torch.Tensor, shift: torch.Tensor, scale_: torch.Tensor,
+              frame_seqlen: int) -> torch.Tensor:
+    """Per-frame AdaLN: x [B, F*fs, D] * (1 + scale[B,F,1,D]) + shift."""
+    B, L, D = x.shape
+    xf = x.reshape(B, shift.shape[1], frame_seqlen, D)
+    return (xf * (1.0 + scale_) + shift).reshape(B, L, D)
+
+
+def _gate(x: torch.Tensor, g: torch.Tensor,
+          frame_seqlen: int) -> torch.Tensor:
+    B, L, D = x.shape
+    return (x.reshape(B, g.shape[1], frame_seqlen, D) * g).reshape(B, L, D)
+
+
+def head_forward(params: Params, cfg: WanConfig, x: torch.Tensor,
+                 e: torch.Tensor, frame_seqlen: int) -> torch.Tensor:
+    """Final AdaLN head; e is [B, F, D]."""
+    hp = params["head"]
+    mod = hp["modulation"].float()                 # [1, 2, D]
+    em = mod[:, None] + e.float()[:, :, None, :]   # [B, F, 2, D]
+    shift = em[:, :, 0:1].to(x.dtype)
+    scale_ = em[:, :, 1:2].to(x.dtype)
+    xn = layer_norm(x, cfg.eps)
+    return linear(hp["head"], _modulate(xn, shift, scale_, frame_seqlen))
+
+
+# =====================================================================
+# KV cache
+# =====================================================================
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape per-layer KV cache, k/v [L, B*N, S, D] in the
+    attention kernels' folded layout.  ``global_end`` is the absolute
+    token index past the newest cached token, ``local_end`` its position
+    in the cache (equal on the global path)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    global_end: int = 0
+    local_end: int = 0
+
+
+def init_kv_cache(cfg: WanConfig, batch_size: int, frame_seqlen: int,
+                  num_frames: int, dtype=torch.bfloat16,
+                  device: str | torch.device = "cuda") -> KVCache:
+    """Zeroed cache of ``num_frames`` frames; S is rounded up to a
+    multiple of 2048 as in the JAX package, so the shapes agree."""
+    if cfg.local_attn_size != -1:
+        raise NotImplementedError("the windowed KV cache is not ported yet")
+    S = num_frames * frame_seqlen
+    if S > 2048:
+        S = -(-S // 2048) * 2048
+    shape = (cfg.num_layers, batch_size * cfg.num_heads, S, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def reset_kv_cache(cache: KVCache) -> KVCache:
+    """Rewind the cache indices; stale rows are never visible."""
+    return dataclasses.replace(cache, global_end=0, local_end=0)
+
+
+# =====================================================================
+# transformer block, decode with fresh K/V
+# =====================================================================
+
+def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
+                        e0: torch.Tensor, rope_cos: torch.Tensor,
+                        rope_sin: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, attn_lo: int, cache_hi: int,
+                        ctx_kv_layer: dict, frame_seqlen: int,
+                        static_kv_hi: int | None = None,
+                        layer_idx: int | None = None,
+                        emit_kv: bool = True, kernels: bool = True):
+    """One block whose self-attention reads the cache window
+    ``[attn_lo, cache_hi)`` of layer ``layer_idx`` (read only) plus the
+    block's fresh K/V.  Returns (x, k_new, v_new); the fresh K/V come
+    folded [B*N, L, D] for the cache write, or None when ``emit_kv`` is
+    False.
+
+    On CUDA the offset-free softmax runs: head_dim**-0.5 * log2(e) is
+    folded into the q-norm gain and the kernel runs at scale 1.  On the
+    CPU the unfolded base-e reference runs, as in the JAX package."""
+    if cfg.attn_quant is not None:
+        raise NotImplementedError("int8 decode attention is not ported yet")
+    mod = bp["modulation"].float()[:, None]
+    e = (mod + e0.float()).to(x.dtype)
+    e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
+    f_shift, f_scale, f_gate = e[:, :, 3:4], e[:, :, 4:5], e[:, :, 5:6]
+
+    free = _free_softmax(cfg, x)
+    q_gain = (cfg.head_dim ** -0.5) * LOG2E if free else None
+    attn_args = dict(scale=1.0 if free else None, static_hi=static_kv_hi,
+                     layer_idx=layer_idx, softmax="free" if free else None,
+                     kernels=kernels)
+    xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
+    if _packed_ok(cfg):
+        qp, kp, vp = _qkv_rope_packed(bp["self_attn"], cfg, xn, rope_cos,
+                                      rope_sin, q_gain=q_gain)
+        attn = decode_attention_fresh(qp, k_cache, v_cache, kp, vp, attn_lo,
+                                      cache_hi, heads_packed=cfg.num_heads,
+                                      **attn_args)
+        y = linear(bp["self_attn"]["o"], attn)
+        kf = vf = None
+    else:
+        qf, kf, vf = _qkv_rope_folded(bp["self_attn"], cfg, xn, rope_cos,
+                                      rope_sin, q_gain=q_gain)
+        attn = decode_attention_fresh(qf, k_cache, v_cache, kf, vf, attn_lo,
+                                      cache_hi, **attn_args)
+        y = linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn))
+    x = x + _gate(y, e_gate, frame_seqlen)
+
+    if "norm3" in bp:
+        xc = layer_norm(x, cfg.eps, bp["norm3"]["w"], bp["norm3"]["b"])
+    else:
+        xc = x
+    x = x + _cross_attention(bp, cfg, xc, ctx_kv_layer, kernels)
+
+    xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
+    y = linear(bp["ffn"]["fc2"], gelu_tanh(linear(bp["ffn"]["fc1"], xn)))
+    x = x + _gate(y, f_gate, frame_seqlen)
+    if not emit_kv:
+        return x, None, None
+    if kf is None:
+        kf, vf = _fold_heads(cfg, kp), _fold_heads(cfg, vp)
+    return x, kf, vf
+
+
+# =====================================================================
+# streaming forward
+# =====================================================================
+
+def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
+                      t: torch.Tensor, ctx_kv: dict, cache: KVCache,
+                      start_frame: int, rope: RopeTables,
+                      cache_start_frame: int | None = None,
+                      static_kv_hi: int | None = None,
+                      write_cache: bool = True,
+                      kernels: bool = True) -> tuple[torch.Tensor, KVCache]:
+    """KV-cached streaming forward of one chunk, global cache only.
+
+    x: [B, F_blk, C, H, W]; t: [B, F_blk]; ``ctx_kv`` from
+    :func:`precompute_context`; ``start_frame``: absolute frame index of
+    the chunk (RoPE position); ``cache_start_frame`` decouples the cache
+    write position (defaults to ``start_frame``).  ``static_kv_hi``: the
+    number of tokens already cached, an upper bound that lets the
+    attention kernel skip the rest of the cache.  ``write_cache=False``
+    (the denoise steps) leaves the cache and its indices untouched: the
+    refresh pass writes the block afterwards.  ``kernels=False`` runs the
+    attention through the kernels' plain versions on CUDA.
+    Returns (flow_pred [B, F_blk, C, H, W], cache)."""
+    if cfg.local_attn_size != -1:
+        raise NotImplementedError("windowed (local_attn_size != -1) "
+                                  "streaming is not ported yet")
+    tokens, grid = patchify(params, cfg, x)
+    Fb, h, w = grid
+    frame_seqlen = h * w
+    e, e0 = time_embed(params, cfg, t, tokens.dtype)
+    cos, sin = rope.angles_for_grid(Fb, h, w, int(start_frame))
+    if cache_start_frame is None:
+        cache_start_frame = start_frame
+
+    Lq = Fb * frame_seqlen
+    current_end = int(cache_start_frame) * frame_seqlen + Lq
+    local_end = cache.local_end + (current_end - cache.global_end)
+    write_at = local_end - Lq
+    attn_lo = max(0, local_end - cfg.max_attention_size(frame_seqlen))
+
+    for li in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], li)
+        layer_ctx = {"k_txt": ctx_kv["k_txt"][li],
+                     "v_txt": ctx_kv["v_txt"][li]}
+        tokens, k_new, v_new = _block_decode_fresh(
+            bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
+            write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
+            emit_kv=write_cache, kernels=kernels)
+        if write_cache:
+            # later layers read only their own layer: writing now is the
+            # same as the JAX package's single write after the layer scan
+            cache.k[li, :, write_at:write_at + Lq] = k_new
+            cache.v[li, :, write_at:write_at + Lq] = v_new
+    if write_cache:
+        cache = KVCache(k=cache.k, v=cache.v, global_end=current_end,
+                        local_end=local_end)
+
+    out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
+    return unpatchify(cfg, out_tokens, grid), cache
