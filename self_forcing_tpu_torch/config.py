@@ -1,18 +1,14 @@
-"""YAML config system with recursive merge and attribute access.
+"""Config dict with attribute access.
 
-The port's own copy of ``self_forcing_tpu/config.py``: a default YAML is
-merged under the experiment YAML, and the result is read with attribute
-syntax plus ``getattr(config, key, default)`` at use sites (the
-pipeline's ``args``).
+The port's own copy of the ``Config`` of ``self_forcing_tpu/config.py``:
+a dict read with attribute syntax plus ``getattr(config, key, default)``
+at use sites (the pipeline's ``args``).  YAML loading and merging come
+with the port's entry points.
 """
 from __future__ import annotations
 
-import os
-
 import copy
 from typing import Any, Mapping
-
-import yaml
 
 
 class Config(dict):
@@ -60,36 +56,3 @@ def _wrap(value: Any) -> Any:
     if isinstance(value, (list, tuple)):
         return type(value)(_wrap(v) for v in value)
     return value
-
-
-def merge(base: Mapping[str, Any], override: Mapping[str, Any]) -> Config:
-    """Recursive merge: ``override`` wins, dicts merge key-wise.
-
-    Matches OmegaConf.merge(default_config, config) in the reference
-    (train.py:20-22).
-    """
-    out = Config(base)
-    for k, v in override.items():
-        if k in out and isinstance(out[k], Mapping) and isinstance(v, Mapping):
-            out[k] = merge(out[k], v)
-        else:
-            out[k] = _wrap(v)
-    return out
-
-
-def load_yaml(path: str) -> Config:
-    with open(path) as f:
-        return Config(yaml.safe_load(f) or {})
-
-
-def load_config(config_path: str, default_path: str | None = None) -> Config:
-    """Load an experiment config, merged over the default config.
-
-    Reference: ``OmegaConf.merge(default_config, config)`` (train.py:20-22).
-    """
-    cfg = load_yaml(config_path)
-    if default_path is not None and os.path.exists(default_path):
-        # optional like the reference's fixed configs/default_config.yaml
-        # merge — an experiment config outside configs/ must still load
-        cfg = merge(load_yaml(default_path), cfg)
-    return cfg

@@ -1,0 +1,169 @@
+// Device helpers shared by the attention kernels: cp.async tile loads,
+// ldmatrix, the m16n8k16 bf16 tensor-core product and small conversions.
+//
+// Register layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16x16, row-major) a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
+//                        a2: (g, 2t+8..)     a3: (g+8, 2t+8..)
+//   B (16x8, col)        b0: (k 2t..2t+1, n g)  b1: (k 2t+8.., n g)
+//   C (16x8, f32)        c0,c1: (g, 2t..2t+1)   c2,c3: (g+8, 2t..)
+// so the accumulators of two adjacent 8-wide key tiles, packed to bf16
+// pairs, are the A operand of the next product over those 16 keys.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sf_attn {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; bytes == 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Asynchronously copy ROWS rows of D bf16 (global row stride `stride`
+// elements) into a shared tile of row stride LDH; rows >= valid are
+// zero-filled.  Every thread of the CTA (THREADS) takes part.
+template <int ROWS, int D, int LDH, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long stride, int valid) {
+  for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
+    const int r = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LDH + c, ok ? src + r * stride + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments of a 16-row x (16*KSTEPS)-column bf16 tile at `base` (row
+// stride LDH) for ldmatrix: lane l addresses row l % 8 + 8 * (l / 8 % 2),
+// column 8 * (l / 16) of each 16x16 step.
+template <int KSTEPS, int LDH>
+__device__ __forceinline__ void load_a_frags(uint32_t (*a)[4],
+                                             const bf16* base, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int row = (lane % 8) + ((lane / 8) % 2) * 8;
+    const int col = kk * 16 + (lane / 16) * 8;
+    ldmatrix_x4(a[kk], base + row * LDH + col);
+  }
+}
+
+// s[16 x 8*NT] += A (16 x 16*KSTEPS, fragments a) * K^T, K a shared
+// [8*NT keys][LDH] tile: B fragments of key tiles 2j, 2j+1 by one x4
+// ldmatrix (lane l: key 8 * (l / 16) + l % 8, column 8 * (l / 8 % 2)).
+template <int NT, int KSTEPS, int LDH>
+__device__ __forceinline__ void qk_tile(float (*s)[4],
+                                        const uint32_t (*a)[4],
+                                        const bf16* k_s, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t kb[4];
+      const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
+      const int col = kk * 16 + ((lane / 8) % 2) * 8;
+      ldmatrix_x4(kb, k_s + key * LDH + col);
+      mma16816(s[2 * np], a[kk], kb[0], kb[1]);
+      mma16816(s[2 * np + 1], a[kk], kb[2], kb[3]);
+    }
+  }
+}
+
+// o[16 x 8*DT] += P (16 x 16*KSTEPS, fragments p) * V, V a shared
+// [16*KSTEPS keys][LDH] tile read transposed by ldmatrix (lane l: key
+// l % 8 + 8 * (l / 8 % 2), column 8 * (l / 16)).
+template <int DT, int KSTEPS, int LDH>
+__device__ __forceinline__ void pv_tile(float (*o)[4],
+                                        const uint32_t (*p)[4],
+                                        const bf16* v_s, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t vb[4];
+      const int key = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+      const int col = dp * 16 + (lane / 16) * 8;
+      ldmatrix_x4_trans(vb, v_s + key * LDH + col);
+      mma16816(o[2 * dp], p[kk], vb[0], vb[1]);
+      mma16816(o[2 * dp + 1], p[kk], vb[2], vb[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Divide the accumulators o (rows g and g+8 of the warp's 16, D columns)
+// by d0 / d1 and store them as bf16 to rows r0 / r1 (< rows) of `out`
+// (row stride `stride` elements).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long stride,
+                                           const float (*o)[4], int r0,
+                                           int r1, int rows, float d0,
+                                           float d1, int tg) {
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * tg;
+    if (r0 < rows) {
+      *reinterpret_cast<uint32_t*>(out + r0 * stride + col) =
+          pack_bf16(o[dt][0] / d0, o[dt][1] / d0);
+    }
+    if (r1 < rows) {
+      *reinterpret_cast<uint32_t*>(out + r1 * stride + col) =
+          pack_bf16(o[dt][2] / d1, o[dt][3] / d1);
+    }
+  }
+}
+
+}  // namespace sf_attn

@@ -5,100 +5,61 @@
 // (self_forcing_tpu/ops/pallas_attention.py, called through
 // cross_attention_pallas).
 //
-// Function, per (batch b, head n, query row i), in one pass because the
-// whole key range fits:
+// Function, per (batch b, head n, query row i), with the exact row max as
+// in the TPU kernel's single pass:
 //   s_j = scale * q_i . k_j (fp32), columns j >= Lk masked,
 //   m = max_j s_j,  p_j = exp(s_j - m),  l = sum_j p_j,
 //   out_i = (sum_j p_j v_j) / max(l, 1e-30)  -> bf16
 // The TPU kernel forms p.v in fp32.  Here p is split into two bf16 parts
 // (p = p_hi + p_lo to about 16 mantissa bits) and both are multiplied with
 // the bf16 v on the tensor cores with fp32 accumulators, which keeps that
-// precision at twice the (small) P.V cost.
+// precision at twice the P.V cost.
 //
 // Layouts: q and out are heads-packed [B, Lq, N*D]; k and v are
 // [B, Lk, N, D].  D = 128.
 //
 // What bounds it on the H100: at the 1.3B shapes (Lq = 4680, Lk = 512,
-// 12 heads) a call does ~15 GFLOP (22 with the split P.V) against ~30 MB,
-// so it is bound by tensor-core operations.  Design: one CTA per
-// (b*n, 64-query tile) with 4 warps (32-query tiles with 2 warps when
-// Lk > 576, for shared memory); K, then V, stream through a shared tile of
-// 64 keys; the full score row block [64, Lk] stays in shared memory, each
-// warp reduces its own 16 rows with warp shuffles and overwrites them in
-// place with p_hi | p_lo.  Products run through nvcuda::wmma (bf16 in,
-// fp32 accumulate).  No wgmma, TMA or pipelining yet.
+// 12 heads) a call does ~15 GFLOP against ~30 MB, so it is bound by
+// tensor-core operations.  Design: the TPU kernel holds all of K/V in one
+// tile and takes the row max in one pass; shared memory cannot hold the
+// [64, Lk] fp32 scores beside K and V, so this kernel keeps scores in
+// registers and makes two passes over K: the first only takes the row
+// max, the second recomputes q.k and accumulates exp(s - m) and p.v.  One
+// CTA of 4 warps per (b*n, 64-query tile), 16 rows per warp, Q fragments
+// in registers, K/V tiles of 64 keys double-buffered with cp.async,
+// mma.sync m16n8k16 products (shared helpers in attention_common.cuh).
+// In all it does twice the function's FLOPs (q.k twice, p.v twice for
+// the hi/lo split).  Not yet: wgmma, TMA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace sf_attn;
 
 namespace {
 
 constexpr int D = 128;
-constexpr int BK = 64;        // keys per streamed K/V tile
+constexpr int BM = 64;        // query rows per CTA
+constexpr int BK = 64;        // keys per streamed tile
+constexpr int WARPS = 4;      // each warp owns 16 query rows
+constexpr int THREADS = WARPS * 32;
 constexpr int LK_MAX = 1024;
-constexpr int LDH = D + 8;    // bf16 row stride of the Q/K/V tiles
-constexpr int LDO = D + 4;    // f32 row stride of the output staging
+constexpr int LDH = D + 8;    // padded bf16 row stride
+constexpr int TILE = BK * LDH;
+constexpr size_t SMEM_BYTES = size_t(BM * LDH + 4 * TILE) * sizeof(bf16);
 
-__host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
-  return (x + a - 1) / a * a;
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int valid) {
+  load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
 }
 
-template <int WARPS>
-struct Layout {
-  static constexpr int BM = 16 * WARPS;
-  static constexpr size_t Q_BYTES = size_t(BM) * LDH * sizeof(bf16);
-  static constexpr size_t KV_BYTES =
-      round_up(size_t(BK) * LDH * sizeof(bf16) > size_t(BM) * LDO * sizeof(float)
-                   ? size_t(BK) * LDH * sizeof(bf16)
-                   : size_t(BM) * LDO * sizeof(float),
-               128);
-  // score rows: lds = Lkp + 8 floats each
-  static __host__ __device__ size_t s_bytes(int lds) {
-    return size_t(BM) * lds * sizeof(float);
-  }
-  static __host__ __device__ size_t total(int lds) {
-    return Q_BYTES + KV_BYTES + s_bytes(lds) + BM * sizeof(float);
-  }
-};
-
-template <int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long stride, int rows,
-                                          int valid) {
-  for (int i = threadIdx.x; i < rows * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-template <int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(THREADS, 2)
 cross_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        int N, int Lq, int Lk, float scale) {
-  using L = Layout<WARPS>;
-  constexpr int BM = L::BM;
-  constexpr int THREADS = WARPS * 32;
-  const int Lkp = (Lk + BK - 1) / BK * BK;
-  const int lds = Lkp + 8;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
-  float* sO = reinterpret_cast<float*>(sKV);
-  float* sS = reinterpret_cast<float*>(smem + L::Q_BYTES + L::KV_BYTES);
-  float* sL = reinterpret_cast<float*>(smem + L::Q_BYTES + L::KV_BYTES +
-                                       L::s_bytes(lds));
+  // [Q | K0 | K1 | V0 | V1]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + BM * LDH;
 
   const int bn = blockIdx.y;
   const int b = bn / N;
@@ -106,153 +67,124 @@ cross_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tg = lane % 4;
   const long long ld_tok = (long long)N * D;
 
-  const bf16* qb = q + ((long long)b * Lq + q0) * ld_tok + n * D;
   const bf16* kb = k + (long long)b * Lk * ld_tok + n * D;
   const bf16* vb = v + (long long)b * Lk * ld_tok + n * D;
+  const int n_tiles = (Lk + BK - 1) / BK;
 
-  load_rows<THREADS>(sQ, qb, ld_tok, BM, min(BM, Lq - q0));
+  load_tile(sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D, ld_tok,
+            min(BM, Lq - q0));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a_frags<D / 16, LDH>(qf, sQ + warp * 16 * LDH, lane);
 
-  // 1. raw scores q.k^T of all Lkp columns into shared memory
-  for (int c = 0; c < Lkp; c += BK) {
+  // pass 1: row max of scale * q.k (rows g and g + 8 of the warp)
+  float m0 = -1e30f, m1 = -1e30f;
+  load_tile(sKV, kb, ld_tok, min(BK, Lk));
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % 2;
+    if (t + 1 < n_tiles) {
+      load_tile(sKV + (buf ^ 1) * TILE, kb + (long long)(t + 1) * BK * ld_tok,
+                ld_tok, min(BK, Lk - (t + 1) * BK));
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    load_rows<THREADS>(sKV, kb + (long long)c * ld_tok, ld_tok, BK,
-                       min(BK, Lk - c));
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[BK / 16];
+    float s[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(s[j], 0.0f);
+    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    qk_tile<BK / 8, D / 16, LDH>(s, qf, sKV + buf * TILE, lane);
+    const int valid = min(BK, Lk - t * BK);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(a, sQ + warp * 16 * LDH + kk * 16, LDH);
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        wmma::load_matrix_sync(kf, sKV + j * 16 * LDH + kk * 16, LDH);
-        wmma::mma_sync(s[j], a, kf, s[j]);
+      for (int e = 0; e < 2; ++e) {
+        if (nt * 8 + 2 * tg + e < valid) {
+          m0 = fmaxf(m0, s[nt][e] * scale);
+          m1 = fmaxf(m1, s[nt][e + 2] * scale);
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      wmma::store_matrix_sync(sS + warp * 16 * lds + c + j * 16, s[j], lds,
-                              wmma::mem_row_major);
-    }
+    __syncthreads();
   }
-  __syncwarp();
+  cp_async_wait<0>();
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
 
-  // 2. row softmax numerators, rewritten in place as bf16 p_hi | p_lo
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r;
-    float* srow = sS + row * lds;
-    float vals[LK_MAX / 32];
-    float m = -1e30f;
+  // pass 2: p = exp(s - m), l = sum p, acc = p_hi.v + p_lo.v
+  float o[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < LK_MAX / 32; ++i) {
-      const int col = i * 32 + lane;
-      vals[i] = -1e30f;
-      if (col < Lkp) {
-        if (col < Lk) vals[i] = srow[col] * scale;
-        m = fmaxf(m, vals[i]);
-      }
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  load_tile(sKV, kb, ld_tok, min(BK, Lk));
+  load_tile(sKV + 2 * TILE, vb, ld_tok, min(BK, Lk));
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % 2;
+    if (t + 1 < n_tiles) {
+      const long long off = (long long)(t + 1) * BK * ld_tok;
+      const int valid = min(BK, Lk - (t + 1) * BK);
+      load_tile(sKV + (buf ^ 1) * TILE, kb + off, ld_tok, valid);
+      load_tile(sKV + (2 + (buf ^ 1)) * TILE, vb + off, ld_tok, valid);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    float l = 0.0f;
-#pragma unroll
-    for (int i = 0; i < LK_MAX / 32; ++i) {
-      if (i * 32 + lane < Lkp) {
-        vals[i] = expf(vals[i] - m);
-        l += vals[i];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    }
-    __syncwarp();  // the whole row is in registers before it is overwritten
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-#pragma unroll
-    for (int i = 0; i < LK_MAX / 32; ++i) {
-      const int col = i * 32 + lane;
-      if (col < Lkp) {
-        const bf16 hi = __float2bfloat16(vals[i]);
-        prow[col] = hi;
-        prow[Lkp + col] = __float2bfloat16(vals[i] - __bfloat162float(hi));
-      }
-    }
-    if (lane == 0) sL[row] = l;
-    __syncwarp();
-  }
-
-  // 3. acc = p_hi.v + p_lo.v over V tiles
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) wmma::fill_fragment(o[i], 0.0f);
-  const bf16* pw = reinterpret_cast<const bf16*>(sS + warp * 16 * lds);
-  for (int c = 0; c < Lkp; c += BK) {
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    load_rows<THREADS>(sKV, vb + (long long)c * ld_tok, ld_tok, BK,
-                       min(BK, Lk - c));
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ph, pl;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+    float s[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    qk_tile<BK / 8, D / 16, LDH>(s, qf, sKV + buf * TILE, lane);
+    const int valid = min(BK, Lk - t * BK);
+    const bf16* v_s = sKV + (2 + buf) * TILE;
+    // per 16-key step: p of key tiles 2kk, 2kk+1 -> A fragments -> p.v
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::load_matrix_sync(ph, pw + c + kk * 16, 2 * lds);
-      wmma::load_matrix_sync(pl, pw + Lkp + c + kk * 16, 2 * lds);
+      uint32_t ph[1][4], pl[1][4];
 #pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        wmma::load_matrix_sync(vf, sKV + kk * 16 * LDH + dt * 16, LDH);
-        wmma::mma_sync(o[dt], ph, vf, o[dt]);
-        wmma::mma_sync(o[dt], pl, vf, o[dt]);
+      for (int h = 0; h < 2; ++h) {
+        const int nt = 2 * kk + h;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool vis = nt * 8 + 2 * tg + e < valid;
+          p[e] = vis ? __expf(s[nt][e] * scale - m0) : 0.f;
+          p[e + 2] = vis ? __expf(s[nt][e + 2] * scale - m1) : 0.f;
+        }
+        l0 += p[0] + p[1];
+        l1 += p[2] + p[3];
+        float hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hi[e] = __bfloat162float(__float2bfloat16(p[e]));
+          lo[e] = p[e] - hi[e];
+        }
+        ph[0][h * 2 + 0] = pack_bf16(hi[0], hi[1]);
+        ph[0][h * 2 + 1] = pack_bf16(hi[2], hi[3]);
+        pl[0][h * 2 + 0] = pack_bf16(lo[0], lo[1]);
+        pl[0][h * 2 + 1] = pack_bf16(lo[2], lo[3]);
       }
+      pv_tile<D / 8, 1, LDH>(o, ph, v_s + kk * 16 * LDH, lane);
+      pv_tile<D / 8, 1, LDH>(o, pl, v_s + kk * 16 * LDH, lane);
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  // 4. normalize and store
-  __syncthreads();  // the output staging reuses the V tile
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) {
-    wmma::store_matrix_sync(sO + warp * 16 * LDO + dt * 16, o[dt], LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    if (row >= Lq) break;
-    const float denom = fmaxf(sL[warp * 16 + r], 1e-30f);
-    const float* src = sO + (warp * 16 + r) * LDO + lane * 4;
-    __nv_bfloat162 lo2 = __floats2bfloat162_rn(src[0] / denom,
-                                               src[1] / denom);
-    __nv_bfloat162 hi2 = __floats2bfloat162_rn(src[2] / denom,
-                                               src[3] / denom);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo2);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi2);
-    *reinterpret_cast<uint2*>(out + ((long long)b * Lq + row) * ld_tok +
-                              n * D + lane * 4) = packed;
-  }
-}
-
-template <int WARPS>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int N, int Lq, int Lk, float scale, cudaStream_t stream) {
-  using L = Layout<WARPS>;
-  const int lds = (Lk + BK - 1) / BK * BK + 8;
-  const size_t smem = L::total(lds);
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_attention_kernel<WARPS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + L::BM - 1) / L::BM, B * N);
-  cross_attention_kernel<WARPS><<<grid, WARPS * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, N, Lq, Lk,
-      scale);
-  return (int)cudaGetLastError();
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int r0 = q0 + warp * 16 + g;
+  store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o, r0,
+                r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
 }
 
 }  // namespace
@@ -264,13 +196,14 @@ extern "C" int cross_attention_launch(const void* q, const void* k,
                                       int Lq, int Lk, float scale,
                                       void* stream) {
   if (Lk < 1 || Lk > LK_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
   if (Lq <= 0 || B * N <= 0) return 0;
-  const int lds = (Lk + BK - 1) / BK * BK + 8;
-  // 4 warps while the [64, Lk] score block fits the 227 KB a block may use
-  if (Layout<4>::total(lds) <= 227 * 1024) {
-    return launch<4>(q, k, v, out, B, N, Lq, Lk, scale, (cudaStream_t)stream);
-  }
-  return launch<2>(q, k, v, out, B, N, Lq, Lk, scale, (cudaStream_t)stream);
+  dim3 grid((Lq + BM - 1) / BM, B * N);
+  cross_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, N, Lq, Lk,
+      scale);
+  return (int)cudaGetLastError();
 }
-
-extern "C" int cross_attention_head_dim() { return D; }

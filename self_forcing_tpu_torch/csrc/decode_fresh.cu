@@ -23,22 +23,22 @@
 //
 // What bounds it on the H100: at the 1.3B shapes (Lq = Lf = 4680, up to
 // 32760 visible keys, 12 heads) a call does up to ~0.9 TFLOP against
-// ~0.2 GB of K/V, so it is bound by tensor-core operations.  This first
-// version is the simple one: one CTA of 4 warps per (b*n, 64-query tile);
-// K/V tiles of 64 keys are staged through shared memory; both products
-// run on bf16 tensor cores through nvcuda::wmma with fp32 accumulators;
-// the score tile passes through shared memory for the exp2.  Free mode
-// needs no running max, so the output accumulators are never rescaled and
-// live in registers for the whole key loop.  Tiles wholly outside the
-// visible window are skipped.  No wgmma, TMA or pipelining yet.
+// ~0.2 GB of K/V, so it is bound by tensor-core operations.  Design
+// (FlashAttention-2 shape on mma.sync): one CTA of 4 warps per
+// (b*n, 64-query tile), each warp owning 16 query rows.  Q fragments are
+// loaded once into registers; K/V tiles of 64 keys stream through a
+// double-buffered shared ring with cp.async, so the next tile's load
+// overlaps this tile's math.  Scores stay in registers: the m16n8k16
+// accumulator layout of two adjacent key tiles is exactly the A-operand
+// layout of the P.V product, so p goes from exp2 to bf16 to the tensor
+// cores without touching shared memory.  Free mode needs no running max,
+// so the output accumulators are never rescaled.  Tiles wholly outside
+// the visible window are never loaded.  Not yet: wgmma, TMA, warp
+// specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace sf_attn;
 
 namespace {
 
@@ -47,35 +47,34 @@ constexpr int BM = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per tile
 constexpr int WARPS = 4;      // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
-constexpr int LDH = D + 8;    // bf16 row stride of the Q/K/V tiles
-constexpr int LDS = BK + 4;   // f32 row stride of the score tile
-constexpr int LDP = BK + 8;   // bf16 row stride of the probability tile
-constexpr int LDO = D + 4;    // f32 row stride of the output staging
+constexpr int LDH = D + 8;    // padded bf16 row stride: ldmatrix rows hit
+                              // distinct banks
+constexpr int TILE = BK * LDH;  // elements of one K or V tile
+constexpr size_t SMEM_BYTES = size_t(BM * LDH + 4 * TILE) * sizeof(bf16);
 
-constexpr size_t Q_BYTES = size_t(BM) * LDH * sizeof(bf16);
-constexpr size_t KV_BYTES = size_t(BK) * LDH * sizeof(bf16);
-constexpr size_t S_BYTES = size_t(BM) * LDS * sizeof(float);
-constexpr size_t P_BYTES = size_t(BM) * LDP * sizeof(bf16);
-constexpr size_t SMEM_BYTES = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES;
-static_assert(size_t(BM) * LDO * sizeof(float) <= 2 * KV_BYTES,
-              "output staging reuses the K/V tiles");
-
-// Copy `rows` x D bf16 (row stride `stride` elements) into a BK x LDH
-// shared tile, 16 bytes per thread and step; rows >= valid are zeroed.
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int valid) {
-  for (int i = threadIdx.x; i < BK * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+  load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The next tile index >= t that has a visible column (cache tiles first,
+// then fresh tiles, which are all visible); n_total when none is left.
+__device__ __forceinline__ int next_live(int t, int n_cache, int n_total,
+                                         int kv_start, int kv_end,
+                                         int sink_end) {
+  while (t < n_cache) {
+    const int j0 = t * BK;
+    if (j0 < sink_end || (j0 < kv_end && j0 + BK > kv_start)) return t;
+    if (j0 >= sink_end && j0 + BK <= kv_start) {
+      t = max(t + 1, kv_start / BK);  // jump over the dead gap
+    } else {
+      ++t;
+    }
+  }
+  return min(t, n_total);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 decode_fresh_free_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k_cache,
                          const bf16* __restrict__ v_cache,
@@ -84,13 +83,10 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
                          bf16* __restrict__ out, int N, int Lq, int Lf, int S,
                          int kv_start, int kv_end, int sink_end,
                          int cache_lim, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + Q_BYTES);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Q_BYTES + KV_BYTES);
-  float* sS = reinterpret_cast<float*>(smem + Q_BYTES + 2 * KV_BYTES);
-  bf16* sP = reinterpret_cast<bf16*>(smem + Q_BYTES + 2 * KV_BYTES + S_BYTES);
-  float* sO = reinterpret_cast<float*>(sK);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // [Q | K0 | K1 | V0 | V1]
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + BM * LDH;
 
   const int bn = blockIdx.y;
   const int b = bn / N;
@@ -98,137 +94,110 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
   const int q0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // accumulator row within the warp's 16
+  const int tg = lane % 4;  // accumulator column pair
   const long long ld_tok = (long long)N * D;  // packed token row stride
 
-  const bf16* qb = q + ((long long)b * Lq + q0) * ld_tok + n * D;
   const bf16* kcb = k_cache + (long long)bn * S * D;
   const bf16* vcb = v_cache + (long long)bn * S * D;
   const bf16* knb = k_new + (long long)b * Lf * ld_tok + n * D;
   const bf16* vnb = v_new + (long long)b * Lf * ld_tok + n * D;
 
-  load_tile(sQ, qb, ld_tok, min(BM, Lq - q0));
+  // Q tile -> registers (A fragments of the 8 16-wide d steps)
+  load_tile(sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D, ld_tok,
+            min(BM, Lq - q0));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a_frags<D / 16, LDH>(qf, sQ + warp * 16 * LDH, lane);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) wmma::fill_fragment(o[i], 0.0f);
-  float lpart[16];  // this lane's partial row sums of p, rows of its warp
-#pragma unroll
-  for (int r = 0; r < 16; ++r) lpart[r] = 0.0f;
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float l0 = 0.f, l1 = 0.f;  // partial row sums of rows g and g + 8
 
   const int n_cache = (cache_lim + BK - 1) / BK;
-  const int n_fresh = (Lf + BK - 1) / BK;
-  for (int t = 0; t < n_cache + n_fresh; ++t) {
-    const bool is_cache = t < n_cache;
-    int j0, valid;
-    if (is_cache) {
-      j0 = t * BK;
-      const bool live = j0 < sink_end || (j0 < kv_end && j0 + BK > kv_start);
-      if (!live) continue;  // uniform over the CTA
-      valid = min(BK, cache_lim - j0);
+  const int n_total = n_cache + (Lf + BK - 1) / BK;
+
+  auto fetch = [&](int t, int buf) {
+    if (t < n_cache) {
+      const int j0 = t * BK;
+      const int valid = min(BK, cache_lim - j0);
+      load_tile(sKV + buf * TILE, kcb + (long long)j0 * D, D, valid);
+      load_tile(sKV + (2 + buf) * TILE, vcb + (long long)j0 * D, D, valid);
     } else {
-      j0 = (t - n_cache) * BK;
-      valid = min(BK, Lf - j0);
+      const int j0 = (t - n_cache) * BK;
+      const int valid = min(BK, Lf - j0);
+      load_tile(sKV + buf * TILE, knb + (long long)j0 * ld_tok, ld_tok,
+                valid);
+      load_tile(sKV + (2 + buf) * TILE, vnb + (long long)j0 * ld_tok, ld_tok,
+                valid);
     }
-    __syncthreads();  // every warp is done with the previous K/V tile
-    if (is_cache) {
-      load_tile(sK, kcb + (long long)j0 * D, D, valid);
-      load_tile(sV, vcb + (long long)j0 * D, D, valid);
-    } else {
-      load_tile(sK, knb + (long long)j0 * ld_tok, ld_tok, valid);
-      load_tile(sV, vnb + (long long)j0 * ld_tok, ld_tok, valid);
-    }
+  };
+
+  int t = next_live(0, n_cache, n_total, kv_start, kv_end, sink_end);
+  if (t < n_total) fetch(t, 0);
+  cp_async_commit();
+  int buf = 0;
+  while (t < n_total) {
+    const int tn =
+        next_live(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
+    if (tn < n_total) fetch(tn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
     __syncthreads();
 
-    // scores of this warp's 16 rows against the 64 keys of the tile
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[BK / 16];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(a, sQ + warp * 16 * LDH + kk * 16, LDH);
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          wmma::load_matrix_sync(kb, sK + j * 16 * LDH + kk * 16, LDH);
-          wmma::mma_sync(s[j], a, kb, s[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        wmma::store_matrix_sync(sS + warp * 16 * LDS + j * 16, s[j], LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
+    const bf16* k_s = sKV + buf * TILE;
+    const bf16* v_s = sKV + (2 + buf) * TILE;
 
-    // p = 2^min(scale*s, 80) on visible columns; lane owns columns
-    // lane and lane + 32 of every row of its warp
+    // s = q . k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8)
+    float s[BK / 8][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = lane + 32 * h;
-      const int j = j0 + col;
-      const bool vis = col < valid &&
-                       (!is_cache || j < sink_end ||
-                        (j >= kv_start && j < kv_end));
+    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    qk_tile<BK / 8, D / 16, LDH>(s, qf, k_s, lane);
+
+    // p = 2^min(scale*s, 80) on visible columns
+    const bool is_cache = t < n_cache;
+    const int j0 = is_cache ? t * BK : (t - n_cache) * BK;
+    const int valid = is_cache ? min(BK, cache_lim - j0) : min(BK, Lf - j0);
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const int row = warp * 16 + r;
-        const float p =
-            vis ? exp2f(fminf(sS[row * LDS + col] * scale, 80.0f)) : 0.0f;
-        sP[row * LDP + col] = __float2bfloat16(p);
-        lpart[r] += p;
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * tg + e;
+        const int j = j0 + col;
+        const bool vis = col < valid &&
+                         (!is_cache || j < sink_end ||
+                          (j >= kv_start && j < kv_end));
+        p[e] = vis ? fast_exp2(fminf(s[nt][e] * scale, 80.f)) : 0.f;
+        p[e + 2] = vis ? fast_exp2(fminf(s[nt][e + 2] * scale, 80.f)) : 0.f;
       }
+      l0 += p[0] + p[1];
+      l1 += p[2] + p[3];
+      // accumulator layout of n-tiles 2k, 2k+1 == A layout of k-step k
+      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
-    __syncwarp();
 
     // acc += bf16(p) . v
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::load_matrix_sync(pa, sP + warp * 16 * LDP + kk * 16, LDP);
-#pragma unroll
-        for (int dt = 0; dt < D / 16; ++dt) {
-          wmma::load_matrix_sync(vb, sV + kk * 16 * LDH + dt * 16, LDH);
-          wmma::mma_sync(o[dt], pa, vb, o[dt]);
-        }
-      }
-    }
+    pv_tile<D / 8, BK / 16, LDH>(o, pa, v_s, lane);
+    __syncthreads();  // every warp is done with this buffer
+    buf ^= 1;
+    t = tn;
   }
+  cp_async_wait<0>();
 
-  __syncthreads();  // the output staging reuses the K/V tiles
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) {
-    wmma::store_matrix_sync(sO + warp * 16 * LDO + dt * 16, o[dt], LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    float l = lpart[r];
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    }
-    const int row = q0 + warp * 16 + r;
-    if (row < Lq) {
-      const float denom = fmaxf(l, 1e-30f);
-      const float* src = sO + (warp * 16 + r) * LDO + lane * 4;
-      __nv_bfloat162 lo2 = __floats2bfloat162_rn(src[0] / denom,
-                                                 src[1] / denom);
-      __nv_bfloat162 hi2 = __floats2bfloat162_rn(src[2] / denom,
-                                                 src[3] / denom);
-      uint2 packed;
-      packed.x = *reinterpret_cast<uint32_t*>(&lo2);
-      packed.y = *reinterpret_cast<uint32_t*>(&hi2);
-      *reinterpret_cast<uint2*>(out + ((long long)b * Lq + row) * ld_tok +
-                                n * D + lane * 4) = packed;
-    }
-  }
+  // row sums over the 4 threads that share a row
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int r0 = q0 + warp * 16 + g;
+  store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o, r0,
+                r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
 }
 
 }  // namespace
@@ -257,5 +226,3 @@ extern "C" int decode_fresh_free_launch(const void* q, const void* k_cache,
       kv_start, kv_end, sink_end, cache_lim, scale);
   return (int)cudaGetLastError();
 }
-
-extern "C" int decode_fresh_free_head_dim() { return D; }

@@ -42,17 +42,9 @@ class WanConfig:
     # runs the ordinary base-e softmax at head_dim**-0.5, as the JAX
     # package does off the TPU.
     attn_softmax: str = "free"
-    # tensor parallelism (not ported yet)
-    tp_axis: str | None = None
-    head_dim_override: int | None = None
-    # windowed-streaming KV buffer size in frames (windowed mode; not
-    # ported yet)
-    windowed_buffer_frames: int | None = None
 
     @property
     def head_dim(self) -> int:
-        if self.head_dim_override is not None:
-            return self.head_dim_override
         return self.dim // self.num_heads
 
     def max_attention_size(self, frame_seqlen: int) -> int:

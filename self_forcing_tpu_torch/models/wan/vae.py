@@ -76,12 +76,15 @@ def causal_conv3d(p: Params, x: torch.Tensor, cache: torch.Tensor | None,
 
 
 def rms_norm_channel(gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """F.normalize over channels * sqrt(C) * gamma; x [B, C, ...]."""
+    """F.normalize over channels * sqrt(C) * gamma; x [B, C, T, H, W].
+
+    x / sqrt(sum x^2 + 1e-24) * sqrt(C) == x / sqrt(mean x^2 + 1e-24 / C),
+    so this is an RMS norm over the channel axis, computed in fp32 by one
+    fused pass over the channels-last view."""
     C = x.shape[1]
-    xf = x.float()
-    inv = torch.rsqrt(xf.pow(2).sum(dim=1, keepdim=True) + 1e-24)
-    g = gamma.float().reshape(1, C, *([1] * (x.dim() - 2)))
-    return (xf * inv * math.sqrt(C) * g).to(x.dtype)
+    xc = x.permute(0, 2, 3, 4, 1)
+    y = F.rms_norm(xc.float(), (C,), gamma.float(), eps=1e-24 / C)
+    return y.to(x.dtype).permute(0, 4, 1, 2, 3)
 
 
 # ============================================================ blocks
@@ -134,9 +137,11 @@ def upsample3d(p: Params, x: torch.Tensor, cache_entry, first: bool):
                 x.new_zeros((B, C, CACHE_T, H, W)))
     y, new_cache = causal_conv3d(p["time_conv"], x, cache_entry,
                                  kernel=(3, 1, 1))
-    y = y.reshape(B, 2, C, T, H, W).permute(0, 2, 3, 1, 4, 5).reshape(
-        B, C, 2 * T, H, W)
-    return _spatial_resample_up(p, y), new_cache
+    # channels-last [B, T, H, W, (2, C)] -> [B, (T, 2), H, W, C]: frame
+    # 2t + i takes channel group i
+    y = y.permute(0, 2, 3, 4, 1).reshape(B, T, H, W, 2, C)
+    y = y.permute(0, 1, 4, 2, 3, 5).reshape(B, 2 * T, H, W, C)
+    return _spatial_resample_up(p, y.permute(0, 4, 1, 2, 3)), new_cache
 
 
 # ============================================================ init

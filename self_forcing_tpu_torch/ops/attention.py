@@ -20,17 +20,14 @@ _NEG_INF = -1e30
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v.
+                    scale: float | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v.
 
     q: [B, Lq, N, D], k/v: [B, Lk, N, D] -> [B, Lq, N, D]; fp32 softmax,
     probabilities cast to v's dtype, output in q's dtype."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
-    if bias is not None:
-        scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype).float(),
                        v.float())

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by one ``nvcc`` into
-``csrc/build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source is rebuilt).  The sources have a plain C
+``csrc/build/lib<name>-<hash>.so`` (the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edit is rebuilt).  The sources have a plain C
 interface, so no PyTorch headers and no ``ninja`` are needed.  A build
 error raises; nothing falls back.
 """
@@ -40,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Library path keyed by the source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

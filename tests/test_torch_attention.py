@@ -3,8 +3,6 @@ the JAX package on the CPU: the dispatch seam against
 self_forcing_tpu.ops.attention, and the plain versions of the CUDA kernels
 against the Pallas kernels run in interpret mode.  Inputs come from a
 numpy seed and run in float32."""
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,13 +30,10 @@ def test_dense_attention_matches_jax():
     rng = np.random.default_rng(0)
     q, k, v = _rand(rng, 2, 20, 2, 16), _rand(rng, 2, 33, 2, 16), \
         _rand(rng, 2, 33, 2, 16)
-    bias = _rand(rng, 2, 2, 20, 33)
-    for b in (None, bias):
-        ref = jattn.dense_attention(q, k, v, bias=b)
+    for scale in (None, 0.3):
+        ref = jattn.dense_attention(q, k, v, scale=scale)
         out = tattn.dense_attention(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v),
-                                    bias=None if b is None
-                                    else torch.from_numpy(b))
+                                    torch.from_numpy(v), scale=scale)
         _close(out, ref, 1e-5)
 
 
@@ -163,4 +158,3 @@ def test_free_softmax_is_base_e_at_scale_ln2():
                                         layer_idx=0, heads_packed=2,
                                         softmax="free")
     torch.testing.assert_close(free, base, rtol=1e-5, atol=1e-5)
-    assert math.isclose(math.log(2.0) * LOG2E, 1.0)
