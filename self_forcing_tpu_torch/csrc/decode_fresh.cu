@@ -25,16 +25,16 @@
 // 32760 visible keys, 12 heads) a call does up to ~0.9 TFLOP against
 // ~0.2 GB of K/V, so it is bound by tensor-core operations.  Design
 // (FlashAttention-2 shape on mma.sync): one CTA of 4 warps per
-// (b*n, 64-query tile), each warp owning 16 query rows.  Q fragments are
-// loaded once into registers; K/V tiles of 64 keys stream through a
-// double-buffered shared ring with cp.async, so the next tile's load
-// overlaps this tile's math.  Scores stay in registers: the m16n8k16
-// accumulator layout of two adjacent key tiles is exactly the A-operand
-// layout of the P.V product, so p goes from exp2 to bf16 to the tensor
-// cores without touching shared memory.  Free mode needs no running max,
-// so the output accumulators are never rescaled.  Tiles wholly outside
-// the visible window are never loaded.  Not yet: wgmma, TMA, warp
-// specialisation.
+// (b*n, 128-query tile), each warp owning 32 query rows as two 16-row
+// m-tiles, so every K/V fragment read from shared memory feeds two
+// products.  K/V tiles of 64 keys stream through a double-buffered shared
+// ring with cp.async, so the next tile's load overlaps this tile's math.
+// Scores stay in registers: the m16n8k16 accumulator layout of two
+// adjacent key tiles is exactly the A-operand layout of the P.V product,
+// so p goes from exp2 to bf16 to the tensor cores without touching shared
+// memory.  Free mode needs no running max, so the output accumulators are
+// never rescaled.  Tiles wholly outside the visible window are never
+// loaded.  Not yet: wgmma, TMA, warp specialisation.
 
 #include "attention_common.cuh"
 
@@ -43,9 +43,10 @@ using namespace sf_attn;
 namespace {
 
 constexpr int D = 128;        // head dim
-constexpr int BM = 64;        // query rows per CTA
+constexpr int MT = 2;         // 16-row m-tiles per warp
+constexpr int WARPS = 4;      // each warp owns 16 * MT query rows
+constexpr int BM = 16 * MT * WARPS;  // query rows per CTA
 constexpr int BK = 64;        // keys per tile
-constexpr int WARPS = 4;      // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
 constexpr int LDH = D + 8;    // padded bf16 row stride: ldmatrix rows hit
                               // distinct banks
@@ -103,19 +104,22 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
   const bf16* knb = k_new + (long long)b * Lf * ld_tok + n * D;
   const bf16* vnb = v_new + (long long)b * Lf * ld_tok + n * D;
 
-  // Q tile -> registers (A fragments of the 8 16-wide d steps)
-  load_tile(sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D, ld_tok,
-            min(BM, Lq - q0));
+  // Q tile stays in shared memory; each warp reads its 16 * MT rows
+  load_rows<BM, D, LDH, THREADS>(
+      sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D, ld_tok,
+      min(BM, Lq - q0));
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_a_frags<D / 16, LDH>(qf, sQ + warp * 16 * LDH, lane);
+  const bf16* qw = sQ + warp * 16 * MT * LDH;
 
-  float o[D / 8][4];
+  float o[MT][D / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;  // partial row sums of rows g and g + 8
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
+  float l[MT][2];  // partial row sums of rows g and g + 8 of each m-tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) l[mt][0] = l[mt][1] = 0.f;
 
   const int n_cache = (cache_lim + BK - 1) / BK;
   const int n_total = n_cache + (Lf + BK - 1) / BK;
@@ -145,59 +149,108 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
         next_live(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
     if (tn < n_total) fetch(tn, buf ^ 1);
     cp_async_commit();
-    cp_async_wait<1>();  // tile t has landed
+    cp_async_wait<1>();  // Q and tile t have landed
     __syncthreads();
 
     const bf16* k_s = sKV + buf * TILE;
     const bf16* v_s = sKV + (2 + buf) * TILE;
 
-    // s = q . k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8)
-    float s[BK / 8][4];
+    // s = q . k^T for this warp's 16 * MT rows x 64 keys; each K fragment
+    // serves all MT m-tiles
+    float s[MT][BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    qk_tile<BK / 8, D / 16, LDH>(s, qf, k_s, lane);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+        s[mt][i][0] = s[mt][i][1] = s[mt][i][2] = s[mt][i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int row = mt * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+        ldmatrix_x4(a[mt], qw + row * LDH + kk * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kb[4];
+        const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
+        ldmatrix_x4(kb, k_s + key * LDH + kk * 16 + ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(s[mt][2 * np], a[mt], kb[0], kb[1]);
+          mma16816(s[mt][2 * np + 1], a[mt], kb[2], kb[3]);
+        }
+      }
+    }
 
-    // p = 2^min(scale*s, 80) on visible columns
+    // per 16-key step: p = 2^min(scale*s, 80) on visible columns, packed
+    // to bf16 A fragments, then acc += bf16(p) . v
     const bool is_cache = t < n_cache;
     const int j0 = is_cache ? t * BK : (t - n_cache) * BK;
     const int valid = is_cache ? min(BK, cache_lim - j0) : min(BK, Lf - j0);
-    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      float p[4];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[MT][4];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * tg + e;
-        const int j = j0 + col;
-        const bool vis = col < valid &&
-                         (!is_cache || j < sink_end ||
-                          (j >= kv_start && j < kv_end));
-        p[e] = vis ? fast_exp2(fminf(s[nt][e] * scale, 80.f)) : 0.f;
-        p[e + 2] = vis ? fast_exp2(fminf(s[nt][e + 2] * scale, 80.f)) : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int nt = 2 * kk + h;
+        bool vis[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nt * 8 + 2 * tg + e;
+          const int j = j0 + col;
+          vis[e] = col < valid && (!is_cache || j < sink_end ||
+                                   (j >= kv_start && j < kv_end));
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = vis[e] ? fast_exp2(fminf(s[mt][nt][e] * scale, 80.f))
+                          : 0.f;
+            p[e + 2] = vis[e]
+                           ? fast_exp2(fminf(s[mt][nt][e + 2] * scale, 80.f))
+                           : 0.f;
+          }
+          l[mt][0] += p[0] + p[1];
+          l[mt][1] += p[2] + p[3];
+          // accumulator layout of n-tiles 2kk, 2kk+1 == A layout of step kk
+          pa[mt][h * 2 + 0] = pack_bf16(p[0], p[1]);
+          pa[mt][h * 2 + 1] = pack_bf16(p[2], p[3]);
+        }
       }
-      l0 += p[0] + p[1];
-      l1 += p[2] + p[3];
-      // accumulator layout of n-tiles 2k, 2k+1 == A layout of k-step k
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        const int key = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+        ldmatrix_x4_trans(vb, v_s + key * LDH + dp * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          mma16816(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
     }
-
-    // acc += bf16(p) . v
-    pv_tile<D / 8, BK / 16, LDH>(o, pa, v_s, lane);
     __syncthreads();  // every warp is done with this buffer
     buf ^= 1;
     t = tn;
   }
   cp_async_wait<0>();
 
-  // row sums over the 4 threads that share a row
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int r0 = q0 + warp * 16 + g;
-  store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o, r0,
-                r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = l[mt][0], l1 = l[mt][1];
+    // row sums over the 4 threads that share a row
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int r0 = q0 + warp * 16 * MT + mt * 16 + g;
+    store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o[mt],
+                  r0, r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
+  }
 }
 
 }  // namespace
