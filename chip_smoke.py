@@ -2,21 +2,28 @@
 
     python3 chip_smoke.py [--blocks 3] [--seed 0]
 
-Phases, each printing one line (any failure exits non-zero):
+Phases, each printing one line or more (any failure exits non-zero):
 1. the card's name and power limit, then the build of every CUDA kernel
    of ``self_forcing_tpu_torch/csrc`` (nvcc, all sources at once);
 2. each kernel against its plain PyTorch version at the Wan-1.3B shapes
-   of the streaming sampler, timed with CUDA events (median of 7) beside
-   its bound and one PyTorch library call for the same function;
+   of the streaming sampler (attention) and of the demo configuration
+   (W8A8 linears: M = 4680 tokens, dim 1536, ffn 8960), timed with CUDA
+   events (median of 7) beside its bound and one PyTorch library call;
 3. one full-width DiT forward (block 2, so the cache is read) with the
    kernels and with their plain versions, same weights and inputs;
 4. the streaming sampler at full Wan-1.3B width (random weights from the
    seed): ``CausalInferencePipeline.stream`` over ``--blocks`` blocks of 3
    latent frames at 60x104 (480x832 pixels), steps [1000, 750, 500, 250]
    warped, each block decoded by the streaming Wan VAE; the kernels'
-   launch counts are reset just before and read just after.
-5. where the time goes: one denoise forward at the last block's window and
-   one VAE block decode under torch.profiler (device busy and idle share).
+   launch counts are reset just before and read just after;
+5. where the time goes: one denoise forward at the last block's window
+   and the decode of that block under torch.profiler (device busy and
+   idle share).
+Phases 3-5 run for the parity configuration, then for the demo
+configuration on the same weights quantized (``quantize_dit_params``,
+W8A8 linears, bf16 attention; phase 3 also gives its distance to the
+bf16 forward; phase 4 decodes each block with the stateful TAEHV
+streamer).
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -35,14 +42,19 @@ import time
 import torch
 import torch.nn.functional as F
 
-# published H100 SXM peaks: dense bf16 tensor-core rate and HBM3 rate
+# published H100 SXM peaks: dense bf16 and int8 tensor-core rates, the
+# float32 rate outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 LQ = 3 * 1560          # tokens of one 3-frame block at 60x104 latents
 N_HEADS, HEAD_DIM, N_LAYERS = 12, 128, 30
 S_CACHE = 32768        # 21 frames * 1560 tokens rounded up to 2048
 LAST_KV_END = 18 * 1560  # cache tokens before the 7th block
+DIM, FFN, N_CTX = 1536, 8960, 512
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 
 
 def fail(msg: str) -> None:
@@ -52,13 +64,17 @@ def fail(msg: str) -> None:
 
 def time_ms(fn, reps: int = 7) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` calls, after one
-    warm-up call."""
+    warm-up call.  Before each timed call a spin kernel (~10 ms) holds the
+    stream, so the call's launches queue up behind it and the events time
+    the device's work, not the host's enqueue (a small kernel's Python
+    wrapper takes longer to launch it than the card to run it)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -72,8 +88,9 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -167,6 +184,141 @@ def phase_kernels(ca, g) -> dict:
     return table
 
 
+def check_int8(name, out, ref) -> int:
+    """int8 outputs: at most one step apart on at most 0.1% of them (a
+    value within an ulp of a .5 tie may round either way).  Returns the
+    largest step."""
+    torch.cuda.synchronize()
+    step = (out.int() - ref.int()).abs()
+    worst, share = int(step.max()), float((step > 0).float().mean())
+    if worst > 1 or share > 1e-3:
+        fail(f"{name}: int8 outputs {worst} steps apart on {share:.2e} of "
+             f"them")
+    return worst
+
+
+def library_ms(fn) -> float | None:
+    """Time of a library yardstick, or None where this PyTorch build does
+    not take the call (the yardstick is not part of the port)."""
+    try:
+        return time_ms(fn)
+    except RuntimeError as e:
+        print(f"library call refused: {str(e).splitlines()[0]}", flush=True)
+        return None
+
+
+def phase_w8a8_kernels(cm, quant, g) -> dict:
+    """The W8A8 kernels against their plain versions at the demo
+    configuration's Wan-1.3B shapes.  Library yardstick: ``torch._int_mm``
+    on the same int8 operands (the int32 product alone, no epilogue); the
+    bf16 ``torch.matmul`` of the same shape is printed beside it (the
+    parity configuration's cost)."""
+    dev, bf = "cuda", torch.bfloat16
+    M = LQ
+
+    def acts(rows):
+        x = torch.randn(rows, DIM, generator=g, device=dev)
+        x[3] = 0.0                    # a zero row: the scale floor
+        return x.to(bf)
+
+    def weight(d_in, d_out):
+        w = torch.randn(d_in, d_out, generator=g, device=dev) * d_in ** -0.5
+        b = torch.randn(d_out, generator=g, device=dev) * 0.02
+        p = quant.quantize_linear_params({"w": w.to(bf), "b": b.to(bf)},
+                                         "w8a8")
+        return p, w.to(bf)
+
+    def report(name, label, err, mae, ms, plain_ms, lib_ms, ops, nbytes,
+               peak=PEAK_INT8_OPS, bf16_ms=None):
+        b_ms, b_by = bound(ops, nbytes, peak)
+        extra = "" if bf16_ms is None else f" bf16_matmul_ms={bf16_ms:.4f}"
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib}{extra} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"tops={ops / ms / 1e9:.1f}", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+
+    table = {}
+    x = acts(M)
+    q, s = cm.quantize_rows(x)
+    q_ref, s_ref = cm.quantize_rows_ref(x)
+    worst = check_int8("quantize_rows", q, q_ref)
+    s_err = rel_l2(s, s_ref)
+    if s_err > 1e-6:
+        fail(f"quantize_rows: scales relative L2 {s_err:.3e} > 1e-6")
+    # no single PyTorch call computes a per-row int8 quantization
+    table["quantize_rows"] = report(
+        "quantize_rows", f"[{M}, {DIM}] bf16", s_err, float(worst),
+        time_ms(lambda: cm.quantize_rows(x)),
+        time_ms(lambda: cm.quantize_rows_ref(x), reps=5), None,
+        3.0 * M * DIM, M * DIM * 3.0 + M * 4.0, peak=PEAK_F32_FLOPS)
+
+    # the three GEMM shapes of a layer: fused qkv; o, cross q and cross o;
+    # cross k and v, once per prompt (the row of the table is the qkv's)
+    for label, rows, n_out in (("qkv", M, 3 * DIM), ("o/cross q/cross o", M,
+                                                     DIM),
+                               ("cross k/v", N_CTX, DIM)):
+        xx = x if rows == M else acts(rows)
+        xq, xs = (q, s) if rows == M else cm.quantize_rows_ref(xx)
+        p, wb = weight(DIM, n_out)
+        args = (xq, xs, p["w_qa_t"], p["w_scale"], p["b"])
+        err, mae = check_kernel("w8a8_matmul", cm.w8a8_matmul(*args),
+                                cm.w8a8_matmul_ref(*args), tol=1e-3)
+        row = report(
+            "w8a8_matmul", f"{label} {rows}x{DIM}x{n_out}", err, mae,
+            time_ms(lambda: cm.w8a8_matmul(*args)),
+            time_ms(lambda: cm.w8a8_matmul_ref(*args), reps=5),
+            library_ms(lambda: torch._int_mm(xq, p["w_qa_t"].t())),
+            2.0 * rows * DIM * n_out,
+            rows * DIM + rows * 4.0 + n_out * DIM + n_out * 8.0
+            + rows * n_out * 2.0,
+            bf16_ms=time_ms(lambda: xx @ wb))
+        table.setdefault("w8a8_matmul", row)
+        del p, wb
+
+    (p1, w1b), (p2, w2b) = weight(DIM, FFN), weight(FFN, DIM)
+    tg = cm.ffn_group(M, DIM, FFN, DIM, raw_x=True)
+    a1 = (p1["w_qa_t"], p1["w_scale"], p1["b"], tg)
+    hq, hs = cm.w8a8_ffn1(x, *a1)
+    hq_ref, hs_ref = cm.w8a8_ffn1_ref(x, None, *a1)
+    worst = check_int8("w8a8_ffn1", hq, hq_ref)
+    hs_err = rel_l2(hs, hs_ref)
+    if hs_err > 1e-5:
+        fail(f"w8a8_ffn1: group scales relative L2 {hs_err:.3e} > 1e-5")
+    ng = FFN // tg
+    table["w8a8_ffn1"] = report(
+        "w8a8_ffn1", f"{M}x{DIM}x{FFN}, groups of {tg}", hs_err,
+        float(worst), time_ms(lambda: cm.w8a8_ffn1(x, *a1)),
+        time_ms(lambda: cm.w8a8_ffn1_ref(x, None, *a1), reps=5),
+        library_ms(lambda: torch._int_mm(q, p1["w_qa_t"].t())),
+        2.0 * M * DIM * FFN,
+        M * DIM * 2.0 + FFN * DIM + FFN * 8.0 + M * FFN + M * ng * 4.0,
+        bf16_ms=time_ms(lambda: x @ w1b))
+
+    a2 = (p2["w_qa_t"], p2["w_scale"], p2["b"], tg)
+    err, mae = check_kernel("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
+                            cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), tol=1e-3)
+    hb = torch.randn(M, FFN, generator=g, device=dev).to(bf)
+    table["w8a8_ffn2"] = report(
+        "w8a8_ffn2", f"{M}x{FFN}x{DIM}, groups of {tg}", err, mae,
+        time_ms(lambda: cm.w8a8_ffn2(hq_ref, hs_ref, *a2)),
+        time_ms(lambda: cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), reps=5),
+        library_ms(lambda: torch._int_mm(hq_ref, p2["w_qa_t"].t())),
+        2.0 * M * FFN * DIM,
+        M * FFN + M * ng * 4.0 + DIM * FFN + DIM * 8.0 + M * DIM * 2.0,
+        bf16_ms=time_ms(lambda: hb @ w2b))
+
+    args = (p1["w_qa_t"], p1["w_scale"], p1["b"], p2["w_qa_t"],
+            p2["w_scale"], p2["b"])
+    err, _ = check_kernel("w8a8_ffn", cm.w8a8_ffn(x, None, *args),
+                          cm.w8a8_ffn_ref(x, None, *args), tol=1e-2)
+    print(f"kernel w8a8_ffn (fc1 then fc2, {M}x{DIM}x{FFN}x{DIM}): "
+          f"rel_l2={err:.3e}", flush=True)
+    return table
+
+
 def make_params(dit, cfg, seed):
     """Random 1.3B weights; the zero-initialised output layer gets random
     values too, so the flow depends on every layer."""
@@ -179,42 +331,74 @@ def make_params(dit, cfg, seed):
     return params
 
 
-def phase_forward(dit, cfg, params, rope, g) -> None:
-    """One full-width forward of block 2 with the kernels and with their
-    plain versions."""
+def forward_inputs(cfg, g) -> dict:
+    """Text context and two latent blocks for the block-2 forwards."""
     B, nb, C, H, W = 1, 3, 16, 60, 104
+    return {"context": torch.randn(B, N_CTX, cfg.text_dim, generator=g,
+                                   device="cuda").to(torch.bfloat16),
+            "x0": torch.randn(B, nb, C, H, W, generator=g, device="cuda"
+                              ).to(torch.bfloat16),
+            "x1": torch.randn(B, nb, C, H, W, generator=g, device="cuda"
+                              ).to(torch.bfloat16)}
+
+
+def block2_forward(dit, cfg, params, rope, inp, kernels_list) -> dict:
+    """Block 1 written to a fresh cache with the kernels, then block 2 run
+    once for each ``kernels`` flag without writing (it reads block 1).
+    Returns {kernels: (flow, host ms of that forward)}."""
+    B, nb, _, H, W = inp["x0"].shape
     fs = (H // 2) * (W // 2)
-    context = torch.randn(B, 512, cfg.text_dim, generator=g, device="cuda"
-                          ).to(torch.bfloat16)
-    ctx_kv = dit.precompute_context(params, cfg, context)
+    ctx_kv = dit.precompute_context(params, cfg, inp["context"])
     cache = dit.init_kv_cache(cfg, B, fs, 21, torch.bfloat16, "cuda")
-    x0 = torch.randn(B, nb, C, H, W, generator=g, device="cuda"
-                     ).to(torch.bfloat16)
     t0 = torch.zeros(B, nb, device="cuda")
-    _, cache = dit.forward_inference(params, cfg, x0, t0, ctx_kv, cache, 0,
-                                     rope, static_kv_hi=0)
-    x1 = torch.randn(B, nb, C, H, W, generator=g, device="cuda"
-                     ).to(torch.bfloat16)
+    _, cache = dit.forward_inference(params, cfg, inp["x0"], t0, ctx_kv,
+                                     cache, 0, rope, static_kv_hi=0)
     t1 = torch.full((B, nb), 750.0, device="cuda")
     outs = {}
-    for kernels in (True, False):
+    for kernels in kernels_list:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        flow, _ = dit.forward_inference(params, cfg, x1, t1, ctx_kv, cache,
-                                        nb, rope, static_kv_hi=nb * fs,
+        flow, _ = dit.forward_inference(params, cfg, inp["x1"], t1, ctx_kv,
+                                        cache, nb, rope, static_kv_hi=nb * fs,
                                         write_cache=False, kernels=kernels)
         torch.cuda.synchronize()
         outs[kernels] = (flow, (time.perf_counter() - t) * 1e3)
-    flow_k, ms_k = outs[True]
-    flow_p, ms_p = outs[False]
+    return outs
+
+
+def phase_forward(dit, cfg, params, rope, inp) -> torch.Tensor:
+    """One full-width forward of block 2 with the kernels and with their
+    plain versions.  Returns the kernel path's flow."""
+    outs = block2_forward(dit, cfg, params, rope, inp, (True, False))
+    (flow_k, ms_k), (flow_p, ms_p) = outs[True], outs[False]
     if not torch.isfinite(flow_k.float()).all():
         fail("forward: non-finite flow")
     err = rel_l2(flow_k, flow_p)
-    print(f"forward 1.3B block 2 (cache window {nb * fs} tokens): "
+    print(f"forward 1.3B block 2 (cache window {LQ} tokens): "
           f"kernels vs plain rel_l2={err:.3e} kernel_path_ms={ms_k:.1f} "
           f"plain_path_ms={ms_p:.1f} (host clock, first calls)", flush=True)
     if err > 2e-2:
         fail(f"forward: kernels vs plain relative L2 {err:.3e} > 2e-2")
+    return flow_k
+
+
+def phase_demo_forward(dit, cfg, qparams, rope, inp, flow_bf16) -> None:
+    """The same forward with the demo configuration's W8A8 weights: the
+    kernels (attention and W8A8) against their plain versions, and, for
+    information, against the bf16 forward on the weights they quantize."""
+    outs = block2_forward(dit, cfg, qparams, rope, inp, (True, False))
+    (flow_k, ms_k), (flow_p, ms_p) = outs[True], outs[False]
+    if not torch.isfinite(flow_k.float()).all():
+        fail("demo forward: non-finite flow")
+    err = rel_l2(flow_k, flow_p)
+    print(f"demo forward 1.3B W8A8 block 2 (cache window {LQ} tokens): "
+          f"kernels vs plain rel_l2={err:.3e} vs bf16 forward "
+          f"rel_l2={rel_l2(flow_k, flow_bf16):.3e} kernel_path_ms={ms_k:.1f} "
+          f"plain_path_ms={ms_p:.1f} (host clock, first calls)", flush=True)
+    # 1.18e-2 measured: the attention kernels' rounding (the bf16 forward
+    # shows 7.3e-3) also flips activations near .5 ties of the int8 grid
+    if err > 2e-2:
+        fail(f"demo forward: kernels vs plain relative L2 {err:.3e} > 2e-2")
 
 
 def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
@@ -294,8 +478,97 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
           f"{float(video.max()):.3f}] (host clock, one run incl. first "
           f"calls; dit_ms = the previous block's refresh + 4 denoise "
           f"forwards)", flush=True)
-    last = dict(pipe=pipe, context=context, x=blk, vae_params=vae_params,
-                dec_cache=dec_cache, start=3 * (blocks - 1))
+    last_lat, last_cache = blk.permute(0, 1, 3, 4, 2), list(dec_cache)
+    last = dict(pipe=pipe, context=context, x=blk, start=3 * (blocks - 1),
+                decode=("vae_block", lambda: vae.decode_block(
+                    vae_params, vae.WAN_VAE, last_lat, list(last_cache),
+                    first=False)))
+    return launches, last
+
+
+def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
+                      seed):
+    """The demo configuration (bench.py's run_demo with bf16 attention):
+    the streaming sampler on the W8A8 weights, each block decoded by the
+    stateful TAEHV streamer (random decoder weights from the seed)."""
+    from self_forcing_tpu_torch.config import Config
+    B, C, H, W = 1, 16, 60, 104
+    F_lat = 3 * blocks
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    tae = taehv.init_decoder_params(seed=seed + 4, dtype=torch.bfloat16,
+                                    device="cuda")
+    args = Config({"denoising_step_list": [1000, 750, 500, 250],
+                   "warp_denoising_step": True, "timestep_shift": 8.0,
+                   "num_frame_per_block": 3, "context_noise": 0})
+    pipe = pipe_mod.CausalInferencePipeline(args, qparams, cfg,
+                                            device="cuda",
+                                            dtype=torch.bfloat16)
+    streamer = taehv.TAEHVStreamer(tae)
+    context = torch.randn(B, N_CTX, cfg.text_dim, generator=g, device="cuda"
+                          ).to(torch.bfloat16)
+    noise = torch.randn(B, F_lat, C, H, W, generator=g, device="cuda"
+                        ).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    block_ms, dit_ms, tae_ms, pixels, lats = [], [], [], [], []
+    ttff = None
+    t_blk = t0
+    for blk in pipe.stream(noise, context, generator=g):
+        torch.cuda.synchronize()
+        t_got = time.perf_counter()
+        dit_ms.append((t_got - t_blk) * 1e3)
+        state = streamer._state
+        lats.append(blk[:, :, :16].to(torch.bfloat16))
+        pixels.append(streamer.decode_chunk(lats[-1]))
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if ttff is None:
+            ttff = now - t0
+        tae_ms.append((now - t_got) * 1e3)
+        block_ms.append((now - t_blk) * 1e3)
+        t_blk = now
+    total = time.perf_counter() - t0
+    launches = {**ca.launch_counts, **cm.launch_counts}
+    video = torch.cat(pixels, dim=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    frames = 9 + 12 * (blocks - 1)
+    want = (B, frames, 3, 480, 832)
+    if tuple(video.shape) != want:
+        fail(f"demo stream: pixels {tuple(video.shape)}, expected {want}")
+    if not torch.isfinite(video.float()).all():
+        fail("demo stream: non-finite pixels")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"demo stream: kernel {name} was never launched on the path")
+    # the stateful stream carries each MemBlock's last frame, so it equals
+    # one decode of the whole video up to bf16 rounding in other cuDNN
+    # algorithms; a lost or misplaced carry moves whole frames
+    whole = taehv.decode_video(tae, torch.cat(lats, dim=1))
+    err_whole = rel_l2(video, whole)
+    if err_whole > 5e-2:
+        fail(f"demo stream: streamed pixels vs one whole-video decode "
+             f"relative L2 {err_whole:.3e} > 5e-2")
+    print(f"demo stream 1.3B W8A8 + TAEHV {blocks} blocks ({F_lat} latent "
+          f"frames, {frames} pixel frames 480x832): per_block_ms="
+          f"{[round(x, 1) for x in block_ms]} dit_ms="
+          f"{[round(x, 1) for x in dit_ms]} taehv_ms="
+          f"{[round(x, 1) for x in tae_ms]} ttff_ms={ttff * 1e3:.1f} "
+          f"total_ms={total * 1e3:.1f} pixel_fps={frames / total:.3f} "
+          f"peak_mem_gb={peak_gb:.2f} launches={launches} "
+          f"pixel_range=[{float(video.min()):.3f}, "
+          f"{float(video.max()):.3f}] stream_vs_whole_rel_l2="
+          f"{err_whole:.3e} (host clock, one run incl. first calls; "
+          f"dit_ms = the previous block's refresh + 4 denoise forwards)",
+          flush=True)
+    lat = lats[-1]
+    last = dict(pipe=pipe, context=context, x=blk, start=3 * (blocks - 1),
+                decode=("taehv_block", lambda: taehv.decode_video_stateful(
+                    tae, lat, state, trim=False)))
     return launches, last
 
 
@@ -320,9 +593,9 @@ def profile_ms(fn) -> tuple[float, list]:
     return wall, sorted(rows, key=lambda r: -r[1])
 
 
-def phase_profile(dit, vae, cfg, params, last) -> None:
+def phase_profile(dit, cfg, params, last, tag) -> None:
     """Where the time goes: one denoise forward at the last block's cache
-    window and one steady-state VAE block decode, under torch.profiler."""
+    window and the decode of that block, under torch.profiler."""
     pipe = last["pipe"]
     ctx_kv = dit.precompute_context(params, cfg, last["context"])
     x = last["x"]
@@ -335,18 +608,13 @@ def phase_profile(dit, vae, cfg, params, last) -> None:
                               pipe.rope, static_kv_hi=start * fs,
                               write_cache=False)
 
-    def decode():
-        vae.decode_block(last["vae_params"], vae.WAN_VAE,
-                         x.permute(0, 1, 3, 4, 2), list(last["dec_cache"]),
-                         first=False)
-
-    for label, fn in (("dit_forward", forward), ("vae_block", decode)):
+    for label, fn in (("dit_forward", forward), last["decode"]):
         fn()  # warm
         wall, rows = profile_ms(fn)
         busy = sum(ms for _, ms in rows)
         top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
                         for name, ms in rows[:8])
-        print(f"profile {label} (window {start * fs} tokens): "
+        print(f"profile {tag} {label} (window {start * fs} tokens): "
               f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
               f"idle_share={1 - busy / wall:.3f} top: {top}", flush=True)
 
@@ -362,11 +630,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from self_forcing_tpu_torch.models import taehv
     from self_forcing_tpu_torch.models.wan import dit, vae
     from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
     from self_forcing_tpu_torch.models.wan.rope import RopeTables
-    from self_forcing_tpu_torch.ops import build
+    from self_forcing_tpu_torch.ops import build, quant
     from self_forcing_tpu_torch.ops import cuda_attention as ca
+    from self_forcing_tpu_torch.ops import cuda_matmul as cm
     from self_forcing_tpu_torch.pipelines import causal_inference as pipe_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -394,29 +664,43 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(a.seed)
     table = phase_kernels(ca, g)
     torch.cuda.empty_cache()
+    table.update(phase_w8a8_kernels(cm, quant, g))
+    torch.cuda.empty_cache()
 
-    # 3. one forward, kernel path against plain path
+    # 3-5 for the parity configuration: one forward kernels vs plain, the
+    # stream, where the time goes
     cfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=3)
     params = make_params(dit, cfg, a.seed)
     rope = RopeTables.create(cfg.head_dim, device="cuda")
-    phase_forward(dit, cfg, params, rope, g)
+    inp = forward_inputs(cfg, g)
+    flow_bf16 = phase_forward(dit, cfg, params, rope, inp)
     torch.cuda.empty_cache()
-
-    # 4. the slice
     launches, last = phase_stream(ca, dit, vae, pipe_mod, cfg, params,
                                   a.blocks, a.seed)
+    phase_profile(dit, cfg, params, last, "parity")
+    del last
+    torch.cuda.empty_cache()
 
-    # 5. where the time goes
-    phase_profile(dit, vae, cfg, params, last)
+    # 3-5 for the demo configuration, on the same weights quantized
+    qparams = quant.quantize_dit_params(params, mode="w8a8")
+    phase_demo_forward(dit, cfg, qparams, rope, inp, flow_bf16)
+    del inp, flow_bf16
+    torch.cuda.empty_cache()
+    demo_launches, demo_last = phase_demo_stream(
+        ca, cm, dit, taehv, pipe_mod, cfg, qparams, a.blocks, a.seed)
+    launches.update({k: demo_launches[k] for k in cm.launch_counts})
+    phase_profile(dit, cfg, qparams, demo_last, "demo")
 
-    sources = {"decode_fresh_free": ("self_forcing_tpu_torch/csrc/"
-                                     "decode_fresh.cu",
-                                     "self_forcing_tpu/ops/"
-                                     "pallas_attention.py:275"),
-               "cross_attention": ("self_forcing_tpu_torch/csrc/"
-                                   "cross_attention.cu",
-                                   "self_forcing_tpu/ops/"
-                                   "pallas_attention.py:1224")}
+    attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
+        "self_forcing_tpu/ops/pallas_matmul.py"
+    csrc = "self_forcing_tpu_torch/csrc/"
+    sources = {"decode_fresh_free": (csrc + "decode_fresh.cu", attn + ":275"),
+               "cross_attention": (csrc + "cross_attention.cu",
+                                   attn + ":1224"),
+               "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
+               "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),
+               "w8a8_ffn1": (csrc + "w8a8.cu", w8a8 + ":71"),
+               "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name]

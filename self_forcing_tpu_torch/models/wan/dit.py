@@ -5,6 +5,11 @@ Parameters are a plain dict with the JAX package's keys; the transformer
 blocks are stacked on axis 0 and linear weights are [in, out] (``x @ w +
 b``).  Videos are [B, F, C, H, W] at the API, tokens [B, L, D] inside.
 
+Linears dispatch on their keys as in the JAX package: ``w_q``/``w_qa``/
+``w_f8`` go to ``ops/quant.py`` (the demo configuration's W8A8 kernels),
+a fused ``qkv`` is split after one product, and an FFN whose two linears
+are ``w_qa`` runs as one fused W8A8 FFN.
+
 Only the global-cache branch of ``forward_inference`` is ported: the
 block's self-attention reads the cache window ``[attn_lo, write_at)`` plus
 its own fresh K/V, and the cache is written after the layer (or not at all
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import (RopeTables,
                                                     sinusoidal_embedding_1d)
+from self_forcing_tpu_torch.ops import quant
 from self_forcing_tpu_torch.ops.attention import (cross_attention,
                                                   decode_attention_fresh)
 
@@ -36,7 +42,11 @@ LOG2E = 1.4426950408889634  # the offset-free softmax works in base 2
 # primitives
 # =====================================================================
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """x @ w + b, or the quantized linear for a quantized weight key
+    (``kernels=False``: the W8A8 kernels' plain versions on CUDA)."""
+    if "w_q" in p or "w_qa" in p or "w_f8" in p:
+        return quant.quantized_linear(p, x, kernels)
     out = x @ p["w"]
     if "b" in p:
         out = out + p["b"]
@@ -250,9 +260,23 @@ def _packed_ok(cfg: WanConfig) -> bool:
     return cfg.head_dim % 128 == 0
 
 
+def _qkv_project(p: Params, x: torch.Tensor, kernels: bool = True):
+    """Self-attention input projections: three linears, or the fused
+    [in, 3*out] ``qkv`` linear of ``quantize_dit_params(fuse_qkv=True)``
+    split after its one product.  q and k leave the split through new
+    tensors (norm, RoPE); v is copied out, since the attention kernel
+    takes contiguous operands."""
+    if "qkv" in p:
+        qkv = linear(p["qkv"], x, kernels)
+        n = qkv.shape[-1] // 3
+        return qkv[..., :n], qkv[..., n:2 * n], qkv[..., 2 * n:].contiguous()
+    return (linear(p["q"], x, kernels), linear(p["k"], x, kernels),
+            linear(p["v"], x, kernels))
+
+
 def _qk_normed(p: Params, cfg: WanConfig, x: torch.Tensor,
-               q_gain: float | None):
-    q, k, v = linear(p["q"], x), linear(p["k"], x), linear(p["v"], x)
+               q_gain: float | None, kernels: bool = True):
+    q, k, v = _qkv_project(p, x, kernels)
     if cfg.qk_norm:
         wq = p["norm_q"]["w"]
         if q_gain is not None:
@@ -266,11 +290,11 @@ def _qk_normed(p: Params, cfg: WanConfig, x: torch.Tensor,
 
 def _qkv_rope_packed(p: Params, cfg: WanConfig, x: torch.Tensor,
                      cos: torch.Tensor, sin: torch.Tensor,
-                     q_gain: float | None = None):
+                     q_gain: float | None = None, kernels: bool = True):
     """q/k/v in the [B, L, N*D] layout with RoPE applied to q and k.
     ``q_gain`` is folded into the q-norm gain (the free softmax's
     head_dim**-0.5 * log2(e); RoPE commutes with it)."""
-    q, k, v = _qk_normed(p, cfg, x, q_gain)
+    q, k, v = _qk_normed(p, cfg, x, q_gain, kernels)
     B, L, _ = q.shape
 
     def rope(t):
@@ -281,9 +305,9 @@ def _qkv_rope_packed(p: Params, cfg: WanConfig, x: torch.Tensor,
 
 def _qkv_rope_folded(p: Params, cfg: WanConfig, x: torch.Tensor,
                      cos: torch.Tensor, sin: torch.Tensor,
-                     q_gain: float | None = None):
+                     q_gain: float | None = None, kernels: bool = True):
     """q/k/v in the folded [B*N, L, D] layout with RoPE applied."""
-    q, k, v = _qk_normed(p, cfg, x, q_gain)
+    q, k, v = _qk_normed(p, cfg, x, q_gain, kernels)
     return (_rope_half(_fold_heads(cfg, q), cos, sin),
             _rope_half(_fold_heads(cfg, k), cos, sin),
             _fold_heads(cfg, v))
@@ -310,18 +334,19 @@ def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
                      ) -> torch.Tensor:
     """Text cross-attention with precomputed K/V."""
     p = bp["cross_attn"]
-    q = linear(p["q"], x)
+    q = linear(p["q"], x, kernels)
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"]["w"], cfg.eps)
     if _packed_ok(cfg):
         out = cross_attention(q, ctx_kv_layer["k_txt"],
                               ctx_kv_layer["v_txt"],
                               heads_packed=cfg.num_heads, kernels=kernels)
-        return linear(p["o"], out)
+        return linear(p["o"], out, kernels)
     out = cross_attention(_heads(cfg, q), ctx_kv_layer["k_txt"],
                           ctx_kv_layer["v_txt"], kernels=kernels)
     B, Lq = out.shape[:2]
-    return linear(p["o"], out.reshape(B, Lq, cfg.num_heads * cfg.head_dim))
+    return linear(p["o"], out.reshape(B, Lq, cfg.num_heads * cfg.head_dim),
+                  kernels)
 
 
 def _modulate(x: torch.Tensor, shift: torch.Tensor, scale_: torch.Tensor,
@@ -330,6 +355,15 @@ def _modulate(x: torch.Tensor, shift: torch.Tensor, scale_: torch.Tensor,
     B, L, D = x.shape
     xf = x.reshape(B, shift.shape[1], frame_seqlen, D)
     return (xf * (1.0 + scale_) + shift).reshape(B, L, D)
+
+
+def _ffn(bp: Params, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """fc2(gelu_tanh(fc1(x))); the fused W8A8 FFN when both linears are
+    ``w_qa``."""
+    fc1, fc2 = bp["ffn"]["fc1"], bp["ffn"]["fc2"]
+    if "w_qa" in fc1 and "w_qa" in fc2:
+        return quant.quantized_ffn(fc1, fc2, x, kernels)
+    return linear(fc2, gelu_tanh(linear(fc1, x, kernels)), kernels)
 
 
 def _gate(x: torch.Tensor, g: torch.Tensor,
@@ -423,18 +457,18 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
     xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
     if _packed_ok(cfg):
         qp, kp, vp = _qkv_rope_packed(bp["self_attn"], cfg, xn, rope_cos,
-                                      rope_sin, q_gain=q_gain)
+                                      rope_sin, q_gain, kernels)
         attn = decode_attention_fresh(qp, k_cache, v_cache, kp, vp, attn_lo,
                                       cache_hi, heads_packed=cfg.num_heads,
                                       **attn_args)
-        y = linear(bp["self_attn"]["o"], attn)
+        y = linear(bp["self_attn"]["o"], attn, kernels)
         kf = vf = None
     else:
         qf, kf, vf = _qkv_rope_folded(bp["self_attn"], cfg, xn, rope_cos,
-                                      rope_sin, q_gain=q_gain)
+                                      rope_sin, q_gain, kernels)
         attn = decode_attention_fresh(qf, k_cache, v_cache, kf, vf, attn_lo,
                                       cache_hi, **attn_args)
-        y = linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn))
+        y = linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn), kernels)
     x = x + _gate(y, e_gate, frame_seqlen)
 
     if "norm3" in bp:
@@ -444,8 +478,7 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
     x = x + _cross_attention(bp, cfg, xc, ctx_kv_layer, kernels)
 
     xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
-    y = linear(bp["ffn"]["fc2"], gelu_tanh(linear(bp["ffn"]["fc1"], xn)))
-    x = x + _gate(y, f_gate, frame_seqlen)
+    x = x + _gate(_ffn(bp, xn, kernels), f_gate, frame_seqlen)
     if not emit_kv:
         return x, None, None
     if kf is None:
@@ -474,7 +507,8 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     attention kernel skip the rest of the cache.  ``write_cache=False``
     (the denoise steps) leaves the cache and its indices untouched: the
     refresh pass writes the block afterwards.  ``kernels=False`` runs the
-    attention through the kernels' plain versions on CUDA.
+    attention and the W8A8 linears through the kernels' plain versions on
+    CUDA.
     Returns (flow_pred [B, F_blk, C, H, W], cache)."""
     if cfg.local_attn_size != -1:
         raise NotImplementedError("windowed (local_attn_size != -1) "

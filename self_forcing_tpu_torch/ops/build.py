@@ -117,3 +117,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_target(name))
             _loaded[name] = lib
     return lib
+
+
+def function(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C launcher ``fn`` of ``csrc/<name>.cu``; it returns the CUDA
+    error code of the launch."""
+    f = getattr(load(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

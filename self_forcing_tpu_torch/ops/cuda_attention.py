@@ -35,13 +35,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
-    f = getattr(build.load(name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    return f
-
-
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -54,12 +47,6 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 # =====================================================================
@@ -150,13 +137,13 @@ def decode_fresh_free(q, k_cache, v_cache, k_new, v_new, *,
             f"{N} heads (the kernel takes head_dim {HEAD_DIM})")
     lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
     out = torch.empty_like(q)
-    fn = _lib("decode_fresh", "decode_fresh_free_launch",
+    fn = build.function("decode_fresh", "decode_fresh_free_launch",
               [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), k_new.data_ptr(),
              v_new.data_ptr(), out.data_ptr(), B, N, Lq, Lf, S,
              int(kv_start), int(kv_end), int(sink_end), lim, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("decode_fresh_free", err)
+    build.raise_on("decode_fresh_free", err)
     launch_counts["decode_fresh_free"] += 1
     return out
 
@@ -203,11 +190,11 @@ def cross_attention(q, k, v, *, num_heads: int,
             f"{HEAD_DIM} and 1..1024 keys)")
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    fn = _lib("cross_attention", "cross_attention_launch",
+    fn = build.function("cross_attention", "cross_attention_launch",
               [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, N, Lq, Lk, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("cross_attention", err)
+    build.raise_on("cross_attention", err)
     launch_counts["cross_attention"] += 1
     return out

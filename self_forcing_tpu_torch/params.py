@@ -2,38 +2,51 @@
 
 The keys and the stacked-block layout (blocks on axis 0) stay as they
 are.  Linear weights keep their [in, out] layout.  In the VAE tree conv
-weights go from JAX's DHWIO / HWIO to torch's OIDHW / OIHW.
+weights go from JAX's DHWIO / HWIO to torch's OIDHW / OIHW, in the TAEHV
+tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
+weights, float8_e4m3fn weights (through their uint8 view) and f32 scales
+(``w_scale`` keeps float32 whatever ``dtype`` says).  A W8A8 linear
+(``w_qa``) also gets its kernel-layout copy ``w_qa_t`` (ops/quant.py).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from self_forcing_tpu_torch.ops.quant import kernel_layout
+
 
 def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None):
-    """Convert a nested dict/list tree of numpy arrays (``kind`` 'dit' or
-    'vae') into the same tree of tensors on ``device``; floating leaves
-    are cast to ``dtype`` when given."""
-    if kind not in ("dit", "vae"):
-        raise ValueError(f"kind must be 'dit' or 'vae', got {kind!r}")
+    """Convert a nested dict/list tree of numpy arrays (``kind`` 'dit',
+    'vae' or 'taehv') into the same tree of tensors on ``device``;
+    floating leaves other than scales are cast to ``dtype`` when given."""
+    if kind not in ("dit", "vae", "taehv"):
+        raise ValueError(f"kind must be 'dit', 'vae' or 'taehv', got "
+                         f"{kind!r}")
 
     def leaf(key, a):
         a = np.asarray(a)
+        if a.dtype.name == "float8_e4m3fn":   # numpy has no native fp8
+            return torch.from_numpy(a.view(np.uint8).copy()).view(
+                torch.float8_e4m3fn).to(device)
         if a.dtype.name == "bfloat16":   # numpy has no native bfloat16
             a = a.astype(np.float32)
         if kind == "vae" and key == "w" and a.ndim == 5:
             a = a.transpose(4, 3, 0, 1, 2)      # DHWIO -> OIDHW
-        elif kind == "vae" and key == "w" and a.ndim == 4:
+        elif kind in ("vae", "taehv") and key == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)         # HWIO -> OIHW
         t = torch.tensor(a, device=device)
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and key != "w_scale":
             t = t.to(dtype)
         return t
 
     def conv(key, node):
         if isinstance(node, dict):
-            return {k: conv(k, v) for k, v in node.items()}
+            out = {k: conv(k, v) for k, v in node.items()}
+            if "w_qa" in out:
+                out["w_qa_t"] = kernel_layout(out["w_qa"])
+            return out
         if isinstance(node, (list, tuple)):
             return type(node)(conv(key, v) for v in node)
         return leaf(key, node)

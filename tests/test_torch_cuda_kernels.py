@@ -1,6 +1,6 @@
-"""The port's CUDA attention kernels against their plain PyTorch versions,
-on the card.  Small and ragged shapes (edges the main path's shapes do not
-reach) plus one call at the 1.3B shapes each.
+"""The port's CUDA kernels (attention and the W8A8 linears) against their
+plain PyTorch versions, on the card.  Small and ragged shapes (edges the
+main path's shapes do not reach) plus the 1.3B shapes.
 
 These tests need an NVIDIA Hopper card and nvcc; they skip elsewhere.  On
 a machine with the card (where JAX is not installed) run them with
@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from self_forcing_tpu_torch.ops import cuda_attention as ca
+from self_forcing_tpu_torch.ops import cuda_matmul as cm
+from self_forcing_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +87,110 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ca.cross_attention(q, k, k, num_heads=2)      # head_dim 64
     with pytest.raises(TypeError):
         ca.cross_attention(q.float(), k.float(), k.float(), num_heads=2)
+
+
+# ------------------------------------------------------------ W8A8 linears
+
+def _x_edges(g, M, K, dev):
+    """bf16 rows with a zero row (the scale floor) and a row of .5 ties
+    (its max is 127, so the scale is 1 and x / s lands on the ties)."""
+    x = torch.randn(M, K, generator=g, device=dev)
+    x[3] = 0.0
+    x[5] = torch.randint(-100, 100, (K,), generator=g, device=dev) + 0.5
+    x[5, 0] = 127.0
+    return x.to(torch.bfloat16)
+
+
+def _int8_close(out, ref):
+    """int8 outputs: at most one step apart, on at most 0.1% of them."""
+    step = (out.int() - ref.int()).abs()
+    assert int(step.max()) <= 1
+    assert float((step > 0).float().mean()) <= 1e-3
+
+
+def _weight(g, d_in, d_out, dev, scale=0.05):
+    w = torch.randn(d_in, d_out, generator=g, device=dev) * scale
+    b = torch.randn(d_out, generator=g, device=dev) * 0.1
+    return quant.quantize_linear_params({"w": w, "b": b}, "w8a8")
+
+
+@pytest.mark.parametrize("M,K", [(4680, 1536), (512, 1536), (520, 4096),
+                                 (8, 128)])
+def test_quantize_rows_matches_plain(dev, M, K):
+    """Both divide x by s (true division) and round half to even: equal
+    int8, equal scales; the tie row rounds to even."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = _x_edges(g, max(M, 8), K, dev)[:M]
+    q, s = cm.quantize_rows(x)
+    q_ref, s_ref = cm.quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q, q_ref, rtol=0, atol=0)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+    assert float(s[3, 0]) == pytest.approx(1e-8 / 127.0)
+    torch.testing.assert_close(q[5], torch.round(x[5].float()).to(torch.int8),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(4680, 1536, 4608), (4680, 1536, 1536),
+                                   (512, 1536, 1536), (520, 8960, 1536),
+                                   (40, 128, 128)])
+def test_w8a8_matmul_matches_plain(dev, M, K, N):
+    """Exact int32 sums on both sides and the same f32 epilogue: 1e-3
+    relative L2 (the bf16 output rounding, 2^-9, bounds it)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _x_edges(g, M, K, dev)
+    p = _weight(g, K, N, dev)
+    q = cm.quantize_rows_ref(x) or quant.quantize_activations(x)
+    out = cm.w8a8_matmul(*q, p["w_qa_t"], p["w_scale"], p["b"])
+    ref = cm.w8a8_matmul_ref(*q, p["w_qa_t"], p["w_scale"], p["b"])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-3
+
+
+@pytest.mark.parametrize("M,K,H,N,bias", [
+    (4680, 1536, 8960, 1536, True),      # the 1.3B FFN: 10 groups of 896
+    (520, 1536, 1792, 1536, True),       # two groups, M ragged to 128
+    (40, 256, 1792, 256, False),         # M ragged to 32, zero rows hit
+])                                       # the hidden's 1e-6 floor
+def test_w8a8_ffn_matches_plain(dev, M, K, H, N, bias):
+    """fc1's int8 hidden: CUDA's tanhf and PyTorch's may differ by an ulp,
+    so a value may round one step the other way (<= 0.1%); its group
+    scales to 1e-5.  fc2 from the same hidden: 1e-3 (bf16 output).  The
+    fused FFN: 1e-2 relative L2."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = _x_edges(g, M, K, dev)
+    p1, p2 = _weight(g, K, H, dev, 0.06), _weight(g, H, N, dev, 0.03)
+    b1, b2 = (p1["b"], p2["b"]) if bias else (None, None)
+    tg = cm.ffn_group(M, K, H, N, raw_x=True)
+    hq, hs = cm.w8a8_ffn1(x, p1["w_qa_t"], p1["w_scale"], b1, tg)
+    hq_ref, hs_ref = cm.w8a8_ffn1_ref(x, None, p1["w_qa_t"], p1["w_scale"],
+                                      b1, tg)
+    torch.cuda.synchronize()
+    _int8_close(hq, hq_ref)
+    torch.testing.assert_close(hs, hs_ref, rtol=1e-5, atol=0)
+    if not bias:
+        assert float(hs[3].min()) == pytest.approx(1e-6 / 127.0)
+    y = cm.w8a8_ffn2(hq, hs, p2["w_qa_t"], p2["w_scale"], b2, tg)
+    y_ref = cm.w8a8_ffn2_ref(hq, hs, p2["w_qa_t"], p2["w_scale"], b2, tg)
+    torch.cuda.synchronize()
+    assert _rel_l2(y, y_ref) < 1e-3
+    args = (p1["w_qa_t"], p1["w_scale"], b1, p2["w_qa_t"], p2["w_scale"], b2)
+    out = cm.w8a8_ffn(x, None, *args)
+    ref = cm.w8a8_ffn_ref(x, None, *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+
+
+def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _x_edges(g, 16, 256, dev)
+    p = _weight(g, 256, 128, dev)
+    q, s = cm.quantize_rows(x)
+    with pytest.raises(TypeError):
+        cm.w8a8_matmul(q, s, p["w_qa_t"], p["w_scale"], out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        cm.w8a8_matmul(q, s, p["w_qa_t"][:, :128].contiguous(), p["w_scale"])
+    with pytest.raises(TypeError):
+        cm.quantize_rows(x.float())

@@ -1,0 +1,302 @@
+"""The port's quantized linears (ops/quant.py) and the plain versions of
+its W8A8 kernels (ops/cuda_matmul.py) against the JAX package on the CPU.
+
+Inputs come from numpy seeds.  The JAX side of every W8A8 comparison runs
+the Pallas kernels of ops/pallas_matmul.py with ``interpret=True`` (the
+route the CUDA kernels replace; JAX's own CPU route quantizes the FFN
+hidden per token, a different function).  Tolerances:
+- int8 weights and int8 activations: equal.  XLA may divide by 127 as a
+  multiplication by its reciprocal, one ulp off a true division; a scale
+  one ulp apart flips a value only when x / s lies within an ulp of a .5
+  tie, which these inputs do not reach.
+- scales: 1e-6 relative (the same ulp).
+- products: 1e-5 relative L2 (the int32 sums are exact on both sides; the
+  f32 epilogue differs by the scales' ulp).
+- the FFN hidden: gelu's tanh differs by ulps between XLA and PyTorch, so
+  a hidden value may round one int8 step the other way: at most 0.5% of
+  them, by one step; the FFN output to 1e-3 relative L2.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from self_forcing_tpu.models.wan import dit as jdit
+from self_forcing_tpu.models.wan.configs import WAN_TINY as J_TINY
+from self_forcing_tpu.ops import pallas_matmul as jpm
+from self_forcing_tpu.ops import quant as jquant
+from self_forcing_tpu_torch.ops import cuda_matmul as cm
+from self_forcing_tpu_torch.ops import quant as tquant
+from self_forcing_tpu_torch.params import params_from_jax
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.float8_e4m3fn:
+            return t.float().numpy()
+        return t.numpy()
+    a = np.asarray(t)
+    return a.astype(np.float32) if a.dtype == ml_dtypes.float8_e4m3fn else a
+
+
+def _linear(rng, d_in, d_out, lead=(), scale=0.05):
+    w = (rng.standard_normal(lead + (d_in, d_out)) * scale).astype(np.float32)
+    b = (rng.standard_normal(lead + (d_out,)) * 0.1).astype(np.float32)
+    return w, b
+
+
+def _pair(w, b):
+    return ({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+            {"w": torch.from_numpy(w.copy()), "b": torch.from_numpy(b.copy())})
+
+
+def _assert_scales(t, j):
+    np.testing.assert_allclose(_np(t), _np(j), rtol=1e-6, atol=0)
+
+
+@pytest.fixture
+def pallas_route(monkeypatch):
+    """The JAX package's TPU route, with its Pallas kernels interpreted."""
+    monkeypatch.setattr(jquant, "_use_pallas", lambda: True)
+    for name in ("quantize_rows_pallas", "w8a8_matmul", "w8a8_matmul_bf16x",
+                 "w8a8_ffn"):
+        monkeypatch.setattr(jpm, name, functools.partial(
+            getattr(jpm, name), interpret=True))
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8", "fp8"])
+def test_quantize_linear_params_matches_jax(mode):
+    rng = np.random.default_rng(0)
+    w, b = _linear(rng, 256, 384, lead=(2,))
+    w[1, :, 7] = 0.0   # a zero output channel: the 1e-8 scale floor
+    jp, tp = _pair(w, b)
+    jq = jquant.quantize_linear_params(jp, mode)
+    tq = tquant.quantize_linear_params(tp, mode)
+    key = {"w8": "w_q", "w8a8": "w_qa", "fp8": "w_f8"}[mode]
+    assert set(jq) == {key, "w_scale", "b"}
+    assert set(tq) - {"w_qa_t"} == set(jq)
+    np.testing.assert_array_equal(_np(tq[key]), _np(jq[key]))
+    _assert_scales(tq["w_scale"], jq["w_scale"])
+    if mode == "w8a8":
+        np.testing.assert_array_equal(
+            tq["w_qa_t"].numpy(), np.swapaxes(_np(jq["w_qa"]), -1, -2))
+
+
+def test_quantize_linear_params_refuses_unmerged_lora():
+    p = {"w": torch.zeros(8, 8), "lora_A": torch.zeros(8, 2)}
+    with pytest.raises(ValueError):
+        tquant.quantize_linear_params(p)
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["int8", "fp8"])
+def test_quantize_activations_matches_jax(fp8):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 20, 256)).astype(np.float32)
+    x[0, 4] = 0.0
+    jfn = jquant.quantize_activations_fp8 if fp8 else \
+        jquant.quantize_activations
+    tfn = tquant.quantize_activations_fp8 if fp8 else \
+        tquant.quantize_activations
+    jq, js = jfn(jnp.asarray(x))
+    tq, ts = tfn(torch.from_numpy(x))
+    np.testing.assert_array_equal(_np(tq), _np(jq))
+    _assert_scales(ts, js)
+
+
+@pytest.mark.parametrize("mode,rows", [("w8", 48), ("fp8", 48),
+                                       ("w8a8", 48), ("w8a8", 12)],
+                         ids=["w8", "fp8", "w8a8", "w8a8_declined"])
+def test_quantized_linear_matches_jax(pallas_route, mode, rows):
+    """w8a8 at 48 rows runs the quantize_rows and w8a8_matmul kernels'
+    routes; at 12 rows (not a multiple of 8) both packages decline them
+    and fall back to per-token quantization and a plain int product."""
+    rng = np.random.default_rng(2)
+    w, b = _linear(rng, 256, 384)
+    jp, tp = _pair(w, b)
+    x = rng.standard_normal((2, rows // 2, 256)).astype(np.float32)
+    jy = jquant.quantized_linear(jquant.quantize_linear_params(jp, mode),
+                                 jnp.asarray(x))
+    ty = tquant.quantized_linear(tquant.quantize_linear_params(tp, mode),
+                                 torch.from_numpy(x))
+    assert ty.shape == (2, rows // 2, 384)
+    assert _rel_l2(ty.numpy(), jy) < 1e-5
+
+
+def test_quantize_dit_params_fused_qkv_matches_jax():
+    rng = np.random.default_rng(3)
+    cfg = J_TINY
+    jp = jdit.init_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
+    jp = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
+        a.shape).astype(np.float32), jp)
+    tp = params_from_jax(jp, "dit", device="cpu")
+    jq = jquant.quantize_dit_params(jp, min_dim=64, fuse_qkv=True)
+    tq = tquant.quantize_dit_params(tp, min_dim=64, fuse_qkv=True)
+    jflat = dict(jax.tree_util.tree_flatten_with_path(jq)[0])
+    seen = 0
+
+    def walk(node, path):
+        nonlocal seen
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            if k == "w_qa_t":
+                continue
+            ref = jflat[tuple(jax.tree_util.DictKey(p) for p in path + (k,))]
+            if k == "w_scale":
+                _assert_scales(v, ref)
+            else:
+                np.testing.assert_array_equal(_np(v), _np(ref))
+            seen += 1
+
+    walk(tq, ())
+    assert seen == len(jflat)
+    sa = tq["blocks"]["self_attn"]
+    assert "qkv" in sa and "q" not in sa
+    assert sa["qkv"]["w_qa"].shape == (cfg.num_layers, cfg.dim, 3 * cfg.dim)
+    assert "w" in tq["blocks"]["self_attn"]["norm_q"]   # norms stay
+
+
+def test_params_bridge_carries_quantized_leaves():
+    rng = np.random.default_rng(4)
+    w, b = _linear(rng, 128, 256)
+    jp, _ = _pair(w, b)
+    tree = {"a": jquant.quantize_linear_params(jp, "w8a8"),
+            "f": jquant.quantize_linear_params(jp, "fp8")}
+    tree = jax.tree.map(np.asarray, tree)
+    t = params_from_jax(tree, "dit", device="cpu", dtype=torch.bfloat16)
+    assert t["a"]["w_qa"].dtype == torch.int8
+    np.testing.assert_array_equal(t["a"]["w_qa_t"].numpy(),
+                                  tree["a"]["w_qa"].T)
+    assert t["f"]["w_f8"].dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(_np(t["f"]["w_f8"]), _np(tree["f"]["w_f8"]))
+    assert t["a"]["w_scale"].dtype == torch.float32
+    assert t["a"]["b"].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------- the kernels' plain versions
+
+def _x_with_edges(rng, M, K):
+    """Random rows plus a zero row (the scale floor) and a row whose
+    values land on .5 ties (max 127 -> scale 1)."""
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[3] = 0.0
+    x[5] = np.round(rng.uniform(-100, 100, K)) + 0.5
+    x[5, 0] = 127.0
+    return x
+
+
+@pytest.mark.parametrize("M,K", [(48, 256), (4680 // 15, 1536)])
+def test_quantize_rows_ref_matches_pallas(M, K):
+    rng = np.random.default_rng(5)
+    x = _x_with_edges(rng, M, K)
+    jq, js = jpm.quantize_rows_pallas(jnp.asarray(x), interpret=True)
+    tq, ts = cm.quantize_rows_ref(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert ts.shape == (M, 1)
+    _assert_scales(ts[:, 0], np.asarray(js)[:, 0])
+
+
+def test_w8a8_matmul_ref_matches_pallas():
+    rng = np.random.default_rng(6)
+    M, K, N = 48, 256, 384
+    x = _x_with_edges(rng, M, K)
+    w, b = _linear(rng, K, N)
+    jp, tp = _pair(w, b)
+    jl, tl = (jquant.quantize_linear_params(jp),
+              tquant.quantize_linear_params(tp))
+    jq, js = jpm.quantize_rows_pallas(jnp.asarray(x), interpret=True)
+    tq, ts = cm.quantize_rows_ref(torch.from_numpy(x))
+    jy = jpm.w8a8_matmul(jq, js, jl["w_qa"], jl["w_scale"], jl["b"],
+                         out_dtype=jnp.float32, interpret=True)
+    ty = cm.w8a8_matmul_ref(tq, ts, tl["w_qa_t"], tl["w_scale"], tl["b"],
+                            out_dtype=torch.float32)
+    assert _rel_l2(ty.numpy(), jy) < 1e-5
+
+
+def test_w8a8_ffn_ref_matches_pallas():
+    """H = 1792: two 896-column groups of the hidden."""
+    rng = np.random.default_rng(7)
+    M, K, H, N = 48, 256, 1792, 256
+    x = _x_with_edges(rng, M, K)
+    (w1, b1), (w2, b2) = _linear(rng, K, H, scale=0.06), \
+        _linear(rng, H, N, scale=0.03)
+    j1, t1 = (f(p) for f, p in zip(
+        (jquant.quantize_linear_params, tquant.quantize_linear_params),
+        _pair(w1, b1)))
+    j2, t2 = (f(p) for f, p in zip(
+        (jquant.quantize_linear_params, tquant.quantize_linear_params),
+        _pair(w2, b2)))
+    assert cm.ffn_group(M, K, H, N, raw_x=True) == 896
+    jy = jpm.w8a8_ffn(jnp.asarray(x), None, j1["w_qa"], j1["w_scale"],
+                      j1["b"], j2["w_qa"], j2["w_scale"], j2["b"],
+                      out_dtype=jnp.float32, interpret=True)
+    ty = cm.w8a8_ffn_ref(torch.from_numpy(x), None, t1["w_qa_t"],
+                         t1["w_scale"], t1["b"], t2["w_qa_t"],
+                         t2["w_scale"], t2["b"], out_dtype=torch.float32)
+    assert _rel_l2(ty.numpy(), jy) < 1e-3
+
+    # the hidden against the fc1 Pallas kernel alone
+    hq, hs = cm.w8a8_ffn1(torch.from_numpy(x), t1["w_qa_t"],
+                          t1["w_scale"], t1["b"], 896)
+    jh = jax.jit(functools.partial(_jax_ffn1, tg=896))(
+        jnp.asarray(x), j1["w_qa"], j1["w_scale"], j1["b"])
+    jhq, jhs = (np.asarray(a) for a in jh)
+    step = np.abs(hq.numpy().astype(np.int32) - jhq.astype(np.int32))
+    assert step.max() <= 1 and (step > 0).mean() <= 5e-3
+    np.testing.assert_allclose(hs.numpy(), jhs[:, ::128], rtol=1e-5)
+
+
+def _jax_ffn1(x, w1, ws, b, tg):
+    """The JAX package's fc1 kernel (raw x) run alone, interpreted."""
+    from jax.experimental import pallas as pl
+    M, K = x.shape
+    H = w1.shape[1]
+    return pl.pallas_call(
+        jpm._ffn1_kernel_bf16x, grid=(M // 8, H // tg),
+        in_specs=[pl.BlockSpec((8, K), lambda i, j: (i, 0)),
+                  pl.BlockSpec((K, tg), lambda i, j: (0, j)),
+                  pl.BlockSpec((1, tg), lambda i, j: (0, j)),
+                  pl.BlockSpec((1, tg), lambda i, j: (0, j))],
+        out_specs=[pl.BlockSpec((8, tg), lambda i, j: (i, j)),
+                   pl.BlockSpec((8, 128), lambda i, j: (i, j))],
+        out_shape=[jax.ShapeDtypeStruct((M, H), jnp.int8),
+                   jax.ShapeDtypeStruct((M, (H // tg) * 128), jnp.float32)],
+        interpret=True,
+    )(x, w1, ws.reshape(1, H), b.reshape(1, H))
+
+
+@pytest.mark.parametrize("M,K,H,N", [
+    (48, 256, 1792, 256), (4680, 1536, 8960, 1536), (44, 256, 1792, 256),
+    (48, 200, 1792, 256), (48, 1664, 1792, 256), (48, 256, 1800, 256),
+    (512, 1536, 4608, 1536), (48, 4224, 256, 256)])
+def test_tile_rules_match_jax(M, K, H, N):
+    """The port declines exactly the shapes the JAX kernels decline
+    (shapes only: the kernels are traced, not run)."""
+    def declines(fn, *shapes):
+        args = [jax.ShapeDtypeStruct(s, d) for s, d in shapes]
+        return jax.eval_shape(fn, *args) is None
+
+    f32, i8 = jnp.float32, jnp.int8
+    assert (cm.quantize_rows_tiling(M, K) is None) == declines(
+        jpm.quantize_rows_pallas, ((M, K), f32))
+    assert (not cm.matmul_tiling(M, K, N)) == declines(
+        jpm.w8a8_matmul, ((M, K), i8), ((M, 1), f32), ((K, N), i8),
+        ((N,), f32))
+    for raw_x in (True, False):
+        ffn = functools.partial(jpm.w8a8_ffn, b1=None, b2=None)
+        sx = None if raw_x else jnp.ones((M, 1), f32)
+        assert (cm.ffn_group(M, K, H, N, raw_x) is None) == declines(
+            lambda x, w1, s1, w2, s2: ffn(x, sx, w1, s1, w2_q=w2,
+                                          w2_scale=s2),
+            ((M, K), f32 if raw_x else i8), ((K, H), i8), ((H,), f32),
+            ((H, N), i8), ((N,), f32))
