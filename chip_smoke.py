@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--blocks 3] [--seed 0]
+    python3 chip_smoke.py [--blocks 3] [--seed 0] [--kernels-only]
 
 Phases, each printing one line or more (any failure exits non-zero):
 1. the card's name and power limit, then the build of every CUDA kernel
    of ``self_forcing_tpu_torch/csrc`` (nvcc, all sources at once);
 2. each kernel against its plain PyTorch version at the Wan-1.3B shapes
-   of the streaming sampler (attention) and of the demo configuration
-   (W8A8 linears: M = 4680 tokens, dim 1536, ffn 8960), timed with CUDA
-   events (median of 7) beside its bound and one PyTorch library call;
+   of its paths: the bf16 decode and cross attention of the streaming
+   sampler, the int8-QK decode attention (pre-pass and attention) at the
+   global demo window and at the windowed steady state, the W8A8 linears
+   (M = 4680 tokens, dim 1536, ffn 8960); timed with CUDA events (median
+   of 7) beside its bound and one PyTorch library call;
 3. one full-width DiT forward (block 2, so the cache is read) with the
    kernels and with their plain versions, same weights and inputs;
 4. the streaming sampler at full Wan-1.3B width (random weights from the
@@ -20,10 +22,15 @@ Phases, each printing one line or more (any failure exits non-zero):
    and the decode of that block under torch.profiler (device busy and
    idle share).
 Phases 3-5 run for the parity configuration, then for the demo
-configuration on the same weights quantized (``quantize_dit_params``,
-W8A8 linears, bf16 attention; phase 3 also gives its distance to the
-bf16 forward; phase 4 decodes each block with the stateful TAEHV
-streamer).
+configuration as ``bench.py`` runs it: the same weights quantized and the
+attention quantized as ``ops/chip.py`` picks for the card (W8A8 linears,
+int8-QK attention; phase 3 also gives its distance to the bf16 forward;
+phase 4 decodes each block with the stateful TAEHV streamer).
+6. The windowed configurations of ``bench.py`` (1-frame sink, 12-frame
+   window, 24-frame buffer, W8A8 + int8-QK, 12 blocks with TAEHV): a warm
+   run, then a timed run with steady-state DiT and TAEHV ms per block
+   and the frame rates with and without the decode, the compactions, one
+   forward kernels vs plain at the compacted state, and phase 5.
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -57,9 +64,21 @@ DIM, FFN, N_CTX = 1536, 8960, 512
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 
 
+# the kernels each path launches
+PARITY_KERNELS = ("decode_fresh_free", "cross_attention")
+DEMO_KERNELS = ("int8qk_quantize", "decode_fresh_int8qk", "cross_attention",
+                "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def check_launches(tag: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] == 0:
+            fail(f"{tag}: kernel {name} was never launched on the path")
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -156,6 +175,7 @@ def phase_kernels(ca, g) -> dict:
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by)
     table["decode_fresh_free"]["max_abs_err"] = max(maes)
+    table.update(phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g))
     del kc, vc, kn, vn
 
     Lk = 512
@@ -181,6 +201,107 @@ def phase_kernels(ca, g) -> dict:
     table["cross_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=b_ms,
                                     bound_by=b_by, max_abs_err=mae)
+    return table
+
+
+def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
+    """The int8-QK decode attention (pre-pass and attention) against its
+    plain versions at the two shapes of its paths: the global demo path
+    at block 7 (28080 cached tokens of the 32768-token cache) and the
+    windowed steady state (a 37440-token buffer whose 1560-token sink and
+    12480-token recent window are visible, 14040 cached tokens).  The
+    library yardstick is SDPA on the same bf16 inputs: the bf16 function
+    (no PyTorch call does int8 QK^T)."""
+    from self_forcing_tpu_torch.ops.attention import decode_tiles
+    D, N = HEAD_DIM, N_HEADS
+    S_W = 24 * 1560
+    kc_w = torch.randn(N, S_W, D, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    vc_w = torch.randn(N, S_W, D, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    shapes = (
+        ("global block 7", kc, vc, dict(layer_idx=7, kv_start=0,
+                                        kv_end=LAST_KV_END, sink_end=0,
+                                        static_hi=LAST_KV_END), None),
+        ("windowed steady state", kc_w, vc_w,
+         dict(layer_idx=0, kv_start=S_W - LQ - 8 * 1560, kv_end=S_W - LQ,
+              sink_end=1560, static_hi=None), 1560))
+    table = {}
+    heads = lambda t: t.reshape(1, -1, N, D).transpose(1, 2)
+    for label, k_c, v_c, win, align in shapes:
+        tq, tk, tf = decode_tiles(LQ, k_c.shape[-2], LQ, "int8qk", "free",
+                                  align)
+        win.update(num_heads=N, tq=tq, tk=tk, tf=tf)
+        lo, hi, sk = win["kv_start"], win["kv_end"], win["sink_end"]
+        # the pre-pass: equal int8 values and scales (dead cache tiles are
+        # not written and not compared)
+        qq = ca.int8qk_quantize(q, k_c, kn, **win)
+        qq_ref = ca.int8qk_quantize_ref(q, k_c, kn, **win)
+        live = torch.tensor(ca.live_cache_tiles(qq.ksc.shape[1], tk, lo, hi,
+                                                sk), device="cuda")
+        rows = live.repeat_interleave(tk)
+        worst = max(check_int8("int8qk_quantize", a, b) for a, b in (
+            (qq.q8, qq_ref.q8), (qq.kc8[:, rows], qq_ref.kc8[:, rows]),
+            (qq.kn8, qq_ref.kn8)))
+        s_err = max(rel_l2(a, b) for a, b in ((qq.qs, qq_ref.qs),
+                                              (qq.ksc, qq_ref.ksc),
+                                              (qq.ksf, qq_ref.ksf)))
+        if s_err > 1e-6:
+            fail(f"int8qk_quantize: scales relative L2 {s_err:.3e} > 1e-6")
+        n_live = int(live.sum()) * tk
+        # each of q, the live cache rows and k_new: a bf16 read and an
+        # int8 write (3 bytes an element), then the f32 scales
+        pre_bytes = (3.0 * (LQ + n_live + LQ) * N * D
+                     + 4.0 * N * (qq.qs.shape[1] + qq.ksc.shape[1]
+                                  + qq.ksf.shape[1]))
+        pre_ms = time_ms(lambda: ca.int8qk_quantize(q, k_c, kn, **win))
+        pre_plain = time_ms(lambda: ca.int8qk_quantize_ref(q, k_c, kn,
+                                                           **win), reps=5)
+        pb_ms, pb_by = bound(3.0 * (LQ + n_live + LQ) * N * D, pre_bytes,
+                             PEAK_F32_FLOPS)
+        print(f"kernel int8qk_quantize {label} (tiles {tq}/{tk}/{tf}, "
+              f"{n_live} live cache rows): max_int8_step={worst} "
+              f"scales_rel_l2={s_err:.3e} ms={pre_ms:.4f} "
+              f"plain_ms={pre_plain:.4f} bound_ms={pb_ms:.4f} ({pb_by})",
+              flush=True)
+
+        # the attention
+        out = ca.decode_fresh_int8qk(q, k_c, v_c, kn, vn, **win)
+        ref = ca.decode_fresh_int8qk_ref(q, k_c, v_c, kn, vn, **win)
+        err, mae = check_kernel("decode_fresh_int8qk", out, ref)
+        del out, ref
+        ms = time_ms(lambda: ca.int8qk_attend(qq, q, v_c, vn, **win))
+        plain_ms = time_ms(lambda: ca.int8qk_attend_ref(qq, q, v_c, vn,
+                                                        **win), reps=5)
+        lay = k_c[win["layer_idx"]] if k_c.dim() == 4 else k_c
+        lav = v_c[win["layer_idx"]] if v_c.dim() == 4 else v_c
+        vis = torch.cat([torch.arange(sk), torch.arange(lo, hi)]).cuda()
+        kv_k = torch.cat([lay[:, vis][None], heads(kn)], dim=2)
+        kv_v = torch.cat([lav[:, vis][None], heads(vn)], dim=2)
+        qh = heads(q)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kv_k, kv_v, scale=math.log(2.0)))
+        del kv_k, kv_v
+        n_keys = sk + (hi - lo) + LQ
+        ops = 2.0 * LQ * n_keys * D * N     # each of QK^T and P.V
+        nbytes = 2.0 * (2 * LQ * N * D + 2 * n_keys * N * D)
+        t_ops = ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS
+        b_ms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
+        b_by = "operations" if t_ops >= nbytes / PEAK_BYTES else "bytes"
+        print(f"kernel decode_fresh_int8qk {label} (keys {n_keys}, tiles "
+              f"{tq}/{tk}/{tf}): rel_l2={err:.3e} max_abs={mae:.3e} "
+              f"attend_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_bf16_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"tops={2 * ops / ms / 1e9:.1f}", flush=True)
+        if "decode_fresh_int8qk" not in table:   # the table row: global
+            table["decode_fresh_int8qk"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=mae)
+            table["int8qk_quantize"] = dict(
+                ms=pre_ms, plain_ms=pre_plain, library_ms=None,
+                bound_ms=pb_ms, bound_by=pb_by, max_abs_err=float(worst))
+        del qq, qq_ref
+    del kc_w, vc_w
     return table
 
 
@@ -465,9 +586,7 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
         fail(f"stream: pixels {tuple(video.shape)}, expected {want}")
     if not torch.isfinite(video.float()).all():
         fail("stream: non-finite pixels")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"stream: kernel {name} was never launched on the path")
+    check_launches("stream", launches, PARITY_KERNELS)
     print(f"stream 1.3B {blocks} blocks ({F_lat} latent frames, {frames} "
           f"pixel frames 480x832): per_block_ms="
           f"{[round(x, 1) for x in block_ms]} dit_ms={[round(x, 1) for x in dit_ms]} "
@@ -488,9 +607,10 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
 
 def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
                       seed):
-    """The demo configuration (bench.py's run_demo with bf16 attention):
-    the streaming sampler on the W8A8 weights, each block decoded by the
-    stateful TAEHV streamer (random decoder weights from the seed)."""
+    """The demo configuration (bench.py's run_demo): the streaming sampler
+    on the W8A8 weights with the card's demo attention (int8-QK), each
+    block decoded by the stateful TAEHV streamer (random decoder weights
+    from the seed)."""
     from self_forcing_tpu_torch.config import Config
     B, C, H, W = 1, 16, 60, 104
     F_lat = 3 * blocks
@@ -542,9 +662,7 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
         fail(f"demo stream: pixels {tuple(video.shape)}, expected {want}")
     if not torch.isfinite(video.float()).all():
         fail("demo stream: non-finite pixels")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"demo stream: kernel {name} was never launched on the path")
+    check_launches("demo stream", launches, DEMO_KERNELS)
     # the stateful stream carries each MemBlock's last frame, so it equals
     # one decode of the whole video up to bf16 rounding in other cuDNN
     # algorithms; a lost or misplaced carry moves whole frames
@@ -553,7 +671,8 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
     if err_whole > 5e-2:
         fail(f"demo stream: streamed pixels vs one whole-video decode "
              f"relative L2 {err_whole:.3e} > 5e-2")
-    print(f"demo stream 1.3B W8A8 + TAEHV {blocks} blocks ({F_lat} latent "
+    print(f"demo stream 1.3B W8A8 + {cfg.attn_quant} attention + TAEHV "
+          f"{blocks} blocks ({F_lat} latent "
           f"frames, {frames} pixel frames 480x832): per_block_ms="
           f"{[round(x, 1) for x in block_ms]} dit_ms="
           f"{[round(x, 1) for x in dit_ms]} taehv_ms="
@@ -570,6 +689,109 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
                 decode=("taehv_block", lambda: taehv.decode_video_stateful(
                     tae, lat, state, trim=False)))
     return launches, last
+
+
+def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
+                   n_blocks: int = 12, steady_from: int = 4) -> dict:
+    """bench.py's windowed configurations (``bench.py:309-381``): a 1-frame
+    attention sink, a 12-frame window, a 24-frame append buffer compacted
+    by the host-side fill tracker of ``stream``, W8A8 linears and int8-QK
+    attention, ``n_blocks`` blocks of 3 frames, each decoded by the
+    stateful TAEHV streamer.  One warm run, then one timed run (launch
+    counts reset just before it); DiT and TAEHV are synchronised
+    separately per block and their steady-state means from block
+    ``steady_from`` give the frame rates without the decode
+    (fps_windowed_streaming) and with it (fps_windowed_e2e)."""
+    from self_forcing_tpu_torch.config import Config
+    B, C, H, W = 1, 16, 60, 104
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    tae = taehv.init_decoder_params(seed=seed + 4, dtype=torch.bfloat16,
+                                    device="cuda")
+    args = Config({"denoising_step_list": [1000, 750, 500, 250],
+                   "warp_denoising_step": True, "timestep_shift": 8.0,
+                   "num_frame_per_block": 3, "context_noise": 0})
+    pipe = pipe_mod.CausalInferencePipeline(args, qparams, cfg,
+                                            device="cuda",
+                                            dtype=torch.bfloat16)
+    context = torch.randn(B, N_CTX, cfg.text_dim, generator=g, device="cuda"
+                          ).to(torch.bfloat16)
+    noise = torch.randn(B, 3 * n_blocks, C, H, W, generator=g,
+                        device="cuda").to(torch.bfloat16)
+
+    def run():
+        streamer = taehv.TAEHVStreamer(tae)
+        dit_ms, tae_ms, pixels = [], [], []
+        torch.cuda.synchronize()
+        t_blk = time.perf_counter()
+        for blk in pipe.stream(noise, context, generator=g):
+            torch.cuda.synchronize()
+            t_got = time.perf_counter()
+            dit_ms.append((t_got - t_blk) * 1e3)
+            state = streamer._state
+            lat = blk[:, :, :16].to(torch.bfloat16)
+            pixels.append(streamer.decode_chunk(lat))
+            torch.cuda.synchronize()
+            t_blk = time.perf_counter()
+            tae_ms.append((t_blk - t_got) * 1e3)
+        return dit_ms, tae_ms, torch.cat(pixels, dim=1), blk, lat, state
+
+    run()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    dit_ms, tae_ms, video, blk, lat, state = run()
+    launches = {**ca.launch_counts, **cm.launch_counts}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches("windowed stream", launches, DEMO_KERNELS)
+    frames = 9 + 12 * (n_blocks - 1)
+    if tuple(video.shape) != (B, frames, 3, 480, 832):
+        fail(f"windowed stream: pixels {tuple(video.shape)}, expected "
+             f"{(B, frames, 3, 480, 832)}")
+    if not torch.isfinite(video.float()).all():
+        fail("windowed stream: non-finite pixels")
+    buf_tok, post = dit.windowed_compaction_schedule(cfg, 1560, LQ)
+    if pipe.compactions < 1:
+        fail("windowed stream: the buffer was never compacted")
+    steady = n_blocks - steady_from
+    dit_blk = sum(dit_ms[steady_from:]) / steady
+    tae_blk = sum(tae_ms[steady_from:]) / steady
+    print(f"windowed stream 1.3B W8A8 + {cfg.attn_quant} attention + TAEHV "
+          f"(sink {cfg.sink_size}, window {cfg.local_attn_size}, buffer "
+          f"{cfg.buffer_frames} frames = {buf_tok} tokens, {post} after a "
+          f"compaction) {n_blocks} blocks: compactions={pipe.compactions} "
+          f"steady_dit_ms_per_block={dit_blk:.1f} "
+          f"steady_taehv_ms_per_block={tae_blk:.1f} "
+          f"fps_windowed_streaming={12 / dit_blk * 1e3:.3f} "
+          f"fps_windowed_e2e={12 / (dit_blk + tae_blk) * 1e3:.3f} "
+          f"dit_ms={[round(x, 1) for x in dit_ms]} "
+          f"taehv_ms={[round(x, 1) for x in tae_ms]} "
+          f"peak_mem_gb={peak_gb:.2f} launches={launches} (host clock, "
+          f"second run; steady state = blocks {steady_from}..{n_blocks - 1};"
+          f" dit_ms = the previous block's refresh + 4 denoise forwards)",
+          flush=True)
+
+    # one forward of the last block at the compacted state, kernels vs
+    # plain (the sink frame and the 8-frame recent window are visible)
+    ctx_kv = dit.precompute_context(qparams, cfg, context)
+    t = torch.full(blk.shape[:2], 500.0, device="cuda")
+    start = 3 * (n_blocks - 1)
+    flows = [dit.forward_inference(
+        qparams, cfg, blk, t, ctx_kv, pipe._cache, start, pipe.rope,
+        write_cache=False, assume_compacted=True, kernels=k)[0]
+        for k in (True, False)]
+    if not torch.isfinite(flows[0].float()).all():
+        fail("windowed forward: non-finite flow")
+    err = rel_l2(*flows)
+    print(f"windowed forward 1.3B (local_end {pipe._cache.local_end} of "
+          f"{buf_tok}): kernels vs plain rel_l2={err:.3e}", flush=True)
+    if err > 2e-2:
+        fail(f"windowed forward: kernels vs plain relative L2 {err:.3e} "
+             f"> 2e-2")
+    del flows
+    return dict(pipe=pipe, context=context, x=blk, start=start,
+                decode=("taehv_block", lambda: taehv.decode_video_stateful(
+                    tae, lat, state, trim=False)))
 
 
 def profile_ms(fn) -> tuple[float, list]:
@@ -614,7 +836,8 @@ def phase_profile(dit, cfg, params, last, tag) -> None:
         busy = sum(ms for _, ms in rows)
         top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
                         for name, ms in rows[:8])
-        print(f"profile {tag} {label} (window {start * fs} tokens): "
+        print(f"profile {tag} {label} (cache holds "
+              f"{pipe._cache.local_end} tokens): "
               f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
               f"idle_share={1 - busy / wall:.3f} top: {top}", flush=True)
 
@@ -624,6 +847,10 @@ def main() -> None:
     ap.add_argument("--blocks", type=int, default=3,
                     help="3-frame blocks to stream (2..7; 7 = 21 frames)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build, kernels vs plain, their "
+                         "times): the A/B of two checkouts' kernels, run "
+                         "in turns")
     a = ap.parse_args()
     if not 2 <= a.blocks <= 7:
         fail("--blocks must be in 2..7")
@@ -635,6 +862,7 @@ def main() -> None:
     from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
     from self_forcing_tpu_torch.models.wan.rope import RopeTables
     from self_forcing_tpu_torch.ops import build, quant
+    from self_forcing_tpu_torch.ops.chip import chip_defaults
     from self_forcing_tpu_torch.ops import cuda_attention as ca
     from self_forcing_tpu_torch.ops import cuda_matmul as cm
     from self_forcing_tpu_torch.pipelines import causal_inference as pipe_mod
@@ -666,6 +894,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     table.update(phase_w8a8_kernels(cm, quant, g))
     torch.cuda.empty_cache()
+    if a.kernels_only:
+        print("kernels only: the main path was not run", flush=True)
+        return
 
     # 3-5 for the parity configuration: one forward kernels vs plain, the
     # stream, where the time goes
@@ -681,20 +912,38 @@ def main() -> None:
     del last
     torch.cuda.empty_cache()
 
-    # 3-5 for the demo configuration, on the same weights quantized
-    qparams = quant.quantize_dit_params(params, mode="w8a8")
-    phase_demo_forward(dit, cfg, qparams, rope, inp, flow_bf16)
+    # 3-5 for the demo configuration, as bench.py runs it: the same
+    # weights quantized and the attention, both from the card's defaults
+    chip = chip_defaults()
+    cfg_q = dataclasses.replace(cfg, attn_quant=chip["demo_attn_quant"])
+    qparams = quant.quantize_dit_params(params, mode=chip["matmul_quant"])
+    phase_demo_forward(dit, cfg_q, qparams, rope, inp, flow_bf16)
     del inp, flow_bf16
     torch.cuda.empty_cache()
     demo_launches, demo_last = phase_demo_stream(
-        ca, cm, dit, taehv, pipe_mod, cfg, qparams, a.blocks, a.seed)
-    launches.update({k: demo_launches[k] for k in cm.launch_counts})
-    phase_profile(dit, cfg, qparams, demo_last, "demo")
+        ca, cm, dit, taehv, pipe_mod, cfg_q, qparams, a.blocks, a.seed)
+    launches.update({k: demo_launches[k] for k in DEMO_KERNELS
+                     if k != "cross_attention"})
+    phase_profile(dit, cfg_q, qparams, demo_last, "demo")
+
+    # the windowed configurations, after freeing the global caches and
+    # the bf16 parameters (the 24-frame buffer is 6.9 GB)
+    del demo_last, params
+    torch.cuda.empty_cache()
+    cfg_w = dataclasses.replace(cfg_q, local_attn_size=12, sink_size=1,
+                                windowed_buffer_frames=24)
+    win_last = phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg_w, qparams,
+                              a.seed)
+    phase_profile(dit, cfg_w, qparams, win_last, "windowed")
+    del win_last
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
     csrc = "self_forcing_tpu_torch/csrc/"
     sources = {"decode_fresh_free": (csrc + "decode_fresh.cu", attn + ":275"),
+               "int8qk_quantize": (csrc + "decode_int8qk.cu", attn + ":546"),
+               "decode_fresh_int8qk": (csrc + "decode_int8qk.cu",
+                                       attn + ":475"),
                "cross_attention": (csrc + "cross_attention.cu",
                                    attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),

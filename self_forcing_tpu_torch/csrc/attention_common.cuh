@@ -133,6 +133,26 @@ __device__ __forceinline__ void pv_tile(float (*o)[4],
   }
 }
 
+// The next tile index >= t (tiles of BK columns: cache tiles first, then
+// fresh tiles, which are all visible) that has a visible column, the
+// cache's visible columns being [0, sink_end) and [kv_start, kv_end);
+// n_total when none is left.
+template <int BK>
+__device__ __forceinline__ int next_live(int t, int n_cache, int n_total,
+                                         int kv_start, int kv_end,
+                                         int sink_end) {
+  while (t < n_cache) {
+    const int j0 = t * BK;
+    if (j0 < sink_end || (j0 < kv_end && j0 + BK > kv_start)) return t;
+    if (j0 >= sink_end && j0 + BK <= kv_start) {
+      t = max(t + 1, kv_start / BK);  // jump over the dead gap
+    } else {
+      ++t;
+    }
+  }
+  return min(t, n_total);
+}
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

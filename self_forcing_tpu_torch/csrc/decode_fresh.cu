@@ -58,23 +58,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
 }
 
-// The next tile index >= t that has a visible column (cache tiles first,
-// then fresh tiles, which are all visible); n_total when none is left.
-__device__ __forceinline__ int next_live(int t, int n_cache, int n_total,
-                                         int kv_start, int kv_end,
-                                         int sink_end) {
-  while (t < n_cache) {
-    const int j0 = t * BK;
-    if (j0 < sink_end || (j0 < kv_end && j0 + BK > kv_start)) return t;
-    if (j0 >= sink_end && j0 + BK <= kv_start) {
-      t = max(t + 1, kv_start / BK);  // jump over the dead gap
-    } else {
-      ++t;
-    }
-  }
-  return min(t, n_total);
-}
-
 __global__ void __launch_bounds__(THREADS, 2)
 decode_fresh_free_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k_cache,
@@ -140,13 +123,13 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
     }
   };
 
-  int t = next_live(0, n_cache, n_total, kv_start, kv_end, sink_end);
+  int t = next_live<BK>(0, n_cache, n_total, kv_start, kv_end, sink_end);
   if (t < n_total) fetch(t, 0);
   cp_async_commit();
   int buf = 0;
   while (t < n_total) {
     const int tn =
-        next_live(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
+        next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
     if (tn < n_total) fetch(tn, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // Q and tile t have landed

@@ -33,7 +33,9 @@ class WanConfig:
     eps: float = 1e-6
     num_frame_per_block: int = 1
     independent_first_frame: bool = False
-    # int8 decode attention (demo config); not ported yet
+    # int8 decode attention (demo config): 'int8qk' runs QK^T in int8 with
+    # per-tile scales and P.V in bf16 (with the 'free' softmax); the
+    # full-int8 modes are not ported
     attn_quant: str | None = None
     # Decode softmax mode of the attention kernels.  'free' (default):
     # head_dim**-0.5 * log2(e) is folded into the q-norm gain and the
@@ -42,6 +44,13 @@ class WanConfig:
     # runs the ordinary base-e softmax at head_dim**-0.5, as the JAX
     # package does off the TPU.
     attn_softmax: str = "free"
+    # Windowed-streaming KV buffer in frames (>= local_attn_size; None =
+    # local_attn_size).  A larger buffer lets blocks append without
+    # eviction (attention reads the sink frames and the recent window as
+    # two intervals) until it fills; then one compaction moves [sinks |
+    # recent] to the front.  With buffer == window it compacts every
+    # steady-state block, as the reference's per-block eviction does.
+    windowed_buffer_frames: int | None = None
 
     @property
     def head_dim(self) -> int:
@@ -53,6 +62,18 @@ class WanConfig:
         if self.local_attn_size == -1:
             return 21 * frame_seqlen
         return self.local_attn_size * frame_seqlen
+
+    @property
+    def buffer_frames(self) -> int:
+        """Windowed KV buffer size in frames (windowed mode only)."""
+        if self.local_attn_size == -1:
+            raise ValueError("buffer_frames: not a windowed config")
+        bf = (self.local_attn_size if self.windowed_buffer_frames is None
+              else self.windowed_buffer_frames)
+        if bf < self.local_attn_size:
+            raise ValueError("windowed_buffer_frames must be >= "
+                             "local_attn_size")
+        return bf
 
 
 WAN_1_3B = WanConfig()

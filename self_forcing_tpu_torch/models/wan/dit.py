@@ -10,12 +10,17 @@ Linears dispatch on their keys as in the JAX package: ``w_q``/``w_qa``/
 a fused ``qkv`` is split after one product, and an FFN whose two linears
 are ``w_qa`` runs as one fused W8A8 FFN.
 
-Only the global-cache branch of ``forward_inference`` is ported: the
-block's self-attention reads the cache window ``[attn_lo, write_at)`` plus
-its own fresh K/V, and the cache is written after the layer (or not at all
-with ``write_cache=False``).  Differences from the JAX mechanisms: the
-layer scan is a Python loop, and the KV cache tensors are updated in place
-(the returned ``KVCache`` shares them).
+``forward_inference`` has both cache branches: the global cache, where
+the block's self-attention reads the window ``[attn_lo, write_at)`` plus
+its own fresh K/V, and the windowed cache (``local_attn_size != -1``),
+which reads the sink frames ``[0, sink_hi)`` and the recent window
+``[attn_lo, write_at)`` of an append buffer that is compacted when it
+fills.  The cache is written after the layer (or not at all with
+``write_cache=False``).  Differences from the JAX mechanisms: the layer
+scan is a Python loop, the cache indices are Python ints, and the KV
+cache tensors are updated in place (the returned ``KVCache`` shares them,
+so only the returned cache may be used afterwards, as with the JAX
+package's donated buffers).
 """
 from __future__ import annotations
 
@@ -404,20 +409,88 @@ class KVCache:
 def init_kv_cache(cfg: WanConfig, batch_size: int, frame_seqlen: int,
                   num_frames: int, dtype=torch.bfloat16,
                   device: str | torch.device = "cuda") -> KVCache:
-    """Zeroed cache of ``num_frames`` frames; S is rounded up to a
-    multiple of 2048 as in the JAX package, so the shapes agree."""
+    """Zeroed cache, shaped as the JAX package's: a windowed config gets
+    ``cfg.buffer_frames`` frames; the global cache ``num_frames`` frames
+    with S rounded up to a multiple of 2048."""
     if cfg.local_attn_size != -1:
-        raise NotImplementedError("the windowed KV cache is not ported yet")
-    S = num_frames * frame_seqlen
-    if S > 2048:
-        S = -(-S // 2048) * 2048
+        S = cfg.buffer_frames * frame_seqlen
+    else:
+        S = num_frames * frame_seqlen
+        if S > 2048:
+            S = -(-S // 2048) * 2048
     shape = (cfg.num_layers, batch_size * cfg.num_heads, S, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _keep_recent(cfg: WanConfig, frame_seqlen: int, new_tokens: int) -> int:
+    """Recent tokens that survive a compaction before a write of
+    ``new_tokens``: the window less the sinks and the new block."""
+    return max(0, cfg.max_attention_size(frame_seqlen)
+               - cfg.sink_size * frame_seqlen - new_tokens)
+
+
+def _compact(cfg: WanConfig, cache: KVCache, new_tokens: int,
+             frame_seqlen: int) -> KVCache:
+    """Compaction of the windowed buffer before an advancing write of
+    ``new_tokens``: the sink frames stay, the most recent ``window - sinks
+    - new_tokens`` tokens move to just after them, and ``local_end`` drops
+    to the end of what was kept (``global_end`` is unchanged).  In place;
+    the moved rows are cloned first, because with buffer == window the
+    source and destination overlap (window 12, sink 1, 3-frame blocks:
+    frames 4-12 move to 1-9).  The clone is scratch on the cache's own
+    device."""
+    sink_tokens = cfg.sink_size * frame_seqlen
+    keep = _keep_recent(cfg, frame_seqlen, new_tokens)
+    if keep:
+        src = cache.local_end - keep
+        for kv in (cache.k, cache.v):
+            kv[:, :, sink_tokens:sink_tokens + keep] = \
+                kv[:, :, src:src + keep].clone()
+    return dataclasses.replace(cache, local_end=sink_tokens + keep)
+
+
+def compact_cache(cfg: WanConfig, cache: KVCache,
+                  new_tokens: int) -> KVCache:
+    """Unconditional compaction (:func:`_compact`) of a buffer of
+    ``cfg.buffer_frames`` frames, for host-scheduled eviction."""
+    return _compact(cfg, cache, new_tokens,
+                    cache.k.shape[2] // cfg.buffer_frames)
+
+
+def _windowed_compact(cfg: WanConfig, cache: KVCache, new_tokens: int,
+                      frame_seqlen: int) -> KVCache:
+    """:func:`_compact` when a write of ``new_tokens`` at ``local_end``
+    would overflow the buffer; the cache as it is otherwise."""
+    if new_tokens + cache.local_end > cache.k.shape[2]:
+        return _compact(cfg, cache, new_tokens, frame_seqlen)
+    return cache
+
+
+def evict_for(cfg: WanConfig, cache: KVCache, new_tokens: int) -> KVCache:
+    """Compact the windowed buffer ahead of an advancing write of
+    ``new_tokens`` if it would overflow (no-op on the global cache), for
+    callers that do not track the buffer fill themselves."""
+    if cfg.local_attn_size == -1:
+        return cache
+    return _windowed_compact(cfg, cache, new_tokens,
+                             cache.k.shape[2] // cfg.buffer_frames)
+
+
+def windowed_compaction_schedule(cfg: WanConfig, frame_seqlen: int,
+                                 new_tokens: int) -> tuple[int, int]:
+    """(buffer_tokens, post_compact_tokens) for a host-side fill tracker:
+    compact when ``content + new_tokens > buffer_tokens``; after the
+    compaction the content is ``post_compact_tokens``."""
+    S = cfg.buffer_frames * frame_seqlen
+    return S, cfg.sink_size * frame_seqlen + _keep_recent(
+        cfg, frame_seqlen, new_tokens)
+
+
 def reset_kv_cache(cache: KVCache) -> KVCache:
-    """Rewind the cache indices; stale rows are never visible."""
+    """Rewind the cache indices.  Stale rows are never attended to; with
+    int8-QK attention the ones inside a live cache tile still enter its
+    k scale, as in the JAX package."""
     return dataclasses.replace(cache, global_end=0, local_end=0)
 
 
@@ -432,27 +505,40 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
                         ctx_kv_layer: dict, frame_seqlen: int,
                         static_kv_hi: int | None = None,
                         layer_idx: int | None = None,
-                        emit_kv: bool = True, kernels: bool = True):
+                        emit_kv: bool = True, kernels: bool = True,
+                        sink_hi: int | None = None,
+                        tk_align: int | None = None,
+                        window_static: tuple[int, int] | None = None):
     """One block whose self-attention reads the cache window
-    ``[attn_lo, cache_hi)`` of layer ``layer_idx`` (read only) plus the
-    block's fresh K/V.  Returns (x, k_new, v_new); the fresh K/V come
-    folded [B*N, L, D] for the cache write, or None when ``emit_kv`` is
-    False.
+    ``[attn_lo, cache_hi)`` (plus the sinks ``[0, sink_hi)`` on the
+    windowed path) of layer ``layer_idx`` (read only) plus the block's
+    fresh K/V.  Returns (x, k_new, v_new); the fresh K/V come folded
+    [B*N, L, D] for the cache write, or None when ``emit_kv`` is False.
 
     On CUDA the offset-free softmax runs: head_dim**-0.5 * log2(e) is
-    folded into the q-norm gain and the kernel runs at scale 1.  On the
-    CPU the unfolded base-e reference runs, as in the JAX package."""
-    if cfg.attn_quant is not None:
-        raise NotImplementedError("int8 decode attention is not ported yet")
+    folded into the q-norm gain and the kernel runs at scale 1, with
+    ``cfg.attn_quant='int8qk'`` as int8-QK attention.  On the CPU the
+    unfolded base-e reference runs, as in the JAX package off the TPU
+    (quant ignored).  The full-int8 quant modes need the bounded softmax,
+    which is not ported: they raise on CUDA."""
+    if cfg.attn_quant not in (None, "int8qk") and x.is_cuda:
+        raise NotImplementedError(
+            f"attn_quant={cfg.attn_quant!r} needs the bounded decode "
+            "softmax, which is not ported to CUDA")
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
     f_shift, f_scale, f_gate = e[:, :, 3:4], e[:, :, 4:5], e[:, :, 5:6]
 
-    free = _free_softmax(cfg, x)
+    # the full-int8 modes force the bounded softmax, so no free fold
+    free = _free_softmax(cfg, x) and cfg.attn_quant in (None, "int8qk")
     q_gain = (cfg.head_dim ** -0.5) * LOG2E if free else None
     attn_args = dict(scale=1.0 if free else None, static_hi=static_kv_hi,
                      layer_idx=layer_idx, softmax="free" if free else None,
+                     sink_end=sink_hi, tk_align=tk_align,
+                     window_static=window_static,
+                     # int8qk exists only on the free path
+                     quant=cfg.attn_quant if free else None,
                      kernels=kernels)
     xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
     if _packed_ok(cfg):
@@ -496,23 +582,29 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
                       cache_start_frame: int | None = None,
                       static_kv_hi: int | None = None,
                       write_cache: bool = True,
+                      assume_compacted: bool = False,
                       kernels: bool = True) -> tuple[torch.Tensor, KVCache]:
-    """KV-cached streaming forward of one chunk, global cache only.
+    """KV-cached streaming forward of one chunk.
 
     x: [B, F_blk, C, H, W]; t: [B, F_blk]; ``ctx_kv`` from
     :func:`precompute_context`; ``start_frame``: absolute frame index of
     the chunk (RoPE position); ``cache_start_frame`` decouples the cache
     write position (defaults to ``start_frame``).  ``static_kv_hi``: the
     number of tokens already cached, an upper bound that lets the
-    attention kernel skip the rest of the cache.  ``write_cache=False``
-    (the denoise steps) leaves the cache and its indices untouched: the
-    refresh pass writes the block afterwards.  ``kernels=False`` runs the
-    attention and the W8A8 linears through the kernels' plain versions on
-    CUDA.
+    attention kernel skip the rest of the cache (global cache only).
+    ``write_cache=False`` (the denoise steps) leaves the cache and its
+    indices untouched: the refresh pass writes the block afterwards.
+
+    Windowed cache: an advancing chunk that would overflow the buffer
+    first compacts it (:func:`_windowed_compact`), unless
+    ``assume_compacted`` says the caller did (the streaming pipeline
+    schedules :func:`compact_cache` itself); the compacted cache is
+    returned even with ``write_cache=False``.  The chunk then attends to
+    the sink frames and the recent window.
+
+    ``kernels=False`` runs the attention and the W8A8 linears through the
+    kernels' plain versions on CUDA.
     Returns (flow_pred [B, F_blk, C, H, W], cache)."""
-    if cfg.local_attn_size != -1:
-        raise NotImplementedError("windowed (local_attn_size != -1) "
-                                  "streaming is not ported yet")
     tokens, grid = patchify(params, cfg, x)
     Fb, h, w = grid
     frame_seqlen = h * w
@@ -523,9 +615,26 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
 
     Lq = Fb * frame_seqlen
     current_end = int(cache_start_frame) * frame_seqlen + Lq
-    local_end = cache.local_end + (current_end - cache.global_end)
-    write_at = local_end - Lq
-    attn_lo = max(0, local_end - cfg.max_attention_size(frame_seqlen))
+    window = {}
+    if cfg.local_attn_size != -1:
+        if not assume_compacted and current_end > cache.global_end:
+            cache = _windowed_compact(cfg, cache, Lq, frame_seqlen)
+        sink_tokens = cfg.sink_size * frame_seqlen
+        keep_recent = _keep_recent(cfg, frame_seqlen, Lq)
+        local_end = cache.local_end + (current_end - cache.global_end)
+        write_at = local_end - Lq
+        sink_hi = min(sink_tokens, write_at)
+        attn_lo = max(sink_hi, write_at - keep_recent)
+        # frame-aligned cache tiles: the window's bounds are whole frames
+        window = dict(sink_hi=sink_hi, window_static=(sink_tokens,
+                                                      keep_recent),
+                      tk_align=frame_seqlen if frame_seqlen % 8 == 0
+                      else None)
+        static_kv_hi = None
+    else:
+        local_end = cache.local_end + (current_end - cache.global_end)
+        write_at = local_end - Lq
+        attn_lo = max(0, local_end - cfg.max_attention_size(frame_seqlen))
 
     for li in range(cfg.num_layers):
         bp = layer_params(params["blocks"], li)
@@ -534,7 +643,7 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
         tokens, k_new, v_new = _block_decode_fresh(
             bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
             write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
-            emit_kv=write_cache, kernels=kernels)
+            emit_kv=write_cache, kernels=kernels, **window)
         if write_cache:
             # later layers read only their own layer: writing now is the
             # same as the JAX package's single write after the layer scan

@@ -6,7 +6,11 @@ the 4 denoising DiT forwards (``write_cache=False``), then
 ``refresh_block`` runs one forward at ``context_noise`` that writes the
 block's K/V into the cache.  The block loop is a plain Python loop (the
 JAX package scans it inside one jit).  The noise of each re-noising step
-comes from a ``torch.Generator`` or is injected as ``eps``.
+comes from a ``torch.Generator`` or is injected as ``eps``.  With a
+windowed config ``stream`` tracks the buffer's fill on the host and
+compacts it exactly before the block that would overflow it;
+``inference`` sizes the buffer to the window and lets each forward
+compact.
 """
 from __future__ import annotations
 
@@ -28,11 +32,15 @@ def denoise_block(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                   noise_blk: torch.Tensor, steps: Sequence[float],
                   start_frame: int, static_kv_hi: int | None = None,
                   eps: Sequence[torch.Tensor] | None = None,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  assume_compacted: bool = True):
     """One block's few-step denoise without the cache refresh.
 
     ``eps``: the len(steps) - 1 re-noising draws, each shaped like
     ``noise_blk``; drawn from ``generator`` when not given.
+    ``assume_compacted``: the caller compacted a windowed buffer for this
+    block (False: the first forward compacts it if the block would
+    overflow it).
     Returns (x0 [B, nb, C, H, W], cache)."""
     B, nb, C, H, W = noise_blk.shape
     noisy = x0 = noise_blk
@@ -41,7 +49,8 @@ def denoise_block(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                        device=noise_blk.device)
         flow, cache = dit.forward_inference(
             params, cfg, noisy, t, ctx_kv, cache, start_frame, rope,
-            static_kv_hi=static_kv_hi, write_cache=False)
+            static_kv_hi=static_kv_hi, write_cache=False,
+            assume_compacted=assume_compacted)
         x0 = scheduler.convert_flow_pred_to_x0(
             flow.reshape(B * nb, C, H, W), noisy.reshape(B * nb, C, H, W),
             t.reshape(-1)).reshape(B, nb, C, H, W)
@@ -63,15 +72,29 @@ def denoise_block(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
 def refresh_block(params, cfg: WanConfig, rope: RopeTables, ctx_kv: dict,
                   cache: dit.KVCache, x0: torch.Tensor,
                   context_noise: float, start_frame: int,
-                  static_kv_hi: int | None = None) -> dit.KVCache:
+                  static_kv_hi: int | None = None,
+                  assume_compacted: bool = True) -> dit.KVCache:
     """Re-run the denoised block, clean, at timestep ``context_noise`` to
-    write its K/V into the cache."""
+    write its K/V into the cache (the denoise made room for it)."""
     B, nb = x0.shape[:2]
     t_ctx = torch.full((B, nb), float(context_noise), dtype=torch.float32,
                        device=x0.device)
     _, cache = dit.forward_inference(params, cfg, x0, t_ctx, ctx_kv, cache,
                                      start_frame, rope,
-                                     static_kv_hi=static_kv_hi)
+                                     static_kv_hi=static_kv_hi,
+                                     assume_compacted=assume_compacted)
+    return cache
+
+
+def prime_block(params, cfg: WanConfig, rope: RopeTables, ctx_kv: dict,
+                cache: dit.KVCache, latents: torch.Tensor,
+                start_frame: int) -> dit.KVCache:
+    """Write clean context latents [B, F, C, H, W] into the KV cache at
+    timestep 0 (image-to-video / video-extension priming)."""
+    B, Fb = latents.shape[:2]
+    t = torch.zeros((B, Fb), dtype=torch.float32, device=latents.device)
+    _, cache = dit.forward_inference(params, cfg, latents, t, ctx_kv, cache,
+                                     start_frame, rope)
     return cache
 
 
@@ -94,9 +117,6 @@ class CausalInferencePipeline:
             num_frame_per_block=int(getattr(args, "num_frame_per_block", 1)),
             independent_first_frame=bool(
                 getattr(args, "independent_first_frame", False)))
-        if self.cfg.independent_first_frame:
-            raise NotImplementedError(
-                "independent_first_frame is not ported yet")
         self.vae_params = vae_params
         self.vae_cfg = vae_cfg
         shift = float(getattr(args, "timestep_shift", 8.0))
@@ -112,41 +132,70 @@ class CausalInferencePipeline:
         self.num_frame_per_block = self.cfg.num_frame_per_block
         self._cache: dit.KVCache | None = None
         self._cache_sig = None
+        self.compactions = 0  # windowed buffer compactions of the last stream
 
-    def _init_cache(self, batch: int, fs: int,
-                    num_frames: int) -> dit.KVCache:
+    def _init_cache(self, batch: int, fs: int, num_frames: int,
+                    slack: bool = True) -> dit.KVCache:
         """Reuse the previous call's cache when the geometry matches (only
-        the indices are reset: stale rows are never visible)."""
-        sig = (batch, fs, num_frames)
+        the indices are reset).  ``slack=False`` (``inference``, which
+        compacts inside the forwards): a windowed buffer is sized to the
+        window even where the config asks for a larger one, as in the JAX
+        package."""
+        cfg = self.cfg
+        if not slack and cfg.local_attn_size != -1:
+            cfg = dataclasses.replace(cfg, windowed_buffer_frames=None)
+        sig = (batch, fs, num_frames, self.dtype,
+               -1 if cfg.local_attn_size == -1 else cfg.buffer_frames)
         if self._cache is not None and self._cache_sig == sig:
             return dit.reset_kv_cache(self._cache)
         self._cache = None  # free the old buffers before allocating
         self._cache_sig = sig
-        self._cache = dit.init_kv_cache(self.cfg, batch, fs, num_frames,
+        self._cache = dit.init_kv_cache(cfg, batch, fs, num_frames,
                                         self.dtype, self.device)
         return self._cache
 
-    def _blocks(self, F: int):
+    def _blocks(self, F: int, first: int = 0):
+        """(first frame, frames) of each generated block of frames
+        ``[first, first + F)``: a 1-frame block first for an
+        independent-first-frame model when ``first == 0``, then blocks of
+        num_frame_per_block."""
         nb = self.num_frame_per_block
-        if F % nb:
-            raise ValueError(f"{F} latent frames are not a whole number of "
-                             f"{nb}-frame blocks")
-        return [(b * nb, nb) for b in range(F // nb)]
+        lead = [(0, 1)] if self.cfg.independent_first_frame and first == 0 \
+            else []
+        lo = first + len(lead)
+        if (F - len(lead)) % nb:
+            raise ValueError(f"{F - len(lead)} latent frames are not a whole "
+                             f"number of {nb}-frame blocks")
+        return lead + [(lo + b * nb, nb) for b in range((F - len(lead)) // nb)]
 
     def stream(self, noise: torch.Tensor, context: torch.Tensor,
                eps: Optional[Sequence[Sequence[torch.Tensor]]] = None,
                generator: torch.Generator | None = None
                ) -> Iterator[torch.Tensor]:
-        """Yield denoised latent blocks [B, nb, C, H, W] one at a time, each
+        """Yield denoised latent blocks [B, n, C, H, W] one at a time, each
         before its cache refresh (the refresh is skipped after the last
-        block).  ``eps[b]`` are block b's re-noising draws."""
+        block).  ``eps[b]`` are block b's re-noising draws.  A windowed
+        buffer is compacted exactly when the next block would overflow
+        it."""
         B, F, C, H, W = noise.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
         ctx_kv = dit.precompute_context(self.params, self.cfg, context)
         cache = self._init_cache(B, fs, max(F, 21))
         blocks = self._blocks(F)
+        windowed = self.cfg.local_attn_size != -1
+        content = 0  # tokens in the windowed buffer
+        self.compactions = 0
         for i, (lo, n) in enumerate(blocks):
-            hint = lo * fs   # tokens already cached: the live window
+            # tokens already cached: the live window (global cache only)
+            hint = None if windowed else lo * fs
+            if windowed:
+                buf_tok, post = dit.windowed_compaction_schedule(
+                    self.cfg, fs, n * fs)
+                if content + n * fs > buf_tok:
+                    cache = dit.compact_cache(self.cfg, cache, n * fs)
+                    self.compactions += 1
+                    content = post
+                content += n * fs
             blk, cache = denoise_block(
                 self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
                 cache, noise[:, lo:lo + n], self.denoising_step_list, lo,
@@ -161,26 +210,38 @@ class CausalInferencePipeline:
         self._cache = cache
 
     def inference(self, noise: torch.Tensor, context: torch.Tensor,
+                  initial_latent: torch.Tensor | None = None,
                   return_latents: bool = False,
                   eps: Optional[Sequence[Sequence[torch.Tensor]]] = None,
                   generator: torch.Generator | None = None):
         """noise [B, F, C, H, W] -> video [B, F_pix, 3, H*8, W*8] in [0, 1]
-        (None without VAE parameters).  Every block, the last included, is
-        refreshed into the cache."""
+        (None without VAE parameters).  ``initial_latent`` [B, F0, C, H,
+        W]: clean context frames primed into the cache first (timestep 0)
+        and put in front of the output.  Every generated block, the last
+        included, is refreshed into the cache."""
         B, F, C, H, W = noise.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
         ctx_kv = dit.precompute_context(self.params, self.cfg, context)
-        cache = self._init_cache(B, fs, max(F, 21))
+        F0 = 0 if initial_latent is None else initial_latent.shape[1]
+        cache = self._init_cache(B, fs, max(F + F0, 21), slack=False)
         outs = []
-        for i, (lo, n) in enumerate(self._blocks(F)):
+        if initial_latent is not None:
+            outs.append(initial_latent)
+            for lo, n in self._blocks(F0):
+                cache = prime_block(self.params, self.cfg, self.rope, ctx_kv,
+                                    cache, initial_latent[:, lo:lo + n], lo)
+        windowed = self.cfg.local_attn_size != -1
+        for i, (lo, n) in enumerate(self._blocks(F, first=F0)):
+            hint = None if windowed else lo * fs
             blk, cache = denoise_block(
                 self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
-                cache, noise[:, lo:lo + n], self.denoising_step_list, lo,
-                static_kv_hi=lo * fs, eps=None if eps is None else eps[i],
-                generator=generator)
+                cache, noise[:, lo - F0:lo - F0 + n],
+                self.denoising_step_list, lo, static_kv_hi=hint,
+                eps=None if eps is None else eps[i], generator=generator,
+                assume_compacted=False)
             cache = refresh_block(self.params, self.cfg, self.rope, ctx_kv,
                                   cache, blk, self.context_noise, lo,
-                                  static_kv_hi=lo * fs)
+                                  static_kv_hi=hint, assume_compacted=False)
             outs.append(blk)
         self._cache = cache
         latents = torch.cat(outs, dim=1)

@@ -3,12 +3,14 @@ the JAX package on the CPU: the dispatch seam against
 self_forcing_tpu.ops.attention, and the plain versions of the CUDA kernels
 against the Pallas kernels run in interpret mode.  Inputs come from a
 numpy seed and run in float32."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from self_forcing_tpu.ops import attention as jattn
+from self_forcing_tpu.ops import pallas_attention
 from self_forcing_tpu.ops.pallas_attention import (
     cross_attention_pallas, decode_attention_fresh_pallas)
 from self_forcing_tpu_torch.ops import attention as tattn
@@ -142,7 +144,11 @@ def test_cpu_wrappers_run_the_plain_versions():
     k = torch.from_numpy(_rand(rng, 1, 20, 2, 128))
     torch.testing.assert_close(ca.cross_attention(q, k, k, num_heads=2),
                                ca.cross_attention_ref(q, k, k, num_heads=2))
-    assert ca.launch_counts == {"decode_fresh_free": 0, "cross_attention": 0}
+    tiles = dict(tq=8, tk=16, tf=32)
+    torch.testing.assert_close(
+        ca.decode_fresh_int8qk(q, kc, vc, kn, vn, **args, **tiles),
+        ca.decode_fresh_int8qk_ref(q, kc, vc, kn, vn, **args, **tiles))
+    assert set(ca.launch_counts.values()) == {0}
 
 
 def test_free_softmax_is_base_e_at_scale_ln2():
@@ -158,3 +164,154 @@ def test_free_softmax_is_base_e_at_scale_ln2():
                                         layer_idx=0, heads_packed=2,
                                         softmax="free")
     torch.testing.assert_close(free, base, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- int8-QK decode
+
+def _int8qk_pallas(q, kc, vc, kn, vn, lo, hi, sink, li, N, tq, tk,
+                   tk_align=None, window_static=None, static_hi=None):
+    """The TPU kernel in 'free_qk' mode, interpreted, and the (tq, tk, tf)
+    it ran with (captured from its inner op)."""
+    seen = {}
+    inner = pallas_attention._decode_fresh_op
+
+    def spy(*args):
+        seen["tiles"] = args[11:14]
+        return inner(*args)
+
+    pallas_attention._decode_fresh_op = spy
+    try:
+        out = decode_attention_fresh_pallas(
+            q, kc, vc, kn, vn, jnp.int32(lo), jnp.int32(hi), scale=1.0,
+            tq=tq, tk=tk, interpret=True, static_hi=static_hi,
+            layer_idx=jnp.int32(li), heads_packed=N, softmax="free",
+            quant="int8qk", sink_end=jnp.int32(sink), tk_align=tk_align,
+            window_static=window_static)
+    finally:
+        pallas_attention._decode_fresh_op = inner
+    return np.asarray(out), seen["tiles"]
+
+
+INT8QK_TOL = 2e-4  # see test_decode_fresh_int8qk_ref_matches_pallas
+# (lo, hi, sink, tq, tk, tk_align, window_static, static_hi):
+INT8QK_CASES = {
+    # global tiles: 2 q tiles of 64 for Lq 120, cache tiles of 216 rows
+    # (the last one past S = 640), one fresh tile of 128 for Lf 100
+    "global": (64, 300, 0, 64, 256, None, None, 300),
+    # windowed tiles: frame-aligned cache tiles of 128 (tk_align 64), a
+    # sink frame and a window that starts past a dead gap
+    "windowed": (320, 576, 64, 512, 256, 64, (64, 256), None),
+    # the default request (tq 512 -> one q tile of 120, tk 2048 -> 216)
+    "defaults": (0, 432, 0, 512, 2048, None, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8QK_CASES))
+def test_decode_fresh_int8qk_ref_matches_pallas(case):
+    """The int8-QK kernel's plain version against the TPU kernel it
+    replaces ('free_qk' mode, heads-packed, stacked cache, Pallas in
+    interpret mode), with the tiles the Pallas wrapper picked, which
+    decode_tiles reproduces.  The int8 products are exact integers and
+    the scales equal, so the f32 sums of l and p.v, taken in another
+    order, differ by ~2e-7.  Tolerance 2e-4: XLA may round one score's p
+    to the other side of a bf16 step (8.7e-5 on one row of the windowed
+    case, where a float64 evaluation of the function agrees with the
+    plain version to 2e-7)."""
+    lo, hi, sink, tq, tk, align, ws, static_hi = INT8QK_CASES[case]
+    rng = np.random.default_rng(11)
+    B, N, D, Lq, Lf, S = 1, 2, 128, 120, 100, 640
+    q, kc, vc, kn, vn = _decode_inputs(rng, B, N, D, Lq, Lf, S)
+    q = q * (D ** -0.5 * LOG2E)
+    ref, tiles = _int8qk_pallas(q, kc, vc, kn, vn, lo, hi, sink, 1, N, tq,
+                                tk, align, ws, static_hi)
+    assert tattn.decode_tiles(Lq, S, Lf, "int8qk", "free", align, tq=tq,
+                              tk=tk) == tuple(tiles)
+    out = ca.decode_fresh_int8qk_ref(
+        *(torch.from_numpy(a) for a in (q, kc, vc, kn, vn)), layer_idx=1,
+        kv_start=lo, kv_end=hi, sink_end=sink, static_hi=static_hi,
+        num_heads=N, tq=tiles[0], tk=tiles[1], tf=tiles[2])
+    _close(out, ref, INT8QK_TOL)
+
+
+def test_int8qk_k_scale_spans_masked_rows_like_pallas():
+    """Cache rows past kv_end inside a live tile are masked, yet they set
+    that tile's k scale: poisoning them moves the TPU kernel's output,
+    and the plain version moves with it (the same scale domain)."""
+    rng = np.random.default_rng(12)
+    B, N, D, Lq, Lf, S = 1, 2, 128, 120, 100, 640
+    q, kc, vc, kn, vn = _decode_inputs(rng, B, N, D, Lq, Lf, S)
+    q = q * (D ** -0.5 * LOG2E)
+    lo, hi = 64, 300                     # tile [216, 432) is live to 300
+    outs = []
+    for poison in (False, True):
+        kcp = kc.copy()
+        if poison:
+            kcp[1, :, hi:432] = 40.0
+        ref, tiles = _int8qk_pallas(q, kcp, vc, kn, vn, lo, hi, 0, 1, N,
+                                    64, 256)
+        out = ca.decode_fresh_int8qk_ref(
+            *(torch.from_numpy(a) for a in (q, kcp, vc, kn, vn)),
+            layer_idx=1, kv_start=lo, kv_end=hi, num_heads=N, tq=tiles[0],
+            tk=tiles[1], tf=tiles[2])
+        _close(out, ref, INT8QK_TOL)
+        outs.append((out.numpy(), ref))
+    moved = np.abs(outs[1][1] - outs[0][1]).max()
+    assert moved > 1e-3
+    np.testing.assert_allclose(outs[1][0] - outs[0][0],
+                               outs[1][1] - outs[0][1], atol=INT8QK_TOL)
+
+
+def test_decode_tiles_at_the_production_shapes(monkeypatch):
+    """The tiles of the global demo path and of the windowed path at
+    Wan-1.3B (4680 queries and fresh keys a 3-frame block, 12 heads), as
+    the Pallas wrapper picks them: traced with abstract shapes, its inner
+    op replaced by a stub that records the tiles.  q: 6 tiles of 784
+    rows (780 rounded up to a multiple of 8) or 5 of 936."""
+    seen = []
+
+    def stub(q, *args):
+        seen.append(tuple(args[10:13]))
+        return jnp.zeros(q.shape, q.dtype)
+
+    monkeypatch.setattr(pallas_attention, "_decode_fresh_op", stub)
+    for S, align, ws, want in ((32768, None, None, (784, 2048, 1568)),
+                               (37440, 1560, (1560, 12480),
+                                (936, 1560, 1568))):
+        act = jax.ShapeDtypeStruct((1, 4680, 1536), jnp.bfloat16)
+        cache = jax.ShapeDtypeStruct((30, 12, S, 128), jnp.bfloat16)
+        jax.eval_shape(lambda q, kc, vc, kn, vn: decode_attention_fresh_pallas(
+            q, kc, vc, kn, vn, jnp.int32(0), jnp.int32(S // 2), scale=1.0,
+            layer_idx=jnp.int32(3), heads_packed=12, softmax="free",
+            quant="int8qk", sink_end=jnp.int32(0), tk_align=align,
+            window_static=ws), act, cache, cache, act, act)
+        assert seen[-1] == want
+        assert tattn.decode_tiles(4680, S, 4680, "int8qk", "free",
+                                  align) == want
+
+
+def test_int8qk_seam_on_the_cpu():
+    """On the CPU the seam sends int8qk with the free softmax to the
+    plain version (with decode_tiles' tiles) and ignores quant without
+    it, as the JAX package does off the TPU; a window larger than
+    window_static is refused."""
+    rng = np.random.default_rng(13)
+    q, kc, vc, kn, vn = (torch.from_numpy(a) for a in _decode_inputs(
+        rng, 1, 2, 128, 40, 40, 256))
+    q = q * (128 ** -0.5 * LOG2E)
+    args = dict(layer_idx=0, heads_packed=2, sink_end=32)
+    out = tattn.decode_attention_fresh(q, kc, vc, kn, vn, 64, 192,
+                                       scale=1.0, softmax="free",
+                                       quant="int8qk", tk_align=32, **args)
+    tq, tk, tf = tattn.decode_tiles(40, 256, 40, "int8qk", "free", 32)
+    ref = ca.decode_fresh_int8qk_ref(q, kc, vc, kn, vn, layer_idx=0,
+                                     kv_start=64, kv_end=192, sink_end=32,
+                                     num_heads=2, tq=tq, tk=tk, tf=tf)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    base = tattn.decode_attention_fresh(q, kc, vc, kn, vn, 64, 192, **args)
+    torch.testing.assert_close(
+        tattn.decode_attention_fresh(q, kc, vc, kn, vn, 64, 192,
+                                     quant="int8qk", **args), base)
+    with pytest.raises(ValueError):
+        tattn.decode_attention_fresh(q, kc, vc, kn, vn, 32, 192, scale=1.0,
+                                     softmax="free", quant="int8qk",
+                                     window_static=(32, 128), **args)

@@ -10,6 +10,7 @@ a machine with the card (where JAX is not installed) run them with
 import pytest
 import torch
 
+from self_forcing_tpu_torch.ops import attention
 from self_forcing_tpu_torch.ops import cuda_attention as ca
 from self_forcing_tpu_torch.ops import cuda_matmul as cm
 from self_forcing_tpu_torch.ops import quant
@@ -78,6 +79,99 @@ def test_cross_attention_matches_plain(dev, B, N, Lq, Lk):
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) < 2e-3
+
+
+# (B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles or tk_align)
+INT8QK_CASES = {
+    # ragged Lq and Lf against 100-row q tiles and 96-row fresh tiles;
+    # 216-row cache tiles, the last one past S
+    "ragged": (2, 2, 130, 70, 640, 64, 300, 0, None, (100, 216, 96)),
+    # sink + window, frame-aligned windowed tiles (tk_align 64 -> 128)
+    "sink_window": (1, 3, 150, 150, 640, 320, 576, 64, None, 64),
+    # the global tiles of decode_tiles (264, 224, 224): 64-key CUDA tiles
+    # straddle two cache tiles; static_hi inside the window
+    "global": (1, 2, 260, 200, 1100, 0, 700, 0, 650, None),
+}
+
+
+def _int8qk_tiles(case, Lq, S, Lf):
+    tiles = INT8QK_CASES[case][-1]
+    if isinstance(tiles, tuple):
+        return tiles
+    return attention.decode_tiles(Lq, S, Lf, "int8qk", "free", tiles,
+                                  tk=256)
+
+
+def _int8qk_inputs(g, dev, B, N, Lq, Lf, S):
+    D = 128
+    q = _bf16(g, B, Lq, N * D, dev=dev, scale=D ** -0.5 * 1.4427)
+    kc = _bf16(g, 3, B * N, S, D, dev=dev)
+    vc = _bf16(g, 3, B * N, S, D, dev=dev)
+    kn = _bf16(g, B, Lf, N * D, dev=dev)
+    vn = _bf16(g, B, Lf, N * D, dev=dev)
+    return q, kc, vc, kn, vn
+
+
+@pytest.mark.parametrize("case", list(INT8QK_CASES))
+def test_decode_fresh_int8qk_matches_plain(dev, case):
+    """The pre-pass gives the plain version's int8 values and scales
+    exactly (true division, half to even; the dead cache tiles' rows are
+    not written and not compared).  The attention: 1e-2 relative L2, as
+    decode_fresh_free (both round p to bf16; the scores are exact
+    integers times the same scales, but exp2 differs by an ulp)."""
+    B, N, Lq, Lf, S, lo, hi, sink, static_hi, _ = INT8QK_CASES[case]
+    tq, tk, tf = _int8qk_tiles(case, Lq, S, Lf)
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, kc, vc, kn, vn = _int8qk_inputs(g, dev, B, N, Lq, Lf, S)
+    win = dict(layer_idx=1, kv_start=lo, kv_end=hi, sink_end=sink,
+               static_hi=static_hi, num_heads=N, tq=tq, tk=tk, tf=tf)
+    qq = ca.int8qk_quantize(q, kc, kn, **win)
+    qq_ref = ca.int8qk_quantize_ref(q, kc, kn, **win)
+    torch.cuda.synchronize()
+    live = torch.tensor(ca.live_cache_tiles(qq.ksc.shape[1], tk, lo, hi,
+                                            sink), device=dev)
+    rows = live.repeat_interleave(tk)
+    for name in ("q8", "qs", "ksc", "kn8", "ksf"):
+        torch.testing.assert_close(getattr(qq, name), getattr(qq_ref, name),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(qq.kc8[:, rows], qq_ref.kc8[:, rows], rtol=0,
+                               atol=0)
+    out = ca.decode_fresh_int8qk(q, kc, vc, kn, vn, **win)
+    ref = ca.decode_fresh_int8qk_ref(q, kc, vc, kn, vn, **win)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+
+
+def test_int8qk_dead_gap_does_not_move_the_output(dev):
+    """Poison in the dead gap [sink_end, kv_start) (whole frame-aligned
+    tiles) is never read: the output stays bit for bit."""
+    B, N, Lq, Lf, S = 1, 2, 150, 150, 640
+    tq, tk, tf = attention.decode_tiles(Lq, S, Lf, "int8qk", "free", 64,
+                                        tk=256)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, kc, vc, kn, vn = _int8qk_inputs(g, dev, B, N, Lq, Lf, S)
+    win = dict(layer_idx=2, kv_start=384, kv_end=640, sink_end=128,
+               num_heads=N, tq=tq, tk=tk, tf=tf)
+    out = ca.decode_fresh_int8qk(q, kc, vc, kn, vn, **win)
+    kc[2, :, 128:384] = 1e4
+    vc[2, :, 128:384] = float("nan")
+    poisoned = ca.decode_fresh_int8qk(q, kc, vc, kn, vn, **win)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(poisoned, out, rtol=0, atol=0)
+
+
+def test_seam_refuses_unported_quant_modes(dev):
+    q = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros(2, 2, 64, 128, dtype=torch.bfloat16, device=dev)
+    args = dict(layer_idx=0, heads_packed=2, scale=1.0)
+    with pytest.raises(NotImplementedError):
+        attention.decode_attention_fresh(q, kc, kc, q, q, 0, 8,
+                                         softmax="free", quant="int8",
+                                         **args)
+    with pytest.raises(NotImplementedError):
+        attention.decode_attention_fresh(q, kc, kc, q, q, 0, 8,
+                                         quant="int8qk", **args)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -113,7 +113,13 @@ def test_free_softmax_fold_matches_plain_path(monkeypatch):
     torch.testing.assert_close(flows[1], flows[0], rtol=1e-5, atol=1e-5)
 
 
-def test_windowed_config_is_refused():
-    cfg = dataclasses.replace(WAN_TINY, local_attn_size=4)
-    with pytest.raises(NotImplementedError):
-        tdit.init_kv_cache(cfg, 1, FS, 21, torch.float32, "cpu")
+@pytest.mark.parametrize("buffer", [None, 6])
+def test_windowed_cache_has_the_jax_shape(buffer):
+    """A windowed config's cache is sized by its buffer (the window when
+    windowed_buffer_frames is None), as the JAX package's is."""
+    cfg = dataclasses.replace(WAN_TINY, local_attn_size=4, sink_size=1,
+                              windowed_buffer_frames=buffer)
+    tcache = tdit.init_kv_cache(cfg, 1, FS, 21, torch.float32, "cpu")
+    jcache = jdit.init_kv_cache(_jcfg(cfg), 1, FS, 21, jnp.float32)
+    assert tuple(tcache.k.shape) == jcache.k.shape
+    assert tcache.k.shape[2] == (buffer or 4) * FS
