@@ -9,8 +9,10 @@ Phases, each printing one line or more (any failure exits non-zero):
    of its paths: the bf16 decode and cross attention of the streaming
    sampler, the int8-QK decode attention (pre-pass and attention) at the
    global demo window and at the windowed steady state, the W8A8 linears
-   (M = 4680 tokens, dim 1536, ffn 8960); timed with CUDA events (median
-   of 7) beside its bound and one PyTorch library call;
+   (M = 4680 tokens, dim 1536, ffn 8960), the training path's flash
+   attention forward and its dq / dk-dv backward (L = 32760 tokens, 12
+   heads, no mask and the 7-block block-causal mask); timed with CUDA
+   events (median of 7) beside its bound and one PyTorch library call;
 3. one full-width DiT forward (block 2, so the cache is read) with the
    kernels and with their plain versions, same weights and inputs;
 4. the streaming sampler at full Wan-1.3B width (random weights from the
@@ -31,6 +33,16 @@ phase 4 decodes each block with the stateful TAEHV streamer).
    run, then a timed run with steady-state DiT and TAEHV ms per block
    and the frame rates with and without the decode, the compactions, one
    forward kernels vs plain at the compacted state, and phase 5.
+7. The training path: ``ScoreDistillationTrainer`` with
+   ``configs/self_forcing_dmd.yaml`` (Self-Forcing DMD: 21 latent frames
+   of 60x104 in 7 blocks, steps [1000, 750, 500, 250] warped, guidance
+   3.0, LoRA rank 128, bf16) at full Wan-1.3B width and depth, random
+   weights, pseudo text context: two
+   ``train_step``s (generator + critic, then critic only) with per-phase
+   ms, peak memory, losses and grad norms, the parameters that moved and
+   the flash kernels' launch counts; then one critic-loss gradient at
+   full width and 2 layers with the kernels and with their plain
+   versions.
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -57,11 +69,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 LQ = 3 * 1560          # tokens of one 3-frame block at 60x104 latents
+SEQ_TRAIN = 21 * 1560  # tokens of the 21-frame training sequence
 N_HEADS, HEAD_DIM, N_LAYERS = 12, 128, 30
 S_CACHE = 32768        # 21 frames * 1560 tokens rounded up to 2048
 LAST_KV_END = 18 * 1560  # cache tokens before the 7th block
 DIM, FFN, N_CTX = 1536, 8960, 512
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 
 # the kernels each path launches
@@ -176,6 +190,7 @@ def phase_kernels(ca, g) -> dict:
             bound_by=b_by)
     table["decode_fresh_free"]["max_abs_err"] = max(maes)
     table.update(phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g))
+    phase_attention_backward(ca, q, kc, vc, kn, vn, g)
     del kc, vc, kn, vn
 
     Lk = 512
@@ -202,6 +217,38 @@ def phase_kernels(ca, g) -> dict:
                                     library_ms=lib_ms, bound_ms=b_ms,
                                     bound_by=b_by, max_abs_err=mae)
     return table
+
+
+def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
+    """The plain-PyTorch backward of the decode and cross attention (the
+    JAX package's is XLA; no kernel replaces it yet), timed at the
+    training rollout's shapes: a block's 4680 queries onto the fresh K/V
+    alone (block 1) and onto 28080 cached keys as well (block 7), in
+    fp32 as the gradient of the free softmax at ln 2; the cross attention
+    onto 512 text tokens for 4680 (the rollout) and 32760 (the score
+    models) queries."""
+    D, N = HEAD_DIM, N_HEADS
+    go = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END)):
+        ms = time_ms(lambda: ca.decode_fresh_bwd(
+            q, kc, vc, kn, vn, go, layer_idx=7, kv_start=0, kv_end=kv_end,
+            num_heads=N, scale=math.log(2.0)), reps=3)
+        keys = kv_end + LQ
+        flops = 5 * 2.0 * LQ * keys * D * N
+        print(f"plain backward decode_fresh_bwd {label} (keys {keys}): "
+              f"ms={ms:.4f} bound_ms={flops / PEAK_F32_FLOPS * 1e3:.4f} "
+              f"(5 fp32 products at the f32 peak)", flush=True)
+    k = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
+    v = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
+    for Lq in (LQ, SEQ_TRAIN):
+        qx = torch.randn(1, Lq, N * D, generator=g, device="cuda").to(
+            q.dtype)
+        gx = torch.randn(1, Lq, N * D, generator=g, device="cuda").to(
+            q.dtype)
+        ms = time_ms(lambda: ca.cross_attention_bwd(qx, k, v, gx,
+                                                    num_heads=N), reps=3)
+        print(f"plain backward cross_attention_bwd (Lq={Lq}, Lk={N_CTX}): "
+              f"ms={ms:.4f}", flush=True)
 
 
 def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
@@ -437,6 +484,94 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
                           cm.w8a8_ffn_ref(x, None, *args), tol=1e-2)
     print(f"kernel w8a8_ffn (fc1 then fc2, {M}x{DIM}x{FFN}x{DIM}): "
           f"rel_l2={err:.3e}", flush=True)
+    return table
+
+
+def phase_flash_kernels(ca, masks, g) -> dict:
+    """The training path's flash kernels against their plain versions at
+    B 1, L 32760, 12 heads of 128 in bf16 (q carrying the folded
+    head_dim**-0.5 * log2(e)), with no mask (the DMD path's score models)
+    and with the 7-block block-causal mask of 3-frame blocks.  Tolerance
+    1e-2 relative L2 for out (both round p to bf16), 2e-2 for dq, dk, dv
+    (both round p and ds to bf16 for the products; ds is a difference of
+    near-equal terms, so its rounding may differ by an ulp), 1e-3 absolute
+    for lse (fp32 sums).  Library yardsticks: SDPA forward on the same
+    inputs at scale ln 2 (base-2 scores), and SDPA's backward (one
+    autograd call computing dq, dk and dv) for both backward kernels;
+    none under the mask, which SDPA takes only as a dense [L, L] mask."""
+    dev, bf = "cuda", torch.bfloat16
+    D, N, L = HEAD_DIM, N_HEADS, SEQ_TRAIN
+    q = (torch.randn(1, L, N, D, generator=g, device=dev)
+         * (D ** -0.5 * 1.4426950408889634)).to(bf)
+    k, v, do = (torch.randn(1, L, N, D, generator=g, device=dev, dtype=bf)
+                for _ in range(3))
+    table = {}
+    for label, mask in (("no mask", None),
+                        ("block-causal 7x3 frames",
+                         masks.block_causal_mask(21, 1560, 3))):
+        frac = 1.0 if mask is None else float(
+            (mask.end1 - mask.start1).astype("int64").sum()
+            + (mask.end2 - mask.start2).astype("int64").sum()) / L / L
+        out, lse = ca.flash_fwd(q, k, v, mask)
+        ref, ref_lse = ca.flash_fwd_ref(q, k, v, mask)
+        err, mae = check_kernel("flash_fwd", out, ref)
+        lse_err = float((lse - ref_lse).abs().max())
+        if lse_err > 1e-3:
+            fail(f"flash_fwd: lse max abs error {lse_err:.3e} > 1e-3")
+        delta = ca.flash_delta(ref, do)
+        args = (q, k, v, do, ref_lse, delta, mask)
+        dq_err, dq_mae = check_kernel("flash_bwd_dq", ca.flash_bwd_dq(*args),
+                                      ca.flash_bwd_dq_ref(*args), tol=2e-2)
+        dk, dv = ca.flash_bwd_dkv(*args)
+        dk_r, dv_r = ca.flash_bwd_dkv_ref(*args)
+        dk_err, dk_mae = check_kernel("flash_bwd_dkv dk", dk, dk_r, tol=2e-2)
+        dv_err, dv_mae = check_kernel("flash_bwd_dkv dv", dv, dv_r, tol=2e-2)
+        del out, ref, dk, dv, dk_r, dv_r
+
+        prod = 2.0 * L * L * D * N * frac    # one product over the pairs
+        row_bytes = 2.0 * L * N * D          # one [1, L, 12, 128] bf16
+        fwd_ms = time_ms(lambda: ca.flash_fwd(q, k, v, mask))
+        dq_ms = time_ms(lambda: ca.flash_bwd_dq(*args))
+        dkv_ms = time_ms(lambda: ca.flash_bwd_dkv(*args))
+        plain = [time_ms(lambda: fn(*a), reps=3) for fn, a in (
+            (ca.flash_fwd_ref, (q, k, v, mask)), (ca.flash_bwd_dq_ref, args),
+            (ca.flash_bwd_dkv_ref, args))]
+        lib_fwd = lib_bwd = None
+        if mask is None:
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=math.log(2.0)))
+            qg, kg, vg = (t.detach().requires_grad_(True)
+                          for t in (qh, kh, vh))
+            o = F.scaled_dot_product_attention(qg, kg, vg,
+                                               scale=math.log(2.0))
+            dh = do.transpose(1, 2)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), dh, retain_graph=True))
+            del o, qg, kg, vg
+        # bound: operations at the bf16 peak (2 products forward, 3 for
+        # dq: s, dp, ds.k, 4 for dk/dv: s, dp, p.do, ds.q) against each
+        # input read once and each output written once
+        rows = [("flash_fwd", fwd_ms, plain[0], lib_fwd, 2 * prod,
+                 4 * row_bytes + 4.0 * L * N, err, mae),
+                ("flash_bwd_dq", dq_ms, plain[1], lib_bwd, 3 * prod,
+                 5 * row_bytes + 8.0 * L * N, dq_err, dq_mae),
+                ("flash_bwd_dkv", dkv_ms, plain[2], lib_bwd, 4 * prod,
+                 6 * row_bytes + 8.0 * L * N, max(dk_err, dv_err),
+                 max(dk_mae, dv_mae))]
+        for name, ms, pms, lms, ops, nbytes, e, m in rows:
+            b_ms, b_by = bound(ops, nbytes)
+            lib = "none" if lms is None else f"{lms:.4f}"
+            print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}): "
+                  f"rel_l2={e:.3e} max_abs={m:.3e} ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} sdpa_ms={lib} bound_ms={b_ms:.4f} "
+                  f"({b_by}) tflops={ops / ms / 1e9:.1f}", flush=True)
+            if mask is None:   # the DMD path's shape is the table's row
+                table[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   max_abs_err=m)
+        print(f"flash {label}: lse max_abs={lse_err:.3e} dk rel_l2="
+              f"{dk_err:.3e} dv rel_l2={dv_err:.3e}", flush=True)
     return table
 
 
@@ -794,6 +929,148 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
                     tae, lat, state, trim=False)))
 
 
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "decode_fresh_free", "cross_attention")
+# flash launches a train step: the generator update's 3 score forwards
+# (real with CFG, fake) of 30 layers; the critic's fake-score forward,
+# its per-layer recomputation and the backward
+GEN_FLASH = {"flash_fwd": 3, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+CRITIC_FLASH = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def _randomize_heads(models, seed):
+    """Random output layers (zero at init), so every score and flow
+    depends on every layer and the DMD gradient is not zero."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for p in models:
+        w = p["head"]["head"]["w"]
+        w.copy_(torch.randn(w.shape, generator=g, device="cuda")
+                * w.shape[0] ** -0.5)
+
+
+def _norms(leaves):
+    return [float(torch.linalg.vector_norm(t.detach().float()))
+            for t in leaves]
+
+
+def phase_training(ca, seed: int) -> dict:
+    """Self-Forcing DMD training at full Wan-1.3B width and depth (the
+    config of ``configs/self_forcing_dmd.yaml``): two train steps through
+    ``ScoreDistillationTrainer`` (step 0 updates the generator and the
+    critic, step 1 the critic), launch counts reset just before and read
+    just after.  Returns the launches."""
+    from self_forcing_tpu_torch import train
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.training.trainer_distillation import (
+        ScoreDistillationTrainer)
+    config = load_config(os.path.join(CONFIGS, "self_forcing_dmd.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.seed = seed
+    cfg0, gen, fake, real = train.build_models(
+        config, torch.bfloat16, torch.device("cuda"))
+    layers = cfg0.num_layers
+    with torch.no_grad():
+        _randomize_heads((gen, fake, real), seed + 7)
+    context_fn = train.make_context_fn(config, cfg0, torch.device("cuda"))
+    neg = context_fn([str(config.negative_prompt)])
+    trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg0, cfg0,
+                                       cfg0, neg, device="cuda",
+                                       timing=True)
+    batches = train.prompt_batches(config, 1)
+    gen_before, fake_before = (_norms(trainer.gen_leaves),
+                               _norms(trainer.fake_leaves))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {k: 0 for k in ca.launch_counts}
+    for step in range(2):
+        ctx = context_fn(next(batches))
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = trainer.train_step({"context": ctx})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(ca.launch_counts)
+        for k, v in got.items():
+            launches[k] += v
+        want = dict(CRITIC_FLASH)
+        if step == 0:
+            want = {k: want[k] + GEN_FLASH[k] for k in want}
+        want = {k: n * layers for k, n in want.items()}
+        if any(got[k] != n for k, n in want.items()):
+            fail(f"train step {step}: flash launches "
+                 f"{ {k: got[k] for k in want} }, expected {want}")
+        bad = [k for k, v in log.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"train step {step}: non-finite {bad}")
+        split = {k: round(v, 1) for k, v in log.items() if k.endswith("_ms")}
+        vals = {k: round(v, 6) for k, v in log.items()
+                if not k.endswith("_ms")}
+        print(f"train step {step} (Wan-1.3B width, {layers} layers, DMD, "
+              f"21 frames 60x104, LoRA rank {config.lora_rank}): "
+              f"step_ms={ms:.1f} split_ms={split} {vals} "
+              f"launches={ {k: got[k] for k in TRAIN_KERNELS} } "
+              f"(host clock, synchronised per phase)", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved_g = sum(a != b for a, b in zip(gen_before,
+                                         _norms(trainer.gen_leaves)))
+    moved_f = sum(a != b for a, b in zip(fake_before,
+                                         _norms(trainer.fake_leaves)))
+    print(f"training: peak_mem_gb={peak_gb:.2f} generator leaves moved "
+          f"{moved_g}/{len(gen_before)} critic leaves moved "
+          f"{moved_f}/{len(fake_before)}", flush=True)
+    if not moved_g or not moved_f:
+        fail("training: the generator or the critic did not move")
+    check_launches("training", launches, TRAIN_KERNELS)
+    return launches
+
+
+def phase_training_grad(dit, seed: int) -> None:
+    """One critic-loss gradient at full Wan-1.3B width and 2 layers, with
+    the kernels and with their plain versions, the same draws (one
+    generator seed).  Tolerance 1e-2 relative L2 over all the critic's
+    leaves: the kernels round p and ds to bf16 where the plain versions
+    round the same values (each within ~4e-3, an ulp of bf16), and the
+    no-grad rollout feeding the loss carries the decode kernels'
+    rounding of their bf16 operands."""
+    from self_forcing_tpu_torch import train
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.training.objectives import dmd
+    from self_forcing_tpu_torch.training.trainer_distillation import (
+        ScoreDistillationTrainer)
+    config = load_config(os.path.join(CONFIGS, "self_forcing_dmd.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.update(seed=seed, lora_rank=0)
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    gen, fake, real = (dit.init_params(cfg, seed + i, torch.bfloat16, "cuda",
+                                       causal=i == 0) for i in range(3))
+    with torch.no_grad():
+        _randomize_heads((gen, fake, real), seed + 8)
+    ctx = train.make_context_fn(config, cfg, torch.device("cuda"))(["a cat"])
+    trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg, cfg,
+                                       cfg, ctx, device="cuda")
+    noise = torch.randn(1, 21, 16, 60, 104, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    grads = []
+    for kernels in (True, False):
+        g = torch.Generator("cuda").manual_seed(seed + 9)
+        loss, _ = dmd.critic_loss(trainer.bundle, trainer.obj, gen, fake,
+                                  noise, ctx, ctx, 2, generator=g,
+                                  kernels=kernels)
+        gr = torch.autograd.grad(loss, trainer.fake_leaves, allow_unused=True)
+        grads.append((float(loss.detach()), torch.cat(
+            [x.float().flatten() for x in gr if x is not None])))
+        del gr
+    (lk, gk), (lp, gp) = grads
+    err = rel_l2(gk, gp)
+    print(f"critic-loss gradient (Wan-1.3B width, 2 layers, exit 2): loss "
+          f"kernels={lk:.6f} plain={lp:.6f} grad rel_l2={err:.3e} "
+          f"grad_norm={float(gk.norm()):.4e}", flush=True)
+    if not math.isfinite(err) or err > 1e-2:
+        fail(f"critic-loss gradient: kernels vs plain relative L2 "
+             f"{err:.3e} > 1e-2")
+
+
 def profile_ms(fn) -> tuple[float, list]:
     """Wall time of ``fn`` (ending in a synchronize) and the CUDA kernels
     it ran, [(name, device ms)] by device time, from torch.profiler."""
@@ -861,7 +1138,7 @@ def main() -> None:
     from self_forcing_tpu_torch.models.wan import dit, vae
     from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
     from self_forcing_tpu_torch.models.wan.rope import RopeTables
-    from self_forcing_tpu_torch.ops import build, quant
+    from self_forcing_tpu_torch.ops import build, masks, quant
     from self_forcing_tpu_torch.ops.chip import chip_defaults
     from self_forcing_tpu_torch.ops import cuda_attention as ca
     from self_forcing_tpu_torch.ops import cuda_matmul as cm
@@ -893,6 +1170,8 @@ def main() -> None:
     table = phase_kernels(ca, g)
     torch.cuda.empty_cache()
     table.update(phase_w8a8_kernels(cm, quant, g))
+    torch.cuda.empty_cache()
+    table.update(phase_flash_kernels(ca, masks, g))
     torch.cuda.empty_cache()
     if a.kernels_only:
         print("kernels only: the main path was not run", flush=True)
@@ -935,7 +1214,17 @@ def main() -> None:
     win_last = phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg_w, qparams,
                               a.seed)
     phase_profile(dit, cfg_w, qparams, win_last, "windowed")
-    del win_last
+    del win_last, qparams
+    torch.cuda.empty_cache()
+
+    # 7. the training path, with float32 products in TF32 as train.py
+    # runs them
+    torch.backends.cuda.matmul.allow_tf32 = True
+    train_launches = phase_training(ca, a.seed)
+    launches.update({k: train_launches[k] for k in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    torch.cuda.empty_cache()
+    phase_training_grad(dit, a.seed)
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
@@ -949,7 +1238,11 @@ def main() -> None:
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
                "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),
                "w8a8_ffn1": (csrc + "w8a8.cu", w8a8 + ":71"),
-               "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117")}
+               "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117"),
+               "flash_fwd": (csrc + "flash_attention.cu", attn + ":1367"),
+               "flash_bwd_dq": (csrc + "flash_attention.cu", attn + ":1610"),
+               "flash_bwd_dkv": (csrc + "flash_attention.cu",
+                                 attn + ":1668")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name]

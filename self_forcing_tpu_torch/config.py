@@ -1,14 +1,17 @@
-"""Config dict with attribute access.
+"""Config dict with attribute access, and YAML loading.
 
-The port's own copy of the ``Config`` of ``self_forcing_tpu/config.py``:
-a dict read with attribute syntax plus ``getattr(config, key, default)``
-at use sites (the pipeline's ``args``).  YAML loading and merging come
-with the port's entry points.
+The port's own copy of ``self_forcing_tpu/config.py``: a dict read with
+attribute syntax plus ``getattr(config, key, default)`` at use sites, and
+``load_config``, an experiment YAML merged over the default config
+(PyYAML, present on both the CPU and the card's machine).
 """
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Mapping
+
+import yaml
 
 
 class Config(dict):
@@ -56,3 +59,28 @@ def _wrap(value: Any) -> Any:
     if isinstance(value, (list, tuple)):
         return type(value)(_wrap(v) for v in value)
     return value
+
+
+def merge(base: Mapping[str, Any], override: Mapping[str, Any]) -> Config:
+    """Recursive merge: ``override`` wins, dicts merge key-wise."""
+    out = Config(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], Mapping) and isinstance(v, Mapping):
+            out[k] = merge(out[k], v)
+        else:
+            out[k] = _wrap(v)
+    return out
+
+
+def load_yaml(path: str) -> Config:
+    with open(path) as f:
+        return Config(yaml.safe_load(f) or {})
+
+
+def load_config(config_path: str, default_path: str | None = None) -> Config:
+    """An experiment config merged over the default config (when that
+    file exists)."""
+    cfg = load_yaml(config_path)
+    if default_path is not None and os.path.exists(default_path):
+        cfg = merge(load_yaml(default_path), cfg)
+    return cfg

@@ -76,6 +76,18 @@ class WanConfig:
         return bf
 
 
+def apply_model_kwargs(cfg: WanConfig, config) -> WanConfig:
+    """Overlay the YAML config's ``model_kwargs`` architecture keys that
+    are WanConfig fields (the windowed-streaming, block and attention
+    knobs) onto ``cfg``."""
+    mk = getattr(config, "model_kwargs", None) or {}
+    fields = {"local_attn_size", "sink_size", "windowed_buffer_frames",
+              "num_frame_per_block", "independent_first_frame",
+              "attn_quant", "attn_softmax"}
+    over = {k: v for k, v in dict(mk).items() if k in fields}
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
 WAN_1_3B = WanConfig()
 
 WAN_14B = WanConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)

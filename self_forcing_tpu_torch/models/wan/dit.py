@@ -1,5 +1,5 @@
-"""Wan2.1 block-causal DiT, inference half (port of
-``self_forcing_tpu/models/wan/dit.py``).
+"""Wan2.1 block-causal DiT (port of ``self_forcing_tpu/models/wan/dit.py``):
+the KV-cached streaming forward and the training forward.
 
 Parameters are a plain dict with the JAX package's keys; the transformer
 blocks are stacked on axis 0 and linear weights are [in, out] (``x @ w +
@@ -21,22 +21,41 @@ scan is a Python loop, the cache indices are Python ints, and the KV
 cache tensors are updated in place (the returned ``KVCache`` shares them,
 so only the returned cache may be used afterwards, as with the JAX
 package's donated buffers).
+
+``forward_train`` is the no-cache forward of the score models and the
+teacher-forcing generator: full-sequence self-attention under an
+``IntervalMask`` (or none), through the flash attention of
+``ops/attention.py`` (the flash kernels on CUDA with the free softmax).
+Under autograd the stacked block parameters are split once per forward
+(:func:`split_layers`), and ``remat=True`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
+package's per-layer ``jax.checkpoint`` does.
+
+Activations take the dtype ``jnp`` promotion gives them: float32 latents
+or text context over bf16 weights run a float32 residual stream with
+float32 linears, as the JAX trainer does.  The attention kernels take
+bf16 operands; ``ops/attention.py`` rounds them at the kernels' inputs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import (RopeTables,
                                                     sinusoidal_embedding_1d)
 from self_forcing_tpu_torch.ops import quant
 from self_forcing_tpu_torch.ops.attention import (cross_attention,
-                                                  decode_attention_fresh)
+                                                  decode_attention_fresh,
+                                                  flash_attention)
+from self_forcing_tpu_torch.ops.masks import IntervalMask
+from self_forcing_tpu_torch.utils import tree
 
 Params = dict
 
@@ -48,14 +67,31 @@ LOG2E = 1.4426950408889634  # the offset-free softmax works in base 2
 # =====================================================================
 
 def linear(p: Params, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-    """x @ w + b, or the quantized linear for a quantized weight key
-    (``kernels=False``: the W8A8 kernels' plain versions on CUDA)."""
+    """x @ w + b (+ the LoRA term ``(x @ lora_A) @ lora_B * lora_scale``),
+    or the quantized linear for a quantized weight key (``kernels=False``:
+    the W8A8 kernels' plain versions on CUDA).  Each product runs in the
+    promoted dtype of its operands, as ``jnp`` promotes: float32
+    activations over bf16 weights stay float32, and float32 adapters make
+    a bf16 linear's output float32."""
     if "w_q" in p or "w_qa" in p or "w_f8" in p:
         return quant.quantized_linear(p, x, kernels)
-    out = x @ p["w"]
+    out = _matmul(x, p["w"])
     if "b" in p:
         out = out + p["b"]
+    if "lora_A" in p:
+        delta = _matmul(_matmul(x, p["lora_A"]), p["lora_B"])
+        out = out + delta * p["lora_scale"]
     return out
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _param_dtype(params: Params) -> torch.dtype:
+    """The parameters' dtype (of a leaf never quantized)."""
+    return params["head"]["modulation"].dtype
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -131,10 +167,14 @@ def _stack(trees: list) -> Params:
 
 
 def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
-                device: str | torch.device = "cuda") -> Params:
+                device: str | torch.device = "cuda",
+                causal: bool = True) -> Params:
     """Random t2v DiT parameters (blocks stacked on axis 0), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  As in the
-    JAX package the output layer starts at zero."""
+    JAX package the output layer starts at zero, and a causal model
+    (the generator) carries the pose-conditioning projection 5120 -> dim
+    (``pose_proj``, absent when dim is 5120), which the optimizer's weight
+    decay moves even without a gradient."""
     if cfg.model_type != "t2v":
         raise NotImplementedError("only the t2v model is ported")
     g = torch.Generator(device=device).manual_seed(seed)
@@ -157,13 +197,24 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
     }
     params["blocks"] = _stack([_block_init(g, cfg, dtype, device)
                                for _ in range(cfg.num_layers)])
+    if causal and d != 5120:
+        params["pose_proj"] = _linear_init(g, 5120, d, dtype, device)
     return params
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s parameters out of the stacked block tree (views)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
+def split_layers(blocks: Params) -> list[Params]:
+    """Every layer's parameters out of the stacked block tree, from one
+    ``unbind`` of each leaf: under autograd the stacked gradient is then
+    assembled once per forward, where an index per layer would build a
+    zero tensor the size of the whole stack for every layer."""
+    per = tree.map_tree(lambda t: t.unbind(0), blocks)
+    return [_pick(per, i) for i in range(len(tree.leaves(blocks)[0]))]
+
+
+def _pick(node, i: int):
+    if isinstance(node, dict):
+        return {k: _pick(v, i) for k, v in node.items()}
+    return node[i]
 
 
 # =====================================================================
@@ -324,8 +375,7 @@ def precompute_context(params: Params, cfg: WanConfig,
     [layers, B, Lc, N, D] under "k_txt" / "v_txt"."""
     ctx = embed_text(params, cfg, context)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = layer_params(params["blocks"]["cross_attn"], i)
+    for p in split_layers(params["blocks"]["cross_attn"]):
         k = linear(p["k"], ctx)
         if cfg.qk_norm:
             k = rms_norm(k, p["norm_k"]["w"], cfg.eps)
@@ -583,7 +633,8 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
                       static_kv_hi: int | None = None,
                       write_cache: bool = True,
                       assume_compacted: bool = False,
-                      kernels: bool = True) -> tuple[torch.Tensor, KVCache]:
+                      kernels: bool = True,
+                      remat: bool = False) -> tuple[torch.Tensor, KVCache]:
     """KV-cached streaming forward of one chunk.
 
     x: [B, F_blk, C, H, W]; t: [B, F_blk]; ``ctx_kv`` from
@@ -603,7 +654,10 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     the sink frames and the recent window.
 
     ``kernels=False`` runs the attention and the W8A8 linears through the
-    kernels' plain versions on CUDA.
+    kernels' plain versions on CUDA.  ``remat=True`` checkpoints each
+    layer (a with-grad forward recomputes it in the backward); the cache
+    is read by reference, so it must not be written inside the window
+    before the backward.
     Returns (flow_pred [B, F_blk, C, H, W], cache)."""
     tokens, grid = patchify(params, cfg, x)
     Fb, h, w = grid
@@ -636,11 +690,12 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
         write_at = local_end - Lq
         attn_lo = max(0, local_end - cfg.max_attention_size(frame_seqlen))
 
-    for li in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], li)
-        layer_ctx = {"k_txt": ctx_kv["k_txt"][li],
-                     "v_txt": ctx_kv["v_txt"][li]}
-        tokens, k_new, v_new = _block_decode_fresh(
+    block = (partial(checkpoint, _block_decode_fresh, use_reentrant=False)
+             if remat else _block_decode_fresh)
+    kts, vts = ctx_kv["k_txt"].unbind(0), ctx_kv["v_txt"].unbind(0)
+    for li, bp in enumerate(split_layers(params["blocks"])):
+        layer_ctx = {"k_txt": kts[li], "v_txt": vts[li]}
+        tokens, k_new, v_new = block(
             bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
             write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
             emit_kv=write_cache, kernels=kernels, **window)
@@ -655,3 +710,86 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
 
     out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
     return unpatchify(cfg, out_tokens, grid), cache
+
+
+# =====================================================================
+# training forward (no cache)
+# =====================================================================
+
+def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
+                 e0: torch.Tensor, rope_cos: torch.Tensor,
+                 rope_sin: torch.Tensor, mask: IntervalMask | None,
+                 ctx_kv_layer: dict, frame_seqlen: int,
+                 kernels: bool = True) -> torch.Tensor:
+    """One block with full-sequence self-attention under ``mask``.  On
+    CUDA the offset-free softmax runs (head_dim**-0.5 * log2(e) folded
+    into the q-norm gain, the flash kernels at scale 1 with their backward
+    at ln 2); on the CPU the base-e reference at head_dim**-0.5, as the
+    JAX package off the TPU."""
+    mod = bp["modulation"].float()[:, None]
+    e = (mod + e0.float()).to(x.dtype)
+    e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
+    f_shift, f_scale, f_gate = e[:, :, 3:4], e[:, :, 4:5], e[:, :, 5:6]
+
+    xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
+    free = _free_softmax(cfg, x)
+    q_gain = (cfg.head_dim ** -0.5) * LOG2E if free else None
+    q, k, v = _qk_normed(bp["self_attn"], cfg, xn, q_gain, kernels)
+    q = _rope_half(_heads(cfg, q), rope_cos, rope_sin)
+    k = _rope_half(_heads(cfg, k), rope_cos, rope_sin)
+    attn = flash_attention(q, k, _heads(cfg, v), mask,
+                           softmax="free" if free else None, kernels=kernels)
+    B, L = attn.shape[:2]
+    y = linear(bp["self_attn"]["o"],
+               attn.reshape(B, L, cfg.num_heads * cfg.head_dim), kernels)
+    x = x + _gate(y, e_gate, frame_seqlen)
+
+    if "norm3" in bp:
+        xc = layer_norm(x, cfg.eps, bp["norm3"]["w"], bp["norm3"]["b"])
+    else:
+        xc = x
+    x = x + _cross_attention(bp, cfg, xc, ctx_kv_layer, kernels)
+
+    xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
+    return x + _gate(_ffn(bp, xn, kernels), f_gate, frame_seqlen)
+
+
+def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
+                  t: torch.Tensor, context: torch.Tensor,
+                  mask: IntervalMask | None, rope: RopeTables,
+                  clean_x: torch.Tensor | None = None,
+                  aug_t: torch.Tensor | None = None,
+                  remat: bool = True, kernels: bool = True) -> torch.Tensor:
+    """No-cache forward: bidirectional (``mask=None``, the score models)
+    or masked causal training, with the teacher-forcing [clean | noisy]
+    doubled sequence when ``clean_x`` is given (its timestep ``aug_t``,
+    default 0; both halves get the same RoPE positions).
+
+    x: [B, F, C, H, W]; t: [B, F]; context: [B, <=512, text_dim].
+    ``remat``: recompute each layer in the backward.  Returns the flow
+    prediction [B, F, C, H, W]."""
+    tokens, grid = patchify(params, cfg, x)
+    frame_seqlen = grid[1] * grid[2]
+    e, e0 = time_embed(params, cfg, t, tokens.dtype)
+    cos, sin = rope.angles_for_grid(*grid, 0)
+    if clean_x is not None:
+        clean_tokens, _ = patchify(params, cfg, clean_x)
+        tokens = torch.cat([clean_tokens, tokens], dim=1)
+        if aug_t is None:
+            aug_t = torch.zeros_like(t)
+        _, e0_clean = time_embed(params, cfg, aug_t, tokens.dtype)
+        e0 = torch.cat([e0_clean, e0], dim=1)
+        cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
+
+    ctx_kv = precompute_context(params, cfg, context)
+    block = (partial(checkpoint, _block_train, use_reentrant=False)
+             if remat else _block_train)
+    kts, vts = ctx_kv["k_txt"].unbind(0), ctx_kv["v_txt"].unbind(0)
+    for li, bp in enumerate(split_layers(params["blocks"])):
+        tokens = block(bp, cfg, tokens, e0, cos, sin, mask,
+                       {"k_txt": kts[li], "v_txt": vts[li]}, frame_seqlen,
+                       kernels)
+    if clean_x is not None:
+        tokens = tokens[:, tokens.shape[1] // 2:]
+    out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
+    return unpatchify(cfg, out_tokens, grid)

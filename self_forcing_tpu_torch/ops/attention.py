@@ -10,6 +10,20 @@ XLA path: for ``softmax='free'`` they run the base-e softmax at
 (``quant='int8qk'`` with ``softmax='free'``): its result depends on the
 quantization tiles, so on the CPU it runs the kernel's plain version,
 which computes the Pallas kernel's function.
+
+Gradients, as the JAX package's custom VJPs give them: the masked flash
+attention through :class:`FlashAttention` (the flash backward kernels on
+CUDA); the decode and cross attention through autograd functions whose
+backward recomputes the attention in plain PyTorch
+(``cuda_attention.decode_fresh_bwd`` / ``cross_attention_bwd``).  The
+decode backward reads the KV cache by reference, not as a saved tensor:
+the cache is written in place by later blocks, and the rows a backward
+reads must be the ones its forward read (checked at the window's edges).
+
+The kernels take bf16 operands.  Float32 activations (the JAX package's
+promotion of float32 latents over bf16 weights, which the trainer runs)
+are rounded to bf16 at the kernels' inputs and the result is cast back,
+so the gradients flow through both casts.
 """
 from __future__ import annotations
 
@@ -18,6 +32,7 @@ import math
 import torch
 
 from self_forcing_tpu_torch.ops import cuda_attention
+from self_forcing_tpu_torch.ops.masks import IntervalMask
 
 _NEG_INF = -1e30
 
@@ -37,6 +52,45 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _bf16(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The operands of a CUDA kernel, in the kernels' bf16."""
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def _wider(*tensors: torch.Tensor) -> torch.dtype | None:
+    """The promoted dtype of CUDA operands that are not all bf16 (the
+    dtype the result is cast back to), else None."""
+    if not tensors[0].is_cuda or all(t.dtype == torch.bfloat16
+                                     for t in tensors):
+        return None
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+class _CrossAttention(torch.autograd.Function):
+    """Cross attention (heads-packed q) with the recomputing plain
+    backward of ``_cross_op_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kernels):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _cross_dispatch(q, k, v, scale, k.shape[2], kernels)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = cuda_attention.cross_attention_bwd(
+            q, k, v, g.contiguous(), num_heads=k.shape[2], scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None,
                     heads_packed: int | None = None,
@@ -44,6 +98,18 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Cross-attention onto a small static K/V (512 text / 257 image
     tokens).  ``heads_packed=N``: q and the output are [B, Lq, N*D];
     otherwise q is [B, Lq, N, D].  k/v: [B, Lk, N, D]."""
+    wide = _wider(q, k, v) if k.shape[1] <= 1024 else None
+    if wide is not None:
+        return cross_attention(*_bf16(q, k, v), scale, heads_packed,
+                               kernels).to(wide)
+    if _needs_grad(q, k, v):
+        qp = q if heads_packed is not None else q.reshape(*q.shape[:2], -1)
+        out = _CrossAttention.apply(qp, k, v, scale, kernels)
+        return out if heads_packed is not None else out.reshape(q.shape)
+    return _cross_dispatch(q, k, v, scale, heads_packed, kernels)
+
+
+def _cross_dispatch(q, k, v, scale, heads_packed, kernels):
     if q.is_cuda and k.shape[1] <= 1024:
         N = k.shape[2]
         qp = q if heads_packed is not None else q.reshape(*q.shape[:2], -1)
@@ -153,6 +219,86 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(
                 f"window [0, {sk}) + [{kv_start}, {kv_end}) exceeds "
                 f"window_static {window_static}")
+    wide = _wider(q, k_new, v_new)
+    if wide is not None:
+        q_bf, kn_bf, vn_bf = _bf16(q, k_new, v_new)
+        return decode_attention_fresh(
+            q_bf, k_cache, v_cache, kn_bf, vn_bf, kv_start, kv_end, scale,
+            static_hi, layer_idx, heads_packed, softmax, sink_end, quant,
+            tk_align, window_static, kernels).to(wide)
+    args = dict(kv_start=int(kv_start), kv_end=int(kv_end), scale=scale,
+                static_hi=static_hi, layer_idx=layer_idx,
+                heads_packed=heads_packed, softmax=softmax, sink_end=sk,
+                quant=quant, tk_align=tk_align, kernels=kernels)
+    if _needs_grad(q, k_new, v_new):
+        return _DecodeFresh.apply(q, k_new, v_new, k_cache, v_cache, args)
+    return _decode_dispatch(q, k_cache, v_cache, k_new, v_new, **args)
+
+
+def _window_rows(k_cache, v_cache, layer_idx, kv_start, kv_end, sink_end):
+    """Copies of the cache rows at the edges of the visible window of
+    layer ``layer_idx``: a witness that a backward reads the rows its
+    forward read (None for an empty window)."""
+    kc = k_cache[layer_idx] if k_cache.dim() == 4 else k_cache
+    vc = v_cache[layer_idx] if v_cache.dim() == 4 else v_cache
+    S = kc.shape[-2]
+    idx = sorted({i for i in (0, sink_end - 1, kv_start, kv_end - 1)
+                  if 0 <= i < S and (i < sink_end or kv_start <= i < kv_end)})
+    if not idx:
+        return None
+    return torch.stack([kc[..., idx, :], vc[..., idx, :]]).clone()
+
+
+class _DecodeFresh(torch.autograd.Function):
+    """Decode attention with the recomputing plain backward of
+    ``_decode_fresh_op_bwd``.  The cache is held by reference (it is
+    written in place after the forward); gradients go to q, k_new and
+    v_new only, as the cache is stop-gradient in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k_new, v_new, k_cache, v_cache, args):
+        if q.dim() != 3:
+            raise ValueError("the decode attention's gradient takes "
+                             "heads-packed or folded 3-D operands")
+        ctx.save_for_backward(q, k_new, v_new)
+        ctx.cache, ctx.args = (k_cache, v_cache), args
+        li = args["layer_idx"] or 0
+        ctx.witness = _window_rows(k_cache, v_cache, li, args["kv_start"],
+                                   args["kv_end"], args["sink_end"])
+        return _decode_dispatch(q, k_cache, v_cache, k_new, v_new, **args)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_new, v_new = ctx.saved_tensors
+        (k_cache, v_cache), a = ctx.cache, ctx.args
+        li = a["layer_idx"] or 0
+        now = _window_rows(k_cache, v_cache, li, a["kv_start"], a["kv_end"],
+                           a["sink_end"])
+        if (now is None) != (ctx.witness is None) or (
+                now is not None and not torch.equal(now, ctx.witness)):
+            raise RuntimeError(
+                "decode attention backward: the KV cache rows of the "
+                "window changed after the forward (only rows past the "
+                "window may be written before the backward)")
+        N = a["heads_packed"] or 1
+        if a["softmax"] == "free":
+            # base-2 softmax of s * scale == base-e softmax at scale * ln 2
+            scale = (1.0 if a["scale"] is None else a["scale"]) \
+                * math.log(2.0)
+        else:
+            scale = ((q.shape[-1] // N) ** -0.5 if a["scale"] is None
+                     else a["scale"])
+        dq, dkn, dvn = cuda_attention.decode_fresh_bwd(
+            q, k_cache, v_cache, k_new, v_new, g.contiguous(),
+            layer_idx=li, kv_start=a["kv_start"], kv_end=a["kv_end"],
+            sink_end=a["sink_end"], num_heads=N, scale=scale)
+        return dq, dkn, dvn, None, None, None
+
+
+def _decode_dispatch(q, k_cache, v_cache, k_new, v_new, *, kv_start, kv_end,
+                     scale, static_hi, layer_idx, heads_packed, softmax,
+                     sink_end, quant, tk_align, kernels):
+    sk = sink_end
     if q.is_cuda:
         if quant not in (None, "int8qk"):
             raise NotImplementedError(
@@ -226,3 +372,132 @@ def decode_attention_fresh_ref(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bnqk,bknd->bnqd", p, v_all.float())
     out = o / torch.clamp_min(l, 1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+# =====================================================================
+# masked long-sequence attention (training)
+# =====================================================================
+
+def _chunked_online_attention(q, k, v, scale, visible_fn, kv_chunk):
+    """Online-softmax attention over KV chunks (the JAX package's XLA
+    reference).  q: [B, Lq, N, D]; k/v: [B, Lk, N, D];
+    ``visible_fn(kv_idx) -> bool [Lq, C]``.  Returns (out [B, Lq, N, D],
+    lse [B, N, Lq] fp32, 0 where a row saw nothing)."""
+    Lk = k.shape[1]
+    qf = q.transpose(1, 2).float() * scale          # [B, N, Lq, D]
+    kf, vf = k.transpose(1, 2), v.transpose(1, 2)
+    B, N, Lq, D = qf.shape
+    m = torch.full((B, N, Lq, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((B, N, Lq, 1), device=q.device)
+    o = torch.zeros((B, N, Lq, D), device=q.device)
+    for lo in range(0, Lk, kv_chunk):
+        kc, vc = kf[:, :, lo:lo + kv_chunk].float(), \
+            vf[:, :, lo:lo + kv_chunk].float()
+        s = qf @ kc.transpose(-1, -2)
+        idx = torch.arange(lo, lo + kc.shape[2], device=q.device)
+        s = torch.where(visible_fn(idx), s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + p @ vc
+        m = m_new
+    out = (o / torch.clamp_min(l, 1e-30)).transpose(1, 2).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), 0.0)
+    return out, lse[..., 0]
+
+
+def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: IntervalMask | None = None,
+                        scale: float | None = None, kv_chunk: int = 1024,
+                        return_lse: bool = False):
+    """Masked long-sequence attention, chunked online softmax (port of the
+    JAX ``flash_attention_xla``): the CPU route of :func:`flash_attention`.
+    q/k/v: [B, L, N, D]; ``mask`` covers queries [0, Lq) and keys [0, Lk);
+    None is full attention.  ``return_lse``: also the base-e row
+    log-sum-exp [B, N, Lq] the backward needs."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    Lq = q.shape[1]
+    if mask is None:
+        def visible_fn(idx):
+            return torch.ones((Lq, idx.shape[0]), dtype=torch.bool,
+                              device=q.device)
+    else:
+        s1, e1, s2, e2 = (torch.from_numpy(a[:Lq].astype("int64")).to(
+            q.device)[:, None] for a in (mask.start1, mask.end1,
+                                         mask.start2, mask.end2))
+
+        def visible_fn(idx):
+            j = idx[None, :]
+            return ((j >= s1) & (j < e1)) | ((j >= s2) & (j < e2))
+    out, lse = _chunked_online_attention(q, k, v, scale, visible_fn,
+                                         kv_chunk)
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Masked flash attention with the gradient of the JAX package's
+    ``flash_attention_pallas`` custom VJP; saves (q, k, v, out, lse).
+
+    ``free``: the offset-free base-2 forward (q carries head_dim**-0.5 *
+    log2(e)), ``cuda_attention.flash_fwd`` and the backward
+    ``flash_bwd_dq`` / ``flash_bwd_dkv`` at scale ln 2 against the base-e
+    lse (the kernels on CUDA, or their plain versions with
+    ``kernels=False`` and on the CPU).  Otherwise (the CPU route) the
+    online-softmax forward at ``scale`` and the plain backward at it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, free, kernels):
+        ca = cuda_attention
+        if free:
+            out, lse = (ca.flash_fwd if kernels else ca.flash_fwd_ref)(
+                q, k, v, mask)
+            bwd_scale = ca.LN2
+        else:
+            out, lse = flash_attention_xla(q, k, v, mask, scale=scale,
+                                           return_lse=True)
+            bwd_scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask, ctx.scale, ctx.kernels = mask, bwd_scale, kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        ca = cuda_attention
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = ca.flash_delta(out, do)
+        dq_fn, dkv_fn = ((ca.flash_bwd_dq, ca.flash_bwd_dkv) if ctx.kernels
+                         else (ca.flash_bwd_dq_ref, ca.flash_bwd_dkv_ref))
+        dq = dq_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: IntervalMask | None = None,
+                    scale: float | None = None, fixed_m0=None,
+                    softmax: str | None = None,
+                    kernels: bool = True) -> torch.Tensor:
+    """Masked long-sequence self-attention, q/k/v [B, L, N, D], with its
+    gradient.  On CUDA only ``softmax='free'`` is ported (the caller
+    folded head_dim**-0.5 * log2(e) into q): the flash kernels, or with
+    ``kernels=False`` their plain versions; the online and bounded
+    (``fixed_m0``) modes raise.  On the CPU, as the JAX package off the
+    TPU: the online softmax at ``scale`` (``ln 2`` for 'free'; the bound
+    is ignored)."""
+    if softmax not in (None, "free"):
+        raise ValueError(f"unknown flash softmax {softmax!r}")
+    if q.is_cuda:
+        if softmax != "free" or fixed_m0 is not None:
+            raise NotImplementedError(
+                "only the offset-free ('free') flash softmax is ported to "
+                "CUDA; the online and bounded modes are queued in ROADMAP")
+        wide = _wider(q, k, v) or torch.bfloat16
+        return FlashAttention.apply(*_bf16(q, k, v), mask, 1.0, True,
+                                    kernels).to(wide)
+    if softmax == "free":
+        scale = math.log(2.0)
+    elif scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, mask, scale, False, False)

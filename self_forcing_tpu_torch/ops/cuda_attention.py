@@ -12,17 +12,29 @@ that the streaming sampler runs:
   (``decode_attention_fresh_pallas`` with ``softmax='free',
   quant='int8qk'``);
 - ``cross_attention`` (csrc/cross_attention.cu) replaces ``_cross_kernel``
-  (``cross_attention_pallas``).
+  (``cross_attention_pallas``);
+- ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+  (csrc/flash_attention.cu) replace ``_flash_kernel`` in 'free' mode,
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
+  (``flash_attention_pallas`` and its backward ``_flash_bwd``).
 
 Each wrapper runs its plain version (``*_ref``, same signature) for a
 tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
 Every launch adds one to ``launch_counts[name]``.
+
+The gradients: :class:`FlashAttention` (the flash forward and its two
+backward kernels) and the plain-PyTorch backward of the decode and cross
+attention (:func:`decode_fresh_bwd`, :func:`cross_attention_bwd`), which
+recompute the attention as the JAX package's XLA backward does.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,7 +43,8 @@ from self_forcing_tpu_torch.ops import build
 HEAD_DIM = 128  # the head dim the kernels are compiled for
 
 launch_counts = {"decode_fresh_free": 0, "int8qk_quantize": 0,
-                 "decode_fresh_int8qk": 0, "cross_attention": 0}
+                 "decode_fresh_int8qk": 0, "cross_attention": 0,
+                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -469,3 +482,388 @@ def cross_attention(q, k, v, *, num_heads: int,
     build.raise_on("cross_attention", err)
     launch_counts["cross_attention"] += 1
     return out
+
+
+# =====================================================================
+# plain backward of the decode and cross attention (no TPU kernel: the
+# JAX package replays its XLA reference under jax.vjp)
+# =====================================================================
+
+_SCORES = 1 << 25  # fp32 scores in a chunk of the plain versions (134 MB:
+                   # 1024 query rows x 32760 keys)
+
+
+def _row_chunks(Lq: int, keys: int) -> list[slice]:
+    """Query-row chunks of at most ``_SCORES`` scores onto ``keys`` keys."""
+    rows = max(1, _SCORES // max(keys, 1))
+    return [slice(r0, min(r0 + rows, Lq)) for r0 in range(0, Lq, rows)]
+
+
+def _softmax_vjp_rows(qf, keys, vals, gf, scale):
+    """One chunk of query rows of softmax(scale * q k^T) v, recomputed in
+    fp32: returns (dq, dk, dv) of the chunk (dk, dv over all keys)."""
+    s = (qf @ keys.T) * scale
+    p = torch.softmax(s, dim=-1)
+    dp = gf @ vals.T
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return scale * (ds @ keys), scale * (ds.T @ qf), p.T @ gf
+
+
+def decode_fresh_bwd(q, k_cache, v_cache, k_new, v_new, g, *,
+                     layer_idx: int, kv_start: int, kv_end: int,
+                     sink_end: int = 0, num_heads: int, scale: float):
+    """Gradients (dq, dk_new, dv_new) of the decode attention of
+    :func:`decode_fresh_free`'s operands at base-e ``scale`` (a free-mode
+    caller passes its scale times ln 2): softmax attention of q onto the
+    visible cache columns ``[0, sink_end) + [kv_start, kv_end)`` of layer
+    ``layer_idx`` and all of k_new / v_new, recomputed in fp32 one head and
+    chunk of query rows at a time (the scores of a whole layer at the
+    last training block are 7.4 GB).  The port of
+    ``_decode_fresh_op_bwd``; the cache gets no gradient."""
+    B, Lq, ND = q.shape
+    N = num_heads
+    D = ND // N
+    kc, vc = _stacked(k_cache, layer_idx), _stacked(v_cache, layer_idx)
+    lim = _cache_lim(kc.shape[1], kv_start, kv_end, sink_end, None)
+    j = torch.arange(lim, device=q.device)
+    cols = j[(j < sink_end) | ((j >= kv_start) & (j < kv_end))]
+    nc = cols.numel()
+    dq, dkn, dvn = (torch.empty_like(t) for t in (q, k_new, v_new))
+    for b in range(B):
+        for n in range(N):
+            hc = slice(n * D, (n + 1) * D)
+            keys = torch.cat([kc[b * N + n, cols].float(),
+                              k_new[b, :, hc].float()])
+            vals = torch.cat([vc[b * N + n, cols].float(),
+                              v_new[b, :, hc].float()])
+            dk = torch.zeros_like(keys)
+            dv = torch.zeros_like(vals)
+            for r in _row_chunks(Lq, keys.shape[0]):
+                dq_r, dk_r, dv_r = _softmax_vjp_rows(
+                    q[b, r, hc].float(), keys, vals, g[b, r, hc].float(),
+                    scale)
+                dq[b, r, hc] = dq_r.to(q.dtype)
+                dk += dk_r
+                dv += dv_r
+            dkn[b, :, hc] = dk[nc:].to(k_new.dtype)
+            dvn[b, :, hc] = dv[nc:].to(v_new.dtype)
+    return dq, dkn, dvn
+
+
+def cross_attention_bwd(q, k, v, g, *, num_heads: int,
+                        scale: float | None = None):
+    """Gradients (dq, dk, dv) of :func:`cross_attention` (q heads-packed
+    [B, Lq, N*D], k/v [B, Lk, N, D]), recomputed in fp32 per head and
+    chunk of query rows; the port of ``_cross_op_bwd``."""
+    B, Lq, ND = q.shape
+    N = num_heads
+    D = ND // N
+    scale = D ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for b in range(B):
+        for n in range(N):
+            hc = slice(n * D, (n + 1) * D)
+            kf, vf = k[b, :, n].float(), v[b, :, n].float()
+            dk_acc, dv_acc = torch.zeros_like(kf), torch.zeros_like(vf)
+            for r in _row_chunks(Lq, kf.shape[0]):
+                dq_r, dk_r, dv_r = _softmax_vjp_rows(
+                    q[b, r, hc].float(), kf, vf, g[b, r, hc].float(), scale)
+                dq[b, r, hc] = dq_r.to(q.dtype)
+                dk_acc += dk_r
+                dv_acc += dv_r
+            dk[b, :, n] = dk_acc.to(k.dtype)
+            dv[b, :, n] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+# =====================================================================
+# masked flash attention (training), offset-free base-2 softmax
+# =====================================================================
+
+FLASH_ROWS = 128      # query rows of a flash_fwd / flash_bwd_dq CTA
+FLASH_KEYS = 64       # keys of a K/V tile (and of a flash_bwd_dkv CTA)
+FLASH_BWD_Q = 32      # query rows of a flash_bwd_dkv tile
+FLASH_MAX_TILES = 4096  # tile-state row a CTA keeps in shared memory
+LN2 = math.log(2.0)
+
+
+def flash_intervals(mask, Lq: int, Lk: int):
+    """The mask's four interval arrays (s1, e1, s2, e2) for queries
+    [0, Lq) as numpy int32; no mask is [0, Lk) for every row."""
+    if mask is None:
+        z = np.zeros(Lq, np.int32)
+        return z, np.full(Lq, Lk, np.int32), z, z
+    return tuple(np.asarray(a, np.int32)[:Lq]
+                 for a in (mask.start1, mask.end1, mask.start2, mask.end2))
+
+
+def flash_tile_states(mask, Lq: int, Lk: int, rows: int, cols: int,
+                      whole_rows: bool) -> np.ndarray:
+    """Tile states [ceil(Lq / rows), ceil(Lk / cols)] uint8 of query tiles
+    of ``rows`` against key tiles of ``cols``: 0 dead (no row sees a key
+    of the tile), 2 fully visible (every row sees every key by one of its
+    intervals, the tile lies below Lk and, with ``whole_rows``, the query
+    tile has no row past Lq), else 1 (masked per element).  The Pallas
+    wrapper's ``_tile_states`` classifies each row by either interval;
+    this table asks one interval to cover all rows, which marks a few
+    more tiles partial and never a partial tile full."""
+    s1, e1, s2, e2 = (a.astype(np.int64) for a in
+                      flash_intervals(mask, Lq, Lk))
+    nq, nk = _cdiv(Lq, rows), _cdiv(Lk, cols)
+    big = np.int64(2 ** 40)
+
+    def tiles(a, fill):
+        out = np.full(nq * rows, fill, np.int64)
+        out[:Lq] = a
+        return out.reshape(nq, rows)
+
+    def live(s, e):   # the union of the nonempty intervals of the tile
+        empty = e <= s
+        return (tiles(np.where(empty, big, s), big).min(1)[:, None],
+                tiles(np.where(empty, -big, e), -big).max(1)[:, None])
+
+    def cover(s, e):  # the range every row's interval covers
+        return (tiles(s, -big).max(1)[:, None],
+                tiles(e, big).min(1)[:, None])
+
+    a = np.arange(nk, dtype=np.int64)[None, :] * cols
+    hi = a + cols
+    (lo1, hi1), (lo2, hi2) = live(s1, e1), live(s2, e2)
+    (c1l, c1h), (c2l, c2h) = cover(s1, e1), cover(s2, e2)
+    alive = ((a < hi1) & (hi > lo1)) | ((a < hi2) & (hi > lo2))
+    full = (hi <= Lk) & (((c1l <= a) & (c1h >= hi)) | ((c2l <= a)
+                                                       & (c2h >= hi)))
+    if whole_rows:
+        full &= (np.arange(1, nq + 1) * rows <= Lq)[:, None]
+    return np.where(alive, np.where(full, 2, 1), 0).astype(np.uint8)
+
+
+class FlashGeometry(NamedTuple):
+    """What the flash kernels read besides q, k and v: the intervals
+    [4, lq_pad] int32 (zero rows past Lq), the tile states of the
+    128-query tiles against the 64-key tiles (flash_fwd, flash_bwd_dq) and
+    of the 64-key tiles against the 32-query tiles (flash_bwd_dkv)."""
+    iv: torch.Tensor
+    states_q: torch.Tensor
+    states_k: torch.Tensor
+    lq_pad: int
+
+
+# Geometry of mask=None per (Lq, Lk, device), and of each IntervalMask
+# for as long as the mask lives (a mask built anew for every forward
+# takes its device tables with it when it goes).
+_flash_geometry_full: dict = {}
+_flash_geometry: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def flash_geometry(mask, Lq: int, Lk: int,
+                   device: torch.device) -> FlashGeometry:
+    """The kernels' interval and tile-state tensors on ``device``, built
+    once per (mask, Lq, Lk, device)."""
+    cache = (_flash_geometry_full if mask is None
+             else _flash_geometry.setdefault(mask, {}))
+    key = (Lq, Lk, str(device))
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    lq_pad = _cdiv(Lq, FLASH_ROWS) * FLASH_ROWS
+    iv = np.zeros((4, lq_pad), np.int32)
+    iv[:, :Lq] = np.stack(flash_intervals(mask, Lq, Lk))
+    sq = flash_tile_states(mask, Lq, Lk, FLASH_ROWS, FLASH_KEYS, False)
+    sk = flash_tile_states(mask, Lq, Lk, FLASH_BWD_Q, FLASH_KEYS, True).T
+    geo = FlashGeometry(
+        iv=torch.from_numpy(iv).to(device),
+        states_q=torch.from_numpy(np.ascontiguousarray(sq)).to(device),
+        states_k=torch.from_numpy(np.ascontiguousarray(sk)).to(device),
+        lq_pad=lq_pad)
+    cache[key] = geo
+    return geo
+
+
+def _visible(mask, r: slice, Lk: int, device) -> torch.Tensor:
+    """[rows, Lk] bool visibility of query rows ``r``."""
+    s1, e1, s2, e2 = (torch.from_numpy(a[r].astype(np.int64)).to(device)[
+        :, None] for a in flash_intervals(mask, r.stop, Lk))
+    j = torch.arange(Lk, device=device)[None, :]
+    return ((j >= s1) & (j < e1)) | ((j >= s2) & (j < e2))
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to the operands' type (a no-op for fp32), as the
+    kernels feed p and ds to the tensor cores."""
+    return x.to(dtype).float()
+
+
+def flash_fwd_ref(q, k, v, mask=None):
+    """Plain version of :func:`flash_fwd`: the Pallas ``_flash_kernel``'s
+    free mode, p = 2^min(q.k, 80) on visible keys, rounded to bf16 for
+    P.V, out = P.V / max(sum p, 1e-30), lse = ln(sum p) (0 for a row that
+    sees nothing), per head and chunk of query rows."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    out = torch.empty_like(q)
+    lse = torch.empty(B, N, Lq, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for n in range(N):
+            kf, vf = k[b, :, n].float(), v[b, :, n].float()
+            for r in _row_chunks(Lq, Lk):
+                s = q[b, r, n].float() @ kf.T
+                p = torch.where(_visible(mask, r, Lk, q.device),
+                                torch.exp2(torch.clamp_max(s, 80.0)), 0.0)
+                l = p.sum(dim=-1)
+                acc = _rounded(p, torch.bfloat16) @ vf
+                out[b, r, n] = (acc / torch.clamp_min(l, 1e-30)[:, None]
+                                ).to(q.dtype)
+                lse[b, n, r] = torch.where(
+                    l > 0, torch.log(torch.clamp_min(l, 1e-30)), 0.0)
+    return out, lse
+
+
+def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * out) in fp32, [B, N, Lq] (the backward's row
+    term; XLA code in the JAX package)."""
+    return (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1
+                                                         ).contiguous()
+
+
+def _flash_bwd_chunks(q, k, v, do, lse, delta, mask, scale):
+    """Per head and chunk of query rows: (b, n, rows, q, do, k, p, ds) in
+    fp32, p = exp(scale * q.k - lse) on visible keys, ds = p * (do.v -
+    delta)."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    for b in range(B):
+        for n in range(N):
+            kf, vf = k[b, :, n].float(), v[b, :, n].float()
+            for r in _row_chunks(Lq, Lk):
+                qf, dof = q[b, r, n].float(), do[b, r, n].float()
+                s = (qf @ kf.T) * scale - lse[b, n, r, None]
+                p = torch.where(_visible(mask, r, Lk, q.device),
+                                torch.exp(s), 0.0)
+                ds = p * (dof @ vf.T - delta[b, n, r, None])
+                yield b, n, r, qf, dof, kf, p, ds
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, mask=None,
+                     scale: float = LN2):
+    """Plain version of :func:`flash_bwd_dq`: dq = scale * ds.k with ds
+    rounded to the operands' type."""
+    dq = torch.empty_like(q)
+    for b, n, r, _, _, kf, _, ds in _flash_bwd_chunks(
+            q, k, v, do, lse, delta, mask, scale):
+        dq[b, r, n] = (scale * (_rounded(ds, q.dtype) @ kf)).to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask=None,
+                      scale: float = LN2):
+    """Plain version of :func:`flash_bwd_dkv`: dk = scale * ds^T.q and
+    dv = p^T.do, with p and ds rounded to the operands' type."""
+    B, Lk, N, D = k.shape
+    dk = torch.zeros(B, Lk, N, D, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for b, n, r, qf, dof, _, p, ds in _flash_bwd_chunks(
+            q, k, v, do, lse, delta, mask, scale):
+        dk[b, :, n] += scale * (_rounded(ds, q.dtype).T @ qf)
+        dv[b, :, n] += _rounded(p, q.dtype).T @ dof
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash(name: str, q, k, v, *more) -> tuple[int, int, int, int]:
+    _check_cuda(name, q, k, v, *more)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    if D != HEAD_DIM or k.shape != (B, Lk, N, D) or v.shape != k.shape \
+            or any(t.shape != q.shape for t in more) \
+            or _cdiv(Lk, FLASH_KEYS) > FLASH_MAX_TILES \
+            or _cdiv(Lq, FLASH_BWD_Q) > FLASH_MAX_TILES:
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)} (the kernels take [B, L, N, {HEAD_DIM}] and "
+            f"at most {FLASH_MAX_TILES} tiles a row)")
+    return B, Lq, N, Lk
+
+
+def _rows_padded(x: torch.Tensor, name: str, B: int, N: int, Lq: int,
+                 lq_pad: int, device) -> torch.Tensor:
+    """A per-row fp32 array [B, N, Lq] as the kernels' [B*N, lq_pad]."""
+    if x.shape != (B, N, Lq) or x.dtype != torch.float32 \
+            or x.device != device:
+        raise ValueError(f"{name}: expected float32 [{B}, {N}, {Lq}] on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return F.pad(x.reshape(B * N, Lq), (0, lq_pad - Lq)).contiguous()
+
+
+def flash_fwd(q, k, v, mask=None):
+    """Masked flash attention forward in the offset-free base-2 softmax:
+    q, k, v [B, L, N, D] bf16 with head_dim**-0.5 * log2(e) folded into q;
+    ``mask`` an IntervalMask over queries [0, Lq) and keys [0, Lk) or None
+    (full visibility).  Returns (out [B, Lq, N, D] bf16, lse [B, N, Lq]
+    fp32, base e)."""
+    if not q.is_cuda:
+        return flash_fwd_ref(q, k, v, mask)
+    B, Lq, N, Lk = _check_flash("flash_fwd", q, k, v)
+    geo = flash_geometry(mask, Lq, Lk, q.device)
+    out = torch.empty_like(q)
+    lse = torch.zeros(B * N, geo.lq_pad, dtype=torch.float32,
+                      device=q.device)
+    fn = build.function("flash_attention", "flash_fwd_launch",
+                        [_P] * 7 + [_I] * 5 + [_P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), geo.iv.data_ptr(), geo.states_q.data_ptr(), B,
+             N, Lq, Lk, geo.lq_pad,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("flash_fwd", err)
+    launch_counts["flash_fwd"] += 1
+    return out, lse.view(B, N, geo.lq_pad)[:, :, :Lq]
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, mask=None, scale: float = LN2):
+    """dq of the masked flash attention from the forward's base-e ``lse``
+    and ``delta`` = :func:`flash_delta` ([B, N, Lq] fp32), at ``scale``
+    (ln 2 for the free forward).  Returns dq [B, Lq, N, D] bf16."""
+    if not q.is_cuda:
+        return flash_bwd_dq_ref(q, k, v, do, lse, delta, mask, scale)
+    B, Lq, N, Lk = _check_flash("flash_bwd_dq", q, k, v, do)
+    geo = flash_geometry(mask, Lq, Lk, q.device)
+    lse_p = _rows_padded(lse, "flash_bwd_dq lse", B, N, Lq, geo.lq_pad,
+                         q.device)
+    dl_p = _rows_padded(delta, "flash_bwd_dq delta", B, N, Lq, geo.lq_pad,
+                        q.device)
+    dq = torch.empty_like(q)
+    fn = build.function("flash_attention", "flash_bwd_dq_launch",
+                        [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse_p.data_ptr(), dl_p.data_ptr(), dq.data_ptr(),
+             geo.iv.data_ptr(), geo.states_q.data_ptr(), B, N, Lq, Lk,
+             geo.lq_pad, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("flash_bwd_dq", err)
+    launch_counts["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, mask=None, scale: float = LN2):
+    """dk and dv of the masked flash attention (operands as in
+    :func:`flash_bwd_dq`).  Returns (dk, dv) [B, Lk, N, D] bf16."""
+    if not q.is_cuda:
+        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask, scale)
+    B, Lq, N, Lk = _check_flash("flash_bwd_dkv", q, k, v, do)
+    geo = flash_geometry(mask, Lq, Lk, q.device)
+    lse_p = _rows_padded(lse, "flash_bwd_dkv lse", B, N, Lq, geo.lq_pad,
+                         q.device)
+    dl_p = _rows_padded(delta, "flash_bwd_dkv delta", B, N, Lq, geo.lq_pad,
+                        q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = build.function("flash_attention", "flash_bwd_dkv_launch",
+                        [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse_p.data_ptr(), dl_p.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), geo.iv.data_ptr(), geo.states_k.data_ptr(), B,
+             N, Lq, Lk, geo.lq_pad, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("flash_bwd_dkv", err)
+    launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv

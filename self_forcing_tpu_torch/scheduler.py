@@ -71,6 +71,32 @@ class FlowMatchScheduler:
         out = (1.0 - sigma) * sample.float() + sigma * noise.float()
         return out.to(noise.dtype)
 
+    def step(self, model_output: torch.Tensor, timestep: torch.Tensor,
+             sample: torch.Tensor, to_final: bool = False) -> torch.Tensor:
+        """Euler step x_{t-1} = x_t + v * (sigma_next - sigma_t)."""
+        tid = self.timestep_id(timestep)
+        sigma = _bcast(self.sigmas[tid], sample)
+        n = self.sigmas.shape[0]
+        next_sigma = torch.where(
+            tid + 1 >= n, 0.0, self.sigmas[torch.clamp_max(tid + 1, n - 1)])
+        if to_final:
+            next_sigma = torch.zeros_like(next_sigma)
+        next_sigma = _bcast(next_sigma, sample)
+        out = sample.float() + model_output.float() * (next_sigma - sigma)
+        return out.to(sample.dtype)
+
+    def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
+                        timestep: torch.Tensor) -> torch.Tensor:
+        """Flow-matching target v = eps - x0."""
+        del timestep
+        return noise - sample
+
+    def training_weight(self, timestep: torch.Tensor) -> torch.Tensor:
+        """Per-timestep Gaussian weights (needs ``create(training=True)``)."""
+        if self.training_weights is None:
+            raise ValueError("training_weight needs create(training=True)")
+        return self.training_weights[self.timestep_id(timestep)]
+
     def convert_flow_pred_to_x0(self, flow_pred: torch.Tensor,
                                 xt: torch.Tensor,
                                 timestep: torch.Tensor) -> torch.Tensor:
@@ -79,11 +105,41 @@ class FlowMatchScheduler:
         out = xt.float() - sigma * flow_pred.float()
         return out.to(flow_pred.dtype)
 
+    def convert_x0_to_flow_pred(self, x0_pred: torch.Tensor,
+                                xt: torch.Tensor,
+                                timestep: torch.Tensor) -> torch.Tensor:
+        """v = (x_t - x0) / sigma_t."""
+        sigma = _bcast(self.sigma(timestep), xt)
+        out = (xt.float() - x0_pred.float()) / sigma
+        return out.to(x0_pred.dtype)
+
+    def convert_x0_to_noise(self, x0: torch.Tensor, xt: torch.Tensor,
+                            timestep: torch.Tensor) -> torch.Tensor:
+        """eps = (x_t - (1 - sigma) x0) / sigma (rectified flow)."""
+        sigma = _bcast(self.sigma(timestep), xt)
+        out = (xt.float() - (1.0 - sigma) * x0.float()) / sigma
+        return out.to(x0.dtype)
+
+    def convert_noise_to_x0(self, noise: torch.Tensor, xt: torch.Tensor,
+                            timestep: torch.Tensor) -> torch.Tensor:
+        """x0 = (x_t - sigma eps) / (1 - sigma)."""
+        sigma = _bcast(self.sigma(timestep), xt)
+        out = (xt.float() - sigma * noise.float()) / (1.0 - sigma)
+        return out.to(noise.dtype)
+
 
 def _bcast(per_batch: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Reshape a [B] tensor to [B, 1, 1, ...] matching ``like``'s rank."""
     return per_batch.reshape(per_batch.shape
                              + (1,) * (like.dim() - per_batch.dim()))
+
+
+def shift_timestep(timestep: torch.Tensor, shift: float,
+                   num_train_timesteps: int = 1000) -> torch.Tensor:
+    """t' = shift*(t/T) / (1 + (shift-1)*(t/T)) * T, the trainer-side
+    timestep warp."""
+    t = timestep.float() / num_train_timesteps
+    return shift * t / (1 + (shift - 1) * t) * num_train_timesteps
 
 
 def warp_denoising_steps(scheduler: FlowMatchScheduler,

@@ -288,3 +288,98 @@ def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(dev):
         cm.w8a8_matmul(q, s, p["w_qa_t"][:, :128].contiguous(), p["w_scale"])
     with pytest.raises(TypeError):
         cm.quantize_rows(x.float())
+
+
+# (B, N, L, mask): ragged lengths against the 128-row, 64-key and
+# 32-row tiles, both intervals, batch > 1
+FLASH_CASES = {
+    "no_mask": (1, 2, 256, None),
+    "teacher_forcing": (1, 2, 200, ("tf", 5, 20, 1)),
+    "block_causal": (2, 1, 300, ("bc", 6, 50, 2)),
+    "local_window": (1, 3, 130, ("bc", 10, 13, 3, 2)),
+}
+
+
+def _flash_mask(spec):
+    from self_forcing_tpu_torch.ops import masks
+    if spec is None:
+        return None
+    if spec[0] == "tf":
+        return masks.teacher_forcing_mask(*spec[1:])
+    return masks.block_causal_mask(*spec[1:])
+
+
+def _flash_inputs(g, dev, B, N, L):
+    D = 128
+    q = _bf16(g, B, L, N, D, dev=dev, scale=D ** -0.5 * 1.4427)
+    k = _bf16(g, B, L, N, D, dev=dev)
+    v = _bf16(g, B, L, N, D, dev=dev)
+    do = _bf16(g, B, L, N, D, dev=dev)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_fwd_matches_plain(dev, case):
+    """Tolerance 1e-2 relative L2 on out (both round p to bf16, which may
+    round either way for scores summed in another order); lse 1e-4
+    absolute (fp32 sums)."""
+    B, N, L, spec = FLASH_CASES[case]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, _ = _flash_inputs(g, dev, B, N, L)
+    out, lse = ca.flash_fwd(q, k, v, mask)
+    ref, ref_lse = ca.flash_fwd_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_bwd_matches_plain(dev, case):
+    """dq, dk, dv against the plain backward on the same out, lse and
+    delta: 2e-2 relative L2 (both feed bf16 p and ds to the products; ds
+    is a difference of near-equal terms, so its bf16 rounding may differ
+    by an ulp)."""
+    B, N, L, spec = FLASH_CASES[case]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    out, lse = ca.flash_fwd_ref(q, k, v, mask)
+    delta = ca.flash_delta(out, do)
+    dq = ca.flash_bwd_dq(q, k, v, do, lse, delta, mask)
+    dk, dv = ca.flash_bwd_dkv(q, k, v, do, lse, delta, mask)
+    dq_r = ca.flash_bwd_dq_ref(q, k, v, do, lse, delta, mask)
+    dk_r, dv_r = ca.flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask)
+    torch.cuda.synchronize()
+    for name, a, b in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) < 2e-2, (name, _rel_l2(a, b))
+
+
+def test_flash_attention_gradient_kernels_vs_plain(dev):
+    """The autograd function end to end: the seam's flash attention with
+    the kernels against the same with their plain versions."""
+    B, N, L, spec = FLASH_CASES["block_causal"]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    grads = []
+    for kernels in (True, False):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attention.flash_attention(*qkv, mask, softmax="free",
+                                        kernels=kernels)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in qkv])
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) < 2e-2
+
+
+def test_flash_seam_refuses_unported_modes(dev):
+    q = torch.zeros(1, 64, 1, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError):
+        attention.flash_attention(q, q, q, softmax="free", fixed_m0=1.0)
+    with pytest.raises(TypeError):
+        ca.flash_fwd(q.float(), q.float(), q.float())

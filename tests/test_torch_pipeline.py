@@ -112,6 +112,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                                "self_forcing_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for part in ("training/trainer_distillation.py", "training/optim.py",
+                 "training/ema.py", "training/objectives/base.py",
+                 "training/objectives/dmd.py", "utils/loss.py",
+                 "pipelines/self_forcing_training.py", "lora.py",
+                 "train.py", "ops/masks.py"):
+        assert os.path.join("self_forcing_tpu_torch", part) in rel, part
     bad = []
     for path in files:
         for mod in _imports(path):
