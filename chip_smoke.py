@@ -43,6 +43,20 @@ phase 4 decodes each block with the stateful TAEHV streamer).
    the flash kernels' launch counts; then one critic-loss gradient at
    full width and 2 layers with the kernels and with their plain
    versions.
+8. The Wan VAE at full width (random weights from the seed) under its
+   three conv backends (None: cuDNN convs; 'pallas': every 3x3x3 causal
+   conv through the conv kernel; 'fused': the fused norm + SiLU + conv
+   residual blocks after ``pad_decoder_channels``): the streaming decode
+   of 3 blocks of seeded latents (60x104), with the conv kernels' launch
+   and decline counts against the JAX package's routes and the pixels
+   against the None decode; the encode of a seeded 1 + 4-frame 480x832
+   clip; the i2v path under 'pallas' (a seeded image encoded into
+   ``initial_latent``, ``CausalInferencePipeline.inference`` with an
+   independent first frame and 2 blocks of 3 frames on random 1.3B
+   weights, decoded by the VAE); one decode block under torch.profiler.
+Phase 2 also holds each conv kernel (the 27-tap conv, the split route,
+v2 and the fused norm + SiLU + conv) against its plain version at the
+VAE's full-width shapes, beside cuDNN's bf16 conv.
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -929,6 +943,303 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
                     tae, lat, state, trim=False)))
 
 
+# per decoded latent frame / per encoded chunk at full width, as the JAX
+# package routes them (tests/test_torch_conv.py's route survey): 'pallas'
+# sends every 3x3x3 conv to the kernel; 'fused' runs 5 of the decoder's 14
+# residual blocks (2 launches each) and 4 of the encoder's 10
+PALLAS_DECODE, PALLAS_ENCODE = 30, 22
+FUSED_DECODE, FUSED_ENCODE = (5, 9), (4, 6)   # (fused, declined) blocks
+
+
+def conv_bytes(B, T, H, W, C, Cout, residual=False) -> float:
+    """Bytes the conv must move: x and its 2 cache frames read once, the
+    weights and bias once, the output (and residual) written / read once."""
+    return 2.0 * (B * (T + 2) * H * W * C + 27 * C * Cout + Cout
+                  + B * T * H * W * Cout * (2 if residual else 1))
+
+
+def phase_conv_kernels(tconv, g) -> dict:
+    """The conv kernels against their plain versions (float32 convs over
+    the upcast timeline) at the full-width Wan VAE shapes; relative L2
+    <= 1e-2 (both sum the bf16 products in float32 and round once; the
+    nsc prologue rounds its activation to bf16 in both, from an rsqrt and
+    exp of other precision).  Library yardstick: cuDNN's bf16 F.conv3d,
+    channels-last 3D, on the [cache | x] timeline concatenated beforehand
+    (for nsc none: no PyTorch call normalizes inside a conv; cuDNN's conv
+    of the activated timeline is printed beside it)."""
+    dev, bf = "cuda", torch.bfloat16
+    table = {}
+
+    def operands(B, T, H, W, C, Cout):
+        x = torch.randn(B, T, H, W, C, generator=g, device=dev).to(bf)
+        cache = torch.randn(B, 2, H, W, C, generator=g, device=dev).to(bf)
+        w = (torch.randn(Cout, C, 3, 3, 3, generator=g, device=dev)
+             * (27 * C) ** -0.5).to(bf)
+        b = (torch.randn(Cout, generator=g, device=dev) * 0.1).to(bf)
+        return x, cache, w, b
+
+    def cudnn(x, cache, w, b):
+        xin = torch.cat([cache, x], dim=1).permute(0, 4, 1, 2, 3)
+        wc = w.contiguous(memory_format=torch.channels_last_3d)
+        return lambda: F.conv3d(xin, wc, b, padding=(0, 1, 1))
+
+    def row(name, label, fn, ref_fn, lib_fn, flops, nbytes, launches):
+        out, ref = fn(), ref_fn()
+        err, mae = check_kernel(name, out, ref)
+        del out, ref
+        ms = time_ms(fn)
+        plain_ms = time_ms(ref_fn, reps=3)
+        lib = None if lib_fn is None else time_ms(lib_fn)
+        b_ms, b_by = bound(flops, nbytes)
+        libs = "none" if lib is None else f"{lib:.4f}"
+        print(f"kernel {name} ({label}, {launches} launch(es)): "
+              f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} cudnn_ms={libs} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"tflops={flops / ms / 1e9:.1f}", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=mae)
+
+    fused_shapes = [((1, 4, 480, 832, 96), 96, "decoder 480x832x96"),
+                    ((1, 4, 240, 416, 192), 192, "decoder 240x416x192"),
+                    ((1, 2, 120, 208, 384), 384, "decoder 120x208x384"),
+                    ((1, 1, 60, 104, 384), 384, "decoder 60x104x384"),
+                    ((1, 4, 480, 832, 3), 96, "encoder conv1 RGB->96"),
+                    ((1, 4, 480, 832, 96), 3, "decoder head 96->RGB")]
+    for shape, Cout, label in fused_shapes:
+        x, cache, w, b = operands(*shape, Cout)
+        B, T, H, W, C = shape
+        r = row("conv3d_fused", f"{label} {list(shape)}->{Cout}",
+                lambda: tconv.conv3d_fused(x, cache, w, b),
+                lambda: tconv.conv3d_ref(x, cache, w, b),
+                cudnn(x, cache, w, b), 2.0 * 27 * C * Cout * B * T * H * W,
+                conv_bytes(B, T, H, W, C, Cout), 1)
+        table.setdefault("conv3d_fused", r)   # the first shape is the row
+        del x, cache
+        torch.cuda.empty_cache()
+
+    # the split route (fused route declined): 3 launches + 2 bf16 adds
+    x, cache, w, b = operands(1, 1, 60, 104, 384, 384)
+    table["conv2d_9tap"] = row(
+        "conv2d_9tap", "split route [1, 1, 60, 104, 384]->384",
+        lambda: tconv.conv3d_split(x, cache, w, b),
+        lambda: tconv.split_ref(x, cache, w, b), cudnn(x, cache, w, b),
+        2.0 * 27 * 384 * 384 * 60 * 104, conv_bytes(1, 1, 60, 104, 384, 384),
+        3)
+
+    x, cache, w, b = operands(1, 4, 480, 832, 128, 128)
+    table["conv3d_v2"] = row(
+        "conv3d_v2", "[1, 4, 480, 832, 128]->128",
+        lambda: tconv.causal_conv3d_pallas_v2(x, cache, w, b),
+        lambda: tconv.conv3d_ref(x, cache, w, b), cudnn(x, cache, w, b),
+        2.0 * 27 * 128 * 128 * 4 * 480 * 832,
+        conv_bytes(1, 4, 480, 832, 128, 128), 1)
+    del x, cache
+    torch.cuda.empty_cache()
+
+    # nsc at T = 1, as the path runs it (one latent frame a decode step,
+    # the encoder's 60x104 stage), and at T = 3
+    gamma = (1 + 0.2 * torch.randn(384, generator=g, device=dev)).to(bf)
+    for T in (1, 3):
+        x, cache, w, b = operands(1, T, 60, 104, 384, 384)
+        res = torch.randn(T, 60, 104, 384, generator=g, device=dev).to(bf)
+        act = tconv.norm_silu_ref(torch.cat([cache[0], x[0]]), gamma)
+        act_ms = time_ms(cudnn(act[2:][None], act[:2][None], w, b))
+        print(f"cudnn conv3d of the activated timeline [{T}, 60, 104, 384]"
+              f"->384 (no norm, no residual): ms={act_ms:.4f}", flush=True)
+        for r in (None, res):
+            label = f"[{T}, 60, 104, 384]->384 " + (
+                "with" if r is not None else "without") + " residual"
+            out = row("norm_silu_conv3d", label,
+                      lambda: tconv.norm_silu_conv3d(x[0], cache[0], gamma,
+                                                     w, b, r),
+                      lambda: tconv.nsc_ref(x[0], cache[0], gamma, w, b, r),
+                      None, 2.0 * 27 * 384 * 384 * T * 60 * 104,
+                      conv_bytes(1, T, 60, 104, 384, 384, r is not None), 1)
+            if T == 1 and r is not None:   # the decoder's conv2: the row
+                table["norm_silu_conv3d"] = out
+        del x, cache, res, act
+    return table
+
+
+def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
+    """The Wan VAE at full width under each conv backend; returns the
+    conv kernels' launches on the path (the 'fused' decode for
+    norm_silu_conv3d, the i2v path for the other three)."""
+    from self_forcing_tpu_torch.config import Config
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    bf, cfg = torch.bfloat16, vae.WAN_VAE
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    params = vae.init_params(cfg, seed=seed + 12, dtype=bf, device="cuda")
+    padded = vae.pad_decoder_channels(params)
+    lat = torch.randn(1, 9, 60, 104, 16, generator=g, device="cuda").to(bf)
+    clip = (torch.rand(1, 5, 480, 832, 3, generator=g, device="cuda") * 2
+            - 1).to(bf)
+    launches = {}
+
+    def stream(p):
+        cache = vae.init_decoder_cache(p, cfg, 1, 60, 104, bf, "cuda")
+        outs, ms = [], []
+        for lo, hi in ((0, 3), (3, 6), (6, 9)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if lo == 0:
+                y0, cache = vae.decode_frame(p, cfg, lat[:, :1], cache,
+                                             first=True)
+                y, cache = vae.decode_block(p, cfg, lat[:, 1:3], cache,
+                                            first=False)
+                y = torch.cat([y0, y], dim=1)
+            else:
+                y, cache = vae.decode_block(p, cfg, lat[:, lo:hi], cache,
+                                            first=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            outs.append(y)
+        return torch.cat(outs, dim=1), ms
+
+    def encode(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        z = vae.encode(p, cfg, clip)
+        torch.cuda.synchronize()
+        return z, (time.perf_counter() - t) * 1e3
+
+    ref_px = ref_z = None
+    for backend, p in ((None, params), ("pallas", params),
+                       ("fused", padded)):
+        vae.set_conv_backend(backend)
+        stream(p)   # warm: first calls, cuDNN's algorithm choice
+        cc.reset_launch_counts()
+        tconv.reset_decline_counts()
+        px, ms = stream(p)
+        dec = dict(cc.launch_counts)
+        dec_decl = dict(tconv.decline_counts)
+        dec_copies = (cc.layout_copies["activations"], list(cc.copied))
+        if backend == "fused":
+            launches["norm_silu_conv3d"] = dec["norm_silu_conv3d"]
+        encode(p)
+        cc.reset_launch_counts()
+        tconv.reset_decline_counts()
+        z, enc_ms = encode(p)
+        enc, enc_decl = dict(cc.launch_counts), dict(tconv.decline_counts)
+        enc_copies = (cc.layout_copies["activations"], list(cc.copied))
+        vae.set_conv_backend(None)
+        if tuple(px.shape) != (1, 33, 480, 832, 3) or \
+                tuple(z.shape) != (1, 2, 60, 104, 16):
+            fail(f"vae {backend}: pixels {tuple(px.shape)}, latents "
+                 f"{tuple(z.shape)}")
+        if not (torch.isfinite(px.float()).all()
+                and torch.isfinite(z.float()).all()):
+            fail(f"vae {backend}: non-finite output")
+        # 9 decoded latent frames; 2 encoded chunks (1 frame, 4 frames)
+        want = {None: ({}, {}),
+                "pallas": ({"conv3d_fused": 9 * PALLAS_DECODE},
+                           {"conv3d_fused": 2 * PALLAS_ENCODE}),
+                "fused": ({"norm_silu_conv3d": 9 * 2 * FUSED_DECODE[0]},
+                          {"norm_silu_conv3d": 2 * 2 * FUSED_ENCODE[0]})
+                }[backend]
+        want_decl = {"fused": (9 * FUSED_DECODE[1], 2 * FUSED_ENCODE[1])}
+        for tag, got, w in (("decode", dec, want[0]), ("encode", enc,
+                                                       want[1])):
+            exp = {k: w.get(k, 0) for k in got}
+            if got != exp:
+                fail(f"vae {backend} {tag}: launches {got}, expected {exp}")
+        d_decl, e_decl = want_decl.get(backend, (0, 0))
+        if (dec_decl["norm_silu_conv3d"], enc_decl["norm_silu_conv3d"]) != \
+                (d_decl, e_decl) or dec_decl["conv3d_fused"] or \
+                enc_decl["conv3d_fused"]:
+            fail(f"vae {backend}: declines {dec_decl} / {enc_decl}, "
+                 f"expected {d_decl} / {e_decl} fused blocks")
+        if backend is None:
+            ref_px, ref_z = px, z
+            err_px = err_z = 0.0
+        else:
+            err_px, err_z = rel_l2(px, ref_px), rel_l2(z, ref_z)
+        print(f"vae {backend or 'None (cudnn)'}: decode 3 blocks (9 latent "
+              f"frames -> 33 pixel frames 480x832) per_block_ms="
+              f"{[round(v, 1) for v in ms]} launches={dec} "
+              f"declines={dec_decl} layout_copies={dec_copies} "
+              f"pixels_vs_None_rel_l2={err_px:.3e}; "
+              f"encode 1+4 frames ms={enc_ms:.1f} launches={enc} "
+              f"declines={enc_decl} layout_copies={enc_copies} "
+              f"latents_vs_None_rel_l2={err_z:.3e} "
+              f"(host clock, second run)", flush=True)
+        if err_px > 2e-2:
+            fail(f"vae {backend}: pixels vs the None decode relative L2 "
+                 f"{err_px:.3e} > 2e-2")
+        if err_z > 1e-2:
+            fail(f"vae {backend}: latents vs the None encode relative L2 "
+                 f"{err_z:.3e} > 1e-2")
+        del px, z
+    del ref_px, ref_z, padded
+    torch.cuda.empty_cache()
+
+    # the i2v path under 'pallas' (inference.py --i2v): image -> encode ->
+    # initial_latent -> inference with an independent first frame -> decode
+    vae.set_conv_backend("pallas")
+    dcfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=3)
+    dparams = make_params(dit, dcfg, seed)
+    args = Config({"denoising_step_list": [1000, 750, 500, 250],
+                   "warp_denoising_step": True, "timestep_shift": 8.0,
+                   "num_frame_per_block": 3, "context_noise": 0,
+                   "independent_first_frame": True})
+    pipe = pipe_mod.CausalInferencePipeline(args, dparams, dcfg,
+                                            vae_params=params,
+                                            device="cuda", dtype=bf)
+    image = (torch.rand(1, 1, 480, 832, 3, generator=g, device="cuda") * 2
+             - 1).to(bf)
+    context = torch.randn(1, N_CTX, dcfg.text_dim, generator=g,
+                          device="cuda").to(bf)
+    noise = torch.randn(1, 6, 16, 60, 104, generator=g, device="cuda").to(bf)
+    torch.cuda.synchronize()
+    cc.reset_launch_counts()
+    t = time.perf_counter()
+    z0 = vae.encode(params, cfg, image)
+    video = pipe.inference(noise, context,
+                           initial_latent=z0.permute(0, 1, 4, 2, 3),
+                           generator=g)
+    torch.cuda.synchronize()
+    i2v_ms = (time.perf_counter() - t) * 1e3
+    i2v = dict(cc.launch_counts)
+    launches.update({k: i2v[k] for k in ("conv3d_fused", "conv2d_9tap",
+                                         "conv3d_v2")})
+    frames = video.shape[1]
+    if tuple(video.shape) != (1, 25, 3, 480, 832):
+        fail(f"i2v: video {tuple(video.shape)}, expected (1, 25, 3, 480, 832)")
+    if not torch.isfinite(video.float()).all():
+        fail("i2v: non-finite video")
+    if i2v["conv3d_fused"] != PALLAS_ENCODE + 7 * PALLAS_DECODE:
+        fail(f"i2v: conv3d_fused launches {i2v['conv3d_fused']}, expected "
+             f"{PALLAS_ENCODE + 7 * PALLAS_DECODE}")
+    print(f"i2v 'pallas' (480x832 image -> 1 latent frame, 1.3B "
+          f"inference with an independent first frame + 2 blocks of 3, "
+          f"VAE decode of 7 latent frames): ms={i2v_ms:.1f} "
+          f"pixel_frames={frames} launches={i2v} "
+          f"layout_copies={cc.layout_copies['activations']} (host "
+          f"clock, first calls of the DiT included)", flush=True)
+    del pipe, dparams, video
+    torch.cuda.empty_cache()
+
+    # where the time goes: one steady decode block under 'pallas'
+    cache = vae.init_decoder_cache(params, cfg, 1, 60, 104, bf, "cuda")
+    _, cache = vae.decode_frame(params, cfg, lat[:, :1], cache, first=True)
+    block = lambda: vae.decode_block(params, cfg, lat[:, 1:4], list(cache),
+                                     first=False)
+    block()
+    wall, rows = profile_ms(block)
+    vae.set_conv_backend(None)
+    busy = sum(ms for _, ms in rows)
+    conv = sum(ms for name, ms in rows if "conv_igemm" in name)
+    top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
+                    for name, ms in rows[:6])
+    print(f"profile vae 'pallas' decode block (3 latent frames): "
+          f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
+          f"idle_share={1 - busy / wall:.3f} conv_kernel_ms={conv:.1f} "
+          f"conv_kernel_share_of_busy={conv / max(busy, 1e-9):.3f} "
+          f"top: {top}", flush=True)
+    return launches
+
+
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "decode_fresh_free", "cross_attention")
 # flash launches a train step: the generator update's 3 score forwards
@@ -1140,7 +1451,9 @@ def main() -> None:
     from self_forcing_tpu_torch.models.wan.rope import RopeTables
     from self_forcing_tpu_torch.ops import build, masks, quant
     from self_forcing_tpu_torch.ops.chip import chip_defaults
+    from self_forcing_tpu_torch.ops import conv as tconv
     from self_forcing_tpu_torch.ops import cuda_attention as ca
+    from self_forcing_tpu_torch.ops import cuda_conv as cc
     from self_forcing_tpu_torch.ops import cuda_matmul as cm
     from self_forcing_tpu_torch.pipelines import causal_inference as pipe_mod
 
@@ -1172,6 +1485,8 @@ def main() -> None:
     table.update(phase_w8a8_kernels(cm, quant, g))
     torch.cuda.empty_cache()
     table.update(phase_flash_kernels(ca, masks, g))
+    torch.cuda.empty_cache()
+    table.update(phase_conv_kernels(tconv, g))
     torch.cuda.empty_cache()
     if a.kernels_only:
         print("kernels only: the main path was not run", flush=True)
@@ -1225,9 +1540,15 @@ def main() -> None:
                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
     torch.cuda.empty_cache()
     phase_training_grad(dit, a.seed)
+    torch.cuda.empty_cache()
+
+    # 8. the Wan VAE under its conv backends, and the i2v path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches.update(phase_vae(cc, tconv, vae, dit, pipe_mod, a.seed))
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
+    pconv = "self_forcing_tpu/ops/pallas_conv.py"
     csrc = "self_forcing_tpu_torch/csrc/"
     sources = {"decode_fresh_free": (csrc + "decode_fresh.cu", attn + ":275"),
                "int8qk_quantize": (csrc + "decode_int8qk.cu", attn + ":546"),
@@ -1242,7 +1563,11 @@ def main() -> None:
                "flash_fwd": (csrc + "flash_attention.cu", attn + ":1367"),
                "flash_bwd_dq": (csrc + "flash_attention.cu", attn + ":1610"),
                "flash_bwd_dkv": (csrc + "flash_attention.cu",
-                                 attn + ":1668")}
+                                 attn + ":1668"),
+               "conv3d_fused": (csrc + "conv3d.cu", pconv + ":120"),
+               "conv2d_9tap": (csrc + "conv3d.cu", pconv + ":30"),
+               "conv3d_v2": (csrc + "conv3d.cu", pconv + ":261"),
+               "norm_silu_conv3d": (csrc + "conv3d.cu", pconv + ":402")}
     kernels = []
     for name, (src, replaces) in sources.items():
         row = table[name]

@@ -1,0 +1,156 @@
+"""Hand-written CUDA causal convs of the Wan VAE (csrc/conv3d.cu).
+
+One implicit-GEMM kernel (``conv3d_launch``) replaces the four TPU kernels
+of ``self_forcing_tpu/ops/pallas_conv.py``; each wrapper counts its
+launches under the name of the entry point it serves:
+
+- :func:`conv3d` as ``conv3d_fused`` (``_conv3d_kernel``) or
+  ``conv3d_v2`` (``_conv3d_v2_kernel``): all 27 taps in one launch;
+- :func:`conv2d_tap` as ``conv2d_9tap`` (``_conv2d_kernel``): one
+  temporal tap of the split route;
+- :func:`norm_silu_conv3d` as ``norm_silu_conv3d`` (``_nsc3d_kernel``): the
+  inverse-norm pre-pass (``rms_inv_launch``) and the conv with the
+  RMS-norm + SiLU prologue and the residual epilogue, one count a call.
+
+The routing (which shapes take a kernel) and the plain versions live in
+``ops/conv.py``; these wrappers take CUDA bf16 tensors only and raise on
+anything else (the TPU kernels also compute float32 inputs: that mode is
+not ported yet).  Activations are channels-last [B, T, H, W, C]; a tensor
+whose storage is not contiguous in that order is copied first, and each
+such copy adds one to ``layout_copies`` (the first few are listed in
+``copied``: wrapper, shape and strides).  Weights [Cout, C, 3, 3, 3]
+(OIDHW) become the kernel's K-contiguous bf16 copy [Cout, 27, Cp] (Cp = C
+rounded up to 8) once per parameter: :func:`kernel_weight` keeps it for as
+long as the parameter lives and is not written in place.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
+
+from self_forcing_tpu_torch.ops import build
+
+launch_counts = {"conv3d_fused": 0, "conv2d_9tap": 0, "conv3d_v2": 0,
+                 "norm_silu_conv3d": 0}
+layout_copies = {"activations": 0}
+copied: list = []
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_weights: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+    layout_copies["activations"] = 0
+    copied.clear()
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """The kernel layout of a conv weight [Cout, C, 3, 3, 3]: bf16
+    [Cout, 27, Cp], taps in (kt, di, dj) order, channels zero padded to a
+    multiple of 8; made once per parameter (and again after an in-place
+    write to it)."""
+    hit = _weights.get(w)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    Cout, C = w.shape[:2]
+    Cp = -(-C // 8) * 8
+    wk = w.detach().permute(0, 2, 3, 4, 1).reshape(Cout, 27, C)
+    wk = F.pad(wk, (0, Cp - C)).to(torch.bfloat16).contiguous()
+    _weights[w] = (w._version, wk)
+    return wk
+
+
+def _cl(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype} "
+                        f"(its float32 mode is not ported yet)")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors")
+    if t.is_contiguous():
+        return t
+    layout_copies["activations"] += 1
+    if len(copied) < 8:
+        copied.append((name, tuple(t.shape), t.stride()))
+    return t.contiguous()
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    """Call the C launcher ``fn`` of csrc/conv3d.cu (tensors as pointers,
+    None as null, ints, floats, then the current stream); raise on its
+    error."""
+    types = [_P if a is None or isinstance(a, torch.Tensor) else
+             _F if isinstance(a, float) else _I for a in args]
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    f = build.function("conv3d", fn, types + [_P])
+    build.raise_on(name, f(*vals, torch.cuda.current_stream().cuda_stream))
+
+
+def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
+         residual=None, inv=None, gamma=None, gscale: float = 0.0):
+    x, cache = _cl(name, x), _cl(name, cache)
+    B, T, H, W, C = x.shape
+    if cache.shape != (B, 2, H, W, C):
+        raise ValueError(f"{name}: cache {tuple(cache.shape)} for x "
+                         f"{tuple(x.shape)}")
+    wk = kernel_weight(w)
+    Cout, _, Cp = wk.shape
+    if w.shape[1] != C:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} for {C} input "
+                         f"channels")
+    bias = None if b is None else b.detach().float().contiguous()
+    out = torch.empty(B, T, H, W, Cout, dtype=torch.bfloat16,
+                      device=x.device)
+    # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
+    _launch(name, "conv3d_launch", x, cache, wk[:, 9 * tau0], bias,
+            residual, inv, gamma, out, B, T, H, W, C, Cp, Cout, taps_t,
+            tau0 if taps_t == 1 else 0, 27 * Cp, float(gscale))
+    launch_counts[name] += 1
+    return out
+
+
+def conv3d(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor, name: str = "conv3d_fused") -> torch.Tensor:
+    """27-tap causal conv: x [B, T, H, W, C], cache [B, 2, H, W, C] bf16,
+    w [Cout, C, 3, 3, 3], b [Cout] -> [B, T, H, W, Cout] bf16; counted as
+    ``name`` ('conv3d_fused' or 'conv3d_v2')."""
+    return _run(name, x, cache, w, b, 3, 0)
+
+
+def conv2d_tap(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None, tau: int) -> torch.Tensor:
+    """One temporal tap of the split route: output frame t convolves
+    timeline frame t + tau with ``w[:, :, tau]`` (3x3 SAME), + b where
+    given -> [B, T, H, W, Cout] bf16."""
+    return _run("conv2d_9tap", x, cache, w, b, 1, tau)
+
+
+def norm_silu_conv3d(x: torch.Tensor, cache: torch.Tensor,
+                     gamma: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     residual: torch.Tensor | None = None,
+                     eps: float = 1e-24) -> torch.Tensor:
+    """``silu(rms_norm_channel(.))`` of the raw timeline [cache | x]
+    (x [T, H, W, C], cache [2, H, W, C] bf16), the 27-tap conv, + b
+    (+ residual [T, H, W, Cout]) -> [T, H, W, Cout] bf16."""
+    name = "norm_silu_conv3d"
+    x, cache = _cl(name, x)[None], _cl(name, cache)[None]
+    _, T, H, W, C = x.shape
+    if C % 8:
+        raise ValueError(f"{name}: {C} channels, the kernel takes C % 8 == 0")
+    if residual is not None:
+        residual = _cl(name, residual)
+        if residual.shape != (T, H, W, w.shape[0]):
+            raise ValueError(f"{name}: residual {tuple(residual.shape)}")
+    inv = torch.empty(2 + T, H, W, dtype=torch.float32, device=x.device)
+    _launch(name, "rms_inv_launch", x, cache, inv, 1, T, H, W, C, float(eps))
+    g = gamma.detach().float().contiguous()
+    return _run(name, x, cache, w, b, 3, 0, residual=residual, inv=inv,
+                gamma=g, gscale=math.sqrt(C))[0]

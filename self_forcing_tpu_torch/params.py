@@ -1,9 +1,10 @@
 """Parameter bridge: the JAX package's parameter trees (as numpy) -> torch.
 
 The keys and the stacked-block layout (blocks on axis 0) stay as they
-are.  Linear weights keep their [in, out] layout.  In the VAE tree conv
-weights go from JAX's DHWIO / HWIO to torch's OIDHW / OIHW, in the TAEHV
-tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
+are.  Linear weights keep their [in, out] layout.  In the VAE tree (both
+halves: the encoder's 2D stride-2 resample convs and (3, 1, 1)
+``time_conv`` too) conv weights go from JAX's DHWIO / HWIO to torch's
+OIDHW / OIHW, in the TAEHV tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
 weights, float8_e4m3fn weights (through their uint8 view) and f32 scales
 (``w_scale`` keeps float32 whatever ``dtype`` says).  A W8A8 linear
 (``w_qa``) also gets its kernel-layout copy ``w_qa_t`` (ops/quant.py).

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (attention and the W8A8 linears) against their
-plain PyTorch versions, on the card.  Small and ragged shapes (edges the
+"""The port's CUDA kernels (attention, the W8A8 linears and the VAE's
+causal convs) against their plain PyTorch versions, on the card.  Small and ragged shapes (edges the
 main path's shapes do not reach) plus the 1.3B shapes.
 
 These tests need an NVIDIA Hopper card and nvcc; they skip elsewhere.  On
@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from self_forcing_tpu_torch.ops import attention
+from self_forcing_tpu_torch.ops import conv as tconv
 from self_forcing_tpu_torch.ops import cuda_attention as ca
+from self_forcing_tpu_torch.ops import cuda_conv as cc
 from self_forcing_tpu_torch.ops import cuda_matmul as cm
 from self_forcing_tpu_torch.ops import quant
+from self_forcing_tpu_torch.utils.tree import map_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -383,3 +386,139 @@ def test_flash_seam_refuses_unported_modes(dev):
         attention.flash_attention(q, q, q, softmax="free", fixed_m0=1.0)
     with pytest.raises(TypeError):
         ca.flash_fwd(q.float(), q.float(), q.float())
+
+
+# ---------------------------------------------------------------- convs
+# Tolerance 4e-3 relative L2: kernel and plain version sum the same bf16
+# products in float32 in other orders and round once to bf16, so outputs
+# differ by at most an ulp (2^-8 relative) where they straddle a rounding
+# boundary.
+
+def _conv_operands(g, dev, B, T, H, W, C, Cout):
+    x = _bf16(g, B, T, H, W, C, dev=dev)
+    cache = _bf16(g, B, 2, H, W, C, dev=dev)
+    w = _bf16(g, Cout, C, 3, 3, 3, dev=dev, scale=(27 * C) ** -0.5)
+    b = _bf16(g, Cout, dev=dev, scale=0.1)
+    return x, cache, w, b
+
+
+@pytest.mark.parametrize("B,T,H,W,C,Cout", [
+    (1, 1, 7, 13, 3, 96),      # the encoder's RGB input (scalar A loads)
+    (1, 2, 9, 10, 16, 384),    # the decoder's 16-channel input
+    (1, 3, 5, 6, 96, 3),       # the RGB head (BN 32, odd Cout)
+    (1, 2, 6, 8, 384, 32),     # the encoder head (BN 32)
+    (2, 1, 4, 5, 40, 64),      # batch 2, BN 64, C not a multiple of 32
+    (1, 4, 12, 20, 96, 96),    # 4 frames: taps from cache and x
+])
+def test_conv3d_fused_matches_plain(dev, B, T, H, W, C, Cout):
+    g = torch.Generator(device=dev).manual_seed(20)
+    x, cache, w, b = _conv_operands(g, dev, B, T, H, W, C, Cout)
+    cc.reset_launch_counts()
+    out = tconv.conv3d_fused(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["conv3d_fused"] == 1
+    assert out.shape == (B, T, H, W, Cout)
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 4e-3
+
+
+def test_conv_split_route_matches_plain(dev, monkeypatch):
+    """The 3-call temporal split (one launch a temporal tap, the partials
+    rounded to bf16 and summed in bf16 as in the plain version), reached
+    through causal_conv3d_pallas with its fused route declining."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    x, cache, w, b = _conv_operands(g, dev, 1, 3, 9, 14, 96, 96)
+    monkeypatch.setattr(tconv, "conv3d_fused", lambda *a, **k: None)
+    cc.reset_launch_counts()
+    out = tconv.causal_conv3d_pallas(x, cache, w, b)
+    ref = tconv.split_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["conv2d_9tap"] == 3
+    assert _rel_l2(out, ref) < 4e-3
+
+
+def test_conv3d_v2_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(22)
+    x, cache, w, b = _conv_operands(g, dev, 1, 2, 8, 16, 128, 128)
+    out = tconv.causal_conv3d_pallas_v2(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert _rel_l2(out, ref) < 4e-3
+
+
+@pytest.mark.parametrize("T,H,W,C,Cout,residual", [
+    (2, 8, 16, 128, 128, False),
+    (1, 12, 24, 256, 128, True),
+    (3, 8, 8, 128, 256, True),
+])
+def test_norm_silu_conv3d_matches_plain(dev, T, H, W, C, Cout, residual):
+    """Raw cache frames, jittered gammas; 1e-2 relative L2: the activated
+    input is rounded to bf16 in both, but from an rsqrt and exp of other
+    precision, so a share of its elements differ by an ulp."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    x, cache, w, b = _conv_operands(g, dev, 1, T, H, W, C, Cout)
+    gamma = (1 + 0.2 * torch.randn(C, generator=g, device=dev)).to(
+        torch.bfloat16)
+    res = _bf16(g, T, H, W, Cout, dev=dev) if residual else None
+    cc.reset_launch_counts()
+    out = tconv.norm_silu_conv3d(x[0], cache[0], gamma, w, b, res)
+    ref = tconv.nsc_ref(x[0], cache[0], gamma, w, b, res)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["norm_silu_conv3d"] == 1
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+
+
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(24)
+    x, cache, w, b = _conv_operands(g, dev, 1, 1, 4, 8, 16, 16)
+    with pytest.raises(TypeError):
+        cc.conv3d(x.float(), cache.float(), w, b)
+    with pytest.raises(ValueError):
+        cc.conv3d(x, cache[:, :1], w, b)
+
+
+def test_kernel_weight_is_made_once_and_follows_writes(dev):
+    g = torch.Generator(device=dev).manual_seed(25)
+    _, _, w, _ = _conv_operands(g, dev, 1, 1, 4, 8, 12, 8)
+    wk = cc.kernel_weight(w)
+    assert wk.shape == (8, 27, 16) and cc.kernel_weight(w) is wk
+    assert (wk[..., 12:] == 0).all()
+    torch.testing.assert_close(wk[..., :12], w.permute(0, 2, 3, 4, 1)
+                               .reshape(8, 27, 12), rtol=0, atol=0)
+    w.mul_(2)
+    assert cc.kernel_weight(w) is not wk
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_vae_decode_under_conv_backend_matches_torch_convs(dev, backend):
+    """A small streaming decode in bf16 through the kernels is as close to
+    the float32 decode of the same weights (torch convs, TF32 off) as the
+    bf16 decode on torch's convs is: within 1.5x its relative L2 (both
+    round every conv's output to bf16, through 30 convs; under 'fused'
+    the activations are rounded at other points)."""
+    from self_forcing_tpu_torch.models.wan import vae
+    cfg = vae.VAEConfig(dim=32, z_dim=4, dim_mult=(1, 2, 4, 4),
+                        num_res_blocks=1)
+    p = vae.init_params(cfg, seed=3, dtype=torch.bfloat16, device=dev)
+    if backend == "fused":
+        p = vae.pad_decoder_channels(p)
+    z = torch.randn(1, 3, 8, 8, 4, device=dev).to(torch.bfloat16)
+    p32 = map_tree(lambda t: t.float(), p)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = vae.decode(p32, cfg, z.float())
+        outs = []
+        for be in (None, backend):
+            vae.set_conv_backend(be)
+            cc.reset_launch_counts()
+            outs.append(vae.decode(p, cfg, z))
+            torch.cuda.synchronize()
+    finally:
+        vae.set_conv_backend(None)
+    name = "conv3d_fused" if backend == "pallas" else "norm_silu_conv3d"
+    assert cc.launch_counts[name] > 0
+    e_torch, e_kern = _rel_l2(outs[0], ref), _rel_l2(outs[1], ref)
+    assert e_kern < 1.5 * e_torch, (e_kern, e_torch)
+

@@ -117,7 +117,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "training/ema.py", "training/objectives/base.py",
                  "training/objectives/dmd.py", "utils/loss.py",
                  "pipelines/self_forcing_training.py", "lora.py",
-                 "train.py", "ops/masks.py"):
+                 "train.py", "ops/masks.py", "ops/conv.py",
+                 "ops/cuda_conv.py", "models/wan/vae.py"):
         assert os.path.join("self_forcing_tpu_torch", part) in rel, part
     bad = []
     for path in files:
