@@ -11,8 +11,13 @@ Phases, each printing one line or more (any failure exits non-zero):
    global demo window and at the windowed steady state, the W8A8 linears
    (M = 4680 tokens, dim 1536, ffn 8960), the training path's flash
    attention forward and its dq / dk-dv backward (L = 32760 tokens, 12
-   heads, no mask and the 7-block block-causal mask); timed with CUDA
-   events (median of 7) beside its bound and one PyTorch library call;
+   heads, no mask and the 7-block block-causal mask); the decode
+   kernel's 'bounded', online and 'free_noclamp' modes, the full-int8
+   decode attention ('tile', 'global', online; V pre-pass and attention)
+   at the global demo window, int8 online also at the windowed steady
+   state, and the flash forward's online and bounded modes; timed with
+   CUDA events (median of 7) beside its bound and one PyTorch library
+   call;
 3. one full-width DiT forward (block 2, so the cache is read) with the
    kernels and with their plain versions, same weights and inputs;
 4. the streaming sampler at full Wan-1.3B width (random weights from the
@@ -23,16 +28,23 @@ Phases, each printing one line or more (any failure exits non-zero):
 5. where the time goes: one denoise forward at the last block's window
    and the decode of that block under torch.profiler (device busy and
    idle share).
-Phases 3-5 run for the parity configuration, then for the demo
+Phases 3-5 run for the parity configuration; then phases 3-4 under
+``attn_softmax`` 'bounded' and 'online' (the forward kernels vs plain and
+against the free forward; a 3-block stream, denoise and refresh each
+block, with the cache's per-layer kmax after each); then for the demo
 configuration as ``bench.py`` runs it: the same weights quantized and the
 attention quantized as ``ops/chip.py`` picks for the card (W8A8 linears,
 int8-QK attention; phase 3 also gives its distance to the bf16 forward;
-phase 4 decodes each block with the stateful TAEHV streamer).
+phase 4 decodes each block with the stateful TAEHV streamer), and phases
+3-4 of the demo with the full-int8 attention (``attn_quant='int8'``, the
+tile-bounded kernel on the global path).
 6. The windowed configurations of ``bench.py`` (1-frame sink, 12-frame
    window, 24-frame buffer, W8A8 + int8-QK, 12 blocks with TAEHV): a warm
    run, then a timed run with steady-state DiT and TAEHV ms per block
    and the frame rates with and without the decode, the compactions, one
-   forward kernels vs plain at the compacted state, and phase 5.
+   forward kernels vs plain at the compacted state, and phase 5; then the
+   same with ``attn_quant='int8'`` (the online int8 kernel: the windowed
+   cache keeps no kmax).
 7. The training path: ``ScoreDistillationTrainer`` with
    ``configs/self_forcing_dmd.yaml`` (Self-Forcing DMD: 21 latent frames
    of 60x104 in 7 blocks, steps [1000, 750, 500, 250] warped, guidance
@@ -40,9 +52,10 @@ phase 4 decodes each block with the stateful TAEHV streamer).
    weights, pseudo text context: two
    ``train_step``s (generator + critic, then critic only) with per-phase
    ms, peak memory, losses and grad norms, the parameters that moved and
-   the flash kernels' launch counts; then one critic-loss gradient at
-   full width and 2 layers with the kernels and with their plain
-   versions.
+   the flash kernels' launch counts; one critic-only step under
+   ``attn_softmax='bounded'``; then the critic-loss gradient at full
+   width and 2 layers with the kernels and with their plain versions,
+   under 'free', 'bounded' and 'online'.
 8. The Wan VAE at full width (random weights from the seed) under its
    three conv backends (None: cuDNN convs; 'pallas': every 3x3x3 causal
    conv through the conv kernel; 'fused': the fused norm + SiLU + conv
@@ -89,6 +102,8 @@ S_CACHE = 32768        # 21 frames * 1560 tokens rounded up to 2048
 LAST_KV_END = 18 * 1560  # cache tokens before the 7th block
 DIM, FFN, N_CTX = 1536, 8960, 512
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
+LOG2E = 1.4426950408889634
+S_WIN = 24 * 1560      # the windowed configuration's 24-frame buffer
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 
@@ -96,6 +111,14 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 PARITY_KERNELS = ("decode_fresh_free", "cross_attention")
 DEMO_KERNELS = ("int8qk_quantize", "decode_fresh_int8qk", "cross_attention",
                 "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
+# attn_quant='int8': the global demo runs the tile-bounded int8 attention,
+# the windowed configuration (no kmax) the online one
+INT8_DEMO_KERNELS = ("int8qk_quantize", "int8_quantize_v",
+                     "decode_fresh_int8_tile", "cross_attention",
+                     "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
+INT8_WIN_KERNELS = ("int8qk_quantize", "int8_quantize_v",
+                    "decode_fresh_int8_online", "cross_attention",
+                    "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
 
 
 def fail(msg: str) -> None:
@@ -204,6 +227,7 @@ def phase_kernels(ca, g) -> dict:
             bound_by=b_by)
     table["decode_fresh_free"]["max_abs_err"] = max(maes)
     table.update(phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g))
+    table.update(phase_mode_kernels(ca, q, kc, vc, kn, vn, g))
     phase_attention_backward(ca, q, kc, vc, kn, vn, g)
     del kc, vc, kn, vn
 
@@ -362,6 +386,163 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
                 ms=pre_ms, plain_ms=pre_plain, library_ms=None,
                 bound_ms=pb_ms, bound_by=pb_by, max_abs_err=float(worst))
         del qq, qq_ref
+    del kc_w, vc_w
+    return table
+
+
+def _heads(t: torch.Tensor) -> torch.Tensor:
+    """Heads-packed [1, L, N*D] -> [1, N, L, D]."""
+    return t.reshape(1, -1, N_HEADS, HEAD_DIM).transpose(1, 2)
+
+
+def _window(k_c, v_c, kn, vn, li, win):
+    """The visible keys and values [1, N, keys, D] of a decode window
+    (sinks, the cached window, the fresh block)."""
+    lay_k = k_c[li] if k_c.dim() == 4 else k_c
+    lay_v = v_c[li] if v_c.dim() == 4 else v_c
+    lo, hi, sk = win["kv_start"], win["kv_end"], win["sink_end"]
+    vis = torch.cat([torch.arange(sk), torch.arange(lo, hi)]).cuda()
+    return (torch.cat([lay_k[:, vis][None], _heads(kn)], dim=2),
+            torch.cat([lay_v[:, vis][None], _heads(vn)], dim=2))
+
+
+def _max_score(qh, keys) -> torch.Tensor:
+    """max over heads of q.k^T * head_dim**-0.5, on the card."""
+    return torch.stack([(qh[0, n].float() @ keys[0, n].float().T).amax()
+                        for n in range(qh.shape[1])]).amax() \
+        * HEAD_DIM ** -0.5
+
+
+def phase_mode_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
+    """The decode kernel's other softmax modes and the full-int8 decode
+    attention against their plain versions, at the global demo window
+    (block 7: 28080 cached keys of layer 7 plus 4680 fresh): 'bounded'
+    (the DiT's Cauchy-Schwarz bound, on the card), online and
+    'free_noclamp' (q carrying head_dim**-0.5 * log2(e)); int8 'tile'
+    (the same bound), 'global' (the max score + 0.5) and online, each
+    the V pre-pass (its int8 and scales equal to the plain version's)
+    and the attention; int8 online also at the windowed steady state (a
+    37440-token buffer with the 1560-token sink and 12480 recent keys
+    visible), its path.  Tolerance 1e-2 relative L2 (p rounded to bf16,
+    or to int8 at an exp2 that may differ by an ulp).  Library yardstick:
+    SDPA on the same bf16 inputs at head_dim**-0.5 (for the int8 rows,
+    the bf16 function)."""
+    from self_forcing_tpu_torch.ops.attention import decode_tiles
+    D, N = HEAD_DIM, N_HEADS
+    qu = (q.float() / (D ** -0.5 * LOG2E)).to(q.dtype)   # unfolded
+    glob = dict(layer_idx=7, kv_start=0, kv_end=LAST_KV_END, sink_end=0,
+                static_hi=LAST_KV_END, num_heads=N)
+    kv_k, kv_v = _window(kc, vc, kn, vn, 7, glob)
+    qh = _heads(qu)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kv_k,
+                                                             kv_v))
+    m0 = (D ** -0.5 * qh.float().norm(dim=-1).amax()
+          * kv_k.float().norm(dim=-1).amax()).reshape(1)
+    smax = _max_score(qh, kv_k)
+    del kv_k, kv_v
+    n_keys = LAST_KV_END + LQ
+    b_ms, b_by = bound(4.0 * LQ * n_keys * D * N,
+                       2.0 * (2 * LQ * N * D + 2 * n_keys * N * D))
+    print(f"decode modes at the global window: m0={float(m0):.4f} "
+          f"max_score={float(smax):.4f} (Cauchy-Schwarz bound, its slack "
+          f"{float(m0 - smax):.3f} nats)", flush=True)
+    table = {}
+    for name, kw in (("decode_fresh_bounded", dict(mode="bounded", m0=m0,
+                                                   scale=D ** -0.5)),
+                     ("decode_fresh_online", dict(mode="online",
+                                                  scale=D ** -0.5)),
+                     ("decode_fresh_free_noclamp",
+                      dict(mode="free_noclamp"))):
+        qm = q if kw["mode"] == "free_noclamp" else qu
+        run = lambda: ca.decode_fresh(qm, kc, vc, kn, vn, **kw, **glob)
+        ref = ca.decode_fresh_ref(qm, kc, vc, kn, vn, **kw, **glob)
+        err, mae = check_kernel(name, run(), ref)
+        del ref
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: ca.decode_fresh_ref(qm, kc, vc, kn, vn,
+                                                       **kw, **glob), reps=3)
+        print(f"kernel {name} global block 7 (keys {n_keys}, layer 7): "
+              f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        table[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                           bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+
+    kc_w = torch.randn(N, S_WIN, D, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    vc_w = torch.randn(N, S_WIN, D, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    wwin = dict(layer_idx=0, kv_start=S_WIN - LQ - 8 * 1560,
+                kv_end=S_WIN - LQ, sink_end=1560, static_hi=None,
+                num_heads=N)
+    cases = [("tile", "global block 7", kc, vc, glob, None, m0),
+             ("global", "global block 7", kc, vc, glob, None, smax + 0.5),
+             ("online", "global block 7", kc, vc, glob, None, None),
+             ("online", "windowed steady state", kc_w, vc_w, wwin, 1560,
+              None)]
+    for mode, label, k_c, v_c, win, align, bnd in cases:
+        tq, tk, tf = decode_tiles(LQ, k_c.shape[-2], LQ, "int8", None,
+                                  align)
+        tiles = dict(tk=tk, tf=tf, **win)
+        qq = ca.int8qk_quantize(qu, k_c, kn, tq=tq, **tiles)
+        vv = ca.int8_quantize_v(v_c, vn, **tiles)
+        vv_ref = ca.int8_quantize_v_ref(v_c, vn, **tiles)
+        live = torch.tensor(ca.live_cache_tiles(
+            vv.vsc.shape[1], tk, win["kv_start"], win["kv_end"],
+            win["sink_end"]), device="cuda")
+        worst = max(check_int8("int8_quantize_v", a, b) for a, b in (
+            (vv.vc8[:, live], vv_ref.vc8[:, live]), (vv.vn8, vv_ref.vn8)))
+        s_err = max(rel_l2(a, b) for a, b in ((vv.vsc, vv_ref.vsc),
+                                              (vv.vsf, vv_ref.vsf)))
+        if s_err > 1e-6:
+            fail(f"int8_quantize_v: scales relative L2 {s_err:.3e} > 1e-6")
+        del vv_ref
+        att = dict(mode=mode, m0=bnd, scale=D ** -0.5, tq=tq,
+                   cache_len=k_c.shape[-2], fresh_len=LQ, **tiles)
+        name = f"decode_fresh_int8_{mode}"
+        out = ca.int8_attend(qq, vv, qu, **att)
+        ref = ca.decode_fresh_int8_ref(qu, k_c, v_c, kn, vn, mode=mode,
+                                       m0=bnd, scale=D ** -0.5, tq=tq,
+                                       **tiles)
+        err, mae = check_kernel(name, out, ref)
+        del out, ref
+        ms = time_ms(lambda: ca.int8_attend(qq, vv, qu, **att))
+        plain_ms = time_ms(lambda: ca.int8_attend_ref(qq, vv, qu, **att),
+                           reps=3)
+        pre_ms = time_ms(lambda: ca.int8_quantize_v(v_c, vn, **tiles))
+        pre_plain = time_ms(lambda: ca.int8_quantize_v_ref(v_c, vn,
+                                                           **tiles), reps=3)
+        kk, kv = _window(k_c, v_c, kn, vn, win["layer_idx"], win)
+        lib = (sdpa_ms if label.startswith("global") else
+               time_ms(lambda: F.scaled_dot_product_attention(qh, kk, kv)))
+        nk = kk.shape[2]
+        del kk, kv
+        ops = 2.0 * LQ * nk * D * N           # each of QK^T and P.V
+        ab_ms, ab_by = bound(2 * ops, (LQ + 2 * nk) * N * D
+                             + 2.0 * LQ * N * D, PEAK_INT8_OPS)
+        n_v = int(live.sum()) * tk + LQ
+        pb_ms, pb_by = bound(3.0 * n_v * N * D, 3.0 * n_v * N * D,
+                             PEAK_F32_FLOPS)
+        print(f"kernel {name} {label} (keys {nk}, tiles {tq}/{tk}/{tf}, "
+              f"m0={'none' if bnd is None else f'{float(bnd):.4f}'}): "
+              f"rel_l2={err:.3e} max_abs={mae:.3e} attend_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_bf16_ms={lib:.4f} "
+              f"bound_ms={ab_ms:.4f} ({ab_by}) tops={2 * ops / ms / 1e9:.1f};"
+              f" int8_quantize_v ({n_v} rows) max_int8_step={worst} "
+              f"scales_rel_l2={s_err:.3e} ms={pre_ms:.4f} "
+              f"plain_ms={pre_plain:.4f} bound_ms={pb_ms:.4f} ({pb_by})",
+              flush=True)
+        # the table's rows: each mode at its path's shape (online: the
+        # windowed configuration's; the V pre-pass: the demo's, global)
+        if name not in table or not label.startswith("global"):
+            table[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                               bound_ms=ab_ms, bound_by=ab_by,
+                               max_abs_err=mae)
+        if mode == "tile":
+            table["int8_quantize_v"] = dict(
+                ms=pre_ms, plain_ms=pre_plain, library_ms=None,
+                bound_ms=pb_ms, bound_by=pb_by, max_abs_err=float(worst))
+        del qq, vv
     del kc_w, vc_w
     return table
 
@@ -586,7 +767,51 @@ def phase_flash_kernels(ca, masks, g) -> dict:
                                    max_abs_err=m)
         print(f"flash {label}: lse max_abs={lse_err:.3e} dk rel_l2="
               f"{dk_err:.3e} dv rel_l2={dv_err:.3e}", flush=True)
+        table.update(flash_mode_rows(ca, q, k, v, mask, label, frac))
     return table
+
+
+def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
+    """The flash forward's online and bounded modes (the DiT's bound
+    head_dim**-0.5 * max|q_row| * max|k_row|, on the card) against their
+    plain versions on unfolded q at head_dim**-0.5: 1e-2 relative L2 on
+    out, 1e-3 absolute on lse.  SDPA at the same scale is the library
+    yardstick (no mask only).  Returns the no-mask rows."""
+    D, N, L = HEAD_DIM, N_HEADS, SEQ_TRAIN
+    qu = (q.float() / (D ** -0.5 * LOG2E)).to(q.dtype)
+    m0 = (D ** -0.5 * qu.float().norm(dim=-1).amax()
+          * k.float().norm(dim=-1).amax()).reshape(1)
+    lib = None
+    if mask is None:
+        qh, kh, vh = (t.transpose(1, 2) for t in (qu, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    prod = 2.0 * L * L * D * N * frac
+    b_ms, b_by = bound(2 * prod, 4 * 2.0 * L * N * D + 4.0 * L * N)
+    rows = {}
+    for mode in ("online", "bounded"):
+        kw = dict(mode=mode, scale=D ** -0.5,
+                  m0=m0 if mode == "bounded" else None)
+        name = f"flash_fwd_{mode}"
+        out, lse = ca.flash_fwd(qu, k, v, mask, **kw)
+        ref, ref_lse = ca.flash_fwd_ref(qu, k, v, mask, **kw)
+        err, mae = check_kernel(name, out, ref)
+        lse_err = float((lse - ref_lse).abs().max())
+        if lse_err > 1e-3:
+            fail(f"{name}: lse max abs error {lse_err:.3e} > 1e-3")
+        del out, ref, lse, ref_lse
+        ms = time_ms(lambda: ca.flash_fwd(qu, k, v, mask, **kw))
+        pms = time_ms(lambda: ca.flash_fwd_ref(qu, k, v, mask, **kw), reps=3)
+        print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}"
+              f"{', m0=%.4f' % float(m0) if mode == 'bounded' else ''}): "
+              f"rel_l2={err:.3e} max_abs={mae:.3e} lse_max_abs={lse_err:.3e} "
+              f"ms={ms:.4f} plain_ms={pms:.4f} "
+              f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"tflops={2 * prod / ms / 1e9:.1f}", flush=True)
+        if mask is None:
+            rows[name] = dict(ms=ms, plain_ms=pms, library_ms=lib,
+                              bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+    return rows
 
 
 def make_params(dit, cfg, seed):
@@ -661,7 +886,8 @@ def phase_demo_forward(dit, cfg, qparams, rope, inp, flow_bf16) -> None:
     if not torch.isfinite(flow_k.float()).all():
         fail("demo forward: non-finite flow")
     err = rel_l2(flow_k, flow_p)
-    print(f"demo forward 1.3B W8A8 block 2 (cache window {LQ} tokens): "
+    print(f"demo forward 1.3B W8A8 + {cfg.attn_quant} attention block 2 "
+          f"(cache window {LQ} tokens): "
           f"kernels vs plain rel_l2={err:.3e} vs bf16 forward "
           f"rel_l2={rel_l2(flow_k, flow_bf16):.3e} kernel_path_ms={ms_k:.1f} "
           f"plain_path_ms={ms_p:.1f} (host clock, first calls)", flush=True)
@@ -754,8 +980,95 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
     return launches, last
 
 
+def phase_softmax_modes(ca, dit, pipe_mod, cfg, params, rope, inp,
+                        flow_free, blocks, seed) -> dict:
+    """Phases 3-4 under ``attn_softmax`` 'bounded' and 'online' on the
+    parity weights: the block-2 forward with the kernels and with their
+    plain versions (<= 2e-2 relative L2), and its distance to the 'free'
+    forward (<= 2e-2: all three are the exact softmax up to bf16
+    rounding); then a stream of ``blocks`` 3-frame blocks, each denoised
+    (4 forwards) and refreshed into the cache (``denoise_block``,
+    ``refresh_block``, as ``inference`` runs them), with the cache's
+    per-layer kmax after each refresh (bounded: raised by every refresh;
+    online: untouched).  Returns each mode's decode launches of its
+    stream."""
+    from self_forcing_tpu_torch.config import Config
+    B, C, H, W = 1, 16, 60, 104
+    fs = (H // 2) * (W // 2)
+    launches = {}
+    for mode in ("bounded", "online"):
+        cfg_m = dataclasses.replace(cfg, attn_softmax=mode)
+        outs = block2_forward(dit, cfg_m, params, rope, inp, (True, False))
+        (flow_k, ms_k), (flow_p, ms_p) = outs[True], outs[False]
+        if not torch.isfinite(flow_k.float()).all():
+            fail(f"{mode} forward: non-finite flow")
+        err, err_free = rel_l2(flow_k, flow_p), rel_l2(flow_k, flow_free)
+        print(f"forward 1.3B block 2 attn_softmax={mode}: kernels vs plain "
+              f"rel_l2={err:.3e} vs the free forward rel_l2={err_free:.3e} "
+              f"kernel_path_ms={ms_k:.1f} plain_path_ms={ms_p:.1f} (host "
+              f"clock, first calls)", flush=True)
+        if err > 2e-2 or err_free > 2e-2:
+            fail(f"{mode} forward: relative L2 {err:.3e} (kernels vs "
+                 f"plain) / {err_free:.3e} (vs free) > 2e-2")
+        del outs, flow_k, flow_p
+
+        g = torch.Generator(device="cuda").manual_seed(seed + 11)
+        args = Config({"denoising_step_list": [1000, 750, 500, 250],
+                       "warp_denoising_step": True, "timestep_shift": 8.0,
+                       "num_frame_per_block": 3, "context_noise": 0})
+        pipe = pipe_mod.CausalInferencePipeline(args, params, cfg_m,
+                                                device="cuda",
+                                                dtype=torch.bfloat16)
+        context = torch.randn(B, N_CTX, cfg.text_dim, generator=g,
+                              device="cuda").to(torch.bfloat16)
+        noise = torch.randn(B, 3 * blocks, C, H, W, generator=g,
+                            device="cuda").to(torch.bfloat16)
+        ctx_kv = dit.precompute_context(params, cfg_m, context)
+        cache = dit.init_kv_cache(cfg_m, B, fs, 21, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        block_ms, kmax = [], []
+        for b in range(blocks):
+            lo = 3 * b
+            t0 = time.perf_counter()
+            x0, cache = pipe_mod.denoise_block(
+                params, cfg_m, pipe.scheduler, pipe.rope, ctx_kv, cache,
+                noise[:, lo:lo + 3], pipe.denoising_step_list, lo,
+                static_kv_hi=lo * fs, generator=g)
+            cache = pipe_mod.refresh_block(params, cfg_m, pipe.rope, ctx_kv,
+                                           cache, x0, pipe.context_noise, lo,
+                                           static_kv_hi=lo * fs)
+            torch.cuda.synchronize()
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            if not torch.isfinite(x0.float()).all():
+                fail(f"{mode} stream: non-finite block {b}")
+            kmax.append(cache.kmax.float().cpu())
+        name = f"decode_fresh_{mode}"
+        got = dict(ca.launch_counts)
+        if got[name] == 0:
+            fail(f"{mode} stream: kernel {name} was never launched")
+        km = torch.stack(kmax)
+        if mode == "bounded" and not (
+                (km[0] > 0).all() and (km[1:] >= km[:-1]).all()
+                and torch.isfinite(km).all()):
+            fail(f"bounded stream: kmax not positive and non-decreasing")
+        if mode == "online" and km.any():
+            fail("online stream: kmax moved")
+        print(f"stream 1.3B attn_softmax={mode} {blocks} blocks (denoise + "
+              f"refresh each): block_ms={[round(x, 1) for x in block_ms]} "
+              f"kmax per block (layers 0, 1, 15, 29) "
+              f"{[[round(float(k[i]), 3) for i in (0, 1, 15, 29)] for k in km]}"
+              f" kmax range over layers "
+              f"{[(round(float(k.min()), 3), round(float(k.max()), 3)) for k in km]}"
+              f" launches={ {k: v for k, v in got.items() if v} }", flush=True)
+        launches[name] = got[name]
+        del pipe, cache, ctx_kv
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
-                      seed):
+                      seed, kernels=DEMO_KERNELS):
     """The demo configuration (bench.py's run_demo): the streaming sampler
     on the W8A8 weights with the card's demo attention (int8-QK), each
     block decoded by the stateful TAEHV streamer (random decoder weights
@@ -811,7 +1124,7 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
         fail(f"demo stream: pixels {tuple(video.shape)}, expected {want}")
     if not torch.isfinite(video.float()).all():
         fail("demo stream: non-finite pixels")
-    check_launches("demo stream", launches, DEMO_KERNELS)
+    check_launches("demo stream", launches, kernels)
     # the stateful stream carries each MemBlock's last frame, so it equals
     # one decode of the whole video up to bf16 rounding in other cuDNN
     # algorithms; a lost or misplaced carry moves whole frames
@@ -841,7 +1154,8 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
 
 
 def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
-                   n_blocks: int = 12, steady_from: int = 4) -> dict:
+                   n_blocks: int = 12, steady_from: int = 4,
+                   kernels=DEMO_KERNELS) -> dict:
     """bench.py's windowed configurations (``bench.py:309-381``): a 1-frame
     attention sink, a 12-frame window, a 24-frame append buffer compacted
     by the host-side fill tracker of ``stream``, W8A8 linears and int8-QK
@@ -892,7 +1206,7 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
     dit_ms, tae_ms, video, blk, lat, state = run()
     launches = {**ca.launch_counts, **cm.launch_counts}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_launches("windowed stream", launches, DEMO_KERNELS)
+    check_launches("windowed stream", launches, kernels)
     frames = 9 + 12 * (n_blocks - 1)
     if tuple(video.shape) != (B, frames, 3, 480, 832):
         fail(f"windowed stream: pixels {tuple(video.shape)}, expected "
@@ -939,6 +1253,7 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
              f"> 2e-2")
     del flows
     return dict(pipe=pipe, context=context, x=blk, start=start,
+                launches=launches,
                 decode=("taehv_block", lambda: taehv.decode_video_stateful(
                     tae, lat, state, trim=False)))
 
@@ -1264,12 +1579,14 @@ def _norms(leaves):
             for t in leaves]
 
 
-def phase_training(ca, seed: int) -> dict:
+def phase_training(ca, seed: int, softmax: str = "free",
+                   steps=(0, 1)) -> dict:
     """Self-Forcing DMD training at full Wan-1.3B width and depth (the
-    config of ``configs/self_forcing_dmd.yaml``): two train steps through
+    config of ``configs/self_forcing_dmd.yaml``, ``model_kwargs``
+    attn_softmax = ``softmax``): the train ``steps`` through
     ``ScoreDistillationTrainer`` (step 0 updates the generator and the
     critic, step 1 the critic), launch counts reset just before and read
-    just after.  Returns the launches."""
+    just after each.  Returns the launches."""
     from self_forcing_tpu_torch import train
     from self_forcing_tpu_torch.config import load_config
     from self_forcing_tpu_torch.training.trainer_distillation import (
@@ -1277,6 +1594,8 @@ def phase_training(ca, seed: int) -> dict:
     config = load_config(os.path.join(CONFIGS, "self_forcing_dmd.yaml"),
                          os.path.join(CONFIGS, "default_config.yaml"))
     config.seed = seed
+    config.model_kwargs = {**dict(config.get("model_kwargs") or {}),
+                           "attn_softmax": softmax}
     cfg0, gen, fake, real = train.build_models(
         config, torch.bfloat16, torch.device("cuda"))
     layers = cfg0.num_layers
@@ -1293,8 +1612,12 @@ def phase_training(ca, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = {k: 0 for k in ca.launch_counts}
-    for step in range(2):
+    fwd = "flash_fwd" if softmax == "free" else f"flash_fwd_{softmax}"
+    names = [fwd if k == "flash_fwd" else f"decode_fresh_{softmax}"
+             if k == "decode_fresh_free" else k for k in TRAIN_KERNELS]
+    for step in steps:
         ctx = context_fn(next(batches))
+        trainer.state.step = step
         ca.reset_launch_counts()
         t0 = time.perf_counter()
         log = trainer.train_step({"context": ctx})
@@ -1304,9 +1627,10 @@ def phase_training(ca, seed: int) -> dict:
         for k, v in got.items():
             launches[k] += v
         want = dict(CRITIC_FLASH)
-        if step == 0:
+        if step % trainer.dfake_gen_update_ratio == 0:
             want = {k: want[k] + GEN_FLASH[k] for k in want}
-        want = {k: n * layers for k, n in want.items()}
+        want = {fwd if k == "flash_fwd" else k: n * layers
+                for k, n in want.items()}
         if any(got[k] != n for k, n in want.items()):
             fail(f"train step {step}: flash launches "
                  f"{ {k: got[k] for k in want} }, expected {want}")
@@ -1317,28 +1641,31 @@ def phase_training(ca, seed: int) -> dict:
         vals = {k: round(v, 6) for k, v in log.items()
                 if not k.endswith("_ms")}
         print(f"train step {step} (Wan-1.3B width, {layers} layers, DMD, "
-              f"21 frames 60x104, LoRA rank {config.lora_rank}): "
-              f"step_ms={ms:.1f} split_ms={split} {vals} "
-              f"launches={ {k: got[k] for k in TRAIN_KERNELS} } "
+              f"attn_softmax={softmax}, 21 frames 60x104, LoRA rank "
+              f"{config.lora_rank}): step_ms={ms:.1f} split_ms={split} "
+              f"{vals} launches={ {k: got[k] for k in names} } "
               f"(host clock, synchronised per phase)", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     moved_g = sum(a != b for a, b in zip(gen_before,
                                          _norms(trainer.gen_leaves)))
     moved_f = sum(a != b for a, b in zip(fake_before,
                                          _norms(trainer.fake_leaves)))
-    print(f"training: peak_mem_gb={peak_gb:.2f} generator leaves moved "
-          f"{moved_g}/{len(gen_before)} critic leaves moved "
+    print(f"training ({softmax}): peak_mem_gb={peak_gb:.2f} generator "
+          f"leaves moved {moved_g}/{len(gen_before)} critic leaves moved "
           f"{moved_f}/{len(fake_before)}", flush=True)
-    if not moved_g or not moved_f:
+    gen_steps = any(st % trainer.dfake_gen_update_ratio == 0
+                    for st in steps)
+    if (gen_steps and not moved_g) or not moved_f:
         fail("training: the generator or the critic did not move")
-    check_launches("training", launches, TRAIN_KERNELS)
+    check_launches("training", launches, names)
     return launches
 
 
-def phase_training_grad(dit, seed: int) -> None:
-    """One critic-loss gradient at full Wan-1.3B width and 2 layers, with
-    the kernels and with their plain versions, the same draws (one
-    generator seed).  Tolerance 1e-2 relative L2 over all the critic's
+def phase_training_grad(ca, dit, seed: int, softmax: str = "free") -> dict:
+    """One critic-loss gradient at full Wan-1.3B width and 2 layers
+    (``attn_softmax`` = ``softmax``), with the kernels and with their
+    plain versions, the same draws (one generator seed); the launches of
+    the kernels' run are returned.  Tolerance 1e-2 relative L2 over all the critic's
     leaves: the kernels round p and ds to bf16 where the plain versions
     round the same values (each within ~4e-3, an ulp of bf16), and the
     no-grad rollout feeding the loss carries the decode kernels'
@@ -1352,7 +1679,7 @@ def phase_training_grad(dit, seed: int) -> None:
     config = load_config(os.path.join(CONFIGS, "self_forcing_dmd.yaml"),
                          os.path.join(CONFIGS, "default_config.yaml"))
     config.update(seed=seed, lora_rank=0)
-    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2, attn_softmax=softmax)
     gen, fake, real = (dit.init_params(cfg, seed + i, torch.bfloat16, "cuda",
                                        causal=i == 0) for i in range(3))
     with torch.no_grad():
@@ -1365,21 +1692,30 @@ def phase_training_grad(dit, seed: int) -> None:
     grads = []
     for kernels in (True, False):
         g = torch.Generator("cuda").manual_seed(seed + 9)
+        ca.reset_launch_counts()
         loss, _ = dmd.critic_loss(trainer.bundle, trainer.obj, gen, fake,
                                   noise, ctx, ctx, 2, generator=g,
                                   kernels=kernels)
         gr = torch.autograd.grad(loss, trainer.fake_leaves, allow_unused=True)
+        if kernels:
+            launches = dict(ca.launch_counts)
         grads.append((float(loss.detach()), torch.cat(
             [x.float().flatten() for x in gr if x is not None])))
         del gr
     (lk, gk), (lp, gp) = grads
     err = rel_l2(gk, gp)
-    print(f"critic-loss gradient (Wan-1.3B width, 2 layers, exit 2): loss "
-          f"kernels={lk:.6f} plain={lp:.6f} grad rel_l2={err:.3e} "
-          f"grad_norm={float(gk.norm()):.4e}", flush=True)
+    print(f"critic-loss gradient (Wan-1.3B width, 2 layers, exit 2, "
+          f"attn_softmax={softmax}): loss kernels={lk:.6f} plain={lp:.6f} "
+          f"grad rel_l2={err:.3e} grad_norm={float(gk.norm()):.4e} "
+          f"launches={ {k: v for k, v in launches.items() if v} }",
+          flush=True)
     if not math.isfinite(err) or err > 1e-2:
-        fail(f"critic-loss gradient: kernels vs plain relative L2 "
-             f"{err:.3e} > 1e-2")
+        fail(f"critic-loss gradient ({softmax}): kernels vs plain relative "
+             f"L2 {err:.3e} > 1e-2")
+    fwd = "flash_fwd" if softmax == "free" else f"flash_fwd_{softmax}"
+    check_launches(f"critic-loss gradient ({softmax})", launches,
+                   (fwd, "flash_bwd_dq", "flash_bwd_dkv"))
+    return launches
 
 
 def profile_ms(fn) -> tuple[float, list]:
@@ -1505,13 +1841,20 @@ def main() -> None:
     phase_profile(dit, cfg, params, last, "parity")
     del last
     torch.cuda.empty_cache()
+    # 3-4 under the bounded and online softmax
+    launches.update(phase_softmax_modes(ca, dit, pipe_mod, cfg, params, rope,
+                                        inp, flow_bf16, a.blocks, a.seed))
 
     # 3-5 for the demo configuration, as bench.py runs it: the same
-    # weights quantized and the attention, both from the card's defaults
+    # weights quantized and the attention, both from the card's defaults;
+    # then 3-4 with the full-int8 attention (attn_quant='int8', the
+    # tile-bounded kernel on this global path)
     chip = chip_defaults()
     cfg_q = dataclasses.replace(cfg, attn_quant=chip["demo_attn_quant"])
+    cfg_i8 = dataclasses.replace(cfg, attn_quant="int8")
     qparams = quant.quantize_dit_params(params, mode=chip["matmul_quant"])
     phase_demo_forward(dit, cfg_q, qparams, rope, inp, flow_bf16)
+    phase_demo_forward(dit, cfg_i8, qparams, rope, inp, flow_bf16)
     del inp, flow_bf16
     torch.cuda.empty_cache()
     demo_launches, demo_last = phase_demo_stream(
@@ -1519,28 +1862,50 @@ def main() -> None:
     launches.update({k: demo_launches[k] for k in DEMO_KERNELS
                      if k != "cross_attention"})
     phase_profile(dit, cfg_q, qparams, demo_last, "demo")
+    del demo_last
+    torch.cuda.empty_cache()
+    i8_launches, i8_last = phase_demo_stream(
+        ca, cm, dit, taehv, pipe_mod, cfg_i8, qparams, a.blocks, a.seed,
+        kernels=INT8_DEMO_KERNELS)
+    launches.update({k: i8_launches[k] for k in ("int8_quantize_v",
+                                                 "decode_fresh_int8_tile")})
+    del i8_last   # its pipe holds a 6 GB KV cache
 
     # the windowed configurations, after freeing the global caches and
-    # the bf16 parameters (the 24-frame buffer is 6.9 GB)
-    del demo_last, params
+    # the bf16 parameters (the 24-frame buffer is 6.9 GB); with
+    # attn_quant='int8' the windowed path runs the online int8 kernel
+    del params
     torch.cuda.empty_cache()
     cfg_w = dataclasses.replace(cfg_q, local_attn_size=12, sink_size=1,
                                 windowed_buffer_frames=24)
     win_last = phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg_w, qparams,
                               a.seed)
     phase_profile(dit, cfg_w, qparams, win_last, "windowed")
-    del win_last, qparams
+    del win_last
+    torch.cuda.empty_cache()
+    win_i8 = phase_windowed(ca, cm, dit, taehv, pipe_mod,
+                            dataclasses.replace(cfg_w, attn_quant="int8"),
+                            qparams, a.seed, kernels=INT8_WIN_KERNELS)
+    launches["decode_fresh_int8_online"] = \
+        win_i8["launches"]["decode_fresh_int8_online"]
+    del win_i8, qparams
     torch.cuda.empty_cache()
 
     # 7. the training path, with float32 products in TF32 as train.py
-    # runs them
+    # runs them; then a critic-only step under the bounded softmax and
+    # the critic-loss gradient under each softmax
     torch.backends.cuda.matmul.allow_tf32 = True
     train_launches = phase_training(ca, a.seed)
     launches.update({k: train_launches[k] for k in
                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
     torch.cuda.empty_cache()
-    phase_training_grad(dit, a.seed)
+    launches["flash_fwd_bounded"] = phase_training(
+        ca, a.seed, "bounded", steps=(1,))["flash_fwd_bounded"]
     torch.cuda.empty_cache()
+    for mode in ("free", "bounded", "online"):
+        grad_launches = phase_training_grad(ca, dit, a.seed, mode)
+        torch.cuda.empty_cache()
+    launches["flash_fwd_online"] = grad_launches["flash_fwd_online"]
 
     # 8. the Wan VAE under its conv backends, and the i2v path
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1551,9 +1916,26 @@ def main() -> None:
     pconv = "self_forcing_tpu/ops/pallas_conv.py"
     csrc = "self_forcing_tpu_torch/csrc/"
     sources = {"decode_fresh_free": (csrc + "decode_fresh.cu", attn + ":275"),
+               "decode_fresh_free_noclamp": (csrc + "decode_fresh.cu",
+                                             attn + ":275"),
+               "decode_fresh_bounded": (csrc + "decode_fresh.cu",
+                                        attn + ":275"),
+               "decode_fresh_online": (csrc + "decode_fresh.cu",
+                                       attn + ":275"),
                "int8qk_quantize": (csrc + "decode_int8qk.cu", attn + ":546"),
                "decode_fresh_int8qk": (csrc + "decode_int8qk.cu",
                                        attn + ":475"),
+               "int8_quantize_v": (csrc + "decode_int8.cu", attn + ":585"),
+               "decode_fresh_int8_tile": (csrc + "decode_int8.cu",
+                                          attn + ":475"),
+               "decode_fresh_int8_global": (csrc + "decode_int8.cu",
+                                            attn + ":475"),
+               "decode_fresh_int8_online": (csrc + "decode_int8.cu",
+                                            attn + ":475"),
+               "flash_fwd_online": (csrc + "flash_attention.cu",
+                                    attn + ":1367"),
+               "flash_fwd_bounded": (csrc + "flash_attention.cu",
+                                     attn + ":1367"),
                "cross_attention": (csrc + "cross_attention.cu",
                                    attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),

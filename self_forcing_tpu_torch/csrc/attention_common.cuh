@@ -186,4 +186,81 @@ __device__ __forceinline__ void store_rows(bf16* out, long long stride,
   }
 }
 
+// ---------------------------------------------------------------------
+// int8 helpers (the int8 decode attention kernels)
+// ---------------------------------------------------------------------
+
+// Asynchronously copy ROWS rows of BYTES bytes (global row stride
+// `stride` bytes) into a shared tile of row stride LDB bytes; rows >=
+// valid are zero-filled.  Every thread of the CTA (THREADS) takes part.
+template <int ROWS, int BYTES, int LDB, int THREADS>
+__device__ __forceinline__ void load_bytes(unsigned char* dst,
+                                           const int8_t* src,
+                                           long long stride, int valid) {
+  for (int i = threadIdx.x; i < ROWS * (BYTES / 16); i += THREADS) {
+    const int r = i / (BYTES / 16);
+    const int c = (i % (BYTES / 16)) * 16;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LDB + c, ok ? src + r * stride + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// float(i) for |i| < 2^22, exactly, without the quarter-rate I2F: the
+// bits of 1.5 * 2^23 plus i are the float 1.5 * 2^23 + i.
+__device__ __forceinline__ float int_to_float(int i) {
+  return __int_as_float(0x4B400000 + i) - 12582912.f;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  ldmatrix_x4(r, reinterpret_cast<const bf16*>(p));
+}
+
+// c += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulate.  Fragments:
+// a0 (g, 4t..4t+3) a1 (g+8, 4t..) a2 (g, 16+4t..) a3 (g+8, 16+4t..);
+// b0 (k 4t..4t+3, n g) b1 (k 16+4t.., n g); c as for m16n8k16.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// rint(v / s) in [-127, 127], the division exact (as the TPU kernels')
+__device__ __forceinline__ int quant1(float v, float s) {
+  const float r = rintf(__fdiv_rn(v, s));
+  return __float2int_rn(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
+         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+}
+
+// The maximum of a non-negative value over a CTA of THREADS, in every
+// thread (`red` holds THREADS / 32 floats of shared memory).
+template <int THREADS>
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = lane < THREADS / 32 ? red[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 }  // namespace sf_attn

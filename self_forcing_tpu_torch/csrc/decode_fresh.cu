@@ -1,21 +1,32 @@
-// decode_fresh_free: decode self-attention of one block's queries onto a
+// decode_fresh: decode self-attention of one block's queries onto a
 // read-only KV cache window plus the block's own fresh (not yet cached)
-// K/V, with the offset-free base-2 softmax.
+// K/V, in one of four softmax modes.
 //
-// Replaces the TPU kernel _decode_fresh_kernel in 'free' mode
+// Replaces the TPU kernel _decode_fresh_kernel in its bf16 modes
 // (self_forcing_tpu/ops/pallas_attention.py, called through
-// decode_attention_fresh_pallas).
+// decode_attention_fresh_pallas): 'free' and 'free_noclamp'
+// (softmax='free' / 'free_noclamp'), 'bounded' (fixed_m0) and online
+// (neither).
 //
 // Function, per (batch b, head n, query row i):
 //   visible cache columns j: j < cache_lim and
 //       (j < sink_end or kv_start <= j < kv_end)
 //   every fresh column is visible
-//   s = scale * q_i . k_j          (fp32; the caller folded
-//                                   head_dim**-0.5 * log2(e) into q)
-//   p = exp2(min(s, 80))           (no running max: qk-normed scores stay
-//                                   far inside exp2's range)
+//   s = q_i . k_j (fp32)
+//   FREE:         p = exp2(min(scale * s, 80))   (the caller folded
+//                 head_dim**-0.5 * log2(e) into q; no running max:
+//                 qk-normed scores stay far inside exp2's range)
+//   FREE_NOCLAMP: p = exp2(scale * s)
+//   BOUNDED:      p = exp(scale * s - m0), m0 >= every score (the
+//                 caller's Cauchy-Schwarz bound, read from device memory)
+//   ONLINE:       p = exp(scale * s - m), m the running row max over the
+//                 64-key tiles seen so far; l and acc are rescaled by
+//                 exp(m_prev - m) when it grows
 //   l = sum p (fp32),  acc = sum bf16(p) * v_j (fp32)
 //   out_i = acc / max(l, 1e-30)  -> bf16
+// The exponentials run base 2 (ex2.approx): scale * log2(e) multiplies
+// the scores of BOUNDED and ONLINE.  ONLINE rounds p to bf16 for P.V, as
+// the other modes do (the Pallas kernel in interpret mode keeps it f32).
 //
 // Layouts: q, k_new, v_new and out are heads-packed [B, L, N*D]; the cache
 // is one layer [B*N, S, D] of the stacked [layers, B*N, S, D] buffer (the
@@ -32,9 +43,11 @@
 // Scores stay in registers: the m16n8k16 accumulator layout of two
 // adjacent key tiles is exactly the A-operand layout of the P.V product,
 // so p goes from exp2 to bf16 to the tensor cores without touching shared
-// memory.  Free mode needs no running max, so the output accumulators are
-// never rescaled.  Tiles wholly outside the visible window are never
-// loaded.  Not yet: wgmma, TMA, warp specialisation.
+// memory.  The free and bounded modes need no running max, so their
+// output accumulators are never rescaled; ONLINE pays a row max (two
+// shuffles) and a rescale of its 64 accumulators a tile.  Tiles wholly
+// outside the visible window are never loaded.  Not yet: wgmma, TMA,
+// warp specialisation.
 
 #include "attention_common.cuh"
 
@@ -52,21 +65,25 @@ constexpr int LDH = D + 8;    // padded bf16 row stride: ldmatrix rows hit
                               // distinct banks
 constexpr int TILE = BK * LDH;  // elements of one K or V tile
 constexpr size_t SMEM_BYTES = size_t(BM * LDH + 4 * TILE) * sizeof(bf16);
+constexpr float LOG2E = 1.4426950408889634f;
+
+enum Mode { FREE = 0, FREE_NOCLAMP = 1, BOUNDED = 2, ONLINE = 3 };
 
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int valid) {
   load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
-decode_fresh_free_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k_cache,
-                         const bf16* __restrict__ v_cache,
-                         const bf16* __restrict__ k_new,
-                         const bf16* __restrict__ v_new,
-                         bf16* __restrict__ out, int N, int Lq, int Lf, int S,
-                         int kv_start, int kv_end, int sink_end,
-                         int cache_lim, float scale) {
+decode_fresh_kernel(const bf16* __restrict__ q,
+                    const bf16* __restrict__ k_cache,
+                    const bf16* __restrict__ v_cache,
+                    const bf16* __restrict__ k_new,
+                    const bf16* __restrict__ v_new,
+                    const float* __restrict__ m0, bf16* __restrict__ out,
+                    int N, int Lq, int Lf, int S, int kv_start, int kv_end,
+                    int sink_end, int cache_lim, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // [Q | K0 | K1 | V0 | V1]
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -101,8 +118,16 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
     for (int i = 0; i < D / 8; ++i)
       o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
   float l[MT][2];  // partial row sums of rows g and g + 8 of each m-tile
+  float m[MT][2];  // ONLINE: running max (base 2) of rows g and g + 8
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) l[mt][0] = l[mt][1] = 0.f;
+  for (int mt = 0; mt < MT; ++mt) {
+    l[mt][0] = l[mt][1] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+  }
+  // the scores' multiplier into base-2 units, and BOUNDED's offset
+  const float mul = (MODE == BOUNDED || MODE == ONLINE) ? scale * LOG2E
+                                                        : scale;
+  const float off = MODE == BOUNDED ? __ldg(m0) * LOG2E : 0.f;
 
   const int n_cache = (cache_lim + BK - 1) / BK;
   const int n_total = n_cache + (Lf + BK - 1) / BK;
@@ -167,35 +192,69 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // per 16-key step: p = 2^min(scale*s, 80) on visible columns, packed
-    // to bf16 A fragments, then acc += bf16(p) . v
+    // the scores in base-2 units, -inf on columns that are not visible
     const bool is_cache = t < n_cache;
     const int j0 = is_cache ? t * BK : (t - n_cache) * BK;
     const int valid = is_cache ? min(BK, cache_lim - j0) : min(BK, Lf - j0);
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * tg + e;
+        const int j = j0 + col;
+        const bool vis = col < valid && (!is_cache || j < sink_end ||
+                                         (j >= kv_start && j < kv_end));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          s[mt][nt][e] = vis ? s[mt][nt][e] * mul : -INFINITY;
+          s[mt][nt][e + 2] = vis ? s[mt][nt][e + 2] * mul : -INFINITY;
+        }
+      }
+    // ONLINE: the new row max, and the rescale of l and acc to it
+    float sub[MT][2];  // what p's exponent subtracts, per row
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        sub[mt][hr] = off;
+        if (MODE == ONLINE) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt)
+            mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hr], s[mt][nt][2 * hr + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[mt][hr], mx);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          const float corr = fast_exp2(m[mt][hr] - m_use);
+          l[mt][hr] *= corr;
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i) {
+            o[mt][i][2 * hr] *= corr;
+            o[mt][i][2 * hr + 1] *= corr;
+          }
+          m[mt][hr] = m_new;
+          sub[mt][hr] = m_use;
+        }
+      }
+
+    // per 16-key step: p from the base-2 scores, packed to bf16 A
+    // fragments, then acc += bf16(p) . v
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[MT][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int nt = 2 * kk + h;
-        bool vis[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + 2 * tg + e;
-          const int j = j0 + col;
-          vis[e] = col < valid && (!is_cache || j < sink_end ||
-                                   (j >= kv_start && j < kv_end));
-        }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           float p[4];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            p[e] = vis[e] ? fast_exp2(fminf(s[mt][nt][e] * scale, 80.f))
-                          : 0.f;
-            p[e + 2] = vis[e]
-                           ? fast_exp2(fminf(s[mt][nt][e + 2] * scale, 80.f))
-                           : 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const float x = s[mt][nt][e];
+            // exp2(-inf) = 0 on the columns that are not visible
+            p[e] = MODE == FREE ? fast_exp2(fminf(x, 80.f))
+                                : fast_exp2(x - sub[mt][e >> 1]);
           }
           l[mt][0] += p[0] + p[1];
           l[mt][1] += p[2] + p[3];
@@ -236,29 +295,49 @@ decode_fresh_free_kernel(const bf16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// Launch on `stream`.  k_cache / v_cache point at the chosen layer
-// [B*N, S, D]; cache_lim = min(S, static_hi, max(sink_end, kv_end)) bounds
-// the cache tiles visited.  Returns the CUDA error code (0 on success).
-extern "C" int decode_fresh_free_launch(const void* q, const void* k_cache,
-                                        const void* v_cache,
-                                        const void* k_new, const void* v_new,
-                                        void* out, int B, int N, int Lq,
-                                        int Lf, int S, int kv_start,
-                                        int kv_end, int sink_end,
-                                        int cache_lim, float scale,
-                                        void* stream) {
+template <int MODE>
+int launch(const void* q, const void* k_cache, const void* v_cache,
+           const void* k_new, const void* v_new, const void* m0, void* out,
+           int B, int N, int Lq, int Lf, int S, int kv_start, int kv_end,
+           int sink_end, int cache_lim, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_fresh_free_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_fresh_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (Lq <= 0 || B * N <= 0) return 0;
   dim3 grid((Lq + BM - 1) / BM, B * N);
-  decode_fresh_free_kernel<<<grid, THREADS, SMEM_BYTES,
-                             (cudaStream_t)stream>>>(
+  decode_fresh_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(
       (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache,
-      (const bf16*)k_new, (const bf16*)v_new, (bf16*)out, N, Lq, Lf, S,
-      kv_start, kv_end, sink_end, cache_lim, scale);
+      (const bf16*)k_new, (const bf16*)v_new, (const float*)m0, (bf16*)out,
+      N, Lq, Lf, S, kv_start, kv_end, sink_end, cache_lim, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`.  k_cache / v_cache point at the chosen layer
+// [B*N, S, D]; cache_lim = min(S, static_hi, max(sink_end, kv_end)) bounds
+// the cache tiles visited; mode is one of Mode; m0 points at one float
+// (BOUNDED only; may be null otherwise).  Returns the CUDA error code (0
+// on success; cudaErrorInvalidValue for an unknown mode).
+extern "C" int decode_fresh_launch(const void* q, const void* k_cache,
+                                   const void* v_cache, const void* k_new,
+                                   const void* v_new, const void* m0,
+                                   void* out, int B, int N, int Lq, int Lf,
+                                   int S, int kv_start, int kv_end,
+                                   int sink_end, int cache_lim, int mode,
+                                   float scale, void* stream) {
+  auto st = (cudaStream_t)stream;
+#define SF_ARGS q, k_cache, v_cache, k_new, v_new, m0, out, B, N, Lq, Lf, S, \
+    kv_start, kv_end, sink_end, cache_lim, scale, st
+  switch (mode) {
+    case FREE: return launch<FREE>(SF_ARGS);
+    case FREE_NOCLAMP: return launch<FREE_NOCLAMP>(SF_ARGS);
+    case BOUNDED:
+      if (m0 == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<BOUNDED>(SF_ARGS);
+    case ONLINE: return launch<ONLINE>(SF_ARGS);
+  }
+#undef SF_ARGS
+  return (int)cudaErrorInvalidValue;
 }

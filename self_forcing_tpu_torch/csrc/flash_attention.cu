@@ -1,22 +1,32 @@
-// Masked flash attention for training: the forward (flash_fwd) and its two
-// backward kernels (flash_bwd_dq, flash_bwd_dkv), in the offset-free
-// base-2 softmax ('free' mode).
+// Masked flash attention for training: the forward (flash_fwd) in the
+// offset-free base-2 softmax ('free'), the bounded-offset softmax
+// ('bounded', fixed_m0) and the online softmax, and its two backward
+// kernels (flash_bwd_dq, flash_bwd_dkv), which serve every mode.
 //
 // Replaces the TPU kernels of self_forcing_tpu/ops/pallas_attention.py:
-//   flash_fwd      <- _flash_kernel (free mode), via flash_attention_pallas
-//                     -> _flash_fwd -> pallas_call
+//   flash_fwd      <- _flash_kernel (free, bounded and online modes), via
+//                     flash_attention_pallas -> _flash_fwd -> pallas_call
 //   flash_bwd_dq   <- _flash_bwd_dq_kernel, via _flash_bwd -> pallas_call
 //   flash_bwd_dkv  <- _flash_bwd_dkv_kernel, via _flash_bwd -> pallas_call
 //
 // Function.  q, k, v, out, dout, dq, dk, dv are [B, L, N, D] bf16 (token
 // row stride N*D), D = 128.  Query row i sees key j iff j < Lk and
 //   s1[i] <= j < e1[i]  or  s2[i] <= j < e2[i]
-// (an IntervalMask; no mask is [0, Lk) for every row).  Forward, with the
-// caller's head_dim**-0.5 * log2(e) folded into q:
-//   s = q_i . k_j (fp32),  p = 2^min(s, 80) on visible keys (no running
-//   max),  l = sum p,  out_i = sum bf16(p) v_j / max(l, 1e-30) -> bf16,
-//   lse_i = ln(l) (0 where the row saw nothing), fp32.
-// Backward at `scale` (ln 2 in free mode; exact against the base-e lse):
+// (an IntervalMask; no mask is [0, Lk) for every row).  Forward:
+//   s = q_i . k_j (fp32), on visible keys
+//   free:    p = 2^min(s, 80), the caller's head_dim**-0.5 * log2(e)
+//            folded into q (no running max),  lse_i = ln(l)
+//   bounded: p = exp(scale * s - m0), m0 >= every score (read from
+//            device memory),  lse_i = m0 + ln(l)
+//   online:  p = exp(scale * s - m), m the running row max over the
+//            64-key tiles (l and acc rescaled when it grows),
+//            lse_i = m + ln(l)
+//   l = sum p,  out_i = sum bf16(p) v_j / max(l, 1e-30) -> bf16, lse in
+//   fp32 (0 where the row saw nothing).  bounded and online run base 2
+//   (scores times scale * log2(e)); online rounds p to bf16 for P.V as
+//   the others do (the Pallas kernel in interpret mode keeps it f32).
+// Backward at `scale` (ln 2 in free mode, the forward's scale otherwise;
+// exact against the base-e lse):
 //   p = exp(scale * s - lse_i),  dp = do_i . v_j,  delta_i = rowsum(do*out)
 //   ds = p * (dp - delta_i)
 //   dq_i = scale * sum_j bf16(ds) k_j,  dk_j = scale * sum_i bf16(ds) q_i,
@@ -58,6 +68,9 @@ constexpr int BK = 64;         // keys per K/V tile
 constexpr int ROWS_PAD = 128;  // per-row arrays are padded to this
 constexpr int MAX_TILES = 4096;  // tile-state row kept in shared memory
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+enum Mode { FREE = 0, BOUNDED = 1, ONLINE = 2 };
 
 __device__ __forceinline__ bool visible(int j, int s1, int e1, int s2,
                                         int e2) {
@@ -146,16 +159,62 @@ constexpr size_t SMEM = size_t(BM * LDH + 4 * TILE) * sizeof(bf16) +
                         4 * BM * sizeof(int) + MAX_TILES;
 }  // namespace fwd
 
-// p for one 64-key tile and P.V into o; s holds the tile's scores.
-template <bool MASKED>
+// p for one 64-key tile and P.V into o; s holds the tile's scores, m the
+// running row max (ONLINE, base 2), mul the scores' multiplier into base 2
+// and off BOUNDED's base-2 offset.
+template <bool MASKED, int MODE>
 __device__ __forceinline__ void fwd_tile(float (&o)[fwd::MT][D / 8][4],
                                          float (&l)[fwd::MT][2],
+                                         float (&m)[fwd::MT][2],
                                          float (&s)[fwd::MT][BK / 8][4],
                                          const bf16* v_s, const int* sIv,
                                          int row_base, int j0, int Lk,
-                                         int lane) {
+                                         float mul, float off, int lane) {
   using namespace fwd;
   const int g = lane / 4, tg = lane % 4;
+  // the scores in base-2 units, -inf on keys the row does not see
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = MODE == FREE ? s[mt][nt][e] : s[mt][nt][e] * mul;
+        if (MASKED) {
+          const int r = row_base + mt * 16 + g + 8 * (e >> 1);
+          const int j = j0 + nt * 8 + 2 * tg + (e & 1);
+          if (!(j < Lk && visible(j, sIv[r], sIv[BM + r], sIv[2 * BM + r],
+                                  sIv[3 * BM + r])))
+            x = -INFINITY;
+        }
+        s[mt][nt][e] = x;
+      }
+  float sub[MT][2];  // what p's exponent subtracts, per row
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      sub[mt][hr] = off;
+      if (MODE == ONLINE) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+          mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hr], s[mt][nt][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][hr], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = fast_exp2(m[mt][hr] - m_use);
+        l[mt][hr] *= corr;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[mt][i][2 * hr] *= corr;
+          o[mt][i][2 * hr + 1] *= corr;
+        }
+        m[mt][hr] = m_new;
+        sub[mt][hr] = m_use;
+      }
+    }
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     uint32_t pa[MT][4];
@@ -167,15 +226,9 @@ __device__ __forceinline__ void fwd_tile(float (&o)[fwd::MT][D / 8][4],
         float p[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = fast_exp2(fminf(s[mt][nt][e], 80.f));
-          if (MASKED) {
-            const int r = row_base + mt * 16 + g + 8 * (e >> 1);
-            const int j = j0 + nt * 8 + 2 * tg + (e & 1);
-            if (!(j < Lk && visible(j, sIv[r], sIv[BM + r], sIv[2 * BM + r],
-                                    sIv[3 * BM + r])))
-              x = 0.f;
-          }
-          p[e] = x;
+          // exp2(-inf) = 0 on the keys the row does not see
+          p[e] = MODE == FREE ? fast_exp2(fminf(s[mt][nt][e], 80.f))
+                              : fast_exp2(s[mt][nt][e] - sub[mt][e >> 1]);
         }
         l[mt][0] += p[0] + p[1];
         l[mt][1] += p[2] + p[3];
@@ -197,12 +250,14 @@ __device__ __forceinline__ void fwd_tile(float (&o)[fwd::MT][D / 8][4],
   }
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(fwd::THREADS, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ iv,
+                 const bf16* __restrict__ v, const float* __restrict__ m0,
+                 bf16* __restrict__ out, float* __restrict__ lse,
+                 const int* __restrict__ iv,
                  const unsigned char* __restrict__ states, int N, int Lq,
-                 int Lk, int Lq_pad) {
+                 int Lk, int Lq_pad, float scale) {
   using namespace fwd;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -230,13 +285,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float o[MT][D / 8][4];
   float l[MT][2];
+  float m[MT][2];  // ONLINE: running max (base 2) of rows g and g + 8
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     l[mt][0] = l[mt][1] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
   }
+  const float mul = scale * LOG2E;
+  const float m0v = MODE == BOUNDED ? __ldg(m0) : 0.f;
+  const float off = m0v * LOG2E;
 
   auto fetch = [&](int t, int buf) {
     const int j0 = t * BK;
@@ -287,9 +347,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     if (sSt[t] == 2)
-      fwd_tile<false>(o, l, s, v_s, sIv, warp * 16 * MT, t * BK, Lk, lane);
+      fwd_tile<false, MODE>(o, l, m, s, v_s, sIv, warp * 16 * MT, t * BK,
+                            Lk, mul, off, lane);
     else
-      fwd_tile<true>(o, l, s, v_s, sIv, warp * 16 * MT, t * BK, Lk, lane);
+      fwd_tile<true, MODE>(o, l, m, s, v_s, sIv, warp * 16 * MT, t * BK, Lk,
+                           mul, off, lane);
     __syncthreads();
     buf ^= 1;
     t = tn;
@@ -307,9 +369,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_rows<D>(out + (long long)b * Lq * ld + n * D, ld, o[mt], r0, r1,
                   Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
     if (tg == 0) {
+      // the offset the p's were taken against, base e
+      const float a0 = MODE == FREE ? 0.f : MODE == BOUNDED ? m0v
+                                                            : m[mt][0] * LN2;
+      const float a1 = MODE == FREE ? 0.f : MODE == BOUNDED ? m0v
+                                                            : m[mt][1] * LN2;
       float* lrow = lse + (long long)bn * Lq_pad;
-      if (r0 < Lq) lrow[r0] = l0 > 0.f ? logf(l0) : 0.f;
-      if (r1 < Lq) lrow[r1] = l1 > 0.f ? logf(l1) : 0.f;
+      if (r0 < Lq) lrow[r0] = l0 > 0.f ? a0 + logf(l0) : 0.f;
+      if (r1 < Lq) lrow[r1] = l1 > 0.f ? a1 + logf(l1) : 0.f;
     }
   }
 }
@@ -648,18 +715,26 @@ bool shapes_ok(int B, int N, int Lq, int Lk, int Lq_pad) {
 // flash_fwd and flash_bwd_dq, [ceil(Lk / 64), ceil(Lq / 32)] for
 // flash_bwd_dkv.
 
+// mode: 0 free, 1 bounded (m0 points at one float), 2 online; scale is
+// the scores' (unused in free mode).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, const void* iv,
-                                const void* states, int B, int N, int Lq,
-                                int Lk, int Lq_pad, void* stream) {
-  if (!shapes_ok(B, N, Lq, Lk, Lq_pad)) return (int)cudaErrorInvalidValue;
-  int err = set_smem(flash_fwd_kernel, fwd::SMEM);
+                                const void* m0, void* out, void* lse,
+                                const void* iv, const void* states, int B,
+                                int N, int Lq, int Lk, int Lq_pad, int mode,
+                                float scale, void* stream) {
+  if (!shapes_ok(B, N, Lq, Lk, Lq_pad) || mode < FREE || mode > ONLINE ||
+      (mode == BOUNDED && m0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = mode == FREE      ? flash_fwd_kernel<FREE>
+                : mode == BOUNDED ? flash_fwd_kernel<BOUNDED>
+                                  : flash_fwd_kernel<ONLINE>;
+  int err = set_smem(kernel, fwd::SMEM);
   if (err) return err;
   dim3 grid((Lq + fwd::BM - 1) / fwd::BM, B * N);
-  flash_fwd_kernel<<<grid, fwd::THREADS, fwd::SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (float*)lse, (const int*)iv, (const unsigned char*)states, N, Lq, Lk,
-      Lq_pad);
+  kernel<<<grid, fwd::THREADS, fwd::SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)m0,
+      (bf16*)out, (float*)lse, (const int*)iv, (const unsigned char*)states,
+      N, Lq, Lk, Lq_pad, scale);
   return (int)cudaGetLastError();
 }
 

@@ -22,10 +22,23 @@ cache tensors are updated in place (the returned ``KVCache`` shares them,
 so only the returned cache may be used afterwards, as with the JAX
 package's donated buffers).
 
+The attention's softmax follows ``cfg.attn_softmax`` and
+``cfg.attn_quant`` where the kernels run (``ops/attention.py``'s
+``_kernel_route``, the counterpart of the JAX package's Pallas route):
+'free' folds head_dim**-0.5 * log2(e) into the q-norm gain; 'bounded'
+passes the Cauchy-Schwarz score bound m0 = head_dim**-0.5 * max|q_row| *
+max|k_row| (``_max_row_norm``; the decode bound takes the cached keys'
+from ``KVCache.kmax``, kept per layer on the device and raised at each
+cache write of the global cache); any other setting runs the online
+softmax, as does 'bounded' on the windowed cache, which keeps no kmax.
+``attn_quant='int8'`` turns 'free' into 'bounded' (the full-int8 decode
+needs the bound).  Off the route the references run and the bounds are
+not computed, as in the JAX package off the TPU.
+
 ``forward_train`` is the no-cache forward of the score models and the
 teacher-forcing generator: full-sequence self-attention under an
 ``IntervalMask`` (or none), through the flash attention of
-``ops/attention.py`` (the flash kernels on CUDA with the free softmax).
+``ops/attention.py``.
 Under autograd the stacked block parameters are split once per forward
 (:func:`split_layers`), and ``remat=True`` recomputes each layer in the
 backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
@@ -50,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import (RopeTables,
                                                     sinusoidal_embedding_1d)
+from self_forcing_tpu_torch.ops import attention as attn_ops
 from self_forcing_tpu_torch.ops import quant
 from self_forcing_tpu_torch.ops.attention import (cross_attention,
                                                   decode_attention_fresh,
@@ -306,8 +320,19 @@ def _rope_half(x: torch.Tensor, cos: torch.Tensor,
 
 def _free_softmax(cfg: WanConfig, x: torch.Tensor) -> bool:
     """The offset-free softmax (and its q-gain fold) runs where the
-    kernels run: on CUDA tensors."""
-    return cfg.attn_softmax == "free" and x.is_cuda
+    kernels run (``attn_ops._kernel_route``: CUDA tensors)."""
+    return cfg.attn_softmax == "free" and attn_ops._kernel_route(x)
+
+
+def _max_row_norm(t: torch.Tensor, heads_packed: int | None) -> torch.Tensor:
+    """Max 2-norm over per-head token rows, a float32 scalar on t's
+    device: t [B, L, N*D] heads-packed (``heads_packed=N``), or rows of D
+    already ([BN, L, D] folded, [B, L, N, D]).  The bounded softmax's
+    score bound is built from it (Cauchy-Schwarz)."""
+    tf = t.float()
+    if heads_packed is not None:
+        tf = tf.reshape(*t.shape[:-1], heads_packed, -1)
+    return torch.sqrt((tf * tf).sum(dim=-1).amax())
 
 
 def _packed_ok(cfg: WanConfig) -> bool:
@@ -448,12 +473,18 @@ class KVCache:
     """Static-shape per-layer KV cache, k/v [L, B*N, S, D] in the
     attention kernels' folded layout.  ``global_end`` is the absolute
     token index past the newest cached token, ``local_end`` its position
-    in the cache (equal on the global path)."""
+    in the cache (equal on the global path).  ``kmax`` [L] float32: per
+    layer, the max 2-norm of the cached K rows, the bounded softmax's
+    bound on the cached keys; zero when empty, raised by the global
+    cache's writes under the bounded softmax on the kernel route.  None
+    (a cache built without it) knows no bound: 'bounded' then runs the
+    online softmax, as on the windowed cache."""
 
     k: torch.Tensor
     v: torch.Tensor
     global_end: int = 0
     local_end: int = 0
+    kmax: torch.Tensor | None = None
 
 
 def init_kv_cache(cfg: WanConfig, batch_size: int, frame_seqlen: int,
@@ -470,7 +501,9 @@ def init_kv_cache(cfg: WanConfig, batch_size: int, frame_seqlen: int,
             S = -(-S // 2048) * 2048
     shape = (cfg.num_layers, batch_size * cfg.num_heads, S, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   kmax=torch.zeros(cfg.num_layers, dtype=torch.float32,
+                                    device=device))
 
 
 def _keep_recent(cfg: WanConfig, frame_seqlen: int, new_tokens: int) -> int:
@@ -538,10 +571,11 @@ def windowed_compaction_schedule(cfg: WanConfig, frame_seqlen: int,
 
 
 def reset_kv_cache(cache: KVCache) -> KVCache:
-    """Rewind the cache indices.  Stale rows are never attended to; with
-    int8-QK attention the ones inside a live cache tile still enter its
-    k scale, as in the JAX package."""
-    return dataclasses.replace(cache, global_end=0, local_end=0)
+    """Rewind the cache indices and zero ``kmax``.  Stale rows are never
+    attended to; with int8 attention the ones inside a live cache tile
+    still enter its k (and v) scale, as in the JAX package."""
+    kmax = None if cache.kmax is None else torch.zeros_like(cache.kmax)
+    return dataclasses.replace(cache, global_end=0, local_end=0, kmax=kmax)
 
 
 # =====================================================================
@@ -558,52 +592,70 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
                         emit_kv: bool = True, kernels: bool = True,
                         sink_hi: int | None = None,
                         tk_align: int | None = None,
-                        window_static: tuple[int, int] | None = None):
+                        window_static: tuple[int, int] | None = None,
+                        kmax_layer: torch.Tensor | None = None):
     """One block whose self-attention reads the cache window
     ``[attn_lo, cache_hi)`` (plus the sinks ``[0, sink_hi)`` on the
     windowed path) of layer ``layer_idx`` (read only) plus the block's
-    fresh K/V.  Returns (x, k_new, v_new); the fresh K/V come folded
-    [B*N, L, D] for the cache write, or None when ``emit_kv`` is False.
+    fresh K/V.  Returns (x, k_new, v_new, kn_norm); the fresh K/V come
+    folded [B*N, L, D] for the cache write, or None when ``emit_kv`` is
+    False; ``kn_norm`` is the fresh K's max row norm (the caller's kmax
+    update) under the bounded softmax, else None.
 
-    On CUDA the offset-free softmax runs: head_dim**-0.5 * log2(e) is
-    folded into the q-norm gain and the kernel runs at scale 1, with
-    ``cfg.attn_quant='int8qk'`` as int8-QK attention.  On the CPU the
-    unfolded base-e reference runs, as in the JAX package off the TPU
-    (quant ignored).  The full-int8 quant modes need the bounded softmax,
-    which is not ported: they raise on CUDA."""
-    if cfg.attn_quant not in (None, "int8qk") and x.is_cuda:
-        raise NotImplementedError(
-            f"attn_quant={cfg.attn_quant!r} needs the bounded decode "
-            "softmax, which is not ported to CUDA")
+    On the kernel route, as the JAX package on its Pallas route:
+    'free' folds head_dim**-0.5 * log2(e) into the q-norm gain and runs
+    at scale 1 (``cfg.attn_quant='int8qk'``: int8-QK attention); the
+    full-int8 quant forces 'bounded'; 'bounded' with ``kmax_layer`` (this
+    layer's ``KVCache.kmax``) passes m0 = head_dim**-0.5 * max|q_row| *
+    max(kmax_layer, max|k_new_row|); everything else is the online
+    softmax.  Off the route the unfolded base-e reference runs (quant
+    ignored)."""
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
     f_shift, f_scale, f_gate = e[:, :, 3:4], e[:, :, 4:5], e[:, :, 5:6]
 
-    # the full-int8 modes force the bounded softmax, so no free fold
-    free = _free_softmax(cfg, x) and cfg.attn_quant in (None, "int8qk")
+    mode = cfg.attn_softmax
+    if mode == "free" and cfg.attn_quant not in (None, "int8qk"):
+        mode = "bounded"  # the full-int8 kernels need the m0 bound
+    bounded = (mode == "bounded" and kmax_layer is not None
+               and attn_ops._kernel_route(x))
+    free = mode == "free" and _free_softmax(cfg, x)
     q_gain = (cfg.head_dim ** -0.5) * LOG2E if free else None
+    quant_mode = cfg.attn_quant
+    if quant_mode == "int8qk" and not free:
+        quant_mode = None  # int8qk exists only on the free path
     attn_args = dict(scale=1.0 if free else None, static_hi=static_kv_hi,
                      layer_idx=layer_idx, softmax="free" if free else None,
                      sink_end=sink_hi, tk_align=tk_align,
-                     window_static=window_static,
-                     # int8qk exists only on the free path
-                     quant=cfg.attn_quant if free else None,
+                     window_static=window_static, quant=quant_mode,
                      kernels=kernels)
+    kn_norm = None
+
+    def bound(q_, k_, heads):
+        # s <= scale * max|q_row| * max|k_row| over the window: the cached
+        # bound and this block's fresh K
+        nonlocal kn_norm
+        kn_norm = _max_row_norm(k_, heads).detach()
+        return (cfg.head_dim ** -0.5) * _max_row_norm(q_, heads) \
+            * torch.maximum(kmax_layer, kn_norm)
+
     xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
     if _packed_ok(cfg):
         qp, kp, vp = _qkv_rope_packed(bp["self_attn"], cfg, xn, rope_cos,
                                       rope_sin, q_gain, kernels)
+        m0 = bound(qp, kp, cfg.num_heads) if bounded else None
         attn = decode_attention_fresh(qp, k_cache, v_cache, kp, vp, attn_lo,
                                       cache_hi, heads_packed=cfg.num_heads,
-                                      **attn_args)
+                                      fixed_m0=m0, **attn_args)
         y = linear(bp["self_attn"]["o"], attn, kernels)
         kf = vf = None
     else:
         qf, kf, vf = _qkv_rope_folded(bp["self_attn"], cfg, xn, rope_cos,
                                       rope_sin, q_gain, kernels)
+        m0 = bound(qf, kf, None) if bounded else None
         attn = decode_attention_fresh(qf, k_cache, v_cache, kf, vf, attn_lo,
-                                      cache_hi, **attn_args)
+                                      cache_hi, fixed_m0=m0, **attn_args)
         y = linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn), kernels)
     x = x + _gate(y, e_gate, frame_seqlen)
 
@@ -616,10 +668,10 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
     xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
     x = x + _gate(_ffn(bp, xn, kernels), f_gate, frame_seqlen)
     if not emit_kv:
-        return x, None, None
+        return x, None, None, kn_norm
     if kf is None:
         kf, vf = _fold_heads(cfg, kp), _fold_heads(cfg, vp)
-    return x, kf, vf
+    return x, kf, vf, kn_norm
 
 
 # =====================================================================
@@ -690,23 +742,34 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
         write_at = local_end - Lq
         attn_lo = max(0, local_end - cfg.max_attention_size(frame_seqlen))
 
+    # the global cache's per-layer kmax bounds the bounded softmax; the
+    # windowed branch passes none (its eviction could not track one), so
+    # 'bounded' runs the online softmax there
+    kmax = None if window else cache.kmax
     block = (partial(checkpoint, _block_decode_fresh, use_reentrant=False)
              if remat else _block_decode_fresh)
     kts, vts = ctx_kv["k_txt"].unbind(0), ctx_kv["v_txt"].unbind(0)
+    kn_norms = []
     for li, bp in enumerate(split_layers(params["blocks"])):
         layer_ctx = {"k_txt": kts[li], "v_txt": vts[li]}
-        tokens, k_new, v_new = block(
+        tokens, k_new, v_new, kn_norm = block(
             bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
             write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
-            emit_kv=write_cache, kernels=kernels, **window)
+            emit_kv=write_cache, kernels=kernels,
+            kmax_layer=None if kmax is None else kmax[li], **window)
         if write_cache:
             # later layers read only their own layer: writing now is the
             # same as the JAX package's single write after the layer scan
             cache.k[li, :, write_at:write_at + Lq] = k_new
             cache.v[li, :, write_at:write_at + Lq] = v_new
+            if kn_norm is not None:
+                kn_norms.append(kn_norm)
     if write_cache:
+        kmax = cache.kmax
+        if kn_norms:   # the incremental update of the cached-K bound
+            kmax = torch.maximum(kmax, torch.stack(kn_norms))
         cache = KVCache(k=cache.k, v=cache.v, global_end=current_end,
-                        local_end=local_end)
+                        local_end=local_end, kmax=kmax)
 
     out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
     return unpatchify(cfg, out_tokens, grid), cache
@@ -721,11 +784,13 @@ def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
                  rope_sin: torch.Tensor, mask: IntervalMask | None,
                  ctx_kv_layer: dict, frame_seqlen: int,
                  kernels: bool = True) -> torch.Tensor:
-    """One block with full-sequence self-attention under ``mask``.  On
-    CUDA the offset-free softmax runs (head_dim**-0.5 * log2(e) folded
-    into the q-norm gain, the flash kernels at scale 1 with their backward
-    at ln 2); on the CPU the base-e reference at head_dim**-0.5, as the
-    JAX package off the TPU."""
+    """One block with full-sequence self-attention under ``mask``.  On the
+    kernel route, as the JAX package on its Pallas route: 'free' folds
+    head_dim**-0.5 * log2(e) into the q-norm gain (the flash kernels at
+    scale 1, their backward at ln 2); 'bounded' passes the bound m0 =
+    head_dim**-0.5 * max|q_row| * max|k_row|; anything else runs the
+    online softmax.  Off the route the base-e reference at
+    head_dim**-0.5, as the JAX package off the TPU."""
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
@@ -737,7 +802,12 @@ def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
     q, k, v = _qk_normed(bp["self_attn"], cfg, xn, q_gain, kernels)
     q = _rope_half(_heads(cfg, q), rope_cos, rope_sin)
     k = _rope_half(_heads(cfg, k), rope_cos, rope_sin)
-    attn = flash_attention(q, k, _heads(cfg, v), mask,
+    m0 = None
+    if not free and cfg.attn_softmax == "bounded" \
+            and attn_ops._kernel_route(x):
+        m0 = (cfg.head_dim ** -0.5) * _max_row_norm(q, None) \
+            * _max_row_norm(k, None)
+    attn = flash_attention(q, k, _heads(cfg, v), mask, fixed_m0=m0,
                            softmax="free" if free else None, kernels=kernels)
     B, L = attn.shape[:2]
     y = linear(bp["self_attn"]["o"],

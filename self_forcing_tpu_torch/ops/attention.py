@@ -1,24 +1,36 @@
 """Attention ops: the plain references and the dispatch seam (port of
 ``self_forcing_tpu/ops/attention.py``).
 
-On a CUDA tensor the seam calls the hand-written kernels of
-``ops/cuda_attention.py`` (or, with ``kernels=False``, their plain
-PyTorch versions, for holding a whole forward against the kernels).  On a
-CPU tensor it calls the references below, which follow the JAX package's
-XLA path: for ``softmax='free'`` they run the base-e softmax at
-``scale * ln 2``.  The one exception is the int8-QK decode attention
-(``quant='int8qk'`` with ``softmax='free'``): its result depends on the
-quantization tiles, so on the CPU it runs the kernel's plain version,
-which computes the Pallas kernel's function.
+Where :func:`_kernel_route` holds (a CUDA tensor: the counterpart of the
+JAX package's Pallas route) the seam runs the functions of the TPU
+kernels: the hand-written kernels of ``ops/cuda_attention.py`` (or, with
+``kernels=False``, their plain PyTorch versions, for holding a whole
+forward against the kernels), in every softmax mode the Pallas wrappers
+dispatch: the offset-free ``softmax='free'``, the bounded softmax
+(``fixed_m0``), the online softmax (neither), and for the decode
+attention the int8 quantizations (``quant='int8qk'`` with the free
+softmax; ``quant='int8'`` with a bound, 'tile' or 'global' by
+``int8_bound``, or online without).  A test may force the route on the
+CPU, where the wrappers run the plain versions through the same
+dispatch.  Off the route the seam calls the references below, which
+follow the JAX package's XLA path: the modes and bounds are ignored, and
+``softmax='free'`` runs the base-e softmax at ``scale * ln 2``.  The one
+exception is the int8-QK decode attention (``quant='int8qk'`` with
+``softmax='free'``): its result depends on the quantization tiles, so on
+the CPU it always runs the kernel's plain version, which computes the
+Pallas kernel's function.
 
 Gradients, as the JAX package's custom VJPs give them: the masked flash
 attention through :class:`FlashAttention` (the flash backward kernels on
-CUDA); the decode and cross attention through autograd functions whose
-backward recomputes the attention in plain PyTorch
-(``cuda_attention.decode_fresh_bwd`` / ``cross_attention_bwd``).  The
-decode backward reads the KV cache by reference, not as a saved tensor:
-the cache is written in place by later blocks, and the rows a backward
-reads must be the ones its forward read (checked at the window's edges).
+the route, at the forward mode's scale against its base-e lse); the
+decode and cross attention through autograd functions whose backward
+recomputes the attention in plain PyTorch
+(``cuda_attention.decode_fresh_bwd`` / ``cross_attention_bwd``).  No
+gradient flows through a bound ``fixed_m0`` (the output does not depend
+on it).  The decode backward reads the KV cache by reference, not as a
+saved tensor: the cache is written in place by later blocks, and the
+rows a backward reads must be the ones its forward read (checked at the
+window's edges).
 
 The kernels take bf16 operands.  Float32 activations (the JAX package's
 promotion of float32 latents over bf16 weights, which the trainer runs)
@@ -50,6 +62,25 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    """Whether the attention on ``t`` runs the TPU kernels' functions
+    (the kernels, or their plain versions with ``kernels=False``): on
+    CUDA tensors.  The port's counterpart of the JAX package's
+    ``_use_pallas``, which also gates the DiT's bounds
+    (``models/wan/dit.py``); a test forces it to run the plain versions
+    on the CPU."""
+    return t.is_cuda
+
+
+def _bound(fixed_m0, device) -> torch.Tensor | None:
+    """A score bound as a float32 tensor on ``device`` that carries no
+    gradient."""
+    if fixed_m0 is None:
+        return None
+    return torch.as_tensor(fixed_m0, dtype=torch.float32,
+                           device=device).detach()
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -188,6 +219,7 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
                            quant: str | None = None,
                            tk_align: int | None = None,
                            window_static: tuple[int, int] | None = None,
+                           fixed_m0=None, int8_bound: str = "tile",
                            kernels: bool = True) -> torch.Tensor:
     """KV-cache attention where the current block's K/V are not in the
     cache yet: queries see ``cache[kv_start:kv_end)`` (plus
@@ -201,17 +233,26 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
     visible cache columns (the kernel skips tiles past it; the CPU
     reference, like the JAX package's, does not need it).
 
+    ``softmax=None``: with ``fixed_m0`` (a float32 bound on every score
+    at ``scale``, a tensor that stays on the device) the bounded softmax,
+    else the online softmax; ``scale`` defaults to head_dim**-0.5.
+
     ``quant='int8qk'`` (with ``softmax='free'``): int8 QK^T with per-tile
-    scales, bf16 P.V (the int8-QK kernel on CUDA, its plain version on the
-    CPU).  ``tk_align`` aligns the cache tiles to whole frames (the
-    windowed caller passes frame_seqlen).  ``window_static``: the
-    windowed caller's (sink_tokens, recent_tokens) promise that the
-    window holds at most that many tokens in each interval; the Pallas
-    kernel sizes a compressed grid from it, the CUDA kernel skips dead
-    tiles anyway, so here it is only checked.  On CUDA any other
-    ``quant``, or ``int8qk`` without the free softmax, raises; on the CPU
-    a ``quant`` without the free softmax is ignored, as in the JAX
-    package off the TPU."""
+    scales, bf16 P.V.  ``quant='int8'`` (without the free softmax): int8
+    QK^T and P.V, p quantized against the row's max in each Pallas tile
+    (``fixed_m0`` with ``int8_bound='tile'``), against the bound
+    (``'global'``), or against the running max (no bound).  The tiles
+    are the Pallas kernel's (:func:`decode_tiles`).  ``tk_align`` aligns
+    the cache tiles to whole frames (the windowed caller passes
+    frame_seqlen).  ``window_static``: the windowed caller's
+    (sink_tokens, recent_tokens) promise that the window holds at most
+    that many tokens in each interval; the Pallas kernel sizes a
+    compressed grid from it, the CUDA kernels skip dead tiles anyway, so
+    here it is only checked.  On the kernel route the combinations the
+    Pallas wrapper does not take raise: the free softmax with a quant
+    other than int8qk or with ``fixed_m0``, and ``int8qk`` without the
+    free softmax.  Off it (the CPU) a mode, a bound and a quant without
+    the free softmax are ignored, as in the JAX package off the TPU."""
     sk = 0 if sink_end is None else int(sink_end)
     if window_static is not None:
         sink_tok, recent_tok = window_static
@@ -225,11 +266,13 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_fresh(
             q_bf, k_cache, v_cache, kn_bf, vn_bf, kv_start, kv_end, scale,
             static_hi, layer_idx, heads_packed, softmax, sink_end, quant,
-            tk_align, window_static, kernels).to(wide)
+            tk_align, window_static, fixed_m0, int8_bound, kernels).to(wide)
     args = dict(kv_start=int(kv_start), kv_end=int(kv_end), scale=scale,
                 static_hi=static_hi, layer_idx=layer_idx,
                 heads_packed=heads_packed, softmax=softmax, sink_end=sk,
-                quant=quant, tk_align=tk_align, kernels=kernels)
+                quant=quant, tk_align=tk_align,
+                fixed_m0=_bound(fixed_m0, q.device), int8_bound=int8_bound,
+                kernels=kernels)
     if _needs_grad(q, k_new, v_new):
         return _DecodeFresh.apply(q, k_new, v_new, k_cache, v_cache, args)
     return _decode_dispatch(q, k_cache, v_cache, k_new, v_new, **args)
@@ -281,7 +324,7 @@ class _DecodeFresh(torch.autograd.Function):
                 "window changed after the forward (only rows past the "
                 "window may be written before the backward)")
         N = a["heads_packed"] or 1
-        if a["softmax"] == "free":
+        if a["softmax"] in ("free", "free_noclamp"):
             # base-2 softmax of s * scale == base-e softmax at scale * ln 2
             scale = (1.0 if a["scale"] is None else a["scale"]) \
                 * math.log(2.0)
@@ -295,38 +338,67 @@ class _DecodeFresh(torch.autograd.Function):
         return dq, dkn, dvn, None, None, None
 
 
+def _decode_kernel(softmax, quant, fixed_m0, int8_bound) -> tuple[str, str]:
+    """(kernel, mode) of the decode attention on the kernel route, as the
+    JAX package's ``decode_attention_fresh_pallas`` dispatches: 'bf16' in a
+    ``cuda_attention.DECODE_MODES`` mode, 'int8qk', or 'int8' in an
+    ``INT8_MODES`` mode."""
+    if softmax in ("free", "free_noclamp"):
+        if fixed_m0 is not None:
+            raise ValueError("the free softmax takes no score bound")
+        if quant == "int8qk" and softmax == "free":
+            return "int8qk", "free"
+        if quant is not None:
+            raise ValueError(f"softmax={softmax!r} is a bf16 mode (or "
+                             f"'free' with int8qk), not quant={quant!r}")
+        return "bf16", softmax
+    if softmax is not None:
+        raise ValueError(f"unknown decode softmax {softmax!r}")
+    if quant == "int8qk":
+        raise ValueError("int8qk exists only with the free softmax")
+    if quant == "int8":
+        if fixed_m0 is None:
+            return "int8", "online"
+        if int8_bound not in ("tile", "global"):
+            raise ValueError(f"unknown int8_bound {int8_bound!r}")
+        return "int8", int8_bound
+    if quant is not None:
+        raise ValueError(f"unknown decode quant {quant!r}")
+    return "bf16", "online" if fixed_m0 is None else "bounded"
+
+
 def _decode_dispatch(q, k_cache, v_cache, k_new, v_new, *, kv_start, kv_end,
                      scale, static_hi, layer_idx, heads_packed, softmax,
-                     sink_end, quant, tk_align, kernels):
+                     sink_end, quant, tk_align, fixed_m0, int8_bound,
+                     kernels):
     sk = sink_end
-    if q.is_cuda:
-        if quant not in (None, "int8qk"):
-            raise NotImplementedError(
-                f"decode attention quant={quant!r} is not ported to CUDA "
-                "(only 'int8qk')")
-        if softmax != "free":
-            raise NotImplementedError(
-                "only the offset-free ('free') decode softmax is ported to "
-                "CUDA, and int8qk exists only with it")
     int8qk = quant == "int8qk" and softmax == "free"
-    if q.is_cuda or int8qk:
+    if _kernel_route(q) or int8qk:
+        kind, mode = _decode_kernel(softmax, quant, fixed_m0, int8_bound)
         N = heads_packed if heads_packed is not None else 1
+        if scale is None:   # the free modes' caller folded it into q
+            scale = 1.0 if kind == "int8qk" or mode.startswith("free") \
+                else (q.shape[-1] // N) ** -0.5
         args = dict(layer_idx=0 if layer_idx is None else int(layer_idx),
                     kv_start=int(kv_start), kv_end=int(kv_end), sink_end=sk,
-                    static_hi=static_hi, num_heads=N,
-                    scale=1.0 if scale is None else scale)
-        if int8qk:
-            S = k_cache.shape[-2]
-            tq, tk, tf = decode_tiles(q.shape[1], S, k_new.shape[1],
-                                      quant, softmax, tk_align)
+                    static_hi=static_hi, num_heads=N, scale=scale)
+        if kind == "bf16":
+            fn = (cuda_attention.decode_fresh if kernels
+                  else cuda_attention.decode_fresh_ref)
+            return fn(q, k_cache, v_cache, k_new, v_new, mode=mode,
+                      m0=fixed_m0, **args)
+        tq, tk, tf = decode_tiles(q.shape[1], k_cache.shape[-2],
+                                  k_new.shape[1], quant, softmax, tk_align)
+        if kind == "int8qk":
             fn = (cuda_attention.decode_fresh_int8qk if kernels
                   else cuda_attention.decode_fresh_int8qk_ref)
             return fn(q, k_cache, v_cache, k_new, v_new, tq=tq, tk=tk,
                       tf=tf, **args)
-        fn = (cuda_attention.decode_fresh_free if kernels
-              else cuda_attention.decode_fresh_free_ref)
-        return fn(q, k_cache, v_cache, k_new, v_new, **args)
-    if softmax == "free":
+        fn = (cuda_attention.decode_fresh_int8 if kernels
+              else cuda_attention.decode_fresh_int8_ref)
+        return fn(q, k_cache, v_cache, k_new, v_new, mode=mode, m0=fixed_m0,
+                  tq=tq, tk=tk, tf=tf, **args)
+    if softmax in ("free", "free_noclamp"):
         # base-2 softmax of (s * scale) == base-e softmax at scale * ln(2)
         scale = (1.0 if scale is None else scale) * math.log(2.0)
     if k_cache.dim() == 4 and layer_idx is not None:
@@ -439,26 +511,28 @@ class FlashAttention(torch.autograd.Function):
     """Masked flash attention with the gradient of the JAX package's
     ``flash_attention_pallas`` custom VJP; saves (q, k, v, out, lse).
 
-    ``free``: the offset-free base-2 forward (q carries head_dim**-0.5 *
-    log2(e)), ``cuda_attention.flash_fwd`` and the backward
-    ``flash_bwd_dq`` / ``flash_bwd_dkv`` at scale ln 2 against the base-e
-    lse (the kernels on CUDA, or their plain versions with
-    ``kernels=False`` and on the CPU).  Otherwise (the CPU route) the
-    online-softmax forward at ``scale`` and the plain backward at it."""
+    ``mode`` ('free', 'bounded' or 'online'; the kernel route):
+    ``cuda_attention.flash_fwd`` in that mode (bound ``m0``) and the
+    backward ``flash_bwd_dq`` / ``flash_bwd_dkv`` against its base-e lse,
+    at ln 2 for 'free' (q carries head_dim**-0.5 * log2(e)) and at
+    ``scale`` otherwise (the kernels, or their plain versions with
+    ``kernels=False``).  ``mode=None`` (off the route): the online-softmax
+    reference forward at ``scale`` and the plain backward at it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale, free, kernels):
+    def forward(ctx, q, k, v, mask, scale, mode, m0, kernels):
         ca = cuda_attention
-        if free:
-            out, lse = (ca.flash_fwd if kernels else ca.flash_fwd_ref)(
-                q, k, v, mask)
-            bwd_scale = ca.LN2
-        else:
+        if mode is None:
             out, lse = flash_attention_xla(q, k, v, mask, scale=scale,
                                            return_lse=True)
             bwd_scale = scale
+        else:
+            out, lse = (ca.flash_fwd if kernels else ca.flash_fwd_ref)(
+                q, k, v, mask, mode, scale, m0)
+            bwd_scale = ca.LN2 if mode == "free" else scale
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask, ctx.scale, ctx.kernels = mask, bwd_scale, kernels
+        ctx.mask, ctx.scale = mask, bwd_scale
+        ctx.kernels = kernels
         return out
 
     @staticmethod
@@ -471,7 +545,7 @@ class FlashAttention(torch.autograd.Function):
                          else (ca.flash_bwd_dq_ref, ca.flash_bwd_dkv_ref))
         dq = dq_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
         dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -480,24 +554,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax: str | None = None,
                     kernels: bool = True) -> torch.Tensor:
     """Masked long-sequence self-attention, q/k/v [B, L, N, D], with its
-    gradient.  On CUDA only ``softmax='free'`` is ported (the caller
-    folded head_dim**-0.5 * log2(e) into q): the flash kernels, or with
-    ``kernels=False`` their plain versions; the online and bounded
-    (``fixed_m0``) modes raise.  On the CPU, as the JAX package off the
-    TPU: the online softmax at ``scale`` (``ln 2`` for 'free'; the bound
-    is ignored)."""
+    gradient.  On the kernel route the flash kernels (or, with
+    ``kernels=False``, their plain versions) in the Pallas wrapper's
+    modes: ``softmax='free'`` (the caller folded head_dim**-0.5 *
+    log2(e) into q; no bound), the bounded softmax with ``fixed_m0`` (a
+    float32 bound on every score at ``scale``, kept on the device), else
+    the online softmax; ``scale`` defaults to head_dim**-0.5.  Off the
+    route (the CPU), as the JAX package off the TPU: the online softmax
+    at ``scale`` (``ln 2`` for 'free'; the bound is ignored)."""
     if softmax not in (None, "free"):
         raise ValueError(f"unknown flash softmax {softmax!r}")
-    if q.is_cuda:
-        if softmax != "free" or fixed_m0 is not None:
-            raise NotImplementedError(
-                "only the offset-free ('free') flash softmax is ported to "
-                "CUDA; the online and bounded modes are queued in ROADMAP")
-        wide = _wider(q, k, v) or torch.bfloat16
-        return FlashAttention.apply(*_bf16(q, k, v), mask, 1.0, True,
-                                    kernels).to(wide)
+    if _kernel_route(q):
+        if softmax == "free":
+            if fixed_m0 is not None:
+                raise ValueError("the free softmax takes no score bound")
+            mode, scale = "free", 1.0
+        else:
+            mode = "online" if fixed_m0 is None else "bounded"
+            scale = q.shape[-1] ** -0.5 if scale is None else scale
+        wide = _wider(q, k, v)
+        ops = _bf16(q, k, v) if wide is not None else (q, k, v)
+        out = FlashAttention.apply(*ops, mask, scale, mode,
+                                   _bound(fixed_m0, q.device), kernels)
+        return out if wide is None else out.to(wide)
     if softmax == "free":
         scale = math.log(2.0)
     elif scale is None:
         scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, mask, scale, False, False)
+    return FlashAttention.apply(q, k, v, mask, scale, None, None, False)

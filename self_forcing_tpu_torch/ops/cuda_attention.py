@@ -1,26 +1,35 @@
 """Hand-written CUDA attention kernels and their plain PyTorch versions.
 
 Port of the kernels of ``self_forcing_tpu/ops/pallas_attention.py``
-that the streaming sampler runs:
+that the streaming sampler and the training step run:
 
-- ``decode_fresh_free`` (csrc/decode_fresh.cu) replaces
-  ``_decode_fresh_kernel`` in 'free' mode (``decode_attention_fresh_pallas``
-  with ``softmax='free'``);
+- ``decode_fresh`` (csrc/decode_fresh.cu) replaces ``_decode_fresh_kernel``
+  in its bf16 modes (``decode_attention_fresh_pallas``): 'free' and
+  'free_noclamp' (``softmax=``), 'bounded' (``fixed_m0``) and online
+  (neither); ``decode_fresh_free`` is its 'free' mode, the sampler's
+  default;
 - ``decode_fresh_int8qk`` (csrc/decode_int8qk.cu: the pre-pass
   ``int8qk_quantize`` and the attention ``int8qk_attend``) replaces
-  ``_decode_fresh_int8_kernel`` in 'free_qk' mode
-  (``decode_attention_fresh_pallas`` with ``softmax='free',
+  ``_decode_fresh_int8_kernel`` in 'free_qk' mode (``softmax='free',
   quant='int8qk'``);
+- ``decode_fresh_int8`` (the same pre-pass for q and K,
+  csrc/decode_int8.cu's ``int8_quantize_v`` for V and ``int8_attend``)
+  replaces ``_decode_fresh_int8_kernel`` in its 'tile', 'global' and
+  online modes (``quant='int8'``, with a bound or without);
 - ``cross_attention`` (csrc/cross_attention.cu) replaces ``_cross_kernel``
   (``cross_attention_pallas``);
 - ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (csrc/flash_attention.cu) replace ``_flash_kernel`` in 'free' mode,
-  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
-  (``flash_attention_pallas`` and its backward ``_flash_bwd``).
+  (csrc/flash_attention.cu) replace ``_flash_kernel`` in its free,
+  bounded and online modes, ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel`` (``flash_attention_pallas`` and its backward
+  ``_flash_bwd``).
 
-Each wrapper runs its plain version (``*_ref``, same signature) for a
-tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
-Every launch adds one to ``launch_counts[name]``.
+A bound ``m0`` is a float32 tensor that the kernels read from device
+memory, so no layer waits for the host.  Each wrapper runs its plain
+version (``*_ref``, same signature) for a tensor on the CPU.  For a CUDA
+tensor it launches the kernel or raises.  Every launch adds one to
+``launch_counts[name]`` (the decode and flash modes count under their
+own names).
 
 The gradients: :class:`FlashAttention` (the flash forward and its two
 backward kernels) and the plain-PyTorch backward of the decode and cross
@@ -42,9 +51,14 @@ from self_forcing_tpu_torch.ops import build
 
 HEAD_DIM = 128  # the head dim the kernels are compiled for
 
-launch_counts = {"decode_fresh_free": 0, "int8qk_quantize": 0,
-                 "decode_fresh_int8qk": 0, "cross_attention": 0,
-                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launch_counts = {"decode_fresh_free": 0, "decode_fresh_free_noclamp": 0,
+                 "decode_fresh_bounded": 0, "decode_fresh_online": 0,
+                 "int8qk_quantize": 0, "decode_fresh_int8qk": 0,
+                 "int8_quantize_v": 0, "decode_fresh_int8_tile": 0,
+                 "decode_fresh_int8_global": 0, "decode_fresh_int8_online": 0,
+                 "cross_attention": 0, "flash_fwd": 0, "flash_fwd_online": 0,
+                 "flash_fwd_bounded": 0, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,7 +85,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 # =====================================================================
-# decode attention with fresh K/V, offset-free base-2 softmax
+# decode attention with fresh K/V: the bf16 softmax modes
 # =====================================================================
 
 def _cache_lim(S: int, kv_start: int, kv_end: int, sink_end: int,
@@ -89,22 +103,45 @@ def _stacked(k_cache: torch.Tensor, layer_idx: int) -> torch.Tensor:
     return k_cache[layer_idx] if k_cache.dim() == 4 else k_cache
 
 
-def decode_fresh_free_ref(q, k_cache, v_cache, k_new, v_new, *,
-                          layer_idx: int, kv_start: int, kv_end: int,
-                          sink_end: int = 0, static_hi: int | None = None,
-                          num_heads: int, scale: float = 1.0
-                          ) -> torch.Tensor:
-    """Plain version of :func:`decode_fresh_free`: the same visibility,
-    clamp, exp2 and bf16 rounding of p, one head at a time (the score
-    block of one head at the 1.3B shapes is ~0.6 GB in fp32)."""
+# the softmax modes of the bf16 decode kernel: the offset-free base-2
+# softmax with and without its overflow clamp (the caller folded
+# head_dim**-0.5 * log2(e) into q), the base-e softmax offset by the
+# caller's score bound m0, and the online softmax (running row max)
+DECODE_MODES = {"free": 0, "free_noclamp": 1, "bounded": 2, "online": 3}
+
+
+def _m0_tensor(m0, mode: str, device) -> torch.Tensor | None:
+    """The bound of 'bounded' mode as a float32 tensor on ``device`` (a
+    tensor stays where it is: the kernels read it from device memory, so
+    no layer waits for the host)."""
+    if mode not in ("bounded", "tile", "global"):
+        return None
+    if m0 is None:
+        raise ValueError(f"softmax mode {mode!r} needs the score bound m0")
+    return torch.as_tensor(m0, dtype=torch.float32, device=device)
+
+
+def decode_fresh_ref(q, k_cache, v_cache, k_new, v_new, *, mode: str,
+                     m0=None, layer_idx: int, kv_start: int, kv_end: int,
+                     sink_end: int = 0, static_hi: int | None = None,
+                     num_heads: int, scale: float = 1.0) -> torch.Tensor:
+    """Plain version of :func:`decode_fresh`, one head at a time (the
+    score block of one head at the 1.3B shapes is ~0.6 GB in fp32): the
+    Pallas kernel's function in each mode.  'free' / 'free_noclamp' and
+    'bounded' round p to bf16 for P.V; 'online' keeps p in float32, as
+    the interpreted Pallas kernel does (its online mode stages q, K and V
+    in float32), and equals the exact softmax."""
+    if mode not in DECODE_MODES:
+        raise ValueError(f"unknown decode softmax mode {mode!r}")
     B, Lq, ND = q.shape
     N = num_heads
     D = ND // N
     kc, vc = _stacked(k_cache, layer_idx), _stacked(v_cache, layer_idx)
     S = kc.shape[1]
     lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
-    j = torch.arange(lim, device=q.device)
-    vis = (j < sink_end) | ((j >= kv_start) & (j < kv_end))
+    j = torch.arange(lim + k_new.shape[1], device=q.device)
+    vis = (j >= lim) | (j < sink_end) | ((j >= kv_start) & (j < kv_end))
+    m0 = _m0_tensor(m0, mode, q.device)
     out = torch.empty_like(q)
     for b in range(B):
         for n in range(N):
@@ -114,37 +151,51 @@ def decode_fresh_free_ref(q, k_cache, v_cache, k_new, v_new, *,
                            k_new[b, :, cols].float()])
             v = torch.cat([vc[b * N + n, :lim].float(),
                            v_new[b, :, cols].float()])
-            s = (qh @ k.T) * scale
-            p = torch.exp2(torch.clamp_max(s, 80.0))
-            p[:, :lim] = torch.where(vis, p[:, :lim], 0.0)
+            if mode == "online":
+                s = torch.where(vis, (qh * scale) @ k.T, float("-inf"))
+                p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            else:
+                s = (qh @ k.T) * scale
+                if mode == "free":
+                    p = torch.exp2(torch.clamp_max(s, 80.0))
+                elif mode == "free_noclamp":
+                    p = torch.exp2(s)
+                else:
+                    p = torch.exp(s - m0)
+                p = torch.where(vis, p, 0.0)
             l = p.sum(dim=-1, keepdim=True)
-            acc = p.to(torch.bfloat16).float() @ v
-            out[b, :, cols] = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+            pv = p if mode == "online" else p.to(torch.bfloat16).float()
+            out[b, :, cols] = ((pv @ v) / torch.clamp_min(l, 1e-30)
+                               ).to(q.dtype)
     return out
 
 
-def decode_fresh_free(q, k_cache, v_cache, k_new, v_new, *,
-                      layer_idx: int, kv_start: int, kv_end: int,
-                      sink_end: int = 0, static_hi: int | None = None,
-                      num_heads: int, scale: float = 1.0) -> torch.Tensor:
+def decode_fresh(q, k_cache, v_cache, k_new, v_new, *, mode: str, m0=None,
+                 layer_idx: int, kv_start: int, kv_end: int,
+                 sink_end: int = 0, static_hi: int | None = None,
+                 num_heads: int, scale: float = 1.0) -> torch.Tensor:
     """Decode attention of a block's queries onto the cache window
     ``[0, sink_end) + [kv_start, kv_end)`` of layer ``layer_idx`` plus all
-    of the block's fresh K/V, with the offset-free base-2 softmax (the
-    caller folded ``head_dim**-0.5 * log2(e)`` into q).
+    of the block's fresh K/V, in softmax ``mode`` (:data:`DECODE_MODES`):
+    'free' / 'free_noclamp' p = 2^(scale * q.k) (with / without the clamp
+    at 80); 'bounded' p = exp(scale * q.k - m0), ``m0`` a float32 bound
+    on every score (a 1-element tensor, read by the kernel on the card);
+    'online' the running-max softmax at ``scale``.
 
     q, k_new, v_new: heads-packed [B, L, N*D]; k_cache/v_cache: stacked
     [L, B*N, S, D] (or one layer [B*N, S, D]).  ``static_hi``: a promise
     that no visible cache column lies at or past it; cache tiles from
     there on are not visited.  The folded [B*N, L, D] layout is this with
     ``num_heads=1``.  Returns [B, Lq, N*D]."""
-    args = dict(layer_idx=layer_idx, kv_start=kv_start, kv_end=kv_end,
-                sink_end=sink_end, static_hi=static_hi,
+    args = dict(mode=mode, m0=m0, layer_idx=layer_idx, kv_start=kv_start,
+                kv_end=kv_end, sink_end=sink_end, static_hi=static_hi,
                 num_heads=num_heads, scale=scale)
     if not q.is_cuda:
-        return decode_fresh_free_ref(q, k_cache, v_cache, k_new, v_new,
-                                     **args)
+        return decode_fresh_ref(q, k_cache, v_cache, k_new, v_new, **args)
+    if mode not in DECODE_MODES:
+        raise ValueError(f"unknown decode softmax mode {mode!r}")
     kc, vc = _stacked(k_cache, layer_idx), _stacked(v_cache, layer_idx)
-    _check_cuda("decode_fresh_free", q, kc, vc, k_new, v_new)
+    _check_cuda("decode_fresh", q, kc, vc, k_new, v_new)
     B, Lq, ND = q.shape
     N = num_heads
     D = ND // N
@@ -153,20 +204,34 @@ def decode_fresh_free(q, k_cache, v_cache, k_new, v_new, *,
     if D != HEAD_DIM or Dc != D or BN != B * N or vc.shape != kc.shape \
             or k_new.shape != (B, Lf, ND) or v_new.shape != k_new.shape:
         raise ValueError(
-            f"decode_fresh_free: unsupported shapes q {tuple(q.shape)}, "
+            f"decode_fresh: unsupported shapes q {tuple(q.shape)}, "
             f"cache {tuple(kc.shape)}, fresh {tuple(k_new.shape)} with "
             f"{N} heads (the kernel takes head_dim {HEAD_DIM})")
+    m0t = _m0_tensor(m0, mode, q.device)
     lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
     out = torch.empty_like(q)
-    fn = build.function("decode_fresh", "decode_fresh_free_launch",
-              [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P])
+    fn = build.function("decode_fresh", "decode_fresh_launch",
+                        [_P] * 7 + [_I] * 10 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), k_new.data_ptr(),
-             v_new.data_ptr(), out.data_ptr(), B, N, Lq, Lf, S,
-             int(kv_start), int(kv_end), int(sink_end), lim, float(scale),
+             v_new.data_ptr(), None if m0t is None else m0t.data_ptr(),
+             out.data_ptr(), B, N, Lq, Lf, S, int(kv_start), int(kv_end),
+             int(sink_end), lim, DECODE_MODES[mode], float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on("decode_fresh_free", err)
-    launch_counts["decode_fresh_free"] += 1
+    build.raise_on("decode_fresh", err)
+    launch_counts[f"decode_fresh_{mode}"] += 1
     return out
+
+
+def decode_fresh_free_ref(q, k_cache, v_cache, k_new, v_new, **kw):
+    """:func:`decode_fresh_ref` in 'free' mode."""
+    return decode_fresh_ref(q, k_cache, v_cache, k_new, v_new, mode="free",
+                            **kw)
+
+
+def decode_fresh_free(q, k_cache, v_cache, k_new, v_new, **kw):
+    """:func:`decode_fresh` in 'free' mode (the sampler's default)."""
+    return decode_fresh(q, k_cache, v_cache, k_new, v_new, mode="free",
+                        **kw)
 
 
 # =====================================================================
@@ -433,6 +498,318 @@ def decode_fresh_int8qk(q, k_cache, v_cache, k_new, v_new, *,
 
 
 # =====================================================================
+# decode attention with fresh K/V, int8 QK^T and int8 P.V
+# =====================================================================
+
+INT8_MODES = {"tile": 0, "global": 1, "online": 2}
+LN127 = math.log(127.0)
+_NEG_INF = -1e30        # the Pallas kernels' masked score
+P_GROUP = 16            # keys a P fragment permutes within
+# P.V runs mma.sync m16n8k32 s8 with P in registers: the scores' s32
+# accumulator layout puts keys {2t, 2t+1, 8+2t, 9+2t} of a 16-key group
+# in the lane that the A fragment gives k slots 4t..4t+3.  V^T stores its
+# keys in that order, so the product contracts each key with itself:
+# slot k of a group holds key KEY_OF_SLOT[k].
+KEY_OF_SLOT = [2 * (k // 4) + (k % 2) + 8 * (k % 4 // 2)
+               for k in range(P_GROUP)]
+V_PAD = 64              # a V^T tile's keys are padded to this
+
+
+class Int8V(NamedTuple):
+    """What the full-int8 pre-pass adds for V: int8 cache and fresh V per
+    Pallas tile, K-major [B*N, tiles, D, tile padded to 64] with the keys
+    of every 16-key group in :data:`KEY_OF_SLOT` order (zero past each
+    length), and their f32 scales [B*N, tiles] (0, rows unwritten, for a
+    cache tile the window does not meet)."""
+    vc8: torch.Tensor
+    vsc: torch.Tensor
+    vn8: torch.Tensor
+    vsf: torch.Tensor
+
+
+def _kmajor(v8: torch.Tensor, n: int, T: int) -> torch.Tensor:
+    """int8 rows [BN, n*T, D] -> the K-major tiles of :class:`Int8V`."""
+    BN, _, D = v8.shape
+    Tp = _cdiv(T, V_PAD) * V_PAD
+    t = F.pad(v8.reshape(BN, n, T, D), (0, 0, 0, Tp - T))
+    t = t.reshape(BN, n, Tp // P_GROUP, P_GROUP, D)[:, :, :, KEY_OF_SLOT]
+    return t.permute(0, 1, 4, 2, 3).reshape(BN, n, D, Tp).contiguous()
+
+
+def _rows(vt: torch.Tensor, T: int) -> torch.Tensor:
+    """K-major tiles [BN, n, D, Tp] -> int8 rows [BN, n*T, D]."""
+    BN, n, D, Tp = vt.shape
+    slot = [0] * P_GROUP
+    for k, key in enumerate(KEY_OF_SLOT):
+        slot[key] = k
+    t = vt.reshape(BN, n, D, Tp // P_GROUP, P_GROUP)[..., slot]
+    return t.permute(0, 1, 3, 4, 2).reshape(BN, n, Tp, D)[:, :, :T] \
+        .reshape(BN, n * T, D)
+
+
+def int8_quantize_v_ref(v_cache, v_new, *, layer_idx: int, kv_start: int,
+                        kv_end: int, sink_end: int = 0,
+                        static_hi: int | None = None, num_heads: int,
+                        tk: int, tf: int) -> Int8V:
+    """Plain version of :func:`int8_quantize_v`."""
+    N = num_heads
+    vc = _stacked(v_cache, layer_idx)
+    lim = _cache_lim(vc.shape[1], kv_start, kv_end, sink_end, static_hi)
+    ntc, ntf = _cdiv(lim, tk), _cdiv(v_new.shape[1], tf)
+    vc8, vsc = _tile_quant(vc.float(), tk, ntc, False)
+    live = torch.tensor(live_cache_tiles(ntc, tk, kv_start, kv_end,
+                                         sink_end), dtype=torch.bool,
+                        device=vc.device)
+    vsc = torch.where(live, vsc, 0.0)
+    vc8 = (vc8.reshape(vc8.shape[0], ntc, tk, vc.shape[2])
+           * live[:, None, None].to(torch.int8)).reshape(vc8.shape)
+    vn8, vsf = _tile_quant(_fold(v_new, N).float(), tf, ntf, False)
+    return Int8V(_kmajor(vc8, ntc, tk), vsc, _kmajor(vn8, ntf, tf), vsf)
+
+
+def _int8_tiles(ntc: int, ntf: int, *, kv_start: int, kv_end: int,
+                sink_end: int, lim: int, fresh_len: int, tk: int, tf: int,
+                device) -> list:
+    """The Pallas tiles an int8 attention visits, in its order: (fresh,
+    tile index, tile rows, visible columns [rows] bool) for the cache
+    tiles the window meets, then every fresh tile."""
+    out = []
+    live = live_cache_tiles(ntc, tk, kv_start, kv_end, sink_end)
+    for t in range(ntc):
+        if live[t]:
+            j = torch.arange(t * tk, t * tk + tk, device=device)
+            out.append((False, t, tk, (j < lim) & (
+                (j < sink_end) | ((j >= kv_start) & (j < kv_end)))))
+    for t in range(ntf):
+        j = torch.arange(t * tf, t * tf + tf, device=device)
+        out.append((True, t, tf, j < fresh_len))
+    return out
+
+
+def int8_attend_ref(qq: Int8QK, vv: Int8V, q, *, mode: str, m0=None,
+                    layer_idx: int, kv_start: int, kv_end: int,
+                    sink_end: int = 0, static_hi: int | None = None,
+                    num_heads: int, scale: float, tq: int, tk: int,
+                    tf: int, cache_len: int, fresh_len: int
+                    ) -> torch.Tensor:
+    """Plain version of :func:`int8_attend`: the Pallas kernel's int8
+    modes step by step, one head and one Pallas tile at a time (the cache
+    tiles that the window meets, then the fresh tiles).  Per tile, with
+    s = float(q8.k8) * (qs * (ks * scale)) and -1e30 where masked:
+    'tile'   p = exp(s - (m_t - ln 127)), m_t the row's max in the tile,
+             w = exp(m_t - m0); l += sum(p) * w,
+             acc += float(round(p).v8) * (vs * w);
+    'global' p = min(exp(s + (ln 127 - m0)), 127) on visible columns;
+             l += sum(p), acc += float(round(p).v8) * vs;
+    'online' the running max m, updated once a tile: p against
+             m - ln 127, l and acc rescaled by exp(m_prev - m).
+    out = acc / max(l, 1e-30).  The int8 products are summed exactly
+    (float64 sums of integers) and rounded once to float32, as the
+    kernel's int32 sums are."""
+    if mode not in INT8_MODES:
+        raise ValueError(f"unknown int8 decode mode {mode!r}")
+    B, Lq, ND = q.shape
+    N = num_heads
+    D = ND // N
+    f32 = torch.float32
+    dev = q.device
+    lim = _cache_lim(cache_len, kv_start, kv_end, sink_end, static_hi)
+    tiles = _int8_tiles(qq.ksc.shape[1], qq.ksf.shape[1], kv_start=kv_start,
+                        kv_end=kv_end, sink_end=sink_end, lim=lim,
+                        fresh_len=fresh_len, tk=tk, tf=tf, device=dev)
+    v8 = {False: _rows(vv.vc8, tk), True: _rows(vv.vn8, tf)}
+    k8 = {False: qq.kc8, True: qq.kn8}
+    ks = {False: qq.ksc, True: qq.ksf}
+    vs = {False: vv.vsc, True: vv.vsf}
+    m0 = _m0_tensor(m0, mode, dev)
+    ln127 = torch.tensor(LN127, dtype=f32, device=dev)
+    sc = torch.tensor(scale, dtype=f32, device=dev)
+    qs_row = qq.qs.repeat_interleave(tq, dim=1)[:, :Lq, None]
+    out = torch.empty_like(q)
+    for bn in range(B * N):
+        q8 = qq.q8[bn, :Lq].double()
+        m = torch.full((Lq, 1), _NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((Lq, 1), dtype=f32, device=dev)
+        acc = torch.zeros((Lq, D), dtype=f32, device=dev)
+        for fresh, t, T, vis in tiles:
+            rows = slice(t * T, t * T + T)
+            vt = v8[fresh][bn, rows].double()
+            vst = vs[fresh][bn, t]
+            s = (q8 @ k8[fresh][bn, rows].double().T).to(f32) \
+                * (qs_row[bn] * (ks[fresh][bn, t] * sc))
+            if mode == "global":
+                p = torch.exp(s + (ln127 - m0))
+                p = torch.clamp_max(torch.where(vis, p, 0.0), 127.0)
+                l = l + p.sum(dim=-1, keepdim=True)
+                acc = acc + (torch.round(p).double() @ vt).to(f32) * vst
+                continue
+            s = torch.where(vis, s, _NEG_INF)
+            m_t = s.amax(dim=-1, keepdim=True)
+            if mode == "tile":
+                p = torch.exp(s - (m_t - ln127))
+                w = torch.exp(m_t - m0)
+                l = l + p.sum(dim=-1, keepdim=True) * w
+                acc = acc + (torch.round(p).double() @ vt).to(f32) \
+                    * (vst * w)
+            else:
+                m_new = torch.maximum(m, m_t)
+                p = torch.exp(s - (m_new - ln127))
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + (torch.round(p).double() @ vt).to(f32) \
+                    * vst
+                m = m_new
+        b, n = divmod(bn, N)
+        out[b, :, n * D:(n + 1) * D] = (
+            acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+    return out
+
+
+def decode_fresh_int8_ref(q, k_cache, v_cache, k_new, v_new, *, mode: str,
+                          m0=None, layer_idx: int, kv_start: int,
+                          kv_end: int, sink_end: int = 0,
+                          static_hi: int | None = None, num_heads: int,
+                          scale: float, tq: int, tk: int,
+                          tf: int) -> torch.Tensor:
+    """Plain version of :func:`decode_fresh_int8`: the function of the TPU
+    kernel ``_decode_fresh_int8_kernel`` in 'tile', 'global' or online
+    mode."""
+    win = dict(layer_idx=layer_idx, kv_start=kv_start, kv_end=kv_end,
+               sink_end=sink_end, static_hi=static_hi, num_heads=num_heads,
+               tk=tk, tf=tf)
+    qq = int8qk_quantize_ref(q, k_cache, k_new, tq=tq, **win)
+    vv = int8_quantize_v_ref(v_cache, v_new, **win)
+    return int8_attend_ref(qq, vv, q, mode=mode, m0=m0, scale=scale, tq=tq,
+                           cache_len=k_cache.shape[-2],
+                           fresh_len=k_new.shape[1], **win)
+
+
+def int8_quantize_v(v_cache, v_new, *, layer_idx: int, kv_start: int,
+                    kv_end: int, sink_end: int = 0,
+                    static_hi: int | None = None, num_heads: int, tk: int,
+                    tf: int) -> Int8V:
+    """The V half of the full-int8 pre-pass: the cache tiles of layer
+    ``layer_idx`` that the window meets below ``static_hi``, and v_new,
+    each quantized to int8 with one scale per tile of tk / tf rows (the
+    Pallas kernel's tiles), stored K-major as :class:`Int8V` says.
+    Operands as in :func:`decode_fresh`."""
+    win = dict(layer_idx=layer_idx, kv_start=kv_start, kv_end=kv_end,
+               sink_end=sink_end, static_hi=static_hi, num_heads=num_heads,
+               tk=tk, tf=tf)
+    if not v_new.is_cuda:
+        return int8_quantize_v_ref(v_cache, v_new, **win)
+    vc = _stacked(v_cache, layer_idx)
+    _check_cuda("int8_quantize_v", vc, v_new)
+    _check_tiles("int8_quantize_v", 1, tk, tf)
+    B, Lf, ND = v_new.shape
+    N = num_heads
+    D = ND // N
+    BN, S, Dc = vc.shape
+    if D != HEAD_DIM or Dc != D or BN != B * N:
+        raise ValueError(
+            f"int8_quantize_v: unsupported shapes cache {tuple(vc.shape)}, "
+            f"fresh {tuple(v_new.shape)} with {N} heads (the kernel takes "
+            f"head_dim {HEAD_DIM})")
+    lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
+    ntc, ntf = _cdiv(lim, tk), _cdiv(Lf, tf)
+    tpc, tpf = _cdiv(tk, V_PAD) * V_PAD, _cdiv(tf, V_PAD) * V_PAD
+    i8, f32 = torch.int8, torch.float32
+    vv = Int8V(vc8=vc.new_empty(BN, ntc, D, tpc, dtype=i8),
+               vsc=vc.new_empty(BN, ntc, dtype=f32),
+               vn8=vc.new_empty(BN, ntf, D, tpf, dtype=i8),
+               vsf=vc.new_empty(BN, ntf, dtype=f32))
+    fn = build.function("decode_int8", "int8_quantize_v_launch",
+                        [_P] * 6 + [_I] * 10 + [_P])
+    err = fn(vc.data_ptr(), v_new.data_ptr(), *(t.data_ptr() for t in vv),
+             B, N, Lf, S, int(kv_start), int(kv_end), int(sink_end), lim, tk,
+             tf, torch.cuda.current_stream(vc.device).cuda_stream)
+    build.raise_on("int8_quantize_v", err)
+    launch_counts["int8_quantize_v"] += 1
+    return vv
+
+
+def int8_attend(qq: Int8QK, vv: Int8V, q, *, mode: str, m0=None,
+                layer_idx: int, kv_start: int, kv_end: int,
+                sink_end: int = 0, static_hi: int | None = None,
+                num_heads: int, scale: float, tq: int, tk: int, tf: int,
+                cache_len: int, fresh_len: int) -> torch.Tensor:
+    """The full-int8 attention: the pre-passes' int8 q onto int8 K, p
+    quantized to int8 in [0, 127] in ``mode`` (:data:`INT8_MODES`, as
+    :func:`int8_attend_ref` spells out) and int8 P.V, with the Pallas
+    kernel's tiles; ``m0`` (tile, global) a float32 bound on the scores
+    (a 1-element tensor, read on the card).  ``q`` gives the output's
+    shape and type; ``cache_len`` / ``fresh_len`` are the cache's S and
+    the fresh rows.  Returns [B, Lq, N*D]."""
+    args = dict(mode=mode, m0=m0, layer_idx=layer_idx, kv_start=kv_start,
+                kv_end=kv_end, sink_end=sink_end, static_hi=static_hi,
+                num_heads=num_heads, scale=scale, tq=tq, tk=tk, tf=tf,
+                cache_len=cache_len, fresh_len=fresh_len)
+    if not q.is_cuda:
+        return int8_attend_ref(qq, vv, q, **args)
+    if mode not in INT8_MODES:
+        raise ValueError(f"unknown int8 decode mode {mode!r}")
+    _check_cuda("int8_attend", q)
+    _check_tiles("int8_attend", tq, tk, tf)
+    B, Lq, ND = q.shape
+    N = num_heads
+    D = ND // N
+    BN = B * N
+    lim = _cache_lim(cache_len, kv_start, kv_end, sink_end, static_hi)
+    qt, ntc, ntf = _cdiv(Lq, tq), _cdiv(lim, tk), _cdiv(fresh_len, tf)
+    tpc, tpf = _cdiv(tk, V_PAD) * V_PAD, _cdiv(tf, V_PAD) * V_PAD
+    want = [(BN, qt * tq, D), (BN, qt), (BN, ntc * tk, D), (BN, ntc),
+            (BN, ntf * tf, D), (BN, ntf), (BN, ntc, D, tpc), (BN, ntc),
+            (BN, ntf, D, tpf), (BN, ntf)]
+    ops = list(qq) + list(vv)
+    if D != HEAD_DIM or [tuple(t.shape) for t in ops] != want:
+        raise ValueError(
+            f"int8_attend: unsupported shapes q {tuple(q.shape)}, int8 "
+            f"operands {[tuple(t.shape) for t in ops]} with {N} heads and "
+            f"tiles {(tq, tk, tf)}")
+    for t, dt in zip(ops, (torch.int8, torch.float32) * 5):
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise TypeError("int8_attend: the int8 operands must be the "
+                            "pre-passes' contiguous int8 / float32 "
+                            "tensors on q's device")
+    m0t = _m0_tensor(m0, mode, q.device)
+    out = torch.empty_like(q)
+    fn = build.function("decode_int8", "int8_attend_launch",
+                        [_P] * 12 + [_I] * 12 + [ctypes.c_float, _P])
+    err = fn(*(t.data_ptr() for t in ops),
+             None if m0t is None else m0t.data_ptr(), out.data_ptr(), B, N,
+             Lq, fresh_len, int(kv_start), int(kv_end), int(sink_end), lim,
+             tq, tk, tf, INT8_MODES[mode], float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("int8_attend", err)
+    launch_counts[f"decode_fresh_int8_{mode}"] += 1
+    return out
+
+
+def decode_fresh_int8(q, k_cache, v_cache, k_new, v_new, *, mode: str,
+                      m0=None, layer_idx: int, kv_start: int, kv_end: int,
+                      sink_end: int = 0, static_hi: int | None = None,
+                      num_heads: int, scale: float, tq: int, tk: int,
+                      tf: int) -> torch.Tensor:
+    """:func:`decode_fresh` with both products in int8 (the Pallas
+    kernel's ``quant='int8'``): the pre-passes (:func:`int8qk_quantize`
+    for q and K, :func:`int8_quantize_v` for V) quantize over the Pallas
+    tiles (``ops/attention.py::decode_tiles``), then :func:`int8_attend`.
+    Returns [B, Lq, N*D]."""
+    win = dict(layer_idx=layer_idx, kv_start=kv_start, kv_end=kv_end,
+               sink_end=sink_end, static_hi=static_hi, num_heads=num_heads,
+               tk=tk, tf=tf)
+    if not q.is_cuda:
+        return decode_fresh_int8_ref(q, k_cache, v_cache, k_new, v_new,
+                                     mode=mode, m0=m0, scale=scale, tq=tq,
+                                     **win)
+    qq = int8qk_quantize(q, k_cache, k_new, tq=tq, **win)
+    vv = int8_quantize_v(v_cache, v_new, **win)
+    return int8_attend(qq, vv, q, mode=mode, m0=m0, scale=scale, tq=tq,
+                       cache_len=k_cache.shape[-2], fresh_len=k_new.shape[1],
+                       **win)
+
+
+# =====================================================================
 # cross attention onto a small static K/V
 # =====================================================================
 
@@ -695,28 +1072,50 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def flash_fwd_ref(q, k, v, mask=None):
-    """Plain version of :func:`flash_fwd`: the Pallas ``_flash_kernel``'s
-    free mode, p = 2^min(q.k, 80) on visible keys, rounded to bf16 for
-    P.V, out = P.V / max(sum p, 1e-30), lse = ln(sum p) (0 for a row that
-    sees nothing), per head and chunk of query rows."""
+FLASH_MODES = {"free": 0, "bounded": 1, "online": 2}
+
+
+def flash_fwd_ref(q, k, v, mask=None, mode: str = "free",
+                  scale: float = 1.0, m0=None):
+    """Plain version of :func:`flash_fwd`, per head and chunk of query
+    rows: the Pallas ``_flash_kernel``'s function in ``mode``.  'free'
+    p = 2^min(q.k, 80) on visible keys (``scale`` unused: the caller
+    folded it into q); 'bounded' p = exp(scale * q.k - m0); both round p
+    to bf16 for P.V.  'online': the exact softmax at ``scale`` with p in
+    float32, as the interpreted Pallas kernel keeps it.  out = P.V /
+    max(sum p, 1e-30); lse = ln(sum p), plus m0 (bounded) or the row max
+    (online), 0 for a row that sees nothing."""
+    if mode not in FLASH_MODES:
+        raise ValueError(f"unknown flash softmax mode {mode!r}")
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
+    m0 = _m0_tensor(m0, mode, q.device)
     out = torch.empty_like(q)
     lse = torch.empty(B, N, Lq, dtype=torch.float32, device=q.device)
     for b in range(B):
         for n in range(N):
             kf, vf = k[b, :, n].float(), v[b, :, n].float()
             for r in _row_chunks(Lq, Lk):
-                s = q[b, r, n].float() @ kf.T
-                p = torch.where(_visible(mask, r, Lk, q.device),
-                                torch.exp2(torch.clamp_max(s, 80.0)), 0.0)
+                vis = _visible(mask, r, Lk, q.device)
+                if mode == "online":
+                    s = torch.where(vis, (q[b, r, n].float() * scale) @ kf.T,
+                                    float("-inf"))
+                    m = s.amax(dim=-1)
+                    m = torch.where(torch.isfinite(m), m, 0.0)
+                    p = torch.exp(s - m[:, None])
+                else:
+                    s = q[b, r, n].float() @ kf.T
+                    p = (torch.exp2(torch.clamp_max(s, 80.0))
+                         if mode == "free" else torch.exp(s * scale - m0))
+                    p = torch.where(vis, p, 0.0)
+                    m = 0.0 if mode == "free" else m0
                 l = p.sum(dim=-1)
-                acc = _rounded(p, torch.bfloat16) @ vf
+                acc = (p if mode == "online"
+                       else _rounded(p, torch.bfloat16)) @ vf
                 out[b, r, n] = (acc / torch.clamp_min(l, 1e-30)[:, None]
                                 ).to(q.dtype)
                 lse[b, n, r] = torch.where(
-                    l > 0, torch.log(torch.clamp_min(l, 1e-30)), 0.0)
+                    l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), 0.0)
     return out, lse
 
 
@@ -796,27 +1195,37 @@ def _rows_padded(x: torch.Tensor, name: str, B: int, N: int, Lq: int,
     return F.pad(x.reshape(B * N, Lq), (0, lq_pad - Lq)).contiguous()
 
 
-def flash_fwd(q, k, v, mask=None):
-    """Masked flash attention forward in the offset-free base-2 softmax:
-    q, k, v [B, L, N, D] bf16 with head_dim**-0.5 * log2(e) folded into q;
-    ``mask`` an IntervalMask over queries [0, Lq) and keys [0, Lk) or None
-    (full visibility).  Returns (out [B, Lq, N, D] bf16, lse [B, N, Lq]
-    fp32, base e)."""
+def flash_fwd(q, k, v, mask=None, mode: str = "free", scale: float = 1.0,
+              m0=None):
+    """Masked flash attention forward: q, k, v [B, L, N, D] bf16; ``mask``
+    an IntervalMask over queries [0, Lq) and keys [0, Lk) or None (full
+    visibility).  ``mode`` (:data:`FLASH_MODES`): 'free', the offset-free
+    base-2 softmax of q.k (the caller folded head_dim**-0.5 * log2(e)
+    into q); 'bounded', exp(scale * q.k - m0) with ``m0`` a float32 bound
+    on every score (a 1-element tensor, read on the card); 'online', the
+    running-max softmax at ``scale``.  Returns (out [B, Lq, N, D] bf16,
+    lse [B, N, Lq] fp32, base e, of the scores at ``scale``; the free
+    mode's scores are its base-2 ones at ln 2)."""
     if not q.is_cuda:
-        return flash_fwd_ref(q, k, v, mask)
+        return flash_fwd_ref(q, k, v, mask, mode, scale, m0)
+    if mode not in FLASH_MODES:
+        raise ValueError(f"unknown flash softmax mode {mode!r}")
     B, Lq, N, Lk = _check_flash("flash_fwd", q, k, v)
+    m0t = _m0_tensor(m0, mode, q.device)
     geo = flash_geometry(mask, Lq, Lk, q.device)
     out = torch.empty_like(q)
     lse = torch.zeros(B * N, geo.lq_pad, dtype=torch.float32,
                       device=q.device)
     fn = build.function("flash_attention", "flash_fwd_launch",
-                        [_P] * 7 + [_I] * 5 + [_P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if m0t is None else m0t.data_ptr(), out.data_ptr(),
              lse.data_ptr(), geo.iv.data_ptr(), geo.states_q.data_ptr(), B,
-             N, Lq, Lk, geo.lq_pad,
+             N, Lq, Lk, geo.lq_pad, FLASH_MODES[mode], float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_fwd", err)
-    launch_counts["flash_fwd"] += 1
+    launch_counts["flash_fwd" if mode == "free"
+                  else f"flash_fwd_{mode}"] += 1
     return out, lse.view(B, N, geo.lq_pad)[:, :, :Lq]
 
 

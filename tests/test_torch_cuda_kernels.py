@@ -67,6 +67,55 @@ def test_decode_fresh_free_matches_plain(dev, B, N, Lq, Lf, S, lo, hi, sink,
     assert _rel_l2(out, ref) < 1e-2
 
 
+DECODE_CASES = [
+    (1, 2, 100, 100, 256, 0, 0, 0, 0, 0),          # empty cache
+    (2, 2, 130, 70, 512, 64, 300, 0, None, 1),     # ragged tiles
+    (1, 3, 64, 64, 640, 200, 500, 70, 512, 2),     # sink + window
+]
+
+
+def _score_bound(q, kc, kn, li, lo, hi, sink, N, slack):
+    """The DiT's Cauchy-Schwarz bound over the visible keys, plus slack,
+    as a float32 tensor on the card."""
+    D = 128
+    B, Lq, _ = q.shape
+    rows = torch.cat([torch.arange(sink), torch.arange(lo, hi)]).to(q.device)
+    kmax = kn.float().reshape(B, -1, N, D).norm(dim=-1).amax()
+    if rows.numel():
+        kmax = torch.maximum(kmax, kc[li][:, rows].float().norm(dim=-1).amax())
+    qmax = q.float().reshape(B, Lq, N, D).norm(dim=-1).amax()
+    return D ** -0.5 * qmax * kmax + slack
+
+
+@pytest.mark.parametrize("mode", ["free_noclamp", "bounded", "online"])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_decode_fresh_modes_match_plain(dev, mode, case):
+    """The bounded (bound 3 nats loose), online and unclamped free modes
+    against their plain versions.  Tolerance 1e-2 relative L2: the
+    kernel rounds p to bf16 in every mode (the plain online version keeps
+    it in float32, 2^-9 relative an element)."""
+    B, N, Lq, Lf, S, lo, hi, sink, static_hi, li = DECODE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(10 + case)
+    D = 128
+    free = mode == "free_noclamp"
+    q = _bf16(g, B, Lq, N * D, dev=dev,
+              scale=D ** -0.5 * 1.4427 if free else 1.0)
+    kc = _bf16(g, 3, B * N, S, D, dev=dev)
+    vc = _bf16(g, 3, B * N, S, D, dev=dev)
+    kn = _bf16(g, B, Lf, N * D, dev=dev)
+    vn = _bf16(g, B, Lf, N * D, dev=dev)
+    m0 = (_score_bound(q, kc, kn, li, lo, hi, sink, N, 3.0)
+          if mode == "bounded" else None)
+    args = dict(mode=mode, m0=m0, layer_idx=li, kv_start=lo, kv_end=hi,
+                sink_end=sink, static_hi=static_hi, num_heads=N,
+                scale=1.0 if free else D ** -0.5)
+    out = ca.decode_fresh(q, kc, vc, kn, vn, **args)
+    ref = ca.decode_fresh_ref(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
 @pytest.mark.parametrize("B,N,Lq,Lk", [(1, 2, 100, 512), (2, 1, 65, 257),
                                        (1, 2, 64, 1), (1, 1, 70, 1024)])
 def test_cross_attention_matches_plain(dev, B, N, Lq, Lk):
@@ -164,15 +213,67 @@ def test_int8qk_dead_gap_does_not_move_the_output(dev):
     torch.testing.assert_close(poisoned, out, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("mode", ["tile", "global", "online"])
+@pytest.mark.parametrize("case", list(INT8QK_CASES))
+def test_decode_fresh_int8_matches_plain(dev, mode, case):
+    """Full int8 (quant='int8'): the V pre-pass gives the plain version's
+    K-major int8 values and scales exactly (dead cache tiles are not
+    written and not compared); the attention is within 1e-2 relative L2
+    of its plain version (exp2 against exp may round a p at a .5 tie of
+    its int8 grid the other way, one step of 127).  'global' gets a
+    tight bound (the max score + 0.5), the other bounded mode 11 nats of
+    slack."""
+    B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles = INT8QK_CASES[case]
+    if isinstance(tiles, tuple):
+        tq, tk, tf = tiles
+    else:
+        tq, tk, tf = attention.decode_tiles(Lq, S, Lf, "int8", None, tiles,
+                                            tk=256)
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, kc, vc, kn, vn = _int8qk_inputs(g, dev, B, N, Lq, Lf, S)
+    q = (q.float() * 8.0).to(torch.bfloat16)   # unfolded: scale D**-0.5
+    win = dict(layer_idx=1, kv_start=lo, kv_end=hi, sink_end=sink,
+               static_hi=static_hi, num_heads=N, tk=tk, tf=tf)
+    vv = ca.int8_quantize_v(vc, vn, **win)
+    vv_ref = ca.int8_quantize_v_ref(vc, vn, **win)
+    torch.cuda.synchronize()
+    live = torch.tensor(ca.live_cache_tiles(vv.vsc.shape[1], tk, lo, hi,
+                                            sink), device=dev)
+    for name in ("vsc", "vn8", "vsf"):
+        torch.testing.assert_close(getattr(vv, name), getattr(vv_ref, name),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(vv.vc8[:, live], vv_ref.vc8[:, live], rtol=0,
+                               atol=0)
+    m0 = None
+    if mode != "online":
+        m0 = _score_bound(q, kc, kn, 1, lo, hi, sink, N, 11.0)
+        if mode == "global":   # the true max score + 0.5
+            vis = torch.cat([torch.arange(sink), torch.arange(lo, hi)])
+            vis = vis[vis < (S if static_hi is None else static_hi)]
+            qh = q.float().reshape(B, Lq, N, 128).transpose(1, 2)
+            keys = torch.cat(
+                [kc[1].float().reshape(B, N, S, 128)[:, :, vis.to(dev)],
+                 kn.float().reshape(B, Lf, N, 128).transpose(1, 2)], dim=2)
+            m0 = (qh @ keys.transpose(-1, -2)).amax() * 128 ** -0.5 + 0.5
+    args = dict(mode=mode, m0=m0, scale=128 ** -0.5, tq=tq, **win)
+    out = ca.decode_fresh_int8(q, kc, vc, kn, vn, **args)
+    ref = ca.decode_fresh_int8_ref(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
 def test_seam_refuses_unported_quant_modes(dev):
+    """What the Pallas wrapper does not take raises on the kernel route:
+    the free softmax with a bound, int8qk without the free softmax."""
     q = torch.zeros(1, 8, 256, dtype=torch.bfloat16, device=dev)
     kc = torch.zeros(2, 2, 64, 128, dtype=torch.bfloat16, device=dev)
     args = dict(layer_idx=0, heads_packed=2, scale=1.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention.decode_attention_fresh(q, kc, kc, q, q, 0, 8,
-                                         softmax="free", quant="int8",
+                                         softmax="free", fixed_m0=1.0,
                                          **args)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention.decode_attention_fresh(q, kc, kc, q, q, 0, 8,
                                          quant="int8qk", **args)
 
@@ -378,11 +479,57 @@ def test_flash_attention_gradient_kernels_vs_plain(dev):
         assert _rel_l2(a, b) < 2e-2
 
 
+@pytest.mark.parametrize("mode", ["bounded", "online"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_fwd_modes_match_plain(dev, mode, case):
+    """The bounded (bound 3 nats loose) and online forward modes against
+    their plain versions: 1e-2 relative L2 on out (the kernel rounds p to
+    bf16, the plain online version keeps it in float32); lse 1e-4
+    absolute (fp32 sums)."""
+    B, N, L, spec = FLASH_CASES[case]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, _ = _flash_inputs(g, dev, B, N, L)
+    q = (q.float() * 8.0).to(torch.bfloat16)   # unfolded: scale D**-0.5
+    m0 = None
+    if mode == "bounded":
+        m0 = (128 ** -0.5 * q.float().norm(dim=-1).amax()
+              * k.float().norm(dim=-1).amax() + 3.0)
+    args = dict(mode=mode, scale=128 ** -0.5, m0=m0)
+    out, lse = ca.flash_fwd(q, k, v, mask, **args)
+    ref, ref_lse = ca.flash_fwd_ref(q, k, v, mask, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+def test_flash_modes_gradient_kernels_vs_plain(dev, bounded):
+    """The autograd function in the bounded and online modes: kernels
+    against plain versions, out and gradients (2e-2, as the free mode)."""
+    B, N, L, spec = FLASH_CASES["block_causal"]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    q = (q.float() * 8.0).to(torch.bfloat16)
+    m0 = (128 ** -0.5 * q.float().norm(dim=-1).amax()
+          * k.float().norm(dim=-1).amax()) if bounded else None
+    grads = []
+    for kernels in (True, False):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attention.flash_attention(*qkv, mask, fixed_m0=m0,
+                                        kernels=kernels)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in qkv])
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
+
+
 def test_flash_seam_refuses_unported_modes(dev):
+    """The free softmax takes no bound; the kernels take bf16 only."""
     q = torch.zeros(1, 64, 1, 128, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        attention.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention.flash_attention(q, q, q, softmax="free", fixed_m0=1.0)
     with pytest.raises(TypeError):
         ca.flash_fwd(q.float(), q.float(), q.float())

@@ -185,7 +185,7 @@ def test_flash_free_mode_matches_pallas(case):
         a, b, c, jm, tq=128, tk=128, interpret=True, softmax="free") ** 2),
         argnums=(0, 1, 2))(*_j(qp, k, v))
     tq, tk, tv = _t(qp, k, v, grad=True)
-    o = tattn.FlashAttention.apply(tq, tk, tv, tm, 1.0, True, True)
+    o = tattn.FlashAttention.apply(tq, tk, tv, tm, 1.0, "free", None, True)
     (o ** 2).sum().backward()
     for a, b in zip((tq.grad, tk.grad, tv.grad), gj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
