@@ -67,9 +67,20 @@ tile-bounded kernel on the global path).
    ``initial_latent``, ``CausalInferencePipeline.inference`` with an
    independent first frame and 2 blocks of 3 frames on random 1.3B
    weights, decoded by the VAE); one decode block under torch.profiler.
+9. The Wan-14B demo stream (last, every earlier tensor freed, the peak
+   memory counter reset): ``WAN_14B`` at full width and depth, random
+   W8A8 weights drawn and quantized block by block on the card, int8-QK
+   attention and stateful TAEHV; one block-2 forward kernels vs plain on
+   a 4-layer cut, then ``--blocks`` blocks at 40 layers (per-block DiT /
+   TAEHV ms, pixel frames/s, TTFF, peak memory, launches: fc1 from
+   pre-quantized x, ``w8a8_ffn1_xq``, must launch), and a profile.
 Phase 2 also holds each conv kernel (the 27-tap conv, the split route,
-v2 and the fused norm + SiLU + conv) against its plain version at the
-VAE's full-width shapes, beside cuDNN's bf16 conv.
+v2 and the fused norm + SiLU + conv, and the 27-tap conv at float32)
+against its plain version at the VAE's full-width shapes, beside cuDNN's
+conv; the W8A8 kernels at the Wan-14B shapes (fc1 from int8 x, fc2 at
+768-column groups, the K = 5120 qkv GEMM) and the GEMM from raw bf16 x;
+and the cache-window attention (``decode_attention``) at the 1.3B global
+window in bf16 and float32, beside SDPA.
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -77,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -89,10 +101,12 @@ import torch
 import torch.nn.functional as F
 
 # published H100 SXM peaks: dense bf16 and int8 tensor-core rates, the
-# float32 rate outside the tensor cores, HBM3 rate
+# float32 rate outside the tensor cores, HBM3 rate; a float32 product in
+# 3xTF32 is three TF32 tensor-core products (495 TFLOP/s dense)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 LQ = 3 * 1560          # tokens of one 3-frame block at 60x104 latents
@@ -101,6 +115,7 @@ N_HEADS, HEAD_DIM, N_LAYERS = 12, 128, 30
 S_CACHE = 32768        # 21 frames * 1560 tokens rounded up to 2048
 LAST_KV_END = 18 * 1560  # cache tokens before the 7th block
 DIM, FFN, N_CTX = 1536, 8960, 512
+DIM_14B, FFN_14B = 5120, 13824   # Wan-14B width (40 heads of 128)
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 LOG2E = 1.4426950408889634
 S_WIN = 24 * 1560      # the windowed configuration's 24-frame buffer
@@ -119,6 +134,10 @@ INT8_DEMO_KERNELS = ("int8qk_quantize", "int8_quantize_v",
 INT8_WIN_KERNELS = ("int8qk_quantize", "int8_quantize_v",
                     "decode_fresh_int8_online", "cross_attention",
                     "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
+# Wan-14B: every linear has K = 5120 > 4096 (no quantize_rows, and fc1
+# runs from int8 x)
+WAN14B_KERNELS = ("int8qk_quantize", "decode_fresh_int8qk", "cross_attention",
+                  "w8a8_matmul", "w8a8_ffn1_xq", "w8a8_ffn2")
 
 
 def fail(msg: str) -> None:
@@ -151,6 +170,50 @@ def time_ms(fn, reps: int = 7) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+class GcClock:
+    """Milliseconds spent in Python's garbage collector since install():
+    read before and after a timed span, the difference is collector time
+    that the span's host clock counts."""
+
+    def __init__(self):
+        self.ms, self._t0 = 0.0, None
+
+    def install(self):
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+
+GC_CLOCK = GcClock()
+
+
+def device_segments() -> int:
+    """Device segments the caching allocator has created (each one
+    cudaMalloc)."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+class HostStalls:
+    """Host-side stalls over a span: the caching allocator's new device
+    segments and the time spent in Python's garbage collector."""
+
+    def __enter__(self):
+        self._gc, self._segs = GC_CLOCK.ms, device_segments()
+        return self
+
+    def __exit__(self, *exc):
+        self.gc_ms = GC_CLOCK.ms - self._gc
+        self.mallocs = device_segments() - self._segs
+
+    def __str__(self):
+        return f"device_mallocs={self.mallocs} gc_ms={self.gc_ms:.1f}"
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -273,9 +336,22 @@ def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
             num_heads=N, scale=math.log(2.0)), reps=3)
         keys = kv_end + LQ
         flops = 5 * 2.0 * LQ * keys * D * N
+        # library yardstick: SDPA's backward over the concatenated visible
+        # K/V at scale ln 2 (one autograd call for dq, dk, dv; bf16)
+        heads = lambda t: t.reshape(1, -1, N, D).transpose(1, 2)
+        qg = heads(q).detach().requires_grad_(True)
+        kg = torch.cat([kc[7, :, :kv_end][None], heads(kn)],
+                       dim=2).requires_grad_(True)
+        vg = torch.cat([vc[7, :, :kv_end][None], heads(vn)],
+                       dim=2).requires_grad_(True)
+        o = F.scaled_dot_product_attention(qg, kg, vg, scale=math.log(2.0))
+        lib = library_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), heads(go), retain_graph=True))
+        del o, qg, kg, vg
         print(f"plain backward decode_fresh_bwd {label} (keys {keys}): "
               f"ms={ms:.4f} bound_ms={flops / PEAK_F32_FLOPS * 1e3:.4f} "
-              f"(5 fp32 products at the f32 peak)", flush=True)
+              f"(5 fp32 products at the f32 peak) sdpa_bwd_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
     k = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
     v = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
     for Lq in (LQ, SEQ_TRAIN):
@@ -285,8 +361,18 @@ def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
             q.dtype)
         ms = time_ms(lambda: ca.cross_attention_bwd(qx, k, v, gx,
                                                     num_heads=N), reps=3)
+        qg = qx.reshape(1, Lq, N, D).transpose(1, 2).detach(
+            ).requires_grad_(True)
+        kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg)
+        lib = library_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), gx.reshape(1, Lq, N, D).transpose(1, 2),
+            retain_graph=True))
+        del o, qg, kg, vg
         print(f"plain backward cross_attention_bwd (Lq={Lq}, Lk={N_CTX}): "
-              f"ms={ms:.4f}", flush=True)
+              f"ms={ms:.4f} sdpa_bwd_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
 
 
 def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
@@ -682,6 +768,161 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
     return table
 
 
+def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
+    """The W8A8 kernels of the Wan-14B demo path (dim 5120, 40 heads, ffn
+    13824, M = 4680 tokens) against their plain versions: fc1 from int8 x
+    quantized by ``quantize_activations`` (K = 5120 in 64-byte steps,
+    768-column groups), fc2 at groups of 768 onto N = 5120, the fused qkv
+    GEMM at K = 5120, N = 15360; and the GEMM quantizing raw bf16 x in its
+    prologue (``w8a8_matmul_bf16x``) at the 1.3B qkv shape.  Tolerances as
+    phase 2's W8A8 rows: int8 outputs equal but for one-step flips on
+    <= 0.1%, group scales 1e-5, GEMMs 1e-3 relative L2.  Library
+    yardsticks: ``torch._int_mm`` on the same int8 operands, cuBLAS bf16
+    beside it."""
+    dev, bf = "cuda", torch.bfloat16
+    M, K, Hh = LQ, DIM_14B, FFN_14B
+    table = {}
+
+    def weight(d_in, d_out):
+        w = torch.randn(d_in, d_out, generator=g, device=dev) * d_in ** -0.5
+        b = torch.randn(d_out, generator=g, device=dev) * 0.02
+        p = quant.quantize_linear_params({"w": w.to(bf), "b": b.to(bf)},
+                                         "w8a8")
+        return p, w.to(bf)
+
+    def report(name, label, err, mae, ms, plain_ms, lib_ms, bf16_ms, ops,
+               nbytes):
+        b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+              f"bf16_matmul_ms={bf16_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"tops={ops / ms / 1e9:.1f}", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+
+    x = torch.randn(M, K, generator=g, device=dev).to(bf)
+    x[3] = 0.0
+    if cm.quantize_rows(x) is not None or cm.ffn_group(M, K, Hh, K, True):
+        fail("14B shapes: quantize_rows / raw-x fc1 took K = 5120")
+    xq, sx = quant.quantize_activations(x)
+    (p1, w1b), (p2, w2b) = weight(K, Hh), weight(Hh, K)
+    tg = cm.ffn_group(M, K, Hh, K, raw_x=False)
+    a1 = (p1["w_qa_t"], p1["w_scale"], p1["b"], tg, sx)
+    hq, hs = cm.w8a8_ffn1(xq, *a1)
+    hq_ref, hs_ref = cm.w8a8_ffn1_ref(xq, sx, *a1[:4])
+    worst = check_int8("w8a8_ffn1_xq", hq, hq_ref)
+    hs_err = rel_l2(hs, hs_ref)
+    if hs_err > 1e-5:
+        fail(f"w8a8_ffn1_xq: group scales relative L2 {hs_err:.3e} > 1e-5")
+    ng = Hh // tg
+    table["w8a8_ffn1_xq"] = report(
+        "w8a8_ffn1_xq", f"14B {M}x{K}x{Hh}, int8 x, groups of {tg}", hs_err,
+        float(worst), time_ms(lambda: cm.w8a8_ffn1(xq, *a1)),
+        time_ms(lambda: cm.w8a8_ffn1_ref(xq, sx, *a1[:4]), reps=3),
+        library_ms(lambda: torch._int_mm(xq, p1["w_qa_t"].t())),
+        time_ms(lambda: x @ w1b), 2.0 * M * K * Hh,
+        M * K + M * 4.0 + Hh * K + Hh * 8.0 + M * Hh + M * ng * 4.0)
+    del hq, hs, w1b
+
+    a2 = (p2["w_qa_t"], p2["w_scale"], p2["b"], tg)
+    err, mae = check_kernel("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
+                            cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), tol=1e-3)
+    hb = torch.randn(M, Hh, generator=g, device=dev).to(bf)
+    report("w8a8_ffn2", f"14B {M}x{Hh}x{K}, groups of {tg}", err, mae,
+           time_ms(lambda: cm.w8a8_ffn2(hq_ref, hs_ref, *a2)),
+           time_ms(lambda: cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), reps=3),
+           library_ms(lambda: torch._int_mm(hq_ref, p2["w_qa_t"].t())),
+           time_ms(lambda: hb @ w2b), 2.0 * M * Hh * K,
+           M * Hh + M * ng * 4.0 + K * Hh + K * 8.0 + M * K * 2.0)
+    args = (p1["w_qa_t"], p1["w_scale"], p1["b"], p2["w_qa_t"],
+            p2["w_scale"], p2["b"])
+    err, _ = check_kernel("w8a8_ffn", cm.w8a8_ffn(xq, sx, *args),
+                          cm.w8a8_ffn_ref(xq, sx, *args), tol=1e-2)
+    print(f"kernel w8a8_ffn (14B, from int8 x: fc1_xq then fc2): "
+          f"rel_l2={err:.3e}", flush=True)
+    del hb, w2b, hq_ref, hs_ref, p1, p2, args, a1, a2
+    torch.cuda.empty_cache()
+
+    p, wb = weight(K, 3 * K)
+    args = (xq, sx, p["w_qa_t"], p["w_scale"], p["b"])
+    err, mae = check_kernel("w8a8_matmul", cm.w8a8_matmul(*args),
+                            cm.w8a8_matmul_ref(*args), tol=1e-3)
+    report("w8a8_matmul", f"14B qkv {M}x{K}x{3 * K}, 4 K steps", err, mae,
+           time_ms(lambda: cm.w8a8_matmul(*args)),
+           time_ms(lambda: cm.w8a8_matmul_ref(*args), reps=3),
+           library_ms(lambda: torch._int_mm(xq, p["w_qa_t"].t())),
+           time_ms(lambda: x @ wb), 2.0 * M * K * 3 * K,
+           M * K + M * 4.0 + 3 * K * K + 3 * K * 8.0 + M * 3 * K * 2.0)
+    del p, wb, args, x, xq, sx
+    torch.cuda.empty_cache()
+
+    # the raw-x GEMM at the 1.3B fused qkv shape (K = 1536 in one tile)
+    x = torch.randn(M, DIM, generator=g, device=dev).to(bf)
+    x[3] = 0.0
+    p, wb = weight(DIM, 3 * DIM)
+    args = (x, p["w_qa_t"], p["w_scale"], p["b"])
+    err, mae = check_kernel("w8a8_matmul_bf16x",
+                            cm.w8a8_matmul_bf16x(*args),
+                            cm.w8a8_matmul_bf16x_ref(*args), tol=1e-3)
+    xq, _ = cm.quantize_rows_ref(x)
+    table["w8a8_matmul_bf16x"] = report(
+        "w8a8_matmul_bf16x", f"1.3B qkv {M}x{DIM}x{3 * DIM}, raw bf16 x",
+        err, mae, time_ms(lambda: cm.w8a8_matmul_bf16x(*args)),
+        time_ms(lambda: cm.w8a8_matmul_bf16x_ref(*args), reps=3),
+        library_ms(lambda: torch._int_mm(xq, p["w_qa_t"].t())),
+        time_ms(lambda: x @ wb), 2.0 * M * DIM * 3 * DIM,
+        M * DIM * 2.0 + 3 * DIM * DIM + 3 * DIM * 8.0 + M * 3 * DIM * 2.0)
+    return table
+
+
+def phase_window_kernels(ca, g) -> dict:
+    """The cache-window attention (``decode_attention``; the TPU's
+    ``_decode_kernel``) at the 1.3B global window: 4680 queries onto keys
+    [0, 28080) of a 32760-token folded cache, 12 heads of 128, in bf16
+    (1e-2 relative L2: p rounded to bf16 for P.V) and float32 (3xTF32
+    products: 1e-4), against the port of ``decode_attention_xla`` in
+    float32 (TF32 off).  Library yardstick: SDPA on the window slice (the
+    same dtype).  The float32 bound counts the three TF32 tensor-core
+    products that form each 3xTF32 product (495 / 3 TFLOP/s)."""
+    dev, D, N = "cuda", HEAD_DIM, N_HEADS
+    S, hi = SEQ_TRAIN, LAST_KV_END
+    table = {}
+    for dt, name, tol, peak in ((torch.bfloat16, "decode_window", 1e-2,
+                                 PEAK_BF16_FLOPS),
+                                (torch.float32, "decode_window_f32", 1e-4,
+                                 PEAK_3XTF32_FLOPS)):
+        q = torch.randn(1, LQ, N, D, generator=g, device=dev).to(dt)
+        kc = torch.randn(N, S, D, generator=g, device=dev).to(dt)
+        vc = torch.randn(N, S, D, generator=g, device=dev).to(dt)
+        lo_t = torch.zeros((), dtype=torch.int32, device=dev)
+        hi_t = torch.full((), hi, dtype=torch.int32, device=dev)
+        out = ca.decode_window(q, kc, vc, lo_t, hi_t)
+        ref = ca.decode_window_ref(q.float(), kc.float(), vc.float(), 0, hi)
+        err, mae = check_kernel(name, out, ref, tol=tol)
+        del out, ref
+        ms = time_ms(lambda: ca.decode_window(q, kc, vc, lo_t, hi_t))
+        plain_ms = time_ms(lambda: ca.decode_window_ref(q, kc, vc, 0, hi),
+                           reps=3)
+        qh = q.transpose(1, 2)
+        kh, vh = kc[None, :, :hi], vc[None, :, :hi]
+        lib = library_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        flops = 4.0 * LQ * hi * D * N
+        nbytes = q.element_size() * (2.0 * LQ * N * D + 2.0 * hi * N * D)
+        b_ms, b_by = bound(flops, nbytes, peak)
+        print(f"kernel {name} (Lq={LQ}, window [0, {hi}) of {S}, {N} heads, "
+              f"{dt}): rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"tflops={flops / ms / 1e9:.1f}", flush=True)
+        table[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                           bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+        del q, kc, vc, qh, kh, vh
+        torch.cuda.empty_cache()
+    return table
+
+
 def phase_flash_kernels(ca, masks, g) -> dict:
     """The training path's flash kernels against their plain versions at
     B 1, L 32760, 12 heads of 128 in bf16 (q carrying the folded
@@ -731,19 +972,7 @@ def phase_flash_kernels(ca, masks, g) -> dict:
         plain = [time_ms(lambda: fn(*a), reps=3) for fn, a in (
             (ca.flash_fwd_ref, (q, k, v, mask)), (ca.flash_bwd_dq_ref, args),
             (ca.flash_bwd_dkv_ref, args))]
-        lib_fwd = lib_bwd = None
-        if mask is None:
-            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, scale=math.log(2.0)))
-            qg, kg, vg = (t.detach().requires_grad_(True)
-                          for t in (qh, kh, vh))
-            o = F.scaled_dot_product_attention(qg, kg, vg,
-                                               scale=math.log(2.0))
-            dh = do.transpose(1, 2)
-            lib_bwd = time_ms(lambda: torch.autograd.grad(
-                o, (qg, kg, vg), dh, retain_graph=True))
-            del o, qg, kg, vg
+        lib_fwd, lib_bwd = sdpa_yardsticks(q, k, v, do, mask)
         # bound: operations at the bf16 peak (2 products forward, 3 for
         # dq: s, dp, ds.k, 4 for dk/dv: s, dp, p.do, ds.q) against each
         # input read once and each output written once
@@ -771,20 +1000,57 @@ def phase_flash_kernels(ca, masks, g) -> dict:
     return table
 
 
+def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
+    """SDPA's forward and, with ``do`` given, its backward (one autograd
+    call for dq, dk, dv) at ``scale`` on [1, L, N, D] operands: with no
+    mask, or with the IntervalMask as a dense boolean [L, L] mask through
+    the memory-efficient backend (the math backend's [N, L, L] float32
+    scores would not fit); None where PyTorch refuses the call."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    dense = None
+    if mask is not None:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        L = q.shape[1]
+        j = torch.arange(L, device=q.device)
+        s1, e1, s2, e2 = (torch.from_numpy(a[:L].astype("int64")).to(
+            q.device)[:, None] for a in (mask.start1, mask.end1,
+                                         mask.start2, mask.end2))
+        dense = ((j >= s1) & (j < e1)) | ((j >= s2) & (j < e2))
+        del s1, e1, s2, e2
+
+    def sdpa(a, b, c):
+        if dense is None:
+            return F.scaled_dot_product_attention(a, b, c, scale=scale)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(a, b, c, attn_mask=dense,
+                                                  scale=scale)
+
+    lib_fwd = library_ms(lambda: sdpa(qh, kh, vh))
+    lib_bwd = None
+    if lib_fwd is not None and do is not None:
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+        o = sdpa(qg, kg, vg)
+        dh = do.transpose(1, 2)
+        lib_bwd = library_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), dh, retain_graph=True))
+        del o, qg, kg, vg
+    del dense
+    torch.cuda.empty_cache()
+    return lib_fwd, lib_bwd
+
+
 def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
     """The flash forward's online and bounded modes (the DiT's bound
     head_dim**-0.5 * max|q_row| * max|k_row|, on the card) against their
     plain versions on unfolded q at head_dim**-0.5: 1e-2 relative L2 on
     out, 1e-3 absolute on lse.  SDPA at the same scale is the library
-    yardstick (no mask only).  Returns the no-mask rows."""
+    yardstick (under the mask as a dense boolean mask).  Returns the
+    no-mask rows."""
     D, N, L = HEAD_DIM, N_HEADS, SEQ_TRAIN
     qu = (q.float() / (D ** -0.5 * LOG2E)).to(q.dtype)
     m0 = (D ** -0.5 * qu.float().norm(dim=-1).amax()
           * k.float().norm(dim=-1).amax()).reshape(1)
-    lib = None
-    if mask is None:
-        qh, kh, vh = (t.transpose(1, 2) for t in (qu, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    lib, _ = sdpa_yardsticks(qu, k, v, None, mask, scale=D ** -0.5)
     prod = 2.0 * L * L * D * N * frac
     b_ms, b_by = bound(2 * prod, 4 * 2.0 * L * N * D + 4.0 * L * N)
     rows = {}
@@ -814,11 +1080,12 @@ def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
     return rows
 
 
-def make_params(dit, cfg, seed):
-    """Random 1.3B weights; the zero-initialised output layer gets random
-    values too, so the flow depends on every layer."""
+def make_params(dit, cfg, seed, block_fn=None):
+    """Random weights at ``cfg``'s width (``block_fn`` as ``init_params``
+    takes it); the zero-initialised output layer gets random values too,
+    so the flow depends on every layer."""
     params = dit.init_params(cfg, seed=seed, dtype=torch.bfloat16,
-                             device="cuda")
+                             device="cuda", block_fn=block_fn)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     w = params["head"]["head"]["w"]
     params["head"]["head"]["w"] = (torch.randn(
@@ -924,32 +1191,33 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
     ttff = None
     dec_cache = None
     t_blk = t0
-    for blk in pipe.stream(noise, context, generator=g):
-        torch.cuda.synchronize()
-        t_got = time.perf_counter()
-        dit_ms.append((t_got - t_blk) * 1e3)
-        lat = blk.permute(0, 1, 3, 4, 2)
-        if dec_cache is None:
-            dec_cache = vae.init_decoder_cache(vae_params, vae.WAN_VAE, B, H,
-                                               W, torch.bfloat16, "cuda")
-            px0, dec_cache = vae.decode_frame(vae_params, vae.WAN_VAE,
-                                              lat[:, :1], dec_cache,
-                                              first=True)
+    with HostStalls() as stalls:
+        for blk in pipe.stream(noise, context, generator=g):
             torch.cuda.synchronize()
-            ttff = time.perf_counter() - t0
-            rest, dec_cache = vae.decode_block(vae_params, vae.WAN_VAE,
-                                               lat[:, 1:], dec_cache,
-                                               first=False)
-            pixels += [px0, rest]
-        else:
-            px, dec_cache = vae.decode_block(vae_params, vae.WAN_VAE, lat,
-                                             dec_cache, first=False)
-            pixels.append(px)
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        vae_ms.append((now - t_got) * 1e3)
-        block_ms.append((now - t_blk) * 1e3)
-        t_blk = now
+            t_got = time.perf_counter()
+            dit_ms.append((t_got - t_blk) * 1e3)
+            lat = blk.permute(0, 1, 3, 4, 2)
+            if dec_cache is None:
+                dec_cache = vae.init_decoder_cache(
+                    vae_params, vae.WAN_VAE, B, H, W, torch.bfloat16, "cuda")
+                px0, dec_cache = vae.decode_frame(vae_params, vae.WAN_VAE,
+                                                  lat[:, :1], dec_cache,
+                                                  first=True)
+                torch.cuda.synchronize()
+                ttff = time.perf_counter() - t0
+                rest, dec_cache = vae.decode_block(vae_params, vae.WAN_VAE,
+                                                   lat[:, 1:], dec_cache,
+                                                   first=False)
+                pixels += [px0, rest]
+            else:
+                px, dec_cache = vae.decode_block(
+                    vae_params, vae.WAN_VAE, lat, dec_cache, first=False)
+                pixels.append(px)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            vae_ms.append((now - t_got) * 1e3)
+            block_ms.append((now - t_blk) * 1e3)
+            t_blk = now
     total = time.perf_counter() - t0
     launches = dict(ca.launch_counts)
     video = torch.cat(pixels, dim=1)
@@ -967,7 +1235,7 @@ def phase_stream(ca, dit, vae, pipe_mod, cfg, params, blocks, seed):
           f"{[round(x, 1) for x in block_ms]} dit_ms={[round(x, 1) for x in dit_ms]} "
           f"vae_ms={[round(x, 1) for x in vae_ms]} ttff_ms={ttff * 1e3:.1f} "
           f"total_ms={total * 1e3:.1f} pixel_fps={frames / total:.3f} "
-          f"peak_mem_gb={peak_gb:.2f} launches={launches} "
+          f"peak_mem_gb={peak_gb:.2f} {stalls} launches={launches} "
           f"pixel_range=[{float(video.min()):.3f}, "
           f"{float(video.max()):.3f}] (host clock, one run incl. first "
           f"calls; dit_ms = the previous block's refresh + 4 denoise "
@@ -1068,11 +1336,11 @@ def phase_softmax_modes(ca, dit, pipe_mod, cfg, params, rope, inp,
 
 
 def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
-                      seed, kernels=DEMO_KERNELS):
+                      seed, kernels=DEMO_KERNELS, model="1.3B"):
     """The demo configuration (bench.py's run_demo): the streaming sampler
     on the W8A8 weights with the card's demo attention (int8-QK), each
     block decoded by the stateful TAEHV streamer (random decoder weights
-    from the seed)."""
+    from the seed); ``model`` names the width in the printed line."""
     from self_forcing_tpu_torch.config import Config
     B, C, H, W = 1, 16, 60, 104
     F_lat = 3 * blocks
@@ -1093,30 +1361,33 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    reserved = torch.cuda.memory_reserved() / 1e9
     ca.reset_launch_counts()
     cm.reset_launch_counts()
     t0 = time.perf_counter()
     block_ms, dit_ms, tae_ms, pixels, lats = [], [], [], [], []
     ttff = None
     t_blk = t0
-    for blk in pipe.stream(noise, context, generator=g):
-        torch.cuda.synchronize()
-        t_got = time.perf_counter()
-        dit_ms.append((t_got - t_blk) * 1e3)
-        state = streamer._state
-        lats.append(blk[:, :, :16].to(torch.bfloat16))
-        pixels.append(streamer.decode_chunk(lats[-1]))
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if ttff is None:
-            ttff = now - t0
-        tae_ms.append((now - t_got) * 1e3)
-        block_ms.append((now - t_blk) * 1e3)
-        t_blk = now
+    with HostStalls() as stalls:
+        for blk in pipe.stream(noise, context, generator=g):
+            torch.cuda.synchronize()
+            t_got = time.perf_counter()
+            dit_ms.append((t_got - t_blk) * 1e3)
+            state = streamer._state
+            lats.append(blk[:, :, :16].to(torch.bfloat16))
+            pixels.append(streamer.decode_chunk(lats[-1]))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if ttff is None:
+                ttff = now - t0
+            tae_ms.append((now - t_got) * 1e3)
+            block_ms.append((now - t_blk) * 1e3)
+            t_blk = now
     total = time.perf_counter() - t0
     launches = {**ca.launch_counts, **cm.launch_counts}
     video = torch.cat(pixels, dim=1)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_from_start_gb = torch.cuda.max_memory_allocated() / 1e9
 
     frames = 9 + 12 * (blocks - 1)
     want = (B, frames, 3, 480, 832)
@@ -1124,7 +1395,7 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
         fail(f"demo stream: pixels {tuple(video.shape)}, expected {want}")
     if not torch.isfinite(video.float()).all():
         fail("demo stream: non-finite pixels")
-    check_launches("demo stream", launches, kernels)
+    check_launches(f"demo stream {model}", launches, kernels)
     # the stateful stream carries each MemBlock's last frame, so it equals
     # one decode of the whole video up to bf16 rounding in other cuDNN
     # algorithms; a lost or misplaced carry moves whole frames
@@ -1133,14 +1404,16 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
     if err_whole > 5e-2:
         fail(f"demo stream: streamed pixels vs one whole-video decode "
              f"relative L2 {err_whole:.3e} > 5e-2")
-    print(f"demo stream 1.3B W8A8 + {cfg.attn_quant} attention + TAEHV "
+    print(f"demo stream {model} W8A8 + {cfg.attn_quant} attention + TAEHV "
           f"{blocks} blocks ({F_lat} latent "
           f"frames, {frames} pixel frames 480x832): per_block_ms="
           f"{[round(x, 1) for x in block_ms]} dit_ms="
           f"{[round(x, 1) for x in dit_ms]} taehv_ms="
           f"{[round(x, 1) for x in tae_ms]} ttff_ms={ttff * 1e3:.1f} "
           f"total_ms={total * 1e3:.1f} pixel_fps={frames / total:.3f} "
-          f"peak_mem_gb={peak_gb:.2f} launches={launches} "
+          f"peak_mem_gb={peak_gb:.2f} (GiB; {peak_from_start_gb:.2f} GB) "
+          f"reserved_gb_before={reserved:.2f} {stalls} "
+          f"launches={launches} "
           f"pixel_range=[{float(video.min()):.3f}, "
           f"{float(video.max()):.3f}] stream_vs_whole_rel_l2="
           f"{err_whole:.3e} (host clock, one run incl. first calls; "
@@ -1151,6 +1424,87 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
                 decode=("taehv_block", lambda: taehv.decode_video_stateful(
                     tae, lat, state, trim=False)))
     return launches, last
+
+
+def phase_wan14b(ca, cm, dit, taehv, pipe_mod, quant, chip, blocks,
+                 seed) -> dict:
+    """The Wan-14B demo stream on one card (BASELINE.json's "Wan 14B
+    chunk-wise AR"): ``WAN_14B`` at full width and depth (dim 5120, 40
+    heads, 40 layers, ffn 13824), random weights from the seed drawn block
+    by block on the card and quantized W8A8 as each block is drawn
+    (``init_params(block_fn=quantize_block)``: the bf16 stack never
+    exists), the card's demo attention (int8-QK) and stateful TAEHV.  Every
+    linear has K = 5120 > 4096, so activations go through
+    ``quantize_activations`` into the multi-K-step GEMM and the FFN's fc1
+    runs from int8 x (``w8a8_ffn1_xq``).  One block-2 forward kernels vs
+    plain on a 4-layer cut of the tree (<= 2e-2), then ``--blocks`` blocks
+    streamed at 40 layers with the launch counts reset just before.
+    Peak memory from a reset counter (every earlier phase freed)."""
+    import functools
+    from self_forcing_tpu_torch.models.wan.configs import WAN_14B
+    from self_forcing_tpu_torch.models.wan.rope import RopeTables
+    from self_forcing_tpu_torch.utils.tree import map_tree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(WAN_14B, num_frame_per_block=3,
+                              attn_quant=chip["demo_attn_quant"])
+    t = time.perf_counter()
+    qparams = make_params(dit, cfg, seed, block_fn=functools.partial(
+        quant.quantize_block, num_layers=cfg.num_layers,
+        mode=chip["matmul_quant"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _unique_leaves(qparams)) / 1e9
+    print(f"wan14b params: {cfg.num_layers} layers W8A8 drawn block by "
+          f"block in {init_s:.1f} s; weights {weights_gb:.2f} GB; held "
+          f"before the phase {held:.2f} GB; peak while drawing "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # one block-2 forward, kernels vs plain, on a 4-layer cut
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    cut = dict(qparams)
+    cut["blocks"] = map_tree(lambda a: a[:4], qparams["blocks"])
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    rope = RopeTables.create(cfg.head_dim, device="cuda")
+    inp = forward_inputs(cfg, g)
+    outs = block2_forward(dit, cfg4, cut, rope, inp, (True, False))
+    (flow_k, ms_k), (flow_p, ms_p) = outs[True], outs[False]
+    if not torch.isfinite(flow_k.float()).all():
+        fail("wan14b forward: non-finite flow")
+    err = rel_l2(flow_k, flow_p)
+    print(f"wan14b forward W8A8 + {cfg.attn_quant} attention, 4 of 40 "
+          f"layers, block 2 (cache window {LQ} tokens): kernels vs plain "
+          f"rel_l2={err:.3e} kernel_path_ms={ms_k:.1f} plain_path_ms="
+          f"{ms_p:.1f} (host clock, first calls)", flush=True)
+    if err > 2e-2:
+        fail(f"wan14b forward: kernels vs plain relative L2 {err:.3e} > "
+             f"2e-2")
+    del cut, inp, outs, flow_k, flow_p
+    torch.cuda.empty_cache()
+
+    launches, last = phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg,
+                                       qparams, blocks, seed,
+                                       kernels=WAN14B_KERNELS, model="14B")
+    phase_profile(dit, cfg, qparams, last, "wan14b")
+    del last, qparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _unique_leaves(tree):
+    """Tensor leaves of a parameter tree, each storage once (``w_qa`` is a
+    view of ``w_qa_t``)."""
+    from self_forcing_tpu_torch.utils.tree import leaves
+    seen, out = set(), []
+    for t in leaves(tree):
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            out.append(t)
+    return out
 
 
 def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
@@ -1183,9 +1537,9 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
 
     def run():
         streamer = taehv.TAEHVStreamer(tae)
-        dit_ms, tae_ms, pixels = [], [], []
+        dit_ms, tae_ms, gc_ms, pixels = [], [], [], []
         torch.cuda.synchronize()
-        t_blk = time.perf_counter()
+        t_blk, gc0 = time.perf_counter(), GC_CLOCK.ms
         for blk in pipe.stream(noise, context, generator=g):
             torch.cuda.synchronize()
             t_got = time.perf_counter()
@@ -1196,14 +1550,18 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
             torch.cuda.synchronize()
             t_blk = time.perf_counter()
             tae_ms.append((t_blk - t_got) * 1e3)
-        return dit_ms, tae_ms, torch.cat(pixels, dim=1), blk, lat, state
+            gc_ms.append(GC_CLOCK.ms - gc0)
+            gc0 = GC_CLOCK.ms
+        return (dit_ms, tae_ms, gc_ms, torch.cat(pixels, dim=1), blk, lat,
+                state)
 
     run()  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ca.reset_launch_counts()
     cm.reset_launch_counts()
-    dit_ms, tae_ms, video, blk, lat, state = run()
+    with HostStalls() as stalls:
+        dit_ms, tae_ms, gc_ms, video, blk, lat, state = run()
     launches = {**ca.launch_counts, **cm.launch_counts}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches("windowed stream", launches, kernels)
@@ -1229,6 +1587,8 @@ def phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg, qparams, seed,
           f"fps_windowed_e2e={12 / (dit_blk + tae_blk) * 1e3:.3f} "
           f"dit_ms={[round(x, 1) for x in dit_ms]} "
           f"taehv_ms={[round(x, 1) for x in tae_ms]} "
+          f"gc_ms_per_block={[round(x, 1) for x in gc_ms]} "
+          f"device_mallocs={stalls.mallocs} "
           f"peak_mem_gb={peak_gb:.2f} launches={launches} (host clock, "
           f"second run; steady state = blocks {steady_from}..{n_blocks - 1};"
           f" dit_ms = the previous block's refresh + 4 denoise forwards)",
@@ -1350,6 +1710,31 @@ def phase_conv_kernels(tconv, g) -> dict:
         2.0 * 27 * 128 * 128 * 4 * 480 * 832,
         conv_bytes(1, 4, 480, 832, 128, 128), 1)
     del x, cache
+    torch.cuda.empty_cache()
+
+    # the float32 mode (3xTF32 products) at the decoder's 96-channel
+    # full-resolution shape, against the plain float32 conv (TF32 off):
+    # 1e-4; library yardstick cuDNN's float32 conv with TF32 off; the
+    # bound counts the three TF32 products of each 3xTF32 product
+    x, cache, w, b = (t.float() for t in operands(1, 4, 480, 832, 96, 96))
+    out = tconv.conv3d_fused(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    err, mae = check_kernel("conv3d_f32", out, ref, tol=1e-4)
+    del out, ref
+    ms = time_ms(lambda: tconv.conv3d_fused(x, cache, w, b))
+    plain_ms = time_ms(lambda: tconv.conv3d_ref(x, cache, w, b), reps=3)
+    lib = time_ms(cudnn(x, cache, w, b))
+    flops = 2.0 * 27 * 96 * 96 * 4 * 480 * 832
+    b_ms, b_by = bound(flops, 2.0 * conv_bytes(1, 4, 480, 832, 96, 96),
+                       PEAK_3XTF32_FLOPS)
+    print(f"kernel conv3d_f32 (float32 [1, 4, 480, 832, 96]->96, 1 "
+          f"launch): rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} cudnn_f32_ms={lib:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) tflops={flops / ms / 1e9:.1f}",
+          flush=True)
+    table["conv3d_f32"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
+    del x, cache, w, b
     torch.cuda.empty_cache()
 
     # nsc at T = 1, as the path runs it (one latent frame a decode step,
@@ -1517,7 +1902,7 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     i2v_ms = (time.perf_counter() - t) * 1e3
     i2v = dict(cc.launch_counts)
     launches.update({k: i2v[k] for k in ("conv3d_fused", "conv2d_9tap",
-                                         "conv3d_v2")})
+                                         "conv3d_v2", "conv3d_f32")})
     frames = video.shape[1]
     if tuple(video.shape) != (1, 25, 3, 480, 832):
         fail(f"i2v: video {tuple(video.shape)}, expected (1, 25, 3, 480, 832)")
@@ -1541,7 +1926,7 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     block = lambda: vae.decode_block(params, cfg, lat[:, 1:4], list(cache),
                                      first=False)
     block()
-    wall, rows = profile_ms(block)
+    wall, rows, _, _ = profile_ms(block)
     vae.set_conv_backend(None)
     busy = sum(ms for _, ms in rows)
     conv = sum(ms for name, ms in rows if "conv_igemm" in name)
@@ -1718,17 +2103,22 @@ def phase_training_grad(ca, dit, seed: int, softmax: str = "free") -> dict:
     return launches
 
 
-def profile_ms(fn) -> tuple[float, list]:
+def profile_ms(fn) -> tuple:
     """Wall time of ``fn`` (ending in a synchronize) and the CUDA kernels
-    it ran, [(name, device ms)] by device time, from torch.profiler."""
+    it ran, [(name, device ms)] by device time, from torch.profiler, and
+    the host stalls inside that wall; then (objects, ms) of a full
+    collection.  The collection is made here so that the collector pass
+    freeing the profile's cyclic garbage (a pass of 0.4-0.5 s landed in a
+    later timed stream block) runs outside any timed span."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
+        with HostStalls() as stalls:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -1736,7 +2126,10 @@ def profile_ms(fn) -> tuple[float, list]:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         rows.append((e.key, us / 1e3))
-    return wall, sorted(rows, key=lambda r: -r[1])
+    del prof
+    t = time.perf_counter()
+    collected = (gc.collect(), (time.perf_counter() - t) * 1e3)
+    return wall, sorted(rows, key=lambda r: -r[1]), stalls, collected
 
 
 def phase_profile(dit, cfg, params, last, tag) -> None:
@@ -1756,14 +2149,28 @@ def phase_profile(dit, cfg, params, last, tag) -> None:
 
     for label, fn in (("dit_forward", forward), last["decode"]):
         fn()  # warm
-        wall, rows = profile_ms(fn)
+        walls = []   # the same call without the profiler, host clock
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        reserved = torch.cuda.memory_reserved() / 1e9
+        wall, rows, stalls, (n_gc, gc_ms) = profile_ms(fn)
         busy = sum(ms for _, ms in rows)
         top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
                         for name, ms in rows[:8])
+        plain_wall = statistics.median(walls)
         print(f"profile {tag} {label} (cache holds "
               f"{pipe._cache.local_end} tokens): "
               f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
-              f"idle_share={1 - busy / wall:.3f} top: {top}", flush=True)
+              f"idle_share={1 - busy / wall:.3f} during the profiled call: "
+              f"{stalls} reserved_gb={reserved:.2f}; after it a full "
+              f"collection freed {n_gc} objects in {gc_ms:.1f} ms; "
+              f"unprofiled_wall_ms="
+              f"{[round(w, 1) for w in walls]} idle_share_unprofiled="
+              f"{1 - busy / plain_wall:.3f} top: {top}", flush=True)
 
 
 def main() -> None:
@@ -1795,6 +2202,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    GC_CLOCK.install()
 
     # 1. environment and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1819,6 +2227,10 @@ def main() -> None:
     table = phase_kernels(ca, g)
     torch.cuda.empty_cache()
     table.update(phase_w8a8_kernels(cm, quant, g))
+    torch.cuda.empty_cache()
+    table.update(phase_wide_w8a8_kernels(cm, quant, g))
+    torch.cuda.empty_cache()
+    table.update(phase_window_kernels(ca, g))
     torch.cuda.empty_cache()
     table.update(phase_flash_kernels(ca, masks, g))
     torch.cuda.empty_cache()
@@ -1910,6 +2322,17 @@ def main() -> None:
     # 8. the Wan VAE under its conv backends, and the i2v path
     torch.backends.cuda.matmul.allow_tf32 = False
     launches.update(phase_vae(cc, tconv, vae, dit, pipe_mod, a.seed))
+    torch.cuda.empty_cache()
+
+    # 9. the Wan-14B demo stream, last, with every earlier tensor freed
+    wan14b = phase_wan14b(ca, cm, dit, taehv, pipe_mod, quant, chip,
+                          a.blocks, a.seed)
+    # the GEMM from raw x (quantize_rows takes every shape it takes) and
+    # the cache-window attention (an entry point tests call) lie on no
+    # shipped path: their counts are this run's readings all the same
+    launches.update({k: wan14b[k] for k in (
+        "w8a8_ffn1_xq", "w8a8_matmul_bf16x", "decode_window",
+        "decode_window_f32")})
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
@@ -1942,6 +2365,12 @@ def main() -> None:
                "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),
                "w8a8_ffn1": (csrc + "w8a8.cu", w8a8 + ":71"),
                "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117"),
+               "w8a8_ffn1_xq": (csrc + "w8a8.cu", w8a8 + ":86"),
+               "w8a8_matmul_bf16x": (csrc + "w8a8.cu", w8a8 + ":54"),
+               "decode_window": (csrc + "decode_fresh.cu", attn + ":73"),
+               "decode_window_f32": (csrc + "decode_fresh.cu",
+                                     attn + ":73"),
+               "conv3d_f32": (csrc + "conv3d.cu", pconv + ":120"),
                "flash_fwd": (csrc + "flash_attention.cu", attn + ":1367"),
                "flash_bwd_dq": (csrc + "flash_attention.cu", attn + ":1610"),
                "flash_bwd_dkv": (csrc + "flash_attention.cu",

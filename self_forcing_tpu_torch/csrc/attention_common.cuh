@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels: cp.async tile loads,
-// ldmatrix, the m16n8k16 bf16 tensor-core product and small conversions.
+// ldmatrix, the m16n8k16 bf16 tensor-core product and small conversions;
+// the 3xTF32 split and m16n8k8 TF32 product of the float32 kernels.
 //
 // Register layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major) a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
@@ -184,6 +185,30 @@ __device__ __forceinline__ void store_rows(bf16* out, long long stride,
           pack_bf16(o[dt][2] / d1, o[dt][3] / d1);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// 3xTF32 helpers (the float32 kernels: decode_window_f32, conv3d_f32)
+// ---------------------------------------------------------------------
+
+// x = big + small with both parts rounded to TF32 (the residual of the
+// split is ~2^-22 of |x|)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float r = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(r));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.  a0 (g, t)
+// a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4); b0 (k t, n g) b1 (k t+4, n g).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------------

@@ -6,7 +6,10 @@
 // (self_forcing_tpu/ops/pallas_attention.py, called through
 // decode_attention_fresh_pallas): 'free' and 'free_noclamp'
 // (softmax='free' / 'free_noclamp'), 'bounded' (fixed_m0) and online
-// (neither).
+// (neither).  decode_window_launch replaces _decode_kernel (through
+// decode_attention_pallas): the online mode with no fresh keys and the
+// window bounds read on the device (bf16), and a float32 kernel of its
+// own (3xTF32 products; see decode_window_f32_kernel).
 //
 // Function, per (batch b, head n, query row i):
 //   visible cache columns j: j < cache_lim and
@@ -74,7 +77,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
 }
 
-template <int MODE>
+// WINDOW: the cache window alone (decode_window_launch): kv_start / kv_end
+// are read from device memory (`bounds`, clamped to [0, S]), no sink, no
+// fresh tiles, and the fresh operands are never read.
+template <int MODE, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_fresh_kernel(const bf16* __restrict__ q,
                     const bf16* __restrict__ k_cache,
@@ -83,8 +89,16 @@ decode_fresh_kernel(const bf16* __restrict__ q,
                     const bf16* __restrict__ v_new,
                     const float* __restrict__ m0, bf16* __restrict__ out,
                     int N, int Lq, int Lf, int S, int kv_start, int kv_end,
-                    int sink_end, int cache_lim, float scale) {
+                    int sink_end, int cache_lim, float scale,
+                    const int* __restrict__ bounds) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  if (WINDOW) {
+    kv_start = max(__ldg(bounds), 0);
+    kv_end = min(__ldg(bounds + 1), S);
+    sink_end = 0;
+    cache_lim = S;
+    Lf = 0;
+  }
   // [Q | K0 | K1 | V0 | V1]
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sKV = sQ + BM * LDH;
@@ -101,8 +115,10 @@ decode_fresh_kernel(const bf16* __restrict__ q,
 
   const bf16* kcb = k_cache + (long long)bn * S * D;
   const bf16* vcb = v_cache + (long long)bn * S * D;
-  const bf16* knb = k_new + (long long)b * Lf * ld_tok + n * D;
-  const bf16* vnb = v_new + (long long)b * Lf * ld_tok + n * D;
+  const bf16* knb =
+      WINDOW ? k_new : k_new + (long long)b * Lf * ld_tok + n * D;
+  const bf16* vnb =
+      WINDOW ? v_new : v_new + (long long)b * Lf * ld_tok + n * D;
 
   // Q tile stays in shared memory; each warp reads its 16 * MT rows
   load_rows<BM, D, LDH, THREADS>(
@@ -138,7 +154,7 @@ decode_fresh_kernel(const bf16* __restrict__ q,
       const int valid = min(BK, cache_lim - j0);
       load_tile(sKV + buf * TILE, kcb + (long long)j0 * D, D, valid);
       load_tile(sKV + (2 + buf) * TILE, vcb + (long long)j0 * D, D, valid);
-    } else {
+    } else if (!WINDOW) {
       const int j0 = (t - n_cache) * BK;
       const int valid = min(BK, Lf - j0);
       load_tile(sKV + buf * TILE, knb + (long long)j0 * ld_tok, ld_tok,
@@ -295,22 +311,230 @@ decode_fresh_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int MODE>
+template <int MODE, bool WINDOW>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_new, const void* v_new, const void* m0, void* out,
            int B, int N, int Lq, int Lf, int S, int kv_start, int kv_end,
-           int sink_end, int cache_lim, float scale, cudaStream_t stream) {
+           int sink_end, int cache_lim, float scale, const int* bounds,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_fresh_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      decode_fresh_kernel<MODE, WINDOW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (Lq <= 0 || B * N <= 0) return 0;
   dim3 grid((Lq + BM - 1) / BM, B * N);
-  decode_fresh_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  decode_fresh_kernel<MODE, WINDOW><<<grid, THREADS, SMEM_BYTES, stream>>>(
       (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache,
       (const bf16*)k_new, (const bf16*)v_new, (const float*)m0, (bf16*)out,
-      N, Lq, Lf, S, kv_start, kv_end, sink_end, cache_lim, scale);
+      N, Lq, Lf, S, kv_start, kv_end, sink_end, cache_lim, scale, bounds);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// decode_window_f32: the cache-window attention in float32 (the TPU
+// kernel's f32 mode).  Products in 3xTF32: each f32 operand x is split
+// into big = tf32(x) and small = tf32(x - big), and a . b is summed as
+// small_a * big_b + big_a * small_b + big_a * big_b in f32 on
+// mma.sync.m16n8k8 (the dropped small * small term and the residual of the
+// split are ~2^-22 of |a||b|: float32 accuracy at 3x the TF32 work).  The
+// tensor cores' f32 accumulation truncates, and its error grows with the
+// running sum, so each k-step's (QK^T) or key tile's (P.V) products go to
+// a zeroed accumulator that is added to the running sum with one rounded
+// f32 add (one running accumulator over 28080 keys read 2e-4 off).
+// CTA: 4 warps of 16 query rows; K / V tiles of 32 keys double-buffered;
+// the online softmax in base e (expf) on the accumulator layout; p goes
+// through a per-warp shared tile to become the A operand of P.V.
+// ---------------------------------------------------------------------
+
+constexpr int WF_BM = 64, WF_BK = 32, WF_THREADS = 128;
+constexpr int LDQ = D + 4;       // A (g, t) reads of Q / B reads of K:
+constexpr int LDV = D + 8;       // conflict-free; B (t, g) reads of V
+constexpr int LDP = WF_BK + 4;   // the per-warp P tile
+constexpr size_t WF_SMEM = sizeof(float) * (size_t)(
+    WF_BM * LDQ + 2 * WF_BK * LDQ + 2 * WF_BK * LDV + 4 * 16 * LDP);
+
+// c += a . b in 3xTF32 from the four f32 A values and two f32 B values
+__device__ __forceinline__ void mma_3xtf32(float* c, const float* a,
+                                           const float* b) {
+  uint32_t ab[4], as[4], bb[2], bs[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) split_tf32(b[i], bb[i], bs[i]);
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+template <int ROWS, int LD>
+__device__ __forceinline__ void load_f32_rows(float* dst, const float* src,
+                                              long long stride, int valid) {
+  for (int i = threadIdx.x; i < ROWS * (D / 4); i += WF_THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, ok ? src + r * stride + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(WF_THREADS, 2)
+decode_window_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k_cache,
+                         const float* __restrict__ v_cache,
+                         float* __restrict__ out, int N, int Lq, int S,
+                         float scale, const int* __restrict__ bounds) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + WF_BM * LDQ;          // 2 buffers of WF_BK x LDQ
+  float* sV = sK + 2 * WF_BK * LDQ;      // 2 buffers of WF_BK x LDV
+  float* sP = sV + 2 * WF_BK * LDV;      // 4 warps x 16 x LDP
+  const int kv_start = max(__ldg(bounds), 0);
+  const int kv_end = min(__ldg(bounds + 1), S);
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int q0 = blockIdx.x * WF_BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const long long ld_tok = (long long)N * D;
+  const float* kcb = k_cache + (long long)bn * S * D;
+  const float* vcb = v_cache + (long long)bn * S * D;
+  float* pw = sP + warp * 16 * LDP;
+
+  load_f32_rows<WF_BM, LDQ>(sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D,
+                            ld_tok, min(WF_BM, Lq - q0));
+  cp_async_commit();
+  const float* qw = sQ + warp * 16 * LDQ;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float l[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
+
+  const int n_tiles = (S + WF_BK - 1) / WF_BK;
+  auto fetch = [&](int t, int buf) {
+    const int j0 = t * WF_BK, valid = min(WF_BK, S - j0);
+    load_f32_rows<WF_BK, LDQ>(sK + buf * WF_BK * LDQ, kcb + (long long)j0 * D,
+                              D, valid);
+    load_f32_rows<WF_BK, LDV>(sV + buf * WF_BK * LDV, vcb + (long long)j0 * D,
+                              D, valid);
+  };
+  int t = next_live<WF_BK>(0, n_tiles, n_tiles, kv_start, kv_end, 0);
+  if (t < n_tiles) fetch(t, 0);
+  cp_async_commit();
+  int buf = 0;
+  while (t < n_tiles) {
+    const int tn = next_live<WF_BK>(t + 1, n_tiles, n_tiles, kv_start,
+                                    kv_end, 0);
+    if (tn < n_tiles) fetch(tn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* k_s = sK + buf * WF_BK * LDQ;
+    const float* v_s = sV + buf * WF_BK * LDV;
+
+    float s[WF_BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < WF_BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = kk * 8 + t4;
+      const float a[4] = {qw[g * LDQ + c], qw[(g + 8) * LDQ + c],
+                          qw[g * LDQ + c + 4], qw[(g + 8) * LDQ + c + 4]};
+#pragma unroll
+      for (int nt = 0; nt < WF_BK / 8; ++nt) {
+        const float* kr = k_s + (nt * 8 + g) * LDQ + c;
+        const float bv[2] = {kr[0], kr[4]};
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(t, a, bv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += t[e];
+      }
+    }
+    // visibility, the new row maxima, the rescale of l and o
+    const int j0 = t * WF_BK;
+#pragma unroll
+    for (int nt = 0; nt < WF_BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
+        const bool vis = j < S && j >= kv_start && j < kv_end;
+        s[nt][e] = vis ? s[nt][e] * scale : -INFINITY;
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < WF_BK / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m[hr] - m_use);
+      l[hr] *= corr;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][2 * hr] *= corr;
+        o[i][2 * hr + 1] *= corr;
+      }
+      m[hr] = m_new;
+#pragma unroll
+      for (int nt = 0; nt < WF_BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[nt][2 * hr + e] - m_use);
+          l[hr] += p;
+          pw[(g + 8 * hr) * LDP + nt * 8 + 2 * t4 + e] = p;
+        }
+    }
+    __syncwarp();
+    // o += P . V: the tile's product in its own accumulator, then one
+    // round-to-nearest add into o
+    float pa[WF_BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < WF_BK / 8; ++kk) {
+      const int c = kk * 8 + t4;
+      pa[kk][0] = pw[g * LDP + c];
+      pa[kk][1] = pw[(g + 8) * LDP + c];
+      pa[kk][2] = pw[g * LDP + c + 4];
+      pa[kk][3] = pw[(g + 8) * LDP + c + 4];
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < WF_BK / 8; ++kk) {
+        const int c = kk * 8 + t4;
+        const float bv[2] = {v_s[c * LDV + dt * 8 + g],
+                             v_s[(c + 4) * LDV + dt * 8 + g]};
+        mma_3xtf32(acc, pa[kk], bv);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] += acc[e];
+    }
+    __syncthreads();  // every warp is done with this buffer and its P
+    buf ^= 1;
+    t = tn;
+  }
+  cp_async_wait<0>();
+
+  float l0 = l[0], l1 = l[1];
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  float* ob = out + (long long)b * Lq * ld_tok + n * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * t4;
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(ob + r0 * ld_tok + col) =
+          make_float2(o[dt][0] / d0, o[dt][1] / d0);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(ob + r1 * ld_tok + col) =
+          make_float2(o[dt][2] / d1, o[dt][3] / d1);
+  }
 }
 
 }  // namespace
@@ -329,15 +553,44 @@ extern "C" int decode_fresh_launch(const void* q, const void* k_cache,
                                    float scale, void* stream) {
   auto st = (cudaStream_t)stream;
 #define SF_ARGS q, k_cache, v_cache, k_new, v_new, m0, out, B, N, Lq, Lf, S, \
-    kv_start, kv_end, sink_end, cache_lim, scale, st
+    kv_start, kv_end, sink_end, cache_lim, scale, nullptr, st
   switch (mode) {
-    case FREE: return launch<FREE>(SF_ARGS);
-    case FREE_NOCLAMP: return launch<FREE_NOCLAMP>(SF_ARGS);
+    case FREE: return launch<FREE, false>(SF_ARGS);
+    case FREE_NOCLAMP: return launch<FREE_NOCLAMP, false>(SF_ARGS);
     case BOUNDED:
       if (m0 == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<BOUNDED>(SF_ARGS);
-    case ONLINE: return launch<ONLINE>(SF_ARGS);
+      return launch<BOUNDED, false>(SF_ARGS);
+    case ONLINE: return launch<ONLINE, false>(SF_ARGS);
   }
 #undef SF_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The cache-window attention of decode_attention (the TPU kernel
+// _decode_kernel): every query of q [B, Lq, N*D] (heads-packed; the folded
+// [B*N, Lq, D] layout is N = 1) attends the keys [lo, hi) of one layer's
+// cache [B*N, S, D], lo / hi the two int32 at `bounds` on the device (an
+// empty window gives 0), online softmax at `scale`; out like q.  bf16
+// (f32 = 0: the online mode of decode_fresh_kernel with no fresh tiles,
+// p rounded to bf16 for P.V) or float32 (f32 = 1: 3xTF32 products).
+extern "C" int decode_window_launch(const void* q, const void* k_cache,
+                                    const void* v_cache, const void* bounds,
+                                    void* out, int B, int N, int Lq, int S,
+                                    float scale, int f32, void* stream) {
+  if (bounds == nullptr || S <= 0) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (!f32)
+    return launch<ONLINE, true>(q, k_cache, v_cache, nullptr, nullptr,
+                                nullptr, out, B, N, Lq, 0, S, 0, 0, 0, S,
+                                scale, (const int*)bounds, st);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_window_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (Lq <= 0 || B * N <= 0) return 0;
+  dim3 grid((Lq + WF_BM - 1) / WF_BM, B * N);
+  decode_window_f32_kernel<<<grid, WF_THREADS, WF_SMEM, st>>>(
+      (const float*)q, (const float*)k_cache, (const float*)v_cache,
+      (float*)out, N, Lq, S, scale, (const int*)bounds);
+  return (int)cudaGetLastError();
 }

@@ -6,6 +6,9 @@
 //   quantize_rows_launch  <- _quantize_rows_kernel (quantize_rows_pallas)
 //   w8a8_matmul_launch    <- _kernel               (w8a8_matmul)
 //   w8a8_ffn1_launch      <- _ffn1_kernel_bf16x    (w8a8_ffn, s_x=None)
+//   w8a8_ffn1_xq_launch   <- _ffn1_kernel          (w8a8_ffn with s_x: K
+//                                                   over one tile, Wan-14B)
+//   w8a8_matmul_bf16x_launch <- _kernel_bf16x      (w8a8_matmul_bf16x)
 //   w8a8_ffn2_launch      <- _ffn2_kernel          (w8a8_ffn)
 //
 // Functions (f32 unless stated; every product and sum is rounded on its
@@ -14,10 +17,13 @@
 //   quantize:  s = max(absmax(row), floor) / 127,
 //              q = clip(rint(x / s), -127, 127)          (half to even)
 //   matmul:    out = bf16(float(x_q . w_q) * s_x[m] * w_scale[n] + b[n])
-//   ffn1:      x quantized per token (floor 1e-8), h = gelu_tanh(
+//   ffn1:      x quantized per token (floor 1e-8), or int8 x_q with its
+//              s_x given, h = gelu_tanh(
 //              float(x_q . w1_q) * s_x * w1_scale + b1), then h quantized
 //              per (token, group of TG columns) with floor 1e-6 -> int8
 //              h_q [M, H] and f32 scales h_s [M, H / TG]
+//   bf16x:     x quantized per token (floor 1e-8), then the matmul's
+//              epilogue
 //   ffn2:      acc = sum over groups g (in order) of
 //              float(h_q[:, g] . w2_q[g, :]) * h_s[m, g];
 //              out = bf16(acc * w2_scale[n] + b2[n])
@@ -36,11 +42,18 @@
 // mma.sync m16n8k32 s8 with ldmatrix fragments from XOR-swizzled shared
 // tiles (conflict-free), cp.async 3-stage loads, the epilogues in
 // registers.  GEMM tiles 128 x 128 x 128 bytes, 8 warps of 64 x 32.  fc1
-// keeps one CTA's 32 quantized x rows whole in shared memory (K <= 1536),
-// streams W1 in 3 stages of 64 bytes, and owns a whole TG-column group, so
-// the group's row max is taken across the warps' accumulators in shared
-// memory before any element is written: the gelu hidden never leaves
-// registers in f32; its 16 warps of 16 rows keep 56 accumulators a thread.
+// from raw x keeps one CTA's 32 quantized x rows whole in shared memory
+// (K <= 1536), streams W1 in 3 stages of 64 bytes, and owns a whole
+// TG-column group, so the group's row max is taken across the warps'
+// accumulators in shared memory before any element is written: the gelu
+// hidden never leaves registers in f32; its 16 warps of 16 rows keep 56
+// accumulators a thread.  fc1 from int8 x (Wan-14B: K = 5120, where 32
+// whole rows and the W1 ring would need 311 KB) stages the x tile with
+// W1 in the same 64-byte K steps (the int32 sum over K is exact, so the
+// steps' order does not matter) and reads s_x in the epilogue.  bf16x is
+// the raw-x fc1 with the GEMM's epilogue (its re-quantization of x is
+// repeated for each of the N / tn column tiles, as the TPU kernel
+// re-quantizes the resident tile at each n step).
 // fc2 folds each group's int32 partial into an f32 accumulator with that
 // group's scale.
 // Not yet: wgmma, TMA, warp specialisation.
@@ -325,40 +338,53 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------
-// fc1: raw bf16 x -> per-token int8 (prologue) -> int8 GEMM over one
-// TG-column group -> dequant + bias -> gelu -> int8 per (token, group).
-// CTA: FM = 32 rows x TG columns, 16 warps of 16 x TG/8 (56 accumulators
-// a thread at TG 896, so 16 warps fit the register file and hide the
-// latency that 8 warps of 32 x TG/8 could not).
+// fc1 and the raw-x GEMM: one CTA owns FM = 32 rows x TG columns (16 warps
+// of 16 x TG/8; 56 accumulators a thread at TG 896, so 16 warps fit the
+// register file and hide the latency that 8 warps of 32 x TG/8 could
+// not).  Three modes:
+//   FFN_RAW     raw bf16 x [M, K <= 1536], quantized per token in the
+//               prologue into a whole-K shared tile; epilogue: dequant +
+//               bias -> gelu -> int8 per (token, TG-column group)
+//   FFN_XQ      int8 x [M, K] (any K % 64 == 0) and its per-token s_x,
+//               staged with W in K steps of 64 bytes; the same epilogue
+//   LINEAR_RAW  raw x as FFN_RAW; epilogue: bf16(acc * s_x * w_scale + b)
 // ---------------------------------------------------------------------
 
 constexpr int FM = 32;
 constexpr int F_THREADS = 512;
 constexpr int FSTAGES = 3;  // B stages of TG x 64 bytes: 168 KB at TG 896
+enum FMode { FFN_RAW = 0, FFN_XQ = 1, LINEAR_RAW = 2 };
 
-__host__ __device__ constexpr int ffn1_smem(int K, int TG) {
-  return FM * (K + 16) + FM * 4 + 8 * FM * 4 + FSTAGES * TG * FBK;
+__host__ __device__ constexpr int ffn1_smem(int K, int TG, int MODE) {
+  return (MODE == FFN_XQ ? FSTAGES * FM * FBK : FM * (K + 16)) + FM * 4 +
+         8 * FM * 4 + FSTAGES * TG * FBK;
 }
 
-template <int TG>
+template <int TG, int MODE>
 __global__ void __launch_bounds__(F_THREADS, 1)
-    ffn1_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ W,
+    ffn1_kernel(const void* __restrict__ xin, const float* __restrict__ s_x,
+                const int8_t* __restrict__ W,
                 const float* __restrict__ w_scale,
                 const float* __restrict__ bias, int8_t* __restrict__ hq,
-                float* __restrict__ hs, int M, int K, int H) {
+                float* __restrict__ hs, bf16* __restrict__ out, int M, int K,
+                int H) {
   constexpr int NT = TG / 64;  // 8-column tiles per warp
+  constexpr bool RAW = MODE != FFN_XQ;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 3, wn = warp & 7;  // 2 x 8 warps of 16 x TG/8
   const int lda = K + 16;
-  unsigned char* sa = smem;                          // FM x lda int8
-  float* sx = reinterpret_cast<float*>(smem + FM * lda);  // FM scales
+  // RAW: FM x lda int8 (whole K); XQ: FSTAGES swizzled FM x 64-byte tiles
+  unsigned char* sa = smem;
+  float* sx = reinterpret_cast<float*>(
+      smem + (RAW ? FM * lda : FSTAGES * FM * FBK));  // FM scales
   float* red = sx + FM;                  // 8 column warps x FM maxima
   unsigned char* sb = reinterpret_cast<unsigned char*>(red + 8 * FM);
   const int m0 = blockIdx.x * FM, g = blockIdx.y, n0 = g * TG;
   const int nk = K / FBK;
+  const int8_t* xq = reinterpret_cast<const int8_t*>(xin);
 
-  auto load_b = [&](int stage, int kt) {
+  auto load_stage = [&](int stage, int kt) {
     unsigned char* dst = sb + stage * TG * FBK;
     const long long k0 = (long long)kt * FBK;
     for (int i = tid; i < TG * (FBK / 16); i += F_THREADS) {
@@ -366,25 +392,37 @@ __global__ void __launch_bounds__(F_THREADS, 1)
       cp_async16(dst + swz<FBK>(r, c),
                  W + (long long)(n0 + r) * K + k0 + c * 16, 16);
     }
+    if (!RAW && tid < FM * (FBK / 16)) {
+      const int r = tid >> 2, c = tid & 3;
+      const bool ok = m0 + r < M;
+      cp_async16(sa + stage * FM * FBK + swz<FBK>(r, c),
+                 ok ? xq + (long long)(m0 + r) * K + k0 + c * 16 : xq,
+                 ok ? 16 : 0);
+    }
   };
 
 #pragma unroll
   for (int st = 0; st < FSTAGES - 1; ++st) {
-    if (st < nk) load_b(st, st);
+    if (st < nk) load_stage(st, st);
     cp_async_commit();
   }
-  // prologue: warp w quantizes rows w, w + 16 (zeros past M)
-  for (int r = warp; r < FM; r += F_THREADS / 32) {
-    int8_t* dst = reinterpret_cast<int8_t*>(sa + r * lda);
-    if (m0 + r < M) {
-      const float s = warp_quantize_row<6>(x + (long long)(m0 + r) * K, K,
-                                           dst);
-      if (lane == 0) sx[r] = s;
-    } else {
-      for (int c = lane * 16; c < K; c += 512)
-        *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
-      if (lane == 0) sx[r] = 0.f;
+  if (RAW) {
+    // prologue: warp w quantizes rows w, w + 16 (zeros past M)
+    const bf16* x = reinterpret_cast<const bf16*>(xin);
+    for (int r = warp; r < FM; r += F_THREADS / 32) {
+      int8_t* dst = reinterpret_cast<int8_t*>(sa + r * lda);
+      if (m0 + r < M) {
+        const float s = warp_quantize_row<6>(x + (long long)(m0 + r) * K, K,
+                                             dst);
+        if (lane == 0) sx[r] = s;
+      } else {
+        for (int c = lane * 16; c < K; c += 512)
+          *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
+        if (lane == 0) sx[r] = 0.f;
+      }
     }
+  } else if (tid < FM) {
+    sx[tid] = m0 + tid < M ? s_x[m0 + tid] : 0.f;
   }
 
   int acc[NT][4];
@@ -397,14 +435,18 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     cp_async_wait<FSTAGES - 2>();
     __syncthreads();
     if (kt + FSTAGES - 1 < nk)
-      load_b((kt + FSTAGES - 1) % FSTAGES, kt + FSTAGES - 1);
+      load_stage((kt + FSTAGES - 1) % FSTAGES, kt + FSTAGES - 1);
     cp_async_commit();
     const unsigned char* b = sb + (kt % FSTAGES) * TG * FBK;
+    const unsigned char* a = sa + (kt % FSTAGES) * FM * FBK;
 #pragma unroll
     for (int ks = 0; ks < FBK / 16; ks += 2) {  // 32 bytes of K a step
       uint32_t af[4];
-      ldsm_x4(af, sa + (wm * 16 + (lane & 15)) * lda + kt * FBK +
-                      (ks + (lane >> 4)) * 16);
+      const int ar = wm * 16 + (lane & 15), ac = ks + (lane >> 4);
+      if (RAW)
+        ldsm_x4(af, sa + ar * lda + kt * FBK + ac * 16);
+      else
+        ldsm_x4(af, a + swz<FBK>(ar, ac));
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t t[4];
@@ -417,6 +459,30 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     }
   }
   cp_async_wait<0>();
+
+  if (MODE == LINEAR_RAW) {
+    // the GEMM epilogue: bf16(float(acc) * s_x * w_scale + b)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rl = wm * 16 + (lane >> 2) + half * 8, row = m0 + rl;
+      if (row >= M) continue;
+      const float s = sx[rl];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + wn * (TG / 8) + nt * 8 + (lane & 3) * 2;
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          v[j] = __fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(acc[nt][half * 2 + j]), s),
+                        w_scale[col + j]),
+              bias[col + j]);
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * H + col) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+    return;
+  }
 
   // epilogue 1: dequant + bias + gelu in place (as f32 bits), row maxima
   float rmax[2] = {0.f, 0.f};
@@ -469,18 +535,34 @@ __global__ void __launch_bounds__(F_THREADS, 1)
   }
 }
 
-template <int TG>
-int launch_ffn1(const bf16* x, const int8_t* w, const float* ws,
-                const float* b, int8_t* hq, float* hs, int M, int K, int H,
-                cudaStream_t stream) {
-  const int smem = ffn1_smem(K, TG);
+template <int TG, int MODE>
+int launch_ffn1(const void* x, const float* sx, const int8_t* w,
+                const float* ws, const float* b, int8_t* hq, float* hs,
+                bf16* out, int M, int K, int H, cudaStream_t stream) {
+  const int smem = ffn1_smem(K, TG, MODE);
   cudaError_t err = cudaFuncSetAttribute(
-      ffn1_kernel<TG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ffn1_kernel<TG, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((M + FM - 1) / FM, H / TG);
-  ffn1_kernel<TG><<<grid, F_THREADS, smem, stream>>>(x, w, ws, b, hq, hs, M,
-                                                     K, H);
+  ffn1_kernel<TG, MODE><<<grid, F_THREADS, smem, stream>>>(
+      x, sx, w, ws, b, hq, hs, out, M, K, H);
   return (int)cudaGetLastError();
+}
+
+// The instantiation of group (column tile) width tg in {128, ..., 896}.
+template <int MODE>
+int launch_ffn1_tg(int tg, const void* x, const float* sx, const int8_t* w,
+                   const float* ws, const float* b, int8_t* hq, float* hs,
+                   bf16* out, int M, int K, int H, cudaStream_t st) {
+  switch (tg) {
+#define SF_TG(T) \
+  case T: return launch_ffn1<T, MODE>(x, sx, w, ws, b, hq, hs, out, M, K, H, st);
+    SF_TG(128) SF_TG(256) SF_TG(384) SF_TG(512) SF_TG(640) SF_TG(768)
+    SF_TG(896)
+#undef SF_TG
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool GROUPED>
@@ -532,22 +614,44 @@ extern "C" int w8a8_ffn1_launch(const void* x, const void* w1t,
       tg > 896 || H % tg)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const bf16* xp = (const bf16*)x;
-  const int8_t* w = (const int8_t*)w1t;
-  const float* wsp = (const float*)ws;
-  const float* bp = (const float*)b;
-  int8_t* hqp = (int8_t*)hq;
-  float* hsp = (float*)hs;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (tg) {
-    case 128: return launch_ffn1<128>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    case 256: return launch_ffn1<256>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    case 384: return launch_ffn1<384>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    case 512: return launch_ffn1<512>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    case 640: return launch_ffn1<640>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    case 768: return launch_ffn1<768>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-    default: return launch_ffn1<896>(xp, w, wsp, bp, hqp, hsp, M, K, H, st);
-  }
+  return launch_ffn1_tg<FFN_RAW>(tg, x, nullptr, (const int8_t*)w1t,
+                                 (const float*)ws, (const float*)b,
+                                 (int8_t*)hq, (float*)hs, nullptr, M, K, H,
+                                 (cudaStream_t)stream);
+}
+
+// x_q [M, K] int8 with s_x [M] f32, w1_t [H, K] int8, w_scale / b [H] f32
+// -> h_q [M, H] int8, h_s [M, H / tg] f32.  K % 64 == 0 (any K), tg in
+// {128, ..., 896}.
+extern "C" int w8a8_ffn1_xq_launch(const void* xq, const void* sx,
+                                   const void* w1t, const void* ws,
+                                   const void* b, void* hq, void* hs, int M,
+                                   int K, int H, int tg, void* stream) {
+  if (M < 0 || K <= 0 || K % FBK || tg % 128 || tg < 128 || tg > 896 ||
+      H % tg)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  return launch_ffn1_tg<FFN_XQ>(tg, xq, (const float*)sx,
+                                (const int8_t*)w1t, (const float*)ws,
+                                (const float*)b, (int8_t*)hq, (float*)hs,
+                                nullptr, M, K, H, (cudaStream_t)stream);
+}
+
+// x [M, K] bf16, w_t [N, K] int8, w_scale / b [N] f32 -> out [M, N] bf16
+// through column tiles of tn in {128, ..., 896} (N % tn == 0).  K % 64 ==
+// 0, K <= 1536.
+extern "C" int w8a8_matmul_bf16x_launch(const void* x, const void* wt,
+                                        const void* ws, const void* b,
+                                        void* out, int M, int N, int K,
+                                        int tn, void* stream) {
+  if (M < 0 || K <= 0 || K % FBK || K > 1536 || tn % 128 || tn < 128 ||
+      tn > 896 || N % tn)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  return launch_ffn1_tg<LINEAR_RAW>(tn, x, nullptr, (const int8_t*)wt,
+                                    (const float*)ws, (const float*)b,
+                                    nullptr, nullptr, (bf16*)out, M, K, N,
+                                    (cudaStream_t)stream);
 }
 
 // h_q [M, H] int8, h_s [M, H / tg] f32, w2_t [N, H] int8, w_scale / b [N]

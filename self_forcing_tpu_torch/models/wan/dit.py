@@ -174,21 +174,22 @@ def _block_init(g, cfg: WanConfig, dtype, device) -> Params:
     return p
 
 
-def _stack(trees: list) -> Params:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: str | torch.device = "cuda",
-                causal: bool = True) -> Params:
+                causal: bool = True, block_fn=None) -> Params:
     """Random t2v DiT parameters (blocks stacked on axis 0), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  As in the
     JAX package the output layer starts at zero, and a causal model
     (the generator) carries the pose-conditioning projection 5120 -> dim
     (``pose_proj``, absent when dim is 5120), which the optimizer's weight
-    decay moves even without a gradient."""
+    decay moves even without a gradient.
+
+    ``block_fn``: applied to each drawn layer's block tree before the next
+    layer is drawn (e.g. ``quant.quantize_block``, so that a Wan-14B
+    W8A8 tree never holds its bf16 stack: the result equals
+    ``quantize_dit_params(init_params(...))``, from the same random
+    stream).  Each layer is copied into the preallocated stack as it is
+    made."""
     if cfg.model_type != "t2v":
         raise NotImplementedError("only the t2v model is ported")
     g = torch.Generator(device=device).manual_seed(seed)
@@ -209,8 +210,10 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
             "modulation": (torch.randn(1, 2, d, generator=g, device=device)
                            / d ** 0.5).to(dtype)},
     }
-    params["blocks"] = _stack([_block_init(g, cfg, dtype, device)
-                               for _ in range(cfg.num_layers)])
+    fn = block_fn if block_fn is not None else (lambda b: b)
+    params["blocks"] = tree.stack(
+        (fn(_block_init(g, cfg, dtype, device))
+         for _ in range(cfg.num_layers)), cfg.num_layers)
     if causal and d != 5120:
         params["pose_proj"] = _linear_init(g, 5120, d, dtype, device)
     return params

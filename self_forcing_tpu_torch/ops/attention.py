@@ -20,6 +20,11 @@ exception is the int8-QK decode attention (``quant='int8qk'`` with
 the CPU it always runs the kernel's plain version, which computes the
 Pallas kernel's function.
 
+The cache-window attention (:func:`decode_attention`, the JAX package's
+``decode_attention`` entry point) runs the decode window kernel on the
+route (bf16, or float32 when any operand is not bf16) and the port of
+``decode_attention_xla`` off it.
+
 Gradients, as the JAX package's custom VJPs give them: the masked flash
 attention through :class:`FlashAttention` (the flash backward kernels on
 the route, at the forward mode's scale against its base-e lse); the
@@ -163,6 +168,87 @@ def unfold_kv(a: torch.Tensor, num_heads: int) -> torch.Tensor:
         return a.reshape(BN // num_heads, num_heads, S, D).permute(
             0, 2, 1, 3)
     return a
+
+
+# =====================================================================
+# cache-window attention (no fresh keys)
+# =====================================================================
+
+def decode_attention_xla(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, kv_start, kv_end,
+                         scale: float | None = None,
+                         kv_chunk: int = 1560) -> torch.Tensor:
+    """KV-cache attention, all queries see ``cache[kv_start:kv_end)``
+    (port of the JAX package's ``decode_attention_xla``): q [B, Lq, N, D],
+    caches [B, S, N, D]; ``kv_start`` / ``kv_end`` ints or scalar tensors
+    (they stay on the device).  The chunked online softmax in float32 with
+    the JAX package's masked score -1e30, so an empty window averages v
+    uniformly there, where the kernel gives 0."""
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    Lq = q.shape[1]
+    lo = torch.as_tensor(kv_start, device=q.device)
+    hi = torch.as_tensor(kv_end, device=q.device)
+
+    def visible_fn(idx):
+        vis = (idx >= lo) & (idx < hi)
+        return vis[None, :].expand(Lq, -1)
+
+    return _chunked_online_attention(q, k_cache, v_cache, scale, visible_fn,
+                                     kv_chunk)[0]
+
+
+class _DecodeWindow(torch.autograd.Function):
+    """The cache-window attention with the backward of ``_decode_op_bwd``:
+    the plain version recomputed under autograd, gradients for q and
+    both caches (the window bounds carry none)."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, kv_start, kv_end, scale, kernels):
+        ctx.save_for_backward(q, k_cache, v_cache)
+        ctx.window = (kv_start, kv_end, scale)
+        fn = (cuda_attention.decode_window if kernels
+              else cuda_attention.decode_window_ref)
+        return fn(q, k_cache, v_cache, kv_start, kv_end, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, scale = ctx.window
+        with torch.enable_grad():
+            ops = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = cuda_attention.decode_window_ref(*ops, lo, hi, scale=scale)
+            grads = torch.autograd.grad(out, ops, g)
+        return (*grads, None, None, None, None)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_start, kv_end,
+                     scale: float | None = None, kv_chunk: int = 1560,
+                     kernels: bool = True) -> torch.Tensor:
+    """KV-cache window attention (port of the JAX package's
+    ``decode_attention``): every query sees ``cache[kv_start:kv_end)``.
+    q [B, Lq, N, D] with caches [B, S, N, D] or pre-folded [B*N, S, D],
+    or folded q [BN, Lq, D] with folded caches; ``kv_start`` / ``kv_end``
+    ints or device scalars.  On the kernel route the decode window kernel
+    (``cuda_attention.decode_window``; ``kernels=False``: its plain
+    version) in bf16 when every operand is bf16, else in float32 (the
+    result cast to q's dtype), with the gradient of the JAX package's
+    custom VJP; off it the port of ``decode_attention_xla`` on the folded
+    layout (``cuda_attention.decode_window_ref``) under autograd."""
+    if not _kernel_route(q):
+        return cuda_attention.decode_window_ref(
+            q, k_cache, v_cache, kv_start, kv_end, scale=scale,
+            kv_chunk=kv_chunk)
+    ops = (q, k_cache, v_cache)
+    if not all(t.dtype == torch.bfloat16 for t in ops):
+        ops = tuple(t.float() for t in ops)
+    if _needs_grad(*ops):
+        out = _DecodeWindow.apply(*ops, kv_start, kv_end, scale, kernels)
+    else:
+        fn = (cuda_attention.decode_window if kernels
+              else cuda_attention.decode_window_ref)
+        out = fn(*ops, kv_start, kv_end, scale=scale)
+    return out.to(q.dtype)
 
 
 def _cdiv(a: int, b: int) -> int:

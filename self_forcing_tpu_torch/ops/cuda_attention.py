@@ -18,6 +18,11 @@ that the streaming sampler and the training step run:
   online modes (``quant='int8'``, with a bound or without);
 - ``cross_attention`` (csrc/cross_attention.cu) replaces ``_cross_kernel``
   (``cross_attention_pallas``);
+- ``decode_window`` (csrc/decode_fresh.cu's ``decode_window_launch``)
+  replaces ``_decode_kernel`` (``decode_attention_pallas``): the cache
+  window alone, bounds read on the device, in bf16 (the online decode
+  kernel with no fresh keys, counted as ``decode_window``) or float32 (a
+  3xTF32 kernel, ``decode_window_f32``);
 - ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
   (csrc/flash_attention.cu) replace ``_flash_kernel`` in its free,
   bounded and online modes, ``_flash_bwd_dq_kernel`` and
@@ -58,7 +63,8 @@ launch_counts = {"decode_fresh_free": 0, "decode_fresh_free_noclamp": 0,
                  "decode_fresh_int8_global": 0, "decode_fresh_int8_online": 0,
                  "cross_attention": 0, "flash_fwd": 0, "flash_fwd_online": 0,
                  "flash_fwd_bounded": 0, "flash_bwd_dq": 0,
-                 "flash_bwd_dkv": 0}
+                 "flash_bwd_dkv": 0, "decode_window": 0,
+                 "decode_window_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -859,6 +865,102 @@ def cross_attention(q, k, v, *, num_heads: int,
     build.raise_on("cross_attention", err)
     launch_counts["cross_attention"] += 1
     return out
+
+
+# =====================================================================
+# cache-window attention (decode_attention): no fresh keys
+# =====================================================================
+
+def _window_layout(q, k_cache, v_cache):
+    """(q as heads-packed [B, Lq, N*D], the caches folded [B*N, S, D], B,
+    N) for q [B, Lq, N, D] or folded [BN, Lq, D] (N = 1) and caches
+    [B, S, N, D] (folded here, a copy, as the JAX wrapper's ``_fold_kv``
+    transposes) or folded [B*N, S, D]."""
+    if q.dim() == 4:
+        B, Lq, N, D = q.shape
+        qp = q.reshape(B, Lq, N * D)
+    else:
+        B, Lq, D = q.shape
+        N, qp = 1, q
+
+    def fold(a):
+        if a.dim() == 4:
+            Bc, S, Nc, Dc = a.shape
+            return a.permute(0, 2, 1, 3).reshape(Bc * Nc, S, Dc)
+        return a
+
+    return qp, fold(k_cache).contiguous(), fold(v_cache).contiguous(), B, N
+
+
+def _window_bounds(kv_start, kv_end, device) -> torch.Tensor:
+    """[lo, hi] as int32 on ``device`` (device scalars stay there)."""
+    return torch.stack([torch.as_tensor(kv_start, device=device).reshape(()),
+                        torch.as_tensor(kv_end, device=device).reshape(())]
+                       ).to(torch.int32)
+
+
+def decode_window_ref(q, k_cache, v_cache, kv_start, kv_end, *,
+                      scale: float | None = None,
+                      kv_chunk: int = 1560) -> torch.Tensor:
+    """Plain version of :func:`decode_window`: the port of the JAX
+    package's ``decode_attention_xla`` (``ops/attention.py``) on the
+    folded layout, each (batch, head) a singleton-head attention; float32
+    operands stay float32.  Differentiable (the backward of
+    ``attention.decode_attention`` recomputes it)."""
+    from self_forcing_tpu_torch.ops import attention   # imports this module
+    qp, kc, vc, B, N = _window_layout(q, k_cache, v_cache)
+    Lq, D = qp.shape[1], kc.shape[-1]
+    qf = qp.reshape(B, Lq, N, D).transpose(1, 2).reshape(B * N, Lq, 1, D)
+    out = attention.decode_attention_xla(qf, kc[:, :, None], vc[:, :, None],
+                                         kv_start, kv_end, scale=scale,
+                                         kv_chunk=kv_chunk)
+    return out.reshape(B, N, Lq, D).transpose(1, 2).reshape(q.shape)
+
+
+def decode_window(q, k_cache, v_cache, kv_start, kv_end, *,
+                  scale: float | None = None) -> torch.Tensor:
+    """Attention of every query onto the cache window ``[kv_start,
+    kv_end)`` (ints or device scalars; an empty window gives 0), online
+    softmax at ``scale`` (default head_dim**-0.5).  q [B, Lq, N, D] with
+    caches [B, S, N, D] or folded [B*N, S, D], or folded q [BN, Lq, D];
+    returns q's layout and dtype.  bf16 operands run the online
+    decode kernel with no fresh keys (p rounded to bf16 for P.V); float32
+    operands the 3xTF32 kernel (float32-accurate products).  All three
+    share one dtype."""
+    if not q.is_cuda:
+        return decode_window_ref(q, k_cache, v_cache, kv_start, kv_end,
+                                 scale=scale)
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or k_cache.dtype != dt \
+            or v_cache.dtype != dt:
+        raise TypeError(f"decode_window: the kernel takes bfloat16 or "
+                        f"float32 operands of one dtype, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    qp, kc, vc, B, N = _window_layout(q, k_cache, v_cache)
+    qp = qp.contiguous()
+    Lq, D = qp.shape[1], qp.shape[2] // N
+    BN, S, Dc = kc.shape
+    if D != HEAD_DIM or Dc != D or BN != B * N or vc.shape != kc.shape:
+        raise ValueError(
+            f"decode_window: unsupported shapes q {tuple(q.shape)}, cache "
+            f"{tuple(k_cache.shape)} (the kernel takes head_dim {HEAD_DIM})")
+    for t in (qp, kc, vc):
+        if t.device != q.device or t.data_ptr() % 16:
+            raise ValueError("decode_window: operands must be on one card "
+                             "and 16-byte aligned")
+    scale = D ** -0.5 if scale is None else scale
+    bounds = _window_bounds(kv_start, kv_end, q.device)
+    out = torch.empty_like(qp)
+    fn = build.function("decode_fresh", "decode_window_launch",
+                        [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P])
+    err = fn(qp.data_ptr(), kc.data_ptr(), vc.data_ptr(), bounds.data_ptr(),
+             out.data_ptr(), B, N, Lq, S, float(scale),
+             int(dt == torch.float32),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("decode_window", err)
+    launch_counts["decode_window" if dt == torch.bfloat16
+                  else "decode_window_f32"] += 1
+    return out.reshape(q.shape)
 
 
 # =====================================================================

@@ -12,16 +12,22 @@ launches under the name of the entry point it serves:
   inverse-norm pre-pass (``rms_inv_launch``) and the conv with the
   RMS-norm + SiLU prologue and the residual epilogue, one count a call.
 
+Float32 inputs of :func:`conv3d` and :func:`conv2d_tap` (the TPU kernels'
+f32 mode, which the fused and split rules accept at some shapes) run the
+3xTF32 kernel ``conv3d_f32_launch`` (float32-accurate products) and count
+as ``conv3d_f32`` whichever entry point they serve.
+
 The routing (which shapes take a kernel) and the plain versions live in
-``ops/conv.py``; these wrappers take CUDA bf16 tensors only and raise on
-anything else (the TPU kernels also compute float32 inputs: that mode is
-not ported yet).  Activations are channels-last [B, T, H, W, C]; a tensor
+``ops/conv.py``; these wrappers take CUDA bf16 or float32 tensors (the
+norm + SiLU conv bf16 only) and raise on anything else.  Activations are
+channels-last [B, T, H, W, C]; a tensor
 whose storage is not contiguous in that order is copied first, and each
 such copy adds one to ``layout_copies`` (the first few are listed in
 ``copied``: wrapper, shape and strides).  Weights [Cout, C, 3, 3, 3]
-(OIDHW) become the kernel's K-contiguous bf16 copy [Cout, 27, Cp] (Cp = C
-rounded up to 8) once per parameter: :func:`kernel_weight` keeps it for as
-long as the parameter lives and is not written in place.
+(OIDHW) become the kernel's K-contiguous copy [Cout, 27, Cp] (bf16 with Cp
+= C rounded up to 8, or float32 with Cp = C rounded up to 4) once per
+parameter and dtype: :func:`kernel_weight` keeps it for as long as the
+parameter lives and is not written in place.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from self_forcing_tpu_torch.ops import build
 
 launch_counts = {"conv3d_fused": 0, "conv2d_9tap": 0, "conv3d_v2": 0,
-                 "norm_silu_conv3d": 0}
+                 "norm_silu_conv3d": 0, "conv3d_f32": 0}
 layout_copies = {"activations": 0}
 copied: list = []
 
@@ -52,26 +58,33 @@ def reset_launch_counts() -> None:
     copied.clear()
 
 
-def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """The kernel layout of a conv weight [Cout, C, 3, 3, 3]: bf16
-    [Cout, 27, Cp], taps in (kt, di, dj) order, channels zero padded to a
-    multiple of 8; made once per parameter (and again after an in-place
-    write to it)."""
-    hit = _weights.get(w)
+def kernel_weight(w: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel layout of a conv weight [Cout, C, 3, 3, 3] in ``dtype``
+    (bf16 or float32): [Cout, 27, Cp], taps in (kt, di, dj) order,
+    channels zero padded to 16 bytes (a multiple of 8 bf16 or 4 float32);
+    made once per parameter and dtype (and again after an in-place write
+    to it)."""
+    made = _weights.get(w)
+    hit = None if made is None else made.get(dtype)
     if hit is not None and hit[0] == w._version:
         return hit[1]
     Cout, C = w.shape[:2]
-    Cp = -(-C // 8) * 8
+    step = 16 // torch.tensor([], dtype=dtype).element_size()
+    Cp = -(-C // step) * step
     wk = w.detach().permute(0, 2, 3, 4, 1).reshape(Cout, 27, C)
-    wk = F.pad(wk, (0, Cp - C)).to(torch.bfloat16).contiguous()
-    _weights[w] = (w._version, wk)
+    wk = F.pad(wk.to(dtype), (0, Cp - C)).contiguous()
+    if made is None:
+        made = _weights[w] = {}
+    made[dtype] = (w._version, wk)
     return wk
 
 
-def _cl(name: str, t: torch.Tensor) -> torch.Tensor:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype} "
-                        f"(its float32 mode is not ported yet)")
+def _cl(name: str, t: torch.Tensor,
+        dtypes=(torch.bfloat16, torch.float32)) -> torch.Tensor:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if not t.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors")
     if t.is_contiguous():
@@ -98,30 +111,37 @@ def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
          residual=None, inv=None, gamma=None, gscale: float = 0.0):
     x, cache = _cl(name, x), _cl(name, cache)
     B, T, H, W, C = x.shape
-    if cache.shape != (B, 2, H, W, C):
-        raise ValueError(f"{name}: cache {tuple(cache.shape)} for x "
-                         f"{tuple(x.shape)}")
-    wk = kernel_weight(w)
+    if cache.shape != (B, 2, H, W, C) or cache.dtype != x.dtype:
+        raise ValueError(f"{name}: cache {tuple(cache.shape)} "
+                         f"{cache.dtype} for x {tuple(x.shape)} {x.dtype}")
+    f32 = x.dtype == torch.float32
+    wk = kernel_weight(w, x.dtype)
     Cout, _, Cp = wk.shape
     if w.shape[1] != C:
         raise ValueError(f"{name}: weight {tuple(w.shape)} for {C} input "
                          f"channels")
     bias = None if b is None else b.detach().float().contiguous()
-    out = torch.empty(B, T, H, W, Cout, dtype=torch.bfloat16,
-                      device=x.device)
+    out = torch.empty(B, T, H, W, Cout, dtype=x.dtype, device=x.device)
     # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
+    tail = (B, T, H, W, C, Cp, Cout, taps_t, tau0 if taps_t == 1 else 0,
+            27 * Cp)
+    if f32:
+        _launch(name, "conv3d_f32_launch", x, cache, wk[:, 9 * tau0], bias,
+                out, *tail)
+        launch_counts["conv3d_f32"] += 1
+        return out
     _launch(name, "conv3d_launch", x, cache, wk[:, 9 * tau0], bias,
-            residual, inv, gamma, out, B, T, H, W, C, Cp, Cout, taps_t,
-            tau0 if taps_t == 1 else 0, 27 * Cp, float(gscale))
+            residual, inv, gamma, out, *tail, float(gscale))
     launch_counts[name] += 1
     return out
 
 
 def conv3d(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
            b: torch.Tensor, name: str = "conv3d_fused") -> torch.Tensor:
-    """27-tap causal conv: x [B, T, H, W, C], cache [B, 2, H, W, C] bf16,
-    w [Cout, C, 3, 3, 3], b [Cout] -> [B, T, H, W, Cout] bf16; counted as
-    ``name`` ('conv3d_fused' or 'conv3d_v2')."""
+    """27-tap causal conv: x [B, T, H, W, C], cache [B, 2, H, W, C] (bf16
+    or float32), w [Cout, C, 3, 3, 3], b [Cout] -> [B, T, H, W, Cout] in
+    x's dtype; counted as ``name`` ('conv3d_fused' or 'conv3d_v2'), or as
+    'conv3d_f32' for float32."""
     return _run(name, x, cache, w, b, 3, 0)
 
 
@@ -129,7 +149,7 @@ def conv2d_tap(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor | None, tau: int) -> torch.Tensor:
     """One temporal tap of the split route: output frame t convolves
     timeline frame t + tau with ``w[:, :, tau]`` (3x3 SAME), + b where
-    given -> [B, T, H, W, Cout] bf16."""
+    given -> [B, T, H, W, Cout] in x's dtype."""
     return _run("conv2d_9tap", x, cache, w, b, 1, tau)
 
 
@@ -141,12 +161,13 @@ def norm_silu_conv3d(x: torch.Tensor, cache: torch.Tensor,
     (x [T, H, W, C], cache [2, H, W, C] bf16), the 27-tap conv, + b
     (+ residual [T, H, W, Cout]) -> [T, H, W, Cout] bf16."""
     name = "norm_silu_conv3d"
-    x, cache = _cl(name, x)[None], _cl(name, cache)[None]
+    x = _cl(name, x, (torch.bfloat16,))[None]
+    cache = _cl(name, cache, (torch.bfloat16,))[None]
     _, T, H, W, C = x.shape
     if C % 8:
         raise ValueError(f"{name}: {C} channels, the kernel takes C % 8 == 0")
     if residual is not None:
-        residual = _cl(name, residual)
+        residual = _cl(name, residual, (torch.bfloat16,))
         if residual.shape != (T, H, W, w.shape[0]):
             raise ValueError(f"{name}: residual {tuple(residual.shape)}")
     inv = torch.empty(2 + T, H, W, dtype=torch.float32, device=x.device)

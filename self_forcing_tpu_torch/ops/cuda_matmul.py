@@ -6,14 +6,20 @@ demo configuration runs (csrc/w8a8.cu):
 - ``quantize_rows`` replaces ``_quantize_rows_kernel``
   (``quantize_rows_pallas``);
 - ``w8a8_matmul`` replaces ``_kernel`` (``w8a8_matmul``);
-- ``w8a8_ffn`` replaces ``w8a8_ffn`` with ``s_x=None``: ``w8a8_ffn1``
-  (``_ffn1_kernel_bf16x``) then ``w8a8_ffn2`` (``_ffn2_kernel``).
+- ``w8a8_matmul_bf16x`` replaces ``_kernel_bf16x``
+  (``w8a8_matmul_bf16x``): the GEMM from raw bf16 x, quantized per token
+  in the kernel's prologue (K <= 1536);
+- ``w8a8_ffn`` replaces ``w8a8_ffn``: ``w8a8_ffn1`` (``s_x=None``, raw x:
+  ``_ffn1_kernel_bf16x``; with ``s_x``, int8 x quantized beforehand:
+  ``_ffn1_kernel``, the Wan-14B route, counted as ``w8a8_ffn1_xq``) then
+  ``w8a8_ffn2`` (``_ffn2_kernel``).
 
-``quantize_rows``, ``w8a8_matmul`` and ``w8a8_ffn`` return None where the
-JAX function declines the shape (the same tile rules, through this
-module's copy of ``_pick_tile``), so ``ops/quant.py`` takes the JAX
-package's route at every shape.  For a tensor on the CPU every entry
-point runs its plain version (``*_ref``, same signature, same None rule).
+``quantize_rows``, ``w8a8_matmul``, ``w8a8_matmul_bf16x`` and ``w8a8_ffn``
+return None where the JAX function declines the shape (the same tile
+rules, through this module's copy of ``_pick_tile``), so ``ops/quant.py``
+takes the JAX package's route at every shape.  For a tensor on the CPU
+every entry point runs its plain version (``*_ref``, same signature, same
+None rule).
 For a CUDA tensor it launches the kernel or raises.  Every launch adds
 one to ``launch_counts[name]``.
 
@@ -31,7 +37,8 @@ import torch
 
 from self_forcing_tpu_torch.ops import build
 
-launch_counts = {"quantize_rows": 0, "w8a8_matmul": 0, "w8a8_ffn1": 0,
+launch_counts = {"quantize_rows": 0, "w8a8_matmul": 0,
+                 "w8a8_matmul_bf16x": 0, "w8a8_ffn1": 0, "w8a8_ffn1_xq": 0,
                  "w8a8_ffn2": 0}
 
 ACT_FLOOR = 1e-8      # per-token activation scale floor
@@ -79,6 +86,13 @@ def matmul_tiling(M: int, K: int, N: int) -> bool:
     budget = int(10e6) - 4 * tm * tn - 2 * tm * tn
     tk_cap = max(128, budget // (2 * (tm + tn)))
     return _pick_tile(K, 128, min(K, tk_cap, 1536)) is not None
+
+
+def bf16x_tiling(M: int, K: int, N: int) -> bool:
+    """Whether ``w8a8_matmul_bf16x`` takes the shape (K in one tile)."""
+    return (_pick_tile(M, 8, 1024) is not None
+            and _pick_tile(N, 128, 896) is not None
+            and K % 128 == 0 and K <= 1536)
 
 
 def ffn_group(M: int, K: int, H: int, N: int, raw_x: bool) -> int | None:
@@ -142,6 +156,20 @@ def w8a8_matmul_ref(x_q, s_x, w_t, w_scale, bias=None,
         return None
     y = _int_dot(x_q, w_t) * s_x.float().reshape(M, 1) \
         * _f32(w_scale, N, x_q) + _f32(bias, N, x_q)
+    return y.to(out_dtype)
+
+
+def w8a8_matmul_bf16x_ref(x, w_t, w_scale, bias=None,
+                          out_dtype=torch.bfloat16):
+    """Plain version of :func:`w8a8_matmul_bf16x`: x quantized per token
+    as ``_quant_rows`` does (floor 1e-8 before the division by 127), then
+    the plain GEMM and its epilogue."""
+    M, K = x.shape
+    N = w_t.shape[0]
+    if not bf16x_tiling(M, K, N):
+        return None
+    x_q, s_x = _quant_rows(x.float(), ACT_FLOOR)
+    y = _int_dot(x_q, w_t) * s_x * _f32(w_scale, N, x) + _f32(bias, N, x)
     return y.to(out_dtype)
 
 
@@ -258,26 +286,66 @@ def w8a8_matmul(x_q: torch.Tensor, s_x: torch.Tensor, w_t: torch.Tensor,
     return out
 
 
-def w8a8_ffn1(x: torch.Tensor, w1_t: torch.Tensor, w1_scale: torch.Tensor,
-              b1: torch.Tensor | None, tg: int):
-    """fc1 of the fused FFN from raw bf16 ``x`` [M, K] and w1_t [H, K]
-    int8: x quantized per token, the int32 product, ``acc * s_x *
-    w1_scale + b1``, gelu-tanh, then int8 per (token, group of ``tg``
-    columns): (h_q int8 [M, H], h_s f32 [M, H / tg])."""
+def w8a8_matmul_bf16x(x: torch.Tensor, w_t: torch.Tensor,
+                      w_scale: torch.Tensor, bias: torch.Tensor | None = None,
+                      out_dtype=torch.bfloat16):
+    """The W8A8 GEMM from raw bf16 ``x`` [M, K]: x quantized per token in
+    the kernel's prologue (as ``quantize_rows``), the int32 product with
+    w_t [N, K] int8, then ``acc * s_x * w_scale + b`` in f32 -> bf16
+    [M, N].  None where the JAX kernel declines the shape (K > 1536)."""
     if not x.is_cuda:
-        return w8a8_ffn1_ref(x, None, w1_t, w1_scale, b1, tg)
+        return w8a8_matmul_bf16x_ref(x, w_t, w_scale, bias, out_dtype)
+    M, K = x.shape
+    N = w_t.shape[0]
+    if w_t.shape != (N, K):
+        raise ValueError(f"w8a8_matmul_bf16x: weight {tuple(w_t.shape)} "
+                         f"for input {tuple(x.shape)}")
+    if not bf16x_tiling(M, K, N):
+        return None
+    if out_dtype != torch.bfloat16:
+        raise TypeError("w8a8_matmul_bf16x: the kernel writes bfloat16")
+    tn = _pick_tile(N, 128, 896)
+    ws, b = _f32(w_scale, N, x), _f32(bias, N, x)
+    _check("w8a8_matmul_bf16x", [torch.bfloat16, torch.int8, torch.float32,
+                                 torch.float32], x, w_t, ws, b)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    _launch("w8a8_matmul_bf16x", "w8a8_matmul_bf16x_launch", x, w_t, ws, b,
+            out, M, N, K, tn)
+    return out
+
+
+def w8a8_ffn1(x: torch.Tensor, w1_t: torch.Tensor, w1_scale: torch.Tensor,
+              b1: torch.Tensor | None, tg: int,
+              s_x: torch.Tensor | None = None):
+    """fc1 of the fused FFN, w1_t [H, K] int8: from raw bf16 ``x`` [M, K]
+    (``s_x=None``; K <= 1536) x is quantized per token in the prologue;
+    from int8 ``x`` with its per-token scales ``s_x`` [M, 1] (any K % 128
+    == 0, counted as ``w8a8_ffn1_xq``) x is staged in K steps.  Then the
+    int32 product, ``acc * s_x * w1_scale + b1``, gelu-tanh, and int8 per
+    (token, group of ``tg`` columns): (h_q int8 [M, H], h_s f32
+    [M, H / tg])."""
+    if not x.is_cuda:
+        return w8a8_ffn1_ref(x, s_x, w1_t, w1_scale, b1, tg)
     M, K = x.shape
     H = w1_t.shape[0]
     if w1_t.shape != (H, K) or H % tg:
         raise ValueError(f"w8a8_ffn1: weight {tuple(w1_t.shape)}, group "
                          f"{tg} for input {tuple(x.shape)}")
     ws1, bb1 = _f32(w1_scale, H, x), _f32(b1, H, x)
-    _check("w8a8_ffn1", [torch.bfloat16, torch.int8, torch.float32,
-                         torch.float32], x, w1_t, ws1, bb1)
     h_q = torch.empty(M, H, dtype=torch.int8, device=x.device)
     h_s = torch.empty(M, H // tg, dtype=torch.float32, device=x.device)
-    _launch("w8a8_ffn1", "w8a8_ffn1_launch", x, w1_t, ws1, bb1, h_q, h_s, M,
-            K, H, tg)
+    if s_x is None:
+        _check("w8a8_ffn1", [torch.bfloat16, torch.int8, torch.float32,
+                             torch.float32], x, w1_t, ws1, bb1)
+        _launch("w8a8_ffn1", "w8a8_ffn1_launch", x, w1_t, ws1, bb1, h_q,
+                h_s, M, K, H, tg)
+        return h_q, h_s
+    sx = s_x.float().reshape(M, 1).contiguous()
+    _check("w8a8_ffn1_xq", [torch.int8, torch.float32, torch.int8,
+                            torch.float32, torch.float32], x, sx, w1_t, ws1,
+           bb1)
+    _launch("w8a8_ffn1_xq", "w8a8_ffn1_xq_launch", x, sx, w1_t, ws1, bb1,
+            h_q, h_s, M, K, H, tg)
     return h_q, h_s
 
 
@@ -310,7 +378,8 @@ def w8a8_ffn(x: torch.Tensor, s_x: torch.Tensor | None, w1_t: torch.Tensor,
              w2_t: torch.Tensor, w2_scale: torch.Tensor,
              b2: torch.Tensor | None, out_dtype=torch.bfloat16):
     """Fused W8A8 FFN fc2(gelu_tanh(fc1(x))) from raw bf16 ``x`` [M, K]
-    (``s_x=None``): fc1 quantizes x per token, dequantizes, adds the bias,
+    (``s_x=None``: fc1 quantizes x per token) or from int8 ``x`` with its
+    per-token scales ``s_x`` [M, 1]: fc1 dequantizes, adds the bias,
     applies gelu and quantizes the hidden per (token, group of tg
     columns); fc2 sums each group's int product times its scale in f32.
     w1_t [H, K], w2_t [N, H] int8.  None where the JAX kernels decline."""
@@ -325,11 +394,7 @@ def w8a8_ffn(x: torch.Tensor, s_x: torch.Tensor | None, w1_t: torch.Tensor,
     tg = ffn_group(M, K, H, N, raw_x=s_x is None)
     if tg is None:
         return None
-    if s_x is not None:
-        raise NotImplementedError(
-            "w8a8_ffn: fc1 from pre-quantized x (the JAX package's "
-            "_ffn1_kernel, K > 1536) is not ported to CUDA yet")
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_ffn: the kernel writes bfloat16")
-    h_q, h_s = w8a8_ffn1(x, w1_t, w1_scale, b1, tg)
+    h_q, h_s = w8a8_ffn1(x, w1_t, w1_scale, b1, tg, s_x)
     return w8a8_ffn2(h_q, h_s, w2_t, w2_scale, b2, tg)

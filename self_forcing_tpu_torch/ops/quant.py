@@ -15,25 +15,39 @@ for activations:
   JAX package's f32-accumulated fp8 dot).
 
 The tree keeps the JAX package's keys and [in, out] layout.  ``w8a8``
-adds ``w_qa_t``, the same int8 weight as a K-contiguous [out, in] copy for
-the kernels (the int8 tensor-core product wants B contiguous along K); at
-Wan-1.3B width it is 1.39 GB beside the 1.39 GB of ``w_qa``.
+stores its int8 weight once, K-contiguous as ``w_qa_t`` [out, in] (the
+int8 tensor-core product wants B contiguous along K), and ``w_qa`` is the
+[in, out] transposed view of it: the same values in another layout, one
+int8 copy (14.06 GB at Wan-14B width).
+
+The scales divide by tensors, not by Python scalars: on CUDA, PyTorch
+turns a division by a scalar into a multiplication by its reciprocal,
+which is not the true division of the JAX package (and of the kernels).
 """
 from __future__ import annotations
 
 import torch
 
 from self_forcing_tpu_torch.ops import cuda_matmul as cm
+from self_forcing_tpu_torch.utils import tree
 
 Params = dict
 
 FP8_MAX = 448.0  # float8_e4m3fn largest finite
 
 
+def _absmax_scale(xf: torch.Tensor, axis: int, top: float,
+                  keepdim: bool = False) -> torch.Tensor:
+    """max(absmax(xf) / top, 1e-8) along ``axis``, dividing by a tensor
+    (a true division on CUDA too)."""
+    return torch.clamp_min(xf.abs().amax(dim=axis, keepdim=keepdim)
+                           / xf.new_tensor(top), 1e-8)
+
+
 def _quantize_weight(w: torch.Tensor, axis: int):
     """Per-output-channel symmetric int8: returns (w_q int8, scale f32)."""
     wf = w.float()
-    scale = torch.clamp_min(wf.abs().amax(dim=axis) / 127.0, 1e-8)
+    scale = _absmax_scale(wf, axis, 127.0)
     w_q = torch.clamp(torch.round(wf / scale.unsqueeze(axis)), -127, 127)
     return w_q.to(torch.int8), scale
 
@@ -41,14 +55,16 @@ def _quantize_weight(w: torch.Tensor, axis: int):
 def _quantize_weight_fp8(w: torch.Tensor, axis: int):
     """Per-output-channel symmetric e4m3: returns (w_f8, scale f32)."""
     wf = w.float()
-    scale = torch.clamp_min(wf.abs().amax(dim=axis) / FP8_MAX, 1e-8)
+    scale = _absmax_scale(wf, axis, FP8_MAX)
     return (wf / scale.unsqueeze(axis)).to(torch.float8_e4m3fn), scale
 
 
-def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
-    """The K-contiguous [..., out, in] copy of an int8 [..., in, out]
-    weight that the W8A8 kernels read."""
-    return w_q.transpose(-1, -2).contiguous()
+def kernel_layout(w_q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w_qa, w_qa_t) of an int8 [..., in, out] weight: the K-contiguous
+    [..., out, in] copy that the W8A8 kernels read, and ``w_qa`` as its
+    transposed view (one int8 copy)."""
+    w_t = w_q.transpose(-1, -2).contiguous()
+    return w_t.transpose(-1, -2), w_t
 
 
 def quantize_linear_params(p: Params, mode: str = "w8a8") -> Params:
@@ -68,8 +84,8 @@ def quantize_linear_params(p: Params, mode: str = "w8a8") -> Params:
         return out
     w_q, scale = _quantize_weight(w, axis)
     if mode == "w8a8":
-        out["w_qa"] = w_q
-        out["w_qa_t"] = kernel_layout(w_q)
+        out["w_qa"], out["w_qa_t"] = kernel_layout(w_q)
+        del w_q
     else:
         out["w_q"] = w_q
     out["w_scale"] = scale
@@ -79,7 +95,7 @@ def quantize_linear_params(p: Params, mode: str = "w8a8") -> Params:
 def quantize_activations(x: torch.Tensor):
     """Dynamic per-token (last-axis) symmetric int8: (x_q, scale[..., 1])."""
     xf = x.float()
-    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    s = _absmax_scale(xf, -1, 127.0, keepdim=True)
     x_q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return x_q, s
 
@@ -87,7 +103,7 @@ def quantize_activations(x: torch.Tensor):
 def quantize_activations_fp8(x: torch.Tensor):
     """Dynamic per-token symmetric e4m3: (x_f8, scale[..., 1])."""
     xf = x.float()
-    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / FP8_MAX, 1e-8)
+    s = _absmax_scale(xf, -1, FP8_MAX, keepdim=True)
     return (xf / s).to(torch.float8_e4m3fn), s
 
 
@@ -95,8 +111,10 @@ def _kernel_ops(kernels: bool):
     """The W8A8 entry points, or their plain versions (``kernels=False``
     holds a whole forward against the kernels on the card)."""
     if kernels:
-        return cm.quantize_rows, cm.w8a8_matmul, cm.w8a8_ffn
-    return cm.quantize_rows_ref, cm.w8a8_matmul_ref, cm.w8a8_ffn_ref
+        return (cm.quantize_rows, cm.w8a8_matmul, cm.w8a8_ffn,
+                cm.w8a8_matmul_bf16x)
+    return (cm.quantize_rows_ref, cm.w8a8_matmul_ref, cm.w8a8_ffn_ref,
+            cm.w8a8_matmul_bf16x_ref)
 
 
 def _bias_f32(p: Params, y: torch.Tensor) -> torch.Tensor:
@@ -108,11 +126,15 @@ def quantized_linear(p: Params, x: torch.Tensor,
     """Dispatch on the quantized-weight key.
 
     w8:   x @ w_q in f32, times the weight scale.
-    w8a8: per-token int8 x (``quantize_rows``) times w_qa in int32, then
-          ``acc * s_x * w_scale + b`` (``w8a8_matmul``).  Where the kernels
-          decline the shape: XLA-style quantization (``quantize_activations``)
-          into ``w8a8_matmul``, else a plain int product scaled by
-          ``s_x * w_scale``, as the JAX package falls back.
+    w8a8: the JAX package's kernel chain, step for step: per-token int8 x
+          (``quantize_rows``) times w_qa in int32, then ``acc * s_x *
+          w_scale + b`` (``w8a8_matmul``).  Where ``quantize_rows``
+          declines the shape (K > 4096 at Wan-14B width): the GEMM from
+          raw x with the quantization in its prologue
+          (``w8a8_matmul_bf16x``, K <= 1536), else per-token quantization
+          (``quantize_activations``) into ``w8a8_matmul``, whose K steps
+          sum the int32 products; where the GEMM declines too, a plain int
+          product scaled by ``s_x * w_scale``.
     fp8:  e4m3 x and w_f8, product in f32, times ``s_x * w_scale``."""
     if "w_f8" in p:
         x_f8, s_x = quantize_activations_fp8(x)
@@ -120,15 +142,16 @@ def quantized_linear(p: Params, x: torch.Tensor,
         y = _bias_f32(p, y * (s_x * p["w_scale"]))
         return y.to(x.dtype)
     if "w_qa" in p:
-        quantize_rows, w8a8_matmul, _ = _kernel_ops(kernels)
+        quantize_rows, w8a8_matmul, _, matmul_bf16x = _kernel_ops(kernels)
         lead, K = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, K)
         w_t = p["w_qa_t"]
         q2 = quantize_rows(x2)
         if q2 is None:
-            # (the JAX package tries w8a8_matmul_bf16x next; its M and K
-            # rules are stricter than quantize_rows', so it takes no shape
-            # that quantize_rows declined)
+            y = matmul_bf16x(x2, w_t, p["w_scale"], p.get("b"),
+                             out_dtype=x.dtype)
+            if y is not None:
+                return y.reshape(*lead, y.shape[-1])
             q2 = quantize_activations(x2)
         x_q, s_x = q2
         y = w8a8_matmul(x_q, s_x, w_t, p["w_scale"], p.get("b"),
@@ -146,11 +169,13 @@ def quantized_ffn(p1: Params, p2: Params, x: torch.Tensor,
                   kernels: bool = True) -> torch.Tensor:
     """fc2(gelu_tanh(fc1(x))) with both linears W8A8 and the chain between
     the products (dequant, bias, gelu, re-quantization per token and
-    896-column group) fused into ``w8a8_ffn``.  Where the kernels decline
-    the shape: ``w8a8_ffn`` from pre-quantized x, else two quantized
-    linears, as the JAX package falls back."""
+    column group) fused into ``w8a8_ffn``.  Where fc1 cannot quantize x
+    in its prologue (K over one 1536-wide tile, as at Wan-14B width):
+    ``w8a8_ffn`` from x quantized by ``quantize_activations``; where the
+    kernels decline the shape, two quantized linears, as the JAX package
+    falls back."""
     if "w_qa" in p1 and "w_qa" in p2:
-        _, _, w8a8_ffn = _kernel_ops(kernels)
+        w8a8_ffn = _kernel_ops(kernels)[2]
         lead, K = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, K)
         args = (p1["w_qa_t"], p1["w_scale"], p1.get("b"), p2["w_qa_t"],
@@ -183,6 +208,35 @@ def _fuse_qkv(sa: Params) -> Params:
     return out
 
 
+def quantize_block(block: Params, num_layers: int, min_dim: int = 512,
+                   mode: str = "w8a8", fuse_qkv: bool = True) -> Params:
+    """One layer's block tree (a layer of a stack of ``num_layers``)
+    quantized as :func:`quantize_dit_params` quantizes that layer of the
+    stack.  Quantization is per (layer, output channel), so stacking the
+    quantized layers (``utils.tree.stack``) gives the whole stack's
+    values, keys and layout.  A linear is chosen on its stacked weight's
+    two last dims, as the whole-stack walk chooses it."""
+    def walk(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor):
+                shape = (num_layers, *w.shape)
+                if shape[-2] >= min_dim and shape[-1] >= min_dim:
+                    if w.dim() < 2:
+                        raise ValueError(
+                            f"min_dim {min_dim} selects a stacked {shape} "
+                            f"leaf that is not a linear")
+                    return quantize_linear_params(node, mode)
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    sa = block.get("self_attn", {})
+    if fuse_qkv and all(k in sa for k in ("q", "k", "v")):
+        block = dict(block)
+        block["self_attn"] = _fuse_qkv(sa)
+    return walk(block)
+
+
 def quantize_dit_params(params: Params, min_dim: int = 512,
                         mode: str = "w8a8",
                         fuse_qkv: bool = True) -> Params:
@@ -190,21 +244,13 @@ def quantize_dit_params(params: Params, min_dim: int = 512,
     a linear whose two last weight dims are both >= ``min_dim``.
     Embeddings, norms, modulation and the output head stay as they are.
     ``fuse_qkv`` first merges the three self-attention projections into
-    one (exact; see _fuse_qkv)."""
-    def walk(node):
-        if isinstance(node, dict):
-            w = node.get("w")
-            if isinstance(w, torch.Tensor) and w.dim() >= 2 \
-                    and w.shape[-2] >= min_dim and w.shape[-1] >= min_dim:
-                return quantize_linear_params(node, mode)
-            return {k: walk(v) for k, v in node.items()}
-        return node
-
+    one (exact; see _fuse_qkv).  The stack is quantized one layer at a
+    time (:func:`quantize_block`), so the float32 temporaries are one
+    layer's, not the stack's."""
     blocks = params["blocks"]
-    sa = blocks.get("self_attn", {})
-    if fuse_qkv and all(k in sa for k in ("q", "k", "v")):
-        blocks = dict(blocks)
-        blocks["self_attn"] = _fuse_qkv(sa)
+    L = tree.leaves(blocks)[0].shape[0]
     out = dict(params)
-    out["blocks"] = walk(blocks)
+    out["blocks"] = tree.stack(
+        (quantize_block(tree.index(blocks, i), L, min_dim, mode, fuse_qkv)
+         for i in range(L)), L)
     return out

@@ -7,7 +7,8 @@ halves: the encoder's 2D stride-2 resample convs and (3, 1, 1)
 OIDHW / OIHW, in the TAEHV tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
 weights, float8_e4m3fn weights (through their uint8 view) and f32 scales
 (``w_scale`` keeps float32 whatever ``dtype`` says).  A W8A8 linear
-(``w_qa``) also gets its kernel-layout copy ``w_qa_t`` (ops/quant.py).
+(``w_qa``) is stored once in the kernels' K-contiguous layout ``w_qa_t``,
+``w_qa`` becoming its transposed view (ops/quant.py).
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
         if isinstance(node, dict):
             out = {k: conv(k, v) for k, v in node.items()}
             if "w_qa" in out:
-                out["w_qa_t"] = kernel_layout(out["w_qa"])
+                out["w_qa"], out["w_qa_t"] = kernel_layout(out["w_qa"])
             return out
         if isinstance(node, (list, tuple)):
             return type(node)(conv(key, v) for v in node)

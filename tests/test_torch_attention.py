@@ -315,3 +315,107 @@ def test_int8qk_seam_on_the_cpu():
         tattn.decode_attention_fresh(q, kc, vc, kn, vn, 32, 192, scale=1.0,
                                      softmax="free", quant="int8qk",
                                      window_static=(32, 128), **args)
+
+
+# ------------------------------------------- the cache-window attention
+
+def _window_case(seed, Lq, S, B=1, N=2, D=128):
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, B, Lq, N, D), _rand(rng, B, S, N, D),
+            _rand(rng, B, S, N, D))
+
+
+def _fold(a):
+    B, L, N, D = a.shape
+    return np.ascontiguousarray(a.transpose(0, 2, 1, 3).reshape(B * N, L, D))
+
+
+@pytest.mark.parametrize("route", [False, True], ids=["plain", "route"])
+@pytest.mark.parametrize("layout", ["4d", "folded_cache", "folded"])
+@pytest.mark.parametrize("lo,hi", [(0, 96), (0, 320), (64, 256)])
+def test_decode_attention_matches_pallas(monkeypatch, route, layout, lo, hi):
+    """``decode_attention`` (the cases of the JAX package's
+    test_decode_matches_xla) against the interpreted ``_decode_kernel``
+    at 2e-5, on both layouts, with the bounds as device scalars; with the
+    kernel route forced the CPU runs the decode window kernel's plain
+    version through the same dispatch."""
+    if route:
+        monkeypatch.setattr(tattn, "_kernel_route", lambda t: True)
+    q, k, v = _window_case(0, 96, 320)
+    ref = pallas_attention.decode_attention_pallas(
+        q, k, v, jnp.int32(lo), jnp.int32(hi), tq=128, tk=128,
+        interpret=True)
+    ref = np.asarray(ref)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    if layout == "folded_cache":
+        kt, vt = torch.from_numpy(_fold(k)), torch.from_numpy(_fold(v))
+    elif layout == "folded":
+        qt, kt, vt = (torch.from_numpy(_fold(a)) for a in (q, k, v))
+        ref = _fold(ref)
+    out = tattn.decode_attention(qt, kt, vt, torch.tensor(lo),
+                                 torch.tensor(hi))
+    assert out.shape == qt.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_window_excludes_the_rest(monkeypatch):
+    """The JAX package's test_decode_window_excludes_rest: keys and
+    values outside [lo, hi) set to +-99 do not move the output (1e-6);
+    the kernel route's plain version, against the interpreted kernel."""
+    monkeypatch.setattr(tattn, "_kernel_route", lambda t: True)
+    q, k, v = _window_case(1, 32, 256)
+    lo, hi = 32, 128
+    k2, v2 = k.copy(), v.copy()
+    k2[:, hi:], v2[:, hi:] = 99.0, 99.0
+    k2[:, :lo], v2[:, :lo] = -99.0, -99.0
+    outs = [tattn.decode_attention(*(torch.from_numpy(a) for a in (q, kk, vv)),
+                                   lo, hi) for kk, vv in ((k, v), (k2, v2))]
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    ref = pallas_attention.decode_attention_pallas(
+        q, k2, v2, jnp.int32(lo), jnp.int32(hi), tq=128, tk=128,
+        interpret=True)
+    np.testing.assert_allclose(outs[1].numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("route", [False, True], ids=["plain", "route"])
+@pytest.mark.parametrize("folded", [False, True])
+def test_decode_attention_gradients_match_jax(monkeypatch, route, folded):
+    """Gradients for q, k_cache and v_cache through one cotangent: the
+    port's autograd (off the route) or its custom backward (the plain
+    recomputation, on it) against ``jax.vjp`` of
+    ``decode_attention_pallas`` (whose backward replays
+    ``decode_attention_xla``), 1e-4."""
+    if route:
+        monkeypatch.setattr(tattn, "_kernel_route", lambda t: True)
+    q, k, v = _window_case(2, 96, 320)
+    g = _rand(np.random.default_rng(3), *q.shape)
+    lo, hi = 64, 256
+    if folded:
+        q, k, v, g = (_fold(a) for a in (q, k, v, g))
+
+    def jf(q_, k_, v_):
+        return pallas_attention.decode_attention_pallas(
+            q_, k_, v_, jnp.int32(lo), jnp.int32(hi), tq=128, tk=128,
+            interpret=True)
+
+    jout, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tattn.decode_attention(*ts, lo, hi)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=2e-5, atol=2e-5)
+    for t, jg in zip(ts, jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_decode_window_wrapper_runs_the_plain_version_on_the_cpu():
+    """The CUDA wrapper on CPU tensors is ``decode_attention_xla``'s port
+    (int bounds or scalar tensors)."""
+    q, k, v = (torch.from_numpy(a) for a in _window_case(4, 40, 200))
+    out = ca.decode_window(q, k, v, 16, torch.tensor(150))
+    ref = tattn.decode_attention_xla(q, k, v, 16, 150)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)

@@ -97,6 +97,35 @@ def test_norm_silu_conv3d_matches_jax(residual):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_float32_convs_match_pallas(route):
+    """The float32 mode of ``_conv3d_kernel`` (96 channels, as the
+    decoder's full-resolution stage) and of ``_conv2d_kernel`` (384
+    channels: at float32 the fused rule declines them and the split route
+    runs, as at the 384-channel stages): the plain version (float32
+    products and sums, TF32 off) against the interpreted Pallas conv,
+    (the CUDA kernel's 3xTF32 products are held to the same plain version
+    on the card).  Both sum 27 * C float32 products in another
+    order: 1e-5 relative L2, and elementwise the JAX kernel tests' 3e-5."""
+    C = 96 if route == "fused" else 384
+    x, cache, w, b = _operands(7, 1, 2, 8, 16, C, C)
+    assert (tconv.fused_tile(8, 16, C, C, 4) is not None) == (route == "fused")
+    assert tconv.split_tile(8, 16, C, C, 4) is not None
+    tconv.reset_decline_counts()
+    ref = jpc.causal_conv3d_pallas(x, cache, w, b, interpret=True)
+    out = tconv.causal_conv3d_pallas(_t(x), _t(cache), _oidhw(w), _t(b))
+    assert out.dtype == torch.float32
+    assert tconv.decline_counts["conv3d_fused"] == (route == "split")
+    ref = np.asarray(ref, np.float64)
+    err = np.linalg.norm(out.numpy() - ref) / np.linalg.norm(ref)
+    assert err < 1e-5, err
+    _close(out, ref)
+    # the full-width shapes the float32 rules send to each route
+    assert tconv.fused_tile(480, 832, 96, 96, 4) is not None
+    assert tconv.fused_tile(60, 104, 384, 384, 4) is None
+    assert tconv.split_tile(60, 104, 384, 384, 4) is not None
+
+
 # ---------------------------------------------------------------- routing
 
 def _meta_vae(dtype):

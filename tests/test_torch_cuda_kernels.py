@@ -618,12 +618,19 @@ def test_norm_silu_conv3d_matches_plain(dev, T, H, W, C, Cout, residual):
 
 
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """float16 is not a conv kernel's type (bf16 and, since the float32
+    mode was ported, float32 are); x and cache must share one; the norm +
+    SiLU conv takes bf16 only."""
     g = torch.Generator(device=dev).manual_seed(24)
     x, cache, w, b = _conv_operands(g, dev, 1, 1, 4, 8, 16, 16)
     with pytest.raises(TypeError):
-        cc.conv3d(x.float(), cache.float(), w, b)
+        cc.conv3d(x.half(), cache.half(), w, b)
+    with pytest.raises(ValueError):
+        cc.conv3d(x.float(), cache, w, b)
     with pytest.raises(ValueError):
         cc.conv3d(x, cache[:, :1], w, b)
+    with pytest.raises(TypeError):
+        cc.norm_silu_conv3d(x[0].float(), cache[0].float(), b.float(), w, b)
 
 
 def test_kernel_weight_is_made_once_and_follows_writes(dev):
@@ -669,3 +676,222 @@ def test_vae_decode_under_conv_backend_matches_torch_convs(dev, backend):
     e_torch, e_kern = _rel_l2(outs[0], ref), _rel_l2(outs[1], ref)
     assert e_kern < 1.5 * e_torch, (e_kern, e_torch)
 
+
+
+# ------------------------------------------------ slice 7: true division,
+# fc1 from pre-quantized x, the bf16x GEMM, the decode window, f32 convs
+
+@pytest.mark.parametrize("name", ["quantize_activations",
+                                  "quantize_activations_fp8",
+                                  "_quantize_weight", "_quantize_weight_fp8"])
+def test_quantization_helpers_divide_on_cuda_as_on_cpu(dev, name):
+    """The four helpers on CUDA equal the same calls on the CPU bit for
+    bit (scales and values), on rows where x * (1 / 127) != x / 127: a
+    division by a Python scalar would become a reciprocal multiply on
+    CUDA (tests/test_torch_quant.py holds the CPU results to JAX's)."""
+    g = torch.Generator().manual_seed(30)
+    x = torch.rand(4000, 64, generator=g) * 2 - 1
+    x[torch.arange(4000), torch.randint(0, 64, (4000,), generator=g)] = \
+        0.5 + 0.5 * torch.rand(4000, generator=g)
+    args = (0,) if name.startswith("_quantize_weight") else ()
+    if args:
+        x = x.T.contiguous()
+    fn = getattr(quant, name)
+    v_cpu, s_cpu = fn(x, *args)
+    v_dev, s_dev = fn(x.to(dev), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(s_dev.cpu(), s_cpu)
+    assert torch.equal(v_dev.cpu().view(torch.uint8), v_cpu.view(torch.uint8))
+
+
+@pytest.mark.parametrize("M,K,H,N", [
+    (520, 5120, 1536, 640),     # the 14B tiles: K 5120, groups of 768
+    (40, 2048, 1792, 256),      # groups of 896, M ragged to 32
+    (4680, 5120, 3072, 640),    # M of a 14B block, 4 groups of 768
+])
+def test_w8a8_ffn_from_prequantized_x_matches_plain(dev, M, K, H, N):
+    """fc1 from int8 x and s_x (``w8a8_ffn1_xq``) against its plain
+    version: int8 hidden equal but for one-step flips (<= 0.1%: CUDA's
+    tanhf and PyTorch's may differ by an ulp), group scales to 1e-5; the
+    FFN through ``w8a8_ffn`` to 1e-2 relative L2."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = _x_edges(g, M, K, dev)
+    p1, p2 = _weight(g, K, H, dev, 0.03), _weight(g, H, N, dev, 0.03)
+    xq, sx = quant.quantize_activations(x)
+    tg = cm.ffn_group(M, K, H, N, raw_x=False)
+    assert tg is not None and cm.ffn_group(M, K, H, N, raw_x=True) is None
+    cm.reset_launch_counts()
+    hq, hs = cm.w8a8_ffn1(xq, p1["w_qa_t"], p1["w_scale"], p1["b"], tg, sx)
+    hq_ref, hs_ref = cm.w8a8_ffn1_ref(xq, sx, p1["w_qa_t"], p1["w_scale"],
+                                      p1["b"], tg)
+    torch.cuda.synchronize()
+    assert cm.launch_counts["w8a8_ffn1_xq"] == 1
+    _int8_close(hq, hq_ref)
+    torch.testing.assert_close(hs, hs_ref, rtol=1e-5, atol=0)
+    args = (p1["w_qa_t"], p1["w_scale"], p1["b"], p2["w_qa_t"],
+            p2["w_scale"], p2["b"])
+    out = cm.w8a8_ffn(xq, sx, *args)
+    ref = cm.w8a8_ffn_ref(xq, sx, *args)
+    torch.cuda.synchronize()
+    assert cm.launch_counts["w8a8_ffn1_xq"] == 2
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(4680, 1536, 4608), (520, 1536, 1536),
+                                   (40, 256, 384), (48, 128, 896)])
+def test_w8a8_matmul_bf16x_matches_plain(dev, M, K, N):
+    """The GEMM quantizing raw bf16 x in its prologue: the same int8 x and
+    scales as ``quantize_rows`` (true division, half to even), exact int32
+    sums, the same f32 epilogue: 1e-3 relative L2 (bf16 output)."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = _x_edges(g, M, K, dev)
+    p = _weight(g, K, N, dev)
+    cm.reset_launch_counts()
+    out = cm.w8a8_matmul_bf16x(x, p["w_qa_t"], p["w_scale"], p["b"])
+    ref = cm.w8a8_matmul_bf16x_ref(x, p["w_qa_t"], p["w_scale"], p["b"])
+    torch.cuda.synchronize()
+    assert cm.launch_counts["w8a8_matmul_bf16x"] == 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-3
+    assert cm.w8a8_matmul_bf16x(x[:, :K - 8].contiguous(), p["w_qa_t"][
+        :, :K - 8].contiguous(), p["w_scale"]) is None      # K % 128
+    with pytest.raises(TypeError):
+        cm.w8a8_matmul_bf16x(x.float(), p["w_qa_t"], p["w_scale"])
+
+
+def test_wan14b_linear_routes_launch_their_kernels(dev):
+    """At dim 5120: a linear takes quantize_activations into the
+    multi-K-step w8a8_matmul (quantize_rows and bf16x decline) and the
+    FFN runs fc1 from pre-quantized x, each against the plain chain."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = (torch.randn(1, 96, 5120, generator=g, device=dev)).to(torch.bfloat16)
+    p = _weight(g, 5120, 640, dev, 0.02)
+    f1, f2 = _weight(g, 5120, 1536, dev, 0.02), _weight(g, 1536, 5120, dev,
+                                                       0.02)
+    cm.reset_launch_counts()
+    y = quant.quantized_linear(p, x)
+    h = quant.quantized_ffn(f1, f2, x)
+    torch.cuda.synchronize()
+    counts = dict(cm.launch_counts)
+    assert counts["quantize_rows"] == counts["w8a8_matmul_bf16x"] == 0
+    assert counts["w8a8_matmul"] == 1 and counts["w8a8_ffn1_xq"] == 1
+    assert counts["w8a8_ffn2"] == 1 and counts["w8a8_ffn1"] == 0
+    assert _rel_l2(y, quant.quantized_linear(p, x, kernels=False)) < 1e-3
+    assert _rel_l2(h, quant.quantized_ffn(f1, f2, x, kernels=False)) < 1e-2
+
+
+def _window_operands(g, dev, B, N, Lq, S, dtype):
+    q = torch.randn(B, Lq, N, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, N, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, N, 128, generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,N,Lq,S,lo,hi,folded", [
+    (1, 2, 96, 320, 64, 256, False),
+    (2, 3, 130, 700, 0, 700, True),      # ragged tiles, the whole cache
+    (1, 2, 33, 512, 100, 101, False),    # one key
+    (1, 1, 200, 256, -5, 300, True),     # bounds past the cache: clamped
+])
+def test_decode_window_matches_plain(dev, dtype, B, N, Lq, S, lo, hi,
+                                     folded):
+    """The cache-window kernel against ``decode_attention_xla``'s port
+    (float32, TF32 off), bounds as device scalars.  bf16: 1e-2 relative
+    L2 (p rounded to bf16 for P.V); float32: 1e-4 (3xTF32 products, each
+    within ~2^-21 of the f32 product, and sums in another order)."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    q, k, v = _window_operands(g, dev, B, N, Lq, S, dtype)
+    if folded:
+        q, k, v = (a.permute(0, 2, 1, 3).reshape(B * N, -1, 128).contiguous()
+                   for a in (q, k, v))
+    lo_t, hi_t = (torch.tensor(i, device=dev) for i in (lo, hi))
+    name = "decode_window" if dtype == torch.bfloat16 else \
+        "decode_window_f32"
+    ca.reset_launch_counts()
+    out = ca.decode_window(q, k, v, lo_t, hi_t)
+    ref = ca.decode_window_ref(q, k, v, max(lo, 0), min(hi, S))
+    torch.cuda.synchronize()
+    assert ca.launch_counts[name] == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    assert _rel_l2(out, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_decode_window_edges(dev, dtype):
+    """An empty window gives 0 (as the TPU kernel: dead tiles skipped, l
+    floored at 1e-30); keys outside the window do not move the output; a
+    cache in [B, S, N, D] with q folded is folded by the wrapper."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    q, k, v = _window_operands(g, dev, 1, 2, 64, 384, dtype)
+    out = ca.decode_window(q, k, v, torch.tensor(200, device=dev),
+                           torch.tensor(200, device=dev))
+    assert torch.equal(out, torch.zeros_like(out))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :64], v2[:, 300:] = 50.0, -50.0
+    a = ca.decode_window(q, k, v, 64, 300)
+    b = ca.decode_window(q, k2, v2, 64, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    qf = q.permute(0, 2, 1, 3).reshape(2, 64, 128).contiguous()
+    c = ca.decode_window(qf, k, v, 64, 300)
+    torch.testing.assert_close(c, a.permute(0, 2, 1, 3).reshape(2, 64, 128),
+                               rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        ca.decode_window(q, k.float() if dtype == torch.bfloat16 else
+                         k.bfloat16(), v, 0, 10)
+
+
+def test_decode_attention_gradient_kernels_vs_plain(dev):
+    """The seam's autograd function: forward by the kernel (float32), the
+    backward the plain recomputation, for q and both caches."""
+    g = torch.Generator(device=dev).manual_seed(36)
+    q, k, v = _window_operands(g, dev, 1, 2, 80, 256, torch.float32)
+    grads = []
+    for kernels in (True, False):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention.decode_attention(*ts, 32, 200, kernels=kernels)
+        out.square().sum().backward()
+        grads.append([t.grad for t in ts] + [out.detach()])
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) < 1e-4
+
+
+@pytest.mark.parametrize("B,T,H,W,C,Cout", [
+    (1, 1, 7, 13, 3, 96),      # scalar A loads (C % 4 != 0)
+    (1, 2, 9, 10, 16, 384),
+    (1, 3, 5, 6, 96, 3),       # BN 32, odd Cout
+    (2, 1, 4, 5, 40, 64),      # BN 64
+    (1, 4, 12, 20, 96, 96),
+])
+def test_conv3d_float32_matches_plain(dev, B, T, H, W, C, Cout):
+    """The float32 conv (3xTF32 products) against the plain float32
+    version with TF32 off: 1e-4 relative L2 (the products are float32-
+    accurate; the sums run in another order)."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    x, cache, w, b = (t.float() for t in _conv_operands(g, dev, B, T, H, W,
+                                                         C, Cout))
+    cc.reset_launch_counts()
+    out = cc.conv3d(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["conv3d_f32"] == 1
+    assert out.dtype == torch.float32 and out.shape == (B, T, H, W, Cout)
+    assert _rel_l2(out, ref) < 1e-4
+
+
+def test_conv_float32_split_route_matches_plain(dev):
+    """384 channels at float32: the fused rule declines, the split route
+    runs one float32 launch a temporal tap."""
+    g = torch.Generator(device=dev).manual_seed(38)
+    x, cache, w, b = (t.float() for t in _conv_operands(g, dev, 1, 2, 6, 8,
+                                                         384, 384))
+    cc.reset_launch_counts()
+    out = tconv.causal_conv3d_pallas(x, cache, w, b)
+    ref = tconv.split_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["conv3d_f32"] == 3
+    assert _rel_l2(out, ref) < 1e-4

@@ -300,3 +300,77 @@ def test_tile_rules_match_jax(M, K, H, N):
                                           w2_scale=s2),
             ((M, K), f32 if raw_x else i8), ((K, H), i8), ((H,), f32),
             ((H, N), i8), ((N,), f32))
+
+
+# ------------------------------------------- true division and the bf16x GEMM
+
+def _division_sensitive(rng, rows, cols):
+    """Rows whose absmax lies in [0.5, 1): 4-5% of them have
+    x * (1 / 127) != x / 127 (and the same for 448) in float32, so a
+    reciprocal multiply in place of the division moves their scale."""
+    x = rng.uniform(-1.0, 1.0, (rows, cols)).astype(np.float32)
+    x[np.arange(rows), rng.integers(0, cols, rows)] = rng.uniform(
+        0.5, 1.0, rows).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("name", ["quantize_activations",
+                                  "quantize_activations_fp8",
+                                  "_quantize_weight", "_quantize_weight_fp8"])
+def test_quantization_helpers_divide_like_jax_bit_for_bit(name):
+    """The port's four helpers divide by a tensor: their scales and
+    quantized values equal the JAX package's bit for bit on inputs where a
+    reciprocal multiply would differ (the same calls on CUDA are held to
+    these in tests/test_torch_cuda_kernels.py)."""
+    rng = np.random.default_rng(11)
+    x = _division_sensitive(rng, 4000, 64)
+    top = 448.0 if name.endswith("fp8") else 127.0
+    amax = np.abs(x).max(axis=1)
+    assert (amax / np.float32(top) != amax * np.float32(1.0 / top)).mean() \
+        > 0.02
+    if name.startswith("_quantize_weight"):
+        x = np.ascontiguousarray(x.T)     # [in, out]: scales per column
+        args = (0,)
+    else:
+        args = ()
+    jv, js = getattr(jquant, name)(jnp.asarray(x), *args)
+    tv, ts = getattr(tquant, name)(torch.from_numpy(x), *args)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(_np(tv), _np(jv))
+
+
+def test_w8a8_matmul_bf16x_ref_matches_pallas():
+    """The plain version (per-token int8 as ``_quant_rows``: floor 1e-8
+    before the division by 127, then the GEMM's epilogue) against the
+    interpreted ``_kernel_bf16x``: the int32 sums are exact on both sides
+    and the scales are equal (both divide), so the f32 results agree to
+    rounding of the epilogue's order (1e-6 relative L2)."""
+    rng = np.random.default_rng(12)
+    M, K, N = 48, 384, 1536
+    x = _x_with_edges(rng, M, K)
+    w, b = _linear(rng, K, N)
+    jp, tp = _pair(w, b)
+    jl, tl = (jquant.quantize_linear_params(jp),
+              tquant.quantize_linear_params(tp))
+    assert cm.bf16x_tiling(M, K, N)
+    jy = jpm.w8a8_matmul_bf16x(jnp.asarray(x), jl["w_qa"], jl["w_scale"],
+                               jl["b"], out_dtype=jnp.float32,
+                               interpret=True)
+    ty = cm.w8a8_matmul_bf16x_ref(torch.from_numpy(x), tl["w_qa_t"],
+                                  tl["w_scale"], tl["b"],
+                                  out_dtype=torch.float32)
+    assert _rel_l2(ty.numpy(), jy) < 1e-6
+    # the same per-token quantization as quantize_rows (and its kernel)
+    q, s = cm._quant_rows(torch.from_numpy(x), cm.ACT_FLOOR)
+    rq, rs = cm.quantize_rows_ref(torch.from_numpy(x))
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("M,K,N", [(48, 256, 384), (44, 256, 384),
+                                   (48, 1664, 384), (48, 256, 200),
+                                   (4680, 1536, 4608)])
+def test_bf16x_tile_rule_matches_jax(M, K, N):
+    args = [jax.ShapeDtypeStruct(s, d) for s, d in
+            (((M, K), jnp.float32), ((K, N), jnp.int8), ((N,), jnp.float32))]
+    declined = jax.eval_shape(jpm.w8a8_matmul_bf16x, *args) is None
+    assert (not cm.bf16x_tiling(M, K, N)) == declined
