@@ -284,7 +284,8 @@ def phase_kernels(ca, g) -> dict:
               f"layer 7): rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
-              f"tflops={flops / ms / 1e9:.1f}", flush=True)
+              f"tflops={flops / ms / 1e9:.1f} "
+              f"bound_share={b_ms / ms:.3f}", flush=True)
         table["decode_fresh_free"] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by)
@@ -313,7 +314,8 @@ def phase_kernels(ca, g) -> dict:
     print(f"kernel cross_attention (Lk={Lk}): rel_l2={err:.3e} "
           f"max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"tflops={flops / ms / 1e9:.1f}", flush=True)
+          f"tflops={flops / ms / 1e9:.1f} bound_share={b_ms / ms:.3f}",
+          flush=True)
     table["cross_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=b_ms,
                                     bound_by=b_by, max_abs_err=mae)
@@ -550,7 +552,9 @@ def phase_mode_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
         print(f"kernel {name} global block 7 (keys {n_keys}, layer 7): "
               f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"tflops={4.0 * LQ * n_keys * D * N / ms / 1e9:.1f} "
+              f"bound_share={b_ms / ms:.3f}", flush=True)
         table[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
                            bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
 
@@ -915,7 +919,8 @@ def phase_window_kernels(ca, g) -> dict:
               f"plain_ms={plain_ms:.4f} sdpa_ms="
               f"{'none' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
-              f"tflops={flops / ms / 1e9:.1f}", flush=True)
+              f"tflops={flops / ms / 1e9:.1f} "
+              f"bound_share={b_ms / ms:.3f}", flush=True)
         table[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                            bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
         del q, kc, vc, qh, kh, vh
@@ -2359,7 +2364,7 @@ def main() -> None:
                                     attn + ":1367"),
                "flash_fwd_bounded": (csrc + "flash_attention.cu",
                                      attn + ":1367"),
-               "cross_attention": (csrc + "cross_attention.cu",
+               "cross_attention": (csrc + "decode_fresh.cu",
                                    attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
                "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),

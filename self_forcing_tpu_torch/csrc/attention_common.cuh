@@ -78,62 +78,6 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragments of a 16-row x (16*KSTEPS)-column bf16 tile at `base` (row
-// stride LDH) for ldmatrix: lane l addresses row l % 8 + 8 * (l / 8 % 2),
-// column 8 * (l / 16) of each 16x16 step.
-template <int KSTEPS, int LDH>
-__device__ __forceinline__ void load_a_frags(uint32_t (*a)[4],
-                                             const bf16* base, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int row = (lane % 8) + ((lane / 8) % 2) * 8;
-    const int col = kk * 16 + (lane / 16) * 8;
-    ldmatrix_x4(a[kk], base + row * LDH + col);
-  }
-}
-
-// s[16 x 8*NT] += A (16 x 16*KSTEPS, fragments a) * K^T, K a shared
-// [8*NT keys][LDH] tile: B fragments of key tiles 2j, 2j+1 by one x4
-// ldmatrix (lane l: key 8 * (l / 16) + l % 8, column 8 * (l / 8 % 2)).
-template <int NT, int KSTEPS, int LDH>
-__device__ __forceinline__ void qk_tile(float (*s)[4],
-                                        const uint32_t (*a)[4],
-                                        const bf16* k_s, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t kb[4];
-      const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
-      const int col = kk * 16 + ((lane / 8) % 2) * 8;
-      ldmatrix_x4(kb, k_s + key * LDH + col);
-      mma16816(s[2 * np], a[kk], kb[0], kb[1]);
-      mma16816(s[2 * np + 1], a[kk], kb[2], kb[3]);
-    }
-  }
-}
-
-// o[16 x 8*DT] += P (16 x 16*KSTEPS, fragments p) * V, V a shared
-// [16*KSTEPS keys][LDH] tile read transposed by ldmatrix (lane l: key
-// l % 8 + 8 * (l / 8 % 2), column 8 * (l / 16)).
-template <int DT, int KSTEPS, int LDH>
-__device__ __forceinline__ void pv_tile(float (*o)[4],
-                                        const uint32_t (*p)[4],
-                                        const bf16* v_s, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < DT / 2; ++dp) {
-      uint32_t vb[4];
-      const int key = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-      const int col = dp * 16 + (lane / 16) * 8;
-      ldmatrix_x4_trans(vb, v_s + key * LDH + col);
-      mma16816(o[2 * dp], p[kk], vb[0], vb[1]);
-      mma16816(o[2 * dp + 1], p[kk], vb[2], vb[3]);
-    }
-  }
-}
-
 // The next tile index >= t (tiles of BK columns: cache tiles first, then
 // fresh tiles, which are all visible) that has a visible column, the
 // cache's visible columns being [0, sink_end) and [kv_start, kv_end);

@@ -1,6 +1,8 @@
 // decode_fresh: decode self-attention of one block's queries onto a
 // read-only KV cache window plus the block's own fresh (not yet cached)
-// K/V, in one of four softmax modes.
+// K/V, in one of four softmax modes; the same kernel serves the cache
+// window alone (decode_window) and the cross attention onto a small
+// static K/V (cross_attention).
 //
 // Replaces the TPU kernel _decode_fresh_kernel in its bf16 modes
 // (self_forcing_tpu/ops/pallas_attention.py, called through
@@ -10,6 +12,8 @@
 // decode_attention_pallas): the online mode with no fresh keys and the
 // window bounds read on the device (bf16), and a float32 kernel of its
 // own (3xTF32 products; see decode_window_f32_kernel).
+// cross_attention_launch replaces _cross_kernel (cross_attention_pallas):
+// the online mode with no cache and the text / CLIP K/V as the fresh keys.
 //
 // Function, per (batch b, head n, query row i):
 //   visible cache columns j: j < cache_lim and
@@ -23,75 +27,130 @@
 //   BOUNDED:      p = exp(scale * s - m0), m0 >= every score (the
 //                 caller's Cauchy-Schwarz bound, read from device memory)
 //   ONLINE:       p = exp(scale * s - m), m the running row max over the
-//                 64-key tiles seen so far; l and acc are rescaled by
+//                 128-key tiles seen so far; l and acc are rescaled by
 //                 exp(m_prev - m) when it grows
 //   l = sum p (fp32),  acc = sum bf16(p) * v_j (fp32)
-//   out_i = acc / max(l, 1e-30)  -> bf16
+//   out_i = acc / max(l, 1e-30)  -> bf16 (as acc * (1 / max(l, 1e-30)):
+//                 one division a row, within an f32 ulp before bf16)
 // The exponentials run base 2 (ex2.approx): scale * log2(e) multiplies
 // the scores of BOUNDED and ONLINE.  ONLINE rounds p to bf16 for P.V, as
-// the other modes do (the Pallas kernel in interpret mode keeps it f32).
+// the other modes do (the Pallas kernel in interpret mode keeps it f32);
+// the cross attention (HILO) instead multiplies p as two bf16 parts,
+// p = hi + lo to ~16 mantissa bits, each with the bf16 V into the same
+// f32 accumulators, which keeps the TPU kernel's f32 P.V to ~2^-17.  Its
+// row max is the running one, which moves the result only by f32
+// rounding against the TPU kernel's exact max.
 //
-// Layouts: q, k_new, v_new and out are heads-packed [B, L, N*D]; the cache
-// is one layer [B*N, S, D] of the stacked [layers, B*N, S, D] buffer (the
-// wrapper passes the layer's base pointer).  D = 128.
+// Layouts: q, k_new, v_new and out are heads-packed [B, L, N*D] (the
+// cross K/V [B, Lk, N, D] is that layout); the cache is one layer
+// [B*N, S, D] of the stacked [layers, B*N, S, D] buffer (the wrapper
+// passes the layer's base pointer).  D = 128.
 //
 // What bounds it on the H100: at the 1.3B shapes (Lq = Lf = 4680, up to
 // 32760 visible keys, 12 heads) a call does up to ~0.9 TFLOP against
-// ~0.2 GB of K/V, so it is bound by tensor-core operations.  Design
-// (FlashAttention-2 shape on mma.sync): one CTA of 4 warps per
-// (b*n, 128-query tile), each warp owning 32 query rows as two 16-row
-// m-tiles, so every K/V fragment read from shared memory feeds two
-// products.  K/V tiles of 64 keys stream through a double-buffered shared
-// ring with cp.async, so the next tile's load overlaps this tile's math.
-// Scores stay in registers: the m16n8k16 accumulator layout of two
-// adjacent key tiles is exactly the A-operand layout of the P.V product,
-// so p goes from exp2 to bf16 to the tensor cores without touching shared
-// memory.  The free and bounded modes need no running max, so their
-// output accumulators are never rescaled; ONLINE pays a row max (two
-// shuffles) and a rescale of its 64 accumulators a tile.  Tiles wholly
-// outside the visible window are never loaded.  Not yet: wgmma, TMA,
-// warp specialisation.
+// ~0.2 GB of K/V, so it is bound by tensor-core operations, and the
+// 1.8e9 exponentials of a call take about half the tensor-core time on
+// the MUFU units unless they run under the products.  Design (the
+// warp-specialised shape of hopper.cuh): one CTA of two consumer
+// warpgroups (64 query rows each, BM = 128) and a producer warpgroup,
+// one thread of which issues the TMA loads: each work item's Q (two
+// 64-column boxes, double-buffered across items), then every live key
+// tile (128 keys; K and V each two boxes, 32 KB) into a 2-stage ring with
+// separate full / empty mbarriers for K and V, so a K stage is handed
+// back as soon as Q.K^T has read it.  The tensor maps clip every tile to
+// its own head: the cache is mapped (D, S, B*N) and the heads-packed
+// operands (D, N, L, B), so rows past S, Lf or Lq read zeros, never the
+// next head's, layer's or batch's rows.  A consumer computes S = Q.K^T
+// with 8 wgmma.m64n128k16 (Q and K from shared memory), scales and masks
+// it in registers, takes exp2 and packs p to bf16 in the register A
+// layout, and issues O += P.V as 8 register-A wgmma.m64n128k16 with V
+// read MN-major.  Each iteration issues this tile's Q.K^T and the
+// previous tile's P.V together, so the softmax of tile t runs while the
+// tensor cores work on P.V of t - 1, and the two consumers take turns at
+// issuing (named barriers 1 and 2, "ping-pong"), so one warpgroup's
+// exponentials run under the other's products.  That keeps o, s and p
+// live at once: 64 + 64 + 32 registers (HILO + 32), which fit because
+// the producer warpgroup lowers its registers to 24 and the consumers
+// raise theirs to 240 (setmaxnreg; the 384-thread CTA is launched with
+// 168 a thread).  Only a tile that straddles sink_end, kv_start, kv_end,
+// cache_lim (cache tiles) or Lf (the last fresh tile) applies the -inf
+// mask; tiles wholly outside the visible window are never loaded
+// (next_live).  The grid is persistent: one CTA an SM walks the work
+// items (b*n, 128-query tile) in a static b*n-major stride as one stream
+// of key tiles, Q double-buffered, an item's first Q.K^T issued with the
+// previous item's last P.V and that item's output written while the new
+// softmax runs (every item has the same keys, so the 3.36 waves of the
+// 1.3B shapes, 444 items on 132 SMs, stay).  Three consumers (BM = 192)
+// do not fit: beside a 24-register producer they get at most 160
+// registers a thread, what o, s and p alone take.  The tensor maps are
+// encoded on the host at every launch (a few microseconds).
+
+#include <cstring>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 using namespace sf_attn;
+using namespace sf_hopper;
 
 namespace {
 
-constexpr int D = 128;        // head dim
-constexpr int MT = 2;         // 16-row m-tiles per warp
-constexpr int WARPS = 4;      // each warp owns 16 * MT query rows
-constexpr int BM = 16 * MT * WARPS;  // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = D + 8;    // padded bf16 row stride: ldmatrix rows hit
-                              // distinct banks
-constexpr int TILE = BK * LDH;  // elements of one K or V tile
-constexpr size_t SMEM_BYTES = size_t(BM * LDH + 4 * TILE) * sizeof(bf16);
+constexpr int D = 128;                    // head dim
+constexpr int BK = 128;                   // keys a tile
+constexpr int STAGES = 2;                 // K / V ring depth
+constexpr int CONSUMERS = 2;              // consumer warpgroups a CTA
+constexpr int BM = 64 * CONSUMERS;        // query rows a CTA
+constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer
+constexpr int BOX = BK * 128;             // bytes of a 64-column K/V box
+constexpr int KV_TILE = 2 * BOX;          // bytes of a K or V tile
+constexpr int Q_BOX = BM * 128;
+constexpr int Q_TILE = 2 * Q_BOX;
+constexpr int N_BARS = 4 + 4 * STAGES;
+constexpr size_t SMEM_BYTES =
+    1024 + 2 * Q_TILE + 2 * STAGES * KV_TILE + N_BARS * sizeof(uint64_t);
 constexpr float LOG2E = 1.4426950408889634f;
 
 enum Mode { FREE = 0, FREE_NOCLAMP = 1, BOUNDED = 2, ONLINE = 3 };
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int valid) {
-  load_rows<BK, D, LDH, THREADS>(dst, src, stride, valid);
+struct Maps {
+  CUtensorMap q;    // (D, N, Lq, B), box (64, 1, BM, 1)
+  CUtensorMap kc;   // (D, S, B*N), box (64, BK, 1): the layer's cache
+  CUtensorMap vc;
+  CUtensorMap kn;   // (D, N, Lf, B), box (64, 1, BK, 1)
+  CUtensorMap vn;
+};
+
+__device__ __forceinline__ bool straddles(int j0, int x) {
+  return j0 < x && x < j0 + BK;
 }
 
 // WINDOW: the cache window alone (decode_window_launch): kv_start / kv_end
 // are read from device memory (`bounds`, clamped to [0, S]), no sink, no
-// fresh tiles, and the fresh operands are never read.
-template <int MODE, bool WINDOW>
-__global__ void __launch_bounds__(THREADS, 2)
-decode_fresh_kernel(const bf16* __restrict__ q,
-                    const bf16* __restrict__ k_cache,
-                    const bf16* __restrict__ v_cache,
-                    const bf16* __restrict__ k_new,
-                    const bf16* __restrict__ v_new,
+// fresh tiles.  HILO: P.V from the bf16 hi and lo parts of p (the cross
+// attention).
+template <int MODE, bool WINDOW, bool HILO>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_fresh_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ m0, bf16* __restrict__ out,
-                    int N, int Lq, int Lf, int S, int kv_start, int kv_end,
-                    int sink_end, int cache_lim, float scale,
+                    int B, int N, int Lq, int Lf, int S, int kv_start,
+                    int kv_end, int sink_end, int cache_lim, float scale,
                     const int* __restrict__ bounds) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+  static_assert(!HILO || MODE == ONLINE, "HILO is the online softmax");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // [Q: 2 buffers of 2 boxes | K: STAGES tiles | V: STAGES tiles |
+  //  barriers]
+  unsigned char* sQ = base;
+  unsigned char* sK = sQ + 2 * Q_TILE;
+  unsigned char* sV = sK + STAGES * KV_TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * KV_TILE);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full_k = q_empty + 2;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+
   if (WINDOW) {
     kv_start = max(__ldg(bounds), 0);
     kv_end = min(__ldg(bounds + 1), S);
@@ -99,234 +158,382 @@ decode_fresh_kernel(const bf16* __restrict__ q,
     cache_lim = S;
     Lf = 0;
   }
-  // [Q | K0 | K1 | V0 | V1]
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + BM * LDH;
+  // work items (b*n, query tile), b*n-major; CTA x takes items x, x +
+  // gridDim.x, ...; every item walks the same key tiles
+  const int n_qt = (Lq + BM - 1) / BM;
+  const int n_work = n_qt * B * N;
+  const int wg = threadIdx.x / 128;   // consumer warpgroup, or CONSUMERS
+  const int n_cache = (cache_lim + BK - 1) / BK;
+  const int n_total = n_cache + (Lf + BK - 1) / BK;
+  const int first = next_live<BK>(0, n_cache, n_total, kv_start, kv_end,
+                                  sink_end);
 
-  const int bn = blockIdx.y;
-  const int b = bn / N;
-  const int n = bn % N;
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // accumulator row within the warp's 16
-  const int tg = lane % 4;  // accumulator column pair
-  const long long ld_tok = (long long)N * D;  // packed token row stride
-
-  const bf16* kcb = k_cache + (long long)bn * S * D;
-  const bf16* vcb = v_cache + (long long)bn * S * D;
-  const bf16* knb =
-      WINDOW ? k_new : k_new + (long long)b * Lf * ld_tok + n * D;
-  const bf16* vnb =
-      WINDOW ? v_new : v_new + (long long)b * Lf * ld_tok + n * D;
-
-  // Q tile stays in shared memory; each warp reads its 16 * MT rows
-  load_rows<BM, D, LDH, THREADS>(
-      sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D, ld_tok,
-      min(BM, Lq - q0));
-  cp_async_commit();
-  const bf16* qw = sQ + warp * 16 * MT * LDH;
-
-  float o[MT][D / 8][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
-  float l[MT][2];  // partial row sums of rows g and g + 8 of each m-tile
-  float m[MT][2];  // ONLINE: running max (base 2) of rows g and g + 8
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    l[mt][0] = l[mt][1] = 0.f;
-    m[mt][0] = m[mt][1] = -INFINITY;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], CONSUMERS);
+      mbar_init(&empty_v[s], CONSUMERS);
+    }
+    fence_barrier_init();
   }
-  // the scores' multiplier into base-2 units, and BOUNDED's offset
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread of the last warpgroup issues every TMA
+    // load; its registers go to the consumers ----
+    regs_dealloc<24>();
+    if (threadIdx.x != 128 * CONSUMERS) return;
+    int i = 0;   // key tiles loaded so far: the ring position
+    for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+      const int bn = w / n_qt, b = bn / N, n = bn % N;
+      const int q0 = (w % n_qt) * BM;
+      // Q double-buffered: item k's loads while item k - 1 runs
+      const int qb = k & 1;
+      unsigned char* dq = sQ + qb * Q_TILE;
+      mbar_wait(&q_empty[qb], ((k >> 1) & 1) ^ 1);
+      mbar_expect_tx(&q_full[qb], Q_TILE);
+      tma_load_4d(dq, &maps.q, &q_full[qb], 0, n, q0, b);
+      tma_load_4d(dq + Q_BOX, &maps.q, &q_full[qb], 64, n, q0, b);
+      for (int t = first; t < n_total;
+           t = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
+                             sink_end), ++i) {
+        const int st = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        const bool cache = t < n_cache;
+        const int j0 = (cache ? t : t - n_cache) * BK;
+        for (int kv = 0; kv < 2; ++kv) {
+          uint64_t* full = kv ? &full_v[st] : &full_k[st];
+          unsigned char* dst = (kv ? sV : sK) + st * KV_TILE;
+          mbar_wait(kv ? &empty_v[st] : &empty_k[st], ph ^ 1);
+          mbar_expect_tx(full, KV_TILE);
+          if (cache) {
+            const CUtensorMap* m = kv ? &maps.vc : &maps.kc;
+            tma_load_3d(dst, m, full, 0, j0, bn);
+            tma_load_3d(dst + BOX, m, full, 64, j0, bn);
+          } else {
+            const CUtensorMap* m = kv ? &maps.vn : &maps.kn;
+            tma_load_4d(dst, m, full, 0, n, j0, b);
+            tma_load_4d(dst + BOX, m, full, 64, n, j0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows q0 + 64 c .. + 63 ----
+  regs_alloc<240>();
+  const int c = wg;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
   const float mul = (MODE == BOUNDED || MODE == ONLINE) ? scale * LOG2E
                                                         : scale;
   const float off = MODE == BOUNDED ? __ldg(m0) * LOG2E : 0.f;
+  // descriptors of k-step 0: Q rows of this warpgroup in buffer 0, K and
+  // V of stage 0
+  const uint64_t dq0 = desc_sw128(sQ + c * 64 * 128, 16, 1024);
+  const uint64_t dk = desc_sw128(sK, 16, 1024);
+  const uint64_t dv = desc_sw128(sV, BOX, 1024);
 
-  const int n_cache = (cache_lim + BK - 1) / BK;
-  const int n_total = n_cache + (Lf + BK - 1) / BK;
+  float o[64];
+  float s[BK / 2];                // scores, then p, of the current tile
+  uint32_t pa[BK / 16][4];        // bf16(p) (HILO: its hi part)
+  uint32_t pl[HILO ? BK / 16 : 1][4];   // HILO: bf16(p - hi)
+  float l[2];      // partial row sums of rows g, g + 8
+  float m[2];      // ONLINE: running max (base 2)
+  float corr[2] = {1.f, 1.f};   // ONLINE: rescale of l and O to the new max
 
-  auto fetch = [&](int t, int buf) {
-    if (t < n_cache) {
-      const int j0 = t * BK;
-      const int valid = min(BK, cache_lim - j0);
-      load_tile(sKV + buf * TILE, kcb + (long long)j0 * D, D, valid);
-      load_tile(sKV + (2 + buf) * TILE, vcb + (long long)j0 * D, D, valid);
-    } else if (!WINDOW) {
-      const int j0 = (t - n_cache) * BK;
-      const int valid = min(BK, Lf - j0);
-      load_tile(sKV + buf * TILE, knb + (long long)j0 * ld_tok, ld_tok,
-                valid);
-      load_tile(sKV + (2 + buf) * TILE, vnb + (long long)j0 * ld_tok, ld_tok,
-                valid);
+  uint64_t dq = dq0;   // this item's Q buffer
+  // S = Q.K^T of the tile in stage `st`
+  auto qk = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n128k16_ss(
+          s, dq + (((kk / 4) * Q_BOX + (kk % 4) * 32) >> 4),
+          dk + ((st * KV_TILE + (kk / 4) * BOX + (kk % 4) * 32) >> 4),
+          kk > 0);
+  };
+  // O += P.V of the tile in stage `st`
+  auto pv = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t d = dv + ((st * KV_TILE + kk * 16 * 128) >> 4);
+      wgmma_m64n128k16_rs<1>(o, pa[kk], d);
+      if constexpr (HILO) wgmma_m64n128k16_rs<1>(o, pl[kk], d);
+    }
+  };
+  // the scores of tile t in base-2 units (-inf where not visible), then p
+  // in place, the row sums, and (ONLINE) the new running max and corr
+  auto softmax = [&](int t) {
+    const bool cache = t < n_cache;
+    const int j0 = (cache ? t : t - n_cache) * BK;
+    const bool edge =
+        cache ? (straddles(j0, sink_end) || straddles(j0, kv_start) ||
+                 straddles(j0, kv_end) || straddles(j0, cache_lim))
+              : Lf - j0 < BK;
+    // the multiplier still to apply: interior tiles fold it into the
+    // exponent's FMA (and, as mul > 0, into the row max)
+    float k = mul;
+    if (edge || !(mul > 0.f)) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int j = j0 + 8 * (e / 4) + 2 * tq + (e & 1);
+        const bool vis = !edge || (cache ? j < cache_lim &&
+                                               (j < sink_end ||
+                                                (j >= kv_start && j < kv_end))
+                                         : j < Lf);
+        s[e] = vis ? s[e] * mul : -INFINITY;
+      }
+      k = 1.f;
+    }
+    float sub[2] = {off, off};   // what p's exponent subtracts, per row
+    if (MODE == ONLINE) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < BK / 8; ++e)
+          mx = fmaxf(mx, fmaxf(s[4 * e + 2 * h], s[4 * e + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx * k);
+        sub[h] = m_new == -INFINITY ? 0.f : m_new;
+        corr[h] = fast_exp2(m[h] - sub[h]);
+        m[h] = m_new;
+      }
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      // exp2(-inf) = 0 on the columns that are not visible
+      const float x = s[e];
+      s[e] = MODE == FREE ? fast_exp2(fminf(x * k, 80.f))
+                          : fast_exp2(fmaf(x, k, -sub[(e >> 1) & 1]));
+      ls[(e >> 1) & 1] += s[e];
+    }
+    l[0] = l[0] * corr[0] + ls[0];
+    l[1] = l[1] * corr[1] + ls[1];
+  };
+  // p as the register A operand of the next P.V (accumulator columns
+  // 16 kk .. 16 kk + 15 are k-step kk)
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = s[8 * kk + 2 * r], bb = s[8 * kk + 2 * r + 1];
+        pa[kk][r] = pack_bf16(a, bb);
+        if constexpr (HILO)
+          pl[kk][r] = pack_bf16(a - bf16_lo(pa[kk][r]),
+                                bb - bf16_hi(pa[kk][r]));
+      }
+    }
+  };
+  // the turn at the tensor cores (ping-pong): warpgroup c waits on named
+  // barrier 1 + c, which the other one arrives at once it has issued its
+  // products; warpgroup 1 lets 0 go first and skips its last hand-over,
+  // so both barriers see as many arrivals as waits
+  auto take_turn = [&]() {
+    named_sync(1 + c, 256);
+  };
+  auto pass_turn = [&](bool last) {
+    if (!(c == 1 && last)) named_arrive(2 - c, 256);
+  };
+  // after item k's last Q.K^T: its Q buffer may take item k + 2's
+  auto release_q = [&](int k) {
+    if (leader) mbar_arrive(&q_empty[k & 1]);
+  };
+  // wait for item k's Q and point the Q descriptor at its buffer
+  auto take_q = [&](int k) {
+    dq = dq0 + (((k & 1) * Q_TILE) >> 4);
+    mbar_wait(&q_full[k & 1], (k >> 1) & 1);
+  };
+  // out = O * (1 / l) of item w, from the partial row sums `ls` (rows g
+  // and g + 8 of this warp's 16; rows past Lq are not written)
+  auto store = [&](int w, const float (&ls)[2]) {
+    const int bn = w / n_qt, b = bn / N, n = bn % N;
+    const int r0 = (w % n_qt) * BM + c * 64 + warp * 16 + g;
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = ls[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      inv[h] = 1.f / fmaxf(x, 1e-30f);
+    }
+    const long long ld_tok = (long long)N * D;
+    bf16* ob = out + ((long long)b * Lq + r0) * ld_tok + n * D + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (r0 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + 8 * e) =
+            pack_bf16(o[4 * e] * inv[0], o[4 * e + 1] * inv[0]);
+      if (r0 + 8 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + 8 * ld_tok + 8 * e) =
+            pack_bf16(o[4 * e + 2] * inv[1], o[4 * e + 3] * inv[1]);
     }
   };
 
-  int t = next_live<BK>(0, n_cache, n_total, kv_start, kv_end, sink_end);
-  if (t < n_total) fetch(t, 0);
-  cp_async_commit();
-  int buf = 0;
-  while (t < n_total) {
-    const int tn =
-        next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
-    if (tn < n_total) fetch(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and tile t have landed
-    __syncthreads();
-
-    const bf16* k_s = sKV + buf * TILE;
-    const bf16* v_s = sKV + (2 + buf) * TILE;
-
-    // s = q . k^T for this warp's 16 * MT rows x 64 keys; each K fragment
-    // serves all MT m-tiles
-    float s[MT][BK / 8][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-        s[mt][i][0] = s[mt][i][1] = s[mt][i][2] = s[mt][i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row = mt * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-        ldmatrix_x4(a[mt], qw + row * LDH + kk * 16 + (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kb[4];
-        const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
-        ldmatrix_x4(kb, k_s + key * LDH + kk * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(s[mt][2 * np], a[mt], kb[0], kb[1]);
-          mma16816(s[mt][2 * np + 1], a[mt], kb[2], kb[3]);
-        }
-      }
+  for (int e = 0; e < 64; ++e) o[e] = 0.f;
+  if (first >= n_total) {   // no visible key: every output row is 0
+    const float zero[2] = {0.f, 0.f};
+    for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+      take_q(k);
+      release_q(k);
+      store(w, zero);
     }
+    return;
+  }
+  if (blockIdx.x >= n_work) return;
 
-    // the scores in base-2 units, -inf on columns that are not visible
-    const bool is_cache = t < n_cache;
-    const int j0 = is_cache ? t * BK : (t - n_cache) * BK;
-    const int valid = is_cache ? min(BK, cache_lim - j0) : min(BK, Lf - j0);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * tg + e;
-        const int j = j0 + col;
-        const bool vis = col < valid && (!is_cache || j < sink_end ||
-                                         (j >= kv_start && j < kv_end));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          s[mt][nt][e] = vis ? s[mt][nt][e] * mul : -INFINITY;
-          s[mt][nt][e + 2] = vis ? s[mt][nt][e + 2] * mul : -INFINITY;
-        }
-      }
-    // ONLINE: the new row max, and the rescale of l and acc to it
-    float sub[MT][2];  // what p's exponent subtracts, per row
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        sub[mt][hr] = off;
-        if (MODE == ONLINE) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < BK / 8; ++nt)
-            mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hr], s[mt][nt][2 * hr + 1]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m[mt][hr], mx);
-          const float m_use = m_new == -INFINITY ? 0.f : m_new;
-          const float corr = fast_exp2(m[mt][hr] - m_use);
-          l[mt][hr] *= corr;
-#pragma unroll
-          for (int i = 0; i < D / 8; ++i) {
-            o[mt][i][2 * hr] *= corr;
-            o[mt][i][2 * hr + 1] *= corr;
-          }
-          m[mt][hr] = m_new;
-          sub[mt][hr] = m_use;
-        }
-      }
-
-    // per 16-key step: p from the base-2 scores, packed to bf16 A
-    // fragments, then acc += bf16(p) . v
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nt = 2 * kk + h;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          float p[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float x = s[mt][nt][e];
-            // exp2(-inf) = 0 on the columns that are not visible
-            p[e] = MODE == FREE ? fast_exp2(fminf(x, 80.f))
-                                : fast_exp2(x - sub[mt][e >> 1]);
-          }
-          l[mt][0] += p[0] + p[1];
-          l[mt][1] += p[2] + p[3];
-          // accumulator layout of n-tiles 2kk, 2kk+1 == A layout of step kk
-          pa[mt][h * 2 + 0] = pack_bf16(p[0], p[1]);
-          pa[mt][h * 2 + 1] = pack_bf16(p[2], p[3]);
-        }
-      }
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        const int key = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-        ldmatrix_x4_trans(vb, v_s + key * LDH + dp * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
-          mma16816(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
-        }
-      }
+  // One stream of key tiles over this CTA's items: (item w, its tile t).
+  // Each step issues the tile's Q.K^T and the previous tile's P.V
+  // together; the softmax runs while P.V does.  An item's first tile goes
+  // with the previous item's last P.V, whose output is written once that
+  // P.V is done, so no item starts or ends with the tensor cores idle.
+  // The stream's first tile and last P.V stand outside `step`: a wgmma
+  // under a branch makes ptxas serialise every wgmma of the kernel.
+  int w = blockIdx.x, k = 0, t = first;
+  int tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
+                         sink_end);
+  l[0] = l[1] = 0.f;
+  m[0] = m[1] = -INFINITY;
+  if (c == 1) named_arrive(1, 256);
+  take_q(k);
+  mbar_wait(&full_k[0], 0);
+  take_turn();
+  wgmma_fence();
+  qk(0);
+  wgmma_commit();
+  pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (leader) mbar_arrive(&empty_k[0]);
+  if (tn >= n_total) release_q(k);
+  softmax(t);
+  pack();
+  int i = 1;   // key tiles consumed so far: the ring position
+  // issue tile t's Q.K^T (stage i) and the previous tile's P.V, and take
+  // the softmax of t while P.V runs; returns with P.V done
+  auto step = [&](bool fresh_item) {
+    const int st = i % STAGES;
+    const int sp = (i - 1) % STAGES;
+    mbar_wait(&full_k[st], (i / STAGES) & 1);
+    mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
+    take_turn();
+    wgmma_fence();
+    qk(st);
+    wgmma_commit();
+    pv(sp);
+    wgmma_commit();
+    pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+    wgmma_wait<1>();
+    fence_regs(s);
+    if (leader) mbar_arrive(&empty_k[st]);
+    if (tn >= n_total) release_q(k);
+    const float l_prev[2] = {l[0], l[1]};
+    if (fresh_item) {   // the new item's softmax starts afresh
+      l[0] = l[1] = 0.f;
+      m[0] = m[1] = -INFINITY;
     }
-    __syncthreads();  // every warp is done with this buffer
-    buf ^= 1;
-    t = tn;
-  }
-  cp_async_wait<0>();
-
+    softmax(t);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (leader) mbar_arrive(&empty_v[sp]);
+    if (fresh_item) {   // the previous item is done: write it, restart O
+      store(w - (int)gridDim.x, l_prev);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float l0 = l[mt][0], l1 = l[mt][1];
-    // row sums over the 4 threads that share a row
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const int r0 = q0 + warp * 16 * MT + mt * 16 + g;
-    store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o[mt],
-                  r0, r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
+      for (int e = 0; e < 64; ++e) o[e] = 0.f;
+    } else if (MODE == ONLINE &&
+               !__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+      // rescale O to the new max unless no row of the warp raised it
+#pragma unroll
+      for (int e = 0; e < 64; ++e) o[e] *= corr[(e >> 1) & 1];
+    }
+    pack();
+    ++i;
+  };
+  while (true) {
+    for (t = tn; t < n_total; t = tn) {   // the item's later tiles
+      tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
+                         sink_end);
+      step(false);
+    }
+    if (w + (int)gridDim.x >= n_work) break;
+    w += gridDim.x;   // the next item's first tile
+    ++k;
+    t = first;
+    tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
+    take_q(k);
+    step(true);
   }
+  // P.V of the last tile, and the last item's output
+  const int sp = (i - 1) % STAGES;
+  mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
+  wgmma_fence();
+  pv(sp);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  store(w, l);
 }
 
-template <int MODE, bool WINDOW>
+// Encode the tensor maps and launch on `stream`; k_cache / v_cache may be
+// null (no cache: cache_lim = 0) and Lf may be 0 (no fresh keys).
+template <int MODE, bool WINDOW, bool HILO>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_new, const void* v_new, const void* m0, void* out,
            int B, int N, int Lq, int Lf, int S, int kv_start, int kv_end,
            int sink_end, int cache_lim, float scale, const int* bounds,
            cudaStream_t stream) {
+  auto kernel = decode_fresh_kernel<MODE, WINDOW, HILO>;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_fresh_kernel<MODE, WINDOW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (Lq <= 0 || B * N <= 0) return 0;
-  dim3 grid((Lq + BM - 1) / BM, B * N);
-  decode_fresh_kernel<MODE, WINDOW><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache,
-      (const bf16*)k_new, (const bf16*)v_new, (const float*)m0, (bf16*)out,
-      N, Lq, Lf, S, kv_start, kv_end, sink_end, cache_lim, scale, bounds);
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t row = D * sizeof(bf16);   // bytes of one head's row
+  {
+    const uint64_t dims[4] = {D, (uint64_t)N, (uint64_t)Lq, (uint64_t)B};
+    const uint64_t strides[3] = {row, row * N, row * N * Lq};
+    const uint32_t box[4] = {64, 1, BM, 1};
+    if (int e = bf16_map(&maps.q, q, 4, dims, strides, box)) return e;
+  }
+  if (k_cache != nullptr && S > 0) {
+    const uint64_t dims[3] = {D, (uint64_t)S, (uint64_t)B * N};
+    const uint64_t strides[2] = {row, row * S};
+    const uint32_t box[3] = {64, BK, 1};
+    if (int e = bf16_map(&maps.kc, k_cache, 3, dims, strides, box)) return e;
+    if (int e = bf16_map(&maps.vc, v_cache, 3, dims, strides, box)) return e;
+  }
+  if (Lf > 0) {
+    const uint64_t dims[4] = {D, (uint64_t)N, (uint64_t)Lf, (uint64_t)B};
+    const uint64_t strides[3] = {row, row * N, row * N * Lf};
+    const uint32_t box[4] = {64, 1, BK, 1};
+    if (int e = bf16_map(&maps.kn, k_new, 4, dims, strides, box)) return e;
+    if (int e = bf16_map(&maps.vn, v_new, 4, dims, strides, box)) return e;
+  }
+  static int sms = 0;   // the persistent grid: one CTA an SM
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = min((Lq + BM - 1) / BM * B * N, sms);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      maps, (const float*)m0, (bf16*)out, B, N, Lq, Lf, S, kv_start, kv_end,
+      sink_end, cache_lim, scale, bounds);
   return (int)cudaGetLastError();
 }
 
@@ -555,12 +762,12 @@ extern "C" int decode_fresh_launch(const void* q, const void* k_cache,
 #define SF_ARGS q, k_cache, v_cache, k_new, v_new, m0, out, B, N, Lq, Lf, S, \
     kv_start, kv_end, sink_end, cache_lim, scale, nullptr, st
   switch (mode) {
-    case FREE: return launch<FREE, false>(SF_ARGS);
-    case FREE_NOCLAMP: return launch<FREE_NOCLAMP, false>(SF_ARGS);
+    case FREE: return launch<FREE, false, false>(SF_ARGS);
+    case FREE_NOCLAMP: return launch<FREE_NOCLAMP, false, false>(SF_ARGS);
     case BOUNDED:
       if (m0 == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<BOUNDED, false>(SF_ARGS);
-    case ONLINE: return launch<ONLINE, false>(SF_ARGS);
+      return launch<BOUNDED, false, false>(SF_ARGS);
+    case ONLINE: return launch<ONLINE, false, false>(SF_ARGS);
   }
 #undef SF_ARGS
   return (int)cudaErrorInvalidValue;
@@ -580,9 +787,9 @@ extern "C" int decode_window_launch(const void* q, const void* k_cache,
   if (bounds == nullptr || S <= 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (!f32)
-    return launch<ONLINE, true>(q, k_cache, v_cache, nullptr, nullptr,
-                                nullptr, out, B, N, Lq, 0, S, 0, 0, 0, S,
-                                scale, (const int*)bounds, st);
+    return launch<ONLINE, true, false>(q, k_cache, v_cache, nullptr, nullptr,
+                                       nullptr, out, B, N, Lq, 0, S, 0, 0, 0,
+                                       S, scale, (const int*)bounds, st);
   cudaError_t err = cudaFuncSetAttribute(
       decode_window_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)WF_SMEM);
@@ -593,4 +800,19 @@ extern "C" int decode_window_launch(const void* q, const void* k_cache,
       (const float*)q, (const float*)k_cache, (const float*)v_cache,
       (float*)out, N, Lq, S, scale, (const int*)bounds);
   return (int)cudaGetLastError();
+}
+
+// The cross attention (the TPU kernel _cross_kernel): softmax(scale *
+// q k^T) v of q [B, Lq, N*D] onto k / v [B, Lk, N, D], 1 <= Lk <= 1024;
+// out like q.  The online mode with no cache tiles and k / v as the fresh
+// keys, P.V from the hi and lo bf16 parts of p.  Returns the CUDA error
+// code (0 on success).
+extern "C" int cross_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B, int N,
+                                      int Lq, int Lk, float scale,
+                                      void* stream) {
+  if (Lk < 1 || Lk > 1024) return (int)cudaErrorInvalidValue;
+  return launch<ONLINE, false, true>(q, nullptr, nullptr, k, v, nullptr, out,
+                                     B, N, Lq, Lk, 0, 0, 0, 0, 0, scale,
+                                     nullptr, (cudaStream_t)stream);
 }

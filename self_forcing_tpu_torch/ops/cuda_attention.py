@@ -16,8 +16,9 @@ that the streaming sampler and the training step run:
   csrc/decode_int8.cu's ``int8_quantize_v`` for V and ``int8_attend``)
   replaces ``_decode_fresh_int8_kernel`` in its 'tile', 'global' and
   online modes (``quant='int8'``, with a bound or without);
-- ``cross_attention`` (csrc/cross_attention.cu) replaces ``_cross_kernel``
-  (``cross_attention_pallas``);
+- ``cross_attention`` (csrc/decode_fresh.cu's ``cross_attention_launch``:
+  the decode kernel's online mode with no cache, P.V from the hi and lo
+  bf16 parts of p) replaces ``_cross_kernel`` (``cross_attention_pallas``);
 - ``decode_window`` (csrc/decode_fresh.cu's ``decode_window_launch``)
   replaces ``_decode_kernel`` (``decode_attention_pallas``): the cache
   window alone, bounds read on the device, in bf16 (the online decode
@@ -857,8 +858,8 @@ def cross_attention(q, k, v, *, num_heads: int,
             f"{HEAD_DIM} and 1..1024 keys)")
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    fn = build.function("cross_attention", "cross_attention_launch",
-              [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
+    fn = build.function("decode_fresh", "cross_attention_launch",
+                        [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, N, Lq, Lk, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)

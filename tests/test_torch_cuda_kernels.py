@@ -133,6 +133,158 @@ def test_cross_attention_matches_plain(dev, B, N, Lq, Lk):
     assert _rel_l2(out, ref) < 2e-3
 
 
+def _decode_operands(g, dev, B, N, Lq, Lf, S, layers=3, q_scale=0.12):
+    D = 128
+    return (_bf16(g, B, Lq, N * D, dev=dev, scale=q_scale),
+            _bf16(g, layers, B * N, S, D, dev=dev),
+            _bf16(g, layers, B * N, S, D, dev=dev),
+            _bf16(g, B, Lf, N * D, dev=dev), _bf16(g, B, Lf, N * D, dev=dev))
+
+
+@pytest.mark.parametrize("kv_end", [0, 28080])
+def test_decode_fresh_free_at_the_1p3b_geometry(dev, kv_end):
+    """One layer at the Wan-1.3B shapes of the sampler: 4680 queries, 12
+    heads, the fresh block's 4680 keys and the cache up to kv_end (0:
+    block 1; 28080: block 7) of a 32760-token buffer; q carries the folded
+    head_dim**-0.5 * log2(e).  Tolerance 1e-2 relative L2."""
+    g = torch.Generator(device=dev).manual_seed(40)
+    q, kc, vc, kn, vn = _decode_operands(g, dev, 1, 12, 4680, 4680, 32760,
+                                         layers=1,
+                                         q_scale=128 ** -0.5 * 1.4427)
+    args = dict(layer_idx=0, kv_start=0, kv_end=kv_end, sink_end=0,
+                static_hi=kv_end, num_heads=12)
+    out = ca.decode_fresh_free(q, kc, vc, kn, vn, **args)
+    ref = ca.decode_fresh_free_ref(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
+@pytest.mark.parametrize("mode", list(ca.DECODE_MODES))
+@pytest.mark.parametrize("Lq,Lf", [(4680, 200), (200, 1), (1, 200)])
+def test_decode_fresh_ragged_lengths(dev, mode, Lq, Lf):
+    """Lq and Lf multiples of neither 64 nor 128, two batches: the query
+    tile past Lq and the fresh tile past Lf read zeros (never the next
+    batch's rows) and rows past Lq are not written.  Tolerance 1e-2."""
+    B, N, S = 2, 2, 640
+    g = torch.Generator(device=dev).manual_seed(41)
+    free = mode.startswith("free")
+    q, kc, vc, kn, vn = _decode_operands(
+        g, dev, B, N, Lq, Lf, S, q_scale=128 ** -0.5 * 1.4427 if free
+        else 1.0)
+    m0 = (_score_bound(q, kc, kn, 1, 130, 520, 10, N, 3.0)
+          if mode == "bounded" else None)
+    args = dict(mode=mode, m0=m0, layer_idx=1, kv_start=130, kv_end=520,
+                sink_end=10, static_hi=None, num_heads=N,
+                scale=1.0 if free else 128 ** -0.5)
+    out = ca.decode_fresh(q, kc, vc, kn, vn, **args)
+    ref = ca.decode_fresh_ref(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
+# (sink_end, kv_start, kv_end, static_hi) with S = 1024: each bound
+# inside a 128-key tile (70 in tile 0, 200 in 1, 900 in 7, 840 in 6)
+STRADDLE_CASES = {"sink_start_end": (70, 200, 900, None),
+                  "static_hi": (70, 200, 900, 840)}
+
+
+@pytest.mark.parametrize("mode", list(ca.DECODE_MODES))
+@pytest.mark.parametrize("case", list(STRADDLE_CASES))
+def test_decode_fresh_tiles_straddling_each_bound(dev, mode, case):
+    """Every mode where a key tile straddles sink_end, kv_start, kv_end or
+    static_hi (the tiles that apply the mask; the others skip it).
+    Tolerance 1e-2 relative L2."""
+    sink, lo, hi, static_hi = STRADDLE_CASES[case]
+    B, N, Lq, Lf, S = 1, 2, 130, 90, 1024
+    g = torch.Generator(device=dev).manual_seed(42)
+    free = mode.startswith("free")
+    q, kc, vc, kn, vn = _decode_operands(
+        g, dev, B, N, Lq, Lf, S, q_scale=128 ** -0.5 * 1.4427 if free
+        else 1.0)
+    m0 = (_score_bound(q, kc, kn, 2, lo, hi, sink, N, 3.0)
+          if mode == "bounded" else None)
+    args = dict(mode=mode, m0=m0, layer_idx=2, kv_start=lo, kv_end=hi,
+                sink_end=sink, static_hi=static_hi, num_heads=N,
+                scale=1.0 if free else 128 ** -0.5)
+    out = ca.decode_fresh(q, kc, vc, kn, vn, **args)
+    ref = ca.decode_fresh_ref(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
+def _nan_tail(x, rows=128):
+    """x [B, L, C] as a view of a buffer whose next ``rows`` rows are NaN."""
+    B, L, C = x.shape
+    buf = torch.full((B * L + rows, C), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    buf[:B * L] = x.reshape(B * L, C)
+    return buf[:B * L].view(B, L, C)
+
+
+@pytest.mark.parametrize("mode", list(ca.DECODE_MODES))
+@pytest.mark.parametrize("sink", [20, 0])
+def test_decode_fresh_reads_nothing_outside_the_window(dev, mode, sink):
+    """The cache rows no query may see are poisoned.  Those in a key tile
+    the kernel loads (it must mask them) hold 3e4.  Every row it must
+    never read holds NaN: the other two layers, the chosen layer's rows in
+    tiles outside the window, and the rows past the fresh K/V's last
+    batch.  A tile read across a bound (past S = 700, 5.5 tiles, into the
+    next head's rows, which sink 0 leaves unread; the last head's into the
+    next layer; past Lf beyond the last batch) then puts NaN into P.V
+    (0 * NaN), which the isfinite check catches.  The output must equal
+    the plain version's on copies with the poisoned rows zero, within the
+    decode tolerance (1e-2 relative L2): the mask and the tensor maps'
+    bounds keep them out."""
+    B, N, Lq, Lf, S, li, lo = 2, 3, 150, 70, 700, 1, 300
+    g = torch.Generator(device=dev).manual_seed(43)
+    free = mode.startswith("free")
+    q, kc, vc, kn, vn = _decode_operands(
+        g, dev, B, N, Lq, Lf, S, q_scale=128 ** -0.5 * 1.4427 if free
+        else 1.0)
+    kn, vn = _nan_tail(kn), _nan_tail(vn)
+    j = torch.arange(S, device=dev)
+    j0 = j // 128 * 128   # the first key of j's tile
+    layer = (torch.arange(3, device=dev) == li).view(3, 1, 1, 1)
+    seen = layer & ((j < sink) | (j >= lo)).view(1, 1, S, 1)
+    loaded = layer & ((j0 < sink) | (j0 + 128 > lo)).view(1, 1, S, 1)
+    poisoned = [torch.where(seen, c, torch.where(
+        loaded, torch.full_like(c, 3e4), torch.full_like(c, float("nan"))))
+        for c in (kc, vc)]
+    zeroed = [torch.where(seen, c, torch.zeros_like(c)) for c in (kc, vc)]
+    m0 = (_score_bound(q, zeroed[0], kn, li, lo, S, sink, N, 3.0)
+          if mode == "bounded" else None)
+    args = dict(mode=mode, m0=m0, layer_idx=li, kv_start=lo, kv_end=S,
+                sink_end=sink, static_hi=None, num_heads=N,
+                scale=1.0 if free else 128 ** -0.5)
+    out = ca.decode_fresh(q, *poisoned, kn, vn, **args)
+    ref = ca.decode_fresh_ref(q, *zeroed, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
+@pytest.mark.parametrize("B,N,Lq,Lk", [(1, 12, 4680, 512)]
+                         + [(2, 2, 200, lk) for lk in (1, 77, 257, 512, 1024)])
+def test_cross_attention_key_lengths(dev, B, N, Lq, Lk):
+    """The cross attention at the 1.3B geometry (4680 queries, 12 heads,
+    512 text tokens) and at every key count class: one key, ragged tiles,
+    the CLIP tokens, two full 128-key tiles... up to the 1024 limit.
+    Tolerance 2e-3 relative L2."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    D = 128
+    q = _bf16(g, B, Lq, N * D, dev=dev)
+    k = _bf16(g, B, Lk, N, D, dev=dev)
+    v = _bf16(g, B, Lk, N, D, dev=dev)
+    out = ca.cross_attention(q, k, v, num_heads=N)
+    ref = ca.cross_attention_ref(q, k, v, num_heads=N)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 2e-3, _rel_l2(out, ref)
+
+
 # (B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles or tk_align)
 INT8QK_CASES = {
     # ragged Lq and Lf against 100-row q tiles and 96-row fresh tiles;
