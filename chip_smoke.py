@@ -10,8 +10,8 @@ Phases, each printing one line or more (any failure exits non-zero):
    sampler, the int8-QK decode attention (pre-pass and attention) at the
    global demo window and at the windowed steady state, the W8A8 linears
    (M = 4680 tokens, dim 1536, ffn 8960), the training path's flash
-   attention forward and its dq / dk-dv backward (L = 32760 tokens, 12
-   heads, no mask and the 7-block block-causal mask); the decode
+   attention forward and its one dq / dk / dv backward kernel (L = 32760
+   tokens, 12 heads, no mask and the 7-block block-causal mask); the decode
    kernel's 'bounded', online and 'free_noclamp' modes, the full-int8
    decode attention ('tile', 'global', online; V pre-pass and attention)
    at the global demo window, int8 online also at the windowed steady
@@ -933,13 +933,14 @@ def phase_flash_kernels(ca, masks, g) -> dict:
     B 1, L 32760, 12 heads of 128 in bf16 (q carrying the folded
     head_dim**-0.5 * log2(e)), with no mask (the DMD path's score models)
     and with the 7-block block-causal mask of 3-frame blocks.  Tolerance
-    1e-2 relative L2 for out (both round p to bf16), 2e-2 for dq, dk, dv
-    (both round p and ds to bf16 for the products; ds is a difference of
-    near-equal terms, so its rounding may differ by an ulp), 1e-3 absolute
-    for lse (fp32 sums).  Library yardsticks: SDPA forward on the same
-    inputs at scale ln 2 (base-2 scores), and SDPA's backward (one
-    autograd call computing dq, dk and dv) for both backward kernels;
-    none under the mask, which SDPA takes only as a dense [L, L] mask."""
+    1e-2 relative L2 for out (both round p to bf16), 2e-2 for each of dq,
+    dk, dv of the one backward kernel (both round p and ds to bf16 for the
+    products; ds is a difference of near-equal terms, so its rounding may
+    differ by an ulp), 1e-3 absolute for lse (fp32 sums).  Library
+    yardsticks: SDPA forward on the same inputs at scale ln 2 (base-2
+    scores), and SDPA's backward (one autograd call computing dq, dk and
+    dv, its backend named); under the mask SDPA takes it as a dense
+    boolean [L, L] mask."""
     dev, bf = "cuda", torch.bfloat16
     D, N, L = HEAD_DIM, N_HEADS, SEQ_TRAIN
     q = (torch.randn(1, L, N, D, generator=g, device=dev)
@@ -961,46 +962,47 @@ def phase_flash_kernels(ca, masks, g) -> dict:
             fail(f"flash_fwd: lse max abs error {lse_err:.3e} > 1e-3")
         delta = ca.flash_delta(ref, do)
         args = (q, k, v, do, ref_lse, delta, mask)
-        dq_err, dq_mae = check_kernel("flash_bwd_dq", ca.flash_bwd_dq(*args),
-                                      ca.flash_bwd_dq_ref(*args), tol=2e-2)
-        dk, dv = ca.flash_bwd_dkv(*args)
-        dk_r, dv_r = ca.flash_bwd_dkv_ref(*args)
-        dk_err, dk_mae = check_kernel("flash_bwd_dkv dk", dk, dk_r, tol=2e-2)
-        dv_err, dv_mae = check_kernel("flash_bwd_dkv dv", dv, dv_r, tol=2e-2)
-        del out, ref, dk, dv, dk_r, dv_r
+        grads = ca.flash_bwd(*args)
+        plain_grads = (ca.flash_bwd_dq_ref(*args),
+                       *ca.flash_bwd_dkv_ref(*args))
+        bwd_errs = [check_kernel(f"flash_bwd {name}", a, b, tol=2e-2)
+                    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                                          plain_grads)]
+        del out, ref, grads, plain_grads
 
         prod = 2.0 * L * L * D * N * frac    # one product over the pairs
         row_bytes = 2.0 * L * N * D          # one [1, L, 12, 128] bf16
         fwd_ms = time_ms(lambda: ca.flash_fwd(q, k, v, mask))
-        dq_ms = time_ms(lambda: ca.flash_bwd_dq(*args))
-        dkv_ms = time_ms(lambda: ca.flash_bwd_dkv(*args))
-        plain = [time_ms(lambda: fn(*a), reps=3) for fn, a in (
-            (ca.flash_fwd_ref, (q, k, v, mask)), (ca.flash_bwd_dq_ref, args),
-            (ca.flash_bwd_dkv_ref, args))]
-        lib_fwd, lib_bwd = sdpa_yardsticks(q, k, v, do, mask)
-        # bound: operations at the bf16 peak (2 products forward, 3 for
-        # dq: s, dp, ds.k, 4 for dk/dv: s, dp, p.do, ds.q) against each
-        # input read once and each output written once
+        bwd_ms = time_ms(lambda: ca.flash_bwd(*args))
+        plain = [time_ms(lambda: ca.flash_fwd_ref(q, k, v, mask), reps=3),
+                 time_ms(lambda: (ca.flash_bwd_dq_ref(*args),
+                                  ca.flash_bwd_dkv_ref(*args)), reps=3)]
+        lib_fwd, lib_bwd, backend = sdpa_yardsticks(q, k, v, do, mask)
+        # bound: operations at the bf16 peak (2 products forward; 5
+        # backward: s, dp, p^T.do, ds^T.q, ds.k) against each input read
+        # once and each output written once (backward: q, k, v, do, lse,
+        # delta in; dq, dk, dv out)
         rows = [("flash_fwd", fwd_ms, plain[0], lib_fwd, 2 * prod,
                  4 * row_bytes + 4.0 * L * N, err, mae),
-                ("flash_bwd_dq", dq_ms, plain[1], lib_bwd, 3 * prod,
-                 5 * row_bytes + 8.0 * L * N, dq_err, dq_mae),
-                ("flash_bwd_dkv", dkv_ms, plain[2], lib_bwd, 4 * prod,
-                 6 * row_bytes + 8.0 * L * N, max(dk_err, dv_err),
-                 max(dk_mae, dv_mae))]
+                ("flash_bwd", bwd_ms, plain[1], lib_bwd, 5 * prod,
+                 7 * row_bytes + 8.0 * L * N,
+                 max(e for e, _ in bwd_errs), max(m for _, m in bwd_errs))]
         for name, ms, pms, lms, ops, nbytes, e, m in rows:
             b_ms, b_by = bound(ops, nbytes)
             lib = "none" if lms is None else f"{lms:.4f}"
             print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}): "
                   f"rel_l2={e:.3e} max_abs={m:.3e} ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} sdpa_ms={lib} bound_ms={b_ms:.4f} "
-                  f"({b_by}) tflops={ops / ms / 1e9:.1f}", flush=True)
+                  f"plain_ms={pms:.4f} sdpa_ms={lib} ({backend}) "
+                  f"bound_ms={b_ms:.4f} ({b_by}) "
+                  f"tflops={ops / ms / 1e9:.1f}", flush=True)
             if mask is None:   # the DMD path's shape is the table's row
                 table[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=b_ms, bound_by=b_by,
                                    max_abs_err=m)
-        print(f"flash {label}: lse max_abs={lse_err:.3e} dk rel_l2="
-              f"{dk_err:.3e} dv rel_l2={dv_err:.3e}", flush=True)
+        (dq_err, _), (dk_err, _), (dv_err, _) = bwd_errs
+        print(f"flash {label}: lse max_abs={lse_err:.3e} flash_bwd rel_l2 "
+              f"dq={dq_err:.3e} dk={dk_err:.3e} dv={dv_err:.3e}",
+              flush=True)
         table.update(flash_mode_rows(ca, q, k, v, mask, label, frac))
     return table
 
@@ -1010,7 +1012,9 @@ def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
     call for dq, dk, dv) at ``scale`` on [1, L, N, D] operands: with no
     mask, or with the IntervalMask as a dense boolean [L, L] mask through
     the memory-efficient backend (the math backend's [N, L, L] float32
-    scores would not fit); None where PyTorch refuses the call."""
+    scores would not fit); None where PyTorch refuses the call.  Also the
+    name of the backend SDPA picks for the backward's inputs (its
+    backward is that backend's)."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     dense = None
     if mask is not None:
@@ -1031,9 +1035,10 @@ def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
                                                   scale=scale)
 
     lib_fwd = library_ms(lambda: sdpa(qh, kh, vh))
-    lib_bwd = None
+    lib_bwd, backend = None, "none"
     if lib_fwd is not None and do is not None:
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+        backend = sdpa_backend(qg, kg, vg, dense, scale)
         o = sdpa(qg, kg, vg)
         dh = do.transpose(1, 2)
         lib_bwd = library_ms(lambda: torch.autograd.grad(
@@ -1041,7 +1046,22 @@ def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
         del o, qg, kg, vg
     del dense
     torch.cuda.empty_cache()
-    return lib_fwd, lib_bwd
+    return lib_fwd, lib_bwd, backend
+
+
+def sdpa_backend(q, k, v, dense, scale) -> str:
+    """The SDPA backend for these [B, N, L, D] inputs: the memory-efficient
+    one under a dense mask (forced there), else what
+    ``torch._fused_sdp_choice`` picks; 'unknown' where this PyTorch build
+    does not say."""
+    from torch.nn.attention import SDPBackend
+    if dense is not None:
+        return SDPBackend.EFFICIENT_ATTENTION.name
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v,
+                                                  scale=scale)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        return "unknown"
 
 
 def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
@@ -1055,7 +1075,7 @@ def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
     qu = (q.float() / (D ** -0.5 * LOG2E)).to(q.dtype)
     m0 = (D ** -0.5 * qu.float().norm(dim=-1).amax()
           * k.float().norm(dim=-1).amax()).reshape(1)
-    lib, _ = sdpa_yardsticks(qu, k, v, None, mask, scale=D ** -0.5)
+    lib, _, _ = sdpa_yardsticks(qu, k, v, None, mask, scale=D ** -0.5)
     prod = 2.0 * L * L * D * N * frac
     b_ms, b_by = bound(2 * prod, 4 * 2.0 * L * N * D + 4.0 * L * N)
     rows = {}
@@ -1945,13 +1965,13 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     return launches
 
 
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "decode_fresh_free", "cross_attention")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "decode_fresh_free",
+                 "cross_attention")
 # flash launches a train step: the generator update's 3 score forwards
 # (real with CFG, fake) of 30 layers; the critic's fake-score forward,
 # its per-layer recomputation and the backward
-GEN_FLASH = {"flash_fwd": 3, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-CRITIC_FLASH = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+GEN_FLASH = {"flash_fwd": 3, "flash_bwd": 0}
+CRITIC_FLASH = {"flash_fwd": 2, "flash_bwd": 1}
 
 
 def _randomize_heads(models, seed):
@@ -2104,7 +2124,7 @@ def phase_training_grad(ca, dit, seed: int, softmax: str = "free") -> dict:
              f"L2 {err:.3e} > 1e-2")
     fwd = "flash_fwd" if softmax == "free" else f"flash_fwd_{softmax}"
     check_launches(f"critic-loss gradient ({softmax})", launches,
-                   (fwd, "flash_bwd_dq", "flash_bwd_dkv"))
+                   (fwd, "flash_bwd"))
     return launches
 
 
@@ -2314,7 +2334,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = True
     train_launches = phase_training(ca, a.seed)
     launches.update({k: train_launches[k] for k in
-                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+                     ("flash_fwd", "flash_bwd")})
     torch.cuda.empty_cache()
     launches["flash_fwd_bounded"] = phase_training(
         ca, a.seed, "bounded", steps=(1,))["flash_fwd_bounded"]
@@ -2377,9 +2397,8 @@ def main() -> None:
                                      attn + ":73"),
                "conv3d_f32": (csrc + "conv3d.cu", pconv + ":120"),
                "flash_fwd": (csrc + "flash_attention.cu", attn + ":1367"),
-               "flash_bwd_dq": (csrc + "flash_attention.cu", attn + ":1610"),
-               "flash_bwd_dkv": (csrc + "flash_attention.cu",
-                                 attn + ":1668"),
+               "flash_bwd": (csrc + "flash_bwd.cu",
+                             f"{attn}:1610, {attn}:1668"),
                "conv3d_fused": (csrc + "conv3d.cu", pconv + ":120"),
                "conv2d_9tap": (csrc + "conv3d.cu", pconv + ":30"),
                "conv3d_v2": (csrc + "conv3d.cu", pconv + ":261"),

@@ -1,18 +1,16 @@
 // Masked flash attention for training: the forward (flash_fwd) in the
 // offset-free base-2 softmax ('free'), the bounded-offset softmax
-// ('bounded', fixed_m0) and the online softmax, and its two backward
-// kernels (flash_bwd_dq, flash_bwd_dkv), which serve every mode.
+// ('bounded', fixed_m0) and the online softmax.  Its backward, which
+// serves every mode, is csrc/flash_bwd.cu.
 //
-// Replaces the TPU kernels of self_forcing_tpu/ops/pallas_attention.py:
+// Replaces the TPU kernel of self_forcing_tpu/ops/pallas_attention.py:
 //   flash_fwd      <- _flash_kernel (free, bounded and online modes), via
 //                     flash_attention_pallas -> _flash_fwd -> pallas_call
-//   flash_bwd_dq   <- _flash_bwd_dq_kernel, via _flash_bwd -> pallas_call
-//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel, via _flash_bwd -> pallas_call
 //
-// Function.  q, k, v, out, dout, dq, dk, dv are [B, L, N, D] bf16 (token
-// row stride N*D), D = 128.  Query row i sees key j iff j < Lk and
+// Function.  q, k, v, out are [B, L, N, D] bf16 (token row stride N*D),
+// D = 128.  Query row i sees key j iff j < Lk and
 //   s1[i] <= j < e1[i]  or  s2[i] <= j < e2[i]
-// (an IntervalMask; no mask is [0, Lk) for every row).  Forward:
+// (an IntervalMask; no mask is [0, Lk) for every row).
 //   s = q_i . k_j (fp32), on visible keys
 //   free:    p = 2^min(s, 80), the caller's head_dim**-0.5 * log2(e)
 //            folded into q (no running max),  lse_i = ln(l)
@@ -25,35 +23,22 @@
 //   fp32 (0 where the row saw nothing).  bounded and online run base 2
 //   (scores times scale * log2(e)); online rounds p to bf16 for P.V as
 //   the others do (the Pallas kernel in interpret mode keeps it f32).
-// Backward at `scale` (ln 2 in free mode, the forward's scale otherwise;
-// exact against the base-e lse):
-//   p = exp(scale * s - lse_i),  dp = do_i . v_j,  delta_i = rowsum(do*out)
-//   ds = p * (dp - delta_i)
-//   dq_i = scale * sum_j bf16(ds) k_j,  dk_j = scale * sum_i bf16(ds) q_i,
-//   dv_j = sum_i bf16(p) do_i.
+// The backward reads lse (base e) and recomputes p = exp(scale' * s -
+// lse) at scale' = ln 2 in free mode, the forward's scale otherwise.
 //
-// Tiles.  The wrapper gives each kernel a table of tile states computed
+// Tiles.  The wrapper gives the kernel a table of tile states computed
 // from the intervals (0 dead, 1 partial, 2 fully visible), as the Pallas
 // wrapper's _tile_states does: dead tiles are never loaded, fully visible
 // ones skip the per-element mask.  Per-row arrays (the four interval
-// arrays, lse, delta) are padded to Lq_pad, a multiple of 128.
+// arrays, lse) are padded to Lq_pad, a multiple of 128.
 //
 // What bounds it on the H100: at the training shape (B 1, L 32760, 12
 // heads) the forward does 4 L^2 D N = 6.6 TFLOP against ~0.3 GB of q, k, v
-// and out, the backward 5 to 7 products of that size: bound by
-// tensor-core operations.  Design (FlashAttention-2 on mma.sync, each CTA
-// loops over its own tiles and carries nothing to another CTA):
-// - flash_fwd: one CTA of 4 warps per (b*n, 128-query tile), 32 query
-//   rows a warp as two m-tiles, 64-key K/V tiles double-buffered with
-//   cp.async; the scores stay in registers as P.V's A operand (the
-//   decode kernel's design, csrc/decode_fresh.cu).
-// - flash_bwd_dq: one CTA of 8 warps per (b*n, 128-query tile), q and dO
-//   resident, K/V tiles streamed; s and dp in registers, ds packed to bf16
-//   as the A operand of ds.K.
-// - flash_bwd_dkv: one CTA of 4 warps per (b*n, 64-key tile), K and V
-//   resident, 32-query tiles of q, dO and their row scalars streamed; the
-//   products run transposed (keys as rows), so p^T and ds^T are the A
-//   operands of p^T.dO and ds^T.Q.
+// and out: bound by tensor-core operations.  Design (FlashAttention-2 on
+// mma.sync, each CTA loops over its own tiles and carries nothing to
+// another CTA): one CTA of 4 warps per (b*n, 128-query tile), 32 query
+// rows a warp as two m-tiles, 64-key K/V tiles double-buffered with
+// cp.async; the scores stay in registers as P.V's A operand.
 // Not yet: wgmma, TMA, warp specialisation.
 
 #include "attention_common.cuh"
@@ -90,59 +75,6 @@ __device__ __forceinline__ void load_states(unsigned char* dst,
                                             const unsigned char* src,
                                             int n) {
   for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = src[i];
-}
-
-// o [16 x 8*NT] += A (16 x D at a_s, row stride LDH) * B^T, B a shared
-// [8*NT rows][LDH] tile.
-template <int NT>
-__device__ __forceinline__ void mm_abt(float (*o)[4], const bf16* a_s,
-                                       const bf16* b_s, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    const int row = (lane % 8) + ((lane / 8) % 2) * 8;
-    ldmatrix_x4(a, a_s + row * LDH + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
-      ldmatrix_x4(b, b_s + key * LDH + kk * 16 + ((lane / 8) % 2) * 8);
-      mma16816(o[2 * np], a, b[0], b[1]);
-      mma16816(o[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// o [16 x D] += A (16 x 16, fragments a) * B, B the shared rows
-// [k0, k0 + 16) of a [rows][LDH] tile read transposed.
-__device__ __forceinline__ void mm_ab(float (*o)[4], const uint32_t* a,
-                                      const bf16* b_s, int k0, int lane) {
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    uint32_t b[4];
-    const int key = k0 + (lane % 8) + ((lane / 8) % 2) * 8;
-    ldmatrix_x4_trans(b, b_s + key * LDH + dp * 16 + (lane / 16) * 8);
-    mma16816(o[2 * dp], a, b[0], b[1]);
-    mma16816(o[2 * dp + 1], a, b[2], b[3]);
-  }
-}
-
-// Store accumulators (rows g and g+8 of a warp's 16, D columns) times
-// `mul` as bf16 to rows r0 / r1 (< rows) of `out`.
-__device__ __forceinline__ void store_scaled(bf16* out, long long stride,
-                                             const float (*o)[4], int r0,
-                                             int r1, int rows, float mul,
-                                             int tg) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(out + r0 * stride + col) =
-          pack_bf16(o[dt][0] * mul, o[dt][1] * mul);
-    if (r1 < rows)
-      *reinterpret_cast<uint32_t*>(out + r1 * stride + col) =
-          pack_bf16(o[dt][2] * mul, o[dt][3] * mul);
-  }
 }
 
 // =====================================================================
@@ -381,319 +313,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// =====================================================================
-// backward: dq
-// =====================================================================
-
-namespace bdq {
-constexpr int WARPS = 8;
-constexpr int BM = 16 * WARPS;  // 128 query rows per CTA, 16 a warp
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE = BK * LDH;
-constexpr size_t SMEM = size_t(2 * BM * LDH + 4 * TILE) * sizeof(bf16) +
-                        4 * BM * sizeof(int) + MAX_TILES;
-}  // namespace bdq
-
-// ds for one 64-key tile, then acc += bf16(ds) . K
-template <bool MASKED>
-__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
-                                        const float (&s)[BK / 8][4],
-                                        const float (&dp)[BK / 8][4],
-                                        const bf16* k_s, const int* sIv,
-                                        const float (&lse2)[2],
-                                        const float (&dl)[2], float cs,
-                                        int row_base, int j0, int Lk,
-                                        int lane) {
-  using namespace bdq;
-  const int g = lane / 4, tg = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t da[4];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int nt = 2 * kk + hh;
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float p = fast_exp2(fmaf(s[nt][e], cs, -lse2[h]));
-        if (MASKED) {
-          const int r = row_base + g + 8 * h;
-          const int j = j0 + nt * 8 + 2 * tg + (e & 1);
-          if (!(j < Lk && visible(j, sIv[r], sIv[BM + r], sIv[2 * BM + r],
-                                  sIv[3 * BM + r])))
-            p = 0.f;
-        }
-        ds[e] = p * (dp[nt][e] - dl[h]);
-      }
-      da[hh * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[hh * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    mm_ab(acc, da, k_s, kk * 16, lane);
-  }
-}
-
-__global__ void __launch_bounds__(bdq::THREADS, 1)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    const int* __restrict__ iv,
-                    const unsigned char* __restrict__ states, int N, int Lq,
-                    int Lk, int Lq_pad, float scale) {
-  using namespace bdq;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + BM * LDH;
-  bf16* sKV = sDO + BM * LDH;  // [K0 | K1 | V0 | V1]
-  int* sIv = reinterpret_cast<int*>(sKV + 4 * TILE);
-  unsigned char* sSt = reinterpret_cast<unsigned char*>(sIv + 4 * BM);
-
-  const int bn = blockIdx.y, b = bn / N, n = bn % N;
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const long long ld = (long long)N * D;
-  const bf16* kb = k + (long long)b * Lk * ld + n * D;
-  const bf16* vb = v + (long long)b * Lk * ld + n * D;
-  const int nkt = (Lk + BK - 1) / BK;
-  const long long qoff = ((long long)b * Lq + q0) * ld + n * D;
-
-  load_rows<BM, D, LDH, THREADS>(sQ, q + qoff, ld, min(BM, Lq - q0));
-  load_rows<BM, D, LDH, THREADS>(sDO, dout + qoff, ld, min(BM, Lq - q0));
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 4 * BM; i += THREADS)
-    sIv[i] = iv[(i / BM) * Lq_pad + q0 + i % BM];
-  load_states<THREADS>(sSt, states + (long long)blockIdx.x * nkt, nkt);
-  __syncthreads();
-
-  const int row_base = warp * 16;
-  const float* lrow = lse + (long long)bn * Lq_pad + q0 + row_base + g;
-  const float* drow = delta + (long long)bn * Lq_pad + q0 + row_base + g;
-  const float lse2[2] = {lrow[0] * LOG2E, lrow[8] * LOG2E};
-  const float dl[2] = {drow[0], drow[8]};
-  const float cs = scale * LOG2E;
-  const bf16* qw = sQ + row_base * LDH;
-  const bf16* dow = sDO + row_base * LDH;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  auto fetch = [&](int t, int buf) {
-    const int j0 = t * BK;
-    const int valid = min(BK, Lk - j0);
-    load_rows<BK, D, LDH, THREADS>(sKV + buf * TILE, kb + j0 * ld, ld,
-                                   valid);
-    load_rows<BK, D, LDH, THREADS>(sKV + (2 + buf) * TILE, vb + j0 * ld,
-                                   ld, valid);
-  };
-
-  int t = next_live(sSt, 0, nkt);
-  if (t < nkt) fetch(t, 0);
-  cp_async_commit();
-  int buf = 0;
-  while (t < nkt) {
-    const int tn = next_live(sSt, t + 1, nkt);
-    if (tn < nkt) fetch(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* k_s = sKV + buf * TILE;
-    const bf16* v_s = sKV + (2 + buf) * TILE;
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    mm_abt<BK / 8>(s, qw, k_s, lane);
-    mm_abt<BK / 8>(dp, dow, v_s, lane);
-    if (sSt[t] == 2)
-      dq_tile<false>(acc, s, dp, k_s, sIv, lse2, dl, cs, row_base, t * BK,
-                     Lk, lane);
-    else
-      dq_tile<true>(acc, s, dp, k_s, sIv, lse2, dl, cs, row_base, t * BK,
-                    Lk, lane);
-    __syncthreads();
-    buf ^= 1;
-    t = tn;
-  }
-  cp_async_wait<0>();
-
-  const int r0 = q0 + row_base + g;
-  store_scaled(dq + (long long)b * Lq * ld + n * D, ld, acc, r0, r0 + 8, Lq,
-               scale, tg);
-}
-
-// =====================================================================
-// backward: dk, dv
-// =====================================================================
-
-namespace bdkv {
-constexpr int WARPS = 4;
-constexpr int BN_K = 16 * WARPS;  // 64 keys per CTA, 16 a warp
-constexpr int BQ = 32;            // queries per streamed tile
-constexpr int THREADS = WARPS * 32;
-constexpr int QTILE = BQ * LDH;
-constexpr int NROW = 6;           // s1, e1, s2, e2, lse, delta
-constexpr size_t SMEM = size_t(2 * BN_K * LDH + 4 * QTILE) * sizeof(bf16) +
-                        2 * NROW * BQ * 4 + MAX_TILES;
-}  // namespace bdkv
-
-// one 32-query tile: p^T, ds^T, then dv += bf16(p^T) . dO and
-// dk += bf16(ds^T) . Q
-template <bool MASKED>
-__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4],
-                                         float (&dv)[D / 8][4],
-                                         const float (&s)[bdkv::BQ / 8][4],
-                                         const float (&dp)[bdkv::BQ / 8][4],
-                                         const bf16* q_s, const bf16* do_s,
-                                         const int* sRow, float cs,
-                                         int key0, int q0, int Lq, int Lk,
-                                         int lane) {
-  using namespace bdkv;
-  const int g = lane / 4, tg = lane % 4;
-  const float* lse_s = reinterpret_cast<const float*>(sRow + 4 * BQ);
-  const float* dl_s = reinterpret_cast<const float*>(sRow + 5 * BQ);
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    uint32_t pa[4], da[4];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int nt = 2 * kk + hh;
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * tg + (e & 1);  // query within the tile
-        float x = fast_exp2(fmaf(s[nt][e], cs, -lse_s[c] * LOG2E));
-        if (MASKED) {
-          const int j = key0 + g + 8 * (e >> 1);
-          if (!(q0 + c < Lq && j < Lk &&
-                visible(j, sRow[c], sRow[BQ + c], sRow[2 * BQ + c],
-                        sRow[3 * BQ + c])))
-            x = 0.f;
-        }
-        p[e] = x;
-        ds[e] = x * (dp[nt][e] - dl_s[c]);
-      }
-      pa[hh * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[hh * 2 + 1] = pack_bf16(p[2], p[3]);
-      da[hh * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[hh * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    mm_ab(dv, pa, do_s, kk * 16, lane);
-    mm_ab(dk, da, q_s, kk * 16, lane);
-  }
-}
-
-__global__ void __launch_bounds__(bdkv::THREADS, 2)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, const int* __restrict__ iv,
-                     const unsigned char* __restrict__ states, int N,
-                     int Lq, int Lk, int Lq_pad, float scale) {
-  using namespace bdkv;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BN_K * LDH;
-  bf16* sQ = sV + BN_K * LDH;     // [Q0 | Q1]
-  bf16* sDO = sQ + 2 * QTILE;     // [dO0 | dO1]
-  int* sRow = reinterpret_cast<int*>(sDO + 2 * QTILE);  // [2][NROW][BQ]
-  unsigned char* sSt = reinterpret_cast<unsigned char*>(sRow + 2 * NROW * BQ);
-
-  const int bn = blockIdx.y, b = bn / N, n = bn % N;
-  const int k0 = blockIdx.x * BN_K;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const long long ld = (long long)N * D;
-  const int nqt = (Lq + BQ - 1) / BQ;
-  const long long koff = ((long long)b * Lk + k0) * ld + n * D;
-
-  load_rows<BN_K, D, LDH, THREADS>(sK, k + koff, ld, min(BN_K, Lk - k0));
-  load_rows<BN_K, D, LDH, THREADS>(sV, v + koff, ld, min(BN_K, Lk - k0));
-  cp_async_commit();
-  load_states<THREADS>(sSt, states + (long long)blockIdx.x * nqt, nqt);
-  __syncthreads();
-
-  const float cs = scale * LOG2E;
-  const bf16* kw = sK + warp * 16 * LDH;
-  const bf16* vw = sV + warp * 16 * LDH;
-  const bf16* qb = q + (long long)b * Lq * ld + n * D;
-  const bf16* dob = dout + (long long)b * Lq * ld + n * D;
-
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dkacc[i][0] = dkacc[i][1] = dkacc[i][2] = dkacc[i][3] = 0.f;
-    dvacc[i][0] = dvacc[i][1] = dvacc[i][2] = dvacc[i][3] = 0.f;
-  }
-
-  auto fetch = [&](int t, int buf) {
-    const int q0 = t * BQ;
-    const int valid = min(BQ, Lq - q0);
-    load_rows<BQ, D, LDH, THREADS>(sQ + buf * QTILE, qb + q0 * ld, ld,
-                                   valid);
-    load_rows<BQ, D, LDH, THREADS>(sDO + buf * QTILE, dob + q0 * ld, ld,
-                                   valid);
-    // the tile's row scalars: 6 arrays of 32 values, 8 x 16 bytes each
-    if (threadIdx.x < NROW * BQ / 4) {
-      const int a = threadIdx.x / (BQ / 4), c = (threadIdx.x % (BQ / 4)) * 4;
-      const void* src =
-          a < 4 ? static_cast<const void*>(iv + a * Lq_pad + q0 + c)
-          : a == 4 ? static_cast<const void*>(lse + (long long)bn * Lq_pad +
-                                              q0 + c)
-                   : static_cast<const void*>(delta + (long long)bn * Lq_pad +
-                                              q0 + c);
-      cp_async16(sRow + (buf * NROW + a) * BQ + c, src, 16);
-    }
-  };
-
-  int t = next_live(sSt, 0, nqt);
-  if (t < nqt) fetch(t, 0);
-  cp_async_commit();
-  int buf = 0;
-  while (t < nqt) {
-    const int tn = next_live(sSt, t + 1, nqt);
-    if (tn < nqt) fetch(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* q_s = sQ + buf * QTILE;
-    const bf16* do_s = sDO + buf * QTILE;
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int i = 0; i < BQ / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    mm_abt<BQ / 8>(s, kw, q_s, lane);    // s^T: keys x queries
-    mm_abt<BQ / 8>(dp, vw, do_s, lane);  // dp^T
-    const int* rows = sRow + buf * NROW * BQ;
-    if (sSt[t] == 2)
-      dkv_tile<false>(dkacc, dvacc, s, dp, q_s, do_s, rows, cs,
-                      k0 + warp * 16, t * BQ, Lq, Lk, lane);
-    else
-      dkv_tile<true>(dkacc, dvacc, s, dp, q_s, do_s, rows, cs,
-                     k0 + warp * 16, t * BQ, Lq, Lk, lane);
-    __syncthreads();
-    buf ^= 1;
-    t = tn;
-  }
-  cp_async_wait<0>();
-
-  const int r0 = k0 + warp * 16 + g;
-  const long long obase = (long long)b * Lk * ld + n * D;
-  store_scaled(dk + obase, ld, dkacc, r0, r0 + 8, Lk, scale, tg);
-  store_scaled(dv + obase, ld, dvacc, r0, r0 + 8, Lk, 1.f, tg);
-}
-
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -702,19 +321,15 @@ int set_smem(K kernel, size_t bytes) {
 
 bool shapes_ok(int B, int N, int Lq, int Lk, int Lq_pad) {
   return B > 0 && N > 0 && Lq > 0 && Lk > 0 && Lq_pad % ROWS_PAD == 0 &&
-         Lq_pad >= Lq && (Lk + BK - 1) / BK <= MAX_TILES &&
-         (Lq + bdkv::BQ - 1) / bdkv::BQ <= MAX_TILES;
+         Lq_pad >= Lq && (Lk + BK - 1) / BK <= MAX_TILES;
 }
 
 }  // namespace
 
-// All launchers run on `stream` and return the CUDA error code (0 on
-// success; cudaErrorInvalidValue for shapes the kernels do not take).
-// iv: [4, Lq_pad] int32 (s1, e1, s2, e2); lse, delta: [B*N, Lq_pad] fp32;
-// states: the tile-state tables (uint8), [Lq_pad / 128, ceil(Lk / 64)] for
-// flash_fwd and flash_bwd_dq, [ceil(Lk / 64), ceil(Lq / 32)] for
-// flash_bwd_dkv.
-
+// The launcher runs on `stream` and returns the CUDA error code (0 on
+// success; cudaErrorInvalidValue for shapes the kernel does not take).
+// iv: [4, Lq_pad] int32 (s1, e1, s2, e2); lse: [B*N, Lq_pad] fp32;
+// states: the tile-state table (uint8), [Lq_pad / 128, ceil(Lk / 64)].
 // mode: 0 free, 1 bounded (m0 points at one float), 2 online; scale is
 // the scores' (unused in free mode).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
@@ -735,44 +350,5 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)m0,
       (bf16*)out, (float*)lse, (const int*)iv, (const unsigned char*)states,
       N, Lq, Lk, Lq_pad, scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dq, const void* iv,
-                                   const void* states, int B, int N, int Lq,
-                                   int Lk, int Lq_pad, float scale,
-                                   void* stream) {
-  if (!shapes_ok(B, N, Lq, Lk, Lq_pad)) return (int)cudaErrorInvalidValue;
-  int err = set_smem(flash_bwd_dq_kernel, bdq::SMEM);
-  if (err) return err;
-  dim3 grid((Lq + bdq::BM - 1) / bdq::BM, B * N);
-  flash_bwd_dq_kernel<<<grid, bdq::THREADS, bdq::SMEM,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, (const int*)iv,
-      (const unsigned char*)states, N, Lq, Lk, Lq_pad, scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    const void* lse, const void* delta,
-                                    void* dk, void* dv, const void* iv,
-                                    const void* states, int B, int N, int Lq,
-                                    int Lk, int Lq_pad, float scale,
-                                    void* stream) {
-  if (!shapes_ok(B, N, Lq, Lk, Lq_pad)) return (int)cudaErrorInvalidValue;
-  int err = set_smem(flash_bwd_dkv_kernel, bdkv::SMEM);
-  if (err) return err;
-  dim3 grid((Lk + bdkv::BN_K - 1) / bdkv::BN_K, B * N);
-  flash_bwd_dkv_kernel<<<grid, bdkv::THREADS, bdkv::SMEM,
-                         (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-      (const int*)iv, (const unsigned char*)states, N, Lq, Lk, Lq_pad,
-      scale);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,8 @@
 // inner dimension is 64 bf16 (128 bytes) lands as rows of 128 bytes in
 // which 16-byte chunk c of row r sits at chunk c ^ (r % 8); every box
 // starts at a 1024-byte-aligned address.  A 128-wide head dim is two such
-// boxes (columns 0..63, then 64..127), each ROWS * 128 bytes.
+// boxes (columns 0..63, then 64..127), each ROWS * 128 bytes.  An fp32
+// box (a reduction's source) has 32 inner elements, the same 128 bytes.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
@@ -62,18 +63,22 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
 }
 // spin until the phase of parity `parity` has completed; a wait that
 // outlasts 2^26 tries (seconds) traps, so a protocol fault ends the
-// kernel with an error instead of hanging the card
+// kernel with an error instead of hanging the card.  The loop is one
+// PTX block: written as a C++ loop around __trap(), its exit path made
+// ptxas serialise the wgmmas of a kernel that waits between products
+// (C7512) and spill.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0, tries = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (++tries == (1u << 26)) __trap();
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.ne.u32 p, n, 67108864;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      ::"r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -102,24 +107,75 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of contiguous
+// global memory into shared memory, counted in `bar`'s transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared memory written by ordinary stores and then read by the async
+// proxy (wgmma operands, TMA stores and reductions): after the stores,
+// before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA reduction: the box at `src` (shared, laid out as the map's box)
+// added element-wise into global memory through `map` (fp32 add).  One
+// thread issues it; bulk_commit() closes the issued reductions into a
+// group, bulk_wait_read<N>() returns once at most N groups may still read
+// their shared source (so it may be rewritten), bulk_wait<N>() once at
+// most N groups are still writing.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------
 // wgmma: a warpgroup (4 warps, 128 threads) multiplies a 64-row tile.
 // ---------------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile.
+// Shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile (at a
+// pointer, or at a shared-memory address).
 //   K-major (A or B with the reduction dim contiguous, e.g. Q and K stored
 //   [row][d]): `p` is the first row's address plus 32 bytes per 16-wide
 //   k-step inside the 64-wide box; sbo = 1024 (8 rows of 128 bytes); lbo
 //   is unused (16).
 //   MN-major (B with the output dim contiguous, e.g. V stored [key][d],
-//   read with TRANS_B = 1): `p` is the first key row of the k-step (128
-//   bytes a key); sbo = 1024 (the next 8 keys), lbo = the distance to the
-//   box of the next 64 output columns.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+//   read with TRANS_B = 1; or A with its rows contiguous, TRANS_A = 1):
+//   `p` is the first key row of the k-step (128 bytes a key); sbo = 1024
+//   (the next 8 keys), lbo = the distance to the box of the next 64
+//   output columns (unread when the tile has 64).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_sw128(smem_u32(p), lbo, sbo);
 }
 
 // Before the first wgmma of a batch, and whenever the accumulators or the
@@ -143,6 +199,47 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Four 8x8 bf16 matrices from registers to shared memory: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes); r[j] is this
+// thread's pair of matrix j in the mma layout (row lane / 4, columns
+// 2 (lane % 4), + 1), which is the wgmma accumulator layout of each 8x8
+// block, packed to bf16.
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_u32(row)), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+// the same for packed bf16 register A operands: keeps the registers of a
+// wgmma's A live (unreused) until the wait that retires it
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A . B, m64n64k16 bf16 -> f32 (32 accumulators a thread), A and B
+// from shared memory; TRANS_A / TRANS_B 0 read them K-major, 1 MN-major;
+// accumulate = 0 overwrites d.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (+)= A . B, m64n128k16 bf16 -> f32 (64 accumulators a thread), A and
@@ -267,14 +364,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (extents `dims`, innermost first;
-// `strides` the byte strides of dims 1..rank-1, multiples of 16) read in
-// boxes `box` whose inner extent is 64 (128 bytes, 128-byte swizzle);
-// reads past an extent give zeros.  Returns a CUDA error code (0 on
-// success).
-inline int bf16_map(CUtensorMap* map, const void* base, int rank,
-                    const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+// A tensor map of `rank` dims (extents `dims`, innermost first;
+// `strides` the byte strides of dims 1..rank-1, multiples of 16) read or
+// reduced in boxes `box` whose inner extent is 128 bytes (128-byte
+// swizzle); reads past an extent give zeros and reductions past it are
+// dropped.  Returns a CUDA error code (0 on success).
+inline int tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* base, int rank, const uint64_t* dims,
+                    const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -285,12 +382,25 @@ inline int bf16_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), d, s, b, e,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d,
+                  s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+// bf16 boxes of 64 inner elements; fp32 boxes of 32
+inline int bf16_map(CUtensorMap* map, const void* base, int rank,
+                    const uint64_t* dims, const uint64_t* strides,
+                    const uint32_t* box) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box);
+}
+inline int f32_map(CUtensorMap* map, const void* base, int rank,
+                   const uint64_t* dims, const uint64_t* strides,
+                   const uint32_t* box) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                  strides, box);
 }
 
 }  // namespace sf_hopper

@@ -599,11 +599,12 @@ class FlashAttention(torch.autograd.Function):
 
     ``mode`` ('free', 'bounded' or 'online'; the kernel route):
     ``cuda_attention.flash_fwd`` in that mode (bound ``m0``) and the
-    backward ``flash_bwd_dq`` / ``flash_bwd_dkv`` against its base-e lse,
-    at ln 2 for 'free' (q carries head_dim**-0.5 * log2(e)) and at
-    ``scale`` otherwise (the kernels, or their plain versions with
-    ``kernels=False``).  ``mode=None`` (off the route): the online-softmax
-    reference forward at ``scale`` and the plain backward at it."""
+    backward ``flash_bwd`` (dq, dk, dv in one kernel) against its base-e
+    lse, at ln 2 for 'free' (q carries head_dim**-0.5 * log2(e)) and at
+    ``scale`` otherwise (the kernels, or the plain versions
+    ``flash_bwd_dq_ref`` / ``flash_bwd_dkv_ref`` with ``kernels=False``).
+    ``mode=None`` (off the route): the online-softmax reference forward
+    at ``scale`` and the plain backward at it."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, mode, m0, kernels):
@@ -627,10 +628,12 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = ca.flash_delta(out, do)
-        dq_fn, dkv_fn = ((ca.flash_bwd_dq, ca.flash_bwd_dkv) if ctx.kernels
-                         else (ca.flash_bwd_dq_ref, ca.flash_bwd_dkv_ref))
-        dq = dq_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
-        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.mask, ctx.scale)
+        args = (q, k, v, do, lse, delta, ctx.mask, ctx.scale)
+        if ctx.kernels:
+            dq, dk, dv = ca.flash_bwd(*args)
+        else:
+            dq = ca.flash_bwd_dq_ref(*args)
+            dk, dv = ca.flash_bwd_dkv_ref(*args)
         return dq, dk, dv, None, None, None, None, None
 
 

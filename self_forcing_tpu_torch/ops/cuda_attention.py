@@ -24,11 +24,11 @@ that the streaming sampler and the training step run:
   window alone, bounds read on the device, in bf16 (the online decode
   kernel with no fresh keys, counted as ``decode_window``) or float32 (a
   3xTF32 kernel, ``decode_window_f32``);
-- ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (csrc/flash_attention.cu) replace ``_flash_kernel`` in its free,
-  bounded and online modes, ``_flash_bwd_dq_kernel`` and
-  ``_flash_bwd_dkv_kernel`` (``flash_attention_pallas`` and its backward
-  ``_flash_bwd``).
+- ``flash_fwd`` (csrc/flash_attention.cu) replaces ``_flash_kernel`` in
+  its free, bounded and online modes (``flash_attention_pallas``);
+- ``flash_bwd`` (csrc/flash_bwd.cu: dq, dk and dv in one pass) replaces
+  both ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` (the
+  backward ``_flash_bwd``).
 
 A bound ``m0`` is a float32 tensor that the kernels read from device
 memory, so no layer waits for the host.  Each wrapper runs its plain
@@ -37,8 +37,8 @@ tensor it launches the kernel or raises.  Every launch adds one to
 ``launch_counts[name]`` (the decode and flash modes count under their
 own names).
 
-The gradients: :class:`FlashAttention` (the flash forward and its two
-backward kernels) and the plain-PyTorch backward of the decode and cross
+The gradients: :class:`FlashAttention` (the flash forward and its
+backward kernel) and the plain-PyTorch backward of the decode and cross
 attention (:func:`decode_fresh_bwd`, :func:`cross_attention_bwd`), which
 recompute the attention as the JAX package's XLA backward does.
 """
@@ -63,8 +63,7 @@ launch_counts = {"decode_fresh_free": 0, "decode_fresh_free_noclamp": 0,
                  "int8_quantize_v": 0, "decode_fresh_int8_tile": 0,
                  "decode_fresh_int8_global": 0, "decode_fresh_int8_online": 0,
                  "cross_attention": 0, "flash_fwd": 0, "flash_fwd_online": 0,
-                 "flash_fwd_bounded": 0, "flash_bwd_dq": 0,
-                 "flash_bwd_dkv": 0, "decode_window": 0,
+                 "flash_fwd_bounded": 0, "flash_bwd": 0, "decode_window": 0,
                  "decode_window_f32": 0}
 
 
@@ -1061,9 +1060,10 @@ def cross_attention_bwd(q, k, v, g, *, num_heads: int,
 # masked flash attention (training), offset-free base-2 softmax
 # =====================================================================
 
-FLASH_ROWS = 128      # query rows of a flash_fwd / flash_bwd_dq CTA
-FLASH_KEYS = 64       # keys of a K/V tile (and of a flash_bwd_dkv CTA)
-FLASH_BWD_Q = 32      # query rows of a flash_bwd_dkv tile
+FLASH_ROWS = 128      # query rows of a flash_fwd CTA
+FLASH_KEYS = 64       # keys of a flash_fwd K/V tile
+FLASH_BWD_KEYS = 128  # keys of a flash_bwd CTA
+FLASH_BWD_Q = 64      # query rows of a tile flash_bwd streams
 FLASH_MAX_TILES = 4096  # tile-state row a CTA keeps in shared memory
 LN2 = math.log(2.0)
 
@@ -1122,11 +1122,12 @@ def flash_tile_states(mask, Lq: int, Lk: int, rows: int, cols: int,
 class FlashGeometry(NamedTuple):
     """What the flash kernels read besides q, k and v: the intervals
     [4, lq_pad] int32 (zero rows past Lq), the tile states of the
-    128-query tiles against the 64-key tiles (flash_fwd, flash_bwd_dq) and
-    of the 64-key tiles against the 32-query tiles (flash_bwd_dkv)."""
+    128-query tiles against the 64-key tiles (flash_fwd) and of the
+    128-key tiles against the 64-query tiles (flash_bwd, a row per key
+    tile; a query tile with rows past Lq is never fully visible)."""
     iv: torch.Tensor
     states_q: torch.Tensor
-    states_k: torch.Tensor
+    states_kv: torch.Tensor
     lq_pad: int
 
 
@@ -1151,11 +1152,12 @@ def flash_geometry(mask, Lq: int, Lk: int,
     iv = np.zeros((4, lq_pad), np.int32)
     iv[:, :Lq] = np.stack(flash_intervals(mask, Lq, Lk))
     sq = flash_tile_states(mask, Lq, Lk, FLASH_ROWS, FLASH_KEYS, False)
-    sk = flash_tile_states(mask, Lq, Lk, FLASH_BWD_Q, FLASH_KEYS, True).T
+    skv = flash_tile_states(mask, Lq, Lk, FLASH_BWD_Q, FLASH_BWD_KEYS,
+                            True).T
     geo = FlashGeometry(
         iv=torch.from_numpy(iv).to(device),
         states_q=torch.from_numpy(np.ascontiguousarray(sq)).to(device),
-        states_k=torch.from_numpy(np.ascontiguousarray(sk)).to(device),
+        states_kv=torch.from_numpy(np.ascontiguousarray(skv)).to(device),
         lq_pad=lq_pad)
     cache[key] = geo
     return geo
@@ -1249,7 +1251,7 @@ def _flash_bwd_chunks(q, k, v, do, lse, delta, mask, scale):
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, mask=None,
                      scale: float = LN2):
-    """Plain version of :func:`flash_bwd_dq`: dq = scale * ds.k with ds
+    """Plain version of :func:`flash_bwd`'s dq: dq = scale * ds.k with ds
     rounded to the operands' type."""
     dq = torch.empty_like(q)
     for b, n, r, _, _, kf, _, ds in _flash_bwd_chunks(
@@ -1260,8 +1262,9 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, mask=None,
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask=None,
                       scale: float = LN2):
-    """Plain version of :func:`flash_bwd_dkv`: dk = scale * ds^T.q and
-    dv = p^T.do, with p and ds rounded to the operands' type."""
+    """Plain version of :func:`flash_bwd`'s dk and dv: dk = scale *
+    ds^T.q and dv = p^T.do, with p and ds rounded to the operands'
+    type."""
     B, Lk, N, D = k.shape
     dk = torch.zeros(B, Lk, N, D, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
@@ -1332,50 +1335,34 @@ def flash_fwd(q, k, v, mask=None, mode: str = "free", scale: float = 1.0,
     return out, lse.view(B, N, geo.lq_pad)[:, :, :Lq]
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, mask=None, scale: float = LN2):
-    """dq of the masked flash attention from the forward's base-e ``lse``
-    and ``delta`` = :func:`flash_delta` ([B, N, Lq] fp32), at ``scale``
-    (ln 2 for the free forward).  Returns dq [B, Lq, N, D] bf16."""
+def flash_bwd(q, k, v, do, lse, delta, mask=None, scale: float = LN2):
+    """The backward of the masked flash attention in one kernel: dq, dk
+    and dv from the forward's base-e ``lse`` and ``delta`` =
+    :func:`flash_delta` ([B, N, Lq] fp32) at ``scale`` (ln 2 for the free
+    forward, the forward's scale otherwise).  Returns (dq [B, Lq, N, D],
+    dk, dv [B, Lk, N, D]) bf16.  dk and dv are the same bits run after
+    run; dq sums the key tiles' partials in fp32 in an order that changes
+    from run to run, so its last bits may differ."""
     if not q.is_cuda:
-        return flash_bwd_dq_ref(q, k, v, do, lse, delta, mask, scale)
-    B, Lq, N, Lk = _check_flash("flash_bwd_dq", q, k, v, do)
+        return (flash_bwd_dq_ref(q, k, v, do, lse, delta, mask, scale),
+                *flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask, scale))
+    B, Lq, N, Lk = _check_flash("flash_bwd", q, k, v, do)
     geo = flash_geometry(mask, Lq, Lk, q.device)
-    lse_p = _rows_padded(lse, "flash_bwd_dq lse", B, N, Lq, geo.lq_pad,
+    lse_p = _rows_padded(lse, "flash_bwd lse", B, N, Lq, geo.lq_pad,
                          q.device)
-    dl_p = _rows_padded(delta, "flash_bwd_dq delta", B, N, Lq, geo.lq_pad,
+    dl_p = _rows_padded(delta, "flash_bwd delta", B, N, Lq, geo.lq_pad,
                         q.device)
+    acc = torch.zeros(B * N, geo.lq_pad, HEAD_DIM, dtype=torch.float32,
+                      device=q.device)
     dq = torch.empty_like(q)
-    fn = build.function("flash_attention", "flash_bwd_dq_launch",
-                        [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse_p.data_ptr(), dl_p.data_ptr(), dq.data_ptr(),
-             geo.iv.data_ptr(), geo.states_q.data_ptr(), B, N, Lq, Lk,
-             geo.lq_pad, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on("flash_bwd_dq", err)
-    launch_counts["flash_bwd_dq"] += 1
-    return dq
-
-
-def flash_bwd_dkv(q, k, v, do, lse, delta, mask=None, scale: float = LN2):
-    """dk and dv of the masked flash attention (operands as in
-    :func:`flash_bwd_dq`).  Returns (dk, dv) [B, Lk, N, D] bf16."""
-    if not q.is_cuda:
-        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask, scale)
-    B, Lq, N, Lk = _check_flash("flash_bwd_dkv", q, k, v, do)
-    geo = flash_geometry(mask, Lq, Lk, q.device)
-    lse_p = _rows_padded(lse, "flash_bwd_dkv lse", B, N, Lq, geo.lq_pad,
-                         q.device)
-    dl_p = _rows_padded(delta, "flash_bwd_dkv delta", B, N, Lq, geo.lq_pad,
-                        q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = build.function("flash_attention", "flash_bwd_dkv_launch",
-                        [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P])
+    fn = build.function("flash_bwd", "flash_bwd_launch",
+                        [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse_p.data_ptr(), dl_p.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), geo.iv.data_ptr(), geo.states_k.data_ptr(), B,
-             N, Lq, Lk, geo.lq_pad, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on("flash_bwd_dkv", err)
-    launch_counts["flash_bwd_dkv"] += 1
-    return dk, dv
+             lse_p.data_ptr(), dl_p.data_ptr(), acc.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), geo.iv.data_ptr(),
+             geo.states_kv.data_ptr(), B, N, Lq, Lk, geo.lq_pad,
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on("flash_bwd", err)
+    launch_counts["flash_bwd"] += 1
+    return dq, dk, dv

@@ -7,6 +7,7 @@ a machine with the card (where JAX is not installed) run them with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
+import numpy as np
 import pytest
 import torch
 
@@ -546,8 +547,9 @@ def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(dev):
         cm.quantize_rows(x.float())
 
 
-# (B, N, L, mask): ragged lengths against the 128-row, 64-key and
-# 32-row tiles, both intervals, batch > 1
+# (B, N, L, mask): ragged lengths against the forward's 128-row and
+# 64-key tiles and the backward's 128-key and 64-row tiles, both
+# intervals, batch > 1
 FLASH_CASES = {
     "no_mask": (1, 2, 256, None),
     "teacher_forcing": (1, 2, 200, ("tf", 5, 20, 1)),
@@ -593,24 +595,83 @@ def test_flash_fwd_matches_plain(dev, case):
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_bwd_matches_plain(dev, case):
-    """dq, dk, dv against the plain backward on the same out, lse and
-    delta: 2e-2 relative L2 (both feed bf16 p and ds to the products; ds
-    is a difference of near-equal terms, so its bf16 rounding may differ
-    by an ulp)."""
+    """dq, dk, dv of the one backward kernel against the plain backward on
+    the same out, lse and delta: 2e-2 relative L2 (both feed bf16 p and ds
+    to the products; ds is a difference of near-equal terms, so its bf16
+    rounding may differ by an ulp)."""
     B, N, L, spec = FLASH_CASES[case]
     mask = _flash_mask(spec)
     g = torch.Generator(device=dev).manual_seed(8)
     q, k, v, do = _flash_inputs(g, dev, B, N, L)
     out, lse = ca.flash_fwd_ref(q, k, v, mask)
     delta = ca.flash_delta(out, do)
-    dq = ca.flash_bwd_dq(q, k, v, do, lse, delta, mask)
-    dk, dv = ca.flash_bwd_dkv(q, k, v, do, lse, delta, mask)
+    dq, dk, dv = ca.flash_bwd(q, k, v, do, lse, delta, mask)
     dq_r = ca.flash_bwd_dq_ref(q, k, v, do, lse, delta, mask)
     dk_r, dv_r = ca.flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask)
     torch.cuda.synchronize()
     for name, a, b in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
         assert torch.isfinite(a.float()).all(), name
         assert _rel_l2(a, b) < 2e-2, (name, _rel_l2(a, b))
+
+
+def _hidden_band_mask(L, lo, hi):
+    """Every query sees keys [0, lo) and [hi, L): keys [lo, hi) are hidden
+    from all of them."""
+    from self_forcing_tpu_torch.ops import masks
+    return masks.IntervalMask(*(np.full(L, x, np.int32)
+                                for x in (0, lo, hi, L)))
+
+
+def test_flash_bwd_reads_nothing_the_mask_hides(dev):
+    """Keys [100, 300) of L = 400 are hidden from every query: the 128-key
+    tile [128, 256) is dead, [0, 128) and [256, 384) are partial.  The
+    hidden rows of K and V hold 3e4 in the partial tiles (the kernel loads
+    them and must mask them: exp2 of such a score is inf) and NaN in the
+    dead tile.  dq, and dk and dv of the visible keys, must equal the
+    kernel's result with those rows zero (within 1e-3 relative L2: dq's
+    partials are summed in another order each run) and the plain
+    version's (2e-2); dk and dv of every hidden key must be exactly 0."""
+    B, N, L, lo, hi = 1, 2, 400, 100, 300
+    mask = _hidden_band_mask(L, lo, hi)
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    j = torch.arange(L, device=dev).view(1, L, 1, 1)
+    hidden = (j >= lo) & (j < hi)
+    dead = (j >= 128) & (j < 256)
+    zeroed = [torch.where(hidden, torch.zeros_like(t), t) for t in (k, v)]
+    poisoned = [torch.where(dead, torch.full_like(t, float("nan")),
+                            torch.where(hidden, torch.full_like(t, 3e4), t))
+                for t in (k, v)]
+    out, lse = ca.flash_fwd_ref(q, *zeroed, mask)
+    delta = ca.flash_delta(out, do)
+    got = ca.flash_bwd(q, *poisoned, do, lse, delta, mask)
+    clean = ca.flash_bwd(q, *zeroed, do, lse, delta, mask)
+    plain = (ca.flash_bwd_dq_ref(q, *zeroed, do, lse, delta, mask),
+             *ca.flash_bwd_dkv_ref(q, *zeroed, do, lse, delta, mask))
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, clean, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) < 1e-3, (name, _rel_l2(a, b))
+        assert _rel_l2(a, c) < 2e-2, (name, _rel_l2(a, c))
+    for name, a in (("dk", got[1]), ("dv", got[2])):
+        assert torch.equal(a[:, lo:hi], torch.zeros_like(a[:, lo:hi])), name
+
+
+def test_flash_bwd_is_deterministic_but_for_dq(dev):
+    """Two runs on the same inputs: dk and dv (one owner each, a fixed
+    order) are the same bits; dq sums the key tiles' partials in L2 in an
+    order that may change, so it agrees within 1e-3 relative L2."""
+    B, N, L, spec = FLASH_CASES["block_causal"]
+    mask = _flash_mask(spec)
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    out, lse = ca.flash_fwd_ref(q, k, v, mask)
+    delta = ca.flash_delta(out, do)
+    a = ca.flash_bwd(q, k, v, do, lse, delta, mask)
+    b = ca.flash_bwd(q, k, v, do, lse, delta, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    assert _rel_l2(a[0], b[0]) < 1e-3, _rel_l2(a[0], b[0])
 
 
 def test_flash_attention_gradient_kernels_vs_plain(dev):
@@ -622,11 +683,13 @@ def test_flash_attention_gradient_kernels_vs_plain(dev):
     q, k, v, do = _flash_inputs(g, dev, B, N, L)
     grads = []
     for kernels in (True, False):
+        ca.reset_launch_counts()
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = attention.flash_attention(*qkv, mask, softmax="free",
                                         kernels=kernels)
         out.backward(do)
         grads.append([out.detach()] + [t.grad for t in qkv])
+        assert (ca.launch_counts["flash_bwd"] > 0) == kernels
     for a, b in zip(*grads):
         assert _rel_l2(a, b) < 2e-2
 
@@ -669,11 +732,13 @@ def test_flash_modes_gradient_kernels_vs_plain(dev, bounded):
           * k.float().norm(dim=-1).amax()) if bounded else None
     grads = []
     for kernels in (True, False):
+        ca.reset_launch_counts()
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = attention.flash_attention(*qkv, mask, fixed_m0=m0,
                                         kernels=kernels)
         out.backward(do)
         grads.append([out.detach()] + [t.grad for t in qkv])
+        assert (ca.launch_counts["flash_bwd"] > 0) == kernels
     for a, b in zip(*grads):
         assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
 

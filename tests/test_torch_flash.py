@@ -11,7 +11,9 @@ the JAX package on the CPU, mirroring ``tests/test_pallas_attention.py``:
 - the free-mode plain forward ``flash_fwd_ref`` (the CUDA forward's
   function) against the interpreted Pallas kernel in free mode;
 - dq, dk, dv of both routes against ``jax.grad`` of the interpreted
-  Pallas op (2e-4, as the JAX tests use);
+  Pallas op (2e-4, as the JAX tests use), and the one backward
+  ``flash_bwd`` against the Pallas ``_flash_bwd`` on the same residuals
+  in the free and online modes;
 - the decode and cross attention gradients against the JAX custom VJPs,
   including a KV cache written past the window after the forward.
 
@@ -83,8 +85,8 @@ def test_tile_states_agree_with_pallas(name):
     visible in the Pallas table (the port may mask a few more)."""
     jm, tm = _masks(name)
     L = tm.seq_len
-    for rows, cols, whole in ((128, 64, False), (32, 64, True),
-                              (16, 16, True)):
+    for rows, cols, whole in ((128, 64, False), (64, 128, True),
+                              (32, 64, True), (16, 16, True)):
         ours = ca.flash_tile_states(tm, L, L, rows, cols, whole)
         qt, kt = ours.shape
         theirs = jpa._tile_states(*(np.asarray(a) for a in (
@@ -188,6 +190,40 @@ def test_flash_free_mode_matches_pallas(case):
     o = tattn.FlashAttention.apply(tq, tk, tv, tm, 1.0, "free", None, True)
     (o ** 2).sum().backward()
     for a, b in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("mode", ["free", "online"])
+@pytest.mark.parametrize("case", ["block_causal", "odd_length", "no_mask"])
+def test_flash_bwd_matches_pallas(case, mode):
+    """The one backward (``flash_bwd``: dq, dk and dv; on the CPU its
+    plain versions) against the Pallas backward ``_flash_bwd`` (both
+    kernels, interpreted), fed the same q, k, v, out, lse and dO: the
+    free mode's forward at ln 2 (q carrying head_dim**-0.5 * log2(e)) and
+    the online mode's at head_dim**-0.5, out and lse from the interpreted
+    Pallas forward of that mode.  GRAD_TOL (2e-4): fp32 sums in another
+    order."""
+    Lq, Lk, jm, tm = _case(case)
+    q, k, v = _qkv(60, Lq, Lk)
+    do = np.random.default_rng(61).standard_normal(q.shape).astype(
+        np.float32)
+    free = mode == "free"
+    if free:
+        q = q * np.float32(D ** -0.5 * LOG2E)
+    fwd_scale, scale = (1.0, np.log(2.0)) if free else (D ** -0.5,) * 2
+    iv = ca.flash_intervals(tm, Lq, Lk)
+    out, lse = jpa._flash_fwd(*_j(q, k, v), *iv, fwd_scale, 128, 128, True,
+                              bounded="free" if free else False)
+    out, lse = np.array(out), np.array(lse[:, :Lq])
+    gj = jpa._flash_bwd(*_j(q, k, v, out, lse, do), *iv, float(scale), 128,
+                        128, True)
+    tq, tk, tv, tout, tdo = _t(q, k, v, out, do)
+    delta = ca.flash_delta(tout, tdo)
+    got = ca.flash_bwd(tq, tk, tv, tdo,
+                       torch.from_numpy(lse.reshape(B, N, Lq)), delta, tm,
+                       float(scale))
+    for a, b in zip(got, gj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
 
