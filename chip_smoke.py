@@ -688,7 +688,7 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib}{extra} "
-              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
               f"tops={ops / ms / 1e9:.1f}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
@@ -742,7 +742,8 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         fail(f"w8a8_ffn1: group scales relative L2 {hs_err:.3e} > 1e-5")
     ng = FFN // tg
     table["w8a8_ffn1"] = report(
-        "w8a8_ffn1", f"{M}x{DIM}x{FFN}, groups of {tg}", hs_err,
+        "w8a8_ffn1", f"{M}x{DIM}x{FFN} from raw bf16 x (the quantize_rows "
+        f"pre-pass included), groups of {tg}", hs_err,
         float(worst), time_ms(lambda: cm.w8a8_ffn1(x, *a1)),
         time_ms(lambda: cm.w8a8_ffn1_ref(x, None, *a1), reps=5),
         library_ms(lambda: torch._int_mm(q, p1["w_qa_t"].t())),
@@ -775,10 +776,11 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
 def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
     """The W8A8 kernels of the Wan-14B demo path (dim 5120, 40 heads, ffn
     13824, M = 4680 tokens) against their plain versions: fc1 from int8 x
-    quantized by ``quantize_activations`` (K = 5120 in 64-byte steps,
+    quantized by ``quantize_activations`` (K = 5120 in 128-byte steps,
     768-column groups), fc2 at groups of 768 onto N = 5120, the fused qkv
-    GEMM at K = 5120, N = 15360; and the GEMM quantizing raw bf16 x in its
-    prologue (``w8a8_matmul_bf16x``) at the 1.3B qkv shape.  Tolerances as
+    GEMM at K = 5120, N = 15360; and the GEMM from raw bf16 x
+    (``w8a8_matmul_bf16x``: the ``quantize_rows`` pre-pass, then the
+    int8-x linear, timed together) at the 1.3B qkv shape.  Tolerances as
     phase 2's W8A8 rows: int8 outputs equal but for one-step flips on
     <= 0.1%, group scales 1e-5, GEMMs 1e-3 relative L2.  Library
     yardsticks: ``torch._int_mm`` on the same int8 operands, cuBLAS bf16
@@ -801,7 +803,8 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
         print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
               f"bf16_matmul_ms={bf16_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"tops={ops / ms / 1e9:.1f}", flush=True)
+              f"share_of_bound={b_ms / ms:.3f} tops={ops / ms / 1e9:.1f}",
+              flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
 
@@ -2388,10 +2391,10 @@ def main() -> None:
                                    attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
                "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),
-               "w8a8_ffn1": (csrc + "w8a8.cu", w8a8 + ":71"),
+               "w8a8_ffn1": (csrc + "w8a8_fc1.cu", w8a8 + ":71"),
                "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117"),
-               "w8a8_ffn1_xq": (csrc + "w8a8.cu", w8a8 + ":86"),
-               "w8a8_matmul_bf16x": (csrc + "w8a8.cu", w8a8 + ":54"),
+               "w8a8_ffn1_xq": (csrc + "w8a8_fc1.cu", w8a8 + ":86"),
+               "w8a8_matmul_bf16x": (csrc + "w8a8_fc1.cu", w8a8 + ":54"),
                "decode_window": (csrc + "decode_fresh.cu", attn + ":73"),
                "decode_window_f32": (csrc + "decode_fresh.cu",
                                      attn + ":73"),

@@ -1,18 +1,20 @@
 """Hand-written CUDA W8A8 kernels and their plain PyTorch versions.
 
 Port of the kernels of ``self_forcing_tpu/ops/pallas_matmul.py`` that the
-demo configuration runs (csrc/w8a8.cu):
+demo configuration runs (csrc/w8a8.cu and csrc/w8a8_fc1.cu):
 
 - ``quantize_rows`` replaces ``_quantize_rows_kernel``
   (``quantize_rows_pallas``);
 - ``w8a8_matmul`` replaces ``_kernel`` (``w8a8_matmul``);
 - ``w8a8_matmul_bf16x`` replaces ``_kernel_bf16x``
-  (``w8a8_matmul_bf16x``): the GEMM from raw bf16 x, quantized per token
-  in the kernel's prologue (K <= 1536);
+  (``w8a8_matmul_bf16x``): the GEMM from raw bf16 x (K <= 1536), which the
+  TPU kernel quantizes per token in its prologue; here the
+  ``quantize_rows`` kernel runs first, then w8a8_fc1.cu's linear;
 - ``w8a8_ffn`` replaces ``w8a8_ffn``: ``w8a8_ffn1`` (``s_x=None``, raw x:
-  ``_ffn1_kernel_bf16x``; with ``s_x``, int8 x quantized beforehand:
-  ``_ffn1_kernel``, the Wan-14B route, counted as ``w8a8_ffn1_xq``) then
-  ``w8a8_ffn2`` (``_ffn2_kernel``).
+  ``_ffn1_kernel_bf16x``, again as ``quantize_rows`` then the int8-x
+  kernel; with ``s_x``, int8 x quantized beforehand: ``_ffn1_kernel``,
+  the Wan-14B route, counted as ``w8a8_ffn1_xq``), both on w8a8_fc1.cu,
+  then ``w8a8_ffn2`` (``_ffn2_kernel``).
 
 ``quantize_rows``, ``w8a8_matmul``, ``w8a8_matmul_bf16x`` and ``w8a8_ffn``
 return None where the JAX function declines the shape (the same tile
@@ -21,7 +23,9 @@ takes the JAX package's route at every shape.  For a tensor on the CPU
 every entry point runs its plain version (``*_ref``, same signature, same
 None rule).
 For a CUDA tensor it launches the kernel or raises.  Every launch adds
-one to ``launch_counts[name]``.
+one to ``launch_counts[name]``; the ``quantize_rows`` pre-pass of a raw-x
+entry point is part of that entry point's launch and is not counted as a
+``quantize_rows`` launch.
 
 Weights come as the K-contiguous ``[N, K]`` int8 copy (``w_qa_t`` in the
 parameter tree, made by ``ops/quant.py``); scales ``[N]`` f32; per-token
@@ -230,16 +234,29 @@ def _check(name: str, dtypes: list, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    """Call the C launcher ``fn`` of csrc/w8a8.cu (tensors as pointers,
-    ints, then the current stream), raise on its error, count it."""
+def _launch(lib: str, name: str, fn: str, *args, count: bool = True) -> None:
+    """Call the C launcher ``fn`` of ``csrc/<lib>.cu`` (tensors as
+    pointers, ints, then the current stream), raise on its error, and
+    count it under ``name`` (``count=False``: the pre-pass of the launch
+    that follows)."""
     types = [_P if isinstance(a, torch.Tensor) else _I for a in args]
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
             for a in args]
-    f = build.function("w8a8", fn, types + [_P])
+    f = build.function(lib, fn, types + [_P])
     build.raise_on(name, f(*vals, torch.cuda.current_stream(
         args[0].device).cuda_stream))
-    launch_counts[name] += 1
+    if count:
+        launch_counts[name] += 1
+
+
+def _quantize_pre_pass(name: str, x: torch.Tensor):
+    """The ``quantize_rows`` kernel as the first step of the raw-x entry
+    point ``name``: (x_q int8 [M, K], s_x f32 [M, 1]), not counted."""
+    M, K = x.shape
+    q = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    s = torch.empty(M, 1, dtype=torch.float32, device=x.device)
+    _launch("w8a8", name, "quantize_rows_launch", x, q, s, M, K, count=False)
+    return q, s
 
 
 def quantize_rows(x: torch.Tensor):
@@ -254,7 +271,7 @@ def quantize_rows(x: torch.Tensor):
     _check("quantize_rows", [torch.bfloat16], x)
     q = torch.empty(M, K, dtype=torch.int8, device=x.device)
     s = torch.empty(M, 1, dtype=torch.float32, device=x.device)
-    _launch("quantize_rows", "quantize_rows_launch", x, q, s, M, K)
+    _launch("w8a8", "quantize_rows", "quantize_rows_launch", x, q, s, M, K)
     return q, s
 
 
@@ -281,18 +298,19 @@ def w8a8_matmul(x_q: torch.Tensor, s_x: torch.Tensor, w_t: torch.Tensor,
     _check("w8a8_matmul", [torch.int8, torch.float32, torch.int8,
                            torch.float32, torch.float32], x_q, s_x, w_t, ws, b)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x_q.device)
-    _launch("w8a8_matmul", "w8a8_matmul_launch", x_q, s_x, w_t, ws, b, out,
-            M, N, K)
+    _launch("w8a8", "w8a8_matmul", "w8a8_matmul_launch", x_q, s_x, w_t, ws,
+            b, out, M, N, K)
     return out
 
 
 def w8a8_matmul_bf16x(x: torch.Tensor, w_t: torch.Tensor,
                       w_scale: torch.Tensor, bias: torch.Tensor | None = None,
                       out_dtype=torch.bfloat16):
-    """The W8A8 GEMM from raw bf16 ``x`` [M, K]: x quantized per token in
-    the kernel's prologue (as ``quantize_rows``), the int32 product with
-    w_t [N, K] int8, then ``acc * s_x * w_scale + b`` in f32 -> bf16
-    [M, N].  None where the JAX kernel declines the shape (K > 1536)."""
+    """The W8A8 GEMM from raw bf16 ``x`` [M, K]: x quantized per token by
+    the ``quantize_rows`` kernel, the int32 product with w_t [N, K] int8,
+    then ``acc * s_x * w_scale + b`` in f32 -> bf16 [M, N] (w8a8_fc1.cu's
+    linear epilogue).  None where the JAX kernel declines the shape
+    (K > 1536)."""
     if not x.is_cuda:
         return w8a8_matmul_bf16x_ref(x, w_t, w_scale, bias, out_dtype)
     M, K = x.shape
@@ -309,8 +327,9 @@ def w8a8_matmul_bf16x(x: torch.Tensor, w_t: torch.Tensor,
     _check("w8a8_matmul_bf16x", [torch.bfloat16, torch.int8, torch.float32,
                                  torch.float32], x, w_t, ws, b)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    _launch("w8a8_matmul_bf16x", "w8a8_matmul_bf16x_launch", x, w_t, ws, b,
-            out, M, N, K, tn)
+    xq, sx = _quantize_pre_pass("w8a8_matmul_bf16x", x)
+    _launch("w8a8_fc1", "w8a8_matmul_bf16x", "w8a8_linear_xq_launch", xq,
+            sx, w_t, ws, b, out, M, N, K, tn)
     return out
 
 
@@ -318,12 +337,12 @@ def w8a8_ffn1(x: torch.Tensor, w1_t: torch.Tensor, w1_scale: torch.Tensor,
               b1: torch.Tensor | None, tg: int,
               s_x: torch.Tensor | None = None):
     """fc1 of the fused FFN, w1_t [H, K] int8: from raw bf16 ``x`` [M, K]
-    (``s_x=None``; K <= 1536) x is quantized per token in the prologue;
-    from int8 ``x`` with its per-token scales ``s_x`` [M, 1] (any K % 128
-    == 0, counted as ``w8a8_ffn1_xq``) x is staged in K steps.  Then the
-    int32 product, ``acc * s_x * w1_scale + b1``, gelu-tanh, and int8 per
-    (token, group of ``tg`` columns): (h_q int8 [M, H], h_s f32
-    [M, H / tg])."""
+    (``s_x=None``) x is quantized per token by the ``quantize_rows``
+    kernel first; from int8 ``x`` with its per-token scales ``s_x``
+    [M, 1] (counted as ``w8a8_ffn1_xq``) the product starts at once.  Then
+    the int32 product, ``acc * s_x * w1_scale + b1``, gelu-tanh, and int8
+    per (token, group of ``tg`` columns): (h_q int8 [M, H], h_s f32
+    [M, H / tg]).  One kernel for both (w8a8_fc1.cu)."""
     if not x.is_cuda:
         return w8a8_ffn1_ref(x, s_x, w1_t, w1_scale, b1, tg)
     M, K = x.shape
@@ -335,16 +354,16 @@ def w8a8_ffn1(x: torch.Tensor, w1_t: torch.Tensor, w1_scale: torch.Tensor,
     h_q = torch.empty(M, H, dtype=torch.int8, device=x.device)
     h_s = torch.empty(M, H // tg, dtype=torch.float32, device=x.device)
     if s_x is None:
-        _check("w8a8_ffn1", [torch.bfloat16, torch.int8, torch.float32,
-                             torch.float32], x, w1_t, ws1, bb1)
-        _launch("w8a8_ffn1", "w8a8_ffn1_launch", x, w1_t, ws1, bb1, h_q,
-                h_s, M, K, H, tg)
-        return h_q, h_s
-    sx = s_x.float().reshape(M, 1).contiguous()
-    _check("w8a8_ffn1_xq", [torch.int8, torch.float32, torch.int8,
-                            torch.float32, torch.float32], x, sx, w1_t, ws1,
-           bb1)
-    _launch("w8a8_ffn1_xq", "w8a8_ffn1_xq_launch", x, sx, w1_t, ws1, bb1,
+        name = "w8a8_ffn1"
+        _check(name, [torch.bfloat16, torch.int8, torch.float32,
+                      torch.float32], x, w1_t, ws1, bb1)
+        xq, sx = _quantize_pre_pass(name, x)
+    else:
+        name, xq = "w8a8_ffn1_xq", x
+        sx = s_x.float().reshape(M, 1).contiguous()
+        _check(name, [torch.int8, torch.float32, torch.int8, torch.float32,
+                      torch.float32], xq, sx, w1_t, ws1, bb1)
+    _launch("w8a8_fc1", name, "w8a8_ffn1_xq_launch", xq, sx, w1_t, ws1, bb1,
             h_q, h_s, M, K, H, tg)
     return h_q, h_s
 
@@ -368,8 +387,8 @@ def w8a8_ffn2(h_q: torch.Tensor, h_s: torch.Tensor, w2_t: torch.Tensor,
                          torch.float32, torch.float32], h_q, h_s, w2_t, ws2,
            bb2)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=h_q.device)
-    _launch("w8a8_ffn2", "w8a8_ffn2_launch", h_q, h_s, w2_t, ws2, bb2, out, M,
-            N, H, tg)
+    _launch("w8a8", "w8a8_ffn2", "w8a8_ffn2_launch", h_q, h_s, w2_t, ws2, bb2,
+            out, M, N, H, tg)
     return out
 
 

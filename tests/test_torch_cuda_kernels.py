@@ -499,11 +499,16 @@ def test_w8a8_matmul_matches_plain(dev, M, K, N):
     assert _rel_l2(out, ref) < 1e-3
 
 
+# every fc1 group width the JAX tile rule admits (H = 2 TG: two groups)
+FC1_GROUPS = (128, 256, 384, 512, 640, 768, 896)
+
+
 @pytest.mark.parametrize("M,K,H,N,bias", [
     (4680, 1536, 8960, 1536, True),      # the 1.3B FFN: 10 groups of 896
     (520, 1536, 1792, 1536, True),       # two groups, M ragged to 128
     (40, 256, 1792, 256, False),         # M ragged to 32, zero rows hit
-])                                       # the hidden's 1e-6 floor
+] + [(200, 1536, 2 * tg, 256, True)      # the hidden's 1e-6 floor; then
+     for tg in FC1_GROUPS])              # each group width at M 200
 def test_w8a8_ffn_matches_plain(dev, M, K, H, N, bias):
     """fc1's int8 hidden: CUDA's tanhf and PyTorch's may differ by an ulp,
     so a value may round one step the other way (<= 0.1%); its group
@@ -514,7 +519,10 @@ def test_w8a8_ffn_matches_plain(dev, M, K, H, N, bias):
     p1, p2 = _weight(g, K, H, dev, 0.06), _weight(g, H, N, dev, 0.03)
     b1, b2 = (p1["b"], p2["b"]) if bias else (None, None)
     tg = cm.ffn_group(M, K, H, N, raw_x=True)
+    cm.reset_launch_counts()
     hq, hs = cm.w8a8_ffn1(x, p1["w_qa_t"], p1["w_scale"], b1, tg)
+    assert cm.launch_counts["w8a8_ffn1"] == 1
+    assert cm.launch_counts["quantize_rows"] == 0   # its pre-pass
     hq_ref, hs_ref = cm.w8a8_ffn1_ref(x, None, p1["w_qa_t"], p1["w_scale"],
                                       b1, tg)
     torch.cuda.synchronize()
@@ -925,7 +933,8 @@ def test_quantization_helpers_divide_on_cuda_as_on_cpu(dev, name):
     (520, 5120, 1536, 640),     # the 14B tiles: K 5120, groups of 768
     (40, 2048, 1792, 256),      # groups of 896, M ragged to 32
     (4680, 5120, 3072, 640),    # M of a 14B block, 4 groups of 768
-])
+    (4680, 1536, 8960, 1536),   # the 1.3B FFN from int8 x
+] + [(200, 5120, 2 * tg, 256) for tg in FC1_GROUPS])
 def test_w8a8_ffn_from_prequantized_x_matches_plain(dev, M, K, H, N):
     """fc1 from int8 x and s_x (``w8a8_ffn1_xq``) against its plain
     version: int8 hidden equal but for one-step flips (<= 0.1%: CUDA's
@@ -936,7 +945,9 @@ def test_w8a8_ffn_from_prequantized_x_matches_plain(dev, M, K, H, N):
     p1, p2 = _weight(g, K, H, dev, 0.03), _weight(g, H, N, dev, 0.03)
     xq, sx = quant.quantize_activations(x)
     tg = cm.ffn_group(M, K, H, N, raw_x=False)
-    assert tg is not None and cm.ffn_group(M, K, H, N, raw_x=True) is None
+    assert tg is not None
+    if K > 1536:
+        assert cm.ffn_group(M, K, H, N, raw_x=True) is None
     cm.reset_launch_counts()
     hq, hs = cm.w8a8_ffn1(xq, p1["w_qa_t"], p1["w_scale"], p1["b"], tg, sx)
     hq_ref, hs_ref = cm.w8a8_ffn1_ref(xq, sx, p1["w_qa_t"], p1["w_scale"],
@@ -955,8 +966,44 @@ def test_w8a8_ffn_from_prequantized_x_matches_plain(dev, M, K, H, N):
     assert _rel_l2(out, ref) < 1e-2
 
 
+@pytest.mark.parametrize("tg", [128, 512, 896])
+def test_w8a8_ffn1_group_max_spans_the_cluster(dev, tg):
+    """fc1 splits each group's columns over a cluster of 4 CTAs.  Row r's
+    largest gelu value lies in quarter (r + j) % 4 of group j (x has one
+    large feature k = r % 4; w's column for k in group j sits in that
+    quarter and makes y ~ 120, where tanh is exactly 1 and gelu(y) = y on
+    both sides): the group scales equal the plain version's bit for bit,
+    which needs the maximum of all four CTAs' partial maxima."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    M, K, H = 200, 256, 2 * tg
+    q4 = tg // 4
+    x = torch.randn(M, K, generator=g, device=dev) * 0.1
+    rows = torch.arange(M, device=dev)
+    x[rows, rows % 4] = 4.0
+    w = torch.randn(K, H, generator=g, device=dev) * 0.02
+    big = {}
+    for j in range(H // tg):
+        for k in range(4):
+            big[j, k] = j * tg + ((k + j) % 4) * q4 + 5 + 3 * k
+            w[k, big[j, k]] = 30.0
+    p = quant.quantize_linear_params({"w": w, "b": torch.zeros(H,
+                                                               device=dev)},
+                                     "w8a8")
+    xb = x.to(torch.bfloat16)
+    hq, hs = cm.w8a8_ffn1(xb, p["w_qa_t"], p["w_scale"], p["b"], tg)
+    hq_ref, hs_ref = cm.w8a8_ffn1_ref(xb, None, p["w_qa_t"], p["w_scale"],
+                                      p["b"], tg)
+    torch.cuda.synchronize()
+    for j in range(H // tg):
+        cols = torch.tensor([big[j, int(k)] for k in rows % 4], device=dev)
+        assert bool((hq_ref[rows, cols] == 127).all())   # the construction
+    assert torch.equal(hs, hs_ref)
+    _int8_close(hq, hq_ref)
+
+
 @pytest.mark.parametrize("M,K,N", [(4680, 1536, 4608), (520, 1536, 1536),
-                                   (40, 256, 384), (48, 128, 896)])
+                                   (40, 256, 384), (48, 128, 896)]
+                         + [(200, 1536, 2 * tn) for tn in FC1_GROUPS])
 def test_w8a8_matmul_bf16x_matches_plain(dev, M, K, N):
     """The GEMM quantizing raw bf16 x in its prologue: the same int8 x and
     scales as ``quantize_rows`` (true division, half to even), exact int32
@@ -969,6 +1016,7 @@ def test_w8a8_matmul_bf16x_matches_plain(dev, M, K, N):
     ref = cm.w8a8_matmul_bf16x_ref(x, p["w_qa_t"], p["w_scale"], p["b"])
     torch.cuda.synchronize()
     assert cm.launch_counts["w8a8_matmul_bf16x"] == 1
+    assert cm.launch_counts["quantize_rows"] == 0   # its pre-pass
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) < 1e-3
     assert cm.w8a8_matmul_bf16x(x[:, :K - 8].contiguous(), p["w_qa_t"][

@@ -374,3 +374,105 @@ def test_bf16x_tile_rule_matches_jax(M, K, N):
             (((M, K), jnp.float32), ((K, N), jnp.int8), ((N,), jnp.float32))]
     declined = jax.eval_shape(jpm.w8a8_matmul_bf16x, *args) is None
     assert (not cm.bf16x_tiling(M, K, N)) == declined
+
+
+# ------------------- raw x = quantize_rows, then the int8-x kernels
+
+def _jax_ffn1_xq(x_q, s_x, w1, ws, b, tg):
+    """The JAX package's fc1 kernel from int8 x (``_ffn1_kernel``, K in
+    one step) run alone, interpreted."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    M, K = x_q.shape
+    H = w1.shape[1]
+    return pl.pallas_call(
+        functools.partial(jpm._ffn1_kernel, nk=1), grid=(M // 8, H // tg, 1),
+        in_specs=[pl.BlockSpec((8, K), lambda i, j, k: (i, k)),
+                  pl.BlockSpec((8, 1), lambda i, j, k: (i, 0)),
+                  pl.BlockSpec((K, tg), lambda i, j, k: (k, j)),
+                  pl.BlockSpec((1, tg), lambda i, j, k: (0, j)),
+                  pl.BlockSpec((1, tg), lambda i, j, k: (0, j))],
+        out_specs=[pl.BlockSpec((8, tg), lambda i, j, k: (i, j)),
+                   pl.BlockSpec((8, 128), lambda i, j, k: (i, j))],
+        out_shape=[jax.ShapeDtypeStruct((M, H), jnp.int8),
+                   jax.ShapeDtypeStruct((M, (H // tg) * 128), jnp.float32)],
+        scratch_shapes=[pltpu.VMEM((8, tg), jnp.int32)],
+        interpret=True,
+    )(x_q, s_x, w1, ws.reshape(1, H), b.reshape(1, H))
+
+
+@pytest.mark.parametrize("M,K,H,N", [(48, 256, 1792, 256),
+                                     (40, 1536, 1280, 384)])
+def test_ffn1_from_raw_x_is_quantize_rows_then_int8_x(M, K, H, N):
+    """The port runs raw-x fc1 as the ``quantize_rows`` kernel followed by
+    fc1 from int8 x.  That is the same function, bit for bit in the int8
+    hidden and its group scales (two groups here), on the port's plain
+    versions and on the JAX package's interpreted kernels
+    (``_ffn1_kernel_bf16x`` against ``quantize_rows_pallas`` then
+    ``_ffn1_kernel``), and so through fc2 of ``w8a8_ffn``."""
+    rng = np.random.default_rng(13)
+    x = _x_with_edges(rng, M, K)
+    (w1, b1), (w2, b2) = _linear(rng, K, H, scale=0.06), \
+        _linear(rng, H, N, scale=0.03)
+    j1, t1 = (f(p) for f, p in zip(
+        (jquant.quantize_linear_params, tquant.quantize_linear_params),
+        _pair(w1, b1)))
+    j2, t2 = (f(p) for f, p in zip(
+        (jquant.quantize_linear_params, tquant.quantize_linear_params),
+        _pair(w2, b2)))
+    tg = cm.ffn_group(M, K, H, N, raw_x=True)
+    assert tg is not None and H // tg == 2
+
+    xt = torch.from_numpy(x)
+    a1 = (t1["w_qa_t"], t1["w_scale"], t1["b"], tg)
+    hq, hs = cm.w8a8_ffn1_ref(xt, None, *a1)
+    hq2, hs2 = cm.w8a8_ffn1_ref(*cm.quantize_rows_ref(xt), *a1)
+    assert torch.equal(hq, hq2) and torch.equal(hs, hs2)
+
+    xj = jnp.asarray(x)
+    jq, js = jpm.quantize_rows_pallas(xj, interpret=True)
+    raw = jax.jit(functools.partial(_jax_ffn1, tg=tg))(
+        xj, j1["w_qa"], j1["w_scale"], j1["b"])
+    pre = jax.jit(functools.partial(_jax_ffn1_xq, tg=tg))(
+        jq, js[:, :1], j1["w_qa"], j1["w_scale"], j1["b"])
+    for a, b in zip(raw, pre):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    ffn = functools.partial(jpm.w8a8_ffn, w1_q=j1["w_qa"],
+                            w1_scale=j1["w_scale"], b1=j1["b"],
+                            w2_q=j2["w_qa"], w2_scale=j2["w_scale"],
+                            b2=j2["b"], out_dtype=jnp.float32,
+                            interpret=True)
+    np.testing.assert_array_equal(np.asarray(ffn(xj, None)),
+                                  np.asarray(ffn(jq, js)))
+
+
+@pytest.mark.parametrize("M,K,N", [(48, 384, 1536), (40, 1536, 768)])
+def test_bf16x_is_quantize_rows_then_the_int8_linear(M, K, N):
+    """``w8a8_matmul_bf16x`` runs as the ``quantize_rows`` kernel then the
+    int8-x linear: on the port's plain versions the same bits as
+    ``w8a8_matmul`` of ``quantize_rows``; on the JAX package's interpreted
+    kernels ``_kernel_bf16x`` against ``quantize_rows_pallas`` then
+    ``_kernel`` to 1e-6 relative L2 (XLA may order the epilogue's
+    products differently in the two kernels)."""
+    rng = np.random.default_rng(14)
+    x = _x_with_edges(rng, M, K)
+    w, b = _linear(rng, K, N)
+    jp, tp = _pair(w, b)
+    jl, tl = (jquant.quantize_linear_params(jp),
+              tquant.quantize_linear_params(tp))
+    xt = torch.from_numpy(x)
+    args = (tl["w_qa_t"], tl["w_scale"], tl["b"])
+    y = cm.w8a8_matmul_bf16x_ref(xt, *args, out_dtype=torch.float32)
+    y2 = cm.w8a8_matmul_ref(*cm.quantize_rows_ref(xt), *args,
+                            out_dtype=torch.float32)
+    assert torch.equal(y, y2)
+
+    xj = jnp.asarray(x)
+    jy = jpm.w8a8_matmul_bf16x(xj, jl["w_qa"], jl["w_scale"], jl["b"],
+                               out_dtype=jnp.float32, interpret=True)
+    jq, js = jpm.quantize_rows_pallas(xj, interpret=True)
+    jy2 = jpm.w8a8_matmul(jq, js, jl["w_qa"], jl["w_scale"], jl["b"],
+                          out_dtype=jnp.float32, interpret=True)
+    assert _rel_l2(jy, jy2) < 1e-6
+    assert _rel_l2(y.numpy(), jy) < 1e-6
