@@ -8,7 +8,10 @@ Phases, each printing one line or more (any failure exits non-zero):
 2. each kernel against its plain PyTorch version at the Wan-1.3B shapes
    of its paths: the bf16 decode and cross attention of the streaming
    sampler, the int8-QK decode attention (pre-pass and attention) at the
-   global demo window and at the windowed steady state, the W8A8 linears
+   global demo window and at the windowed steady state (beside the bf16
+   decode kernel on the same keys), the decode and cross attention
+   backward (SDPA's on the gathered visible keys) against their fp32
+   plain versions at the training rollout's shapes, the W8A8 linears
    (M = 4680 tokens, dim 1536, ffn 8960), the training path's flash
    attention forward and its one dq / dk / dv backward kernel (L = 32760
    tokens, 12 heads, no mask and the 7-block block-causal mask); the decode
@@ -35,9 +38,11 @@ block, with the cache's per-layer kmax after each); then for the demo
 configuration as ``bench.py`` runs it: the same weights quantized and the
 attention quantized as ``ops/chip.py`` picks for the card (W8A8 linears,
 int8-QK attention; phase 3 also gives its distance to the bf16 forward;
-phase 4 decodes each block with the stateful TAEHV streamer), and phases
-3-4 of the demo with the full-int8 attention (``attn_quant='int8'``, the
-tile-bounded kernel on the global path).
+phase 4 decodes each block with the stateful TAEHV streamer), phases 4-5
+of the demo with the bf16 decode attention (the A/B of the registry's
+``demo_attn_quant``), and phases 3-4 of the demo with the full-int8
+attention (``attn_quant='int8'``, the tile-bounded kernel on the global
+path).
 6. The windowed configurations of ``bench.py`` (1-frame sink, 12-frame
    window, 24-frame buffer, W8A8 + int8-QK, 12 blocks with TAEHV): a warm
    run, then a timed run with steady-state DiT and TAEHV ms per block
@@ -52,7 +57,8 @@ tile-bounded kernel on the global path).
    weights, pseudo text context: two
    ``train_step``s (generator + critic, then critic only) with per-phase
    ms, peak memory, losses and grad norms, the parameters that moved and
-   the flash kernels' launch counts; one critic-only step under
+   the launch counts of the flash kernels and of the decode / cross
+   backward; one critic-only step under
    ``attn_softmax='bounded'``; then the critic-loss gradient at full
    width and 2 layers with the kernels and with their plain versions,
    under 'free', 'bounded' and 'online'.
@@ -126,6 +132,10 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 PARITY_KERNELS = ("decode_fresh_free", "cross_attention")
 DEMO_KERNELS = ("int8qk_quantize", "decode_fresh_int8qk", "cross_attention",
                 "quantize_rows", "w8a8_matmul", "w8a8_ffn1", "w8a8_ffn2")
+# the demo's W8A8 linears with the bf16 decode attention (its A/B)
+DEMO_BF16_ATTN_KERNELS = ("decode_fresh_free", "cross_attention",
+                          "quantize_rows", "w8a8_matmul", "w8a8_ffn1",
+                          "w8a8_ffn2")
 # attn_quant='int8': the global demo runs the tile-bounded int8 attention,
 # the windowed configuration (no kmax) the online one
 INT8_DEMO_KERNELS = ("int8qk_quantize", "int8_quantize_v",
@@ -323,37 +333,44 @@ def phase_kernels(ca, g) -> dict:
 
 
 def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
-    """The plain-PyTorch backward of the decode and cross attention (the
-    JAX package's is XLA; no kernel replaces it yet), timed at the
-    training rollout's shapes: a block's 4680 queries onto the fresh K/V
-    alone (block 1) and onto 28080 cached keys as well (block 7), in
-    fp32 as the gradient of the free softmax at ln 2; the cross attention
-    onto 512 text tokens for 4680 (the rollout) and 32760 (the score
-    models) queries."""
+    """The backward of the decode and cross attention (no TPU kernel: the
+    JAX package's is an XLA replay) at the training rollout's shapes: a
+    block's 4680 queries onto the fresh K/V alone (block 1) and onto 28080
+    cached keys as well (block 7), as the gradient of the free softmax at
+    ln 2; the cross attention onto 512 text tokens for 4680 (the rollout)
+    and 32760 (the score models) queries.  The card path (SDPA's backward
+    on the gathered visible keys, bf16) is held against the fp32 plain
+    version at 2e-2 relative L2 per gradient and timed beside it; the
+    bound counts SDPA's backward as 5 bf16 products (the forward
+    recomputed, then dV, dP, dQ, dK) and its bytes as q, k, v, do read
+    once and dq, dk, dv written once."""
     D, N = HEAD_DIM, N_HEADS
     go = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+
+    def check(name, got, want):
+        errs = [rel_l2(a, b) for a, b in zip(got, want)]
+        if not all(math.isfinite(e) and e <= 2e-2 for e in errs):
+            fail(f"{name}: relative L2 {errs} > 2e-2 against the fp32 "
+                 f"plain version")
+        return max(errs)
+
     for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END)):
-        ms = time_ms(lambda: ca.decode_fresh_bwd(
-            q, kc, vc, kn, vn, go, layer_idx=7, kv_start=0, kv_end=kv_end,
-            num_heads=N, scale=math.log(2.0)), reps=3)
+        kw = dict(layer_idx=7, kv_start=0, kv_end=kv_end, num_heads=N,
+                  scale=math.log(2.0))
+        err = check(f"decode_fresh_bwd {label}",
+                    ca.decode_fresh_bwd(q, kc, vc, kn, vn, go, **kw),
+                    ca.decode_fresh_bwd_ref(q, kc, vc, kn, vn, go, **kw))
+        ms = time_ms(lambda: ca.decode_fresh_bwd(q, kc, vc, kn, vn, go,
+                                                 **kw))
+        plain_ms = time_ms(lambda: ca.decode_fresh_bwd_ref(
+            q, kc, vc, kn, vn, go, **kw), reps=3)
         keys = kv_end + LQ
-        flops = 5 * 2.0 * LQ * keys * D * N
-        # library yardstick: SDPA's backward over the concatenated visible
-        # K/V at scale ln 2 (one autograd call for dq, dk, dv; bf16)
-        heads = lambda t: t.reshape(1, -1, N, D).transpose(1, 2)
-        qg = heads(q).detach().requires_grad_(True)
-        kg = torch.cat([kc[7, :, :kv_end][None], heads(kn)],
-                       dim=2).requires_grad_(True)
-        vg = torch.cat([vc[7, :, :kv_end][None], heads(vn)],
-                       dim=2).requires_grad_(True)
-        o = F.scaled_dot_product_attention(qg, kg, vg, scale=math.log(2.0))
-        lib = library_ms(lambda: torch.autograd.grad(
-            o, (qg, kg, vg), heads(go), retain_graph=True))
-        del o, qg, kg, vg
-        print(f"plain backward decode_fresh_bwd {label} (keys {keys}): "
-              f"ms={ms:.4f} bound_ms={flops / PEAK_F32_FLOPS * 1e3:.4f} "
-              f"(5 fp32 products at the f32 peak) sdpa_bwd_ms="
-              f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
+        b_ms, b_by = bound(5 * 2.0 * LQ * keys * D * N,
+                           2.0 * N * D * (4 * LQ + 4 * keys))
+        print(f"backward decode_fresh_bwd {label} (keys {keys}): "
+              f"rel_l2={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f}",
+              flush=True)
     k = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
     v = torch.randn(1, N_CTX, N, D, generator=g, device="cuda").to(q.dtype)
     for Lq in (LQ, SEQ_TRAIN):
@@ -361,20 +378,19 @@ def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
             q.dtype)
         gx = torch.randn(1, Lq, N * D, generator=g, device="cuda").to(
             q.dtype)
+        err = check(f"cross_attention_bwd Lq={Lq}",
+                    ca.cross_attention_bwd(qx, k, v, gx, num_heads=N),
+                    ca.cross_attention_bwd_ref(qx, k, v, gx, num_heads=N))
         ms = time_ms(lambda: ca.cross_attention_bwd(qx, k, v, gx,
-                                                    num_heads=N), reps=3)
-        qg = qx.reshape(1, Lq, N, D).transpose(1, 2).detach(
-            ).requires_grad_(True)
-        kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (k, v))
-        o = F.scaled_dot_product_attention(qg, kg, vg)
-        lib = library_ms(lambda: torch.autograd.grad(
-            o, (qg, kg, vg), gx.reshape(1, Lq, N, D).transpose(1, 2),
-            retain_graph=True))
-        del o, qg, kg, vg
-        print(f"plain backward cross_attention_bwd (Lq={Lq}, Lk={N_CTX}): "
-              f"ms={ms:.4f} sdpa_bwd_ms="
-              f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
+                                                    num_heads=N))
+        plain_ms = time_ms(lambda: ca.cross_attention_bwd_ref(
+            qx, k, v, gx, num_heads=N), reps=3)
+        b_ms, b_by = bound(5 * 2.0 * Lq * N_CTX * D * N,
+                           2.0 * N * D * (4 * Lq + 4 * N_CTX))
+        print(f"backward cross_attention_bwd (Lq={Lq}, Lk={N_CTX}): "
+              f"rel_l2={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f}",
+              flush=True)
 
 
 def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
@@ -384,7 +400,8 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
     windowed steady state (a 37440-token buffer whose 1560-token sink and
     12480-token recent window are visible, 14040 cached tokens).  The
     library yardstick is SDPA on the same bf16 inputs: the bf16 function
-    (no PyTorch call does int8 QK^T)."""
+    (no PyTorch call does int8 QK^T); beside it the port's bf16
+    ``decode_fresh_free`` on the same keys."""
     from self_forcing_tpu_torch.ops.attention import decode_tiles
     D, N = HEAD_DIM, N_HEADS
     S_W = 24 * 1560
@@ -455,6 +472,13 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qh, kv_k, kv_v, scale=math.log(2.0)))
         del kv_k, kv_v
+        # the bf16 kernel on the same keys: what the int8-QK toggle must
+        # beat to save time
+        bf_args = {k: win[k] for k in ("layer_idx", "kv_start", "kv_end",
+                                       "sink_end", "static_hi",
+                                       "num_heads")}
+        bf16_ms = time_ms(lambda: ca.decode_fresh_free(q, k_c, v_c, kn, vn,
+                                                       **bf_args))
         n_keys = sk + (hi - lo) + LQ
         ops = 2.0 * LQ * n_keys * D * N     # each of QK^T and P.V
         nbytes = 2.0 * (2 * LQ * N * D + 2 * n_keys * N * D)
@@ -464,7 +488,8 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
         print(f"kernel decode_fresh_int8qk {label} (keys {n_keys}, tiles "
               f"{tq}/{tk}/{tf}): rel_l2={err:.3e} max_abs={mae:.3e} "
               f"attend_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_bf16_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"sdpa_bf16_ms={lib_ms:.4f} decode_fresh_bf16_ms={bf16_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
               f"tops={2 * ops / ms / 1e9:.1f}", flush=True)
         if "decode_fresh_int8qk" not in table:   # the table row: global
             table["decode_fresh_int8qk"] = dict(
@@ -1975,6 +2000,10 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "decode_fresh_free",
 # its per-layer recomputation and the backward
 GEN_FLASH = {"flash_fwd": 3, "flash_bwd": 0}
 CRITIC_FLASH = {"flash_fwd": 2, "flash_bwd": 1}
+# the decode / cross backward (SDPA's on the card): the generator update
+# runs both (the rollout's exit block, the score models' cross attention),
+# a critic update the cross one
+TRAIN_BWD = ("decode_fresh_bwd", "cross_attention_bwd")
 
 
 def _randomize_heads(models, seed):
@@ -2028,6 +2057,7 @@ def phase_training(ca, seed: int, softmax: str = "free",
     fwd = "flash_fwd" if softmax == "free" else f"flash_fwd_{softmax}"
     names = [fwd if k == "flash_fwd" else f"decode_fresh_{softmax}"
              if k == "decode_fresh_free" else k for k in TRAIN_KERNELS]
+    shown = names + list(TRAIN_BWD)
     for step in steps:
         ctx = context_fn(next(batches))
         trainer.state.step = step
@@ -2056,7 +2086,7 @@ def phase_training(ca, seed: int, softmax: str = "free",
         print(f"train step {step} (Wan-1.3B width, {layers} layers, DMD, "
               f"attn_softmax={softmax}, 21 frames 60x104, LoRA rank "
               f"{config.lora_rank}): step_ms={ms:.1f} split_ms={split} "
-              f"{vals} launches={ {k: got[k] for k in names} } "
+              f"{vals} launches={ {k: got[k] for k in shown} } "
               f"(host clock, synchronised per phase)", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     moved_g = sum(a != b for a, b in zip(gen_before,
@@ -2070,7 +2100,8 @@ def phase_training(ca, seed: int, softmax: str = "free",
                     for st in steps)
     if (gen_steps and not moved_g) or not moved_f:
         fail("training: the generator or the critic did not move")
-    check_launches("training", launches, names)
+    check_launches("training", launches,
+                   names + list(TRAIN_BWD if gen_steps else TRAIN_BWD[1:]))
     return launches
 
 
@@ -2304,6 +2335,15 @@ def main() -> None:
     phase_profile(dit, cfg_q, qparams, demo_last, "demo")
     del demo_last
     torch.cuda.empty_cache()
+    # the registry's demo attention against the bf16 decode kernel on the
+    # same W8A8 weights: the A/B behind ops/chip.py's demo_attn_quant
+    cfg_qb = dataclasses.replace(cfg_q, attn_quant=None)
+    _, bf_last = phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg_qb,
+                                   qparams, a.blocks, a.seed,
+                                   kernels=DEMO_BF16_ATTN_KERNELS)
+    phase_profile(dit, cfg_qb, qparams, bf_last, "demo bf16 attention")
+    del bf_last
+    torch.cuda.empty_cache()
     i8_launches, i8_last = phase_demo_stream(
         ca, cm, dit, taehv, pipe_mod, cfg_i8, qparams, a.blocks, a.seed,
         kernels=INT8_DEMO_KERNELS)
@@ -2374,7 +2414,7 @@ def main() -> None:
                "decode_fresh_online": (csrc + "decode_fresh.cu",
                                        attn + ":275"),
                "int8qk_quantize": (csrc + "decode_int8qk.cu", attn + ":546"),
-               "decode_fresh_int8qk": (csrc + "decode_int8qk.cu",
+               "decode_fresh_int8qk": (csrc + "decode_fresh.cu",
                                        attn + ":475"),
                "int8_quantize_v": (csrc + "decode_int8.cu", attn + ":585"),
                "decode_fresh_int8_tile": (csrc + "decode_int8.cu",

@@ -1,8 +1,8 @@
 // decode_fresh: decode self-attention of one block's queries onto a
 // read-only KV cache window plus the block's own fresh (not yet cached)
-// K/V, in one of four softmax modes; the same kernel serves the cache
-// window alone (decode_window) and the cross attention onto a small
-// static K/V (cross_attention).
+// K/V, in one of five modes; the same kernel serves the cache window
+// alone (decode_window), the cross attention onto a small static K/V
+// (cross_attention) and the int8-QK attention (int8qk_attend).
 //
 // Replaces the TPU kernel _decode_fresh_kernel in its bf16 modes
 // (self_forcing_tpu/ops/pallas_attention.py, called through
@@ -14,6 +14,10 @@
 // own (3xTF32 products; see decode_window_f32_kernel).
 // cross_attention_launch replaces _cross_kernel (cross_attention_pallas):
 // the online mode with no cache and the text / CLIP K/V as the fresh keys.
+// int8qk_attend_launch replaces the attention of _decode_fresh_int8_kernel
+// in 'free_qk' mode (softmax='free', quant='int8qk'; its _accumulate and
+// _finalize): mode INT8QK, on the int8 q and K of the pre-pass
+// (decode_int8qk.cu's int8qk_quantize_launch).
 //
 // Function, per (batch b, head n, query row i):
 //   visible cache columns j: j < cache_lim and
@@ -30,6 +34,10 @@
 //                 128-key tiles seen so far; l and acc are rescaled by
 //                 exp(m_prev - m) when it grows
 //   l = sum p (fp32),  acc = sum bf16(p) * v_j (fp32)
+//   INT8QK:       s = float(q8_i . k8_j) * (qs_i * ks_j) [* scale], then
+//                 FREE's p = exp2(min(s, 80)); q8 / k8 the pre-pass's int8
+//                 rows, qs the scale of row i's Pallas q tile, ks that of
+//                 column j's Pallas k tile (tq / tk / tf rows)
 //   out_i = acc / max(l, 1e-30)  -> bf16 (as acc * (1 / max(l, 1e-30)):
 //                 one division a row, within an f32 ulp before bf16)
 // The exponentials run base 2 (ex2.approx): scale * log2(e) multiplies
@@ -84,8 +92,33 @@
 // do not fit: beside a 24-register producer they get at most 160
 // registers a thread, what o, s and p alone take.  The tensor maps are
 // encoded on the host at every launch (a few microseconds).
+//
+// INT8QK: the same CTA on int8 operands for S.  Q and K arrive as int8
+// boxes (one 128-byte swizzle row a query or key: 16 KB a 128-key K
+// stage, so the ring has 3 stages), S = Q8.K8^T runs as 4 k-steps of
+// wgmma.m64n128k32.s32.s8.s8 (both K-major, the pre-pass's layout), and
+// the int32 scores are dequantized in registers (I2FP, an ALU
+// instruction on sm_90: the integer-add / float-subtract pair of the
+// mma.sync kernel measured 2.7% slower) times qs * ks.  The scales are
+// per Pallas tile, and Pallas tiles do not line up with the 64-row
+// consumer tiles or the 128-key stages (a stage can meet several k tiles
+// of any size), so each accumulator row carries its own qs (read when the
+// item's Q is taken) and each column its own ks: a second warp of the
+// producer warpgroup writes the stage's 128 per-key scales into shared
+// memory beside K and arrives on the stage's full barrier with them; a
+// consumer reads its 32 into registers while its Q.K^T runs and hands the
+// K stage back after the softmax.  P.V is FREE's.  Cache tiles the window
+// does not meet were not written by the pre-pass (scale 0, any int8
+// values): a stage that straddles one reads finite scores there and masks
+// them.  What bounds it: QK^T at the int8 rate plus P.V at the bf16 rate,
+// 0.75 of FREE's tensor time; but the softmax, ~6 instructions a score to
+// FREE's ~4, is the longer half of each step, so the consumers do not
+// take turns at the tensor cores (ping-pong measured 4.7% slower here:
+// with little tensor work to hide behind, it only delays a warpgroup's
+// issue).
 
 #include <cstring>
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "hopper.cuh"
@@ -105,18 +138,47 @@ constexpr int BOX = BK * 128;             // bytes of a 64-column K/V box
 constexpr int KV_TILE = 2 * BOX;          // bytes of a K or V tile
 constexpr int Q_BOX = BM * 128;
 constexpr int Q_TILE = 2 * Q_BOX;
-constexpr int N_BARS = 4 + 4 * STAGES;
-constexpr size_t SMEM_BYTES =
-    1024 + 2 * Q_TILE + 2 * STAGES * KV_TILE + N_BARS * sizeof(uint64_t);
 constexpr float LOG2E = 1.4426950408889634f;
 
-enum Mode { FREE = 0, FREE_NOCLAMP = 1, BOUNDED = 2, ONLINE = 3 };
+enum Mode { FREE = 0, FREE_NOCLAMP = 1, BOUNDED = 2, ONLINE = 3, INT8QK = 4 };
+
+// The shared-memory plan of a mode: the bf16 modes hold Q and K as two
+// 64-column boxes a tile; INT8QK as one 128-byte int8 box (half the bytes),
+// which buys a third stage, plus the stages' per-key scales.
+template <int MODE>
+struct Plan {
+  static constexpr bool I8 = MODE == INT8QK;
+  static constexpr int ST = I8 ? 3 : STAGES;      // K / V ring depth
+  static constexpr int QT = I8 ? BM * 128 : Q_TILE;   // bytes a Q buffer
+  static constexpr int KT = I8 ? BK * 128 : KV_TILE;  // bytes a K stage
+  static constexpr int KS = I8 ? ST * BK : 0;         // per-key scales
+  static constexpr int N_BARS = 4 + 4 * ST;
+  static constexpr size_t SMEM = 1024 + 2 * QT + ST * (KT + KV_TILE) +
+                                 KS * sizeof(float) +
+                                 N_BARS * sizeof(uint64_t);
+};
+
+// INT8QK's scales: qs [B*N, qt] per Pallas q tile of tq rows, ksc
+// [B*N, ntc] per cache tile of tk rows, ksf [B*N, ntf] per fresh tile of
+// tf rows (the pre-pass's)
+struct Scales {
+  const float* qs;
+  const float* ksc;
+  const float* ksf;
+  int tq, tk, tf, qt, ntc, ntf;
+};
+
+__device__ __forceinline__ float as_f(float x) { return x; }
+__device__ __forceinline__ float as_f(int x) { return __int_as_float(x); }
 
 struct Maps {
-  CUtensorMap q;    // (D, N, Lq, B), box (64, 1, BM, 1)
-  CUtensorMap kc;   // (D, S, B*N), box (64, BK, 1): the layer's cache
+  CUtensorMap q;    // (D, N, Lq, B), box (64, 1, BM, 1); INT8QK: the
+                    // int8 q8 (D, qt * tq, B*N), box (128, BM, 1)
+  CUtensorMap kc;   // (D, S, B*N), box (64, BK, 1): the layer's cache;
+                    // INT8QK: kc8 (D, ntc * tk, B*N), box (128, BK, 1)
   CUtensorMap vc;
-  CUtensorMap kn;   // (D, N, Lf, B), box (64, 1, BK, 1)
+  CUtensorMap kn;   // (D, N, Lf, B), box (64, 1, BK, 1); INT8QK: kn8
+                    // (D, ntf * tf, B*N), box (128, BK, 1)
   CUtensorMap vn;
 };
 
@@ -134,22 +196,26 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ m0, bf16* __restrict__ out,
                     int B, int N, int Lq, int Lf, int S, int kv_start,
                     int kv_end, int sink_end, int cache_lim, float scale,
-                    const int* __restrict__ bounds) {
+                    const int* __restrict__ bounds, const Scales sc) {
   static_assert(!HILO || MODE == ONLINE, "HILO is the online softmax");
+  using P = Plan<MODE>;
+  constexpr bool I8 = P::I8;
+  constexpr int ST = P::ST;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // [Q: 2 buffers of 2 boxes | K: STAGES tiles | V: STAGES tiles |
-  //  barriers]
+  // [Q: 2 buffers | K: ST stages | V: ST stages | INT8QK: the stages'
+  //  per-key scales | barriers]
   unsigned char* sQ = base;
-  unsigned char* sK = sQ + 2 * Q_TILE;
-  unsigned char* sV = sK + STAGES * KV_TILE;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * KV_TILE);
+  unsigned char* sK = sQ + 2 * P::QT;
+  unsigned char* sV = sK + ST * P::KT;
+  float* sKS = reinterpret_cast<float*>(sV + ST * KV_TILE);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKS + P::KS);
   uint64_t* q_empty = q_full + 2;
   uint64_t* full_k = q_empty + 2;
-  uint64_t* full_v = full_k + STAGES;
-  uint64_t* empty_k = full_v + STAGES;
-  uint64_t* empty_v = empty_k + STAGES;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty_k = full_v + ST;
+  uint64_t* empty_v = empty_k + ST;
 
   if (WINDOW) {
     kv_start = max(__ldg(bounds), 0);
@@ -173,10 +239,12 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       mbar_init(&q_full[s], 1);
       mbar_init(&q_empty[s], CONSUMERS);
     }
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full_k[s], 1);
+    for (int s = 0; s < ST; ++s) {
+      // INT8QK: the K stage also waits for the scale warp's 32 lanes, and
+      // every consumer warp hands it back (after reading the scales)
+      mbar_init(&full_k[s], I8 ? 1 + 32 : 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty_k[s], CONSUMERS);
+      mbar_init(&empty_k[s], I8 ? 4 * CONSUMERS : CONSUMERS);
       mbar_init(&empty_v[s], CONSUMERS);
     }
     fence_barrier_init();
@@ -185,8 +253,40 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
 
   if (wg == CONSUMERS) {
     // ---- producer: one thread of the last warpgroup issues every TMA
-    // load; its registers go to the consumers ----
+    // load (INT8QK: a second warp writes the per-key scales); its
+    // registers go to the consumers ----
     regs_dealloc<24>();
+    const int pw = (threadIdx.x / 32) % 4;
+    if (I8 && pw == 1) {
+      // the scale warp: lane l writes the scales of keys 4 l .. 4 l + 3
+      // of every stage, in the producer's order
+      const int lane = threadIdx.x % 32;
+      int i = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const int bn = w / n_qt;
+        for (int t = first; t < n_total;
+             t = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
+                               sink_end), ++i) {
+          const int st = i % ST;
+          const bool cache = t < n_cache;
+          const int j0 = (cache ? t : t - n_cache) * BK + 4 * lane;
+          const int T = cache ? sc.tk : sc.tf;
+          const int nt = cache ? sc.ntc : sc.ntf;
+          const float* ks = (cache ? sc.ksc : sc.ksf) + (long long)bn * nt;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kt = (j0 + e) / T;   // past the last tile: masked
+            v[e] = kt < nt ? __ldg(ks + kt) : 0.f;
+          }
+          mbar_wait(&empty_k[st], ((i / ST) & 1) ^ 1);
+          *reinterpret_cast<float4*>(sKS + st * BK + 4 * lane) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          mbar_arrive(&full_k[st]);
+        }
+      }
+      return;
+    }
     if (threadIdx.x != 128 * CONSUMERS) return;
     int i = 0;   // key tiles loaded so far: the ring position
     for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
@@ -194,22 +294,32 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       const int q0 = (w % n_qt) * BM;
       // Q double-buffered: item k's loads while item k - 1 runs
       const int qb = k & 1;
-      unsigned char* dq = sQ + qb * Q_TILE;
+      unsigned char* dq = sQ + qb * P::QT;
       mbar_wait(&q_empty[qb], ((k >> 1) & 1) ^ 1);
-      mbar_expect_tx(&q_full[qb], Q_TILE);
-      tma_load_4d(dq, &maps.q, &q_full[qb], 0, n, q0, b);
-      tma_load_4d(dq + Q_BOX, &maps.q, &q_full[qb], 64, n, q0, b);
+      mbar_expect_tx(&q_full[qb], P::QT);
+      if (I8) {
+        tma_load_3d(dq, &maps.q, &q_full[qb], 0, q0, bn);
+      } else {
+        tma_load_4d(dq, &maps.q, &q_full[qb], 0, n, q0, b);
+        tma_load_4d(dq + Q_BOX, &maps.q, &q_full[qb], 64, n, q0, b);
+      }
       for (int t = first; t < n_total;
            t = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
                              sink_end), ++i) {
-        const int st = i % STAGES;
-        const uint32_t ph = (i / STAGES) & 1;
+        const int st = i % ST;
+        const uint32_t ph = (i / ST) & 1;
         const bool cache = t < n_cache;
         const int j0 = (cache ? t : t - n_cache) * BK;
         for (int kv = 0; kv < 2; ++kv) {
           uint64_t* full = kv ? &full_v[st] : &full_k[st];
-          unsigned char* dst = (kv ? sV : sK) + st * KV_TILE;
           mbar_wait(kv ? &empty_v[st] : &empty_k[st], ph ^ 1);
+          if (I8 && !kv) {   // int8 K: one box, folded [B*N, rows, D]
+            mbar_expect_tx(full, P::KT);
+            tma_load_3d(sK + st * P::KT, cache ? &maps.kc : &maps.kn, full,
+                        0, j0, bn);
+            continue;
+          }
+          unsigned char* dst = (kv ? sV + st * KV_TILE : sK + st * P::KT);
           mbar_expect_tx(full, KV_TILE);
           if (cache) {
             const CUtensorMap* m = kv ? &maps.vc : &maps.kc;
@@ -238,28 +348,39 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
                                                         : scale;
   const float off = MODE == BOUNDED ? __ldg(m0) * LOG2E : 0.f;
   // descriptors of k-step 0: Q rows of this warpgroup in buffer 0, K and
-  // V of stage 0
+  // V of stage 0 (an int8 Q / K row is 128 bytes, as a bf16 box row)
   const uint64_t dq0 = desc_sw128(sQ + c * 64 * 128, 16, 1024);
   const uint64_t dk = desc_sw128(sK, 16, 1024);
   const uint64_t dv = desc_sw128(sV, BOX, 1024);
 
   float o[64];
-  float s[BK / 2];                // scores, then p, of the current tile
+  // scores, then p, of the current tile (INT8QK: the int32 scores, then
+  // the bits of the float p in the same registers)
+  typename std::conditional<I8, int, float>::type s[BK / 2];
   uint32_t pa[BK / 16][4];        // bf16(p) (HILO: its hi part)
   uint32_t pl[HILO ? BK / 16 : 1][4];   // HILO: bf16(p - hi)
-  float l[2];      // partial row sums of rows g, g + 8
+  float l[2] = {0.f, 0.f};   // partial row sums of rows g, g + 8
   float m[2];      // ONLINE: running max (base 2)
   float corr[2] = {1.f, 1.f};   // ONLINE: rescale of l and O to the new max
+  float qsr[2] = {0.f, 0.f};    // INT8QK: qs * scale of rows g, g + 8
+  float2 ksr[I8 ? BK / 8 : 1];  // INT8QK: ks of columns 8 i + 2 tq, + 1
 
   uint64_t dq = dq0;   // this item's Q buffer
   // S = Q.K^T of the tile in stage `st`
   auto qk = [&](int st) {
+    if constexpr (I8) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n128k16_ss(
-          s, dq + (((kk / 4) * Q_BOX + (kk % 4) * 32) >> 4),
-          dk + ((st * KV_TILE + (kk / 4) * BOX + (kk % 4) * 32) >> 4),
-          kk > 0);
+      for (int kk = 0; kk < D / 32; ++kk)
+        WgmmaS8<BK>::run(s, dq + ((kk * 32) >> 4),
+                         dk + ((st * P::KT + kk * 32) >> 4), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16_ss(
+            s, dq + (((kk / 4) * Q_BOX + (kk % 4) * 32) >> 4),
+            dk + ((st * P::KT + (kk / 4) * BOX + (kk % 4) * 32) >> 4),
+            kk > 0);
+    }
   };
   // O += P.V of the tile in stage `st`
   auto pv = [&](int st) {
@@ -270,57 +391,88 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       if constexpr (HILO) wgmma_m64n128k16_rs<1>(o, pl[kk], d);
     }
   };
-  // the scores of tile t in base-2 units (-inf where not visible), then p
-  // in place, the row sums, and (ONLINE) the new running max and corr
-  auto softmax = [&](int t) {
+  // the scores of tile t (stage st) in base-2 units (-inf where not
+  // visible), then p in place, the row sums, and (ONLINE) the new running
+  // max and corr
+  auto softmax = [&](int t, int st) {
     const bool cache = t < n_cache;
     const int j0 = (cache ? t : t - n_cache) * BK;
     const bool edge =
         cache ? (straddles(j0, sink_end) || straddles(j0, kv_start) ||
                  straddles(j0, kv_end) || straddles(j0, cache_lim))
               : Lf - j0 < BK;
-    // the multiplier still to apply: interior tiles fold it into the
-    // exponent's FMA (and, as mul > 0, into the row max)
-    float k = mul;
-    if (edge || !(mul > 0.f)) {
+    auto visible = [&](int e) {
+      const int j = j0 + 8 * (e / 4) + 2 * tq + (e & 1);
+      return !edge || (cache ? j < cache_lim &&
+                                   (j < sink_end ||
+                                    (j >= kv_start && j < kv_end))
+                             : j < Lf);
+    };
+    if constexpr (I8) {
+      // s = float(acc) * (qs * ks), p = 2^min(s, 80); interior tiles
+      // skip the mask
+      float ls[2] = {0.f, 0.f};
+      auto dequant = [&](auto masked) {
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          const float2 kp = ksr[i];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {   // columns 8 i + 2 tq + (u & 1)
+            const int e = 4 * i + u;
+            float x = __int2float_rn(s[e]) *
+                      (qsr[u >> 1] * ((u & 1) ? kp.y : kp.x));
+            if constexpr (decltype(masked)::value)
+              x = visible(e) ? x : -INFINITY;
+            const float p = fast_exp2(fminf(x, 80.f));
+            ls[u >> 1] += p;
+            s[e] = __float_as_int(p);
+          }
+        }
+      };
+      if (edge)
+        dequant(std::true_type{});
+      else
+        dequant(std::false_type{});
+      l[0] += ls[0];
+      l[1] += ls[1];
+    } else {
+      // the multiplier still to apply: interior tiles fold it into the
+      // exponent's FMA (and, as mul > 0, into the row max)
+      float k = mul;
+      if (edge || !(mul > 0.f)) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          s[e] = visible(e) ? s[e] * mul : -INFINITY;
+        k = 1.f;
+      }
+      float sub[2] = {off, off};   // what p's exponent subtracts, per row
+      if (MODE == ONLINE) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int e = 0; e < BK / 8; ++e)
+            mx = fmaxf(mx, fmaxf(s[4 * e + 2 * h], s[4 * e + 2 * h + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[h], mx * k);
+          sub[h] = m_new == -INFINITY ? 0.f : m_new;
+          corr[h] = fast_exp2(m[h] - sub[h]);
+          m[h] = m_new;
+        }
+      }
+      float ls[2] = {0.f, 0.f};
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) {
-        const int j = j0 + 8 * (e / 4) + 2 * tq + (e & 1);
-        const bool vis = !edge || (cache ? j < cache_lim &&
-                                               (j < sink_end ||
-                                                (j >= kv_start && j < kv_end))
-                                         : j < Lf);
-        s[e] = vis ? s[e] * mul : -INFINITY;
+        // exp2(-inf) = 0 on the columns that are not visible
+        const float x = s[e];
+        s[e] = MODE == FREE ? fast_exp2(fminf(x * k, 80.f))
+                            : fast_exp2(fmaf(x, k, -sub[(e >> 1) & 1]));
+        ls[(e >> 1) & 1] += s[e];
       }
-      k = 1.f;
+      l[0] = l[0] * corr[0] + ls[0];
+      l[1] = l[1] * corr[1] + ls[1];
     }
-    float sub[2] = {off, off};   // what p's exponent subtracts, per row
-    if (MODE == ONLINE) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int e = 0; e < BK / 8; ++e)
-          mx = fmaxf(mx, fmaxf(s[4 * e + 2 * h], s[4 * e + 2 * h + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx * k);
-        sub[h] = m_new == -INFINITY ? 0.f : m_new;
-        corr[h] = fast_exp2(m[h] - sub[h]);
-        m[h] = m_new;
-      }
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < BK / 2; ++e) {
-      // exp2(-inf) = 0 on the columns that are not visible
-      const float x = s[e];
-      s[e] = MODE == FREE ? fast_exp2(fminf(x * k, 80.f))
-                          : fast_exp2(fmaf(x, k, -sub[(e >> 1) & 1]));
-      ls[(e >> 1) & 1] += s[e];
-    }
-    l[0] = l[0] * corr[0] + ls[0];
-    l[1] = l[1] * corr[1] + ls[1];
   };
   // p as the register A operand of the next P.V (accumulator columns
   // 16 kk .. 16 kk + 15 are k-step kk)
@@ -329,7 +481,8 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float a = s[8 * kk + 2 * r], bb = s[8 * kk + 2 * r + 1];
+        const float a = as_f(s[8 * kk + 2 * r]);
+        const float bb = as_f(s[8 * kk + 2 * r + 1]);
         pa[kk][r] = pack_bf16(a, bb);
         if constexpr (HILO)
           pl[kk][r] = pack_bf16(a - bf16_lo(pa[kk][r]),
@@ -337,24 +490,57 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       }
     }
   };
-  // the turn at the tensor cores (ping-pong): warpgroup c waits on named
-  // barrier 1 + c, which the other one arrives at once it has issued its
-  // products; warpgroup 1 lets 0 go first and skips its last hand-over,
-  // so both barriers see as many arrivals as waits
+  // the turn at the tensor cores (ping-pong; not in INT8QK): warpgroup c
+  // waits on named barrier 1 + c, which the other one arrives at once it
+  // has issued its products; warpgroup 1 lets 0 go first and skips its
+  // last hand-over, so both barriers see as many arrivals as waits
   auto take_turn = [&]() {
-    named_sync(1 + c, 256);
+    if constexpr (!I8) named_sync(1 + c, 256);
   };
   auto pass_turn = [&](bool last) {
-    if (!(c == 1 && last)) named_arrive(2 - c, 256);
+    if constexpr (!I8)
+      if (!(c == 1 && last)) named_arrive(2 - c, 256);
   };
   // after item k's last Q.K^T: its Q buffer may take item k + 2's
   auto release_q = [&](int k) {
     if (leader) mbar_arrive(&q_empty[k & 1]);
   };
-  // wait for item k's Q and point the Q descriptor at its buffer
-  auto take_q = [&](int k) {
-    dq = dq0 + (((k & 1) * Q_TILE) >> 4);
+  // wait for item k (item w) of this CTA's Q and point the Q descriptor
+  // at its buffer; INT8QK: read its rows' q scales
+  auto take_q = [&](int k, int w) {
+    dq = dq0 + (((k & 1) * P::QT) >> 4);
+    if constexpr (I8) {
+      const int bn = w / n_qt;
+      const int r0 = (w % n_qt) * BM + c * 64 + warp * 16 + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;   // rows past Lq are not written
+        qsr[h] = r < Lq ? __ldg(sc.qs + (long long)bn * sc.qt + r / sc.tq) *
+                              scale
+                        : 0.f;
+      }
+    }
     mbar_wait(&q_full[k & 1], (k >> 1) & 1);
+  };
+  // INT8QK: this thread's per-key scales of stage st into registers,
+  // issued before the wait for Q.K^T so that their latency hides there
+  auto load_ks = [&](int st) {
+    if constexpr (I8) {
+      const float* ks = sKS + st * BK + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+        ksr[i] = *reinterpret_cast<const float2*>(ks + 8 * i);
+    }
+  };
+  // K stage st back to the producer: at once after Q.K^T has read it, or
+  // (INT8QK) after every warp's softmax has read its per-key scales
+  auto release_k = [&](int st) {
+    if constexpr (I8) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_k[st]);
+    } else {
+      if (leader) mbar_arrive(&empty_k[st]);
+    }
   };
   // out = O * (1 / l) of item w, from the partial row sums `ls` (rows g
   // and g + 8 of this warp's 16; rows past Lq are not written)
@@ -387,7 +573,7 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   if (first >= n_total) {   // no visible key: every output row is 0
     const float zero[2] = {0.f, 0.f};
     for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
-      take_q(k);
+      take_q(k, w);
       release_q(k);
       store(w, zero);
     }
@@ -407,28 +593,30 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
                          sink_end);
   l[0] = l[1] = 0.f;
   m[0] = m[1] = -INFINITY;
-  if (c == 1) named_arrive(1, 256);
-  take_q(k);
+  if (!I8 && c == 1) named_arrive(1, 256);
+  take_q(k, w);
   mbar_wait(&full_k[0], 0);
   take_turn();
   wgmma_fence();
   qk(0);
   wgmma_commit();
   pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+  load_ks(0);
   wgmma_wait<0>();
   fence_regs(s);
-  if (leader) mbar_arrive(&empty_k[0]);
+  if (!I8) release_k(0);
   if (tn >= n_total) release_q(k);
-  softmax(t);
+  softmax(t, 0);
+  if (I8) release_k(0);
   pack();
   int i = 1;   // key tiles consumed so far: the ring position
   // issue tile t's Q.K^T (stage i) and the previous tile's P.V, and take
   // the softmax of t while P.V runs; returns with P.V done
   auto step = [&](bool fresh_item) {
-    const int st = i % STAGES;
-    const int sp = (i - 1) % STAGES;
-    mbar_wait(&full_k[st], (i / STAGES) & 1);
-    mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
+    const int st = i % ST;
+    const int sp = (i - 1) % ST;
+    mbar_wait(&full_k[st], (i / ST) & 1);
+    mbar_wait(&full_v[sp], ((i - 1) / ST) & 1);
     take_turn();
     wgmma_fence();
     qk(st);
@@ -436,16 +624,18 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     pv(sp);
     wgmma_commit();
     pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+    load_ks(st);
     wgmma_wait<1>();
     fence_regs(s);
-    if (leader) mbar_arrive(&empty_k[st]);
+    if (!I8) release_k(st);
     if (tn >= n_total) release_q(k);
     const float l_prev[2] = {l[0], l[1]};
     if (fresh_item) {   // the new item's softmax starts afresh
       l[0] = l[1] = 0.f;
       m[0] = m[1] = -INFINITY;
     }
-    softmax(t);
+    softmax(t, st);
+    if (I8) release_k(st);
     wgmma_wait<0>();
     fence_regs(o);
     if (leader) mbar_arrive(&empty_v[sp]);
@@ -473,12 +663,12 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     ++k;
     t = first;
     tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
-    take_q(k);
+    take_q(k, w);
     step(true);
   }
   // P.V of the last tile, and the last item's output
-  const int sp = (i - 1) % STAGES;
-  mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
+  const int sp = (i - 1) % ST;
+  mbar_wait(&full_v[sp], ((i - 1) / ST) & 1);
   wgmma_fence();
   pv(sp);
   wgmma_commit();
@@ -487,18 +677,59 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   store(w, l);
 }
 
-// Encode the tensor maps and launch on `stream`; k_cache / v_cache may be
-// null (no cache: cache_lim = 0) and Lf may be 0 (no fresh keys).
+// Launch on `stream` with the tensor maps encoded; the persistent grid.
+template <int MODE, bool WINDOW, bool HILO>
+int run(const Maps& maps, const void* m0, void* out, int B, int N, int Lq,
+        int Lf, int S, int kv_start, int kv_end, int sink_end, int cache_lim,
+        float scale, const int* bounds, const Scales& sc,
+        cudaStream_t stream) {
+  auto kernel = decode_fresh_kernel<MODE, WINDOW, HILO>;
+  const int smem = (int)Plan<MODE>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  static int sms = 0;   // the persistent grid: one CTA an SM
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = min((Lq + BM - 1) / BM * B * N, sms);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      maps, (const float*)m0, (bf16*)out, B, N, Lq, Lf, S, kv_start, kv_end,
+      sink_end, cache_lim, scale, bounds, sc);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 V maps: the layer's cache (D, S, B*N) and the heads-packed
+// fresh V (D, N, Lf, B), boxes of 64 columns and BK keys
+int v_maps(Maps& maps, const void* v_cache, const void* v_new, int B, int N,
+           int Lf, int S) {
+  const uint64_t row = D * sizeof(bf16);   // bytes of one head's row
+  if (v_cache != nullptr && S > 0) {
+    const uint64_t dims[3] = {D, (uint64_t)S, (uint64_t)B * N};
+    const uint64_t strides[2] = {row, row * S};
+    const uint32_t box[3] = {64, BK, 1};
+    if (int e = bf16_map(&maps.vc, v_cache, 3, dims, strides, box)) return e;
+  }
+  if (Lf > 0) {
+    const uint64_t dims[4] = {D, (uint64_t)N, (uint64_t)Lf, (uint64_t)B};
+    const uint64_t strides[3] = {row, row * N, row * N * Lf};
+    const uint32_t box[4] = {64, 1, BK, 1};
+    if (int e = bf16_map(&maps.vn, v_new, 4, dims, strides, box)) return e;
+  }
+  return 0;
+}
+
+// Encode the bf16 tensor maps and launch on `stream`; k_cache / v_cache
+// may be null (no cache: cache_lim = 0) and Lf may be 0 (no fresh keys).
 template <int MODE, bool WINDOW, bool HILO>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_new, const void* v_new, const void* m0, void* out,
            int B, int N, int Lq, int Lf, int S, int kv_start, int kv_end,
            int sink_end, int cache_lim, float scale, const int* bounds,
            cudaStream_t stream) {
-  auto kernel = decode_fresh_kernel<MODE, WINDOW, HILO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
   if (Lq <= 0 || B * N <= 0) return 0;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -514,27 +745,18 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
     const uint64_t strides[2] = {row, row * S};
     const uint32_t box[3] = {64, BK, 1};
     if (int e = bf16_map(&maps.kc, k_cache, 3, dims, strides, box)) return e;
-    if (int e = bf16_map(&maps.vc, v_cache, 3, dims, strides, box)) return e;
   }
   if (Lf > 0) {
     const uint64_t dims[4] = {D, (uint64_t)N, (uint64_t)Lf, (uint64_t)B};
     const uint64_t strides[3] = {row, row * N, row * N * Lf};
     const uint32_t box[4] = {64, 1, BK, 1};
     if (int e = bf16_map(&maps.kn, k_new, 4, dims, strides, box)) return e;
-    if (int e = bf16_map(&maps.vn, v_new, 4, dims, strides, box)) return e;
   }
-  static int sms = 0;   // the persistent grid: one CTA an SM
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = min((Lq + BM - 1) / BM * B * N, sms);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      maps, (const float*)m0, (bf16*)out, B, N, Lq, Lf, S, kv_start, kv_end,
-      sink_end, cache_lim, scale, bounds);
-  return (int)cudaGetLastError();
+  if (int e = v_maps(maps, v_cache, v_new, B, N, Lf, S)) return e;
+  const Scales none{};
+  return run<MODE, WINDOW, HILO>(maps, m0, out, B, N, Lq, Lf, S, kv_start,
+                                 kv_end, sink_end, cache_lim, scale, bounds,
+                                 none, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -815,4 +1037,53 @@ extern "C" int cross_attention_launch(const void* q, const void* k,
   return launch<ONLINE, false, true>(q, nullptr, nullptr, k, v, nullptr, out,
                                      B, N, Lq, Lk, 0, 0, 0, 0, 0, scale,
                                      nullptr, (cudaStream_t)stream);
+}
+
+// The int8-QK attention (the attention of the TPU kernel
+// _decode_fresh_int8_kernel in 'free_qk' mode): the pre-pass's int8 q8
+// [B*N, qt * tq, D] onto its int8 cache K kc8 [B*N, ntc * tk, D] and fresh
+// K kn8 [B*N, ntf * tf, D] (decode_int8qk.cu's int8qk_quantize_launch;
+// qt, ntc, ntf = ceil(Lq / tq), ceil(cache_lim / tk), ceil(Lf / tf)),
+// scores dequantized with the tile scales qs [B*N, qt], ksc [B*N, ntc],
+// ksf [B*N, ntf] times `scale`, the free softmax, bf16 P.V with V of layer
+// `v_cache` ([B*N, S, D]) and v_new (heads-packed [B, Lf, N*D]); out like
+// v_new with Lq rows.  cache_lim = min(S, static_hi, max(sink_end,
+// kv_end)) bounds the cache tiles visited.  Returns the CUDA error code.
+extern "C" int int8qk_attend_launch(const void* q8, const void* qs,
+                                    const void* kc8, const void* ksc,
+                                    const void* kn8, const void* ksf,
+                                    const void* v_cache, const void* v_new,
+                                    void* out, int B, int N, int Lq, int Lf,
+                                    int S, int kv_start, int kv_end,
+                                    int sink_end, int cache_lim, int tq,
+                                    int tk, int tf, float scale,
+                                    void* stream) {
+  if (tq < 1 || tk < 1 || tf < 1) return (int)cudaErrorInvalidValue;
+  if (Lq <= 0 || B * N <= 0) return 0;
+  auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+  const Scales sc{(const float*)qs, (const float*)ksc, (const float*)ksf,
+                  tq, tk, tf, cdiv(Lq, tq), cdiv(cache_lim, tk),
+                  cdiv(Lf, tf)};
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t BN = (uint64_t)B * N;
+  // int8 rows of 128 bytes, folded [B*N, rows, D]: boxes of one row of
+  // 128 int8 (a 128-byte swizzle row) by BM or BK rows
+  auto i8_map = [&](CUtensorMap* m, const void* p, int rows, int box_rows) {
+    const uint64_t dims[3] = {D, (uint64_t)rows, BN};
+    const uint64_t strides[2] = {D, (uint64_t)D * rows};
+    const uint32_t box[3] = {D, (uint32_t)box_rows, 1};
+    return u8_map(m, p, 3, dims, strides, box);
+  };
+  if (int e = i8_map(&maps.q, q8, sc.qt * tq, BM)) return e;
+  if (sc.ntc > 0)
+    if (int e = i8_map(&maps.kc, kc8, sc.ntc * tk, BK)) return e;
+  if (sc.ntf > 0)
+    if (int e = i8_map(&maps.kn, kn8, sc.ntf * tf, BK)) return e;
+  if (int e = v_maps(maps, cache_lim > 0 ? v_cache : nullptr, v_new, B, N,
+                     Lf, S))
+    return e;
+  return run<INT8QK, false, false>(maps, nullptr, out, B, N, Lq, Lf, S,
+                                   kv_start, kv_end, sink_end, cache_lim,
+                                   scale, nullptr, sc, (cudaStream_t)stream);
 }

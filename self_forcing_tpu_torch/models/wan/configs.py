@@ -34,8 +34,9 @@ class WanConfig:
     num_frame_per_block: int = 1
     independent_first_frame: bool = False
     # int8 decode attention (demo config): 'int8qk' runs QK^T in int8 with
-    # per-tile scales and P.V in bf16 (with the 'free' softmax); the
-    # full-int8 modes are not ported
+    # per-tile scales and P.V in bf16 (with the 'free' softmax); 'int8'
+    # runs both products in int8 ('tile' / 'global' with a score bound,
+    # online without)
     attn_quant: str | None = None
     # Decode softmax mode of the attention kernels.  'free' (default):
     # head_dim**-0.5 * log2(e) is folded into the q-norm gain and the

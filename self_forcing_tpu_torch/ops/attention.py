@@ -29,8 +29,12 @@ Gradients, as the JAX package's custom VJPs give them: the masked flash
 attention through :class:`FlashAttention` (the flash backward kernels on
 the route, at the forward mode's scale against its base-e lse); the
 decode and cross attention through autograd functions whose backward
-recomputes the attention in plain PyTorch
-(``cuda_attention.decode_fresh_bwd`` / ``cross_attention_bwd``).  No
+recomputes the attention (no TPU kernel: the JAX package replays its XLA
+reference): on CUDA operands with the kernels, SDPA's backward on the
+gathered visible keys (``cuda_attention.decode_fresh_bwd`` /
+``cross_attention_bwd``); on the CPU, or with ``kernels=False``, the
+fp32 recomputations (``decode_fresh_bwd_ref`` /
+``cross_attention_bwd_ref``).  No
 gradient flows through a bound ``fixed_m0`` (the output does not depend
 on it).  The decode backward reads the KV cache by reference, not as a
 saved tensor: the cache is written in place by later blocks, and the
@@ -110,20 +114,23 @@ def _wider(*tensors: torch.Tensor) -> torch.dtype | None:
 
 
 class _CrossAttention(torch.autograd.Function):
-    """Cross attention (heads-packed q) with the recomputing plain
-    backward of ``_cross_op_bwd``."""
+    """Cross attention (heads-packed q) with the recomputing backward of
+    ``_cross_op_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, kernels):
         ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
+        ctx.scale, ctx.kernels = scale, kernels
         return _cross_dispatch(q, k, v, scale, k.shape[2], kernels)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = cuda_attention.cross_attention_bwd(
-            q, k, v, g.contiguous(), num_heads=k.shape[2], scale=ctx.scale)
+        fn = (cuda_attention.cross_attention_bwd
+              if ctx.kernels and q.is_cuda
+              else cuda_attention.cross_attention_bwd_ref)
+        dq, dk, dv = fn(q, k, v, g.contiguous(), num_heads=k.shape[2],
+                        scale=ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -379,7 +386,7 @@ def _window_rows(k_cache, v_cache, layer_idx, kv_start, kv_end, sink_end):
 
 
 class _DecodeFresh(torch.autograd.Function):
-    """Decode attention with the recomputing plain backward of
+    """Decode attention with the recomputing backward of
     ``_decode_fresh_op_bwd``.  The cache is held by reference (it is
     written in place after the forward); gradients go to q, k_new and
     v_new only, as the cache is stop-gradient in the JAX package."""
@@ -417,7 +424,10 @@ class _DecodeFresh(torch.autograd.Function):
         else:
             scale = ((q.shape[-1] // N) ** -0.5 if a["scale"] is None
                      else a["scale"])
-        dq, dkn, dvn = cuda_attention.decode_fresh_bwd(
+        fn = (cuda_attention.decode_fresh_bwd
+              if a["kernels"] and q.is_cuda
+              else cuda_attention.decode_fresh_bwd_ref)
+        dq, dkn, dvn = fn(
             q, k_cache, v_cache, k_new, v_new, g.contiguous(),
             layer_idx=li, kv_start=a["kv_start"], kv_end=a["kv_end"],
             sink_end=a["sink_end"], num_heads=N, scale=scale)

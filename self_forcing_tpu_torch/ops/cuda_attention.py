@@ -8,8 +8,9 @@ that the streaming sampler and the training step run:
   'free_noclamp' (``softmax=``), 'bounded' (``fixed_m0``) and online
   (neither); ``decode_fresh_free`` is its 'free' mode, the sampler's
   default;
-- ``decode_fresh_int8qk`` (csrc/decode_int8qk.cu: the pre-pass
-  ``int8qk_quantize`` and the attention ``int8qk_attend``) replaces
+- ``decode_fresh_int8qk`` (the pre-pass ``int8qk_quantize``,
+  csrc/decode_int8qk.cu, and the attention ``int8qk_attend``,
+  csrc/decode_fresh.cu's INT8QK mode: int8 wgmma for QK^T) replaces
   ``_decode_fresh_int8_kernel`` in 'free_qk' mode (``softmax='free',
   quant='int8qk'``);
 - ``decode_fresh_int8`` (the same pre-pass for q and K,
@@ -38,9 +39,13 @@ tensor it launches the kernel or raises.  Every launch adds one to
 own names).
 
 The gradients: :class:`FlashAttention` (the flash forward and its
-backward kernel) and the plain-PyTorch backward of the decode and cross
-attention (:func:`decode_fresh_bwd`, :func:`cross_attention_bwd`), which
-recompute the attention as the JAX package's XLA backward does.
+backward kernel) and the backward of the decode and cross attention,
+which has no TPU kernel (the JAX package replays its XLA reference under
+``jax.vjp``): on the card :func:`decode_fresh_bwd` and
+:func:`cross_attention_bwd`, PyTorch's SDPA backward on the gathered
+visible keys (counted as ``decode_fresh_bwd`` / ``cross_attention_bwd``),
+and their fp32 recomputations ``*_bwd_ref``, the CPU path and the
+oracle.
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ launch_counts = {"decode_fresh_free": 0, "decode_fresh_free_noclamp": 0,
                  "decode_fresh_int8_global": 0, "decode_fresh_int8_online": 0,
                  "cross_attention": 0, "flash_fwd": 0, "flash_fwd_online": 0,
                  "flash_fwd_bounded": 0, "flash_bwd": 0, "decode_window": 0,
-                 "decode_window_f32": 0}
+                 "decode_window_f32": 0, "decode_fresh_bwd": 0,
+                 "cross_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -374,11 +380,10 @@ def decode_fresh_int8qk_ref(q, k_cache, v_cache, k_new, v_new, *,
     return int8qk_attend_ref(qq, q, v_cache, v_new, scale=scale, **win)
 
 
-def _check_tiles(name: str, tq: int, tk: int, tf: int,
-                 min_k: int = 1) -> None:
-    if tq < 1 or min(tk, tf) < min_k:
+def _check_tiles(name: str, tq: int, tk: int, tf: int) -> None:
+    if min(tq, tk, tf) < 1:
         raise ValueError(f"{name}: tiles {(tq, tk, tf)} (the kernel takes "
-                         f"tq >= 1 and tk, tf >= {min_k})")
+                         f"tiles of at least one row)")
 
 
 def int8qk_quantize(q, k_cache, k_new, *, layer_idx: int, kv_start: int,
@@ -446,8 +451,9 @@ def int8qk_attend(qq: Int8QK, q, v_cache, v_new, *, layer_idx: int,
         return int8qk_attend_ref(qq, q, v_cache, v_new, **win)
     vc = _stacked(v_cache, layer_idx)
     _check_cuda("int8qk_attend", q, vc, v_new)
-    # a 64-key tile of the kernel meets at most two k-scale tiles
-    _check_tiles("int8qk_attend", tq, tk, tf, min_k=64)
+    # every key of a 128-key stage reads its own k scale, so the kernel
+    # takes tiles of any size
+    _check_tiles("int8qk_attend", tq, tk, tf)
     B, Lq, ND = q.shape
     N = num_heads
     D = ND // N
@@ -471,7 +477,7 @@ def int8qk_attend(qq: Int8QK, q, v_cache, v_new, *, layer_idx: int,
                             "pre-pass's contiguous int8 / float32 tensors "
                             "on q's device")
     out = torch.empty_like(q)
-    fn = build.function("decode_int8qk", "int8qk_attend_launch",
+    fn = build.function("decode_fresh", "int8qk_attend_launch",
                         [_P] * 9 + [_I] * 12 + [ctypes.c_float, _P])
     err = fn(*(t.data_ptr() for t in qq), vc.data_ptr(), v_new.data_ptr(),
              out.data_ptr(), B, N, Lq, Lf, S, int(kv_start), int(kv_end),
@@ -964,8 +970,8 @@ def decode_window(q, k_cache, v_cache, kv_start, kv_end, *,
 
 
 # =====================================================================
-# plain backward of the decode and cross attention (no TPU kernel: the
-# JAX package replays its XLA reference under jax.vjp)
+# backward of the decode and cross attention (no TPU kernel: the JAX
+# package replays its XLA reference under jax.vjp)
 # =====================================================================
 
 _SCORES = 1 << 25  # fp32 scores in a chunk of the plain versions (134 MB:
@@ -988,17 +994,12 @@ def _softmax_vjp_rows(qf, keys, vals, gf, scale):
     return scale * (ds @ keys), scale * (ds.T @ qf), p.T @ gf
 
 
-def decode_fresh_bwd(q, k_cache, v_cache, k_new, v_new, g, *,
-                     layer_idx: int, kv_start: int, kv_end: int,
-                     sink_end: int = 0, num_heads: int, scale: float):
-    """Gradients (dq, dk_new, dv_new) of the decode attention of
-    :func:`decode_fresh_free`'s operands at base-e ``scale`` (a free-mode
-    caller passes its scale times ln 2): softmax attention of q onto the
-    visible cache columns ``[0, sink_end) + [kv_start, kv_end)`` of layer
-    ``layer_idx`` and all of k_new / v_new, recomputed in fp32 one head and
-    chunk of query rows at a time (the scores of a whole layer at the
-    last training block are 7.4 GB).  The port of
-    ``_decode_fresh_op_bwd``; the cache gets no gradient."""
+def decode_fresh_bwd_ref(q, k_cache, v_cache, k_new, v_new, g, *,
+                         layer_idx: int, kv_start: int, kv_end: int,
+                         sink_end: int = 0, num_heads: int, scale: float):
+    """Plain version of :func:`decode_fresh_bwd`: the gradients
+    recomputed in fp32 one head and chunk of query rows at a time (the
+    scores of a whole layer at the last training block are 7.4 GB)."""
     B, Lq, ND = q.shape
     N = num_heads
     D = ND // N
@@ -1029,11 +1030,76 @@ def decode_fresh_bwd(q, k_cache, v_cache, k_new, v_new, g, *,
     return dq, dkn, dvn
 
 
-def cross_attention_bwd(q, k, v, g, *, num_heads: int,
-                        scale: float | None = None):
-    """Gradients (dq, dk, dv) of :func:`cross_attention` (q heads-packed
-    [B, Lq, N*D], k/v [B, Lk, N, D]), recomputed in fp32 per head and
-    chunk of query rows; the port of ``_cross_op_bwd``."""
+def visible_columns(lim: int, kv_start: int, kv_end: int, sink_end: int,
+                    device) -> torch.Tensor:
+    """The visible cache columns below ``lim`` in ascending order, the
+    sinks ``[0, sink_end)`` and the window ``[kv_start, kv_end)``, as an
+    int64 index on ``device`` (made there: no host sync)."""
+    sink = min(sink_end, lim)
+    lo, hi = max(kv_start, sink), min(kv_end, lim)
+    return torch.cat([torch.arange(sink, device=device),
+                      torch.arange(lo, max(lo, hi), device=device)])
+
+
+def _heads(a: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Heads-packed [B, L, N*D] -> [B, N, L, D] (a view)."""
+    B, L, ND = a.shape
+    return a.reshape(B, L, num_heads, ND // num_heads).transpose(1, 2)
+
+
+def _packed(a: torch.Tensor) -> torch.Tensor:
+    """[B, N, L, D] -> heads-packed [B, L, N*D]."""
+    B, N, L, D = a.shape
+    return a.transpose(1, 2).reshape(B, L, N * D)
+
+
+def _sdpa_vjp(q, k, v, g, scale):
+    """dq, dk, dv of softmax(scale * q k^T) v for [B, N, L, D] operands and
+    the cotangent g: PyTorch's SDPA backward (the forward recomputed under
+    autograd, no mask), in the operands' dtype."""
+    with torch.enable_grad():
+        ops = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*ops, scale=scale)
+        return torch.autograd.grad(out, ops, g.to(out.dtype))
+
+
+def decode_fresh_bwd(q, k_cache, v_cache, k_new, v_new, g, *,
+                     layer_idx: int, kv_start: int, kv_end: int,
+                     sink_end: int = 0, num_heads: int, scale: float):
+    """Gradients (dq, dk_new, dv_new) of the decode attention of
+    :func:`decode_fresh_free`'s operands at base-e ``scale`` (a free-mode
+    caller passes its scale times ln 2): softmax attention of q onto the
+    visible cache columns ``[0, sink_end) + [kv_start, kv_end)`` of layer
+    ``layer_idx`` and all of k_new / v_new.  Every query sees the same
+    keys, so the visible cache rows of all heads are gathered by one
+    ``index_select``, the fresh K/V appended, and one SDPA backward with
+    no mask gives dq, dk and dv (in the operands' dtype: bf16 on the
+    path, where the plain version :func:`decode_fresh_bwd_ref` computes in
+    fp32).  The port of ``_decode_fresh_op_bwd``; the cache gets no
+    gradient.  Runs on any device."""
+    B, Lq, ND = q.shape
+    N = num_heads
+    D = ND // N
+    kc, vc = _stacked(k_cache, layer_idx), _stacked(v_cache, layer_idx)
+    lim = _cache_lim(kc.shape[1], kv_start, kv_end, sink_end, None)
+    cols = visible_columns(lim, kv_start, kv_end, sink_end, q.device)
+    nc = cols.numel()
+
+    def gather(cache, new):
+        rows = cache.index_select(1, cols).view(B, N, nc, D)
+        return torch.cat([rows.to(new.dtype), _heads(new, N)], dim=2)
+
+    dq, dk, dv = _sdpa_vjp(_heads(q, N), gather(kc, k_new),
+                           gather(vc, v_new), _heads(g, N), scale)
+    launch_counts["decode_fresh_bwd"] += 1
+    return (_packed(dq), _packed(dk[:, :, nc:]).to(k_new.dtype),
+            _packed(dv[:, :, nc:]).to(v_new.dtype))
+
+
+def cross_attention_bwd_ref(q, k, v, g, *, num_heads: int,
+                            scale: float | None = None):
+    """Plain version of :func:`cross_attention_bwd`, recomputed in fp32
+    per head and chunk of query rows."""
     B, Lq, ND = q.shape
     N = num_heads
     D = ND // N
@@ -1054,6 +1120,22 @@ def cross_attention_bwd(q, k, v, g, *, num_heads: int,
             dk[b, :, n] = dk_acc.to(k.dtype)
             dv[b, :, n] = dv_acc.to(v.dtype)
     return dq, dk, dv
+
+
+def cross_attention_bwd(q, k, v, g, *, num_heads: int,
+                        scale: float | None = None):
+    """Gradients (dq, dk, dv) of :func:`cross_attention` (q heads-packed
+    [B, Lq, N*D], k/v [B, Lk, N, D]) from one SDPA backward on the
+    [B, N, L, D] views, in the operands' dtype (the plain version
+    :func:`cross_attention_bwd_ref` computes in fp32); the port of
+    ``_cross_op_bwd``.  Runs on any device."""
+    N = num_heads
+    scale = (q.shape[-1] // N) ** -0.5 if scale is None else scale
+    dq, dk, dv = _sdpa_vjp(_heads(q, N), k.transpose(1, 2), v.transpose(1, 2),
+                           _heads(g, N), scale)
+    launch_counts["cross_attention_bwd"] += 1
+    return (_packed(dq), dk.transpose(1, 2).contiguous(),
+            dv.transpose(1, 2).contiguous())
 
 
 # =====================================================================

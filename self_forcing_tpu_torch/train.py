@@ -103,7 +103,7 @@ def main(argv=None) -> None:
     if trainer_kind != "score_distillation":
         raise NotImplementedError(
             f"trainer {trainer_kind!r} is not ported to the PyTorch package "
-            "(ROADMAP Queue A 11)")
+            "(ROADMAP Queue A item 7)")
     device = torch.device(args.device)
     # float32 products (activations over bf16 weights) in TF32 on the
     # tensor cores, as XLA's default precision runs float32 dots on a GPU

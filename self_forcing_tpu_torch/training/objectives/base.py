@@ -166,11 +166,12 @@ class ModelBundle:
 
     def trim_rollout(self, pred: torch.Tensor):
         """Rollouts of at most 21 frames pass as they are.  Longer ones
-        need the boundary frame's VAE re-encode, and the VAE encoder is
-        not ported: they raise, as the JAX package does without VAE
-        parameters."""
+        need the boundary frame decoded and re-encoded by the VAE; the
+        port's VAE has both halves, but the trainer does not hold VAE
+        parameters yet (ROADMAP Queue A item 7): they raise, as the JAX
+        package does without VAE parameters."""
         if pred.shape[1] <= 21:
             return pred, None
         raise ValueError(
             "rollouts longer than 21 frames need the VAE for the "
-            "boundary-frame re-encode; the VAE encoder is not ported")
+            "boundary-frame re-encode; the trainer holds no VAE parameters")

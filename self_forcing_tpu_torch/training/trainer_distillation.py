@@ -33,7 +33,7 @@ from self_forcing_tpu_torch.training.objectives.base import (ModelBundle,
 from self_forcing_tpu_torch.training.optim import AdamW
 from self_forcing_tpu_torch.utils import tree
 
-_QUEUED = "is not ported to the PyTorch package (ROADMAP Queue A 11)"
+_QUEUED = "is not ported to the PyTorch package (ROADMAP Queue A item 7)"
 
 
 @dataclasses.dataclass

@@ -296,6 +296,15 @@ INT8QK_CASES = {
     # the global tiles of decode_tiles (264, 224, 224): 64-key CUDA tiles
     # straddle two cache tiles; static_hi inside the window
     "global": (1, 2, 260, 200, 1100, 0, 700, 0, 650, None),
+    # 40-row cache and 48-row fresh tiles: a 128-key stage meets three or
+    # four k-scale tiles
+    "three_k_tiles": (1, 2, 200, 300, 512, 0, 400, 0, None, (64, 40, 48)),
+    # 100-row q tiles: 64-row consumer tiles straddle two q tiles
+    "q_straddle": (2, 1, 330, 128, 384, 0, 256, 0, None, (100, 128, 128)),
+    # windowed, frame-aligned cache tiles of 96 rows (7 frames: tk = the
+    # frame, not a multiple of 128); the stage at the sink's end reads a
+    # dead tile's unwritten rows
+    "windowed_frames": (1, 3, 150, 150, 672, 288, 576, 96, None, 96),
 }
 
 
@@ -364,6 +373,66 @@ def test_int8qk_dead_gap_does_not_move_the_output(dev):
     poisoned = ca.decode_fresh_int8qk(q, kc, vc, kn, vn, **win)
     torch.cuda.synchronize()
     torch.testing.assert_close(poisoned, out, rtol=0, atol=0)
+
+
+# (B, N, Lq, S, kv_start, kv_end, sink_end)
+DECODE_BWD_CASES = {
+    "sink_window": (1, 3, 600, 2048, 900, 1700, 130),
+    "block1_empty_window": (2, 2, 520, 1024, 0, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_BWD_CASES))
+def test_decode_fresh_bwd_matches_plain(dev, case):
+    """SDPA's backward on the gathered visible keys (bf16, the rollout's
+    operands) against the fp32 plain version: 2e-2 relative L2 per
+    gradient, as the flash backward (bf16 products and p, ds rounded to
+    bf16 where the plain version keeps fp32); and the seam's gradient
+    with the kernels goes through it (one count a backward)."""
+    B, N, Lq, S, lo, hi, sink = DECODE_BWD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, kc, vc, kn, vn = _decode_operands(g, dev, B, N, Lq, Lq, S,
+                                         q_scale=1.0)
+    go = _bf16(g, B, Lq, N * 128, dev=dev)
+    kw = dict(layer_idx=1, kv_start=lo, kv_end=hi, sink_end=sink,
+              num_heads=N, scale=128 ** -0.5)
+    ca.reset_launch_counts()
+    got = ca.decode_fresh_bwd(q, kc, vc, kn, vn, go, **kw)
+    want = ca.decode_fresh_bwd_ref(q, kc, vc, kn, vn, go, **kw)
+    torch.cuda.synchronize()
+    assert ca.launch_counts["decode_fresh_bwd"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
+    grads = []
+    for kernels in (True, False):
+        ts = [t.clone().requires_grad_() for t in (q, kn, vn)]
+        out = attention.decode_attention_fresh(
+            ts[0], kc, vc, ts[1], ts[2], lo, hi, layer_idx=1,
+            heads_packed=N, sink_end=sink, kernels=kernels)
+        out.backward(go)
+        grads.append([t.grad for t in ts])
+    assert ca.launch_counts["decode_fresh_bwd"] == 2
+    for a, b in zip(*grads):
+        assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
+
+
+def test_cross_attention_bwd_matches_plain(dev):
+    """The cross backward (SDPA's on the [B, N, L, D] views, bf16) against
+    the fp32 plain version at Lk 512: 2e-2 relative L2."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    B, N, Lq, Lk = 1, 3, 900, 512
+    q = _bf16(g, B, Lq, N * 128, dev=dev)
+    k, v = (_bf16(g, B, Lk, N, 128, dev=dev) for _ in range(2))
+    go = _bf16(g, B, Lq, N * 128, dev=dev)
+    ca.reset_launch_counts()
+    got = ca.cross_attention_bwd(q, k, v, go, num_heads=N)
+    want = ca.cross_attention_bwd_ref(q, k, v, go, num_heads=N)
+    torch.cuda.synchronize()
+    assert ca.launch_counts["cross_attention_bwd"] == 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
 
 
 @pytest.mark.parametrize("mode", ["tile", "global", "online"])

@@ -337,11 +337,12 @@ def test_plain_versions_agree_across_row_chunks(op, monkeypatch):
 
     def run():
         if op == "decode":
-            return ca.decode_fresh_bwd(q, kc, vc, kn, vn, g, layer_idx=0,
-                                       kv_start=8, kv_end=80, num_heads=N,
-                                       scale=0.05)
+            return ca.decode_fresh_bwd_ref(q, kc, vc, kn, vn, g,
+                                           layer_idx=0, kv_start=8,
+                                           kv_end=80, num_heads=N,
+                                           scale=0.05)
         if op == "cross":
-            return ca.cross_attention_bwd(q, k4, v4, g, num_heads=N)
+            return ca.cross_attention_bwd_ref(q, k4, v4, g, num_heads=N)
         kq = k4[:, :Lq]
         out, lse = ca.flash_fwd_ref(q4 * 0.1, kq, v4[:, :Lq], mask)
         delta = ca.flash_delta(out, g4)
