@@ -12,7 +12,8 @@ Phases, each printing one line or more (any failure exits non-zero):
    decode kernel on the same keys), the decode and cross attention
    backward (SDPA's on the gathered visible keys) against their fp32
    plain versions at the training rollout's shapes, the W8A8 linears
-   (M = 4680 tokens, dim 1536, ffn 8960), the training path's flash
+   (M = 4680 tokens, dim 1536, ffn 8960; each GEMM bit-equal to its
+   plain version), the training path's flash
    attention forward and its one dq / dk / dv backward kernel (L = 32760
    tokens, 12 heads, no mask and the 7-block block-causal mask); the decode
    kernel's 'bounded', online and 'free_noclamp' modes, the full-int8
@@ -84,7 +85,8 @@ Phase 2 also holds each conv kernel (the 27-tap conv, the split route,
 v2 and the fused norm + SiLU + conv, and the 27-tap conv at float32)
 against its plain version at the VAE's full-width shapes, beside cuDNN's
 conv; the W8A8 kernels at the Wan-14B shapes (fc1 from int8 x, fc2 at
-768-column groups, the K = 5120 qkv GEMM) and the GEMM from raw bf16 x;
+768-column groups, the K = 5120 qkv and o GEMMs) and the GEMM from raw
+bf16 x (every GEMM bit-equal to its plain version);
 and the cache-window attention (``decode_attention``) at the 1.3B global
 window in bf16 and float32, beside SDPA.
 Then the kernel table as one JSON line, and last
@@ -246,6 +248,17 @@ def check_kernel(name, out, ref, tol=1e-2):
     mae = float((out.float() - ref.float()).abs().max())
     if err > tol:
         fail(f"{name}: relative L2 {err:.3e} > {tol}")
+    return err, mae
+
+
+def check_gemm(name, out, ref):
+    """A W8A8 GEMM against its plain version: both round the exact int32
+    sums and the f32 epilogue step by step, so the bf16 outputs must be
+    equal bit for bit.  Returns (relative L2, max abs error)."""
+    err, mae = check_kernel(name, out, ref, tol=1e-3)
+    if not torch.equal(out, ref):
+        fail(f"{name}: not bit-equal to its plain version (relative L2 "
+             f"{err:.3e}, max abs {mae:.3e})")
     return err, mae
 
 
@@ -707,11 +720,13 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         return p, w.to(bf)
 
     def report(name, label, err, mae, ms, plain_ms, lib_ms, ops, nbytes,
-               peak=PEAK_INT8_OPS, bf16_ms=None):
+               peak=PEAK_INT8_OPS, bf16_ms=None, gemm=False):
         b_ms, b_by = bound(ops, nbytes, peak)
         extra = "" if bf16_ms is None else f" bf16_matmul_ms={bf16_ms:.4f}"
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
+        equal = " bit_equal=True" if gemm else ""   # check_gemm failed else
+        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e}"
+              f"{equal} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib}{extra} "
               f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
               f"tops={ops / ms / 1e9:.1f}", flush=True)
@@ -742,8 +757,8 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         xq, xs = (q, s) if rows == M else cm.quantize_rows_ref(xx)
         p, wb = weight(DIM, n_out)
         args = (xq, xs, p["w_qa_t"], p["w_scale"], p["b"])
-        err, mae = check_kernel("w8a8_matmul", cm.w8a8_matmul(*args),
-                                cm.w8a8_matmul_ref(*args), tol=1e-3)
+        err, mae = check_gemm("w8a8_matmul", cm.w8a8_matmul(*args),
+                              cm.w8a8_matmul_ref(*args))
         row = report(
             "w8a8_matmul", f"{label} {rows}x{DIM}x{n_out}", err, mae,
             time_ms(lambda: cm.w8a8_matmul(*args)),
@@ -752,7 +767,7 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
             2.0 * rows * DIM * n_out,
             rows * DIM + rows * 4.0 + n_out * DIM + n_out * 8.0
             + rows * n_out * 2.0,
-            bf16_ms=time_ms(lambda: xx @ wb))
+            bf16_ms=time_ms(lambda: xx @ wb), gemm=True)
         table.setdefault("w8a8_matmul", row)
         del p, wb
 
@@ -777,8 +792,8 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         bf16_ms=time_ms(lambda: x @ w1b))
 
     a2 = (p2["w_qa_t"], p2["w_scale"], p2["b"], tg)
-    err, mae = check_kernel("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
-                            cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), tol=1e-3)
+    err, mae = check_gemm("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
+                          cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2))
     hb = torch.randn(M, FFN, generator=g, device=dev).to(bf)
     table["w8a8_ffn2"] = report(
         "w8a8_ffn2", f"{M}x{FFN}x{DIM}, groups of {tg}", err, mae,
@@ -787,7 +802,7 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         library_ms(lambda: torch._int_mm(hq_ref, p2["w_qa_t"].t())),
         2.0 * M * FFN * DIM,
         M * FFN + M * ng * 4.0 + DIM * FFN + DIM * 8.0 + M * DIM * 2.0,
-        bf16_ms=time_ms(lambda: hb @ w2b))
+        bf16_ms=time_ms(lambda: hb @ w2b), gemm=True)
 
     args = (p1["w_qa_t"], p1["w_scale"], p1["b"], p2["w_qa_t"],
             p2["w_scale"], p2["b"])
@@ -807,7 +822,7 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
     (``w8a8_matmul_bf16x``: the ``quantize_rows`` pre-pass, then the
     int8-x linear, timed together) at the 1.3B qkv shape.  Tolerances as
     phase 2's W8A8 rows: int8 outputs equal but for one-step flips on
-    <= 0.1%, group scales 1e-5, GEMMs 1e-3 relative L2.  Library
+    <= 0.1%, group scales 1e-5, GEMMs bit-equal.  Library
     yardsticks: ``torch._int_mm`` on the same int8 operands, cuBLAS bf16
     beside it."""
     dev, bf = "cuda", torch.bfloat16
@@ -822,10 +837,12 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
         return p, w.to(bf)
 
     def report(name, label, err, mae, ms, plain_ms, lib_ms, bf16_ms, ops,
-               nbytes):
+               nbytes, gemm=True):
         b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e} "
+        equal = " bit_equal=True" if gemm else ""   # check_gemm failed else
+        print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e}"
+              f"{equal} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
               f"bf16_matmul_ms={bf16_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"share_of_bound={b_ms / ms:.3f} tops={ops / ms / 1e9:.1f}",
@@ -854,12 +871,13 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
         time_ms(lambda: cm.w8a8_ffn1_ref(xq, sx, *a1[:4]), reps=3),
         library_ms(lambda: torch._int_mm(xq, p1["w_qa_t"].t())),
         time_ms(lambda: x @ w1b), 2.0 * M * K * Hh,
-        M * K + M * 4.0 + Hh * K + Hh * 8.0 + M * Hh + M * ng * 4.0)
+        M * K + M * 4.0 + Hh * K + Hh * 8.0 + M * Hh + M * ng * 4.0,
+        gemm=False)
     del hq, hs, w1b
 
     a2 = (p2["w_qa_t"], p2["w_scale"], p2["b"], tg)
-    err, mae = check_kernel("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
-                            cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2), tol=1e-3)
+    err, mae = check_gemm("w8a8_ffn2", cm.w8a8_ffn2(hq_ref, hs_ref, *a2),
+                          cm.w8a8_ffn2_ref(hq_ref, hs_ref, *a2))
     hb = torch.randn(M, Hh, generator=g, device=dev).to(bf)
     report("w8a8_ffn2", f"14B {M}x{Hh}x{K}, groups of {tg}", err, mae,
            time_ms(lambda: cm.w8a8_ffn2(hq_ref, hs_ref, *a2)),
@@ -876,17 +894,20 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
     del hb, w2b, hq_ref, hs_ref, p1, p2, args, a1, a2
     torch.cuda.empty_cache()
 
-    p, wb = weight(K, 3 * K)
-    args = (xq, sx, p["w_qa_t"], p["w_scale"], p["b"])
-    err, mae = check_kernel("w8a8_matmul", cm.w8a8_matmul(*args),
-                            cm.w8a8_matmul_ref(*args), tol=1e-3)
-    report("w8a8_matmul", f"14B qkv {M}x{K}x{3 * K}, 4 K steps", err, mae,
-           time_ms(lambda: cm.w8a8_matmul(*args)),
-           time_ms(lambda: cm.w8a8_matmul_ref(*args), reps=3),
-           library_ms(lambda: torch._int_mm(xq, p["w_qa_t"].t())),
-           time_ms(lambda: x @ wb), 2.0 * M * K * 3 * K,
-           M * K + M * 4.0 + 3 * K * K + 3 * K * 8.0 + M * 3 * K * 2.0)
-    del p, wb, args, x, xq, sx
+    # the 14B linears: fused qkv; o, cross q and cross o
+    for label, n_out in (("qkv", 3 * K), ("o/cross q/cross o", K)):
+        p, wb = weight(K, n_out)
+        args = (xq, sx, p["w_qa_t"], p["w_scale"], p["b"])
+        err, mae = check_gemm("w8a8_matmul", cm.w8a8_matmul(*args),
+                              cm.w8a8_matmul_ref(*args))
+        report("w8a8_matmul", f"14B {label} {M}x{K}x{n_out}, 40 K steps",
+               err, mae, time_ms(lambda: cm.w8a8_matmul(*args)),
+               time_ms(lambda: cm.w8a8_matmul_ref(*args), reps=3),
+               library_ms(lambda: torch._int_mm(xq, p["w_qa_t"].t())),
+               time_ms(lambda: x @ wb), 2.0 * M * K * n_out,
+               M * K + M * 4.0 + n_out * K + n_out * 8.0 + M * n_out * 2.0)
+        del p, wb, args
+    del x, xq, sx
     torch.cuda.empty_cache()
 
     # the raw-x GEMM at the 1.3B fused qkv shape (K = 1536 in one tile)
@@ -894,9 +915,8 @@ def phase_wide_w8a8_kernels(cm, quant, g) -> dict:
     x[3] = 0.0
     p, wb = weight(DIM, 3 * DIM)
     args = (x, p["w_qa_t"], p["w_scale"], p["b"])
-    err, mae = check_kernel("w8a8_matmul_bf16x",
-                            cm.w8a8_matmul_bf16x(*args),
-                            cm.w8a8_matmul_bf16x_ref(*args), tol=1e-3)
+    err, mae = check_gemm("w8a8_matmul_bf16x", cm.w8a8_matmul_bf16x(*args),
+                          cm.w8a8_matmul_bf16x_ref(*args))
     xq, _ = cm.quantize_rows_ref(x)
     table["w8a8_matmul_bf16x"] = report(
         "w8a8_matmul_bf16x", f"1.3B qkv {M}x{DIM}x{3 * DIM}, raw bf16 x",
@@ -2430,9 +2450,9 @@ def main() -> None:
                "cross_attention": (csrc + "decode_fresh.cu",
                                    attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
-               "w8a8_matmul": (csrc + "w8a8.cu", w8a8 + ":27"),
+               "w8a8_matmul": (csrc + "w8a8_fc1.cu", w8a8 + ":27"),
                "w8a8_ffn1": (csrc + "w8a8_fc1.cu", w8a8 + ":71"),
-               "w8a8_ffn2": (csrc + "w8a8.cu", w8a8 + ":117"),
+               "w8a8_ffn2": (csrc + "w8a8_fc1.cu", w8a8 + ":117"),
                "w8a8_ffn1_xq": (csrc + "w8a8_fc1.cu", w8a8 + ":86"),
                "w8a8_matmul_bf16x": (csrc + "w8a8_fc1.cu", w8a8 + ":54"),
                "decode_window": (csrc + "decode_fresh.cu", attn + ":73"),

@@ -1,17 +1,21 @@
-// w8a8_fc1: the W8A8 product from int8 x with its per-token scales, in
-// two epilogues: the FFN's fc1 (dequantize, bias, gelu, int8 per group of
-// the hidden's columns) and a linear (dequantize, bias, bf16).
+// w8a8_fc1: the W8A8 products of the port on one int8 wgmma mainloop, in
+// three epilogues: the FFN's fc1 (dequantize, bias, gelu, int8 per group
+// of the hidden's columns), a linear (dequantize, bias, bf16) and the
+// FFN's fc2 (each group's int32 partial folded into f32 with its scale,
+// then scale, bias, bf16).
 //
 // Replaces the TPU kernels of self_forcing_tpu/ops/pallas_matmul.py:
 //   w8a8_ffn1_xq_launch    <- _ffn1_kernel       (w8a8_ffn with s_x)
 //                          <- _ffn1_kernel_bf16x (w8a8_ffn, s_x=None,
 //                             after quantize_rows_launch of csrc/w8a8.cu)
-//   w8a8_linear_xq_launch  <- _kernel_bf16x      (w8a8_matmul_bf16x,
+//   w8a8_linear_xq_launch  <- _kernel            (w8a8_matmul)
+//                          <- _kernel_bf16x      (w8a8_matmul_bf16x,
 //                             after quantize_rows_launch)
+//   w8a8_ffn2_launch       <- _ffn2_kernel       (w8a8_ffn)
 // The raw-x modes of the TPU quantize x per token inside the kernel; here
 // ops/cuda_matmul.py runs quantize_rows first (the same function: floor
 // 1e-8, true division by 127, half to even), so one int8 mainloop serves
-// all three entry points.
+// every entry point.
 //
 // Functions (f32, every product and sum rounded on its own, in the TPU
 // kernels' order; no FMA contraction):
@@ -20,37 +24,51 @@
 //            1e-6) / 127, q = clip(rint(h / s), -127, 127) -> int8 h_q
 //            [M, H] and f32 h_s [M, H / TG]
 //   linear:  out = bf16(float(x_q . w_q) * s_x * w_scale + b)
+//   fc2:     acc = sum over the groups g of TG hidden columns, in order,
+//            of float(h_q[:, g] . w2_q[g, :]) * h_s[m, g];
+//            out = bf16(acc * w2_scale + b2)
 // The int32 sums are exact in any order of K.
 //
-// What bounds it on the H100: at the Wan-1.3B FFN (M 4680, K 1536, H
-// 8960) fc1 does 129 G int8 operations against ~36 MB: 0.065 ms at the
-// 1979 TOP/s int8 peak, bound by the tensor cores (14B: K 5120, H 13824,
-// 0.335 ms).  Design: a work item is 128 rows x BN columns; persistent
-// CTAs (as many as the card holds) walk the items; one producer thread
-// streams 128-byte K steps of x (128 rows) and of w (BN rows) into a ring
-// of stages by TMA (128-byte swizzle; a box past M or K reads zeros),
-// full / empty mbarriers, running on into the next item while the
-// consumers finish this one; two consumer warpgroups of 64 rows run int8
-// wgmma m64nBNk32 (4 a stage) with both operands in shared memory and
-// hold the int32 tile in registers (BN / 2 a thread; setmaxnreg 24 /
-// 240).  fc1 needs each row's maximum over all TG columns of its group
-// before any int8 of the group is written, and 128 x TG int32 (TG up to
-// 896) do not fit one CTA's registers: the group's columns are split over
-// a cluster of 4 CTAs (BN = TG / 4), which take the same items.  Each
-// thread turns its accumulators into gelu values in place, the quad
-// reduces each row's maximum, and its owner stores it into every CTA of
-// the cluster (st.async, counted on that CTA's mbarrier for the item's
-// parity); once all four partials have landed each CTA quantizes (the
-// division by the group scale as a reciprocal and one FMA correction,
-// which gives the correctly rounded quotient) into a staged tile, which
-// the consumers copy out in 16-byte pieces of rows (2-byte stores from
-// the accumulator layout cost more than the products here).  Items run
-// through every row tile of a group before the next group, so the
-// clusters at work read one group's w slice and keep x in L2 (W1 is 71
-// MB at 14B, more than L2).  The linear epilogue needs no maximum: a
-// cluster of 1, BN = tn / 4.  The epilogue (gelu, tanhf, quantization,
-// stores) does not overlap the products, as the int32 tile fills the
-// consumers' registers (the bring-up steps: PERF.md, Findings).
+// What bounds them on the H100: at the Wan-1.3B FFN (M 4680, K 1536, H
+// 8960) fc1 does 129 G int8 operations against ~63 MB, and fc2 the same
+// 129 G against ~70 MB: 0.065 ms each at the 1979 TOP/s int8 peak, bound
+// by the tensor cores (14B: K 5120, H 13824, 662 G, 0.335 ms each).
+// Design: a work item is 128 rows x BN columns; persistent CTAs (as many
+// as the card holds) walk the items; one producer thread streams 128-byte
+// K steps of x (128 rows) and of w (BN rows) into a ring of stages by TMA
+// (128-byte swizzle; a box past M or K reads zeros), full / empty
+// mbarriers, running on into the next item while the consumers finish
+// this one; two consumer warpgroups of 64 rows run int8 wgmma m64nBNk32
+// (4 a stage) with both operands in shared memory and hold the int32 tile
+// in registers (BN / 2 a thread; setmaxnreg 24 / 240).  The first wgmma
+// of an item (fc2: of a group) runs with the scale-d predicate off, which
+// zeroes the tile.  fc1 needs each row's maximum over all TG columns of
+// its group before any int8 of the group is written, and 128 x TG int32
+// (TG up to 896) do not fit one CTA's registers: the group's columns are
+// split over a cluster of 4 CTAs (BN = TG / 4), which take the same
+// items.  Each thread turns its accumulators into gelu values in place,
+// the quad reduces each row's maximum, and its owner stores it into every
+// CTA of the cluster (st.async, counted on that CTA's mbarrier for the
+// item's parity); once all four partials have landed each CTA quantizes
+// (the division by the group scale as a reciprocal and one FMA
+// correction, which gives the correctly rounded quotient) into a staged
+// tile, which the consumers copy out in 16-byte pieces of rows (2-byte
+// stores from the accumulator layout cost more than the products here).
+// Items run through every row tile of a group before the next group, so
+// the clusters at work read one group's w slice and keep x in L2 (W1 is
+// 71 MB at 14B, more than L2).  The linear needs no maximum: a cluster of
+// 1, BN = tn / 4 (64 where tn / 4 would leave SMs without an item), the
+// output staged as bf16 rows.  fc2 is the linear's tile with a second, f32 tile
+// beside the int32 one (BN / 2 registers each a thread, so BN <= 192):
+// after a group's last K step (TG / 128 of them) the consumers drain the
+// wgmma queue and fold the int32 tile into the f32 one with the two rows'
+// scales of that group (read one group ahead), so the tensor cores idle
+// for one fold every TG / 128 steps.  The widest tile buys more than
+// hiding that idle would: a second int32 tile, to fold one group while
+// the next one's products run, measured no faster at BN 128.  The
+// epilogues (fc1's gelu, tanhf, quantization; the stores) do not overlap
+// the products, as the tiles fill the consumers' registers (the bring-up
+// steps: PERF.md, Findings).
 
 #include <cstring>
 
@@ -70,15 +88,16 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer
 constexpr int A_BYTES = BM * BK;
 constexpr int CLUSTER = 4;             // CTAs sharing one fc1 group
 constexpr int SMEM_MAX = 232448;       // shared memory a CTA may use
-enum Mode { FFN1 = 0, LINEAR = 1 };
+enum Mode { FFN1 = 0, LINEAR = 1, FC2 = 2 };
 
 template <int BN, int MODE>
 struct Tile {
   static constexpr int STAGE = A_BYTES + BN * BK;
-  // the staged output tile: int8 (fc1) or bf16 (linear) rows, padded by
-  // 16 bytes (rows then fall on different banks)
+  // the staged output tile: int8 (fc1) or bf16 (linear, fc2) rows, padded
+  // by 16 bytes (rows then fall on different banks)
   static constexpr int LD = (MODE == FFN1 ? BN : 2 * BN) + 16;
-  static constexpr int RED = 2 * CLUSTER * BM * 4;   // partial row maxima
+  // fc1's partial row maxima
+  static constexpr int RED = MODE == FFN1 ? 2 * CLUSTER * BM * 4 : 0;
   static constexpr int FIT =
       (SMEM_MAX - 1024 - BM * LD - RED - 18 * 8) / STAGE;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
@@ -131,16 +150,22 @@ __device__ __forceinline__ void store_rows(const unsigned char* stage,
   }
 }
 
+// y * w_scale + b, rounded step by step
+__device__ __forceinline__ float scale_bias(float y, float w, float b) {
+  return __fadd_rn(__fmul_rn(y, w), b);
+}
+
 // float(acc) * s_x * w_scale + b, rounded step by step
 __device__ __forceinline__ float dequant(int acc, float sx, float w,
                                          float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), w), b);
+  return scale_bias(__fmul_rn(__int2float_rn(acc), sx), w, b);
 }
 
-// Persistent: the CTAs of cluster c (CL of them; CL = 4 for fc1, 1 for
-// the linear) walk the work items c, c + clusters, ...; item i is the
-// row tile i % mtiles of group (fc1) or column tile (linear) i / mtiles.
-// N is H (fc1) or the output width (linear); tg the fc1 group width.
+// Persistent: the CTAs of cluster c (CL of them; CL = 4 for fc1, 1
+// otherwise) walk the work items c, c + clusters, ...; item i is the row
+// tile i % mtiles of group (fc1) or column tile (linear, fc2) i / mtiles.
+// N is H (fc1) or the output width; K is H for fc2, whose s_x is h_s
+// [M, K / tg]; tg the group width (fc1, fc2).
 template <int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     fc1_kernel(const __grid_constant__ Maps maps,
@@ -151,6 +176,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                int N, int tg, int mtiles, int items) {
   using T = Tile<BN, MODE>;
   constexpr int CL = MODE == FFN1 ? CLUSTER : 1;
+  static_assert(MODE != FC2 || BN <= 192, "fc2 keeps two tiles of BN / 2");
   constexpr uint32_t RED_TX = CL * BM * 4;   // a cluster's partial maxima
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -159,14 +185,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   // red[b][p][r]: CTA p's maximum of row r over its columns, for the
   // items of parity b
   float* red = reinterpret_cast<float*>(stage + BM * T::LD);
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * CL * BM);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + BM * T::LD + T::RED);
   uint64_t* empty = full + T::STAGES;
   uint64_t* red_full = empty + T::STAGES;   // [b]: all CL partials landed
 
   const int rank = CL > 1 ? (int)cluster_rank() : 0;
   const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
   const int nk = (K + BK - 1) / BK;
+  // K steps of one int32 partial: a group of fc2, else the whole K
+  const int spg = MODE == FC2 ? tg / BK : nk;
   const int wg = threadIdx.x / 128;
+  auto row0_of = [&](int item) { return (item % mtiles) * BM; };
   auto col0 = [&](int item) {
     return MODE == FFN1 ? (item / mtiles) * tg + rank * BN
                         : (item / mtiles) * BN;
@@ -198,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 128 * CONSUMERS) {
       int it = 0;
       for (int item = cid; item < items; item += ncl) {
-        const int m0 = (item % mtiles) * BM, n0 = col0(item);
+        const int m0 = row0_of(item), n0 = col0(item);
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int st = it % T::STAGES;
           unsigned char* a = ring + st * T::STAGE;
@@ -228,12 +257,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int rl = wg * 64 + warp * 16 + g;
 
   int acc[BN / 2];
+  // fc2's f32 tile (the sum of the folded groups) and the two rows' scales
+  // of the group being multiplied
+  float facc[MODE == FC2 ? BN / 2 : 1];
+  float hs0 = 0.f, hs1 = 0.f;
+  const int ng = MODE == FC2 ? K / tg : 1;
   int it = 0, j = 0;
   for (int item = cid; item < items; item += ncl, ++j) {
-    const int m0 = (item % mtiles) * BM, n0 = col0(item);
+    const int m0 = row0_of(item), n0 = col0(item);
+    const int row0 = m0 + rl, row1 = row0 + 8;
+    const float* hs_row0 = s_x + (long long)row0 * ng;
+    const float* hs_row1 = s_x + (long long)row1 * ng;
+    if constexpr (MODE == FC2) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-    fence_regs(acc);
+      for (int i = 0; i < BN / 2; ++i) facc[i] = 0.f;
+      hs0 = row0 < M ? __ldg(hs_row0) : 0.f;
+      hs1 = row1 < M ? __ldg(hs_row1) : 0.f;
+    }
+    int gs = 0, grp = 0;   // K step in the group, group
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int st = it % T::STAGES;
       const uint32_t a = smem_u32(ring + st * T::STAGE + wg * 64 * BK);
@@ -243,43 +284,68 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk)
         WgmmaS8<BN>::run(acc, desc_sw128(a + 32 * kk, 16, 1024),
-                         desc_sw128(b + 32 * kk, 16, 1024), 1);
+                         desc_sw128(b + 32 * kk, 16, 1024), kk > 0 || gs > 0);
       wgmma_commit();
       // the previous step's products are done: hand its stage back
       wgmma_wait<1>();
       fence_regs(acc);
       if (kt > 0 && leader) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+      if (++gs == spg) {
+        gs = 0;
+        if constexpr (MODE == FC2) {
+          // the group's int32 partial times its scales into the f32 tile
+          wgmma_wait<0>();
+          fence_regs(acc);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            facc[i] = __fadd_rn(facc[i], __fmul_rn(__int2float_rn(acc[i]),
+                                                   (i & 2) ? hs1 : hs0));
+          if (++grp < ng) {
+            hs0 = row0 < M ? __ldg(hs_row0 + grp) : 0.f;
+            hs1 = row1 < M ? __ldg(hs_row1 + grp) : 0.f;
+          }
+        }
+      }
     }
     wgmma_wait<0>();
     fence_regs(acc);
     if (leader) mbar_arrive(&empty[(it - 1) % T::STAGES]);
 
-    const int row0 = m0 + rl, row1 = row0 + 8;
-    const float sx0 = row0 < M ? s_x[row0] : 0.f;
-    const float sx1 = row1 < M ? s_x[row1] : 0.f;
     const float* ws = w_scale + n0;
     const float* bs = bias + n0;
 
-    if constexpr (MODE == LINEAR) {
+    if constexpr (MODE != FFN1) {
+      const float sx0 = MODE == LINEAR && row0 < M ? s_x[row0] : 0.f;
+      const float sx1 = MODE == LINEAR && row1 < M ? s_x[row1] : 0.f;
       named_sync(1, 128 * CONSUMERS);   // the last item's copy is out
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         const int c = 8 * i + 2 * t;
         const float2 w = __ldg(reinterpret_cast<const float2*>(ws + c));
         const float2 b = __ldg(reinterpret_cast<const float2*>(bs + c));
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (MODE == FC2)
+            y[e] = facc[4 * i + e];
+          else
+            y[e] = __fmul_rn(__int2float_rn(acc[4 * i + e]),
+                             e < 2 ? sx0 : sx1);
+        }
         unsigned char* at = stage + rl * T::LD + 2 * c;
-        *reinterpret_cast<__nv_bfloat162*>(at) =
-            __floats2bfloat162_rn(dequant(acc[4 * i], sx0, w.x, b.x),
-                                  dequant(acc[4 * i + 1], sx0, w.y, b.y));
+        *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(
+            scale_bias(y[0], w.x, b.x), scale_bias(y[1], w.y, b.y));
         *reinterpret_cast<__nv_bfloat162*>(at + 8 * T::LD) =
-            __floats2bfloat162_rn(dequant(acc[4 * i + 2], sx1, w.x, b.x),
-                                  dequant(acc[4 * i + 3], sx1, w.y, b.y));
+            __floats2bfloat162_rn(scale_bias(y[2], w.x, b.x),
+                                  scale_bias(y[3], w.y, b.y));
       }
       named_sync(1, 128 * CONSUMERS);
       store_rows<2 * BN, T::LD>(stage,
                                 reinterpret_cast<unsigned char*>(out), m0,
                                 M, 2LL * N, 2 * n0);
     } else {
+      const float sx0 = row0 < M ? s_x[row0] : 0.f;
+      const float sx1 = row1 < M ? s_x[row1] : 0.f;
       // gelu in place (as f32 bits) and the rows' maxima over this CTA's
       // BN columns (the quad holds them all)
       float mx0 = 0.f, mx1 = 0.f;
@@ -449,7 +515,8 @@ extern "C" int w8a8_ffn1_xq_launch(const void* xq, const void* sx,
 
 // x_q [M, K] int8 with s_x [M] f32, w_t [N, K] int8, w_scale / b [N] f32
 // -> out [M, N] bf16, in column tiles of tn / 4 (tn in {128, ..., 896},
-// N % tn == 0).  K % 16 == 0.
+// N % tn == 0), or of 64 where those give fewer items than the card has
+// SMs (the cross k / v of 512 context tokens).  K % 16 == 0.
 extern "C" int w8a8_linear_xq_launch(const void* xq, const void* sx,
                                      const void* wt, const void* ws,
                                      const void* b, void* out, int M, int N,
@@ -458,8 +525,45 @@ extern "C" int w8a8_linear_xq_launch(const void* xq, const void* sx,
       N % tn)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  return launch_bn<LINEAR>(tn / 4, xq, (const float*)sx, wt,
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool few = (M + BM - 1) / BM * (N / (tn / 4)) < sms;
+  return launch_bn<LINEAR>(few ? 64 : tn / 4, xq, (const float*)sx, wt,
                            (const float*)ws, (const float*)b, nullptr,
                            nullptr, (bf16*)out, M, K, N, tn,
                            (cudaStream_t)stream);
+}
+
+// h_q [M, H] int8 with its group scales h_s [M, H / tg] f32, w2_t [N, H]
+// int8, w_scale / b [N] f32 -> out [M, N] bf16, in column tiles of 192,
+// 160 or 128 (the widest that divides N).  tg in {128, 256, ..., 896},
+// H % tg == 0, N % 128 == 0.
+extern "C" int w8a8_ffn2_launch(const void* hq, const void* hs,
+                                const void* w2t, const void* ws,
+                                const void* b, void* out, int M, int N,
+                                int H, int tg, void* stream) {
+  if (M < 0 || N <= 0 || N % 128 || tg % 128 || tg < 128 || tg > 896 ||
+      H % tg)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  // the widest tile whose two register tiles fit the consumers' 240
+  // registers: 96 + 96 a thread at 192
+  const float* s = (const float*)hs;
+  const float* w = (const float*)ws;
+  bf16* o = (bf16*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N % 192 == 0)
+    return launch<192, FC2>(hq, s, w2t, w, (const float*)b, nullptr, nullptr,
+                            o, M, H, N, tg, st);
+  if (N % 160 == 0)
+    return launch<160, FC2>(hq, s, w2t, w, (const float*)b, nullptr, nullptr,
+                            o, M, H, N, tg, st);
+  return launch<128, FC2>(hq, s, w2t, w, (const float*)b, nullptr, nullptr,
+                          o, M, H, N, tg, st);
 }

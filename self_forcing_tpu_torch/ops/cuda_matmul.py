@@ -1,20 +1,23 @@
 """Hand-written CUDA W8A8 kernels and their plain PyTorch versions.
 
 Port of the kernels of ``self_forcing_tpu/ops/pallas_matmul.py`` that the
-demo configuration runs (csrc/w8a8.cu and csrc/w8a8_fc1.cu):
+demo configuration runs: ``quantize_rows`` in csrc/w8a8.cu, and every
+product on the one int8 wgmma kernel of csrc/w8a8_fc1.cu, in one of its
+three epilogues:
 
 - ``quantize_rows`` replaces ``_quantize_rows_kernel``
-  (``quantize_rows_pallas``);
-- ``w8a8_matmul`` replaces ``_kernel`` (``w8a8_matmul``);
+  (``quantize_rows_pallas``; csrc/w8a8.cu);
+- ``w8a8_matmul`` replaces ``_kernel`` (``w8a8_matmul``): the linear
+  epilogue;
 - ``w8a8_matmul_bf16x`` replaces ``_kernel_bf16x``
   (``w8a8_matmul_bf16x``): the GEMM from raw bf16 x (K <= 1536), which the
   TPU kernel quantizes per token in its prologue; here the
-  ``quantize_rows`` kernel runs first, then w8a8_fc1.cu's linear;
+  ``quantize_rows`` kernel runs first, then the linear epilogue;
 - ``w8a8_ffn`` replaces ``w8a8_ffn``: ``w8a8_ffn1`` (``s_x=None``, raw x:
   ``_ffn1_kernel_bf16x``, again as ``quantize_rows`` then the int8-x
   kernel; with ``s_x``, int8 x quantized beforehand: ``_ffn1_kernel``,
-  the Wan-14B route, counted as ``w8a8_ffn1_xq``), both on w8a8_fc1.cu,
-  then ``w8a8_ffn2`` (``_ffn2_kernel``).
+  the Wan-14B route, counted as ``w8a8_ffn1_xq``), the fc1 epilogue, then
+  ``w8a8_ffn2`` (``_ffn2_kernel``), the fc2 epilogue.
 
 ``quantize_rows``, ``w8a8_matmul``, ``w8a8_matmul_bf16x`` and ``w8a8_ffn``
 return None where the JAX function declines the shape (the same tile
@@ -293,13 +296,14 @@ def w8a8_matmul(x_q: torch.Tensor, s_x: torch.Tensor, w_t: torch.Tensor,
         return None
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul: the kernel writes bfloat16")
+    tn = _pick_tile(N, 128, 896)
     s_x = s_x.float().reshape(M, 1).contiguous()
     ws, b = _f32(w_scale, N, x_q), _f32(bias, N, x_q)
     _check("w8a8_matmul", [torch.int8, torch.float32, torch.int8,
                            torch.float32, torch.float32], x_q, s_x, w_t, ws, b)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x_q.device)
-    _launch("w8a8", "w8a8_matmul", "w8a8_matmul_launch", x_q, s_x, w_t, ws,
-            b, out, M, N, K)
+    _launch("w8a8_fc1", "w8a8_matmul", "w8a8_linear_xq_launch", x_q, s_x, w_t,
+            ws, b, out, M, N, K, tn)
     return out
 
 
@@ -387,8 +391,8 @@ def w8a8_ffn2(h_q: torch.Tensor, h_s: torch.Tensor, w2_t: torch.Tensor,
                          torch.float32, torch.float32], h_q, h_s, w2_t, ws2,
            bb2)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=h_q.device)
-    _launch("w8a8", "w8a8_ffn2", "w8a8_ffn2_launch", h_q, h_s, w2_t, ws2, bb2,
-            out, M, N, H, tg)
+    _launch("w8a8_fc1", "w8a8_ffn2", "w8a8_ffn2_launch", h_q, h_s, w2_t, ws2,
+            bb2, out, M, N, H, tg)
     return out
 
 

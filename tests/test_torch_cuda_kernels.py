@@ -551,25 +551,59 @@ def test_quantize_rows_matches_plain(dev, M, K):
                                rtol=0, atol=0)
 
 
+# every fc1 group width the JAX tile rule admits (H = 2 TG: two groups)
+FC1_GROUPS = (128, 256, 384, 512, 640, 768, 896)
+
+
 @pytest.mark.parametrize("M,K,N", [(4680, 1536, 4608), (4680, 1536, 1536),
                                    (512, 1536, 1536), (520, 8960, 1536),
-                                   (40, 128, 128)])
+                                   (40, 128, 128), (520, 5120, 1536)]
+                         + [(200, 1536, 2 * tn) for tn in FC1_GROUPS])
 def test_w8a8_matmul_matches_plain(dev, M, K, N):
-    """Exact int32 sums on both sides and the same f32 epilogue: 1e-3
-    relative L2 (the bf16 output rounding, 2^-9, bounds it)."""
+    """Exact int32 sums on both sides and the same f32 epilogue, each
+    product and sum rounded on its own: the bf16 outputs are equal bit for
+    bit (N = 2 tn gives every column tile of the linear, tn / 4 = 32 ..
+    224)."""
     g = torch.Generator(device=dev).manual_seed(3)
     x = _x_edges(g, M, K, dev)
     p = _weight(g, K, N, dev)
     q = cm.quantize_rows_ref(x) or quant.quantize_activations(x)
+    cm.reset_launch_counts()
     out = cm.w8a8_matmul(*q, p["w_qa_t"], p["w_scale"], p["b"])
     ref = cm.w8a8_matmul_ref(*q, p["w_qa_t"], p["w_scale"], p["b"])
     torch.cuda.synchronize()
+    assert cm.launch_counts["w8a8_matmul"] == 1
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    assert _rel_l2(out, ref) < 1e-3
+    assert torch.equal(out, ref)
 
 
-# every fc1 group width the JAX tile rule admits (H = 2 TG: two groups)
-FC1_GROUPS = (128, 256, 384, 512, 640, 768, 896)
+@pytest.mark.parametrize("M,N,H,tg", [
+    ((40, 200, 520)[i % 3], (256, 384)[i % 2], k * tg, tg)
+    for i, (k, tg) in enumerate((k, tg) for tg in FC1_GROUPS for k in (2, 3))
+] + [(520, 5120, 13824, 768)])          # the 14B tiling: 18 groups of 768
+def test_w8a8_ffn2_folds_each_group_with_its_own_scale(dev, M, N, H, tg):
+    """fc2 from a seeded int8 hidden whose group scales differ by up to
+    10^6 between groups and rows (M ragged to the 128-row tile): each
+    group's exact int32 partial times its own row scale, folded into f32
+    in the groups' order, then the f32 epilogue.  Bit-equal to the plain
+    version, so a wrong group, a wrong row scale or another order of the
+    fold fails."""
+    rng = np.random.default_rng(35)
+    ng = H // tg
+    hq = torch.from_numpy(rng.integers(-127, 128, (M, H), dtype=np.int8))
+    hs = torch.from_numpy((10.0 ** rng.uniform(-3, 3, (M, ng)))
+                          .astype(np.float32))
+    w2 = torch.from_numpy(rng.integers(-127, 128, (N, H), dtype=np.int8))
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-3, N).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(N) * 0.1).astype(np.float32))
+    args = [t.to(dev) for t in (hq, hs, w2, ws, b)]
+    cm.reset_launch_counts()
+    out = cm.w8a8_ffn2(*args, tg)
+    ref = cm.w8a8_ffn2_ref(*args, tg)
+    torch.cuda.synchronize()
+    assert cm.launch_counts["w8a8_ffn2"] == 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("M,K,H,N,bias", [

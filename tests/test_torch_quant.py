@@ -20,6 +20,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 import ml_dtypes
 import numpy as np
 import pytest
@@ -273,6 +274,58 @@ def _jax_ffn1(x, w1, ws, b, tg):
                    jax.ShapeDtypeStruct((M, (H // tg) * 128), jnp.float32)],
         interpret=True,
     )(x, w1, ws.reshape(1, H), b.reshape(1, H))
+
+
+def _jax_ffn2(h_q, h_s, w2, ws, b, tg):
+    """The JAX package's fc2 kernel run alone, interpreted: h_s [M, ng]
+    broadcast across the 128 lanes of each group, as fc1 writes it."""
+    from jax.experimental import pallas as pl
+    M, H = h_q.shape
+    N = w2.shape[1]
+    ng = H // tg
+    return pl.pallas_call(
+        functools.partial(jpm._ffn2_kernel, nk=ng), grid=(M // 8, 1, ng),
+        in_specs=[pl.BlockSpec((8, tg), lambda i, j, k: (i, k)),
+                  pl.BlockSpec((8, 128), lambda i, j, k: (i, k)),
+                  pl.BlockSpec((tg, N), lambda i, j, k: (k, j)),
+                  pl.BlockSpec((1, N), lambda i, j, k: (0, j)),
+                  pl.BlockSpec((1, N), lambda i, j, k: (0, j))],
+        out_specs=pl.BlockSpec((8, N), lambda i, j, k: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((M, N), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((8, N), jnp.float32)],
+        interpret=True,
+    )(h_q, jnp.repeat(h_s, 128, axis=1), w2, ws.reshape(1, N),
+      b.reshape(1, N))
+
+
+@pytest.mark.parametrize("tg", [768, 896])
+def test_w8a8_ffn2_ref_matches_pallas_fc2_alone(tg):
+    """fc2 alone against the interpreted ``_ffn2_kernel``, from a seeded
+    int8 hidden of three groups whose scales differ by 10^6 (~1e3, ~1e-3,
+    ~1 times a per-row factor): each group's exact int32 partial takes its
+    own row scale, so a wrong group or a wrong scale is off by orders of
+    magnitude.  1e-6 relative L2: XLA may contract the interpreted
+    kernel's ``acc += p * s`` into one rounding, which the plain version
+    (every product and sum rounded on its own, as the CUDA kernel) does
+    not.  The card test holds the kernel to the plain version bit for
+    bit."""
+    rng = np.random.default_rng(36)
+    M, N, ng = 48, 256, 3
+    H = ng * tg
+    hq = rng.integers(-127, 128, (M, H), dtype=np.int8)
+    hs = (rng.uniform(0.5, 2.0, (M, 1)) * np.array([1e3, 1e-3, 1.0])
+          ).astype(np.float32)
+    w2 = rng.integers(-127, 128, (H, N), dtype=np.int8)
+    ws = rng.uniform(1e-4, 1e-3, N).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    jy = jax.jit(functools.partial(_jax_ffn2, tg=tg))(
+        jnp.asarray(hq), jnp.asarray(hs), jnp.asarray(w2), jnp.asarray(ws),
+        jnp.asarray(b))
+    ty = cm.w8a8_ffn2_ref(torch.from_numpy(hq), torch.from_numpy(hs),
+                          torch.from_numpy(np.ascontiguousarray(w2.T)),
+                          torch.from_numpy(ws), torch.from_numpy(b), tg,
+                          out_dtype=torch.float32)
+    assert _rel_l2(ty.numpy(), np.asarray(jy)) < 1e-6
 
 
 @pytest.mark.parametrize("M,K,H,N", [
