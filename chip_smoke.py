@@ -9,7 +9,8 @@ Phases, each printing one line or more (any failure exits non-zero):
    of its paths: the bf16 decode and cross attention of the streaming
    sampler, the int8-QK decode attention (pre-pass and attention) at the
    global demo window and at the windowed steady state (beside the bf16
-   decode kernel on the same keys), the decode and cross attention
+   decode kernel on the same keys) and its pre-pass at the Wan-14B global
+   window (40 heads; the pre-pass bit-equal), the decode and cross attention
    backward (SDPA's on the gathered visible keys) against their fp32
    plain versions at the training rollout's shapes, the W8A8 linears
    (M = 4680 tokens, dim 1536, ffn 8960; each GEMM bit-equal to its
@@ -436,37 +437,7 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
                                   align)
         win.update(num_heads=N, tq=tq, tk=tk, tf=tf)
         lo, hi, sk = win["kv_start"], win["kv_end"], win["sink_end"]
-        # the pre-pass: equal int8 values and scales (dead cache tiles are
-        # not written and not compared)
-        qq = ca.int8qk_quantize(q, k_c, kn, **win)
-        qq_ref = ca.int8qk_quantize_ref(q, k_c, kn, **win)
-        live = torch.tensor(ca.live_cache_tiles(qq.ksc.shape[1], tk, lo, hi,
-                                                sk), device="cuda")
-        rows = live.repeat_interleave(tk)
-        worst = max(check_int8("int8qk_quantize", a, b) for a, b in (
-            (qq.q8, qq_ref.q8), (qq.kc8[:, rows], qq_ref.kc8[:, rows]),
-            (qq.kn8, qq_ref.kn8)))
-        s_err = max(rel_l2(a, b) for a, b in ((qq.qs, qq_ref.qs),
-                                              (qq.ksc, qq_ref.ksc),
-                                              (qq.ksf, qq_ref.ksf)))
-        if s_err > 1e-6:
-            fail(f"int8qk_quantize: scales relative L2 {s_err:.3e} > 1e-6")
-        n_live = int(live.sum()) * tk
-        # each of q, the live cache rows and k_new: a bf16 read and an
-        # int8 write (3 bytes an element), then the f32 scales
-        pre_bytes = (3.0 * (LQ + n_live + LQ) * N * D
-                     + 4.0 * N * (qq.qs.shape[1] + qq.ksc.shape[1]
-                                  + qq.ksf.shape[1]))
-        pre_ms = time_ms(lambda: ca.int8qk_quantize(q, k_c, kn, **win))
-        pre_plain = time_ms(lambda: ca.int8qk_quantize_ref(q, k_c, kn,
-                                                           **win), reps=5)
-        pb_ms, pb_by = bound(3.0 * (LQ + n_live + LQ) * N * D, pre_bytes,
-                             PEAK_F32_FLOPS)
-        print(f"kernel int8qk_quantize {label} (tiles {tq}/{tk}/{tf}, "
-              f"{n_live} live cache rows): max_int8_step={worst} "
-              f"scales_rel_l2={s_err:.3e} ms={pre_ms:.4f} "
-              f"plain_ms={pre_plain:.4f} bound_ms={pb_ms:.4f} ({pb_by})",
-              flush=True)
+        qq, pre = prepass_row(ca, label, q, k_c, kn, win)
 
         # the attention
         out = ca.decode_fresh_int8qk(q, k_c, v_c, kn, vn, **win)
@@ -508,12 +479,68 @@ def phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
             table["decode_fresh_int8qk"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=mae)
-            table["int8qk_quantize"] = dict(
-                ms=pre_ms, plain_ms=pre_plain, library_ms=None,
-                bound_ms=pb_ms, bound_by=pb_by, max_abs_err=float(worst))
-        del qq, qq_ref
+            table["int8qk_quantize"] = pre
+        del qq
     del kc_w, vc_w
+    # the pre-pass at the Wan-14B shape: 40 heads, the global window
+    N14 = DIM_14B // D
+    q14, kn14 = (torch.randn(1, LQ, N14 * D, generator=g, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+    q14 = (q14.float() * (D ** -0.5 * LOG2E)).to(torch.bfloat16)
+    kc14 = torch.randn(N14, S_CACHE, D, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    tq, tk, tf = decode_tiles(LQ, S_CACHE, LQ, "int8qk", "free", None)
+    prepass_row(ca, "14B global block 7", q14, kc14, kn14, dict(
+        layer_idx=0, kv_start=0, kv_end=LAST_KV_END, sink_end=0,
+        static_hi=LAST_KV_END, num_heads=N14, tq=tq, tk=tk, tf=tf))
+    del q14, kn14, kc14
     return table
+
+
+def prepass_row(ca, label, q, k_c, kn, win):
+    """The int8-QK pre-pass against its plain version: the int8 values
+    and scales bit-equal (both divide truly and round half to even; dead
+    cache tiles are not written and not compared), its time and bound.
+    Returns (the kernel's Int8QK, the table row)."""
+    N, D = win["num_heads"], HEAD_DIM
+    tq, tk, tf = win["tq"], win["tk"], win["tf"]
+    qq = ca.int8qk_quantize(q, k_c, kn, **win)
+    qq_ref = ca.int8qk_quantize_ref(q, k_c, kn, **win)
+    live = torch.tensor(ca.live_cache_tiles(
+        qq.ksc.shape[1], tk, win["kv_start"], win["kv_end"],
+        win["sink_end"]), device="cuda")
+    rows = live.repeat_interleave(tk)
+    worst = max(check_int8("int8qk_quantize", a, b) for a, b in (
+        (qq.q8, qq_ref.q8), (qq.kc8[:, rows], qq_ref.kc8[:, rows]),
+        (qq.kn8, qq_ref.kn8)))
+    s_err = max(rel_l2(a, b) for a, b in ((qq.qs, qq_ref.qs),
+                                          (qq.ksc, qq_ref.ksc),
+                                          (qq.ksf, qq_ref.ksf)))
+    pairs = ((qq.q8, qq_ref.q8), (qq.kc8[:, rows], qq_ref.kc8[:, rows]),
+             (qq.kn8, qq_ref.kn8), (qq.qs, qq_ref.qs), (qq.ksc, qq_ref.ksc),
+             (qq.ksf, qq_ref.ksf))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        fail(f"int8qk_quantize {label}: not bit-equal to its plain version "
+             f"(largest int8 step {worst}, scales relative L2 {s_err:.3e})")
+    del qq_ref, pairs
+    Lq = q.shape[1]
+    n_live = int(live.sum()) * tk
+    # each of q, the live cache rows and k_new: a bf16 read and an int8
+    # write (3 bytes an element), then the f32 scales
+    elems = (Lq + n_live + kn.shape[1]) * N * D
+    pre_bytes = 3.0 * elems + 4.0 * N * (qq.qs.shape[1] + qq.ksc.shape[1]
+                                          + qq.ksf.shape[1])
+    pre_ms = time_ms(lambda: ca.int8qk_quantize(q, k_c, kn, **win))
+    pre_plain = time_ms(lambda: ca.int8qk_quantize_ref(q, k_c, kn, **win),
+                        reps=5)
+    pb_ms, pb_by = bound(3.0 * elems, pre_bytes, PEAK_F32_FLOPS)
+    print(f"kernel int8qk_quantize {label} ({N} heads, tiles {tq}/{tk}/{tf}, "
+          f"{n_live} live cache rows): bit_equal=True "
+          f"ms={pre_ms:.4f} "
+          f"plain_ms={pre_plain:.4f} bound_ms={pb_ms:.4f} ({pb_by}) "
+          f"bound_share={pb_ms / pre_ms:.3f}", flush=True)
+    return qq, dict(ms=pre_ms, plain_ms=pre_plain, library_ms=None,
+                    bound_ms=pb_ms, bound_by=pb_by, max_abs_err=float(worst))
 
 
 def _heads(t: torch.Tensor) -> torch.Tensor:
@@ -1041,8 +1068,8 @@ def phase_flash_kernels(ca, masks, g) -> dict:
             print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}): "
                   f"rel_l2={e:.3e} max_abs={m:.3e} ms={ms:.4f} "
                   f"plain_ms={pms:.4f} sdpa_ms={lib} ({backend}) "
-                  f"bound_ms={b_ms:.4f} ({b_by}) "
-                  f"tflops={ops / ms / 1e9:.1f}", flush=True)
+                  f"bound_ms={b_ms:.4f} ({b_by}) bound_share="
+                  f"{b_ms / ms:.3f} tflops={ops / ms / 1e9:.1f}", flush=True)
             if mask is None:   # the DMD path's shape is the table's row
                 table[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=b_ms, bound_by=b_by,
@@ -1145,7 +1172,7 @@ def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
               f"rel_l2={err:.3e} max_abs={mae:.3e} lse_max_abs={lse_err:.3e} "
               f"ms={ms:.4f} plain_ms={pms:.4f} "
               f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
-              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
               f"tflops={2 * prod / ms / 1e9:.1f}", flush=True)
         if mask is None:
             rows[name] = dict(ms=ms, plain_ms=pms, library_ms=lib,
@@ -2443,9 +2470,9 @@ def main() -> None:
                                             attn + ":475"),
                "decode_fresh_int8_online": (csrc + "decode_int8.cu",
                                             attn + ":475"),
-               "flash_fwd_online": (csrc + "flash_attention.cu",
+               "flash_fwd_online": (csrc + "decode_fresh.cu",
                                     attn + ":1367"),
-               "flash_fwd_bounded": (csrc + "flash_attention.cu",
+               "flash_fwd_bounded": (csrc + "decode_fresh.cu",
                                      attn + ":1367"),
                "cross_attention": (csrc + "decode_fresh.cu",
                                    attn + ":1224"),
@@ -2459,7 +2486,7 @@ def main() -> None:
                "decode_window_f32": (csrc + "decode_fresh.cu",
                                      attn + ":73"),
                "conv3d_f32": (csrc + "conv3d.cu", pconv + ":120"),
-               "flash_fwd": (csrc + "flash_attention.cu", attn + ":1367"),
+               "flash_fwd": (csrc + "decode_fresh.cu", attn + ":1367"),
                "flash_bwd": (csrc + "flash_bwd.cu",
                              f"{attn}:1610, {attn}:1668"),
                "conv3d_fused": (csrc + "conv3d.cu", pconv + ":120"),

@@ -38,32 +38,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Asynchronously copy ROWS rows of D bf16 (global row stride `stride`
-// elements) into a shared tile of row stride LDH; rows >= valid are
-// zero-filled.  Every thread of the CTA (THREADS) takes part.
-template <int ROWS, int D, int LDH, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long stride, int valid) {
-  for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LDH + c, ok ? src + r * stride + c : src,
-               ok ? 16 : 0);
-  }
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }

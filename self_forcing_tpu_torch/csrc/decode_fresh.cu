@@ -2,7 +2,8 @@
 // read-only KV cache window plus the block's own fresh (not yet cached)
 // K/V, in one of five modes; the same kernel serves the cache window
 // alone (decode_window), the cross attention onto a small static K/V
-// (cross_attention) and the int8-QK attention (int8qk_attend).
+// (cross_attention), the int8-QK attention (int8qk_attend) and the
+// training path's masked flash attention forward (flash_fwd).
 //
 // Replaces the TPU kernel _decode_fresh_kernel in its bf16 modes
 // (self_forcing_tpu/ops/pallas_attention.py, called through
@@ -17,7 +18,9 @@
 // int8qk_attend_launch replaces the attention of _decode_fresh_int8_kernel
 // in 'free_qk' mode (softmax='free', quant='int8qk'; its _accumulate and
 // _finalize): mode INT8QK, on the int8 q and K of the pre-pass
-// (decode_int8qk.cu's int8qk_quantize_launch).
+// (decode_int8qk.cu's int8qk_quantize_launch).  flash_fwd_launch replaces
+// _flash_kernel (flash_attention_pallas -> _flash_fwd -> pallas_call) in
+// its free, bounded and online modes: keys FLASH (below).
 //
 // Function, per (batch b, head n, query row i):
 //   visible cache columns j: j < cache_lim and
@@ -116,6 +119,33 @@
 // take turns at the tensor cores (ping-pong measured 4.7% slower here:
 // with little tensor work to hide behind, it only delays a warpgroup's
 // issue).
+//
+// FLASH (flash_fwd_launch): q, k, v, out [B, L, N, D] (the heads-packed
+// layout), one K/V of Lk keys read through the fresh-key maps (no cache),
+// and a per-row mask: row i sees key j iff j < Lk and (s1[i] <= j < e1[i]
+// or s2[i] <= j < e2[i]) (an IntervalMask; the four int32 arrays
+// [4, lq_pad]).  The modes are FREE (the caller folded head_dim**-0.5 *
+// log2(e) into q; scale 1), BOUNDED and ONLINE, and the kernel also writes
+// the base-e lse [B*N, lq_pad] fp32 that flash_bwd reads: ln l (FREE),
+// m0 + ln l (BOUNDED), m ln 2 + ln l (ONLINE), 0 for a row that saw
+// nothing (its out is 0).  At the training shape (B 1, L 32760, 12 heads,
+// no mask) a call does 4 L^2 D N = 6.6 TFLOP against 0.3 GB: bound by
+// tensor-core operations, 6.67 ms at the bf16 peak.  The wrapper's tile
+// table (128 queries x 128 keys: dead, partial, fully visible) reaches
+// the kernel as one list a query tile: its live key tiles in order, each
+// 2 t + (partial), so dead tiles are never loaded and nothing scans for
+// the next live one; a query tile that sees no key gets tile 0 as
+// partial, whose mask hides every key.  Only a partial tile applies the
+// mask, per element, with the four bounds of the thread's two rows
+// (read once an item).  The items (b*n, query tile) differ in cost under
+// a mask (a block-causal query tile sees 1 to 7 blocks), so the wrapper
+// orders the query tiles by live-tile count, most first; the items walk
+// each run of query tiles with equal counts head by head (b*n-major, so
+// the items in flight at once read few heads' K/V and find it in L2: a
+// head-innermost order measured 5-6% slower with no mask), and CTA x
+// takes items x, 2G - 1 - x, 2G + x, ... of a grid of G (a snake over the
+// sorted list: each round's heaviest items go to the CTAs that got the
+// lightest ones in the round before).
 
 #include <cstring>
 #include <type_traits>
@@ -139,8 +169,15 @@ constexpr int KV_TILE = 2 * BOX;          // bytes of a K or V tile
 constexpr int Q_BOX = BM * 128;
 constexpr int Q_TILE = 2 * Q_BOX;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 enum Mode { FREE = 0, FREE_NOCLAMP = 1, BOUNDED = 2, ONLINE = 3, INT8QK = 4 };
+
+// Where the keys come from: the cache window and the block's fresh keys
+// (decode_fresh, cross_attention, int8qk_attend); the cache window alone,
+// its bounds read from device memory (decode_window); or one K/V under a
+// per-row interval mask (flash_fwd).
+enum Keys { CACHE = 0, WINDOW = 1, FLASH = 2 };
 
 // The shared-memory plan of a mode: the bf16 modes hold Q and K as two
 // 64-column boxes a tile; INT8QK as one 128-byte int8 box (half the bytes),
@@ -168,6 +205,21 @@ struct Scales {
   int tq, tk, tf, qt, ntc, ntf;
 };
 
+// FLASH: the mask and its tile lists (the wrapper's flash_geometry), and
+// where the lse goes
+struct Flash {
+  const int* iv;      // [4, lq_pad]: s1, e1, s2, e2 of every query row
+  const int* tiles;   // [n_qt, n_kt]: each query tile's live key tiles in
+                      // order, 2 t + (1 if the tile is partial)
+  const int* count;   // [n_qt]: how many (at least 1)
+  const int* order;   // [n_qt]: the query tiles, most live tiles first
+  const int* run;     // [2, n_qt]: for each position of `order`, the
+                      // first position and the length of its run of
+                      // query tiles with equal counts
+  float* lse;         // [B*N, lq_pad]
+  int lq_pad, n_kt;
+};
+
 __device__ __forceinline__ float as_f(float x) { return x; }
 __device__ __forceinline__ float as_f(int x) { return __int_as_float(x); }
 
@@ -186,18 +238,22 @@ __device__ __forceinline__ bool straddles(int j0, int x) {
   return j0 < x && x < j0 + BK;
 }
 
-// WINDOW: the cache window alone (decode_window_launch): kv_start / kv_end
-// are read from device memory (`bounds`, clamped to [0, S]), no sink, no
-// fresh tiles.  HILO: P.V from the bf16 hi and lo parts of p (the cross
-// attention).
-template <int MODE, bool WINDOW, bool HILO>
+// KEYS (Keys): CACHE, WINDOW (kv_start / kv_end read from device memory,
+// `bounds`, clamped to [0, S]; no sink, no fresh tiles) or FLASH (no
+// cache; k_new / v_new are the K/V, Lf = Lk; `fl` the mask).  HILO: P.V
+// from the bf16 hi and lo parts of p (the cross attention).
+template <int MODE, int KEYS, bool HILO>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_fresh_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ m0, bf16* __restrict__ out,
                     int B, int N, int Lq, int Lf, int S, int kv_start,
                     int kv_end, int sink_end, int cache_lim, float scale,
-                    const int* __restrict__ bounds, const Scales sc) {
+                    const int* __restrict__ bounds, const Scales sc,
+                    const Flash fl) {
   static_assert(!HILO || MODE == ONLINE, "HILO is the online softmax");
+  static_assert(KEYS != FLASH || MODE == FREE || MODE == BOUNDED ||
+                    MODE == ONLINE, "flash modes: free, bounded, online");
+  constexpr bool FL = KEYS == FLASH;
   using P = Plan<MODE>;
   constexpr bool I8 = P::I8;
   constexpr int ST = P::ST;
@@ -217,22 +273,62 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   uint64_t* empty_k = full_v + ST;
   uint64_t* empty_v = empty_k + ST;
 
-  if (WINDOW) {
+  if (KEYS == WINDOW) {
     kv_start = max(__ldg(bounds), 0);
     kv_end = min(__ldg(bounds + 1), S);
     sink_end = 0;
     cache_lim = S;
     Lf = 0;
   }
-  // work items (b*n, query tile), b*n-major; CTA x takes items x, x +
-  // gridDim.x, ...; every item walks the same key tiles
+  // work items (b*n, query tile); the k-th item of this CTA is item
+  // slot(k): a static b*n-major stride where every item walks the same key
+  // tiles, FLASH's snake over its sorted items otherwise
+  const int BN = B * N;
   const int n_qt = (Lq + BM - 1) / BM;
-  const int n_work = n_qt * B * N;
+  const int n_work = n_qt * BN;
   const int wg = threadIdx.x / 128;   // consumer warpgroup, or CONSUMERS
   const int n_cache = (cache_lim + BK - 1) / BK;
   const int n_total = n_cache + (Lf + BK - 1) / BK;
   const int first = next_live<BK>(0, n_cache, n_total, kv_start, kv_end,
                                   sink_end);
+  auto slot = [&](int k) -> int {
+    const int x = FL && (k & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
+                                : (int)blockIdx.x;
+    return k * (int)gridDim.x + x;
+  };
+  // item w's (query tile, b*n); FLASH: the items of a run of len query
+  // tiles from position s of `order` are w = BN s .. BN (s + len) - 1,
+  // b*n-major
+  auto item = [&](int w) -> int2 {
+    if constexpr (FL) {
+      const int p = w / BN;
+      const int s = __ldg(fl.run + p), len = __ldg(fl.run + n_qt + p);
+      const int o = w - BN * s;
+      return make_int2(__ldg(fl.order + s + o % len), o / len);
+    }
+    return make_int2(w % n_qt, w / n_qt);
+  };
+  // an item's key tiles: the cursor runs from start() while < its end; the
+  // tile at cursor t is code(t): its index (FLASH: 2 index + partial)
+  const int* lst = nullptr;   // FLASH: the item's tile list
+  int t_end = n_total;        // FLASH: its length
+  auto begin = [&](int w) {
+    if constexpr (FL) {
+      const int qt = item(w).x;
+      lst = fl.tiles + (long long)qt * fl.n_kt;
+      t_end = __ldg(fl.count + qt);
+    }
+  };
+  auto start = [&]() -> int { return FL ? 0 : first; };
+  auto nxt = [&](int t) -> int {
+    return FL ? t + 1
+              : next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
+                              sink_end);
+  };
+  auto code = [&](int t) -> int { return FL ? __ldg(lst + t) : t; };
+  auto end = [&]() -> int { return FL ? t_end : n_total; };
+  // this CTA's k-th item is its last
+  auto last = [&](int k) -> bool { return slot(k + 1) >= n_work; };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -262,8 +358,8 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       // of every stage, in the producer's order
       const int lane = threadIdx.x % 32;
       int i = 0;
-      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-        const int bn = w / n_qt;
+      for (int k = 0, w; (w = slot(k)) < n_work; ++k) {
+        const int bn = item(w).y;
         for (int t = first; t < n_total;
              t = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
                                sink_end), ++i) {
@@ -289,9 +385,11 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     }
     if (threadIdx.x != 128 * CONSUMERS) return;
     int i = 0;   // key tiles loaded so far: the ring position
-    for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
-      const int bn = w / n_qt, b = bn / N, n = bn % N;
-      const int q0 = (w % n_qt) * BM;
+    for (int k = 0, w; (w = slot(k)) < n_work; ++k) {
+      const int2 it = item(w);
+      const int bn = it.y, b = bn / N, n = bn % N;
+      const int q0 = it.x * BM;
+      begin(w);
       // Q double-buffered: item k's loads while item k - 1 runs
       const int qb = k & 1;
       unsigned char* dq = sQ + qb * P::QT;
@@ -303,13 +401,12 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
         tma_load_4d(dq, &maps.q, &q_full[qb], 0, n, q0, b);
         tma_load_4d(dq + Q_BOX, &maps.q, &q_full[qb], 64, n, q0, b);
       }
-      for (int t = first; t < n_total;
-           t = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
-                             sink_end), ++i) {
+      for (int t = start(); t < end(); t = nxt(t), ++i) {
+        const int tile = FL ? code(t) >> 1 : t;
         const int st = i % ST;
         const uint32_t ph = (i / ST) & 1;
-        const bool cache = t < n_cache;
-        const int j0 = (cache ? t : t - n_cache) * BK;
+        const bool cache = tile < n_cache;
+        const int j0 = (cache ? tile : tile - n_cache) * BK;
         for (int kv = 0; kv < 2; ++kv) {
           uint64_t* full = kv ? &full_v[st] : &full_k[st];
           mbar_wait(kv ? &empty_v[st] : &empty_k[st], ph ^ 1);
@@ -344,9 +441,13 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   const int g = lane / 4;
   const int tq = lane % 4;
   const bool leader = threadIdx.x % 128 == 0;
+  // (FLASH's free mode takes q pre-scaled: its multiplier is the
+  // constant 1, which the compiler folds out of every score)
   const float mul = (MODE == BOUNDED || MODE == ONLINE) ? scale * LOG2E
-                                                        : scale;
-  const float off = MODE == BOUNDED ? __ldg(m0) * LOG2E : 0.f;
+                    : FL                                 ? 1.f
+                                                         : scale;
+  const float m0v = MODE == BOUNDED ? __ldg(m0) : 0.f;
+  const float off = m0v * LOG2E;
   // descriptors of k-step 0: Q rows of this warpgroup in buffer 0, K and
   // V of stage 0 (an int8 Q / K row is 128 bytes, as a bf16 box row)
   const uint64_t dq0 = desc_sw128(sQ + c * 64 * 128, 16, 1024);
@@ -364,6 +465,7 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   float corr[2] = {1.f, 1.f};   // ONLINE: rescale of l and O to the new max
   float qsr[2] = {0.f, 0.f};    // INT8QK: qs * scale of rows g, g + 8
   float2 ksr[I8 ? BK / 8 : 1];  // INT8QK: ks of columns 8 i + 2 tq, + 1
+  int ivr[FL ? 2 : 1][4] = {};  // FLASH: s1, e1, s2, e2 of rows g, g + 8
 
   uint64_t dq = dq0;   // this item's Q buffer
   // S = Q.K^T of the tile in stage `st`
@@ -391,18 +493,25 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
       if constexpr (HILO) wgmma_m64n128k16_rs<1>(o, pl[kk], d);
     }
   };
-  // the scores of tile t (stage st) in base-2 units (-inf where not
-  // visible), then p in place, the row sums, and (ONLINE) the new running
-  // max and corr
-  auto softmax = [&](int t, int st) {
-    const bool cache = t < n_cache;
-    const int j0 = (cache ? t : t - n_cache) * BK;
+  // the scores of tile `tc` (code(t); stage st) in base-2 units (-inf
+  // where not visible), then p in place, the row sums, and (ONLINE) the
+  // new running max and corr
+  auto softmax = [&](int tc, int st) {
+    const bool cache = !FL && tc < n_cache;
+    const int j0 = FL ? (tc >> 1) * BK : (cache ? tc : tc - n_cache) * BK;
     const bool edge =
-        cache ? (straddles(j0, sink_end) || straddles(j0, kv_start) ||
-                 straddles(j0, kv_end) || straddles(j0, cache_lim))
-              : Lf - j0 < BK;
+        FL ? (tc & 1) != 0
+           : cache ? (straddles(j0, sink_end) || straddles(j0, kv_start) ||
+                      straddles(j0, kv_end) || straddles(j0, cache_lim))
+                   : Lf - j0 < BK;
     auto visible = [&](int e) {
       const int j = j0 + 8 * (e / 4) + 2 * tq + (e & 1);
+      if constexpr (FL) {
+        const int h = (e >> 1) & 1;   // row g or g + 8
+        return !edge ||
+               (j < Lf && ((j >= ivr[h][0] && j < ivr[h][1]) ||
+                           (j >= ivr[h][2] && j < ivr[h][3])));
+      }
       return !edge || (cache ? j < cache_lim &&
                                    (j < sink_end ||
                                     (j >= kv_start && j < kv_end))
@@ -506,12 +615,14 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     if (leader) mbar_arrive(&q_empty[k & 1]);
   };
   // wait for item k (item w) of this CTA's Q and point the Q descriptor
-  // at its buffer; INT8QK: read its rows' q scales
+  // at its buffer; INT8QK: read its rows' q scales; FLASH: its rows'
+  // intervals
   auto take_q = [&](int k, int w) {
     dq = dq0 + (((k & 1) * P::QT) >> 4);
+    const int2 it = item(w);
+    const int r0 = it.x * BM + c * 64 + warp * 16 + g;
     if constexpr (I8) {
-      const int bn = w / n_qt;
-      const int r0 = (w % n_qt) * BM + c * 64 + warp * 16 + g;
+      const int bn = it.y;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;   // rows past Lq are not written
@@ -519,6 +630,13 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
                               scale
                         : 0.f;
       }
+    }
+    if constexpr (FL) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)   // rows past Lq: zeros, see nothing
+          ivr[h][a] = __ldg(fl.iv + a * fl.lq_pad + r0 + 8 * h);
     }
     mbar_wait(&q_full[k & 1], (k >> 1) & 1);
   };
@@ -543,17 +661,32 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     }
   };
   // out = O * (1 / l) of item w, from the partial row sums `ls` (rows g
-  // and g + 8 of this warp's 16; rows past Lq are not written)
-  auto store = [&](int w, const float (&ls)[2]) {
-    const int bn = w / n_qt, b = bn / N, n = bn % N;
-    const int r0 = (w % n_qt) * BM + c * 64 + warp * 16 + g;
-    float inv[2];
+  // and g + 8 of this warp's 16; rows past Lq are not written); FLASH also
+  // the rows' lse from their running max `ms` (ONLINE)
+  auto store = [&](int w, const float (&ls)[2], const float (&ms)[2]) {
+    const int2 it = item(w);
+    const int bn = it.y, b = bn / N, n = bn % N;
+    const int r0 = it.x * BM + c * 64 + warp * 16 + g;
+    float sum[2], inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float x = ls[h];
       x += __shfl_xor_sync(0xffffffffu, x, 1);
       x += __shfl_xor_sync(0xffffffffu, x, 2);
+      sum[h] = x;
       inv[h] = 1.f / fmaxf(x, 1e-30f);
+    }
+    if constexpr (FL) {
+      if (tq == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // the offset the p's were taken against, base e
+          const float a = MODE == ONLINE ? ms[h] * LN2 : m0v;
+          if (r0 + 8 * h < Lq)
+            fl.lse[(long long)bn * fl.lq_pad + r0 + 8 * h] =
+                sum[h] > 0.f ? a + logf(sum[h]) : 0.f;
+        }
+      }
     }
     const long long ld_tok = (long long)N * D;
     bf16* ob = out + ((long long)b * Lq + r0) * ld_tok + n * D + 2 * tq;
@@ -572,14 +705,15 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   for (int e = 0; e < 64; ++e) o[e] = 0.f;
   if (first >= n_total) {   // no visible key: every output row is 0
     const float zero[2] = {0.f, 0.f};
-    for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+    for (int k = 0, w; (w = slot(k)) < n_work; ++k) {
       take_q(k, w);
       release_q(k);
-      store(w, zero);
+      store(w, zero, zero);
     }
     return;
   }
-  if (blockIdx.x >= n_work) return;
+  int k = 0, w = slot(0);
+  if (w >= n_work) return;
 
   // One stream of key tiles over this CTA's items: (item w, its tile t).
   // Each step issues the tile's Q.K^T and the previous tile's P.V
@@ -588,25 +722,32 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   // P.V is done, so no item starts or ends with the tensor cores idle.
   // The stream's first tile and last P.V stand outside `step`: a wgmma
   // under a branch makes ptxas serialise every wgmma of the kernel.
-  int w = blockIdx.x, k = 0, t = first;
-  int tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
-                         sink_end);
+  begin(w);
+  int t = start();
+  int tn = nxt(t);
+  // last(k) of the current item, kept in a register by the bf16 modes; the
+  // int8 mode works it out each time (measured: the register costs the
+  // int8 mode 1.5% and saves the bf16 modes 1%)
+  bool last_item = last(k);
+  auto is_last = [&]() -> bool { return I8 ? last(k) : last_item; };
   l[0] = l[1] = 0.f;
   m[0] = m[1] = -INFINITY;
   if (!I8 && c == 1) named_arrive(1, 256);
   take_q(k, w);
+  const int tc0 = code(t);
+  const bool fin0 = tn >= end() && is_last();
   mbar_wait(&full_k[0], 0);
   take_turn();
   wgmma_fence();
   qk(0);
   wgmma_commit();
-  pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+  pass_turn(fin0);
   load_ks(0);
   wgmma_wait<0>();
   fence_regs(s);
   if (!I8) release_k(0);
-  if (tn >= n_total) release_q(k);
-  softmax(t, 0);
+  if (tn >= end()) release_q(k);
+  softmax(tc0, 0);
   if (I8) release_k(0);
   pack();
   int i = 1;   // key tiles consumed so far: the ring position
@@ -615,6 +756,10 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   auto step = [&](bool fresh_item) {
     const int st = i % ST;
     const int sp = (i - 1) % ST;
+    const int tc = code(t);
+    // the stream's last tile?  Settled before the turn, so that handing
+    // the tensor cores over waits for nothing
+    const bool fin = tn >= end() && is_last();
     mbar_wait(&full_k[st], (i / ST) & 1);
     mbar_wait(&full_v[sp], ((i - 1) / ST) & 1);
     take_turn();
@@ -623,24 +768,25 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     wgmma_commit();
     pv(sp);
     wgmma_commit();
-    pass_turn(tn >= n_total && w + (int)gridDim.x >= n_work);
+    pass_turn(fin);
     load_ks(st);
     wgmma_wait<1>();
     fence_regs(s);
     if (!I8) release_k(st);
-    if (tn >= n_total) release_q(k);
+    if (tn >= end()) release_q(k);
     const float l_prev[2] = {l[0], l[1]};
+    const float m_prev[2] = {m[0], m[1]};
     if (fresh_item) {   // the new item's softmax starts afresh
       l[0] = l[1] = 0.f;
       m[0] = m[1] = -INFINITY;
     }
-    softmax(t, st);
+    softmax(tc, st);
     if (I8) release_k(st);
     wgmma_wait<0>();
     fence_regs(o);
     if (leader) mbar_arrive(&empty_v[sp]);
     if (fresh_item) {   // the previous item is done: write it, restart O
-      store(w - (int)gridDim.x, l_prev);
+      store(slot(k - 1), l_prev, m_prev);
 #pragma unroll
       for (int e = 0; e < 64; ++e) o[e] = 0.f;
     } else if (MODE == ONLINE &&
@@ -653,16 +799,16 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
     ++i;
   };
   while (true) {
-    for (t = tn; t < n_total; t = tn) {   // the item's later tiles
-      tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end,
-                         sink_end);
+    for (t = tn; t < end(); t = tn) {   // the item's later tiles
+      tn = nxt(t);
       step(false);
     }
-    if (w + (int)gridDim.x >= n_work) break;
-    w += gridDim.x;   // the next item's first tile
-    ++k;
-    t = first;
-    tn = next_live<BK>(t + 1, n_cache, n_total, kv_start, kv_end, sink_end);
+    if (is_last()) break;
+    w = slot(++k);   // the next item's first tile
+    last_item = last(k);
+    begin(w);
+    t = start();
+    tn = nxt(t);
     take_q(k, w);
     step(true);
   }
@@ -674,16 +820,16 @@ decode_fresh_kernel(const __grid_constant__ Maps maps,
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
-  store(w, l);
+  store(w, l, m);
 }
 
 // Launch on `stream` with the tensor maps encoded; the persistent grid.
-template <int MODE, bool WINDOW, bool HILO>
+template <int MODE, int KEYS, bool HILO>
 int run(const Maps& maps, const void* m0, void* out, int B, int N, int Lq,
         int Lf, int S, int kv_start, int kv_end, int sink_end, int cache_lim,
-        float scale, const int* bounds, const Scales& sc,
+        float scale, const int* bounds, const Scales& sc, const Flash& fl,
         cudaStream_t stream) {
-  auto kernel = decode_fresh_kernel<MODE, WINDOW, HILO>;
+  auto kernel = decode_fresh_kernel<MODE, KEYS, HILO>;
   const int smem = (int)Plan<MODE>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -698,7 +844,7 @@ int run(const Maps& maps, const void* m0, void* out, int B, int N, int Lq,
   const int grid = min((Lq + BM - 1) / BM * B * N, sms);
   kernel<<<grid, THREADS, smem, stream>>>(
       maps, (const float*)m0, (bf16*)out, B, N, Lq, Lf, S, kv_start, kv_end,
-      sink_end, cache_lim, scale, bounds, sc);
+      sink_end, cache_lim, scale, bounds, sc, fl);
   return (int)cudaGetLastError();
 }
 
@@ -724,12 +870,12 @@ int v_maps(Maps& maps, const void* v_cache, const void* v_new, int B, int N,
 
 // Encode the bf16 tensor maps and launch on `stream`; k_cache / v_cache
 // may be null (no cache: cache_lim = 0) and Lf may be 0 (no fresh keys).
-template <int MODE, bool WINDOW, bool HILO>
+template <int MODE, int KEYS, bool HILO>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_new, const void* v_new, const void* m0, void* out,
            int B, int N, int Lq, int Lf, int S, int kv_start, int kv_end,
            int sink_end, int cache_lim, float scale, const int* bounds,
-           cudaStream_t stream) {
+           cudaStream_t stream, const Flash& fl = Flash{}) {
   if (Lq <= 0 || B * N <= 0) return 0;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -754,9 +900,9 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   }
   if (int e = v_maps(maps, v_cache, v_new, B, N, Lf, S)) return e;
   const Scales none{};
-  return run<MODE, WINDOW, HILO>(maps, m0, out, B, N, Lq, Lf, S, kv_start,
-                                 kv_end, sink_end, cache_lim, scale, bounds,
-                                 none, stream);
+  return run<MODE, KEYS, HILO>(maps, m0, out, B, N, Lq, Lf, S, kv_start,
+                               kv_end, sink_end, cache_lim, scale, bounds,
+                               none, fl, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -984,12 +1130,12 @@ extern "C" int decode_fresh_launch(const void* q, const void* k_cache,
 #define SF_ARGS q, k_cache, v_cache, k_new, v_new, m0, out, B, N, Lq, Lf, S, \
     kv_start, kv_end, sink_end, cache_lim, scale, nullptr, st
   switch (mode) {
-    case FREE: return launch<FREE, false, false>(SF_ARGS);
-    case FREE_NOCLAMP: return launch<FREE_NOCLAMP, false, false>(SF_ARGS);
+    case FREE: return launch<FREE, CACHE, false>(SF_ARGS);
+    case FREE_NOCLAMP: return launch<FREE_NOCLAMP, CACHE, false>(SF_ARGS);
     case BOUNDED:
       if (m0 == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<BOUNDED, false, false>(SF_ARGS);
-    case ONLINE: return launch<ONLINE, false, false>(SF_ARGS);
+      return launch<BOUNDED, CACHE, false>(SF_ARGS);
+    case ONLINE: return launch<ONLINE, CACHE, false>(SF_ARGS);
   }
 #undef SF_ARGS
   return (int)cudaErrorInvalidValue;
@@ -1009,9 +1155,10 @@ extern "C" int decode_window_launch(const void* q, const void* k_cache,
   if (bounds == nullptr || S <= 0) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (!f32)
-    return launch<ONLINE, true, false>(q, k_cache, v_cache, nullptr, nullptr,
-                                       nullptr, out, B, N, Lq, 0, S, 0, 0, 0,
-                                       S, scale, (const int*)bounds, st);
+    return launch<ONLINE, WINDOW, false>(q, k_cache, v_cache, nullptr,
+                                         nullptr, nullptr, out, B, N, Lq, 0,
+                                         S, 0, 0, 0, S, scale,
+                                         (const int*)bounds, st);
   cudaError_t err = cudaFuncSetAttribute(
       decode_window_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)WF_SMEM);
@@ -1034,7 +1181,7 @@ extern "C" int cross_attention_launch(const void* q, const void* k,
                                       int Lq, int Lk, float scale,
                                       void* stream) {
   if (Lk < 1 || Lk > 1024) return (int)cudaErrorInvalidValue;
-  return launch<ONLINE, false, true>(q, nullptr, nullptr, k, v, nullptr, out,
+  return launch<ONLINE, CACHE, true>(q, nullptr, nullptr, k, v, nullptr, out,
                                      B, N, Lq, Lk, 0, 0, 0, 0, 0, scale,
                                      nullptr, (cudaStream_t)stream);
 }
@@ -1083,7 +1230,45 @@ extern "C" int int8qk_attend_launch(const void* q8, const void* qs,
   if (int e = v_maps(maps, cache_lim > 0 ? v_cache : nullptr, v_new, B, N,
                      Lf, S))
     return e;
-  return run<INT8QK, false, false>(maps, nullptr, out, B, N, Lq, Lf, S,
+  return run<INT8QK, CACHE, false>(maps, nullptr, out, B, N, Lq, Lf, S,
                                    kv_start, kv_end, sink_end, cache_lim,
-                                   scale, nullptr, sc, (cudaStream_t)stream);
+                                   scale, nullptr, sc, Flash{},
+                                   (cudaStream_t)stream);
+}
+
+// The masked flash attention forward (the TPU kernel _flash_kernel): q
+// [B, Lq, N, D] onto k, v [B, Lk, N, D] (bf16), out like q, lse [B*N,
+// lq_pad] fp32 (base e); iv [4, lq_pad] int32 (s1, e1, s2, e2 of every
+// query row), tiles [ceil(Lq / 128), n_kt] / count / order / run int32
+// (the wrapper's flash_geometry: each 128-query tile's live 128-key tiles
+// as 2 t + partial, how many, the query tiles most live tiles first, the
+// runs of equal counts in that order); n_kt = ceil(Lk / 128).  mode: 0 free (q carries the scale; `scale` unused), 1
+// bounded (m0 points at one float), 2 online.  Returns the CUDA error
+// code (0 on success; cudaErrorInvalidValue for what it does not take).
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                const void* m0, void* out, void* lse,
+                                const void* iv, const void* tiles,
+                                const void* count, const void* order,
+                                const void* run, int B, int N, int Lq,
+                                int Lk, int lq_pad, int n_kt, int mode,
+                                float scale, void* stream) {
+  if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || lq_pad % BM ||
+      lq_pad < Lq || n_kt != (Lk + BK - 1) / BK ||
+      (mode == 1 && m0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Flash fl{(const int*)iv, (const int*)tiles, (const int*)count,
+                 (const int*)order, (const int*)run, (float*)lse, lq_pad,
+                 n_kt};
+  auto st = (cudaStream_t)stream;
+#define SF_ARGS q, nullptr, nullptr, k, v, m0, out, B, N, Lq, Lk, 0, 0, 0, \
+    0, 0
+  switch (mode) {
+    case 0: return launch<FREE, FLASH, false>(SF_ARGS, 1.f, nullptr, st, fl);
+    case 1:
+      return launch<BOUNDED, FLASH, false>(SF_ARGS, scale, nullptr, st, fl);
+    case 2:
+      return launch<ONLINE, FLASH, false>(SF_ARGS, scale, nullptr, st, fl);
+  }
+#undef SF_ARGS
+  return (int)cudaErrorInvalidValue;
 }

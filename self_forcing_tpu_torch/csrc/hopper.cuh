@@ -534,6 +534,12 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// an arrival that orders nothing: at a kernel's start, so that the wait
+// before the first write into a partner's shared memory finds every CTA
+// of the cluster running
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 // The address in CTA `rank`'s shared memory of the variable at shared
 // address `addr` in this CTA's (the same offset), for st_async_f32.
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
@@ -541,6 +547,13 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r) : "r"(addr), "r"(rank));
   return r;
+}
+// v into a cluster partner's shared memory at `addr` (a map_rank
+// address); a cluster barrier (cluster_arrive / cluster_wait) makes it
+// visible there
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
 }
 // v into a cluster partner's shared memory at `addr` (a map_rank
 // address), counted as 4 transaction bytes of the partner's mbarrier at

@@ -25,8 +25,10 @@ that the streaming sampler and the training step run:
   window alone, bounds read on the device, in bf16 (the online decode
   kernel with no fresh keys, counted as ``decode_window``) or float32 (a
   3xTF32 kernel, ``decode_window_f32``);
-- ``flash_fwd`` (csrc/flash_attention.cu) replaces ``_flash_kernel`` in
-  its free, bounded and online modes (``flash_attention_pallas``);
+- ``flash_fwd`` (csrc/decode_fresh.cu's ``flash_fwd_launch``: the decode
+  kernel's pipeline on one K/V under a per-row interval mask, writing
+  lse) replaces ``_flash_kernel`` in its free, bounded and online modes
+  (``flash_attention_pallas``);
 - ``flash_bwd`` (csrc/flash_bwd.cu: dq, dk and dv in one pass) replaces
   both ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` (the
   backward ``_flash_bwd``).
@@ -380,6 +382,11 @@ def decode_fresh_int8qk_ref(q, k_cache, v_cache, k_new, v_new, *,
     return int8qk_attend_ref(qq, q, v_cache, v_new, scale=scale, **win)
 
 
+# the pre-pass keeps a tile's rows in the shared memory of a cluster of
+# 8 CTAs (csrc/decode_int8qk.cu: MAX_SHARE rows of 256 bytes each)
+INT8QK_MAX_TILE = 8 * 904
+
+
 def _check_tiles(name: str, tq: int, tk: int, tf: int) -> None:
     if min(tq, tk, tf) < 1:
         raise ValueError(f"{name}: tiles {(tq, tk, tf)} (the kernel takes "
@@ -416,6 +423,11 @@ def int8qk_quantize(q, k_cache, k_new, *, layer_idx: int, kv_start: int,
             f"{N} heads (the kernel takes head_dim {HEAD_DIM})")
     lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
     qt, ntc, ntf = _cdiv(Lq, tq), _cdiv(lim, tk), _cdiv(Lf, tf)
+    if any(n and t > INT8QK_MAX_TILE
+           for t, n in ((tq, qt), (tk, ntc), (tf, ntf))):
+        raise ValueError(
+            f"int8qk_quantize: tiles {(tq, tk, tf)} (a cluster of the "
+            f"kernel holds a tile of at most {INT8QK_MAX_TILE} rows)")
     i8, f32 = torch.int8, torch.float32
     qq = Int8QK(q8=q.new_empty(BN, qt * tq, D, dtype=i8),
                 qs=q.new_empty(BN, qt, dtype=f32),
@@ -1142,11 +1154,12 @@ def cross_attention_bwd(q, k, v, g, *, num_heads: int,
 # masked flash attention (training), offset-free base-2 softmax
 # =====================================================================
 
-FLASH_ROWS = 128      # query rows of a flash_fwd CTA
-FLASH_KEYS = 64       # keys of a flash_fwd K/V tile
+FLASH_ROWS = 128      # query rows of a flash_fwd work item
+FLASH_KEYS = 128      # keys of a flash_fwd K/V tile
 FLASH_BWD_KEYS = 128  # keys of a flash_bwd CTA
 FLASH_BWD_Q = 64      # query rows of a tile flash_bwd streams
-FLASH_MAX_TILES = 4096  # tile-state row a CTA keeps in shared memory
+FLASH_MAX_TILES = 4096  # tile-state row a flash_bwd CTA keeps in shared
+                        # memory
 LN2 = math.log(2.0)
 
 
@@ -1201,14 +1214,47 @@ def flash_tile_states(mask, Lq: int, Lk: int, rows: int, cols: int,
     return np.where(alive, np.where(full, 2, 1), 0).astype(np.uint8)
 
 
+def flash_tile_lists(states: np.ndarray):
+    """flash_fwd's view of its tile states [n_qt, n_kt]: (tiles [n_qt,
+    n_kt] int32, each query tile's live key tiles in order as 2 t + 1 for
+    a partial tile and 2 t for a fully visible one, zero past its count;
+    count [n_qt] int32; order [n_qt] int32, the query tiles by live-tile
+    count, most first, ties in index order; run [2, n_qt] int32, for each
+    position of order the first position and the length of its run of
+    equal counts, which the kernel walks head by head).  A query tile
+    that sees no key gets key tile 0 as partial: the kernel loads it and
+    its mask hides every key, so the tile's rows come out 0 with lse 0."""
+    nq, nk = states.shape
+    tiles = np.zeros((nq, nk), np.int32)
+    count = np.zeros(nq, np.int32)
+    for qt in range(nq):
+        live = np.flatnonzero(states[qt])
+        if live.size == 0:
+            tiles[qt, 0], count[qt] = 1, 1
+            continue
+        tiles[qt, :live.size] = 2 * live + (states[qt, live] == 1)
+        count[qt] = live.size
+    order = np.argsort(-count, kind="stable").astype(np.int32)
+    sc = count[order]
+    first = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
+    length = np.diff(np.r_[first, nq])
+    run = np.stack([np.repeat(first, length), np.repeat(length, length)])
+    return tiles, count, order, run.astype(np.int32)
+
+
 class FlashGeometry(NamedTuple):
     """What the flash kernels read besides q, k and v: the intervals
-    [4, lq_pad] int32 (zero rows past Lq), the tile states of the
-    128-query tiles against the 64-key tiles (flash_fwd) and of the
-    128-key tiles against the 64-query tiles (flash_bwd, a row per key
-    tile; a query tile with rows past Lq is never fully visible)."""
+    [4, lq_pad] int32 (zero rows past Lq); flash_fwd's tile lists,
+    counts, query-tile order and runs (:func:`flash_tile_lists` of the
+    tile states of the 128-query tiles against the 128-key tiles); and
+    the tile states of the 128-key tiles against the 64-query tiles
+    (flash_bwd, a row per key tile; a query tile with rows past Lq is
+    never fully visible)."""
     iv: torch.Tensor
-    states_q: torch.Tensor
+    tiles_q: torch.Tensor
+    count_q: torch.Tensor
+    order_q: torch.Tensor
+    runs_q: torch.Tensor
     states_kv: torch.Tensor
     lq_pad: int
 
@@ -1233,12 +1279,15 @@ def flash_geometry(mask, Lq: int, Lk: int,
     lq_pad = _cdiv(Lq, FLASH_ROWS) * FLASH_ROWS
     iv = np.zeros((4, lq_pad), np.int32)
     iv[:, :Lq] = np.stack(flash_intervals(mask, Lq, Lk))
-    sq = flash_tile_states(mask, Lq, Lk, FLASH_ROWS, FLASH_KEYS, False)
+    lists = flash_tile_lists(flash_tile_states(mask, Lq, Lk, FLASH_ROWS,
+                                               FLASH_KEYS, False))
     skv = flash_tile_states(mask, Lq, Lk, FLASH_BWD_Q, FLASH_BWD_KEYS,
                             True).T
+    tiles_q, count_q, order_q, runs_q = (torch.from_numpy(a).to(device)
+                                         for a in lists)
     geo = FlashGeometry(
-        iv=torch.from_numpy(iv).to(device),
-        states_q=torch.from_numpy(np.ascontiguousarray(sq)).to(device),
+        iv=torch.from_numpy(iv).to(device), tiles_q=tiles_q,
+        count_q=count_q, order_q=order_q, runs_q=runs_q,
         states_kv=torch.from_numpy(np.ascontiguousarray(skv)).to(device),
         lq_pad=lq_pad)
     cache[key] = geo
@@ -1363,12 +1412,11 @@ def _check_flash(name: str, q, k, v, *more) -> tuple[int, int, int, int]:
     Lk = k.shape[1]
     if D != HEAD_DIM or k.shape != (B, Lk, N, D) or v.shape != k.shape \
             or any(t.shape != q.shape for t in more) \
-            or _cdiv(Lk, FLASH_KEYS) > FLASH_MAX_TILES \
             or _cdiv(Lq, FLASH_BWD_Q) > FLASH_MAX_TILES:
         raise ValueError(
             f"{name}: unsupported shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)} (the kernels take [B, L, N, {HEAD_DIM}] and "
-            f"at most {FLASH_MAX_TILES} tiles a row)")
+            f"at most {FLASH_MAX_TILES * FLASH_BWD_Q} queries)")
     return B, Lq, N, Lk
 
 
@@ -1404,13 +1452,15 @@ def flash_fwd(q, k, v, mask=None, mode: str = "free", scale: float = 1.0,
     out = torch.empty_like(q)
     lse = torch.zeros(B * N, geo.lq_pad, dtype=torch.float32,
                       device=q.device)
-    fn = build.function("flash_attention", "flash_fwd_launch",
-                        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P])
+    fn = build.function("decode_fresh", "flash_fwd_launch",
+                        [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if m0t is None else m0t.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), geo.iv.data_ptr(), geo.states_q.data_ptr(), B,
-             N, Lq, Lk, geo.lq_pad, FLASH_MODES[mode], float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lse.data_ptr(), geo.iv.data_ptr(), geo.tiles_q.data_ptr(),
+             geo.count_q.data_ptr(), geo.order_q.data_ptr(),
+             geo.runs_q.data_ptr(), B, N, Lq, Lk,
+             geo.lq_pad, geo.tiles_q.shape[1], FLASH_MODES[mode],
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_fwd", err)
     launch_counts["flash_fwd" if mode == "free"
                   else f"flash_fwd_{mode}"] += 1

@@ -305,6 +305,15 @@ INT8QK_CASES = {
     # frame, not a multiple of 128); the stage at the sink's end reads a
     # dead tile's unwritten rows
     "windowed_frames": (1, 3, 150, 150, 672, 288, 576, 96, None, 96),
+    # the 14B model's 40 heads
+    "heads_40": (1, 40, 100, 64, 256, 0, 200, 0, None, (64, 128, 64)),
+    # q, cache and fresh tiles of fewer rows than the pre-pass's cluster
+    # of 8 CTAs: some CTAs take no row
+    "short_tiles": (1, 2, 40, 17, 128, 0, 100, 0, None, (7, 6, 5)),
+    # windowed, frame-aligned cache tiles of two 120-row frames (tk 240):
+    # each of the 8 CTAs of a tile's cluster holds 30 of its rows, so a
+    # frame spans four of them
+    "windowed_wide_frames": (1, 2, 150, 150, 960, 480, 840, 120, None, 120),
 }
 
 
@@ -658,50 +667,129 @@ def test_w8a8_wrappers_reject_what_the_kernels_do_not_take(dev):
         cm.quantize_rows(x.float())
 
 
-# (B, N, L, mask): ragged lengths against the forward's 128-row and
-# 64-key tiles and the backward's 128-key and 64-row tiles, both
-# intervals, batch > 1
+# (B, N, Lq, Lk, mask): ragged lengths against the forward's 128-row and
+# 128-key tiles and the backward's 128-key and 64-row tiles, both
+# intervals, batch > 1, Lq != Lk, rows and a whole query tile that see
+# nothing, more work items than the card has SMs
 FLASH_CASES = {
-    "no_mask": (1, 2, 256, None),
-    "teacher_forcing": (1, 2, 200, ("tf", 5, 20, 1)),
-    "block_causal": (2, 1, 300, ("bc", 6, 50, 2)),
-    "local_window": (1, 3, 130, ("bc", 10, 13, 3, 2)),
+    "no_mask": (1, 2, 256, 256, None),
+    "teacher_forcing": (1, 2, 200, 200, ("tf", 5, 20, 1)),
+    "block_causal": (2, 1, 300, 300, ("bc", 6, 50, 2)),
+    "local_window": (1, 3, 130, 130, ("bc", 10, 13, 3, 2)),
+    # Lk not a multiple of 128 and Lq != Lk, no mask
+    "ragged_keys": (1, 2, 200, 333, None),
+    # both intervals end (and start) mid-tile, row by row; Lq != Lk
+    "mid_tile_intervals": (1, 2, 260, 500, ("mid",)),
+    # rows [20, 40) and the whole query tile [128, 256) see no key
+    "rows_see_nothing": (1, 2, 300, 300, ("none",)),
+    "batch_heads": (2, 3, 384, 384, ("bc", 6, 64, 2)),
+    # 37 query tiles x 4 heads = 148 work items on at most 132 SMs
+    "many_items": (1, 4, 4680, 4680, ("bc", 3, 1560, 1)),
 }
 
 
-def _flash_mask(spec):
+def _flash_mask(spec, Lq=None, Lk=None):
     from self_forcing_tpu_torch.ops import masks
     if spec is None:
         return None
     if spec[0] == "tf":
         return masks.teacher_forcing_mask(*spec[1:])
-    return masks.block_causal_mask(*spec[1:])
+    if spec[0] == "bc":
+        return masks.block_causal_mask(*spec[1:])
+    i = np.arange(Lq)
+    if spec[0] == "mid":
+        iv = (i % 37, 70 + i % 50, 200 + i % 30, np.minimum(390 + i % 7, Lk))
+    else:   # "none"
+        e1 = np.full(Lq, Lk)
+        e1[20:40] = 0
+        e1[128:256] = 0
+        iv = (np.zeros(Lq), e1, np.zeros(Lq), np.zeros(Lq))
+    return masks.IntervalMask(*(np.asarray(a, np.int32) for a in iv))
 
 
-def _flash_inputs(g, dev, B, N, L):
+def _flash_case(case):
+    """(B, N, Lq, Lk, mask) of FLASH_CASES[case]."""
+    B, N, Lq, Lk, spec = FLASH_CASES[case]
+    return B, N, Lq, Lk, _flash_mask(spec, Lq, Lk)
+
+
+def _flash_inputs(g, dev, B, N, Lq, Lk=None):
     D = 128
-    q = _bf16(g, B, L, N, D, dev=dev, scale=D ** -0.5 * 1.4427)
-    k = _bf16(g, B, L, N, D, dev=dev)
-    v = _bf16(g, B, L, N, D, dev=dev)
-    do = _bf16(g, B, L, N, D, dev=dev)
+    Lk = Lq if Lk is None else Lk
+    q = _bf16(g, B, Lq, N, D, dev=dev, scale=D ** -0.5 * 1.4427)
+    k = _bf16(g, B, Lk, N, D, dev=dev)
+    v = _bf16(g, B, Lk, N, D, dev=dev)
+    do = _bf16(g, B, Lq, N, D, dev=dev)
     return q, k, v, do
+
+
+def _sees_nothing(mask, Lq, Lk, dev):
+    """[Lq] bool: the query rows that see no key below Lk."""
+    if mask is None:
+        return torch.zeros(Lq, dtype=torch.bool, device=dev)
+    return ~ca._visible(mask, slice(0, Lq), Lk, dev).any(dim=1)
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_fwd_matches_plain(dev, case):
     """Tolerance 1e-2 relative L2 on out (both round p to bf16, which may
     round either way for scores summed in another order); lse 1e-4
-    absolute (fp32 sums)."""
-    B, N, L, spec = FLASH_CASES[case]
-    mask = _flash_mask(spec)
+    absolute (fp32 sums).  A row that sees no key has out 0 and lse 0."""
+    B, N, Lq, Lk, mask = _flash_case(case)
     g = torch.Generator(device=dev).manual_seed(7)
-    q, k, v, _ = _flash_inputs(g, dev, B, N, L)
+    q, k, v, _ = _flash_inputs(g, dev, B, N, Lq, Lk)
     out, lse = ca.flash_fwd(q, k, v, mask)
     ref, ref_lse = ca.flash_fwd_ref(q, k, v, mask)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) < 1e-2
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    blind = _sees_nothing(mask, Lq, Lk, dev)
+    assert not out[:, blind].any() and not lse[:, :, blind].any()
+
+
+@pytest.mark.parametrize("mode", ["free", "bounded", "online"])
+def test_flash_fwd_reads_nothing_the_mask_hides(dev, mode):
+    """Keys [100, 300) of Lk = 400 are hidden from every one of 300
+    queries: the 128-key tile [128, 256) is dead, [0, 128), [256, 384) and
+    [384, 400) are partial, the last one past Lk (k and v are the first
+    400 rows of a 512-row buffer).  K holds NaN in every hidden row and
+    past Lk (the mask drops those scores before any use); V holds NaN in
+    the dead tile and past Lk, and 3e4 in the hidden rows of the partial
+    tiles (the kernel loads those rows and multiplies them by p = 0, and
+    0 * NaN would be NaN).  out and lse must equal, bit for bit, the
+    kernel's result with those rows zero, and the plain version's
+    (1e-2 relative L2, lse 1e-4)."""
+    B, N, Lq, Lk, lo, hi = 1, 2, 300, 400, 100, 300
+    from self_forcing_tpu_torch.ops import masks
+    mask = masks.IntervalMask(*(np.full(Lq, x, np.int32)
+                                for x in (0, lo, hi, Lk)))
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, kb, vb, _ = _flash_inputs(g, dev, B, N, Lq, 512)
+    if mode != "free":
+        q = (q.float() * 8.0).to(torch.bfloat16)
+    m0 = (128 ** -0.5 * q.float().norm(dim=-1).amax()
+          * kb[:, :Lk].float().norm(dim=-1).amax()) if mode == "bounded" \
+        else None
+    args = dict(mode=mode, scale=128 ** -0.5, m0=m0)
+    j = torch.arange(512, device=dev).view(1, 512, 1, 1)
+    hidden = (j >= lo) & (j < hi)
+    dead = ((j >= 128) & (j < 256)) | (j >= Lk)
+    nan = float("nan")
+    zeroed = [torch.where(hidden | (j >= Lk), torch.zeros_like(t), t)
+              for t in (kb, vb)]
+    poisoned = [torch.where(hidden | (j >= Lk), torch.full_like(kb, nan), kb),
+                torch.where(dead, torch.full_like(vb, nan),
+                            torch.where(hidden, torch.full_like(vb, 3e4),
+                                        vb))]
+    got = ca.flash_fwd(q, *(t[:, :Lk] for t in poisoned), mask, **args)
+    clean = ca.flash_fwd(q, *(t[:, :Lk] for t in zeroed), mask, **args)
+    ref = ca.flash_fwd_ref(q, *(t[:, :Lk] for t in zeroed), mask, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0].float()).all()
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[1], clean[1])
+    assert _rel_l2(got[0], ref[0]) < 1e-2
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
@@ -710,10 +798,9 @@ def test_flash_bwd_matches_plain(dev, case):
     the same out, lse and delta: 2e-2 relative L2 (both feed bf16 p and ds
     to the products; ds is a difference of near-equal terms, so its bf16
     rounding may differ by an ulp)."""
-    B, N, L, spec = FLASH_CASES[case]
-    mask = _flash_mask(spec)
+    B, N, Lq, Lk, mask = _flash_case(case)
     g = torch.Generator(device=dev).manual_seed(8)
-    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    q, k, v, do = _flash_inputs(g, dev, B, N, Lq, Lk)
     out, lse = ca.flash_fwd_ref(q, k, v, mask)
     delta = ca.flash_delta(out, do)
     dq, dk, dv = ca.flash_bwd(q, k, v, do, lse, delta, mask)
@@ -772,10 +859,9 @@ def test_flash_bwd_is_deterministic_but_for_dq(dev):
     """Two runs on the same inputs: dk and dv (one owner each, a fixed
     order) are the same bits; dq sums the key tiles' partials in L2 in an
     order that may change, so it agrees within 1e-3 relative L2."""
-    B, N, L, spec = FLASH_CASES["block_causal"]
-    mask = _flash_mask(spec)
+    B, N, Lq, Lk, mask = _flash_case("block_causal")
     g = torch.Generator(device=dev).manual_seed(15)
-    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    q, k, v, do = _flash_inputs(g, dev, B, N, Lq, Lk)
     out, lse = ca.flash_fwd_ref(q, k, v, mask)
     delta = ca.flash_delta(out, do)
     a = ca.flash_bwd(q, k, v, do, lse, delta, mask)
@@ -788,10 +874,9 @@ def test_flash_bwd_is_deterministic_but_for_dq(dev):
 def test_flash_attention_gradient_kernels_vs_plain(dev):
     """The autograd function end to end: the seam's flash attention with
     the kernels against the same with their plain versions."""
-    B, N, L, spec = FLASH_CASES["block_causal"]
-    mask = _flash_mask(spec)
+    B, N, Lq, Lk, mask = _flash_case("block_causal")
     g = torch.Generator(device=dev).manual_seed(9)
-    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    q, k, v, do = _flash_inputs(g, dev, B, N, Lq, Lk)
     grads = []
     for kernels in (True, False):
         ca.reset_launch_counts()
@@ -812,10 +897,9 @@ def test_flash_fwd_modes_match_plain(dev, mode, case):
     their plain versions: 1e-2 relative L2 on out (the kernel rounds p to
     bf16, the plain online version keeps it in float32); lse 1e-4
     absolute (fp32 sums)."""
-    B, N, L, spec = FLASH_CASES[case]
-    mask = _flash_mask(spec)
+    B, N, Lq, Lk, mask = _flash_case(case)
     g = torch.Generator(device=dev).manual_seed(12)
-    q, k, v, _ = _flash_inputs(g, dev, B, N, L)
+    q, k, v, _ = _flash_inputs(g, dev, B, N, Lq, Lk)
     q = (q.float() * 8.0).to(torch.bfloat16)   # unfolded: scale D**-0.5
     m0 = None
     if mode == "bounded":
@@ -834,10 +918,9 @@ def test_flash_fwd_modes_match_plain(dev, mode, case):
 def test_flash_modes_gradient_kernels_vs_plain(dev, bounded):
     """The autograd function in the bounded and online modes: kernels
     against plain versions, out and gradients (2e-2, as the free mode)."""
-    B, N, L, spec = FLASH_CASES["block_causal"]
-    mask = _flash_mask(spec)
+    B, N, Lq, Lk, mask = _flash_case("block_causal")
     g = torch.Generator(device=dev).manual_seed(13)
-    q, k, v, do = _flash_inputs(g, dev, B, N, L)
+    q, k, v, do = _flash_inputs(g, dev, B, N, Lq, Lk)
     q = (q.float() * 8.0).to(torch.bfloat16)
     m0 = (128 ** -0.5 * q.float().norm(dim=-1).amax()
           * k.float().norm(dim=-1).amax()) if bounded else None

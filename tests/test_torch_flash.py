@@ -85,8 +85,9 @@ def test_tile_states_agree_with_pallas(name):
     visible in the Pallas table (the port may mask a few more)."""
     jm, tm = _masks(name)
     L = tm.seq_len
-    for rows, cols, whole in ((128, 64, False), (64, 128, True),
-                              (32, 64, True), (16, 16, True)):
+    for rows, cols, whole in ((128, 64, False), (128, 128, False),
+                              (64, 128, True), (32, 64, True),
+                              (16, 16, True)):
         ours = ca.flash_tile_states(tm, L, L, rows, cols, whole)
         qt, kt = ours.shape
         theirs = jpa._tile_states(*(np.asarray(a) for a in (
@@ -94,6 +95,59 @@ def test_tile_states_agree_with_pallas(name):
             kt)
         np.testing.assert_array_equal(ours == 0, theirs == 0)
         assert not np.any((ours == 2) & (theirs != 2))
+
+
+@pytest.mark.parametrize("name", list(MASKS) + ["none", "sees_nothing"])
+def test_flash_tile_lists_walk_every_live_tile_heaviest_first(name):
+    """flash_fwd's tile lists, counts, query-tile order and runs against
+    its tile states at 128 x 128: each query tile lists exactly its live
+    key tiles in order with their partial bit; a query tile that sees no
+    key lists tile 0 as partial; the order holds every query tile once,
+    by live-tile count, most first; each position's run spans exactly
+    the positions of its count; and the kernel's item walk (run by run,
+    head by head) visits every (query tile, head) once, most live tiles
+    first."""
+    if name == "none":
+        mask, L = None, 300
+    elif name == "sees_nothing":   # queries [128, 256) see no key
+        L = 400
+        e1 = np.full(L, L, np.int32)
+        e1[128:256] = 0
+        z = np.zeros(L, np.int32)
+        mask = tmasks.IntervalMask(z, e1, z, z)
+    else:
+        mask = _masks(name)[1]
+        L = mask.seq_len
+    states = ca.flash_tile_states(mask, L, L, ca.FLASH_ROWS, ca.FLASH_KEYS,
+                                  False)
+    tiles, count, order, run = ca.flash_tile_lists(states)
+    geo = ca.flash_geometry(mask, L, L, torch.device("cpu"))
+    for got, want in zip((geo.tiles_q, geo.count_q, geo.order_q,
+                          geo.runs_q), (tiles, count, order, run)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    for qt in range(states.shape[0]):
+        live = np.flatnonzero(states[qt])
+        want = (2 * live + (states[qt, live] == 1) if live.size
+                else np.array([1]))
+        np.testing.assert_array_equal(tiles[qt, :count[qt]], want)
+        assert not tiles[qt, count[qt]:].any()
+    nq = states.shape[0]
+    assert sorted(order.tolist()) == list(range(nq))
+    assert np.all(np.diff(count[order]) <= 0)
+    for p in range(nq):
+        s, n = run[:, p]
+        same = np.flatnonzero(count[order] == count[order[p]])
+        np.testing.assert_array_equal(same, np.arange(s, s + n))
+    BN = 3   # the kernel's item w -> (query tile, b*n)
+    items = []
+    for w in range(nq * BN):
+        s, n = run[:, w // BN]
+        o = w - BN * s
+        items.append((order[s + o % n], o // n))
+    assert sorted(items) == [(q, b) for q in range(nq) for b in range(BN)]
+    assert np.all(np.diff([count[q] for q, _ in items]) <= 0)
+    if name == "sees_nothing":
+        assert count[1] == 1 and tiles[1, 0] == 1
 
 
 def test_flash_geometry_lives_with_its_mask():
