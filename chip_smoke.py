@@ -74,7 +74,8 @@ path).
    clip; the i2v path under 'pallas' (a seeded image encoded into
    ``initial_latent``, ``CausalInferencePipeline.inference`` with an
    independent first frame and 2 blocks of 3 frames on random 1.3B
-   weights, decoded by the VAE); one decode block under torch.profiler.
+   weights, decoded by the VAE); one decode block under torch.profiler
+   under each backend, with the conv kernels' share of its busy time.
 9. The Wan-14B demo stream (last, every earlier tensor freed, the peak
    memory counter reset): ``WAN_14B`` at full width and depth, random
    W8A8 weights drawn and quantized block by block on the card, int8-QK
@@ -755,7 +756,7 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
         print(f"kernel {name} ({label}): rel_l2={err:.3e} max_abs={mae:.3e}"
               f"{equal} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib}{extra} "
-              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
               f"tops={ops / ms / 1e9:.1f}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
@@ -766,14 +767,16 @@ def phase_w8a8_kernels(cm, quant, g) -> dict:
     q_ref, s_ref = cm.quantize_rows_ref(x)
     worst = check_int8("quantize_rows", q, q_ref)
     s_err = rel_l2(s, s_ref)
-    if s_err > 1e-6:
-        fail(f"quantize_rows: scales relative L2 {s_err:.3e} > 1e-6")
+    if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+        fail(f"quantize_rows: not bit-equal to the plain version (scales "
+             f"relative L2 {s_err:.3e})")
     # no single PyTorch call computes a per-row int8 quantization
     table["quantize_rows"] = report(
         "quantize_rows", f"[{M}, {DIM}] bf16", s_err, float(worst),
         time_ms(lambda: cm.quantize_rows(x)),
         time_ms(lambda: cm.quantize_rows_ref(x), reps=5), None,
-        3.0 * M * DIM, M * DIM * 3.0 + M * 4.0, peak=PEAK_F32_FLOPS)
+        3.0 * M * DIM, M * DIM * 3.0 + M * 4.0, peak=PEAK_F32_FLOPS,
+        gemm=True)
 
     # the three GEMM shapes of a layer: fused qkv; o, cross q and cross o;
     # cross k and v, once per prompt (the row of the table is the qkv's)
@@ -1770,21 +1773,33 @@ def phase_conv_kernels(tconv, g) -> dict:
         print(f"kernel {name} ({label}, {launches} launch(es)): "
               f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} cudnn_ms={libs} "
-              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
               f"tflops={flops / ms / 1e9:.1f}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                     bound_by=b_by, max_abs_err=mae)
 
+    # every 3x3x3 conv shape of a decode step (T = 1 at 60x104, 2 at
+    # 120x208, 4 above) and an encode chunk of 4 frames, and the decoder's
+    # first frame at 120x208 (T = 1); the wide route but for the RGB
+    # input (ops/cuda_conv.py::conv_plan)
     fused_shapes = [((1, 4, 480, 832, 96), 96, "decoder 480x832x96"),
                     ((1, 4, 240, 416, 192), 192, "decoder 240x416x192"),
                     ((1, 2, 120, 208, 384), 384, "decoder 120x208x384"),
                     ((1, 1, 60, 104, 384), 384, "decoder 60x104x384"),
+                    ((1, 1, 60, 104, 16), 384, "decoder conv1 16->384"),
+                    ((1, 2, 120, 208, 192), 384, "decoder 120x208 192->384"),
+                    ((1, 1, 120, 208, 384), 384, "first frame 120x208x384"),
+                    ((1, 4, 240, 416, 96), 192, "encoder 240x416 96->192"),
                     ((1, 4, 480, 832, 3), 96, "encoder conv1 RGB->96"),
-                    ((1, 4, 480, 832, 96), 3, "decoder head 96->RGB")]
+                    ((1, 4, 480, 832, 96), 3, "decoder head 96->RGB"),
+                    ((1, 1, 60, 104, 384), 32, "encoder head 384->32")]
     for shape, Cout, label in fused_shapes:
         x, cache, w, b = operands(*shape, Cout)
         B, T, H, W, C = shape
-        r = row("conv3d_fused", f"{label} {list(shape)}->{Cout}",
+        route = tconv.cuda_conv.conv_plan(B, T, H, W, C, Cout, 3,
+                                          tconv.cuda_conv._sm_count(x.device))
+        r = row("conv3d_fused", f"{label} {list(shape)}->{Cout}, route "
+                f"{route['route']}, splits {route['splits']}",
                 lambda: tconv.conv3d_fused(x, cache, w, b),
                 lambda: tconv.conv3d_ref(x, cache, w, b),
                 cudnn(x, cache, w, b), 2.0 * 27 * C * Cout * B * T * H * W,
@@ -2020,23 +2035,33 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     del pipe, dparams, video
     torch.cuda.empty_cache()
 
-    # where the time goes: one steady decode block under 'pallas'
-    cache = vae.init_decoder_cache(params, cfg, 1, 60, 104, bf, "cuda")
-    _, cache = vae.decode_frame(params, cfg, lat[:, :1], cache, first=True)
-    block = lambda: vae.decode_block(params, cfg, lat[:, 1:4], list(cache),
-                                     first=False)
-    block()
-    wall, rows, _, _ = profile_ms(block)
-    vae.set_conv_backend(None)
-    busy = sum(ms for _, ms in rows)
-    conv = sum(ms for name, ms in rows if "conv_igemm" in name)
-    top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
-                    for name, ms in rows[:6])
-    print(f"profile vae 'pallas' decode block (3 latent frames): "
-          f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
-          f"idle_share={1 - busy / wall:.3f} conv_kernel_ms={conv:.1f} "
-          f"conv_kernel_share_of_busy={conv / max(busy, 1e-9):.3f} "
-          f"top: {top}", flush=True)
+    # where the time goes: one steady decode block under each backend;
+    # the conv kernel's share (every kernel of csrc/conv3d.cu is named
+    # conv_igemm*: the wide and narrow routes, the split-K reduction, the
+    # norm pre-pass)
+    padded = vae.pad_decoder_channels(params)
+    for backend, p in ((None, params), ("pallas", params),
+                       ("fused", padded)):
+        vae.set_conv_backend(backend)
+        cache = vae.init_decoder_cache(p, cfg, 1, 60, 104, bf, "cuda")
+        _, cache = vae.decode_frame(p, cfg, lat[:, :1], cache, first=True)
+        block = (lambda p=p, cache=cache: vae.decode_block(
+            p, cfg, lat[:, 1:4], list(cache), first=False))
+        block()
+        wall, rows, _, _ = profile_ms(block)
+        vae.set_conv_backend(None)
+        busy = sum(ms for _, ms in rows)
+        conv = sum(ms for name, ms in rows if "conv_igemm" in name)
+        top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
+                        for name, ms in rows[:6])
+        print(f"profile vae {backend or 'None (cudnn)'} decode block (3 "
+              f"latent frames): wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
+              f"idle_share={1 - busy / wall:.3f} conv_igemm_ms={conv:.1f} "
+              f"conv_igemm_share_of_busy={conv / max(busy, 1e-9):.3f} "
+              f"top: {top}", flush=True)
+        del cache
+    del padded
+    torch.cuda.empty_cache()
     return launches
 
 

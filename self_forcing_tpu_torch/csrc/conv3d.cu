@@ -19,29 +19,62 @@
 // where timeline frame f < 2 is cache[b, f] and f >= 2 is x[b, f - 2] (two
 // pointers, no concatenation), and A is zero outside the frame.  With NORM
 // A = bf16(u * sigmoid(u)), u = x * inv * gscale * gamma[c] in f32, inv =
-// rsqrt(sum_c x^2 + eps) of the raw pixel (masked taps read no pixel, so
-// they stay zero: silu(norm(0)) is 0 as in the TPU kernel).
-//
-// GEMM view: M = output pixels (B*T*H*W, row-major over b, t, h, w), N =
-// Cout, K = channels x taps; one K step is one tap and BK = 32 channels, so
-// each of a tile's rows reads one pixel's 64 contiguous bytes (channels-last
-// storage, no copy).  Weights are the K-contiguous copy W [Cout, 27, Cp]
-// (Cp = C rounded up to 8, zero padded; made once per parameter by
-// ops/cuda_conv.py), so ldmatrix gives mma.sync's col-major B directly.
+// rsqrt(sum_c x^2 + eps) of the raw pixel (pixels outside the frame stay
+// zero: silu(norm(0)) is 0 as in the TPU kernel).
 //
 // What bounds it on the H100: the VAE's convs do 2*27*C*Cout products a
 // pixel (96-384 channels: 0.5-8 MFLOP) against 2*(C + Cout) bytes, far
-// above the card's ~295 FLOP/byte: bound by the tensor cores.  Design,
-// simple first: mma.sync m16n8k16 bf16 -> f32, 128 x BN x 32 tiles, 8 warps,
-// 3-stage cp.async (16-byte zero-filled gathers of the tap's shifted
-// pixels), rows padded to 80 bytes so ldmatrix is conflict-free.  Tiles
-// narrower than Cout's 128 (BN 32 / 64) for the RGB head and the 16- and
-// 32-channel convs; C % 8 != 0 (the RGB input) loads A with scalar reads.
-// The NORM prologue rewrites each staged A chunk in place (the thread that
-// copied it, after its cp.async wait).  Not yet: wgmma, TMA, a persistent
-// schedule, reuse of a strip's pixels across the 9 spatial taps.
+// above the card's ~295 FLOP/byte: bound by the tensor cores.
+//
+// Two routes, chosen by shape up front (ops/cuda_conv.py::conv_plan
+// decides, conv3d_launch checks its plan; never a fallback):
+//
+// WIDE (C % 8 == 0: every conv of the 'pallas' and 'fused' paths but the
+// RGB input), wgmma + TMA on halo tiles.  A tile is TR = 4 image rows x
+// TW = 64 columns of one frame (256 output pixels) by bn output channels
+// (192, 128, 96, 64 or 32; ops/cuda_conv.py::conv_plan picks it, a tile
+// past Cout computing zeros that are not stored).  Its A operand for one
+// temporal tap and 32 channels is ONE halo box of (4 + 2) x (64 + 2)
+// pixels of the timeline frame, loaded by TMA from the x or the cache
+// tensor map (whichever holds the frame) at (h0 - 1, w0 - 1): TMA's zero
+// fill past the frame's edges is the conv's padding.  The box lands
+// unswizzled as [8-channel group][pixel][16 bytes] (4 TMA boxes of 8
+// channels, each 128-byte aligned), wgmma's no-swizzle K-major layout, in
+// which a 64-pixel run of an image row is 8 core matrices 128 bytes
+// apart: the 9 spatial taps read the same box, tap (di, dj) starting
+// (di * 66 + dj) pixels later, so each staged pixel is loaded once for 9
+// products.  B is the weights' K-major copy [Cout, 27, Cp]
+// (ops/cuda_conv.py::kernel_weight), one 64-byte-swizzled TMA box of bn
+// rows x 32 channels a tap.  One producer thread feeds two rings (3 halo
+// and 8 tap stages, 2 and 6 at bn 192; full / empty mbarriers); two
+// consumer warpgroups (setmaxnreg 240) each own 2 of the tile's rows (two
+// m64nBNk16 accumulators: 192 registers at bn 192, where ptxas reports
+// 120-136 bytes of spill) and release a tap's stage once its
+// products retire; the 9 taps of a K step are unrolled, their descriptors
+// constant offsets of one (the consumers' few instructions between
+// wgmma batches are the critical path: the PERF.md bring-up table).  The
+// grid is persistent (one CTA an SM walking the items); the output is
+// staged in padded shared rows and stored 16 bytes at a time (2 where
+// Cout % 8 != 0: the RGB head).  NORM: the consumers activate each staged
+// halo box once, in place, before its 9 taps read it (pixels past the
+// frame stay zero).  Split-K for convs of few tiles and many K steps (the
+// encoder head, 384 -> 32 at 60x104; never with NORM): the item list is
+// (tile, channel tile, split), each split a run of the K steps (temporal
+// tap x 32 channels), written as f32 partials [splits, M, Cout];
+// conv_igemm_reduce sums them in split order, adds bias and rounds once,
+// so a run is deterministic.  Columns of a 64-wide tile past
+// W (W = 104: 24 of the second tile) are computed on zeros and not
+// stored.
+//
+// NARROW (the RGB input, C = 3: its 6-byte pixels are no TMA stride):
+// mma.sync m16n8k16, 128 x BN x 32 tiles, 8 warps, 3-stage gathers of
+// each tap's shifted pixels (scalar A loads, cp.async weights), rows
+// padded to 80 bytes for ldmatrix.  No NORM.
+
+#include <cstring>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 using sf_attn::bf16;
 using sf_attn::cp_async16;
@@ -51,15 +84,532 @@ using sf_attn::ldmatrix_x4;
 using sf_attn::mma16816;
 using sf_attn::mma_tf32;
 using sf_attn::split_tf32;
+using namespace sf_hopper;
 
 namespace {
+
+constexpr int NCACHE = 2;       // cache frames before x on the timeline
+
+__device__ __forceinline__ float silu(float u) {
+  return __fdividef(u, 1.f + __expf(-u));
+}
+
+// =====================================================================
+// WIDE route: wgmma + TMA on halo tiles
+// =====================================================================
+
+constexpr int TW = 64;                   // output columns of a tile
+constexpr int TR = 4;                    // output rows of a tile
+constexpr int HC = TW + 2;               // halo columns
+constexpr int HR = TR + 2;               // halo rows
+constexpr int HPIX = HR * HC;            // halo pixels (396)
+constexpr int CK = 32;                   // channels of a K step
+constexpr int G8 = CK / 8;               // 8-channel groups of a step
+constexpr int A_BOX = HPIX * 16;         // one 8-channel TMA box (6336)
+constexpr int A_BYTES = G8 * A_BOX;      // a K step's halo (25344)
+constexpr int A_LBO = 6400;              // bytes between channel groups
+                                         // (TMA boxes start 128-aligned)
+constexpr int A_STRIDE = G8 * A_LBO;     // a ring stage, 1024-aligned
+constexpr int WTHREADS = 384;            // 2 consumer warpgroups + producer
+static_assert(G8 * 64 == 256, "NORM: 64 consumer threads a channel group");
+
+template <int BN>
+struct Wide {
+  // ring depths: 3 halo and 8 tap stages, 2 and 6 at BN 192
+  static constexpr int A_STAGES = BN > 128 ? 2 : 3;
+  static constexpr int B_STAGES = BN > 128 ? 6 : 8;
+  static constexpr int B_BYTES = BN * CK * 2;        // a tap's weights
+  static constexpr int LD = 2 * BN + 16;             // a staged output row
+  static constexpr int OUT_BYTES = 2 * 2 * TW * LD;  // both warpgroups
+  static constexpr int SMEM = 1024 + A_STAGES * A_STRIDE +
+                              B_STAGES * B_BYTES + OUT_BYTES +
+                              2 * (A_STAGES + B_STAGES) * 8;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(A_LBO % 128 == 0 && A_LBO >= A_BOX && A_STRIDE % 1024 == 0,
+                "halo box alignment");
+};
+
+struct WideMaps {
+  CUtensorMap x;      // bf16 (C, W, H, B*T), box (8, HC, HR, 1)
+  CUtensorMap cache;  // bf16 (C, W, H, B*2), box (8, HC, HR, 1)
+  CUtensorMap w;      // bf16 (Cp, 27, Cout), box (CK, 1, BN), 64B swizzle
+};
+
+struct WideArgs {
+  const float* bias;   // [Cout] or null
+  const bf16* res;     // [B, T, H, W, Cout] or null
+  const float* inv;    // [B, 2 + T, H, W] (NORM)
+  const float* gamma;  // [C] (NORM)
+  bf16* out;           // [B, T, H, W, Cout]
+  float* ws;           // [splits, B*T*H*W, Cout] f32 partials (splits > 1)
+  int B, T, H, W, C, Cout, taps_t, tau0, splits;
+  int mt, wt, nt, nch, items;   // row tiles, column tiles, n tiles,
+                                // 32-channel steps a temporal tap, items
+  float gscale;
+};
+
+// One work item: rows h0.. and columns w0.. of frame t of batch b, output
+// channels n0.., K steps [k0, k1) (a K step is temporal tap k / nch,
+// channels 32 (k % nch)..), split s.  Items run split-fastest, then n
+// tile, column tile, row tile, frame.
+struct Item {
+  int b, t, h0, w0, n0, k0, k1, s;
+};
+
+template <int BN>
+__device__ __forceinline__ Item decode_item(const WideArgs& a, int i) {
+  Item it;
+  it.s = i % a.splits;
+  i /= a.splits;
+  it.n0 = (i % a.nt) * BN;
+  i /= a.nt;
+  it.w0 = (i % a.wt) * TW;
+  i /= a.wt;
+  it.h0 = (i % a.mt) * TR;
+  i /= a.mt;
+  it.b = i / a.T;
+  it.t = i % a.T;
+  const int ks = a.taps_t * a.nch;
+  it.k0 = (int)((long long)it.s * ks / a.splits);
+  it.k1 = (int)((long long)(it.s + 1) * ks / a.splits);
+  return it;
+}
+
+// Descriptor of an unswizzled K-major operand: 8-row x 16-byte core
+// matrices of 128 contiguous bytes; lbo the bytes to the next core matrix
+// along K, sbo along M / N.  The start needs only 16-byte alignment, so a
+// shifted tap is a shifted start.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+// Descriptor of a 64-byte-swizzled K-major operand (rows of 32 bf16, 8
+// rows 512 bytes); a 16-wide k-step starts 32 bytes into the row.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
+// d += A . B, m64nBNk16 bf16 -> f32, both K-major from shared memory
+template <int BN>
+struct Mma;
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    wgmma_m64n64k16_ss<0, 0>(d, da, db, 1);
+  }
+};
+template <>
+struct Mma<192> {
+  static __device__ __forceinline__ void run(float (&d)[96], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+        ", %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Mma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    wgmma_m64n128k16_ss(d, da, db, 1);
+  }
+};
+template <>
+struct Mma<96> {
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+        ", %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <int BN, bool NORM, bool RES>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    conv_igemm_wgmma(const __grid_constant__ WideMaps maps,
+                     const WideArgs a) {
+  using L = Wide<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Bs = As + L::A_STAGES * A_STRIDE;
+  unsigned char* Os = Bs + L::B_STAGES * L::B_BYTES;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(Os + L::OUT_BYTES);
+  uint64_t* a_empty = a_full + L::A_STAGES;
+  uint64_t* b_full = a_empty + L::A_STAGES;
+  uint64_t* b_empty = b_full + L::B_STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::A_STAGES; ++s) {
+      mbar_init(&a_full[s], 1);
+      mbar_init(&a_empty[s], 2);
+    }
+    for (int s = 0; s < L::B_STAGES; ++s) {
+      mbar_init(&b_full[s], 1);
+      mbar_init(&b_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread streams each item's halo boxes and taps
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      int sa = 0, sb = 0;
+      uint32_t aph = 1, bph = 1;   // empty waits start at parity 1
+      for (int i = blockIdx.x; i < a.items; i += gridDim.x) {
+        const Item it = decode_item<BN>(a, i);
+        for (int k = it.k0; k < it.k1; ++k) {
+          const int kt = k / a.nch, c0 = (k % a.nch) * CK;
+          const int f = it.t + a.tau0 + kt;
+          unsigned char* dst = As + sa * A_STRIDE;
+          mbar_wait(&a_empty[sa], aph);
+          mbar_expect_tx(&a_full[sa], A_BYTES);
+          const CUtensorMap* m = f < NCACHE ? &maps.cache : &maps.x;
+          const int fr = f < NCACHE ? it.b * NCACHE + f
+                                    : it.b * a.T + f - NCACHE;
+#pragma unroll
+          for (int g = 0; g < G8; ++g)
+            tma_load_4d(dst + g * A_LBO, m, &a_full[sa], c0 + 8 * g,
+                        it.w0 - 1, it.h0 - 1, fr);
+          if (++sa == L::A_STAGES) sa = 0, aph ^= 1;
+          const int tap0 = 9 * (kt + a.tau0);
+          for (int s = 0; s < 9; ++s) {
+            mbar_wait(&b_empty[sb], bph);
+            mbar_expect_tx(&b_full[sb], L::B_BYTES);
+            tma_load_3d(Bs + sb * L::B_BYTES, &maps.w, &b_full[sb], c0,
+                        tap0 + s, it.n0);
+            if (++sb == L::B_STAGES) sb = 0, bph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 2 wg, 2 wg + 1 of each tile
+  regs_alloc<240>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t a_base = smem_u32(As) + 2 * wg * HC * 16;
+  const uint32_t b_base = smem_u32(Bs);
+  unsigned char* os = Os + wg * 2 * TW * L::LD;
+  const long long M = (long long)a.B * a.T * a.H * a.W;
+
+  float acc0[BN / 2], acc1[BN / 2];
+  // NORM: this thread's halo pixels' inverse norms, of temporal tap iv_kt
+  constexpr int IVS = (HPIX + 63) / 64;
+  float iv[NORM ? IVS : 1];
+  // ring positions: the next halo and tap stages and their phase parities,
+  // and the last ones taken (released once their products retire)
+  int sa = 0, sb = 0, psa = 0, psb = 0;
+  uint32_t aph = 0, bph = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x) {
+    const Item it = decode_item<BN>(a, i);
+    int iv_kt = -1;
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc0[j] = acc1[j] = 0.f;
+    for (int k = it.k0; k < it.k1; ++k) {
+      mbar_wait(&a_full[sa], aph);
+      if constexpr (NORM) {
+        // activate the staged box in place, once, before its 9 taps read
+        // it: thread (grp, l) takes channel group grp of halo pixels l,
+        // l + 64, ..; the pixels' inverse norms stay in registers for the
+        // K steps of one temporal tap (zero past the frame, where the box
+        // holds zeros: silu(0) = 0)
+        const int kt = k / a.nch, c = (k % a.nch) * CK + 8 * (threadIdx.x / 64);
+        const int l = threadIdx.x % 64;
+        if (kt != iv_kt) {
+          iv_kt = kt;
+          const float* inv = a.inv + (long long)(it.b * (NCACHE + a.T) + it.t +
+                                                 a.tau0 + kt) * a.H * a.W;
+#pragma unroll
+          for (int j = 0; j < IVS; ++j) {
+            const int p = l + 64 * j;
+            const int hh = it.h0 - 1 + p / HC, ww = it.w0 - 1 + p % HC;
+            iv[j] = p < HPIX && hh >= 0 && hh < a.H && ww >= 0 && ww < a.W
+                        ? __ldg(inv + hh * a.W + ww) : 0.f;
+          }
+        }
+        if (c < a.C) {
+          const float4 ga = __ldg(reinterpret_cast<const float4*>(a.gamma + c));
+          const float4 gb =
+              __ldg(reinterpret_cast<const float4*>(a.gamma + c + 4));
+          const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+          unsigned char* st =
+              As + sa * A_STRIDE + (threadIdx.x / 64) * A_LBO + l * 16;
+#pragma unroll
+          for (int j = 0; j < IVS; ++j) {
+            if (l + 64 * j >= HPIX) continue;
+            uint4* ptr = reinterpret_cast<uint4*>(st + 64 * 16 * j);
+            uint4 raw = *ptr;
+            bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const float u =
+                  __bfloat162float(v[e]) * iv[j] * a.gscale * gm[e];
+              v[e] = __float2bfloat16(silu(u));
+            }
+            *ptr = raw;
+          }
+        }
+        fence_async_smem();
+        named_sync(1, 256);
+      }
+      // descriptors of this warpgroup's first row at tap (0, 0); a tap,
+      // a row, a 16-channel k-step each add a constant (in 16-byte units)
+      const uint64_t da = desc_plain(a_base + sa * A_STRIDE, A_LBO, 128);
+#pragma unroll
+      for (int s = 0; s < 9; ++s) {
+        constexpr uint32_t ROW = HC, KSTEP = 2 * A_LBO / 16;
+        const uint32_t tap = (s / 3) * HC + s % 3;
+        const uint64_t db = desc_sw64(b_base + sb * L::B_BYTES);
+        mbar_wait(&b_full[sb], bph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          Mma<BN>::run(acc0, da + tap + kk * KSTEP, db + 2 * kk);
+          Mma<BN>::run(acc1, da + tap + ROW + kk * KSTEP, db + 2 * kk);
+        }
+        wgmma_commit();
+        // the previous tap's products are done: hand back its stage (and
+        // its halo box after a K step's last tap)
+        wgmma_wait<1>();
+        fence_regs(acc0);
+        fence_regs(acc1);
+        if (leader && (s > 0 || k > it.k0)) {
+          mbar_arrive(&b_empty[psb]);
+          if (s == 0) mbar_arrive(&a_empty[psa]);
+        }
+        psb = sb;
+        if (++sb == L::B_STAGES) sb = 0, bph ^= 1;
+      }
+      psa = sa;
+      if (++sa == L::A_STAGES) sa = 0, aph ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+    if (leader) {
+      mbar_arrive(&b_empty[psb]);
+      mbar_arrive(&a_empty[psa]);
+    }
+
+    // ---- epilogue.  Accumulator d[4 j + e] of row r: tile column
+    // 16 warp + g (+ 8 for e >= 2), channel n0 + 8 j + 2 t4 + (e & 1)
+    const long long frame = (long long)(it.b * a.T + it.t) * a.H;
+    if (a.splits == 1) {
+      named_sync(2 + wg, 128);   // the last item's rows are copied out
+      auto stage_row = [&](const float(&acc)[BN / 2], int r) {
+        const int h = it.h0 + 2 * wg + r;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = warp * 16 + g + 8 * half;
+          const int w = it.w0 + col;
+          const bool live = h < a.H && w < a.W;
+          const long long pix = (frame + h) * a.W + w;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int c = 8 * j + 2 * t4, n = it.n0 + c;
+            float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+            if (a.bias != nullptr) {   // channels past Cout are not stored
+              v0 += n < a.Cout ? __ldg(a.bias + n) : 0.f;
+              v1 += n + 1 < a.Cout ? __ldg(a.bias + n + 1) : 0.f;
+            }
+            if (RES && live) {   // NORM convs have Cout % BN == 0
+              const __nv_bfloat162 rr = *reinterpret_cast<
+                  const __nv_bfloat162*>(a.res + pix * a.Cout + it.n0 + c);
+              v0 += __low2float(rr);
+              v1 += __high2float(rr);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(os + (r * TW + col) * L::LD +
+                                               2 * c) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      };
+      stage_row(acc0, 0);
+      stage_row(acc1, 1);
+      named_sync(2 + wg, 128);
+      constexpr int CH = 2 * BN / 16;   // 16-byte pieces of a row
+      // 16-byte stores where Cout % 8 == 0, else (the RGB head) 2-byte
+      // ones; channels past Cout are not stored
+      const bool vec = a.Cout % 8 == 0;
+      for (int q = threadIdx.x % 128; q < 2 * TW * CH; q += 128) {
+        const int row = q / CH, piece = q % CH;
+        const int h = it.h0 + 2 * wg + row / TW, w = it.w0 + row % TW;
+        const int n = it.n0 + 8 * piece;
+        if (h >= a.H || w >= a.W || n >= a.Cout) continue;
+        bf16* dst = a.out + ((frame + h) * a.W + w) * a.Cout + n;
+        const unsigned char* src = os + row * L::LD + 16 * piece;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(src);
+        } else {
+          const bf16* v = reinterpret_cast<const bf16*>(src);
+          for (int e = 0; e < 8 && n + e < a.Cout; ++e) dst[e] = v[e];
+        }
+      }
+    } else {
+      // split-K: this split's f32 partial
+      float* wsp = a.ws + (long long)it.s * M * a.Cout + it.n0 + 2 * t4;
+      auto store_row = [&](const float(&acc)[BN / 2], int r) {
+        const int h = it.h0 + 2 * wg + r;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int w = it.w0 + warp * 16 + g + 8 * half;
+          if (h >= a.H || w >= a.W) continue;
+          float* dst = wsp + ((frame + h) * a.W + w) * a.Cout;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      };
+      store_row(acc0, 0);
+      store_row(acc1, 1);
+    }
+  }
+}
+
+// out = bf16(sum_s ws[s] (in split order) + bias); 8 channels a thread
+// (Cout % 8 == 0)
+__global__ void conv_igemm_reduce(const float* __restrict__ ws, int splits,
+                                  long long MN, int Cout,
+                                  const float* __restrict__ bias,
+                                  bf16* __restrict__ out) {
+  const long long i =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= MN) return;
+  float v[8];
+  {
+    const float4 p = *reinterpret_cast<const float4*>(ws + i);
+    const float4 q = *reinterpret_cast<const float4*>(ws + i + 4);
+    v[0] = p.x, v[1] = p.y, v[2] = p.z, v[3] = p.w;
+    v[4] = q.x, v[5] = q.y, v[6] = q.z, v[7] = q.w;
+  }
+  for (int s = 1; s < splits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(ws + s * MN + i);
+    const float4 q = *reinterpret_cast<const float4*>(ws + s * MN + i + 4);
+    v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
+    v[4] += q.x, v[5] += q.y, v[6] += q.z, v[7] += q.w;
+  }
+  const int n = (int)(i % Cout);
+  if (bias != nullptr)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += bias[n + e];
+  __align__(16) __nv_bfloat162 o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  *reinterpret_cast<uint4*>(out + i) = *reinterpret_cast<const uint4*>(o);
+}
+
+template <int BN, bool NORM, bool RES>
+int launch_wide(const void* x, const void* cache, const void* w, int Cp,
+                WideArgs a, int grid, cudaStream_t st) {
+  using L = Wide<BN>;
+  auto kern = conv_igemm_wgmma<BN, NORM, RES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  WideMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t px = 2ull * a.C;   // bytes a pixel
+  {
+    uint64_t dims[4] = {(uint64_t)a.C, (uint64_t)a.W, (uint64_t)a.H,
+                        (uint64_t)a.B * a.T};
+    const uint64_t strides[3] = {px, px * a.W, px * a.W * a.H};
+    const uint32_t box[4] = {8, HC, HR, 1};
+    if (int e = bf16_map(&maps.x, x, 4, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE))
+      return e;
+    dims[3] = (uint64_t)a.B * NCACHE;
+    if (int e = bf16_map(&maps.cache, cache, 4, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE))
+      return e;
+  }
+  {
+    // rows past Cout (a tile wider than a narrow Cout) read zeros
+    const uint64_t dims[3] = {(uint64_t)Cp, 27, (uint64_t)a.Cout};
+    const uint64_t strides[2] = {2ull * Cp, 2ull * 27 * Cp};
+    const uint32_t box[3] = {CK, 1, BN};
+    if (int e = bf16_map(&maps.w, w, 3, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_64B))
+      return e;
+  }
+  kern<<<grid, WTHREADS, L::SMEM, st>>>(maps, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const long long MN = (long long)a.B * a.T * a.H * a.W * a.Cout;
+  const int threads = 256;
+  conv_igemm_reduce<<<(unsigned)((MN / 8 + threads - 1) / threads), threads,
+                      0, st>>>(a.ws, a.splits, MN, a.Cout, a.bias, a.out);
+  return (int)cudaGetLastError();
+}
+
+template <bool NORM, bool RES>
+int launch_wide_bn(int bn, const void* x, const void* cache, const void* w,
+                   int Cp, WideArgs a, int grid, cudaStream_t st) {
+  switch (bn) {
+    case 192:
+      return launch_wide<192, NORM, RES>(x, cache, w, Cp, a, grid, st);
+    case 128:
+      return launch_wide<128, NORM, RES>(x, cache, w, Cp, a, grid, st);
+    case 96:
+      return launch_wide<96, NORM, RES>(x, cache, w, Cp, a, grid, st);
+    case 64:
+      return launch_wide<64, NORM, RES>(x, cache, w, Cp, a, grid, st);
+    case 32:
+      return launch_wide<32, NORM, RES>(x, cache, w, Cp, a, grid, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// =====================================================================
+// NARROW route: mma.sync implicit GEMM (the RGB input)
+// =====================================================================
 
 constexpr int BM = 128;         // output pixels of a tile
 constexpr int BK = 32;          // channels of one K step
 constexpr int LDS = BK + 8;     // shared row stride (80 bytes)
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
-constexpr int NCACHE = 2;       // cache frames before x on the timeline
 constexpr int CHUNKS = BK / 8;              // 16-byte chunks of a row
 constexpr int A_PASS = THREADS / CHUNKS;    // A rows loaded in one pass
 constexpr int A_ITERS = BM / A_PASS;        // A rows of each thread
@@ -69,13 +619,9 @@ struct ConvArgs {
   const bf16* cache;   // [B, 2, H, W, C]
   const bf16* w;       // [Cout, ., Cp] at the first tap used, row w_stride
   const float* bias;   // [Cout] or null
-  const bf16* res;     // [B, T, H, W, Cout] or null
-  const float* inv;    // [B, 2 + T, H, W] (NORM)
-  const float* gamma;  // [C] (NORM)
   bf16* out;           // [B, T, H, W, Cout]
   int B, T, H, W, C, Cp, Cout;
   int taps_t, tau0, w_stride;
-  float gscale;
 };
 
 // 16-byte async copy through L1 (the tap gathers re-read their
@@ -87,30 +633,23 @@ __device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
-__device__ __forceinline__ float silu(float u) {
-  return u * (1.f / (1.f + __expf(-u)));
-}
-
 // The shifted source pixel of output pixel (b, t, h, w) for temporal tap
 // kt and spatial tap (di, dj); null where it lies outside the frame.
 __device__ __forceinline__ const bf16* tap_pixel(const ConvArgs& a, int b,
                                                  int t, int h, int w, int kt,
-                                                 int di, int dj, int* frame,
-                                                 int* pix) {
+                                                 int di, int dj) {
   const int hh = h + di - 1, ww = w + dj - 1;
   if (hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) return nullptr;
   const int f = t + a.tau0 + kt;
   const long long p = (long long)hh * a.W + ww;
-  *frame = f;
-  *pix = (int)p;
   const long long HW = (long long)a.H * a.W;
   if (f < NCACHE) return a.cache + ((b * NCACHE + f) * HW + p) * a.C;
   return a.x + (((long long)b * a.T + f - NCACHE) * HW + p) * a.C;
 }
 
-template <int BN, int WARPS_M, bool VEC, bool NORM, bool RES>
+template <int BN, int WARPS_M>
 __global__ void __launch_bounds__(THREADS)
-    conv_igemm(const ConvArgs a) {
+    conv_igemm_narrow(const ConvArgs a) {
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
   constexpr int MT = WTM / 16, NT = WTN / 8;
@@ -153,22 +692,16 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < A_ITERS; ++i) {
       const int row = tid / CHUNKS + A_PASS * i, c = c0 + aj * 8;
-      int f, p;
       const bf16* src = pv[i] ? tap_pixel(a, pb[i], pt[i], ph[i], pw[i], kt,
-                                          di, dj, &f, &p)
+                                          di, dj)
                               : nullptr;
-      bf16* dst = as + row * LDS + aj * 8;
-      if (VEC) {
-        const bool ok = src != nullptr && c < a.C;
-        cp_async16_ca(dst, ok ? src + c : a.x, ok ? 16 : 0);
-      } else {
-        __align__(16) bf16 v[8];
+      __align__(16) bf16 v[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = (src != nullptr && c + e < a.C) ? src[c + e]
-                                                 : __float2bfloat16(0.f);
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-      }
+      for (int e = 0; e < 8; ++e)
+        v[e] = (src != nullptr && c + e < a.C) ? src[c + e]
+                                               : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(as + row * LDS + aj * 8) =
+          *reinterpret_cast<const uint4*>(v);
     }
     bf16* bs = Bs + stage * BN * LDS;
     const bf16* wt = a.w + (long long)tap * a.Cp;
@@ -178,34 +711,6 @@ __global__ void __launch_bounds__(THREADS)
       const bool ok = n < a.Cout && c < a.Cp;
       cp_async16(bs + r * LDS + j * 8,
                  ok ? wt + (long long)n * a.w_stride + c : a.w, ok ? 16 : 0);
-    }
-  };
-
-  // NORM: activate this thread's own staged A chunks of step kk in place
-  auto activate = [&](int stage, int kk) {
-    const int tap = kk % taps, c0 = (kk / taps) * BK;
-    const int kt = tap / 9, di = (tap % 9) / 3, dj = tap % 3;
-    bf16* as = As + stage * BM * LDS;
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int row = tid / CHUNKS + A_PASS * i, c = c0 + aj * 8;
-      int f, p;
-      const bf16* src = pv[i] ? tap_pixel(a, pb[i], pt[i], ph[i], pw[i], kt,
-                                          di, dj, &f, &p)
-                              : nullptr;
-      if (src == nullptr || c >= a.C) continue;
-      const float inv =
-          a.inv[((long long)pb[i] * (NCACHE + a.T) + f) * a.H * a.W + p];
-      uint4* q = reinterpret_cast<uint4*>(as + row * LDS + aj * 8);
-      uint4 raw = *q;
-      bf16* v = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float u =
-            __bfloat162float(v[e]) * inv * a.gscale * a.gamma[c + e];
-        v[e] = __float2bfloat16(silu(u));
-      }
-      *q = raw;
     }
   };
 
@@ -225,7 +730,6 @@ __global__ void __launch_bounds__(THREADS)
   for (int kk = 0; kk < ksteps; ++kk) {
     const int stage = kk % STAGES;
     cp_async_wait<STAGES - 2>();
-    if (NORM) activate(stage, kk);
     __syncthreads();
     if (kk + STAGES - 1 < ksteps)
       load_stage((kk + STAGES - 1) % STAGES, kk + STAGES - 1);
@@ -256,7 +760,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   cp_async_wait<0>();
 
-  // epilogue: + bias (+ residual) in f32, one rounding to bf16
+  // epilogue: + bias in f32, one rounding to bf16
   const int g = lane >> 2, t4 = lane & 3;
   const bool pairs = (a.Cout & 1) == 0;
 #pragma unroll
@@ -271,11 +775,8 @@ __global__ void __launch_bounds__(THREADS)
         const int n = n0 + wn * WTN + nt * 8 + 2 * t4;
         float v[2] = {acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]};
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= a.Cout) continue;
-          if (a.bias != nullptr) v[e] += a.bias[n + e];
-          if (RES) v[e] += __bfloat162float(a.res[m * a.Cout + n + e]);
-        }
+        for (int e = 0; e < 2; ++e)
+          if (n + e < a.Cout && a.bias != nullptr) v[e] += a.bias[n + e];
         if (pairs && n < a.Cout) {
           *reinterpret_cast<__nv_bfloat162*>(orow + n) =
               __floats2bfloat162_rn(v[0], v[1]);
@@ -289,9 +790,9 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int BN, int WARPS_M, bool VEC, bool NORM, bool RES>
-int launch(const ConvArgs& a, cudaStream_t st) {
-  auto kern = conv_igemm<BN, WARPS_M, VEC, NORM, RES>;
+template <int BN, int WARPS_M>
+int launch_narrow(const ConvArgs& a, cudaStream_t st) {
+  auto kern = conv_igemm_narrow<BN, WARPS_M>;
   const int smem = STAGES * (BM + BN) * LDS * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -302,16 +803,16 @@ int launch(const ConvArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool VEC>
-int launch_plain(const ConvArgs& a, cudaStream_t st) {
-  if (a.Cout <= 32) return launch<32, 8, VEC, false, false>(a, st);
-  if (a.Cout <= 64) return launch<64, 4, VEC, false, false>(a, st);
-  return launch<128, 2, VEC, false, false>(a, st);
+int launch_narrow_bn(const ConvArgs& a, cudaStream_t st) {
+  if (a.Cout <= 32) return launch_narrow<32, 8>(a, st);
+  if (a.Cout <= 64) return launch_narrow<64, 4>(a, st);
+  return launch_narrow<128, 2>(a, st);
 }
 
 // One warp a timeline pixel: inv = rsqrt(sum_c x^2 + eps) in f32.
-__global__ void rms_inv_kernel(const bf16* x, const bf16* cache, float* inv,
-                               int B, int T, int HW, int C, float eps) {
+__global__ void conv_igemm_rms_inv(const bf16* x, const bf16* cache,
+                                   float* inv, int B, int T, int HW, int C,
+                                   float eps) {
   const long long pix =
       (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -339,18 +840,19 @@ __global__ void rms_inv_kernel(const bf16* x, const bf16* cache, float* inv,
 
 // ---------------------------------------------------------------------
 // float32 inputs (the TPU kernels' f32 mode: f32 products, f32 sums).  The
-// same implicit GEMM with BK = 16 channels a step (64 bytes a row, as the
-// bf16 kernel's 32), on mma.sync.m16n8k8 in 3xTF32: each operand x is
-// split into big = tf32(x) and small = tf32(x - big) and a . b is summed
-// as small_a * big_b + big_a * small_b + big_a * big_b (the dropped terms
-// are ~2^-22 of |a||b|, float32 accuracy; one TF32 pass would leave
-// ~5e-4).  Each 8-channel step's three products go to a zeroed
+// same implicit GEMM as the narrow route with BK = 16 channels a step (64
+// bytes a row, as the bf16 kernel's 32), on mma.sync.m16n8k8 in 3xTF32:
+// each operand x is split into big = tf32(x) and small = tf32(x - big) and
+// a . b is summed as small_a * big_b + big_a * small_b + big_a * big_b (the
+// dropped terms are ~2^-22 of |a||b|, float32 accuracy; one TF32 pass
+// would leave ~5e-4).  Each 8-channel step's three products go to a zeroed
 // accumulator added to the running sum with one rounded f32 add: the
 // tensor cores' f32 accumulation truncates, with an error that grows with
-// the running sum over the 27 * C terms.  Rows padded to 20 floats: the (g, t) scalar fragment reads hit
-// 32 distinct banks.  Weights: the f32 K-contiguous copy [Cout, 27, Cp]
-// (Cp = C rounded up to 4).  No norm prologue or residual (the fused
-// norm + SiLU kernel takes bf16 only, as its TPU rule declines float32).
+// the running sum over the 27 * C terms.  Rows padded to 20 floats: the
+// (g, t) scalar fragment reads hit 32 distinct banks.  Weights: the f32
+// K-contiguous copy [Cout, 27, Cp] (Cp = C rounded up to 4).  No norm
+// prologue or residual (the fused norm + SiLU kernel takes bf16 only, as
+// its TPU rule declines float32).
 // ---------------------------------------------------------------------
 
 constexpr int BKF = 16;              // channels of one f32 K step
@@ -553,32 +1055,60 @@ int launch_plain_f32(const ConvArgsF& a, cudaStream_t st) {
 }  // namespace
 
 // x [B, T, H, W, C] and cache [B, 2, H, W, C] bf16; w the K-contiguous
-// weight copy at its first used tap (row stride w_stride elements, taps of
-// Cp channels); bias f32 [Cout] or null; res bf16 [B, T, H, W, Cout] or
-// null; inv f32 [B, 2 + T, H, W] and gamma f32 [C] for the norm prologue
-// (both null without it); out bf16 [B, T, H, W, Cout].
+// weight copy [Cout, 27, Cp] (taps in (kt, di, dj) order, Cp = C rounded
+// up to 8); bias f32 [Cout] or null; res bf16 [B, T, H, W, Cout] or null;
+// inv f32 [B, 2 + T, H, W] and gamma f32 [C] for the norm prologue (both
+// null without it); out bf16 [B, T, H, W, Cout]; taps_t 3 (tau0 0) or 1
+// (temporal tap tau0 alone).  C % 8 == 0 takes the WIDE route in tiles
+// of bn output channels (32, 64, 96, 128 or 192; the last tile masked where
+// bn does not divide Cout) with `splits` K splits (1, or up to taps_t *
+// ceil(C / 32) where bn divides Cout, Cout % 8 == 0 and there is no norm;
+// partials in ws f32 [splits, B*T*H*W, Cout]) on a persistent grid of
+// `grid` CTAs (1 to the item count); the norm prologue needs bn to divide
+// Cout.  Other C take the NARROW route (bn 0, splits 1, grid 0, no norm).
+// ops/cuda_conv.py::conv_plan picks bn, splits and grid.  Returns the CUDA
+// error code (0 on success).
 extern "C" int conv3d_launch(const void* x, const void* cache, const void* w,
                              const void* bias, const void* res,
                              const void* inv, const void* gamma, void* out,
-                             int B, int T, int H, int W, int C, int Cp,
-                             int Cout, int taps_t, int tau0, int w_stride,
-                             float gscale, void* stream) {
+                             void* ws, int B, int T, int H, int W, int C,
+                             int Cp, int Cout, int taps_t, int tau0, int bn,
+                             int splits, int grid, float gscale,
+                             void* stream) {
   const bool norm = inv != nullptr;
+  const bool wide = C % 8 == 0;
+  const bool even = bn > 0 && Cout % bn == 0;   // no masked channel tile
+  const int nch = (C + CK - 1) / CK;
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 ||
       Cp % 8 || Cp < C || (taps_t != 1 && taps_t != 3) || tau0 < 0 ||
-      tau0 + taps_t > 3 || w_stride < taps_t * 9 * Cp ||
-      (norm && (gamma == nullptr || C % 8)) || (res != nullptr && !norm))
+      tau0 + taps_t > 3 || (taps_t == 3 && tau0 != 0) ||
+      (wide ? (bn != 32 && bn != 64 && bn != 96 && bn != 128 && bn != 192)
+            : bn != 0) ||
+      (norm && (gamma == nullptr || !even)) || (res != nullptr && !norm) ||
+      splits < 1 || (splits > 1 && (norm || !even || Cout % 8 ||
+                                     ws == nullptr || splits > taps_t * nch)) ||
+      (wide ? grid < 1 : grid != 0))
     return (int)cudaErrorInvalidValue;
-  ConvArgs a{(const bf16*)x,   (const bf16*)cache, (const bf16*)w,
-             (const float*)bias, (const bf16*)res, (const float*)inv,
-             (const float*)gamma, (bf16*)out,      B, T, H, W, C, Cp, Cout,
-             taps_t, tau0, w_stride, gscale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (norm) {
-    if (res != nullptr) return launch<128, 2, true, true, true>(a, st);
-    return launch<128, 2, true, true, false>(a, st);
+  if (wide) {
+    WideArgs a{(const float*)bias, (const bf16*)res, (const float*)inv,
+               (const float*)gamma, (bf16*)out, (float*)ws, B, T, H, W, C,
+               Cout, taps_t, tau0, splits, (H + TR - 1) / TR,
+               (W + TW - 1) / TW, (Cout + bn - 1) / bn, nch, 0, gscale};
+    const long long items =
+        (long long)B * T * a.mt * a.wt * a.nt * splits;
+    if (items > 0x7fffffff || grid > items) return (int)cudaErrorInvalidValue;
+    a.items = (int)items;
+    if (norm && res != nullptr)
+      return launch_wide_bn<true, true>(bn, x, cache, w, Cp, a, grid, st);
+    if (norm)
+      return launch_wide_bn<true, false>(bn, x, cache, w, Cp, a, grid, st);
+    return launch_wide_bn<false, false>(bn, x, cache, w, Cp, a, grid, st);
   }
-  return C % 8 == 0 ? launch_plain<true>(a, st) : launch_plain<false>(a, st);
+  ConvArgs a{(const bf16*)x, (const bf16*)cache,
+             (const bf16*)w + 9 * tau0 * Cp, (const float*)bias, (bf16*)out,
+             B, T, H, W, C, Cp, Cout, taps_t, tau0, 27 * Cp};
+  return launch_narrow_bn(a, st);
 }
 
 // inv [B, 2 + T, H, W] f32 of the raw timeline [cache | x]; C % 8 == 0.
@@ -589,8 +1119,8 @@ extern "C" int rms_inv_launch(const void* x, const void* cache, void* inv,
     return (int)cudaErrorInvalidValue;
   const long long pixels = (long long)B * (NCACHE + T) * H * W;
   const int per_block = 8;
-  rms_inv_kernel<<<(unsigned)((pixels + per_block - 1) / per_block),
-                   per_block * 32, 0, (cudaStream_t)stream>>>(
+  conv_igemm_rms_inv<<<(unsigned)((pixels + per_block - 1) / per_block),
+                       per_block * 32, 0, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)cache, (float*)inv, B, T, H * W, C, eps);
   return (int)cudaGetLastError();
 }

@@ -600,13 +600,16 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of `rank` dims (extents `dims`, innermost first;
-// `strides` the byte strides of dims 1..rank-1, multiples of 16) read or
-// reduced in boxes `box` whose inner extent is 128 bytes (128-byte
-// swizzle); reads past an extent give zeros and reductions past it are
-// dropped.  Returns a CUDA error code (0 on success).
+// `strides` the byte strides of dims 1..rank-1, multiples of 16, in any
+// order) read or reduced in boxes `box` whose inner extent is 128 bytes
+// (128-byte swizzle; or, with SWIZZLE_NONE, any multiple of 16 bytes,
+// landing as the box's plain row-major copy); reads past an extent give
+// zeros and reductions past it are dropped.  Returns a CUDA error code (0
+// on success).
 inline int tile_map(CUtensorMap* map, CUtensorMapDataType type,
                     const void* base, int rank, const uint64_t* dims,
-                    const uint64_t* strides, const uint32_t* box) {
+                    const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -618,18 +621,19 @@ inline int tile_map(CUtensorMap* map, CUtensorMapDataType type,
     if (i + 1 < rank) s[i] = strides[i];
   }
   CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d,
-                  s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
-// bf16 boxes of 64 inner elements; fp32 boxes of 32
+// bf16 boxes of 64 inner elements (or, unswizzled, any multiple of 8);
+// fp32 boxes of 32
 inline int bf16_map(CUtensorMap* map, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+                    const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
-                  strides, box);
+                  strides, box, swizzle);
 }
 inline int f32_map(CUtensorMap* map, const void* base, int rank,
                    const uint64_t* dims, const uint64_t* strides,

@@ -17,6 +17,13 @@ f32 mode, which the fused and split rules accept at some shapes) run the
 3xTF32 kernel ``conv3d_f32_launch`` (float32-accurate products) and count
 as ``conv3d_f32`` whichever entry point they serve.
 
+Inside ``conv3d_launch`` a bf16 conv takes one of two routes, by shape,
+as :func:`conv_plan` decides and the launcher checks: 'wide' (C % 8 ==
+0; wgmma + TMA on halo tiles of 4 x 64 pixels, with the channel tile, K
+split and grid the plan picks, K-split partials in an f32 workspace this
+module allocates) or 'narrow' (the RGB input, whose 6-byte pixels TMA
+cannot stride).
+
 The routing (which shapes take a kernel) and the plain versions live in
 ``ops/conv.py``; these wrappers take CUDA bf16 or float32 tensors (the
 norm + SiLU conv bf16 only) and raise on anything else.  Activations are
@@ -42,8 +49,18 @@ from self_forcing_tpu_torch.ops import build
 
 launch_counts = {"conv3d_fused": 0, "conv2d_9tap": 0, "conv3d_v2": 0,
                  "norm_silu_conv3d": 0, "conv3d_f32": 0}
+
 layout_copies = {"activations": 0}
 copied: list = []
+
+# the wide route's tile (csrc/conv3d.cu): output rows and columns, and the
+# channels of one K step
+TR, TW, CK = 4, 64, 32
+MAX_SPLITS = 16
+# a K split must promise this much in conv_plan's model to be taken: the
+# model leaves out the partials' traffic and their reduction, which made a
+# promised 19% gain a 12% loss at 60x104, 384 channels
+SPLIT_GAIN = 1.4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +97,57 @@ def kernel_weight(w: torch.Tensor,
     return wk
 
 
+def conv_plan(B: int, T: int, H: int, W: int, C: int, Cout: int,
+              taps_t: int, sms: int, norm: bool = False) -> dict:
+    """The bf16 kernel's route and work split on a card of ``sms`` SMs:
+    ``route`` 'wide' for C % 8 == 0, else 'narrow' (bn 0, splits 1, grid
+    0).  The wide route's output-channel tile ``bn``, ``tiles`` (4 x
+    64-pixel tiles x channel tiles), ``ksteps`` (temporal taps x
+    32-channel steps a tile), ``splits``, the runs its K steps are cut
+    into (1 for the ``norm`` + SiLU conv), and ``grid``, the persistent
+    CTAs (one an SM, at most one an item).  An item costs its
+    K steps plus one (the epilogue), each in proportion to bn + 32 (the
+    halo's share of a step does not shrink with bn); the card takes
+    ceil(items / sms) rounds.  bn is 192, 128, 96 or 64, the cheapest
+    that divides Cout (a narrower tile for more items where the wide one
+    leaves SMs idle: the 60x104 stage at 384 channels and T = 1 is 60
+    tiles of 192 channels, 120 of 96), else 32 (the last tile masked
+    where 32 does not divide Cout: the RGB head).  A K split writes f32
+    partials that a second pass sums: it is taken where it beats no split
+    by SPLIT_GAIN."""
+    if C % 8:
+        return dict(route="narrow", bn=0, tiles=None, ksteps=None,
+                    splits=1, grid=0)
+    mtiles = B * T * -(-H // TR) * -(-W // TW)
+    ksteps = taps_t * -(-C // CK)
+
+    def cost(bn, s):
+        return (-(-mtiles * -(-Cout // bn) * s // sms)
+                * (-(-ksteps // s) + 1) * (bn + 32))
+
+    bn = min([b for b in (192, 128, 96, 64) if Cout % b == 0] or [32],
+             key=lambda b: cost(b, 1))
+    splits = 1
+    if not norm and Cout % bn == 0 and Cout % 8 == 0:
+        s = min(range(1, min(ksteps, MAX_SPLITS) + 1),
+                key=lambda s: cost(bn, s))
+        if cost(bn, s) * SPLIT_GAIN < cost(bn, 1):
+            splits = s
+    tiles = mtiles * -(-Cout // bn)
+    return dict(route="wide", bn=bn, tiles=tiles, ksteps=ksteps,
+                splits=splits, grid=min(tiles * splits, sms))
+
+
+_sms: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
+
+
 def _cl(name: str, t: torch.Tensor,
         dtypes=(torch.bfloat16, torch.float32)) -> torch.Tensor:
     if t.dtype not in dtypes:
@@ -108,8 +176,13 @@ def _launch(name: str, fn: str, *args) -> None:
 
 
 def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
-         residual=None, inv=None, gamma=None, gscale: float = 0.0):
-    x, cache = _cl(name, x), _cl(name, cache)
+         residual=None, gamma=None, eps: float = 0.0):
+    """The conv of ``name``; with ``gamma``, the norm + SiLU prologue (its
+    inverse norms from the rms_inv pre-pass; bf16 only) and
+    ``residual``."""
+    norm = gamma is not None
+    dtypes = (torch.bfloat16,) if norm else (torch.bfloat16, torch.float32)
+    x, cache = _cl(name, x, dtypes), _cl(name, cache, dtypes)
     B, T, H, W, C = x.shape
     if cache.shape != (B, 2, H, W, C) or cache.dtype != x.dtype:
         raise ValueError(f"{name}: cache {tuple(cache.shape)} "
@@ -122,16 +195,35 @@ def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
                          f"channels")
     bias = None if b is None else b.detach().float().contiguous()
     out = torch.empty(B, T, H, W, Cout, dtype=x.dtype, device=x.device)
-    # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
-    tail = (B, T, H, W, C, Cp, Cout, taps_t, tau0 if taps_t == 1 else 0,
-            27 * Cp)
+    tau0 = tau0 if taps_t == 1 else 0
     if f32:
+        # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
         _launch(name, "conv3d_f32_launch", x, cache, wk[:, 9 * tau0], bias,
-                out, *tail)
+                out, B, T, H, W, C, Cp, Cout, taps_t, tau0, 27 * Cp)
         launch_counts["conv3d_f32"] += 1
         return out
-    _launch(name, "conv3d_launch", x, cache, wk[:, 9 * tau0], bias,
-            residual, inv, gamma, out, *tail, float(gscale))
+    plan = conv_plan(B, T, H, W, C, Cout, taps_t, _sm_count(x.device), norm)
+    inv = g = None
+    if norm:
+        if plan["route"] != "wide" or Cout % plan["bn"]:
+            raise ValueError(f"{name}: {C} -> {Cout} channels, the kernel "
+                             f"takes C % 8 == 0 and Cout % 32 == 0")
+        if residual is not None:
+            residual = _cl(name, residual, (torch.bfloat16,))
+            if residual.shape != out.shape:
+                raise ValueError(f"{name}: residual "
+                                 f"{tuple(residual.shape)}")
+        inv = torch.empty(B, 2 + T, H, W, dtype=torch.float32,
+                          device=x.device)
+        _launch(name, "rms_inv_launch", x, cache, inv, B, T, H, W, C,
+                float(eps))
+        g = gamma.detach().float().contiguous()
+    splits = plan["splits"]
+    ws = None if splits == 1 else torch.empty(
+        splits, B * T * H * W, Cout, dtype=torch.float32, device=x.device)
+    _launch(name, "conv3d_launch", x, cache, wk, bias, residual, inv, g,
+            out, ws, B, T, H, W, C, Cp, Cout, taps_t, tau0, plan["bn"],
+            splits, plan["grid"], math.sqrt(C) if norm else 0.0)
     launch_counts[name] += 1
     return out
 
@@ -159,19 +251,8 @@ def norm_silu_conv3d(x: torch.Tensor, cache: torch.Tensor,
                      eps: float = 1e-24) -> torch.Tensor:
     """``silu(rms_norm_channel(.))`` of the raw timeline [cache | x]
     (x [T, H, W, C], cache [2, H, W, C] bf16), the 27-tap conv, + b
-    (+ residual [T, H, W, Cout]) -> [T, H, W, Cout] bf16."""
-    name = "norm_silu_conv3d"
-    x = _cl(name, x, (torch.bfloat16,))[None]
-    cache = _cl(name, cache, (torch.bfloat16,))[None]
-    _, T, H, W, C = x.shape
-    if C % 8:
-        raise ValueError(f"{name}: {C} channels, the kernel takes C % 8 == 0")
-    if residual is not None:
-        residual = _cl(name, residual, (torch.bfloat16,))
-        if residual.shape != (T, H, W, w.shape[0]):
-            raise ValueError(f"{name}: residual {tuple(residual.shape)}")
-    inv = torch.empty(2 + T, H, W, dtype=torch.float32, device=x.device)
-    _launch(name, "rms_inv_launch", x, cache, inv, 1, T, H, W, C, float(eps))
-    g = gamma.detach().float().contiguous()
-    return _run(name, x, cache, w, b, 3, 0, residual=residual, inv=inv,
-                gamma=g, gscale=math.sqrt(C))[0]
+    (+ residual [T, H, W, Cout]) -> [T, H, W, Cout] bf16, on the wide
+    route with a channel tile that divides Cout and no K split."""
+    res = None if residual is None else residual[None]
+    return _run("norm_silu_conv3d", x[None], cache[None], w, b, 3, 0,
+                residual=res, gamma=gamma, eps=eps)[0]

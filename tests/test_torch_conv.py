@@ -302,3 +302,84 @@ def test_full_width_routes_match_jax(monkeypatch, backend, part):
     assert tuple(y.shape) == ((1, 4 if part == "decode_step" else 1, 480,
                                832, 3) if part.startswith("decode")
                               else (1, 1, 60, 104, 32))
+
+
+# ---------------------------------------------------------------- work plan
+
+def _items(B, T, H, W, C, Cout, taps_t, bn, splits):
+    """The wide route's work items as csrc/conv3d.cu's decode_item lists
+    them (split fastest, then channel tile, column tile, row tile, frame):
+    (b, t, h0, w0, n0, k0, k1, s) for output rows h0..h0 + TR - 1, columns
+    w0..w0 + TW - 1 (those inside H x W), channels n0..n0 + bn - 1 (those
+    below Cout) and K steps [k0, k1) of split s.  A model of the kernel's
+    decoding; the card tests run the kernel itself at these edges."""
+    cc = tconv.cuda_conv
+    mt, wt, nt = -(-H // cc.TR), -(-W // cc.TW), -(-Cout // bn)
+    ks = taps_t * -(-C // cc.CK)
+    for i in range(B * T * mt * wt * nt * splits):
+        s, r = i % splits, i // splits
+        n, r = r % nt, r // nt
+        w, r = r % wt, r // wt
+        h, fr = r % mt, r // mt
+        yield (fr // T, fr % T, h * cc.TR, w * cc.TW, n * bn,
+               s * ks // splits, (s + 1) * ks // splits, s)
+
+
+@pytest.mark.parametrize("B,T,H,W,C,Cout,taps_t,splits", [
+    (1, 1, 60, 104, 384, 384, 3, 4),       # 96-channel tiles, split 4
+    (1, 1, 60, 104, 384, 32, 3, None),     # the plan's K split
+    (1, 2, 120, 208, 192, 384, 3, None),   # no split
+    (2, 3, 9, 70, 40, 192, 1, 2),          # ragged tiles, one temporal tap
+    (1, 4, 5, 63, 96, 64, 3, 7),           # uneven runs of K steps
+    (1, 2, 6, 70, 96, 3, 3, None),         # the RGB head: a masked tile
+])
+def test_conv_items_cover_every_pixel_and_k_step_once(B, T, H, W, C, Cout,
+                                                       taps_t, splits):
+    """The wide route's work items (_items, at conv_plan's channel tile and
+    at its K split or a split the launcher also takes): every output pixel
+    of every frame, every output-channel tile and every K step (temporal
+    tap x 32 channels) belongs to exactly one item, each item's K steps
+    are a non-empty run, and the plan's grid is no larger than its items."""
+    cc = tconv.cuda_conv
+    plan = cc.conv_plan(B, T, H, W, C, Cout, taps_t, 132)
+    bn = plan["bn"]
+    splits = plan["splits"] if splits is None else splits
+    ks = taps_t * -(-C // cc.CK)
+    count = np.zeros((B, T, H, W, Cout, ks), np.int32)
+    items = list(_items(B, T, H, W, C, Cout, taps_t, bn, splits))
+    for b, t, h0, w0, n0, k0, k1, s in items:
+        assert 0 <= k0 < k1 <= ks and n0 % bn == 0 and 0 <= s < splits
+        count[b, t, h0:h0 + cc.TR, w0:w0 + cc.TW, n0:n0 + bn, k0:k1] += 1
+    assert (count == 1).all()
+    assert len(items) == plan["tiles"] * splits
+    assert 1 <= plan["grid"] == min(plan["tiles"] * plan["splits"], 132)
+
+
+def test_conv_plan_routes_and_splits_at_the_vae_shapes():
+    """Every bf16 conv of the full-width VAE takes the wide route but the
+    RGB input; the 60x104 stage at 384 channels and T = 1 takes 96-channel
+    tiles (120 items on 132 SMs, where 192 gives 60), the larger stages
+    the widest tile that divides Cout, the encoder head (384 -> 32 at
+    60x104, 30 tiles) a K split, but not as a norm + SiLU conv; the RGB
+    head one 32-channel tile."""
+    cc = tconv.cuda_conv
+    narrow = {(C, Cout) for H, W, C, Cout in _conv_shapes()
+              if cc.conv_plan(1, 1, H, W, C, Cout, 3, 132)["route"]
+              == "narrow"}
+    assert narrow == {(3, 96)}
+
+    def plan(*shape):
+        p = cc.conv_plan(*shape, 3, 132)
+        return p["route"], p["bn"], p["splits"]
+
+    assert plan(1, 1, 60, 104, 384, 384) == ("wide", 96, 1)
+    assert plan(1, 1, 60, 104, 384, 32) == ("wide", 32, 4)
+    assert cc.conv_plan(1, 1, 60, 104, 384, 32, 3, 132,
+                        norm=True)["splits"] == 1
+    assert plan(1, 4, 480, 832, 96, 3) == ("wide", 32, 1)
+    assert plan(1, 4, 480, 832, 96, 96) == ("wide", 96, 1)
+    assert plan(1, 4, 240, 416, 192, 192) == ("wide", 192, 1)
+    assert plan(1, 4, 480, 832, 128, 128) == ("wide", 128, 1)
+    assert plan(1, 2, 120, 208, 384, 384) == ("wide", 192, 1)
+    assert cc.conv_plan(1, 4, 480, 832, 3, 96, 3, 132) == dict(
+        route="narrow", bn=0, tiles=None, ksteps=None, splits=1, grid=0)

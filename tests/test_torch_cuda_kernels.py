@@ -1028,6 +1028,118 @@ def test_norm_silu_conv3d_matches_plain(dev, T, H, W, C, Cout, residual):
     assert _rel_l2(out, ref) < 1e-2
 
 
+@pytest.mark.parametrize("C", [3, 16, 96, 384])
+@pytest.mark.parametrize("Cout", [3, 12, 32, 96])
+def test_conv3d_channel_widths_match_plain(dev, C, Cout):
+    """Every input width of the VAE's convs (the RGB input takes the
+    narrow route) against every output width class (the RGB head, a
+    ragged 12 and the encoder head's 32 in one masked or exact 32-channel
+    tile, 96), over a frame whose width is no multiple of the 64-column
+    tile."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    x, cache, w, b = _conv_operands(g, dev, 1, 2, 6, 70, C, Cout)
+    out = tconv.conv3d_fused(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    route = cc.conv_plan(1, 2, 6, 70, C, Cout, 3, cc._sm_count(x.device))
+    assert route["route"] == ("narrow" if C == 3 else "wide")
+    assert _rel_l2(out, ref) < 4e-3
+
+
+@pytest.mark.parametrize("H,W", [(5, 63), (4, 64), (9, 65), (3, 130),
+                                 (60, 104), (2, 200)])
+def test_conv3d_halo_edges_match_plain(dev, H, W):
+    """Halo tiles at the frame's edges: W below, at and above the
+    64-column tile (the last tile's halo reaches past W, its columns past
+    W are not stored), H not a multiple of the 4-row tile; every pixel
+    against the plain version, the frame's border pixels too."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    x, cache, w, b = _conv_operands(g, dev, 1, 2, H, W, 64, 128)
+    out = tconv.conv3d_fused(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.conv_plan(1, 2, H, W, 64, 128, 3,
+                        cc._sm_count(x.device))["route"] == "wide"
+    assert _rel_l2(out, ref) < 4e-3
+    edge = torch.ones(H, W, dtype=torch.bool, device=dev)
+    edge[1:-1, 1:-1] = False
+    assert _rel_l2(out[:, :, edge], ref[:, :, edge]) < 4e-3
+
+
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("tau", [0, 1, 2])
+def test_conv2d_tap_frames_cross_the_cache(dev, T, tau):
+    """One temporal tap at frame offset tau over T output frames: frames
+    t + tau < 2 come from the cache, the rest from x, each against the
+    plain version; and the 27-tap conv at the same T."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    x, cache, w, b = _conv_operands(g, dev, 1, T, 7, 66, 96, 96)
+    out = cc.conv2d_tap(x, cache, w, b, tau)
+    ref = tconv.conv2d_tap_ref(x, cache, w, b, tau)
+    full = tconv.conv3d_fused(x, cache, w, b)
+    full_ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert _rel_l2(out, ref) < 4e-3
+    assert _rel_l2(full, full_ref) < 4e-3
+
+
+def test_conv2d_tap_past_the_cache_reads_no_cache(dev):
+    """A taps_t 1, tau 2 launch reads x alone: NaN in the cache changes
+    nothing, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    x, cache, w, b = _conv_operands(g, dev, 1, 2, 8, 70, 96, 192)
+    clean = cc.conv2d_tap(x, cache, w, b, 2)
+    poisoned = cc.conv2d_tap(x, torch.full_like(cache, float("nan")), w, b,
+                             2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean.float()).all()
+    assert torch.equal(clean, poisoned)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_conv_split_k_is_deterministic(dev, T):
+    """K splits write f32 partials that a second pass sums in split order,
+    so two runs are bit-equal: the encoder head (384 -> 32 at 60x104),
+    which conv_plan splits, at T = 1 (an encode chunk) and 2, against the
+    plain version; the launcher refuses a split of the norm + SiLU conv."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    x, cache, w, b = _conv_operands(g, dev, 1, T, 60, 104, 384, 32)
+    plan = cc.conv_plan(1, T, 60, 104, 384, 32, 3, cc._sm_count(x.device))
+    assert plan["splits"] > 1
+    runs = [tconv.conv3d_fused(x, cache, w, b) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert _rel_l2(runs[0], tconv.conv3d_ref(x, cache, w, b)) < 4e-3
+    wk = cc.kernel_weight(w)
+    inv = torch.empty(1, 2 + T, 60, 104, device=dev)
+    gamma = torch.ones(384, device=dev)
+    ws = torch.empty(plan["splits"], T * 60 * 104, 32, device=dev)
+    with pytest.raises(RuntimeError):
+        cc._launch("norm_silu_conv3d", "conv3d_launch", x, cache, wk,
+                   b.float(), None, inv, gamma, torch.empty_like(runs[0]),
+                   ws, 1, T, 60, 104, 384, 384, 32, 3, 0, plan["bn"],
+                   plan["splits"], plan["grid"], 1.0)
+
+
+@pytest.mark.parametrize("M,K", [(13, 8), (4683, 1544), (4683, 4096),
+                                 (1, 1536)])
+def test_quantize_rows_kernel_bit_equal_at_ragged_shapes(dev, M, K):
+    """The kernel itself (the pre-pass launcher, which takes K % 8 == 0
+    where the JAX tile rule asks K % 128) at M not a multiple of the 8
+    rows a CTA takes and K not a multiple of its 16-element chunks: int8
+    and scales equal the plain version's bit for bit; an all-zero row
+    takes the scale floor and quantizes to zeros."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = (torch.randn(M, K, generator=g, device=dev) * 3).to(torch.bfloat16)
+    x[M // 2] = 0
+    q, s = cm._quantize_pre_pass("quantize_rows", x)
+    q_ref, s_ref = cm._quant_rows(x.float(), cm.ACT_FLOOR)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert float(s[M // 2, 0]) == pytest.approx(1e-8 / 127.0)
+    assert not q[M // 2].any()
+
+
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
     """float16 is not a conv kernel's type (bf16 and, since the float32
     mode was ported, float32 are); x and cache must share one; the norm +
