@@ -18,8 +18,9 @@ Phases, each printing one line or more (any failure exits non-zero):
    attention forward and its one dq / dk / dv backward kernel (L = 32760
    tokens, 12 heads, no mask and the 7-block block-causal mask); the decode
    kernel's 'bounded', online and 'free_noclamp' modes, the full-int8
-   decode attention ('tile', 'global', online; V pre-pass and attention)
-   at the global demo window, int8 online also at the windowed steady
+   decode attention ('tile', 'global', online; V pre-pass and attention,
+   with the products the kernel runs and its share of their bound) at
+   the global demo window, int8 online also at the windowed steady
    state, and the flash forward's online and bounded modes; timed with
    CUDA events (median of 7) beside its bound and one PyTorch library
    call;
@@ -42,16 +43,16 @@ attention quantized as ``ops/chip.py`` picks for the card (W8A8 linears,
 int8-QK attention; phase 3 also gives its distance to the bf16 forward;
 phase 4 decodes each block with the stateful TAEHV streamer), phases 4-5
 of the demo with the bf16 decode attention (the A/B of the registry's
-``demo_attn_quant``), and phases 3-4 of the demo with the full-int8
+``demo_attn_quant``), and phases 3-5 of the demo with the full-int8
 attention (``attn_quant='int8'``, the tile-bounded kernel on the global
-path).
+path; its DiT ms per block).
 6. The windowed configurations of ``bench.py`` (1-frame sink, 12-frame
    window, 24-frame buffer, W8A8 + int8-QK, 12 blocks with TAEHV): a warm
    run, then a timed run with steady-state DiT and TAEHV ms per block
    and the frame rates with and without the decode, the compactions, one
    forward kernels vs plain at the compacted state, and phase 5; then the
    same with ``attn_quant='int8'`` (the online int8 kernel: the windowed
-   cache keeps no kmax).
+   cache keeps no kmax) and its phase 5.
 7. The training path: ``ScoreDistillationTrainer`` with
    ``configs/self_forcing_dmd.yaml`` (Self-Forcing DMD: 21 latent frames
    of 60x104 in 7 blocks, steps [1000, 750, 500, 250] warped, guidance
@@ -676,6 +677,10 @@ def phase_mode_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
         ops = 2.0 * LQ * nk * D * N           # each of QK^T and P.V
         ab_ms, ab_by = bound(2 * ops, (LQ + 2 * nk) * N * D
                              + 2.0 * LQ * N * D, PEAK_INT8_OPS)
+        # the kernel runs QK^T twice where it needs the row max
+        products = 2 if mode == "global" else 3
+        design_ms, _ = bound(products * ops, (LQ + 2 * nk) * N * D
+                             + 2.0 * LQ * N * D, PEAK_INT8_OPS)
         n_v = int(live.sum()) * tk + LQ
         pb_ms, pb_by = bound(3.0 * n_v * N * D, 3.0 * n_v * N * D,
                              PEAK_F32_FLOPS)
@@ -683,7 +688,10 @@ def phase_mode_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
               f"m0={'none' if bnd is None else f'{float(bnd):.4f}'}): "
               f"rel_l2={err:.3e} max_abs={mae:.3e} attend_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} sdpa_bf16_ms={lib:.4f} "
-              f"bound_ms={ab_ms:.4f} ({ab_by}) tops={2 * ops / ms / 1e9:.1f};"
+              f"bound_ms={ab_ms:.4f} ({ab_by}) bound_share={ab_ms / ms:.3f} "
+              f"products={products} design_bound_ms={design_ms:.4f} "
+              f"design_bound_share={design_ms / ms:.3f} "
+              f"tops={2 * ops / ms / 1e9:.1f};"
               f" int8_quantize_v ({n_v} rows) max_int8_step={worst} "
               f"scales_rel_l2={s_err:.3e} ms={pre_ms:.4f} "
               f"plain_ms={pre_plain:.4f} bound_ms={pb_ms:.4f} ({pb_by})",
@@ -1511,7 +1519,8 @@ def phase_demo_stream(ca, cm, dit, taehv, pipe_mod, cfg, qparams, blocks,
           f"{blocks} blocks ({F_lat} latent "
           f"frames, {frames} pixel frames 480x832): per_block_ms="
           f"{[round(x, 1) for x in block_ms]} dit_ms="
-          f"{[round(x, 1) for x in dit_ms]} taehv_ms="
+          f"{[round(x, 1) for x in dit_ms]} dit_ms_per_block_after_first="
+          f"{sum(dit_ms[1:]) / max(len(dit_ms) - 1, 1):.1f} taehv_ms="
           f"{[round(x, 1) for x in tae_ms]} ttff_ms={ttff * 1e3:.1f} "
           f"total_ms={total * 1e3:.1f} pixel_fps={frames / total:.3f} "
           f"peak_mem_gb={peak_gb:.2f} (GiB; {peak_from_start_gb:.2f} GB) "
@@ -2421,6 +2430,7 @@ def main() -> None:
         kernels=INT8_DEMO_KERNELS)
     launches.update({k: i8_launches[k] for k in ("int8_quantize_v",
                                                  "decode_fresh_int8_tile")})
+    phase_profile(dit, cfg_i8, qparams, i8_last, "demo int8 attention")
     del i8_last   # its pipe holds a 6 GB KV cache
 
     # the windowed configurations, after freeing the global caches and
@@ -2435,9 +2445,10 @@ def main() -> None:
     phase_profile(dit, cfg_w, qparams, win_last, "windowed")
     del win_last
     torch.cuda.empty_cache()
-    win_i8 = phase_windowed(ca, cm, dit, taehv, pipe_mod,
-                            dataclasses.replace(cfg_w, attn_quant="int8"),
-                            qparams, a.seed, kernels=INT8_WIN_KERNELS)
+    cfg_wi8 = dataclasses.replace(cfg_w, attn_quant="int8")
+    win_i8 = phase_windowed(ca, cm, dit, taehv, pipe_mod, cfg_wi8, qparams,
+                            a.seed, kernels=INT8_WIN_KERNELS)
+    phase_profile(dit, cfg_wi8, qparams, win_i8, "windowed int8 attention")
     launches["decode_fresh_int8_online"] = \
         win_i8["launches"]["decode_fresh_int8_online"]
     del win_i8, qparams

@@ -86,28 +86,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Divide the accumulators o (rows g and g+8 of the warp's 16, D columns)
-// by d0 / d1 and store them as bf16 to rows r0 / r1 (< rows) of `out`
-// (row stride `stride` elements).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long stride,
-                                           const float (*o)[4], int r0,
-                                           int r1, int rows, float d0,
-                                           float d1, int tg) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
-    if (r0 < rows) {
-      *reinterpret_cast<uint32_t*>(out + r0 * stride + col) =
-          pack_bf16(o[dt][0] / d0, o[dt][1] / d0);
-    }
-    if (r1 < rows) {
-      *reinterpret_cast<uint32_t*>(out + r1 * stride + col) =
-          pack_bf16(o[dt][2] / d1, o[dt][3] / d1);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
 // 3xTF32 helpers (the float32 kernels: decode_window_f32, conv3d_f32)
 // ---------------------------------------------------------------------
@@ -135,44 +113,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
 // ---------------------------------------------------------------------
 // int8 helpers (the int8 decode attention kernels)
 // ---------------------------------------------------------------------
-
-// Asynchronously copy ROWS rows of BYTES bytes (global row stride
-// `stride` bytes) into a shared tile of row stride LDB bytes; rows >=
-// valid are zero-filled.  Every thread of the CTA (THREADS) takes part.
-template <int ROWS, int BYTES, int LDB, int THREADS>
-__device__ __forceinline__ void load_bytes(unsigned char* dst,
-                                           const int8_t* src,
-                                           long long stride, int valid) {
-  for (int i = threadIdx.x; i < ROWS * (BYTES / 16); i += THREADS) {
-    const int r = i / (BYTES / 16);
-    const int c = (i % (BYTES / 16)) * 16;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LDB + c, ok ? src + r * stride + c : src,
-               ok ? 16 : 0);
-  }
-}
-
-// float(i) for |i| < 2^22, exactly, without the quarter-rate I2F: the
-// bits of 1.5 * 2^23 plus i are the float 1.5 * 2^23 + i.
-__device__ __forceinline__ float int_to_float(int i) {
-  return __int_as_float(0x4B400000 + i) - 12582912.f;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  ldmatrix_x4(r, reinterpret_cast<const bf16*>(p));
-}
-
-// c += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulate.  Fragments:
-// a0 (g, 4t..4t+3) a1 (g+8, 4t..) a2 (g, 16+4t..) a3 (g+8, 16+4t..);
-// b0 (k 4t..4t+3, n g) b1 (k 16+4t.., n g); c as for m16n8k16.
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);

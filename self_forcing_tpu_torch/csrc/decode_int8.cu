@@ -18,7 +18,7 @@
 // decode_int8qk.cu, and V alike: vs = max(max|v| / 127, 1e-8) over all
 // rows of the tile, v8 = rint(v / vs).  Per row and Pallas tile (the
 // cache tiles that the window meets, then the fresh tiles), with
-//   s = float(q8 . k8) * (qs * (ks * scale)), masked columns excluded:
+//   a = qs * (ks * scale),  s = float(q8 . k8) * a, masked columns excluded:
 //   TILE:   m_t = the row's max in the tile, p = exp(s - (m_t - ln 127)),
 //           w = exp(m_t - m0); l += sum(p) * w,
 //           acc += float(round(p) . v8) * (vs * w)
@@ -29,67 +29,106 @@
 //   out = acc / max(l, 1e-30) -> bf16.
 // p lies in [0, 127] and round(p) is its int8; l sums the unrounded p,
 // and the 127 cancels in acc / l.  m0 (TILE, GLOBAL) is the caller's bound
-// on every score, read from device memory.
+// on every score, read from device memory.  A tile with no visible column
+// adds nothing.
 //
-// The row maxima are the Pallas tile's, not a 64-key tile's: the kernel
-// walks each Pallas tile in 64-key sub-tiles twice, first for the row max
-// of its scores (TILE, ONLINE), then for p and P.V, so p quantizes against
-// the same max as on the TPU.  Sub-tiles start at the Pallas tile's first
-// key (tk = 1560 is not a multiple of 64) and the last is partial.  The
-// int32 P.V sums of a Pallas tile convert to float once, as the TPU
-// kernel's int32 dot does.
-//
-// P.V on mma.sync m16n8k32 s8 with P in registers: the int32 score
-// accumulators of a row hold keys {2t, 2t+1, 8+2t, 9+2t} of each 16-key
-// group in lane t, where the A fragment wants k slots 4t..4t+3.  So the
-// pre-pass stores V^T (K-major, as the B operand wants: ldmatrix .trans
-// takes only 16-bit elements) with the keys of every 16-key group in that
-// order (slot k holds key 2(k/4) + k%2 + 8((k%4)/2)), and the product
-// contracts each key with itself.  The V^T tiles are padded to 64 keys,
-// so every sub-tile's rows start 16-byte aligned.
+// The row max without float work: within one Pallas tile and one row, a
+// is a positive constant, float(s32) is exact (|s32| <= 127^2 * 128 <
+// 2^24) and a product by a positive float is monotone, so m_t =
+// float(max s32) * a bit for bit.  The max pass (TILE, ONLINE) is the int8
+// Q.K^T and one integer max a score.
 //
 // Layouts: q8 [B*N, qt*tq, D], k8 [B*N, tiles*tile, D] (int8qk_quantize);
-// V^T [B*N, tiles, D, tile padded to 64] int8; scales [B*N, tiles] f32 (a
+// V^T [B*N, tiles, D, tile padded to 64] int8, the keys of every 16-key
+// group in the P fragment's order (below); scales [B*N, tiles] f32 (a
 // cache tile that the window does not meet: scale 0, never read); out
 // heads-packed [B, Lq, N*D] bf16.  D = 128.
 //
 // What bounds it on the H100: at the Wan-1.3B shapes (4680 queries, up to
-// 32760 keys, 12 heads) the attention does ~0.47 T int8 operations for
-// each product (QK^T twice where the row max is needed) against ~0.1 GB
-// of int8 K/V: bound by tensor-core operations (0.48 ms for the two
-// products at 1979 TOP/s).  Design, simple first: one CTA of 4 warps per
-// (b*head, 64 queries), one 16-row m-tile a warp (two would need 128 more
-// registers for the int32 P.V accumulators), 64-key sub-tiles of int8 K
-// and V^T double-buffered with cp.async, sub-tiles with no visible column
-// skipped.  The pre-pass is one CTA of 1024 threads per (b*head, tile).
-// Not yet: wgmma, TMA, warp specialisation, one pass for 'global'-like
-// maxima.
+// 32760 keys, 12 heads) each product is ~0.47 T int8 operations against
+// ~0.1 GB of int8 K/V: bound by tensor-core operations (0.48 ms for the
+// two products at 1979 TOP/s; 0.71 ms for the three this design runs
+// where the row max is needed), and, as closely, by the exponentials: one
+// a score on the 16-a-clock MUFU units, as long as a product.
+//
+// Design (hopper.cuh's warp-specialised shape): persistent CTAs walk the
+// work items (b*n, 128 queries) in a b*n-major stride; two consumer
+// warpgroups own 64 query rows each, one thread of the producer
+// warpgroup issues the TMA loads: the item's int8 Q (one 128-byte box,
+// double-buffered across items), then, for every Pallas tile, its K
+// stages (the max pass) and its K and V^T stages (the p pass) into rings
+// of 128-key stages.  Stages never cross a Pallas tile: each tile is
+// walked in tile-relative stages from its first key, the last one
+// partial, so ks, vs and the row max are constants of a stage; stages
+// with no visible column and tiles the window does not meet are never
+// loaded.  S = Q8.K8^T is 4 k-steps of wgmma.m64n128k32.s32.s8.s8 (both
+// K-major, as the pre-pass writes them).  The s32 accumulator gives a
+// thread keys {2t, 2t+1, 8+2t, 9+2t} of each 16-key group, which are
+// the slots 4t..4t+3 of the register A fragment of the same instruction
+// when V^T stores its keys in that order (slot k holds key 2(k/4) + k%2 +
+// 8((k%4)/2); int8_quantize_v does), so p is rounded (a float add of
+// 1.5 * 2^23: its low byte is rint(p)), packed with byte permutes and
+// multiplied by V^T from shared memory (K-major; boxes past the padded
+// tile length read zeros) into int32 sums that fold into the f32 output
+// once a tile.  Each p-pass step issues the stage's Q.K^T and the
+// previous stage's P.V together and waits once; the two consumers take
+// turns at issuing (named barriers, "ping-pong").  A stage that straddles
+// sink_end, kv_start, kv_end or the tile's end masks its columns (an
+// integer minimum in the max pass, p = 0 in the p pass).  Registers: S
+// and P.V (int32, 64 each) and P (16); the f32 output sums live in shared
+// memory (each thread's own 64, folded once a Pallas tile), which leaves
+// the unrolled softmax room for its temporaries.  The output is staged
+// there as bf16 (stmatrix) and stored in 16-byte pieces.
+//
+// Measured (scripts/int8_attend_ab.py, PERF.md): the softmax bounds it,
+// ~7 instructions and one MUFU.EX2 a score; with products at the int8
+// rate a warpgroup's softmax outlasts the other's products, so the two
+// softmaxes overlap each other more than the tensor cores.  Q in
+// registers, 64-key S halves in a software pipeline, a magic-number int
+// to float and a deeper K ring were each no faster.
+//
+// The pre-pass is one CTA of 1024 threads per (b*head, tile).
+
+#include <climits>
+#include <cstring>
+#include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 using namespace sf_attn;
+using namespace sf_hopper;
 
 namespace {
 
 typedef int8_t i8;
 
-constexpr int D = 128;        // head dim
-constexpr int WARPS = 4;      // each warp owns 16 query rows
-constexpr int BM = 16 * WARPS;  // query rows per CTA
-constexpr int BK = 64;        // keys of a sub-tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDB = D + 16;   // int8 Q / K row stride in bytes
-constexpr int LDV = BK + 16;  // int8 V^T row stride in bytes: the 8 rows an
-                              // ldmatrix reads hit distinct banks
-constexpr int KT8 = BK * LDB;   // bytes of one K sub-tile
-constexpr int VT8 = D * LDV;    // bytes of one V^T sub-tile
-constexpr size_t SMEM_BYTES = size_t(BM * LDB) + 2 * KT8 + 2 * VT8;
+constexpr int D = 128;                 // head dim
+constexpr int BK = 128;                // keys a stage
+constexpr int CONSUMERS = 2;           // consumer warpgroups a CTA
+constexpr int BM = 64 * CONSUMERS;     // query rows an item
+constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer
+constexpr int BOX = 128 * 128;         // bytes of an int8 Q, K or V^T box
+constexpr int KST = 4;                 // K ring stages
+constexpr int VST = 4;                 // V^T ring stages
+constexpr int ACC = 64 * D * 4;        // bytes of a consumer's f32 output
+                                       // sums (and, at an item's end, its
+                                       // staged bf16 output)
+constexpr int LDO = 2 * D + 16;        // bytes a staged output row
+constexpr int N_BARS = 4 + 2 * KST + 2 * VST;
+constexpr int PP = 3;                  // named barriers PP, PP + 1: the
+                                       // consumers' turns (1, 2: staging)
+constexpr size_t SMEM = 1024 + (2 + KST + VST) * BOX + CONSUMERS * ACC +
+                        N_BARS * sizeof(uint64_t);
+static_assert(64 * LDO <= ACC, "the staged output fits the sums' room");
 constexpr int VPAD = 64;        // V^T tiles are padded to this many keys
 
 constexpr int QTHREADS = 1024;  // pre-pass CTA
 constexpr float FLOOR = 1e-8f;  // scale floor
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN127 = 4.844187086458591f;  // ln(127)
+constexpr float ROUND = 12582912.f;   // 1.5 * 2^23: x + ROUND holds rint(x)
+                                      // in its low bits for |x| < 2^22
 
 enum Mode { TILE = 0, GLOBAL = 1, ONLINE = 2 };
 
@@ -178,255 +217,477 @@ int8_quantize_v_kernel(VSeg svc, VSeg svn, int BN, int N, int kv_start,
 }
 
 // ---------------------------------------------------------------------
-// attention: int8 QK^T, int8 P.V
+// attention: int8 QK^T, int8 P.V on wgmma
 // ---------------------------------------------------------------------
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-int8_attend_kernel(const i8* __restrict__ q8, const float* __restrict__ qs,
-                   const i8* __restrict__ kc8, const float* __restrict__ ksc,
-                   const i8* __restrict__ kn8, const float* __restrict__ ksf,
-                   const i8* __restrict__ vc8, const float* __restrict__ vsc,
-                   const i8* __restrict__ vn8, const float* __restrict__ vsf,
-                   const float* __restrict__ m0, bf16* __restrict__ out,
-                   int N, int Lq, int Lf, int kv_start, int kv_end,
-                   int sink_end, int cache_lim, int tq, int tk, int tf,
-                   int qt, int ntc, int ntf, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [Q8 | K8 0 | K8 1 | V^T 0 | V^T 1]
-  unsigned char* sQ = smem_raw;
-  unsigned char* sK = sQ + BM * LDB;
-  unsigned char* sV = sK + 2 * KT8;
+struct Maps {
+  CUtensorMap q;    // q8 (D, qt * tq, B*N), box (128, BM, 1)
+  CUtensorMap kc;   // kc8 (D, ntc * tk, B*N), box (128, BK, 1)
+  CUtensorMap kn;   // kn8 (D, ntf * tf, B*N)
+  CUtensorMap vc;   // cache V^T (tpc, D, B*N * ntc), box (BK, D, 1)
+  CUtensorMap vn;   // fresh V^T (tpf, D, B*N * ntf)
+};
 
-  const int bn = blockIdx.y;
-  const int b = bn / N;
-  const int n = bn % N;
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // accumulator row within the warp's 16
-  const int tg = lane % 4;  // accumulator column pair
-  const long long ld_tok = (long long)N * D;  // packed token row stride
+// The scales ([B*N, tiles]; qs [B*N, qt]), the bound and the output.
+struct Ops {
+  const float* qs;
+  const float* ksc;
+  const float* ksf;
+  const float* vsc;
+  const float* vsf;
+  const float* m0;
+  bf16* out;
+};
 
-  // the int8 Q tile stays in shared memory; each warp reads its 16 rows
-  load_bytes<BM, D, LDB, THREADS>(sQ, q8 + ((long long)bn * qt * tq + q0) * D,
-                                  D, min(BM, Lq - q0));
-  cp_async_commit();
-  const unsigned char* qw = sQ + warp * 16 * LDB;
+// The Pallas tiles: ntc cache tiles of tk rows (columns below cache_lim;
+// visible: [0, sink_end) and [kv_start, kv_end)), then ntf fresh tiles of
+// tf rows (below Lf; all visible).
+struct Geo {
+  int ntc, ntf, tk, tf, Lf, cache_lim, kv_start, kv_end, sink_end;
+};
 
-  float qsr[2];  // q scales of rows g and g + 8 (their Pallas q tile)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + warp * 16 + g + 8 * h;
-    qsr[h] = r < Lq ? qs[(long long)bn * qt + r / tq] : 0.f;
+// Pallas tile tt (cache tiles first): its index among its kind, first
+// key, valid length and number of 128-key stages.
+struct Tile {
+  bool fresh;
+  int t, j0, len, n;
+};
+
+__device__ __forceinline__ Tile tile_at(const Geo& g, int tt) {
+  Tile x;
+  x.fresh = tt >= g.ntc;
+  x.t = x.fresh ? tt - g.ntc : tt;
+  const int T = x.fresh ? g.tf : g.tk;
+  x.j0 = x.t * T;
+  x.len = min(T, (x.fresh ? g.Lf : g.cache_lim) - x.j0);
+  x.n = cdiv(x.len, BK);
+  return x;
+}
+
+// The first stage >= u of tile x with a visible column; x.n when none.
+__device__ __forceinline__ int next_stage(const Geo& g, const Tile& x,
+                                          int u) {
+  if (x.fresh) return u;
+  while (u < x.n) {
+    const int j0 = x.j0 + u * BK, j1 = x.j0 + min(x.len, u * BK + BK);
+    if (j0 < g.sink_end || (j0 < g.kv_end && j1 > g.kv_start)) return u;
+    if (j0 >= g.kv_end) return x.n;   // past the sink and the window
+    u = max(u + 1, (g.kv_start - x.j0) / BK);   // over the dead gap
   }
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l[2] = {0.f, 0.f};               // partial row sums
-  float m[2] = {-INFINITY, -INFINITY};   // ONLINE: running row max
-  const float m0v = MODE == ONLINE ? 0.f : __ldg(m0);
+  return x.n;
+}
 
-  for (int tt = 0; tt < ntc + ntf; ++tt) {
-    const bool fresh = tt >= ntc;
-    const int t = fresh ? tt - ntc : tt;
-    const int tile = fresh ? tf : tk;
-    const int T0 = t * tile;
-    const int Tlen = min(tile, (fresh ? Lf : cache_lim) - T0);
-    const int nU = cdiv(Tlen, BK);
-    // sub-tile u has a visible column (the mask is the same for all rows)
-    auto live = [&](int u) {
-      if (fresh) return true;
-      const int j0 = T0 + u * BK, j1 = T0 + min(Tlen, u * BK + BK);
-      return j0 < sink_end || (j0 < kv_end && j1 > kv_start);
-    };
-    auto next_u = [&](int u) {
-      while (u < nU && !live(u)) ++u;
-      return u;
-    };
-    if (next_u(0) >= nU) continue;  // no visible column: adds nothing
-    const int tp = cdiv(tile, VPAD) * VPAD;
-    const long long nt_all = fresh ? ntf : ntc;
-    const i8* kb = (fresh ? kn8 : kc8) + ((long long)bn * nt_all * tile + T0) * D;
-    const i8* vb = (fresh ? vn8 : vc8) + ((long long)bn * nt_all + t) * D * tp;
-    const float ks = (fresh ? ksf : ksc)[bn * nt_all + t];
-    const float vs = (fresh ? vsf : vsc)[bn * nt_all + t];
-    const float a[2] = {qsr[0] * (ks * scale), qsr[1] * (ks * scale)};
+__device__ __forceinline__ bool straddles(int j0, int b) {
+  return j0 < b && b < j0 + BK;
+}
 
-    // every live sub-tile of this Pallas tile through the double-buffered
-    // ring (K only, or K and V^T), body(u, buf) once each
-    auto run = [&](bool with_v, auto&& body) {
-      auto fetch = [&](int u, int buf) {
-        load_bytes<BK, D, LDB, THREADS>(sK + buf * KT8,
-                                        kb + (long long)u * BK * D, D,
-                                        min(BK, Tlen - u * BK));
-        if (with_v)
-          load_bytes<D, BK, LDV, THREADS>(sV + buf * VT8, vb + u * BK, tp,
-                                          D);
-      };
-      int u = next_u(0);
-      fetch(u, 0);
-      cp_async_commit();
-      int buf = 0;
-      while (u < nU) {
-        const int un = next_u(u + 1);
-        if (un < nU) fetch(un, buf ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();  // Q and sub-tile u have landed
-        __syncthreads();
-        body(u, buf);
-        __syncthreads();  // every warp is done with this buffer
-        buf ^= 1;
-        u = un;
-      }
-      cp_async_wait<0>();
-    };
-    // int32 scores of this warp's 16 rows x 64 keys of buffer buf
-    auto scores = [&](int buf, int (&s)[BK / 8][4]) {
-      const unsigned char* k_s = sK + buf * KT8;
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, qw + ((lane % 8) + ((lane / 8) % 2) * 8) * LDB + kk * 32 +
-                        (lane / 16) * 16);
-#pragma unroll
-        for (int np = 0; np < BK / 16; ++np) {
-          uint32_t kf[4];
-          const int key = np * 16 + (lane % 8) + (lane / 16) * 8;
-          ldsm_x4(kf, k_s + key * LDB + kk * 32 + ((lane / 8) % 2) * 16);
-          mma_s8(s[2 * np], af, kf[0], kf[1]);
-          mma_s8(s[2 * np + 1], af, kf[2], kf[3]);
-        }
-      }
-    };
-    auto visible = [&](int u, int col) {
-      const int c = u * BK + col;
-      const int j = T0 + c;
-      return c < Tlen && (fresh || j < sink_end || (j >= kv_start && j < kv_end));
-    };
+// Does stage u of tile x hold a column that is not visible?  (A stage
+// that no bound cuts is visible throughout once it is live.)
+__device__ __forceinline__ bool edge(const Geo& g, const Tile& x, int u) {
+  if (u * BK + BK > x.len) return true;
+  const int j0 = x.j0 + u * BK;
+  return !x.fresh && (straddles(j0, g.sink_end) ||
+                      straddles(j0, g.kv_start) || straddles(j0, g.kv_end));
+}
 
-    // pass 1: the rows' max over the tile's visible scores
-    float shift[2], w[2] = {1.f, 1.f};
-    if (MODE == GLOBAL) {
-      shift[0] = shift[1] = (m0v - LN127) * LOG2E;
-    } else {
-      float mx[2] = {-INFINITY, -INFINITY};
-      run(false, [&](int u, int buf) {
-        int s[BK / 8][4];
-        scores(buf, s);
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (visible(u, nt * 8 + 2 * tg + (e & 1)))
-              mx[e >> 1] = fmaxf(mx[e >> 1], int_to_float(s[nt][e]) * a[e >> 1]);
-      });
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        if (MODE == TILE) {
-          w[h] = fast_exp2((mx[h] - m0v) * LOG2E);
-          shift[h] = (mx[h] - LN127) * LOG2E;
-        } else {
-          const float m_new = fmaxf(m[h], mx[h]);
-          const float corr = fast_exp2((m[h] - m_new) * LOG2E);
-          l[h] *= corr;
-#pragma unroll
-          for (int i = 0; i < D / 8; ++i) {
-            o[i][2 * h] *= corr;
-            o[i][2 * h + 1] *= corr;
-          }
-          m[h] = m_new;
-          shift[h] = (m_new - LN127) * LOG2E;
-        }
-      }
-    }
-
-    // pass 2: p, its int8, and the int32 P.V of the whole Pallas tile
-    int acc[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
-    float ls[2] = {0.f, 0.f};
-    run(true, [&](int u, int buf) {
-      int s[BK / 8][4];
-      scores(buf, s);
-      const unsigned char* v_s = sV + buf * VT8;
-#pragma unroll
-      for (int ks32 = 0; ks32 < BK / 32; ++ks32) {
-        int pq[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nt = 4 * ks32 + j;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float p = 0.f;
-            if (visible(u, nt * 8 + 2 * tg + (e & 1))) {
-              p = fast_exp2(int_to_float(s[nt][e]) * a[e >> 1] * LOG2E -
-                            shift[e >> 1]);
-              if (MODE == GLOBAL) p = fminf(p, 127.f);
-            }
-            ls[e >> 1] += p;
-            pq[j][e] = __float2int_rn(p);
-          }
-        }
-        // keys {2t, 2t+1, 8+2t, 9+2t} of each 16-key group: the A slots
-        // 4t..4t+3 that the V^T slot order gives them
-        uint32_t pa[4];
-        pa[0] = pack4(pq[0][0], pq[0][1], pq[1][0], pq[1][1]);
-        pa[1] = pack4(pq[0][2], pq[0][3], pq[1][2], pq[1][3]);
-        pa[2] = pack4(pq[2][0], pq[2][1], pq[3][0], pq[3][1]);
-        pa[3] = pack4(pq[2][2], pq[2][3], pq[3][2], pq[3][3]);
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t vf[4];
-          const int d = dp * 16 + (lane % 8) + (lane / 16) * 8;
-          ldsm_x4(vf, v_s + d * LDV + ks32 * 32 + ((lane / 8) % 2) * 16);
-          mma_s8(acc[2 * dp], pa, vf[0], vf[1]);
-          mma_s8(acc[2 * dp + 1], pa, vf[2], vf[3]);
-        }
-      }
-    });
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] += ls[h] * w[h];
-    const float dq[2] = {vs * w[0], vs * w[1]};
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[i][e] += __int2float_rn(acc[i][e]) * dq[e >> 1];
-  }
-
-  float l0 = l[0], l1 = l[1];
-  // row sums over the 4 threads that share a row
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int r0 = q0 + warp * 16 + g;
-  store_rows<D>(out + (long long)b * Lq * ld_tok + n * D, ld_tok, o, r0,
-                r0 + 8, Lq, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), tg);
+// the low bytes of four words, a's lowest
+__device__ __forceinline__ uint32_t low_bytes(int a, int b, int c, int d) {
+  const uint32_t lo = __byte_perm(a, b, 0x0040);
+  const uint32_t hi = __byte_perm(c, d, 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
 template <int MODE>
-int launch_attend(const void* const* ops, const void* m0, void* out, int B,
-                  int N, int Lq, int Lf, int kv_start, int kv_end,
-                  int sink_end, int cache_lim, int tq, int tk, int tf,
-                  float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS, 1)
+int8_attend_kernel(const __grid_constant__ Maps maps, const Ops ops,
+                   const Geo geo, int BN, int N, int Lq, int tq, int qt,
+                   float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // [Q: 2 buffers | K: KST stages | V^T: VST stages | each consumer's
+  //  output sums | barriers]
+  unsigned char* sQ = base;
+  unsigned char* sK = sQ + 2 * BOX;
+  unsigned char* sV = sK + KST * BOX;
+  unsigned char* sA = sV + VST * BOX;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sA + CONSUMERS * ACC);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full_k = q_empty + 2;
+  uint64_t* empty_k = full_k + KST;
+  uint64_t* full_v = empty_k + KST;
+  uint64_t* empty_v = full_v + VST;
+
+  const int n_qt = cdiv(Lq, BM);
+  const int n_work = n_qt * BN;
+  const int n_tiles = geo.ntc + geo.ntf;
+  const int wg = threadIdx.x / 128;   // consumer warpgroup, or CONSUMERS
+  // this CTA's k-th item: a static stride over (b*n, query tile), b*n-major
+  auto slot = [&](int k) -> int {
+    return k * (int)gridDim.x + (int)blockIdx.x;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < KST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], CONSUMERS);
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every TMA load in the consumers'
+    // order; its warpgroup's registers go to the consumers ----
+    regs_dealloc<24>();
+    if (threadIdx.x != 128 * CONSUMERS) return;
+    int ik = 0, iv = 0;   // K / V^T stages loaded so far
+    for (int k = 0, w; (w = slot(k)) < n_work; ++k) {
+      const int bn = w / n_qt;
+      const int qb = k & 1;
+      mbar_wait(&q_empty[qb], ((k >> 1) & 1) ^ 1);
+      mbar_expect_tx(&q_full[qb], BOX);
+      tma_load_3d(sQ + qb * BOX, &maps.q, &q_full[qb], 0, (w % n_qt) * BM,
+                  bn);
+      for (int tt = 0; tt < n_tiles; ++tt) {
+        const Tile x = tile_at(geo, tt);
+        const int u0 = next_stage(geo, x, 0);
+        const CUtensorMap* km = x.fresh ? &maps.kn : &maps.kc;
+        auto load_k = [&](int u) {
+          const int st = ik % KST;
+          mbar_wait(&empty_k[st], ((ik / KST) & 1) ^ 1);
+          mbar_expect_tx(&full_k[st], BOX);
+          tma_load_3d(sK + st * BOX, km, &full_k[st], 0, x.j0 + u * BK, bn);
+          ++ik;
+        };
+        if (MODE != GLOBAL)   // the max pass: K alone
+          for (int u = u0; u < x.n; u = next_stage(geo, x, u + 1)) load_k(u);
+        const CUtensorMap* vm = x.fresh ? &maps.vn : &maps.vc;
+        const int vt = bn * (x.fresh ? geo.ntf : geo.ntc) + x.t;
+        for (int u = u0; u < x.n; u = next_stage(geo, x, u + 1)) {
+          load_k(u);
+          const int sv = iv % VST;
+          mbar_wait(&empty_v[sv], ((iv / VST) & 1) ^ 1);
+          mbar_expect_tx(&full_v[sv], BOX);
+          tma_load_3d(sV + sv * BOX, vm, &full_v[sv], u * BK, 0, vt);
+          ++iv;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows q0 + 64 c .. + 63 ----
+  regs_alloc<240>();
+  const int c = wg;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const float m0v = MODE == ONLINE ? 0.f : __ldg(ops.m0);
+  // descriptors of k-step 0: this warpgroup's Q rows in buffer 0, K and
+  // V^T of stage 0 (a row of 128 int8 is one 128-byte swizzle row)
+  const uint64_t dq0 = desc_sw128(sQ + c * 64 * 128, 16, 1024);
+  const uint64_t dk = desc_sw128(sK, 16, 1024);
+  const uint64_t dv = desc_sw128(sV, 16, 1024);
+  // this thread's f32 output sums in shared memory (a Pallas tile's
+  // int32 P.V folds into them once; in registers they would leave the
+  // softmax no room): element 4 q + j (accumulator layout) at acc4[128 q].j
+  unsigned char* so = sA + c * ACC;
+  float4* acc4 = reinterpret_cast<float4*>(so) + threadIdx.x % 128;
+
+  // the turn at the tensor cores ("ping-pong"): warpgroup c waits on
+  // named barrier PP + c, which the other one arrives at once it has
+  // issued its products; both issue the same batches, 1 lets 0 go first
+  // and 0 takes 1's last hand-over at the end
+  auto take_turn = [&]() { named_sync(PP + c, 256); };
+  auto pass_turn = [&]() { named_arrive(PP + 1 - c, 256); };
+  if (c == 1) pass_turn();
+
+  int s[BK / 2];       // int32 scores of rows g, g + 8 (accumulator layout)
+  int pv[D / 2];       // the Pallas tile's int32 P.V
+  uint32_t pa[BK / 32][4];   // int8 p, the register A of P.V k-step kk
+  int ik = 0, iv = 0;  // K / V^T stages consumed so far
+
+  for (int k = 0, w; (w = slot(k)) < n_work; ++k) {
+    const int qti = w % n_qt, bn = w / n_qt;
+    const int r0 = qti * BM + c * 64 + warp * 16 + g;
+    float qsr[2];   // qs of rows g, g + 8 (their Pallas q tile)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;   // rows past Lq are not written
+      qsr[h] = r < Lq ? __ldg(ops.qs + (long long)bn * qt + r / tq) : 0.f;
+    }
+    bool none = true;   // no tile folded into the sums yet: they are 0
+    float l[2] = {0.f, 0.f};              // partial row sums
+    float m[2] = {-INFINITY, -INFINITY};  // ONLINE: running row max
+    const uint64_t dq = dq0 + (((k & 1) * BOX) >> 4);
+    mbar_wait(&q_full[k & 1], (k >> 1) & 1);
+
+    // S = Q8.K8^T of K stage st
+    auto qk = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        WgmmaS8<BK>::run(s, dq + ((kk * 32) >> 4),
+                         dk + ((st * BOX + kk * 32) >> 4), kk > 0);
+    };
+    // the tile's P.V += P . V^T of V^T stage sv (first: overwrite)
+    auto pvm = [&](int sv, bool first) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_m64n128k32_s8_rs(pv, pa[kk], dv + ((sv * BOX + kk * 32) >> 4),
+                               !first || kk > 0);
+    };
+
+    for (int tt = 0; tt < n_tiles; ++tt) {
+      const Tile x = tile_at(geo, tt);
+      const int u0 = next_stage(geo, x, 0);
+      if (u0 >= x.n) continue;   // no visible column: adds nothing
+      const long long ti = (long long)bn * (x.fresh ? geo.ntf : geo.ntc) +
+                           x.t;
+      const float ks = __ldg((x.fresh ? ops.ksf : ops.ksc) + ti);
+      const float vs = __ldg((x.fresh ? ops.vsf : ops.vsc) + ti);
+      const float kss = ks * scale;
+      const float a[2] = {qsr[0] * kss, qsr[1] * kss};
+      // column e of stage u is visible
+      auto visible = [&](int u, int e) {
+        const int cc = u * BK + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const int j = x.j0 + cc;
+        return cc < x.len &&
+               (x.fresh || j < geo.sink_end ||
+                (j >= geo.kv_start && j < geo.kv_end));
+      };
+      // p = 2^(s log2(e) - sub): the tile's offset, per row
+      float sub[2];
+      float corr[2] = {1.f, 1.f};   // ONLINE: rescale of l and acc
+      float wt[2] = {1.f, 1.f};     // TILE: the tile's weight exp(m_t - m0)
+      if constexpr (MODE == GLOBAL) {
+        sub[0] = sub[1] = (m0v - LN127) * LOG2E;
+      } else {
+        // the max pass: the integer row max over the visible scores
+        int mx[2] = {INT_MIN, INT_MIN};
+        for (int u = u0; u < x.n; u = next_stage(geo, x, u + 1)) {
+          const int st = ik % KST;
+          mbar_wait(&full_k[st], (ik / KST) & 1);
+          take_turn();
+          wgmma_fence();
+          qk(st);
+          wgmma_commit();
+          pass_turn();
+          wgmma_wait<0>();
+          fence_regs(s);
+          if (leader) mbar_arrive(&empty_k[st]);
+          ++ik;
+          auto rowmax = [&](auto masked) {
+#pragma unroll
+            for (int e = 0; e < BK / 2; ++e) {
+              const int h = (e >> 1) & 1;
+              if constexpr (decltype(masked)::value)
+                mx[h] = max(mx[h], visible(u, e) ? s[e] : INT_MIN);
+              else
+                mx[h] = max(mx[h], s[e]);
+            }
+          };
+          if (edge(geo, x, u))
+            rowmax(std::true_type{});
+          else
+            rowmax(std::false_type{});
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float mt = __int2float_rn(mx[h]) * a[h];   // exact
+          if constexpr (MODE == TILE) {
+            wt[h] = fast_exp2((mt - m0v) * LOG2E);
+            sub[h] = (mt - LN127) * LOG2E;
+          } else {
+            const float mn = fmaxf(m[h], mt);
+            corr[h] = fast_exp2((m[h] - mn) * LOG2E);
+            m[h] = mn;
+            sub[h] = (mn - LN127) * LOG2E;
+          }
+        }
+      }
+
+      // the p pass: p from S of stage u (s as the plain version computes
+      // it), its row sums, and its int8 packed as P.V's register A
+      float ls[2] = {0.f, 0.f};
+      auto softmax = [&](int u) {
+        auto body = [&](auto masked) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk) {
+            const int o = 16 * kk;
+#pragma unroll
+            for (int e = o; e < o + 16; ++e) {
+              const int h = (e >> 1) & 1;
+              const float sc = __int2float_rn(s[e]) * a[h];
+              float p = fast_exp2(fmaf(sc, LOG2E, -sub[h]));
+              if constexpr (MODE == GLOBAL) p = fminf(p, 127.f);
+              if constexpr (decltype(masked)::value)
+                p = visible(u, e) ? p : 0.f;
+              ls[h] += p;
+              s[e] = __float_as_int(__fadd_rn(p, ROUND));
+            }
+            // keys 2t, 2t+1, 8+2t, 9+2t of each 16-key group of the
+            // k-step: its A slots 4t..4t+3 (rows g, g + 8)
+            pa[kk][0] = low_bytes(s[o], s[o + 1], s[o + 4], s[o + 5]);
+            pa[kk][1] = low_bytes(s[o + 2], s[o + 3], s[o + 6], s[o + 7]);
+            pa[kk][2] = low_bytes(s[o + 8], s[o + 9], s[o + 12], s[o + 13]);
+            pa[kk][3] = low_bytes(s[o + 10], s[o + 11], s[o + 14], s[o + 15]);
+          }
+        };
+        if (edge(geo, x, u))
+          body(std::true_type{});
+        else
+          body(std::false_type{});
+      };
+      {   // the tile's first stage: S alone
+        const int st = ik % KST;
+        mbar_wait(&full_k[st], (ik / KST) & 1);
+        take_turn();
+        wgmma_fence();
+        qk(st);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (leader) mbar_arrive(&empty_k[st]);
+        ++ik;
+        softmax(u0);
+      }
+      // each later stage: its S with the previous stage's P.V, one wait
+      bool first = true;
+      for (int u = next_stage(geo, x, u0 + 1); u < x.n;
+           u = next_stage(geo, x, u + 1)) {
+        const int st = ik % KST, sv = iv % VST;
+        mbar_wait(&full_k[st], (ik / KST) & 1);
+        mbar_wait(&full_v[sv], (iv / VST) & 1);
+        take_turn();
+        wgmma_fence();
+        qk(st);
+        pvm(sv, first);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(pv);
+        if (leader) {
+          mbar_arrive(&empty_k[st]);
+          mbar_arrive(&empty_v[sv]);
+        }
+        ++ik;
+        ++iv;
+        first = false;
+        softmax(u);
+      }
+      {   // the last stage's P.V
+        const int sv = iv % VST;
+        mbar_wait(&full_v[sv], (iv / VST) & 1);
+        take_turn();
+        wgmma_fence();
+        pvm(sv, first);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(pv);
+        if (leader) mbar_arrive(&empty_v[sv]);
+        ++iv;
+      }
+      // fold the tile's int32 P.V into the f32 sums, once
+      const float f[2] = {vs * wt[0], vs * wt[1]};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h] * wt[h];
+#pragma unroll
+      for (int q = 0; q < D / 8; ++q) {
+        float4 v = none ? make_float4(0.f, 0.f, 0.f, 0.f) : acc4[128 * q];
+        v.x = fmaf(v.x, corr[0], __int2float_rn(pv[4 * q]) * f[0]);
+        v.y = fmaf(v.y, corr[0], __int2float_rn(pv[4 * q + 1]) * f[0]);
+        v.z = fmaf(v.z, corr[1], __int2float_rn(pv[4 * q + 2]) * f[1]);
+        v.w = fmaf(v.w, corr[1], __int2float_rn(pv[4 * q + 3]) * f[1]);
+        acc4[128 * q] = v;
+      }
+      none = false;
+    }
+    if (leader) mbar_arrive(&q_empty[k & 1]);   // every Q.K^T has read Q
+
+    // out = acc / max(l, 1e-30): staged as bf16 (stmatrix from the
+    // accumulator layout) in the sums' room, then stored in 16-byte pieces
+    float acc[D / 2];
+#pragma unroll
+    for (int q = 0; q < D / 8; ++q) {
+      const float4 v = none ? make_float4(0.f, 0.f, 0.f, 0.f) : acc4[128 * q];
+      acc[4 * q] = v.x;
+      acc[4 * q + 1] = v.y;
+      acc[4 * q + 2] = v.z;
+      acc[4 * q + 3] = v.w;
+    }
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = l[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      inv[h] = 1.f / fmaxf(x, 1e-30f);
+    }
+    named_sync(1 + c, 128);   // every thread holds its sums
+    {
+      const int j = lane / 8;   // this lane's matrix, and its row in it
+      unsigned char* row = so + (warp * 16 + lane % 8 + 8 * (j & 1)) * LDO +
+                           16 * (j >> 1);
+#pragma unroll
+      for (int e = 0; e < D / 8; e += 2)
+        stmatrix_x4(row + 16 * e,
+                    pack_bf16(acc[4 * e] * inv[0], acc[4 * e + 1] * inv[0]),
+                    pack_bf16(acc[4 * e + 2] * inv[1],
+                              acc[4 * e + 3] * inv[1]),
+                    pack_bf16(acc[4 * e + 4] * inv[0],
+                              acc[4 * e + 5] * inv[0]),
+                    pack_bf16(acc[4 * e + 6] * inv[1],
+                              acc[4 * e + 7] * inv[1]));
+    }
+    named_sync(1 + c, 128);
+    const int b = bn / N, n = bn % N;
+    const long long ld = (long long)N * D;
+    for (int i = threadIdx.x % 128; i < 64 * (2 * D / 16); i += 128) {
+      const int rr = i / (2 * D / 16), ch = i % (2 * D / 16);
+      const int r = qti * BM + c * 64 + rr;
+      if (r < Lq)
+        *reinterpret_cast<uint4*>(ops.out + ((long long)b * Lq + r) * ld +
+                                  n * D + ch * 8) =
+            *reinterpret_cast<const uint4*>(so + rr * LDO + ch * 16);
+    }
+    named_sync(1 + c, 128);   // the staged tile is stored: sums again
+  }
+  if (c == 0) take_turn();
+}
+
+template <int MODE>
+int run(const Maps& maps, const Ops& ops, const Geo& geo, int B, int N,
+        int Lq, int tq, float scale, cudaStream_t stream) {
+  auto kernel = int8_attend_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_attend_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(cdiv(Lq, BM), B * N);
-  int8_attend_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      (const i8*)ops[0], (const float*)ops[1], (const i8*)ops[2],
-      (const float*)ops[3], (const i8*)ops[4], (const float*)ops[5],
-      (const i8*)ops[6], (const float*)ops[7], (const i8*)ops[8],
-      (const float*)ops[9], (const float*)m0, (bf16*)out, N, Lq, Lf,
-      kv_start, kv_end, sink_end, cache_lim, tq, tk, tf, cdiv(Lq, tq),
-      cdiv(cache_lim, tk), cdiv(Lf, tf), scale);
+  static int sms = 0;   // the persistent grid: one CTA an SM
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = min(cdiv(Lq, BM) * B * N, sms);
+  kernel<<<grid, THREADS, SMEM, stream>>>(maps, ops, geo, B * N, N, Lq, tq,
+                                          cdiv(Lq, tq), scale);
   return (int)cudaGetLastError();
 }
 
@@ -472,20 +733,50 @@ extern "C" int int8_attend_launch(const void* q8, const void* qs,
                                   int sink_end, int cache_lim, int tq,
                                   int tk, int tf, int mode, float scale,
                                   void* stream) {
+  if (mode != TILE && mode != GLOBAL && mode != ONLINE)
+    return (int)cudaErrorInvalidValue;
+  if (mode != ONLINE && m0 == nullptr) return (int)cudaErrorInvalidValue;
+  if (tq < 1 || tk < 1 || tf < 1) return (int)cudaErrorInvalidValue;
   if (Lq <= 0 || B * N <= 0) return 0;
-  const void* ops[10] = {q8, qs, kc8, ksc, kn8, ksf, vc8, vsc, vn8, vsf};
-  auto st = (cudaStream_t)stream;
-#define SF_ARGS ops, m0, out, B, N, Lq, Lf, kv_start, kv_end, sink_end, \
-    cache_lim, tq, tk, tf, scale, st
-  switch (mode) {
-    case TILE:
-      if (m0 == nullptr) return (int)cudaErrorInvalidValue;
-      return launch_attend<TILE>(SF_ARGS);
-    case GLOBAL:
-      if (m0 == nullptr) return (int)cudaErrorInvalidValue;
-      return launch_attend<GLOBAL>(SF_ARGS);
-    case ONLINE: return launch_attend<ONLINE>(SF_ARGS);
+  const Geo geo{cdiv(cache_lim, tk), cdiv(Lf, tf), tk, tf, Lf, cache_lim,
+                kv_start, kv_end, sink_end};
+  const int qt = cdiv(Lq, tq);
+  const uint64_t BN = (uint64_t)B * N;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  // int8 rows of 128 bytes, folded [B*N, rows, D]: boxes of one 128-byte
+  // swizzle row by BM or BK rows
+  auto rows_map = [&](CUtensorMap* m, const void* p, int rows, int box_rows) {
+    const uint64_t dims[3] = {D, (uint64_t)rows, BN};
+    const uint64_t strides[2] = {D, (uint64_t)D * rows};
+    const uint32_t box[3] = {D, (uint32_t)box_rows, 1};
+    return u8_map(m, p, 3, dims, strides, box);
+  };
+  // V^T tiles [B*N * tiles, D, tp]: boxes of BK keys (one 128-byte swizzle
+  // row; past tp zeros) by the D rows
+  auto vt_map = [&](CUtensorMap* m, const void* p, int tile, int tiles) {
+    const uint64_t tp = (uint64_t)cdiv(tile, VPAD) * VPAD;
+    const uint64_t dims[3] = {tp, D, BN * tiles};
+    const uint64_t strides[2] = {tp, tp * D};
+    const uint32_t box[3] = {BK, D, 1};
+    return u8_map(m, p, 3, dims, strides, box);
+  };
+  if (int e = rows_map(&maps.q, q8, qt * tq, BM)) return e;
+  if (geo.ntc > 0) {
+    if (int e = rows_map(&maps.kc, kc8, geo.ntc * tk, BK)) return e;
+    if (int e = vt_map(&maps.vc, vc8, tk, geo.ntc)) return e;
   }
-#undef SF_ARGS
-  return (int)cudaErrorInvalidValue;
+  if (geo.ntf > 0) {
+    if (int e = rows_map(&maps.kn, kn8, geo.ntf * tf, BK)) return e;
+    if (int e = vt_map(&maps.vn, vn8, tf, geo.ntf)) return e;
+  }
+  const Ops ops{(const float*)qs, (const float*)ksc, (const float*)ksf,
+                (const float*)vsc, (const float*)vsf, (const float*)m0,
+                (bf16*)out};
+  auto st = (cudaStream_t)stream;
+  switch (mode) {
+    case TILE: return run<TILE>(maps, ops, geo, B, N, Lq, tq, scale, st);
+    case GLOBAL: return run<GLOBAL>(maps, ops, geo, B, N, Lq, tq, scale, st);
+    default: return run<ONLINE>(maps, ops, geo, B, N, Lq, tq, scale, st);
+  }
 }

@@ -529,7 +529,7 @@ INT8_MODES = {"tile": 0, "global": 1, "online": 2}
 LN127 = math.log(127.0)
 _NEG_INF = -1e30        # the Pallas kernels' masked score
 P_GROUP = 16            # keys a P fragment permutes within
-# P.V runs mma.sync m16n8k32 s8 with P in registers: the scores' s32
+# P.V runs wgmma m64n128k32 s8 with P in registers: the scores' s32
 # accumulator layout puts keys {2t, 2t+1, 8+2t, 9+2t} of a 16-key group
 # in the lane that the A fragment gives k slots 4t..4t+3.  V^T stores its
 # keys in that order, so the product contracts each key with itself:
@@ -610,6 +610,15 @@ def _int8_tiles(ntc: int, ntf: int, *, kv_start: int, kv_end: int,
     return out
 
 
+def _int8_scores(q8, k8, qs_row, ks, scale) -> torch.Tensor:
+    """The float scores of int8 query rows q8 [Lq, D] onto one Pallas
+    tile's int8 keys k8 [T, D]: float(q8.k8) * (qs * (ks * scale)), the
+    int8 sums exact (in float64) and rounded once to float32; qs_row
+    [Lq, 1], ks and scale float32 scalars."""
+    return (q8.double() @ k8.double().T).to(torch.float32) \
+        * (qs_row * (ks * scale))
+
+
 def int8_attend_ref(qq: Int8QK, vv: Int8V, q, *, mode: str, m0=None,
                     layer_idx: int, kv_start: int, kv_end: int,
                     sink_end: int = 0, static_hi: int | None = None,
@@ -651,7 +660,7 @@ def int8_attend_ref(qq: Int8QK, vv: Int8V, q, *, mode: str, m0=None,
     qs_row = qq.qs.repeat_interleave(tq, dim=1)[:, :Lq, None]
     out = torch.empty_like(q)
     for bn in range(B * N):
-        q8 = qq.q8[bn, :Lq].double()
+        q8 = qq.q8[bn, :Lq]
         m = torch.full((Lq, 1), _NEG_INF, dtype=f32, device=dev)
         l = torch.zeros((Lq, 1), dtype=f32, device=dev)
         acc = torch.zeros((Lq, D), dtype=f32, device=dev)
@@ -659,8 +668,8 @@ def int8_attend_ref(qq: Int8QK, vv: Int8V, q, *, mode: str, m0=None,
             rows = slice(t * T, t * T + T)
             vt = v8[fresh][bn, rows].double()
             vst = vs[fresh][bn, t]
-            s = (q8 @ k8[fresh][bn, rows].double().T).to(f32) \
-                * (qs_row[bn] * (ks[fresh][bn, t] * sc))
+            s = _int8_scores(q8, k8[fresh][bn, rows], qs_row[bn],
+                             ks[fresh][bn, t], sc)
             if mode == "global":
                 p = torch.exp(s + (ln127 - m0))
                 p = torch.clamp_max(torch.where(vis, p, 0.0), 127.0)

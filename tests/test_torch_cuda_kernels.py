@@ -444,8 +444,29 @@ def test_cross_attention_bwd_matches_plain(dev):
         assert _rel_l2(a, b) < 2e-2, _rel_l2(a, b)
 
 
+# the int8-QK cases and the edges of the full-int8 kernel's tile-relative
+# 128-key stages
+INT8_CASES = {
+    **INT8QK_CASES,
+    # tk 200 and tf 72: each Pallas tile walked from its first key, the
+    # last stage partial; fresh tiles of less than one stage
+    "tiles_off_128": (1, 2, 300, 250, 1000, 0, 900, 0, None,
+                      (100, 200, 72)),
+    # one 512-row cache tile holds the sink [0, 100), a dead gap and the
+    # window from 300: stages straddle sink_end and kv_start, one is dead
+    "sink_tile_straddles_window": (1, 2, 200, 150, 1024, 300, 900, 100,
+                                   None, (96, 512, 160)),
+    # whole dead cache tiles [128, 384) between the sink and the window
+    "dead_gap": (1, 2, 150, 150, 640, 384, 640, 128, None, (64, 128, 96)),
+    # 2 batches x 12 heads x 10 query tiles: 240 items, more than the
+    # card's SMs, so persistent CTAs take several
+    "more_items_than_sms": (2, 12, 1200, 300, 2048, 0, 1500, 0, None,
+                            None),
+}
+
+
 @pytest.mark.parametrize("mode", ["tile", "global", "online"])
-@pytest.mark.parametrize("case", list(INT8QK_CASES))
+@pytest.mark.parametrize("case", list(INT8_CASES))
 def test_decode_fresh_int8_matches_plain(dev, mode, case):
     """Full int8 (quant='int8'): the V pre-pass gives the plain version's
     K-major int8 values and scales exactly (dead cache tiles are not
@@ -454,7 +475,7 @@ def test_decode_fresh_int8_matches_plain(dev, mode, case):
     its int8 grid the other way, one step of 127).  'global' gets a
     tight bound (the max score + 0.5), the other bounded mode 11 nats of
     slack."""
-    B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles = INT8QK_CASES[case]
+    B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles = INT8_CASES[case]
     if isinstance(tiles, tuple):
         tq, tk, tf = tiles
     else:
@@ -492,6 +513,29 @@ def test_decode_fresh_int8_matches_plain(dev, mode, case):
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["tile", "global", "online"])
+def test_int8_dead_gap_does_not_move_the_output(dev, mode):
+    """Poison in the whole cache tiles between the sink and the window
+    (never quantized, never loaded) leaves the full-int8 output bit for
+    bit, in each mode."""
+    B, N, Lq, Lf, S, lo, hi, sink, _, (tq, tk, tf) = INT8_CASES["dead_gap"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, kc, vc, kn, vn = _int8qk_inputs(g, dev, B, N, Lq, Lf, S)
+    q = (q.float() * 8.0).to(torch.bfloat16)   # unfolded: scale D**-0.5
+    m0 = (None if mode == "online"
+          else _score_bound(q, kc, kn, 1, lo, hi, sink, N, 11.0))
+    args = dict(mode=mode, m0=m0, scale=128 ** -0.5, layer_idx=1,
+                kv_start=lo, kv_end=hi, sink_end=sink, num_heads=N, tq=tq,
+                tk=tk, tf=tf)
+    out = ca.decode_fresh_int8(q, kc, vc, kn, vn, **args)
+    kc[1, :, sink:lo] = 1e4
+    vc[1, :, sink:lo] = float("nan")
+    poisoned = ca.decode_fresh_int8(q, kc, vc, kn, vn, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(poisoned, out, rtol=0, atol=0)
 
 
 def test_seam_refuses_unported_quant_modes(dev):
