@@ -18,8 +18,9 @@ Phases, each printing one line or more (any failure exits non-zero):
    attention forward and its one dq / dk / dv backward kernel (L = 32760
    tokens, 12 heads, no mask and the 7-block block-causal mask); the decode
    kernel's 'bounded', online and 'free_noclamp' modes, the full-int8
-   decode attention ('tile', 'global', online; V pre-pass and attention,
-   with the products the kernel runs and its share of their bound) at
+   decode attention ('tile', 'global', online; the V pre-pass, bit-equal,
+   and the attention, with the products the kernel runs and its share of
+   their bound) at
    the global demo window, int8 online also at the windowed steady
    state, and the flash forward's online and bounded modes; timed with
    CUDA events (median of 7) beside its bound and one PyTorch library
@@ -75,8 +76,9 @@ path; its DiT ms per block).
    clip; the i2v path under 'pallas' (a seeded image encoded into
    ``initial_latent``, ``CausalInferencePipeline.inference`` with an
    independent first frame and 2 blocks of 3 frames on random 1.3B
-   weights, decoded by the VAE); one decode block under torch.profiler
-   under each backend, with the conv kernels' share of its busy time.
+   weights, decoded by the VAE); one encode under torch.profiler under
+   'pallas' and 'fused' with the RGB input conv's share of its busy time,
+   and one decode block under each backend, with the conv kernels' share.
 9. The Wan-14B demo stream (last, every earlier tensor freed, the peak
    memory counter reset): ``WAN_14B`` at full width and depth, random
    W8A8 weights drawn and quantized block by block on the card, int8-QK
@@ -84,8 +86,9 @@ path; its DiT ms per block).
    a 4-layer cut, then ``--blocks`` blocks at 40 layers (per-block DiT /
    TAEHV ms, pixel frames/s, TTFF, peak memory, launches: fc1 from
    pre-quantized x, ``w8a8_ffn1_xq``, must launch), and a profile.
-Phase 2 also holds each conv kernel (the 27-tap conv, the split route,
-v2 and the fused norm + SiLU + conv, and the 27-tap conv at float32)
+Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
+route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
+conv, and the 27-tap conv at float32)
 against its plain version at the VAE's full-width shapes, beside cuDNN's
 conv; the W8A8 kernels at the Wan-14B shapes (fc1 from int8 x, fc2 at
 768-column groups, the K = 5120 qkv and o GEMMs) and the GEMM from raw
@@ -647,12 +650,16 @@ def phase_mode_kernels(ca, q, kc, vc, kn, vn, g) -> dict:
         live = torch.tensor(ca.live_cache_tiles(
             vv.vsc.shape[1], tk, win["kv_start"], win["kv_end"],
             win["sink_end"]), device="cuda")
-        worst = max(check_int8("int8_quantize_v", a, b) for a, b in (
+        torch.cuda.synchronize()
+        worst = max(int((a.int() - b.int()).abs().max()) for a, b in (
             (vv.vc8[:, live], vv_ref.vc8[:, live]), (vv.vn8, vv_ref.vn8)))
         s_err = max(rel_l2(a, b) for a, b in ((vv.vsc, vv_ref.vsc),
                                               (vv.vsf, vv_ref.vsf)))
-        if s_err > 1e-6:
-            fail(f"int8_quantize_v: scales relative L2 {s_err:.3e} > 1e-6")
+        if worst or not (torch.equal(vv.vsc, vv_ref.vsc)
+                         and torch.equal(vv.vsf, vv_ref.vsf)):
+            fail(f"int8_quantize_v {label}: not bit-equal to its plain "
+                 f"version (int8 {worst} steps apart, scales relative L2 "
+                 f"{s_err:.3e})")
         del vv_ref
         att = dict(mode=mode, m0=bnd, scale=D ** -0.5, tq=tq,
                    cache_len=k_c.shape[-2], fresh_len=LQ, **tiles)
@@ -1790,7 +1797,8 @@ def phase_conv_kernels(tconv, g) -> dict:
     # every 3x3x3 conv shape of a decode step (T = 1 at 60x104, 2 at
     # 120x208, 4 above) and an encode chunk of 4 frames, and the decoder's
     # first frame at 120x208 (T = 1); the wide route but for the RGB
-    # input (ops/cuda_conv.py::conv_plan)
+    # input (ops/cuda_conv.py::conv_plan: its rows are conv3d_rgb, an
+    # encode chunk of 4 frames, then the first frame)
     fused_shapes = [((1, 4, 480, 832, 96), 96, "decoder 480x832x96"),
                     ((1, 4, 240, 416, 192), 192, "decoder 240x416x192"),
                     ((1, 2, 120, 208, 384), 384, "decoder 120x208x384"),
@@ -1800,6 +1808,8 @@ def phase_conv_kernels(tconv, g) -> dict:
                     ((1, 1, 120, 208, 384), 384, "first frame 120x208x384"),
                     ((1, 4, 240, 416, 96), 192, "encoder 240x416 96->192"),
                     ((1, 4, 480, 832, 3), 96, "encoder conv1 RGB->96"),
+                    ((1, 1, 480, 832, 3), 96, "encoder conv1 RGB->96, "
+                     "first frame / i2v"),
                     ((1, 4, 480, 832, 96), 3, "decoder head 96->RGB"),
                     ((1, 1, 60, 104, 384), 32, "encoder head 384->32")]
     for shape, Cout, label in fused_shapes:
@@ -1807,13 +1817,15 @@ def phase_conv_kernels(tconv, g) -> dict:
         B, T, H, W, C = shape
         route = tconv.cuda_conv.conv_plan(B, T, H, W, C, Cout, 3,
                                           tconv.cuda_conv._sm_count(x.device))
-        r = row("conv3d_fused", f"{label} {list(shape)}->{Cout}, route "
+        # the RGB input's narrow route is a kernel of its own
+        name = "conv3d_rgb" if route["route"] == "narrow" else "conv3d_fused"
+        r = row(name, f"{label} {list(shape)}->{Cout}, route "
                 f"{route['route']}, splits {route['splits']}",
                 lambda: tconv.conv3d_fused(x, cache, w, b),
                 lambda: tconv.conv3d_ref(x, cache, w, b),
                 cudnn(x, cache, w, b), 2.0 * 27 * C * Cout * B * T * H * W,
                 conv_bytes(B, T, H, W, C, Cout), 1)
-        table.setdefault("conv3d_fused", r)   # the first shape is the row
+        table.setdefault(name, r)   # the first shape of each is its row
         del x, cache
         torch.cuda.empty_cache()
 
@@ -1958,7 +1970,8 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
         # 9 decoded latent frames; 2 encoded chunks (1 frame, 4 frames)
         want = {None: ({}, {}),
                 "pallas": ({"conv3d_fused": 9 * PALLAS_DECODE},
-                           {"conv3d_fused": 2 * PALLAS_ENCODE}),
+                           {"conv3d_fused": 2 * PALLAS_ENCODE,
+                            "conv3d_rgb": 2}),
                 "fused": ({"norm_silu_conv3d": 9 * 2 * FUSED_DECODE[0]},
                           {"norm_silu_conv3d": 2 * 2 * FUSED_ENCODE[0]})
                 }[backend]
@@ -2026,15 +2039,18 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     i2v_ms = (time.perf_counter() - t) * 1e3
     i2v = dict(cc.launch_counts)
     launches.update({k: i2v[k] for k in ("conv3d_fused", "conv2d_9tap",
-                                         "conv3d_v2", "conv3d_f32")})
+                                         "conv3d_v2", "conv3d_f32",
+                                         "conv3d_rgb")})
     frames = video.shape[1]
     if tuple(video.shape) != (1, 25, 3, 480, 832):
         fail(f"i2v: video {tuple(video.shape)}, expected (1, 25, 3, 480, 832)")
     if not torch.isfinite(video.float()).all():
         fail("i2v: non-finite video")
-    if i2v["conv3d_fused"] != PALLAS_ENCODE + 7 * PALLAS_DECODE:
-        fail(f"i2v: conv3d_fused launches {i2v['conv3d_fused']}, expected "
-             f"{PALLAS_ENCODE + 7 * PALLAS_DECODE}")
+    if i2v["conv3d_fused"] != PALLAS_ENCODE + 7 * PALLAS_DECODE or \
+            i2v["conv3d_rgb"] != 1:
+        fail(f"i2v: conv3d_fused / conv3d_rgb launches {i2v['conv3d_fused']}"
+             f" / {i2v['conv3d_rgb']}, expected "
+             f"{PALLAS_ENCODE + 7 * PALLAS_DECODE} / 1")
     print(f"i2v 'pallas' (480x832 image -> 1 latent frame, 1.3B "
           f"inference with an independent first frame + 2 blocks of 3, "
           f"VAE decode of 7 latent frames): ms={i2v_ms:.1f} "
@@ -2044,10 +2060,28 @@ def phase_vae(cc, tconv, vae, dit, pipe_mod, seed) -> dict:
     del pipe, dparams, video
     torch.cuda.empty_cache()
 
-    # where the time goes: one steady decode block under each backend;
-    # the conv kernel's share (every kernel of csrc/conv3d.cu is named
-    # conv_igemm*: the wide and narrow routes, the split-K reduction, the
-    # norm pre-pass)
+    # where the time goes: one encode of 1 + 4 frames under 'pallas' and
+    # 'fused' (the RGB input's conv, conv_igemm_rgb, runs under 'pallas';
+    # 'fused' leaves it to cuDNN), then one steady decode block under each
+    # backend; the conv kernels' share (every kernel of csrc/conv3d.cu is
+    # named conv_igemm*: the wide and RGB routes, the split-K reduction,
+    # the norm pre-pass)
+    for backend, p in (("pallas", params),
+                       ("fused", vae.pad_decoder_channels(params))):
+        vae.set_conv_backend(backend)
+        enc = (lambda p=p: vae.encode(p, cfg, clip))
+        enc()
+        wall, rows, _, _ = profile_ms(enc)
+        vae.set_conv_backend(None)
+        busy = sum(ms for _, ms in rows)
+        conv = sum(ms for name, ms in rows if "conv_igemm" in name)
+        rgb = sum(ms for name, ms in rows if "conv_igemm_rgb" in name)
+        print(f"profile vae {backend} encode (1 + 4 frames 480x832): "
+              f"wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
+              f"idle_share={1 - busy / wall:.3f} conv_igemm_ms={conv:.2f} "
+              f"conv_igemm_rgb_ms={rgb:.3f} rgb_share_of_busy="
+              f"{rgb / max(busy, 1e-9):.4f}", flush=True)
+        del p
     padded = vae.pad_decoder_channels(params)
     for backend, p in ((None, params), ("pallas", params),
                        ("fused", padded)):
@@ -2526,6 +2560,7 @@ def main() -> None:
                "flash_bwd": (csrc + "flash_bwd.cu",
                              f"{attn}:1610, {attn}:1668"),
                "conv3d_fused": (csrc + "conv3d.cu", pconv + ":120"),
+               "conv3d_rgb": (csrc + "conv3d.cu", pconv + ":120"),
                "conv2d_9tap": (csrc + "conv3d.cu", pconv + ":30"),
                "conv3d_v2": (csrc + "conv3d.cu", pconv + ":261"),
                "norm_silu_conv3d": (csrc + "conv3d.cu", pconv + ":402")}

@@ -1,11 +1,14 @@
 """A/B of versions of the port's VAE conv kernel on one NVIDIA card.
 
     python scripts/conv_ab.py A.cu B.cu [...] [--tiles=128x1,96x1,128x4]
+                              [--only=RGB]
 
 Each file is a version of ``self_forcing_tpu_torch/csrc/conv3d.cu``: the
 current launcher (``conv3d_launch`` taking the whole weight copy, a K
 split count and a grid size) or the one before the wgmma redesign (the weight copy at its
-first tap, a row stride, no split; told apart by its source).  Each is
+first tap, a row stride, no split; told apart by its source).  A version
+whose RGB input runs ``conv_igemm_rgb`` gets the packed weight copy
+(``cuda_conv.rgb_weight``) at C <= 3, an older one the per-tap copy.  Each is
 built with the package's nvcc flags into
 ``self_forcing_tpu_torch/csrc/build/ab/`` and called through ctypes at
 the conv shapes of ``chip_smoke.py``'s phase 2 (the 27-tap shapes of the
@@ -18,7 +21,8 @@ share of it, cuDNN's bf16 conv on the concatenated timeline once a shape,
 and ptxas's register and spill lines.  ``--tiles`` also times each
 listed (channel tile)x(K splits) of the current versions at the wide
 shapes (those whose Cout the tile divides; no split for the norm + SiLU
-conv, which the launcher runs unsplit).
+conv, which the launcher runs unsplit).  ``--only`` keeps the shapes
+whose label holds the given text.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ SHAPES = [
     ("decoder 120x208 192->384", (1, 2, 120, 208, 192), 384, "conv"),
     ("encoder 240x416 96->192", (1, 4, 240, 416, 96), 192, "conv"),
     ("encoder conv1 RGB->96", (1, 4, 480, 832, 3), 96, "conv"),
+    ("encoder conv1 RGB->96 T=1", (1, 1, 480, 832, 3), 96, "conv"),
     ("decoder head 96->RGB", (1, 4, 480, 832, 96), 3, "conv"),
     ("encoder head 384->32", (1, 1, 60, 104, 384), 32, "conv"),
     ("split route 60x104x384", (1, 1, 60, 104, 384), 384, "split"),
@@ -63,18 +68,21 @@ SHAPES = [
 ]
 
 
-def is_current(path: str) -> bool:
+def launcher_kind(path: str) -> tuple[bool, bool]:
+    """(the current launcher, the packed-K RGB route) of a source."""
     with open(path) as f:
-        return "int splits" in f.read()
+        src = f.read()
+    return "int splits" in src, "conv_igemm_rgb" in src
 
 
 class Version:
     """One built version: its launchers with the argument types of its
     signature."""
 
-    def __init__(self, lib_path: str, current: bool):
+    def __init__(self, lib_path: str, current: bool, rgb: bool):
         self.lib = ctypes.CDLL(lib_path)
         self.current = current
+        self.rgb = rgb
         f = self.lib.conv3d_launch
         f.restype = _I
         if current:
@@ -85,12 +93,21 @@ class Version:
         g.restype = _I
         g.argtypes = [_P] * 3 + [_I] * 5 + [_F, _P]
 
-    def conv(self, x, cache, wk, bias, out, taps_t, tau0, tile=None,
+    def conv(self, x, cache, w, bias, out, taps_t, tau0, tile=None,
              res=None, inv=None, gamma=None, gscale=0.0):
         B, T, H, W, C = x.shape
-        Cout, _, Cp = wk.shape
         ptr = (lambda t: None if t is None else t.data_ptr())
         st = torch.cuda.current_stream().cuda_stream
+        if self.rgb and C <= cc.RGB_MAX_C:
+            err = self.lib.conv3d_launch(
+                ptr(x), ptr(cache), ptr(cc.rgb_weight(w)), ptr(bias), None,
+                None, None, ptr(out), None, B, T, H, W, C, cc.RGB_K,
+                w.shape[0], taps_t, tau0, 0, 1, 0, 0.0, st)
+            if err:
+                raise RuntimeError(f"conv3d_launch: CUDA error {err}")
+            return
+        wk = cc.kernel_weight(w)
+        Cout, _, Cp = wk.shape
         if self.current:
             sms = cc._sm_count(x.device)
             plan = cc.conv_plan(B, T, H, W, C, Cout, taps_t, sms,
@@ -115,15 +132,15 @@ class Version:
         if err:
             raise RuntimeError(f"conv3d_launch: CUDA error {err}")
 
-    def call(self, kind, x, cache, wk, bias, gamma=None, res=None,
+    def call(self, kind, x, cache, w, bias, gamma=None, res=None,
              tile=None):
         """The conv of ``kind`` (a fresh output each call, as the path)."""
         B, T, H, W, C = x.shape
-        Cout = wk.shape[0]
+        Cout = w.shape[0]
 
         def one(taps_t, tau0, b):
             out = torch.empty(B, T, H, W, Cout, dtype=x.dtype, device="cuda")
-            self.conv(x, cache, wk, b, out, taps_t, tau0, tile)
+            self.conv(x, cache, w, b, out, taps_t, tau0, tile)
             return out
 
         if kind == "conv":
@@ -141,7 +158,7 @@ class Version:
         if err:
             raise RuntimeError(f"rms_inv_launch: CUDA error {err}")
         out = torch.empty(B, T, H, W, Cout, dtype=x.dtype, device="cuda")
-        self.conv(x, cache, wk, bias, out, 3, 0, tile, res=res, inv=inv,
+        self.conv(x, cache, w, bias, out, 3, 0, tile, res=res, inv=inv,
                   gamma=gamma, gscale=math.sqrt(C))
         return out
 
@@ -170,7 +187,9 @@ def reference(kind, x, cache, w, b, gamma, res):
 
 
 def main() -> None:
-    args = [a for a in sys.argv[1:] if not a.startswith("--tiles=")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    only = [a.split("=", 1)[1] for a in sys.argv[1:]
+            if a.startswith("--only=")]
     sweep = [tuple(int(n) for n in v.split("x")) for a in sys.argv[1:]
              if a.startswith("--tiles=") for v in a.split("=", 1)[1].split(",")]
     if not args:
@@ -178,7 +197,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this A/B needs an NVIDIA card")
     libs = build_versions(args)
-    vers = {name: Version(path, is_current(src))
+    vers = {name: Version(path, *launcher_kind(src))
             for (name, path), src in zip(libs.items(), args)}
     names = list(vers)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,9 +205,10 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     for label, shape, Cout, kind in SHAPES:
+        if only and not any(o in label for o in only):
+            continue
         x, cache, w, b, gamma, res = operands(g, shape, Cout, kind)
         B, T, H, W, C = shape
-        wk = cc.kernel_weight(w)
         bias = b.float()
         ref = reference(kind, x, cache, w, b, gamma, res)
         flops = 2.0 * 27 * C * Cout * B * T * H * W
@@ -201,7 +221,7 @@ def main() -> None:
             lib = f"{time_ms(lambda: F.conv3d(xin, wc, b, padding=(0, 1, 1))):.4f}"
             del xin
         gf = None if gamma is None else gamma.float()
-        call = (lambda v, tile=None: v.call(kind, x, cache, wk, bias, gf,
+        call = (lambda v, tile=None: v.call(kind, x, cache, w, bias, gf,
                                             res, tile))
         readings, errs = {n: [] for n in names}, {}
         for order in (names, names[::-1]):

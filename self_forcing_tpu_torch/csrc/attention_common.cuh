@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+
 namespace sf_attn {
 
 typedef __nv_bfloat16 bf16;
@@ -121,15 +123,51 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// rint(v / s) in [-127, 127], the division exact (as the TPU kernels')
-__device__ __forceinline__ int quant1(float v, float s) {
-  const float r = rintf(__fdiv_rn(v, s));
-  return __float2int_rn(fminf(fmaxf(r, -127.f), 127.f));
+// rint(v / s) as the low byte of the returned bits, with v / s correctly
+// rounded (true division) from rc = RN(1 / s): q0 = RN(v rc) is within an
+// ulp of v / s, the residual v - s q0 is exact by FMA, and q0 + residual *
+// rc rounds to RN(v / s) (Markstein's theorem; |v| <= 127 s and s >= 1e-8
+// keep every step normal where the rounding decides anything).  Adding
+// 1.5 * 2^23 then rounds the quotient half to even into the float's last
+// mantissa bits, whose low byte is the int8 in two's complement.  The
+// clip to [-127, 127] never binds: every |v| of a tile is at most its max
+// a <= 127 s (1 + 2^-24), so |v / s| rounds to at most 127.
+__device__ __forceinline__ uint32_t q8_bits(float v, float s, float rc) {
+  const float q0 = __fmul_rn(v, rc);
+  const float q = __fmaf_rn(__fmaf_rn(-q0, s, v), rc, q0);
+  return __float_as_uint(__fadd_rn(q, 12582912.f));
 }
 
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
-         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+// the low bytes of four q8_bits words, packed (a in the lowest byte)
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
+                                              uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// the int8 of four bf16 (two packed pairs) at scale s, packed
+__device__ __forceinline__ uint32_t quant_pairs(uint32_t a, uint32_t b,
+                                                float s, float rc) {
+  return low_bytes(q8_bits(bf16_lo(a), s, rc), q8_bits(bf16_hi(a), s, rc),
+                   q8_bits(bf16_lo(b), s, rc), q8_bits(bf16_hi(b), s, rc));
+}
+
+// the larger |x| of each half of a bf16 pair, kept as a pair (exact)
+__device__ __forceinline__ __nv_bfloat162 abs_max2(__nv_bfloat162 m,
+                                                   uint32_t w) {
+  __nv_bfloat162 x;
+  memcpy(&x, &w, 4);
+  return __hmax2(m, __habs2(x));
+}
+
+// The cache tiles of `tk` rows, ntc of them, that the window [0,
+// sink_end) + [kv_start, kv_end) meets: [0, a1) and [b2, c2)
+// (ops/cuda_attention.py::live_cache_tiles).
+inline void live_ranges(int ntc, int tk, int kv_start, int kv_end,
+                        int sink_end, int* a1, int* b2, int* c2) {
+  *a1 = min(ntc, (max(sink_end, 0) + tk - 1) / tk);
+  *b2 = max(*a1, max(kv_start, 0) / tk);
+  *c2 = max(*b2, min(ntc, (max(kv_end, 0) + tk - 1) / tk));
 }
 
 // The maximum of a non-negative value over a CTA of THREADS, in every

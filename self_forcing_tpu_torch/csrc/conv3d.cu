@@ -66,10 +66,10 @@
 // W (W = 104: 24 of the second tile) are computed on zeros and not
 // stored.
 //
-// NARROW (the RGB input, C = 3: its 6-byte pixels are no TMA stride):
-// mma.sync m16n8k16, 128 x BN x 32 tiles, 8 warps, 3-stage gathers of
-// each tap's shifted pixels (scalar A loads, cp.async weights), rows
-// padded to 80 bytes for ldmatrix.  No NORM.
+// NARROW (the RGB input, C <= 3: its 6-byte pixels are no TMA stride):
+// wgmma with A from registers over K packed as 27 taps x C (96), one
+// output row of 64 pixels an item, its halo loaded by one TMA box a
+// temporal tap (the section below).  No NORM, no split.
 
 #include <cstring>
 
@@ -80,8 +80,6 @@ using sf_attn::bf16;
 using sf_attn::cp_async16;
 using sf_attn::cp_async_commit;
 using sf_attn::cp_async_wait;
-using sf_attn::ldmatrix_x4;
-using sf_attn::mma16816;
 using sf_attn::mma_tf32;
 using sf_attn::split_tf32;
 using namespace sf_hopper;
@@ -602,211 +600,327 @@ int launch_wide_bn(int bn, const void* x, const void* cache, const void* w,
 }
 
 // =====================================================================
-// NARROW route: mma.sync implicit GEMM (the RGB input)
+// NARROW route: the RGB input (C <= 3) on wgmma with A from registers
 // =====================================================================
+//
+// A pixel of the RGB input is 6 bytes, no stride the wide route's
+// per-pixel TMA boxes take, and its K is tiny: 27 taps x 3 channels = 81
+// products a pixel and output channel.  So K is packed, not padded per
+// tap: k = ((kt * 3 + di) * 3 + dj) * C + c, 96 in all (6 k16 steps;
+// ops/cuda_conv.py::rgb_weight makes that copy of the weights).  Seen as
+// rows of W * C bf16, the 3 C values of k = (kt, di, *, *) for output
+// pixel w are the contiguous run [C (w - 1), C (w + 2)) of timeline frame
+// t + tau0 + kt, image row h + di - 1.  An item is one output row of 64
+// pixels by BN output channels: its halo is 3 rows of each temporal tap,
+// (64 + 2) C bf16 each, one TMA box a tap (3 rows x boxe values of the
+// frame seen as [H, W C], the rows' pitch a multiple of 8 values: the
+// wrapper pads a row of W C % 8 != 0) from the 16-byte boundary at or
+// before the halo's first value, so the halo starts `shift` = -C mod 8
+// values into each box row; TMA's zero fill past the frame's rows and
+// past [0, W C) is the conv's padding.  Each thread builds its wgmma A
+// fragments (pixels 16 warp + g and + 8, 24 k pairs) straight from the
+// staged boxes with 2-byte loads at offsets fixed for the kernel's life:
+// C pixel + kt RTAP + di boxe + shift + k % 3C ((kt, di) = divmod(k /
+// 3C, 3)), or a zero row for k past 27 C (taps_t 1: 9 C).  The
+// packed weights (a CTA's every channel tile), the bias and the staged
+// output stay in shared memory; one warpgroup a CTA, several CTAs an SM,
+// persistent; the accumulators start at the bias, and the output is
+// staged and stored in 16-byte pieces.  What bounds it: the output write
+// (2 Cout bytes a pixel against 2 C read), ~0.1 ms at [1, 4, 480, 832,
+// 3] -> 96.  Boxes of one halo row each, starting at the halo's first
+// value (6-byte aligned) and, for rows past the frame, wholly past the
+// tensor, stopped the card with an illegal instruction on their first
+// launch; these boxes start on 16-byte boundaries and always meet the
+// frame.
 
-constexpr int BM = 128;         // output pixels of a tile
-constexpr int BK = 32;          // channels of one K step
-constexpr int LDS = BK + 8;     // shared row stride (80 bytes)
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int CHUNKS = BK / 8;              // 16-byte chunks of a row
-constexpr int A_PASS = THREADS / CHUNKS;    // A rows loaded in one pass
-constexpr int A_ITERS = BM / A_PASS;        // A rows of each thread
+constexpr int RK = 96;                  // packed K (27 C <= 81, padded)
+constexpr int RKS = RK / 16;            // k16 steps
+constexpr int RMAX_C = 3;               // the widest input of the route
+constexpr int RTW = 64;                 // output pixels an item
+constexpr int RBOX = 208;               // values of a box row at most:
+                                        // (RTW + 2) C + shift, to 8
+constexpr int RTAP = 640;               // values a tap's box takes (3
+                                        // rows, to 128 bytes)
+constexpr int RZERO = 3 * RTAP;         // value offset of the zero row
+constexpr int RSTAGE = 2 * RZERO + 512; // bytes of a ring stage
+constexpr int RSTAGES = 4;
+constexpr int RTHREADS = 128;
+static_assert((RTW + 2) * RMAX_C + 7 <= RBOX && 3 * RBOX <= RTAP &&
+              RTAP % 64 == 0, "a tap's box in its slot");
 
-struct ConvArgs {
-  const bf16* x;       // [B, T, H, W, C]
-  const bf16* cache;   // [B, 2, H, W, C]
-  const bf16* w;       // [Cout, ., Cp] at the first tap used, row w_stride
-  const float* bias;   // [Cout] or null
-  bf16* out;           // [B, T, H, W, Cout]
-  int B, T, H, W, C, Cp, Cout;
-  int taps_t, tau0, w_stride;
+struct RgbMaps {
+  CUtensorMap x;      // bf16 (W C, H, B*T), rows padded to 8 values;
+                      // box (boxe, 3, 1)
+  CUtensorMap cache;  // bf16 (W C, H, B*2), the same box
 };
 
-// 16-byte async copy through L1 (the tap gathers re-read their
-// neighbours' pixels); bytes == 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
-                                              int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sf_attn::smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
+struct RgbArgs {
+  const bf16* w;       // packed [Cout, RK]
+  const float* bias;   // [Cout] or null
+  bf16* out;           // [B, T, H, W, Cout]
+  int B, T, H, W, C, Cout, taps_t, tau0;
+  int wt, nt, items;   // column tiles, channel tiles, items
+  int boxe, shift;     // values of a box row; the halo's offset in it
+};
 
-// The shifted source pixel of output pixel (b, t, h, w) for temporal tap
-// kt and spatial tap (di, dj); null where it lies outside the frame.
-__device__ __forceinline__ const bf16* tap_pixel(const ConvArgs& a, int b,
-                                                 int t, int h, int w, int kt,
-                                                 int di, int dj) {
-  const int hh = h + di - 1, ww = w + dj - 1;
-  if (hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) return nullptr;
-  const int f = t + a.tau0 + kt;
-  const long long p = (long long)hh * a.W + ww;
-  const long long HW = (long long)a.H * a.W;
-  if (f < NCACHE) return a.cache + ((b * NCACHE + f) * HW + p) * a.C;
-  return a.x + (((long long)b * a.T + f - NCACHE) * HW + p) * a.C;
-}
-
-template <int BN, int WARPS_M>
-__global__ void __launch_bounds__(THREADS)
-    conv_igemm_narrow(const ConvArgs a) {
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
-  constexpr int MT = WTM / 16, NT = WTN / 8;
-  static_assert(NT % 2 == 0 && MT >= 1, "warp tile");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BM][LDS]
-  bf16* Bs = As + STAGES * BM * LDS;              // [STAGES][BN][LDS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const long long M = (long long)a.B * a.T * a.H * a.W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // this thread's A rows (tid / CHUNKS + A_PASS * i) and 16-byte chunk
-  const int aj = tid % CHUNKS;
-  int pb[A_ITERS], pt[A_ITERS], ph[A_ITERS], pw[A_ITERS];
-  bool pv[A_ITERS];
-#pragma unroll
-  for (int i = 0; i < A_ITERS; ++i) {
-    const long long m = m0 + tid / CHUNKS + A_PASS * i;
-    pv[i] = m < M;
-    long long r = pv[i] ? m : 0;
-    pw[i] = (int)(r % a.W);
-    r /= a.W;
-    ph[i] = (int)(r % a.H);
-    r /= a.H;
-    pt[i] = (int)(r % a.T);
-    pb[i] = (int)(r / a.T);
+// d += A . B, m64nBNk16 bf16 -> f32, A from registers (the m16n8k16
+// layout of each warp's 16 rows), B K-major from shared memory
+template <int BN>
+struct MmaRS;
+template <>
+struct MmaRS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
-  // K steps channel-chunk-major: the taps of one chunk follow each other,
-  // so neighbouring taps' gathers of the same pixels hit L1
-  const int taps = a.taps_t * 9;
-  const int ksteps = taps * ((a.Cp + BK - 1) / BK);
+};
+template <>
+struct MmaRS<96> {
+  static __device__ __forceinline__ void run(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+        ", {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
-  auto load_stage = [&](int stage, int kk) {
-    const int tap = kk % taps, c0 = (kk / taps) * BK;
-    const int kt = tap / 9, di = (tap % 9) / 3, dj = tap % 3;
-    bf16* as = As + stage * BM * LDS;
+// An item: output row h of frame t of batch b, pixels w0.., channels n0..
+// (channel tile fastest, then column tile, row, frame).
+struct RgbItem {
+  int b, t, h, w0, n0;
+};
+__device__ __forceinline__ RgbItem rgb_item(const RgbArgs& a, int i,
+                                            int BN) {
+  RgbItem it;
+  it.n0 = (i % a.nt) * BN;
+  i /= a.nt;
+  it.w0 = (i % a.wt) * RTW;
+  i /= a.wt;
+  it.h = i % a.H;
+  i /= a.H;
+  it.t = i % a.T;
+  it.b = i / a.T;
+  return it;
+}
+
+// bytes of dynamic shared memory: the ring, the weights, the bias, the
+// staged output, the barriers
+constexpr int rgb_smem(int BN, int nt) {
+  return 128 + RSTAGES * RSTAGE + nt * BN * (RK * 2 + 4) +
+         RTW * (2 * BN + 16) + RSTAGES * 8;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(RTHREADS, 4)
+    conv_igemm_rgb(const __grid_constant__ RgbMaps maps,
+                   const __grid_constant__ RgbArgs a) {
+  constexpr int LD = 2 * BN + 16;   // bytes a staged output row
+  extern __shared__ __align__(128) unsigned char rgb_smem_raw[];
+  // TMA writes 128-byte aligned boxes
+  unsigned char* ring =
+      rgb_smem_raw + ((128 - (smem_u32(rgb_smem_raw) & 127)) & 127);
+  unsigned char* Bs = ring + RSTAGES * RSTAGE;
+  float* bias_s = reinterpret_cast<float*>(Bs + a.nt * BN * RK * 2);
+  unsigned char* Os = reinterpret_cast<unsigned char*>(bias_s + a.nt * BN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Os + RTW * LD);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int C = a.C;
+
+  if (tid == 0) {
+    for (int s = 0; s < RSTAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  // each stage's zero row; the weights in wgmma's no-swizzle K-major
+  // layout (8-row x 16-byte core matrices, 128 bytes apart along K, RK / 8
+  // * 128 along N), from k = 9 C tau0 of the packed copy, zero past the
+  // taps used and past Cout; the bias, zero past Cout
+  for (int i = tid; i < RSTAGES * 32; i += RTHREADS)
+    reinterpret_cast<uint4*>(ring + (i / 32) * RSTAGE + 2 * RZERO)[i % 32] =
+        make_uint4(0u, 0u, 0u, 0u);
+  const int k0 = 9 * C * a.tau0, kreal = 9 * C * a.taps_t;
+  for (int i = tid; i < a.nt * BN * (RK / 8); i += RTHREADS) {
+    const int n = i / (RK / 8), c8 = i % (RK / 8);
+    __align__(16) bf16 v[8];
 #pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int row = tid / CHUNKS + A_PASS * i, c = c0 + aj * 8;
-      const bf16* src = pv[i] ? tap_pixel(a, pb[i], pt[i], ph[i], pw[i], kt,
-                                          di, dj)
-                              : nullptr;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = (src != nullptr && c + e < a.C) ? src[c + e]
-                                               : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(as + row * LDS + aj * 8) =
-          *reinterpret_cast<const uint4*>(v);
+    for (int e = 0; e < 8; ++e) {
+      const int k = 8 * c8 + e;
+      v[e] = n < a.Cout && k < kreal ? a.w[(long long)n * RK + k0 + k]
+                                     : __float2bfloat16(0.f);
     }
-    bf16* bs = Bs + stage * BN * LDS;
-    const bf16* wt = a.w + (long long)tap * a.Cp;
-    for (int idx = tid; idx < BN * CHUNKS; idx += THREADS) {
-      const int r = idx / CHUNKS, j = idx % CHUNKS, c = c0 + j * 8;
-      const int n = n0 + r;
-      const bool ok = n < a.Cout && c < a.Cp;
-      cp_async16(bs + r * LDS + j * 8,
-                 ok ? wt + (long long)n * a.w_stride + c : a.w, ok ? 16 : 0);
+    *reinterpret_cast<uint4*>(Bs + (n / 8) * (RK / 8) * 128 + c8 * 128 +
+                              (n % 8) * 16) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  for (int i = tid; i < a.nt * BN; i += RTHREADS)
+    bias_s[i] = a.bias != nullptr && i < a.Cout ? a.bias[i] : 0.f;
+  fence_async_smem();   // the weights are read by wgmma
+  __syncthreads();
+
+  // the TMA loads of this CTA's j-th item into stage j % RSTAGES
+  auto issue = [&](int j) {
+    const int i = blockIdx.x + j * gridDim.x;
+    if (i >= a.items) return;
+    const RgbItem it = rgb_item(a, i, BN);
+    unsigned char* st = ring + (j % RSTAGES) * RSTAGE;
+    uint64_t* bar = &full[j % RSTAGES];
+    mbar_expect_tx(bar, a.taps_t * 3 * a.boxe * 2);
+    for (int kt = 0; kt < a.taps_t; ++kt) {
+      const int f = it.t + a.tau0 + kt;
+      const bool cached = f < NCACHE;
+      tma_load_3d(st + kt * RTAP * 2, cached ? &maps.cache : &maps.x, bar,
+                  (it.w0 - 1) * C - a.shift, it.h - 1,
+                  cached ? it.b * NCACHE + f : it.b * a.T + f - NCACHE);
     }
   };
+  if (tid == 0)
+    for (int j = 0; j < RSTAGES; ++j) issue(j);
 
-  float acc[MT][NT][4];
+  // this thread's A slots: k = 16 ks + 8 hk + 2 t4 + e, as an element
+  // offset from its pixel's first halo element
+  int koff[RKS][2][2];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int ks = 0; ks < RKS; ++ks)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int hk = 0; hk < 2; ++hk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ksteps) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kk = 0; kk < ksteps; ++kk) {
-    const int stage = kk % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kk + STAGES - 1 < ksteps)
-      load_stage((kk + STAGES - 1) % STAGES, kk + STAGES - 1);
-    cp_async_commit();
-
-    const bf16* as = As + stage * BM * LDS;
-    const bf16* bs = Bs + stage * BN * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row = wm * WTM + mt * 16 + (lane & 15);
-        ldmatrix_x4(af[mt], as + row * LDS + ks * 16 + (lane >> 4) * 8);
+      for (int e = 0; e < 2; ++e) {
+        const int k = 16 * ks + 8 * hk + 2 * t4 + e;
+        const int r = k / (3 * C);
+        koff[ks][hk][e] = k < kreal ? (r / 3) * RTAP + (r % 3) * a.boxe +
+                                          a.shift + k % (3 * C)
+                                    : RZERO;
       }
+  const int pix = C * (16 * warp + g);   // and pix + 8 C
+
+  int j = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
+    const RgbItem it = rgb_item(a, i, BN);
+    unsigned char* st = ring + (j % RSTAGES) * RSTAGE;
+    mbar_wait(&full[j % RSTAGES], (j / RSTAGES) & 1);
+    // A fragments: a[0] pixel g, k 2 t4 and 2 t4 + 1; a[1] pixel g + 8;
+    // a[2], a[3] the same at k + 8
+    const unsigned short* sp =
+        reinterpret_cast<const unsigned short*>(st) + pix;
+    uint32_t af[RKS][4];
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        const int n = wn * WTN + np * 16 + (lane & 7) + (lane >> 4) * 8;
-        ldmatrix_x4(bfr, bs + n * LDS + ks * 16 + ((lane >> 3) & 1) * 8);
+    for (int ks = 0; ks < RKS; ++ks)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          mma16816(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-        }
-      }
+      for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+        for (int px = 0; px < 2; ++px)
+          af[ks][2 * hk + px] =
+              (uint32_t)sp[koff[ks][hk][0] + 8 * C * px] |
+              ((uint32_t)sp[koff[ks][hk][1] + 8 * C * px] << 16);
+    // the accumulators start at the bias: d[4 j + e] is channel n0 + 8 j
+    // + 2 t4 + e % 2 of pixel 16 warp + g + 8 (e / 2)
+    float acc[BN / 2];
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(bias_s + it.n0 + 8 * jj + 2 * t4);
+      acc[4 * jj] = acc[4 * jj + 2] = bb.x;
+      acc[4 * jj + 1] = acc[4 * jj + 3] = bb.y;
     }
-  }
-  cp_async_wait<0>();
+    __syncthreads();   // the stage is read, the last item copied out
+    if (tid == 0) issue(j + RSTAGES);
+    const uint32_t b0 = smem_u32(Bs) + (it.n0 / 8) * (RK / 8) * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < RKS; ++ks)
+      MmaRS<BN>::run(acc, af[ks],
+                     desc_plain(b0 + ks * 256, 128, (RK / 8) * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
 
-  // epilogue: + bias in f32, one rounding to bf16
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool pairs = (a.Cout & 1) == 0;
+    // ---- epilogue: stage the row as bf16, store 16 bytes at a time (2
+    // where Cout % 8 != 0); pixels past W and channels past Cout are not
+    // stored
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int jj = 0; jj < BN / 8; ++jj)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * WTM + mt * 16 + g + 8 * half;
-      if (m >= M) continue;
-      bf16* orow = a.out + m * a.Cout;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = n0 + wn * WTN + nt * 8 + 2 * t4;
-        float v[2] = {acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]};
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (n + e < a.Cout && a.bias != nullptr) v[e] += a.bias[n + e];
-        if (pairs && n < a.Cout) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + n) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n + e < a.Cout) orow[n + e] = __float2bfloat16(v[e]);
-        }
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<__nv_bfloat162*>(
+            Os + (16 * warp + g + 8 * half) * LD + 2 * (8 * jj + 2 * t4)) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * half],
+                                  acc[4 * jj + 2 * half + 1]);
+    __syncthreads();
+    const long long row0 =
+        ((long long)(it.b * a.T + it.t) * a.H + it.h) * a.W + it.w0;
+    const int nv = a.Cout - it.n0, pv = min(RTW, a.W - it.w0);
+    if (a.Cout % 8 == 0) {
+      for (int q = tid; q < RTW * (BN / 8); q += RTHREADS) {
+        const int p = q / (BN / 8), piece = q % (BN / 8);
+        if (p < pv && 8 * piece < nv)
+          *reinterpret_cast<uint4*>(a.out + (row0 + p) * a.Cout + it.n0 +
+                                    8 * piece) =
+              *reinterpret_cast<const uint4*>(Os + p * LD + 16 * piece);
+      }
+    } else {
+      for (int q = tid; q < RTW * BN; q += RTHREADS) {
+        const int p = q / BN, c = q % BN;
+        if (p < pv && c < nv)
+          a.out[(row0 + p) * a.Cout + it.n0 + c] =
+              reinterpret_cast<const bf16*>(Os + p * LD)[c];
       }
     }
   }
 }
 
-template <int BN, int WARPS_M>
-int launch_narrow(const ConvArgs& a, cudaStream_t st) {
-  auto kern = conv_igemm_narrow<BN, WARPS_M>;
-  const int smem = STAGES * (BM + BN) * LDS * (int)sizeof(bf16);
+template <int BN>
+int launch_rgb(const void* x, const void* cache, RgbArgs a,
+               cudaStream_t st) {
+  auto kern = conv_igemm_rgb<BN>;
+  const int smem = rgb_smem(BN, a.nt);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long M = (long long)a.B * a.T * a.H * a.W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (a.Cout + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, st>>>(a);
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, RTHREADS, smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  RgbMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t pitch = 2ull * ((a.W * a.C + 7) / 8 * 8);   // row bytes
+  const uint64_t strides[2] = {pitch, pitch * a.H};
+  const uint32_t box[3] = {(uint32_t)a.boxe, 3, 1};
+  uint64_t dims[3] = {(uint64_t)a.W * a.C, (uint64_t)a.H,
+                      (uint64_t)a.B * a.T};
+  if (int e = bf16_map(&maps.x, x, 3, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE))
+    return e;
+  dims[2] = (uint64_t)a.B * NCACHE;
+  if (int e = bf16_map(&maps.cache, cache, 3, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE))
+    return e;
+  const int grid = min(a.items, max(per_sm, 1) * sms);
+  kern<<<grid, RTHREADS, smem, st>>>(maps, a);
   return (int)cudaGetLastError();
-}
-
-int launch_narrow_bn(const ConvArgs& a, cudaStream_t st) {
-  if (a.Cout <= 32) return launch_narrow<32, 8>(a, st);
-  if (a.Cout <= 64) return launch_narrow<64, 4>(a, st);
-  return launch_narrow<128, 2>(a, st);
 }
 
 // One warp a timeline pixel: inv = rsqrt(sum_c x^2 + eps) in f32.
@@ -839,9 +953,10 @@ __global__ void conv_igemm_rms_inv(const bf16* x, const bf16* cache,
 }
 
 // ---------------------------------------------------------------------
-// float32 inputs (the TPU kernels' f32 mode: f32 products, f32 sums).  The
-// same implicit GEMM as the narrow route with BK = 16 channels a step (64
-// bytes a row, as the bf16 kernel's 32), on mma.sync.m16n8k8 in 3xTF32:
+// float32 inputs (the TPU kernels' f32 mode: f32 products, f32 sums).  An
+// implicit GEMM of 128-pixel x BN tiles, 8 warps, 3-stage cp.async
+// gathers of each tap's shifted pixels with BK = 16 channels a step (64
+// bytes a row), on mma.sync.m16n8k8 in 3xTF32:
 // each operand x is split into big = tf32(x) and small = tf32(x - big) and
 // a . b is summed as small_a * big_b + big_a * small_b + big_a * big_b (the
 // dropped terms are ~2^-22 of |a||b|, float32 accuracy; one TF32 pass
@@ -855,6 +970,18 @@ __global__ void conv_igemm_rms_inv(const bf16* x, const bf16* cache,
 // its TPU rule declines float32).
 // ---------------------------------------------------------------------
 
+constexpr int BM = 128;              // output pixels of a tile
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;
+
+// 16-byte async copy through L1 (the tap gathers re-read their
+// neighbours' pixels); bytes == 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sf_attn::smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
 constexpr int BKF = 16;              // channels of one f32 K step
 constexpr int LDF = BKF + 4;         // shared row stride (80 bytes)
 constexpr int F_CHUNKS = BKF / 4;    // 16-byte chunks of a row
@@ -1065,9 +1192,11 @@ int launch_plain_f32(const ConvArgsF& a, cudaStream_t st) {
 // ceil(C / 32) where bn divides Cout, Cout % 8 == 0 and there is no norm;
 // partials in ws f32 [splits, B*T*H*W, Cout]) on a persistent grid of
 // `grid` CTAs (1 to the item count); the norm prologue needs bn to divide
-// Cout.  Other C take the NARROW route (bn 0, splits 1, grid 0, no norm).
-// ops/cuda_conv.py::conv_plan picks bn, splits and grid.  Returns the CUDA
-// error code (0 on success).
+// Cout.  C <= 3 takes the NARROW route (bn 0, splits 1, grid 0, no norm;
+// the launcher sizes its persistent grid) with w the packed copy [Cout,
+// Cp = 96] (k = tap * C + c; ops/cuda_conv.py::rgb_weight).  Other C are
+// refused.  ops/cuda_conv.py::conv_plan picks the route, bn, splits and
+// grid.  Returns the CUDA error code (0 on success).
 extern "C" int conv3d_launch(const void* x, const void* cache, const void* w,
                              const void* bias, const void* res,
                              const void* inv, const void* gamma, void* out,
@@ -1077,10 +1206,12 @@ extern "C" int conv3d_launch(const void* x, const void* cache, const void* w,
                              void* stream) {
   const bool norm = inv != nullptr;
   const bool wide = C % 8 == 0;
+  if (!wide && (C > RMAX_C || Cp != RK)) return (int)cudaErrorInvalidValue;
   const bool even = bn > 0 && Cout % bn == 0;   // no masked channel tile
   const int nch = (C + CK - 1) / CK;
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 ||
-      Cp % 8 || Cp < C || (taps_t != 1 && taps_t != 3) || tau0 < 0 ||
+      (wide && (Cp % 8 || Cp < C)) || (taps_t != 1 && taps_t != 3) ||
+      tau0 < 0 ||
       tau0 + taps_t > 3 || (taps_t == 3 && tau0 != 0) ||
       (wide ? (bn != 32 && bn != 64 && bn != 96 && bn != 128 && bn != 192)
             : bn != 0) ||
@@ -1105,10 +1236,17 @@ extern "C" int conv3d_launch(const void* x, const void* cache, const void* w,
       return launch_wide_bn<true, false>(bn, x, cache, w, Cp, a, grid, st);
     return launch_wide_bn<false, false>(bn, x, cache, w, Cp, a, grid, st);
   }
-  ConvArgs a{(const bf16*)x, (const bf16*)cache,
-             (const bf16*)w + 9 * tau0 * Cp, (const float*)bias, (bf16*)out,
-             B, T, H, W, C, Cp, Cout, taps_t, tau0, 27 * Cp};
-  return launch_narrow_bn(a, st);
+  const int bn_rgb = Cout <= 32 ? 32 : 96;
+  const int wt = (W + RTW - 1) / RTW, nt = (Cout + bn_rgb - 1) / bn_rgb;
+  const long long items = (long long)B * T * H * wt * nt;
+  if ((long long)W * C > 0x7fffffff || items > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int shift = (8 - C % 8) % 8;   // (w0 - 1) C mod 8, w0 % 64 == 0
+  const RgbArgs a{(const bf16*)w, (const float*)bias, (bf16*)out, B, T, H,
+                  W, C, Cout, taps_t, tau0, wt, nt, (int)items,
+                  ((RTW + 2) * C + shift + 7) / 8 * 8, shift};
+  return bn_rgb == 32 ? launch_rgb<32>(x, cache, a, st)
+                      : launch_rgb<96>(x, cache, a, st);
 }
 
 // inv [B, 2 + T, H, W] f32 of the raw timeline [cache | x]; C % 8 == 0.

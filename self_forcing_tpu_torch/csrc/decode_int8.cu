@@ -87,10 +87,18 @@
 // registers, 64-key S halves in a software pipeline, a magic-number int
 // to float and a deeper K ring were each no faster.
 //
-// The pre-pass is one CTA of 1024 threads per (b*head, tile).
+// The V pre-pass (int8_quantize_v_kernel) moves a bf16 read and an int8
+// write of every V element of the live tiles: bound by memory (~0.15 GB,
+// 0.046 ms, at the global demo window).  A tile's scale needs its max
+// before its first element is quantized, so, as int8qk_quantize does for
+// K, a cluster of 8 CTAs takes one tile, each CTA a share of whole 16-key
+// groups (a group's slots mix its keys) staged in shared memory once, and
+// the partial maxima meet through distributed shared memory; each V
+// element is read from device memory once.
 
 #include <climits>
 #include <cstring>
+#include <initializer_list>
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -123,7 +131,12 @@ constexpr size_t SMEM = 1024 + (2 + KST + VST) * BOX + CONSUMERS * ACC +
 static_assert(64 * LDO <= ACC, "the staged output fits the sums' room");
 constexpr int VPAD = 64;        // V^T tiles are padded to this many keys
 
-constexpr int QTHREADS = 1024;  // pre-pass CTA
+// the V pre-pass: a cluster of VCL CTAs of VTHREADS a tile; a CTA's share
+// of a tile is whole 16-key groups, at most V_SHARE rows in the shared
+// memory a block may use (less the static arrays)
+constexpr int VCL = 8;
+constexpr int VTHREADS = 512;
+constexpr int V_SHARE = (232448 - 1024) / (D * 2) / 16 * 16;
 constexpr float FLOOR = 1e-8f;  // scale floor
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN127 = 4.844187086458591f;  // ln(127)
@@ -147,7 +160,8 @@ __device__ __forceinline__ int key_of_slot(int k) {
 
 // V cut into tiles: matrix m = b * N + n starts at
 // src + b * b_stride + n * n_stride (elements), rows of D bf16 at
-// row_stride; `rows` real rows in `n_tiles` tiles of `tile` rows.
+// row_stride; `rows` real rows in `n_tiles` tiles of `tile` rows, each
+// stored K-major padded to `tpad` keys.
 struct VSeg {
   const bf16* src;
   long long b_stride, n_stride, row_stride;
@@ -156,63 +170,126 @@ struct VSeg {
   float* scale;  // [B*N, n_tiles]
 };
 
-// One CTA per (matrix, tile) of the cache, then of v_new.
-__global__ void __launch_bounds__(QTHREADS, 2)
-int8_quantize_v_kernel(VSeg svc, VSeg svn, int BN, int N, int kv_start,
-                       int kv_end, int sink_end) {
-  __shared__ float red[QTHREADS / 32];
-  int idx = blockIdx.x;
-  const bool cache = idx < BN * svc.n_tiles;
-  const VSeg sg = cache ? svc : svn;
-  if (!cache) idx -= BN * svc.n_tiles;
-  const int m = idx / sg.n_tiles, t = idx % sg.n_tiles;
-  const int r0 = t * sg.tile;
-  float* scale = sg.scale + (long long)m * sg.n_tiles + t;
-  if (cache && !(r0 < sink_end || (r0 < kv_end && r0 + sg.tile > kv_start))) {
-    if (threadIdx.x == 0) *scale = 0.f;  // never visited
-    return;
+// One cluster of VCL CTAs per (matrix, tile) of v_new, then of the live
+// cache tiles [0, a1) and [b2, c2).  CTA `rank` takes the 16-key groups
+// [rank * share, (rank + 1) * share) of the tile's tpad / 16 (share =
+// ceil(groups / VCL)): it copies the rows of its groups that hold data
+// into shared memory once (16-byte cp.async) and takes their max there;
+// the VCL partial maxima meet through distributed shared memory; then
+// each lane takes one group and 4 columns, quantizes the group's 16 keys
+// and stores each column's 16 slots as one 16-byte word of V^T: the 16
+// lanes of a half-warp take 16 neighbouring groups, so a column's words
+// leave as 256 contiguous bytes.  Their 8-byte reads of 16 rows 16 keys
+// apart would meet in one bank: a staged row's 16-byte chunk c sits at c
+// ^ (group % 16).  Keys past the data (the tile's end, the padding to
+// tpad) store zeros.  The cluster of each matrix's first tile writes scale 0 for the
+// cache tiles the window does not meet, whose data is never written.
+__global__ void __cluster_dims__(VCL, 1, 1) __launch_bounds__(VTHREADS, 3)
+int8_quantize_v_kernel(VSeg svc, VSeg svn, int BN, int N, int a1, int b2,
+                       int c2) {
+  extern __shared__ uint4 vrows[];   // this CTA's rows of the tile, bf16
+  __shared__ float red[VTHREADS / 32];
+  __shared__ float part[VCL];        // each CTA's max |v| over its rows
+  int idx = blockIdx.x / VCL;
+  const int rank = (int)cluster_rank();
+  const int n_live = a1 + max(c2 - b2, 0);   // live cache tiles a matrix
+  VSeg sg = svn;
+  int m, t;
+  bool first;
+  if (idx < BN * svn.n_tiles) {
+    m = idx / svn.n_tiles, t = idx % svn.n_tiles;
+    first = t == 0;
+  } else {
+    sg = svc;
+    idx -= BN * svn.n_tiles;
+    m = idx / n_live, t = idx % n_live;
+    first = svn.n_tiles == 0 && t == 0;
+    t = t < a1 ? t : b2 + (t - a1);
   }
+  if (first && rank == 0)   // the dead cache tiles' scales
+    for (int x = threadIdx.x; x < svc.n_tiles; x += VTHREADS)
+      if (x >= a1 && !(x >= b2 && x < c2))
+        svc.scale[(long long)m * svc.n_tiles + x] = 0.f;
+  cluster_arrive_relaxed();
+  const int r0 = t * sg.tile;
+  const int groups = sg.tpad / 16, share = cdiv(groups, VCL);
+  const int g0 = min(rank * share, groups);
+  const int n_grp = min(share, groups - g0);   // groups this CTA writes
+  // rows of those groups that hold data
+  const int n_read = max(0, min(16 * n_grp, min(sg.tile, sg.rows - r0) -
+                                                16 * g0));
   const bf16* src = sg.src + (long long)(m / N) * sg.b_stride +
                     (long long)(m % N) * sg.n_stride +
-                    (long long)r0 * sg.row_stride;
-  const int nrows = min(sg.tile, sg.rows - r0);
-  constexpr int CH = D / 8;  // 16-byte chunks of a row
+                    (long long)(r0 + 16 * g0) * sg.row_stride;
 
-  float amax = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < nrows * CH; i += QTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        src + (long long)r * sg.row_stride + c);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  // 1. each element read once, straight into shared memory, then its max
+  constexpr int CH = D / 8;   // 16-byte chunks of a row
+  const int n_ch = n_read * CH;
+  for (int i = threadIdx.x; i < n_ch; i += VTHREADS) {
+    const int r = i / CH, c = i % CH;
+    cp_async16(&vrows[r * CH + (c ^ ((r / 16) % 16))],
+               src + (long long)r * sg.row_stride + c * 8, 16);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+  for (int i = threadIdx.x; i < n_ch; i += VTHREADS) {
+    const uint4 v = vrows[i];
+    m2 = abs_max2(abs_max2(abs_max2(abs_max2(m2, v.x), v.y), v.z), v.w);
+  }
+  float amax = fmaxf(__low2float(m2), __high2float(m2));
+  amax = block_max<VTHREADS>(amax, red);   // its barrier publishes vrows[]
+
+  // 2. the tile's max: every CTA's into every partner's part[rank]
+  cluster_wait();
+  if (threadIdx.x < VCL)
+    st_cluster_f32(map_rank(smem_u32(&part[rank]), threadIdx.x), amax);
+  cluster_arrive();
+  cluster_wait();
+  float tmax = part[0];
+#pragma unroll
+  for (int j = 1; j < VCL; ++j) tmax = fmaxf(tmax, part[j]);
+  const float s = fmaxf(__fdiv_rn(tmax, 127.f), FLOOR);   // as K's
+  const float rc = __frcp_rn(s);
+  if (rank == 0 && threadIdx.x == 0)
+    sg.scale[(long long)m * sg.n_tiles + t] = s;
+
+  // 3. V^T: word w of column d's 16 bytes holds slots 4 w .. 4 w + 3.
+  // Task (16-group block, chunk c): lane l takes group 16 block + l % 16,
+  // columns 8 c + 4 (l / 16) .. + 3.
+  i8* dst = sg.dst + ((long long)m * sg.n_tiles + t) * D * sg.tpad +
+            16 * g0;
+  const uint2* rows2 = reinterpret_cast<const uint2*>(vrows);
+  const int lane = threadIdx.x % 32;
+  const int tasks = CH * ((n_grp + 15) / 16);
+  for (int task = threadIdx.x / 32; task < tasks; task += VTHREADS / 32) {
+    const int gi = 16 * (task / CH) + lane % 16, c = task % CH;
+    if (gi >= n_grp) continue;
+    const int l = 2 * c + lane / 16;   // columns 4 l .. 4 l + 3
+    uint32_t col[4][4];   // [column 4 l + j][word]
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      uint32_t q[4][4];   // [slot 4 w + i][column 4 l + j]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * gi + key_of_slot(4 * w + i);
+        const uint2 v =
+            r < n_read ? rows2[r * (D / 4) + 2 * (c ^ (gi % 16)) + lane / 16]
+                       : make_uint2(0u, 0u);
+        q[i][0] = q8_bits(bf16_lo(v.x), s, rc);
+        q[i][1] = q8_bits(bf16_hi(v.x), s, rc);
+        q[i][2] = q8_bits(bf16_lo(v.y), s, rc);
+        q[i][3] = q8_bits(bf16_hi(v.y), s, rc);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        col[j][w] = low_bytes(q[0][j], q[1][j], q[2][j], q[3][j]);
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      amax = fmaxf(amax, fmaxf(fabsf(bf16_lo(w[j])), fabsf(bf16_hi(w[j]))));
-  }
-  amax = block_max<QTHREADS>(amax, red);
-  const float s = fmaxf(__fdiv_rn(amax, 127.f), FLOOR);  // as K's
-  if (threadIdx.x == 0) *scale = s;
-
-  // one 16-key group of one column d a step: 16 reads of consecutive d
-  // across the warp, one 16-byte store
-  i8* dst = sg.dst + ((long long)m * sg.n_tiles + t) * D * sg.tpad;
-  for (int i = threadIdx.x; i < D * (sg.tpad / 16); i += QTHREADS) {
-    const int d = i % D, grp = i / D;
-    int q[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int key = grp * 16 + key_of_slot(k);
-      q[k] = key < nrows
-                 ? quant1(__bfloat162float(
-                              src[(long long)key * sg.row_stride + d]),
-                          s)
-                 : 0;
-    }
-    *reinterpret_cast<uint4*>(dst + (long long)d * sg.tpad + grp * 16) =
-        make_uint4(pack4(q[0], q[1], q[2], q[3]),
-                   pack4(q[4], q[5], q[6], q[7]),
-                   pack4(q[8], q[9], q[10], q[11]),
-                   pack4(q[12], q[13], q[14], q[15]));
+      *reinterpret_cast<uint4*>(dst + (long long)(4 * l + j) * sg.tpad +
+                                16 * gi) =
+          make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
   }
 }
 
@@ -288,13 +365,6 @@ __device__ __forceinline__ bool edge(const Geo& g, const Tile& x, int u) {
   const int j0 = x.j0 + u * BK;
   return !x.fresh && (straddles(j0, g.sink_end) ||
                       straddles(j0, g.kv_start) || straddles(j0, g.kv_end));
-}
-
-// the low bytes of four words, a's lowest
-__device__ __forceinline__ uint32_t low_bytes(int a, int b, int c, int d) {
-  const uint32_t lo = __byte_perm(a, b, 0x0040);
-  const uint32_t hi = __byte_perm(c, d, 0x0040);
-  return __byte_perm(lo, hi, 0x5410);
 }
 
 template <int MODE>
@@ -695,9 +765,10 @@ int run(const Maps& maps, const Ops& ops, const Geo& geo, int B, int N,
 
 // Quantize the V tiles of layer `v_cache` ([B*N, S, D]) that meet the
 // window [0, sink_end) + [kv_start, kv_end) below cache_lim, and v_new
-// ([B, Lf, N*D]), each over its Pallas tile (tk, tf rows), into K-major
-// int8 V^T.  Launch on `stream`; returns the CUDA error code (0 on
-// success).
+// ([B, Lf, N*D]), each over its Pallas tile (tk, tf rows, padded to 64
+// keys; at most VCL * V_SHARE = 7168 padded keys), into K-major int8 V^T.
+// Launch on `stream`; returns the CUDA error code (0 on success;
+// cudaErrorInvalidValue for a larger tile).
 extern "C" int int8_quantize_v_launch(const void* v_cache, const void* v_new,
                                       void* vc8, void* vsc, void* vn8,
                                       void* vsf, int B, int N, int Lf, int S,
@@ -710,12 +781,25 @@ extern "C" int int8_quantize_v_launch(const void* v_cache, const void* v_new,
                  (i8*)vc8, (float*)vsc};
   const VSeg svn{(const bf16*)v_new, (long long)Lf * tok, D, tok, Lf, tf,
                  cdiv(Lf, tf), cdiv(tf, VPAD) * VPAD, (i8*)vn8, (float*)vsf};
-  const int tiles = svc.n_tiles + svn.n_tiles;
-  if (B * N <= 0 || tiles <= 0) return 0;
-  int8_quantize_v_kernel<<<B * N * tiles, QTHREADS, 0,
-                           (cudaStream_t)stream>>>(svc, svn, B * N, N,
-                                                   kv_start, kv_end,
-                                                   sink_end);
+  if (B * N <= 0 || svc.n_tiles + svn.n_tiles <= 0) return 0;
+  int share = 0;   // the largest share of a tile's rows, in shared memory
+  for (const VSeg* sg : {&svc, &svn})
+    if (sg->n_tiles > 0) share = max(share, 16 * cdiv(sg->tpad / 16, VCL));
+  if (share > V_SHARE) return (int)cudaErrorInvalidValue;
+  int a1, b2, c2;   // the live cache tiles: [0, a1) and [b2, c2)
+  live_ranges(svc.n_tiles, tk, kv_start, kv_end, sink_end, &a1, &b2, &c2);
+  const int live = a1 + (c2 - b2) + svn.n_tiles;
+  auto st = (cudaStream_t)stream;
+  if (live == 0)   // no cluster to write the dead tiles' scales
+    return (int)cudaMemsetAsync(vsc, 0, sizeof(float) * B * N * svc.n_tiles,
+                                st);
+  const int smem = share * D * (int)sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_quantize_v_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_quantize_v_kernel<<<VCL * B * N * live, VTHREADS, smem, st>>>(
+      svc, svn, B * N, N, a1, b2, c2);
   return (int)cudaGetLastError();
 }
 

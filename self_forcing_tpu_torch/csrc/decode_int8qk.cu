@@ -43,8 +43,6 @@
 // 16-byte int8 stores.  Only the live cache
 // tiles get a cluster.
 
-#include <cstring>
-
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
@@ -78,39 +76,6 @@ struct Seg {
   i8* dst;       // [B*N, n_tiles * tile, D]
   float* scale;  // [B*N, n_tiles]
 };
-
-// rint(v / s) as the low byte of the returned bits, with v / s correctly
-// rounded (true division) from rc = RN(1 / s): q0 = RN(v rc) is within an
-// ulp of v / s, the residual v - s q0 is exact by FMA, and q0 + residual *
-// rc rounds to RN(v / s) (Markstein's theorem; |v| <= 127 s and s >= 1e-8
-// keep every step normal where the rounding decides anything).  Adding
-// 1.5 * 2^23 then rounds the quotient half to even into the float's last
-// mantissa bits, whose low byte is the int8 in two's complement.  The
-// clip to [-127, 127] never binds: every |v| of a tile is at most its max
-// a <= 127 s (1 + 2^-24), so |v / s| rounds to at most 127.
-__device__ __forceinline__ uint32_t q8_bits(float v, float s, float rc) {
-  const float q0 = __fmul_rn(v, rc);
-  const float q = __fmaf_rn(__fmaf_rn(-q0, s, v), rc, q0);
-  return __float_as_uint(__fadd_rn(q, 12582912.f));
-}
-
-// the int8 of four bf16 (two packed pairs) at scale s, packed
-__device__ __forceinline__ uint32_t quant_pairs(uint32_t a, uint32_t b,
-                                                float s, float rc) {
-  const uint32_t lo = __byte_perm(q8_bits(bf16_lo(a), s, rc),
-                                  q8_bits(bf16_hi(a), s, rc), 0x0040);
-  const uint32_t hi = __byte_perm(q8_bits(bf16_lo(b), s, rc),
-                                  q8_bits(bf16_hi(b), s, rc), 0x0040);
-  return __byte_perm(lo, hi, 0x5410);
-}
-
-// the larger |x| of each half of a bf16 pair, kept as a pair (exact)
-__device__ __forceinline__ __nv_bfloat162 abs_max2(__nv_bfloat162 m,
-                                                   uint32_t w) {
-  __nv_bfloat162 x;
-  memcpy(&x, &w, 4);
-  return __hmax2(m, __habs2(x));
-}
 
 // One cluster of CL CTAs per (matrix, tile) of q, then of the live cache
 // tiles, then of k_new; CTA `rank` takes rows [rank * share, (rank + 1) *
@@ -239,11 +204,8 @@ extern "C" int int8qk_quantize_launch(const void* q, const void* k_cache,
   for (const Seg* sg : segs)
     if (sg->n_tiles > 0) share = max(share, cdiv(sg->tile, CL));
   if (share > MAX_SHARE) return (int)cudaErrorInvalidValue;
-  // the live cache tiles: [0, a1) and [b2, c2)
-  const int ntc = skc.n_tiles;
-  const int a1 = min(ntc, cdiv(max(sink_end, 0), tk));
-  const int b2 = max(a1, max(kv_start, 0) / tk);
-  const int c2 = max(b2, min(ntc, cdiv(max(kv_end, 0), tk)));
+  int a1, b2, c2;   // the live cache tiles: [0, a1) and [b2, c2)
+  live_ranges(skc.n_tiles, tk, kv_start, kv_end, sink_end, &a1, &b2, &c2);
   const int smem = share * D * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       int8qk_quantize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

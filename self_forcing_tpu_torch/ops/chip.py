@@ -19,15 +19,16 @@ _OVERRIDE: Optional[str] = None
 
 # device name prefix -> kernel defaults
 REGISTRY: dict[str, dict] = {
-    # Measured on the H100 (PERF.md, NVIDIA H100 80GB HBM3, 700 W): the
-    # int8-QK attention on int8 wgmma (decode_fresh.cu's INT8QK mode)
-    # takes 1.503 ms at the demo's global window, the bf16 decode kernel
-    # 1.494: int8 halves QK^T's tensor time, but the per-score
-    # dequantisation lengthens the softmax that bounds both.  With its
-    # pre-pass a demo forward is busy 92.4 ms against 88.7 with the bf16
-    # attention.  int8qk stays the demo pick, as bench.py runs the demo.
-    # The full-int8 attention ('int8') is ported and opt-in; fp8 linears
-    # are not ported.
+    # Measured on the H100 (PERF.md section 5, chip_smoke.py, NVIDIA H100
+    # 80GB HBM3, 700 W): the int8-QK attention on int8 wgmma
+    # (decode_fresh.cu's INT8QK mode) takes 1.503 ms at the demo's global
+    # window, the bf16 decode kernel 1.494: int8 halves QK^T's tensor
+    # time, but the per-score dequantisation lengthens the softmax that
+    # bounds both.  With its pre-pass a demo forward is busy 78.0 ms
+    # against 76.4 with the bf16 attention, and 89.5 with the full-int8
+    # attention ('int8': its softmax bounds it).  int8qk stays the demo
+    # pick, as bench.py runs the demo; 'int8' is opt-in; fp8 linears are
+    # not ported.
     "NVIDIA H100": {
         "attn_softmax": "free",
         "demo_attn_quant": "int8qk",

@@ -717,6 +717,11 @@ def decode_fresh_int8_ref(q, k_cache, v_cache, k_new, v_new, *, mode: str,
                            fresh_len=k_new.shape[1], **win)
 
 
+# the V pre-pass keeps a tile's whole 16-key groups in the shared memory
+# of a cluster of 8 CTAs (csrc/decode_int8.cu: V_SHARE rows each)
+INT8V_MAX_TILE = 8 * 896
+
+
 def int8_quantize_v(v_cache, v_new, *, layer_idx: int, kv_start: int,
                     kv_end: int, sink_end: int = 0,
                     static_hi: int | None = None, num_heads: int, tk: int,
@@ -746,6 +751,10 @@ def int8_quantize_v(v_cache, v_new, *, layer_idx: int, kv_start: int,
     lim = _cache_lim(S, kv_start, kv_end, sink_end, static_hi)
     ntc, ntf = _cdiv(lim, tk), _cdiv(Lf, tf)
     tpc, tpf = _cdiv(tk, V_PAD) * V_PAD, _cdiv(tf, V_PAD) * V_PAD
+    if any(n and tp > INT8V_MAX_TILE for tp, n in ((tpc, ntc), (tpf, ntf))):
+        raise ValueError(
+            f"int8_quantize_v: tiles {(tk, tf)} (a cluster of the kernel "
+            f"holds a tile of at most {INT8V_MAX_TILE} padded keys)")
     i8, f32 = torch.int8, torch.float32
     vv = Int8V(vc8=vc.new_empty(BN, ntc, D, tpc, dtype=i8),
                vsc=vc.new_empty(BN, ntc, dtype=f32),

@@ -21,8 +21,12 @@ Inside ``conv3d_launch`` a bf16 conv takes one of two routes, by shape,
 as :func:`conv_plan` decides and the launcher checks: 'wide' (C % 8 ==
 0; wgmma + TMA on halo tiles of 4 x 64 pixels, with the channel tile, K
 split and grid the plan picks, K-split partials in an f32 workspace this
-module allocates) or 'narrow' (the RGB input, whose 6-byte pixels TMA
-cannot stride).
+module allocates) or 'narrow' (the RGB input, C <= 3, whose 6-byte
+pixels TMA cannot stride: K packed as 27 taps x C, :func:`rgb_weight`;
+frames read as rows of W * C values, padded to a multiple of 8 by a copy
+where they are not; counted once more as ``conv3d_rgb``).  Other C % 8
+!= 0 are zero padded to a multiple of 8 channels (a copy of x and the
+cache, counted in ``layout_copies``) and take the wide route.
 
 The routing (which shapes take a kernel) and the plain versions live in
 ``ops/conv.py``; these wrappers take CUDA bf16 or float32 tensors (the
@@ -48,7 +52,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from self_forcing_tpu_torch.ops import build
 
 launch_counts = {"conv3d_fused": 0, "conv2d_9tap": 0, "conv3d_v2": 0,
-                 "norm_silu_conv3d": 0, "conv3d_f32": 0}
+                 "norm_silu_conv3d": 0, "conv3d_f32": 0, "conv3d_rgb": 0}
 
 layout_copies = {"activations": 0}
 copied: list = []
@@ -57,6 +61,8 @@ copied: list = []
 # channels of one K step
 TR, TW, CK = 4, 64, 32
 MAX_SPLITS = 16
+# the narrow route: inputs of at most RGB_MAX_C channels, K packed to RGB_K
+RGB_MAX_C, RGB_K = 3, 96
 # a K split must promise this much in conv_plan's model to be taken: the
 # model leaves out the partials' traffic and their reduction, which made a
 # promised 19% gain a 12% loss at 60x104, 384 channels
@@ -75,6 +81,20 @@ def reset_launch_counts() -> None:
     copied.clear()
 
 
+def _made_once(w: torch.Tensor, key, make) -> torch.Tensor:
+    """``make()``, a kernel copy of parameter ``w``, kept under ``key`` for
+    as long as ``w`` lives and is not written in place."""
+    made = _weights.get(w)
+    hit = None if made is None else made.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    out = make()
+    if made is None:
+        made = _weights[w] = {}
+    made[key] = (w._version, out)
+    return out
+
+
 def kernel_weight(w: torch.Tensor,
                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The kernel layout of a conv weight [Cout, C, 3, 3, 3] in ``dtype``
@@ -82,27 +102,35 @@ def kernel_weight(w: torch.Tensor,
     channels zero padded to 16 bytes (a multiple of 8 bf16 or 4 float32);
     made once per parameter and dtype (and again after an in-place write
     to it)."""
-    made = _weights.get(w)
-    hit = None if made is None else made.get(dtype)
-    if hit is not None and hit[0] == w._version:
-        return hit[1]
-    Cout, C = w.shape[:2]
-    step = 16 // torch.tensor([], dtype=dtype).element_size()
-    Cp = -(-C // step) * step
-    wk = w.detach().permute(0, 2, 3, 4, 1).reshape(Cout, 27, C)
-    wk = F.pad(wk.to(dtype), (0, Cp - C)).contiguous()
-    if made is None:
-        made = _weights[w] = {}
-    made[dtype] = (w._version, wk)
-    return wk
+    def make():
+        Cout, C = w.shape[:2]
+        step = 16 // torch.tensor([], dtype=dtype).element_size()
+        wk = w.detach().permute(0, 2, 3, 4, 1).reshape(Cout, 27, C)
+        return F.pad(wk.to(dtype), (0, -(-C // step) * step - C)).contiguous()
+    return _made_once(w, dtype, make)
+
+
+def rgb_weight(w: torch.Tensor) -> torch.Tensor:
+    """The narrow route's weight [Cout, C <= 3, 3, 3, 3] as bf16 [Cout,
+    RGB_K], K packed as k = ((kt * 3 + di) * 3 + dj) * C + c and zero
+    past 27 C: for output pixel w, the 3 C values of k = (kt, di, *, *)
+    are the contiguous run [C (w - 1), C (w + 2)) of image row h + di - 1
+    of timeline frame t + kt, seen as rows of W * C values.  Made once per
+    parameter, as :func:`kernel_weight`."""
+    def make():
+        Cout, C = w.shape[:2]
+        wk = w.detach().permute(0, 2, 3, 4, 1).reshape(Cout, 27 * C)
+        return F.pad(wk.to(torch.bfloat16), (0, RGB_K - 27 * C)).contiguous()
+    return _made_once(w, "rgb", make)
 
 
 def conv_plan(B: int, T: int, H: int, W: int, C: int, Cout: int,
               taps_t: int, sms: int, norm: bool = False) -> dict:
     """The bf16 kernel's route and work split on a card of ``sms`` SMs:
-    ``route`` 'wide' for C % 8 == 0, else 'narrow' (bn 0, splits 1, grid
-    0).  The wide route's output-channel tile ``bn``, ``tiles`` (4 x
-    64-pixel tiles x channel tiles), ``ksteps`` (temporal taps x
+    ``route`` 'narrow' for C <= 3 (bn 0, splits 1, grid 0: the launcher
+    sizes its grid), else 'wide' (at C rounded up to 8, the channels the
+    wrapper pads to).  The wide route's output-channel tile ``bn``,
+    ``tiles`` (4 x 64-pixel tiles x channel tiles), ``ksteps`` (temporal taps x
     32-channel steps a tile), ``splits``, the runs its K steps are cut
     into (1 for the ``norm`` + SiLU conv), and ``grid``, the persistent
     CTAs (one an SM, at most one an item).  An item costs its
@@ -115,9 +143,10 @@ def conv_plan(B: int, T: int, H: int, W: int, C: int, Cout: int,
     where 32 does not divide Cout: the RGB head).  A K split writes f32
     partials that a second pass sums: it is taken where it beats no split
     by SPLIT_GAIN."""
-    if C % 8:
+    if C <= RGB_MAX_C:
         return dict(route="narrow", bn=0, tiles=None, ksteps=None,
                     splits=1, grid=0)
+    C = -(-C // 8) * 8
     mtiles = B * T * -(-H // TR) * -(-W // TW)
     ksteps = taps_t * -(-C // CK)
 
@@ -148,6 +177,14 @@ def _sm_count(device: torch.device) -> int:
     return _sms[device]
 
 
+def _copy(name: str, t: torch.Tensor, made: torch.Tensor) -> torch.Tensor:
+    """Count ``made``, a copy of activation ``t`` in the kernel's layout."""
+    layout_copies["activations"] += 1
+    if len(copied) < 8:
+        copied.append((name, tuple(t.shape), t.stride()))
+    return made
+
+
 def _cl(name: str, t: torch.Tensor,
         dtypes=(torch.bfloat16, torch.float32)) -> torch.Tensor:
     if t.dtype not in dtypes:
@@ -157,10 +194,7 @@ def _cl(name: str, t: torch.Tensor,
         raise ValueError(f"{name}: the kernel takes CUDA tensors")
     if t.is_contiguous():
         return t
-    layout_copies["activations"] += 1
-    if len(copied) < 8:
-        copied.append((name, tuple(t.shape), t.stride()))
-    return t.contiguous()
+    return _copy(name, t, t.contiguous())
 
 
 def _launch(name: str, fn: str, *args) -> None:
@@ -188,14 +222,34 @@ def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
         raise ValueError(f"{name}: cache {tuple(cache.shape)} "
                          f"{cache.dtype} for x {tuple(x.shape)} {x.dtype}")
     f32 = x.dtype == torch.float32
-    wk = kernel_weight(w, x.dtype)
-    Cout, _, Cp = wk.shape
     if w.shape[1] != C:
         raise ValueError(f"{name}: weight {tuple(w.shape)} for {C} input "
                          f"channels")
+    Cout = w.shape[0]
     bias = None if b is None else b.detach().float().contiguous()
     out = torch.empty(B, T, H, W, Cout, dtype=x.dtype, device=x.device)
     tau0 = tau0 if taps_t == 1 else 0
+    if not f32 and C <= RGB_MAX_C and not norm:
+        # the narrow route's TMA boxes read frames of H rows of W * C values
+        # from 16-byte aligned rows: pad the rows where W * C % 8 != 0 (a
+        # copy), copy a base that is not 16-byte aligned
+        pad = -(W * C) % 8
+        x, cache = (
+            _copy(name, t, F.pad(t.reshape(*t.shape[:3], W * C), (0, pad)))
+            if pad else t if t.data_ptr() % 16 == 0
+            else _copy(name, t, t.clone()) for t in (x, cache))
+        _launch(name, "conv3d_launch", x, cache, rgb_weight(w), bias, None,
+                None, None, out, None, B, T, H, W, C, RGB_K, Cout, taps_t,
+                tau0, 0, 1, 0, 0.0)
+        launch_counts[name] += 1
+        launch_counts["conv3d_rgb"] += 1
+        return out
+    if not f32 and C % 8 and not norm:
+        pad = -C % 8   # zero channels, the weight copy's padding
+        x, cache = (_copy(name, t, F.pad(t, (0, pad))) for t in (x, cache))
+        C += pad
+    wk = kernel_weight(w, x.dtype)
+    Cp = wk.shape[2]
     if f32:
         # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
         _launch(name, "conv3d_f32_launch", x, cache, wk[:, 9 * tau0], bias,

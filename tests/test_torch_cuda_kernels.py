@@ -515,6 +515,56 @@ def test_decode_fresh_int8_matches_plain(dev, mode, case):
     assert _rel_l2(out, ref) < 1e-2, _rel_l2(out, ref)
 
 
+# (B, N, S, Lf, kv_start, kv_end, sink_end, static_hi, tk, tf)
+INT8V_CASES = {
+    # the 1.3B global demo window at block 7, 2 heads
+    "global": (1, 2, 32768, 4680, 0, 28080, 0, 28080, 2048, 1184),
+    # the windowed steady state: the sink tile, a window from mid-buffer
+    "windowed": (1, 2, 37440, 4680, 19500, 32760, 1560, None, 1560, 1184),
+    # a sink inside a tile, kv_start mid-tile, batch 2
+    "sink_in_tile": (2, 3, 5000, 300, 2600, 4100, 700, None, 1000, 224),
+    # tiles of no multiple of 16, a partial last cache tile
+    "ragged": (1, 2, 2000, 75, 1010, 1930, 0, 1999, 1003, 37),
+    # the largest tile a cluster holds: 7168 padded keys
+    "largest_tile": (1, 1, 8000, 100, 0, 7168, 0, None, 7168, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8V_CASES))
+def test_int8_quantize_v_bit_equal(dev, case):
+    """The V pre-pass against its plain version bit for bit: the scales
+    (0 for the cache tiles the window does not meet) and every live tile's
+    K-major int8, its padding to 64 keys included; two runs equal."""
+    B, N, S, Lf, lo, hi, sink, static_hi, tk, tf = INT8V_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(35)
+    vc = _bf16(g, 2, B * N, S, 128, dev=dev, scale=3.0)
+    vn = _bf16(g, B, Lf, N * 128, dev=dev)
+    win = dict(layer_idx=1, kv_start=lo, kv_end=hi, sink_end=sink,
+               static_hi=static_hi, num_heads=N, tk=tk, tf=tf)
+    ca.reset_launch_counts()
+    vv = ca.int8_quantize_v(vc, vn, **win)
+    again = ca.int8_quantize_v(vc, vn, **win)
+    ref = ca.int8_quantize_v_ref(vc, vn, **win)
+    torch.cuda.synchronize()
+    assert ca.launch_counts["int8_quantize_v"] == 2
+    live = torch.tensor(ca.live_cache_tiles(vv.vsc.shape[1], tk, lo, hi,
+                                            sink), device=dev)
+    for got in (vv, again):
+        for name in ("vsc", "vn8", "vsf"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(got.vc8[:, live], ref.vc8[:, live])
+    assert (vv.vsc[:, ~live] == 0).all()
+
+
+def test_int8_quantize_v_refuses_a_tile_past_the_cluster(dev):
+    g = torch.Generator(device=dev).manual_seed(36)
+    vc = _bf16(g, 1, 1, 8000, 128, dev=dev)
+    vn = _bf16(g, 1, 64, 128, dev=dev)
+    with pytest.raises(ValueError):
+        ca.int8_quantize_v(vc, vn, layer_idx=0, kv_start=0, kv_end=7232,
+                           num_heads=1, tk=7232, tf=64)
+
+
 @pytest.mark.parametrize("mode", ["tile", "global", "online"])
 def test_int8_dead_gap_does_not_move_the_output(dev, mode):
     """Poison in the whole cache tiles between the sink and the window
@@ -1198,6 +1248,85 @@ def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
         cc.conv3d(x, cache[:, :1], w, b)
     with pytest.raises(TypeError):
         cc.norm_silu_conv3d(x[0].float(), cache[0].float(), b.float(), w, b)
+
+
+# the RGB input's route (C <= 3): K packed as 27 taps x C, one output row
+# of 64 pixels an item, its halo one TMA box a temporal tap (rows of W C
+# values, padded by the wrapper to a multiple of 8 where W C is not)
+RGB_CASES = {
+    "T1_W832": (1, 1, 6, 832, 3, 96),      # the first frame: cache frames
+    "T4_W832": (1, 4, 5, 832, 3, 96),      # an encode chunk's width
+    "T2_W63": (1, 2, 7, 63, 3, 96),        # below one 64-pixel item
+    "T3_W64": (1, 3, 9, 64, 3, 32),        # exactly one item
+    "T4_W65": (2, 4, 3, 65, 3, 3),         # one pixel past it, batch 2
+    "T2_W130_C2": (1, 2, 4, 130, 2, 12),   # two channels, ragged Cout
+    "T1_W70_C1": (1, 1, 11, 70, 1, 384),   # one channel, 4 channel tiles
+}
+
+
+@pytest.mark.parametrize("case", list(RGB_CASES))
+def test_conv3d_rgb_route_matches_plain(dev, case):
+    """The narrow route against the plain conv: every pixel (1e-2 relative
+    L2, the VAE's conv rows' limit; the kernel sums bf16 products in f32
+    from the bias in another order), the frame's border pixels alone (the
+    halo columns past the frame are zeroed in shared memory, the rows
+    past it loaded from past the tensor's end), cache frames with other
+    values than x; two runs bit-equal."""
+    B, T, H, W, C, Cout = RGB_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(32)
+    x, cache, w, b = _conv_operands(g, dev, B, T, H, W, C, Cout)
+    cc.reset_launch_counts()
+    out = tconv.conv3d_fused(x, cache, w, b)
+    again = tconv.conv3d_fused(x, cache, w, b)
+    ref = tconv.conv3d_ref(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["conv3d_rgb"] == 2
+    assert cc.launch_counts["conv3d_fused"] == 2
+    assert torch.equal(out, again)
+    assert torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) < 1e-2
+    edge = torch.ones(H, W, dtype=torch.bool, device=dev)
+    edge[1:-1, 1:-1] = False
+    assert _rel_l2(out[:, :, edge], ref[:, :, edge]) < 1e-2
+    assert _rel_l2(out[:, :1], ref[:, :1]) < 1e-2
+
+
+@pytest.mark.parametrize("T,tau", [(1, 0), (2, 1), (3, 2)])
+def test_conv2d_tap_rgb_route_matches_plain(dev, T, tau):
+    """One temporal tap on the narrow route (the weights from k = 9 C tau
+    of the packed copy): frames from the cache and from x."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    x, cache, w, b = _conv_operands(g, dev, 1, T, 7, 66, 3, 96)
+    out = cc.conv2d_tap(x, cache, w, b, tau)
+    ref = tconv.conv2d_tap_ref(x, cache, w, b, tau)
+    torch.cuda.synchronize()
+    assert _rel_l2(out, ref) < 1e-2
+
+
+def test_conv_rgb_route_takes_unaligned_views_and_pads_other_widths(dev):
+    """A contiguous view whose base is not 16-byte aligned is copied first
+    (one layout copy; its rows of W * C = 48 values need no padding); 5
+    channels are zero padded to 8 and take the wide route (two copies: x
+    and the cache)."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    xs, cache, w, b = _conv_operands(g, dev, 1, 2, 7, 16, 3, 32)
+    buf = torch.empty(xs.numel() + 1, dtype=xs.dtype, device=dev)
+    x = buf[1:].view(xs.shape)   # 2 bytes past the allocation's base
+    x.copy_(xs)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    cc.reset_launch_counts()
+    out = tconv.conv3d_fused(x, cache, w, b)
+    torch.cuda.synchronize()
+    assert cc.layout_copies["activations"] == 1
+    assert cc.launch_counts["conv3d_rgb"] == 1
+    assert _rel_l2(out, tconv.conv3d_ref(x, cache, w, b)) < 1e-2
+    x5, cache5, w5, b5 = _conv_operands(g, dev, 1, 2, 6, 70, 5, 64)
+    cc.reset_launch_counts()
+    out = tconv.conv3d_fused(x5, cache5, w5, b5)
+    torch.cuda.synchronize()
+    assert cc.layout_copies["activations"] == 2
+    assert cc.launch_counts["conv3d_rgb"] == 0
+    assert _rel_l2(out, tconv.conv3d_ref(x5, cache5, w5, b5)) < 4e-3
 
 
 def test_kernel_weight_is_made_once_and_follows_writes(dev):
