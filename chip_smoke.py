@@ -978,7 +978,9 @@ def phase_window_kernels(ca, g) -> dict:
     ``_decode_kernel``) at the 1.3B global window: 4680 queries onto keys
     [0, 28080) of a 32760-token folded cache, 12 heads of 128, in bf16
     (1e-2 relative L2: p rounded to bf16 for P.V) and float32 (3xTF32
-    products: 1e-4), against the port of ``decode_attention_xla`` in
+    products on tf32 wgmma, after the pre-pass that splits the window's K
+    and V^T, timed together: 1e-4), against the port of
+    ``decode_attention_xla`` in
     float32 (TF32 off).  Library yardstick: SDPA on the window slice (the
     same dtype).  The float32 bound counts the three TF32 tensor-core
     products that form each 3xTF32 product (495 / 3 TFLOP/s)."""
@@ -1848,11 +1850,17 @@ def phase_conv_kernels(tconv, g) -> dict:
     del x, cache
     torch.cuda.empty_cache()
 
-    # the float32 mode (3xTF32 products) at the decoder's 96-channel
-    # full-resolution shape, against the plain float32 conv (TF32 off):
-    # 1e-4; library yardstick cuDNN's float32 conv with TF32 off; the
-    # bound counts the three TF32 products of each 3xTF32 product
-    x, cache, w, b = (t.float() for t in operands(1, 4, 480, 832, 96, 96))
+    # the float32 mode (3xTF32 products on tf32 wgmma) at the decoder's
+    # 96-channel full-resolution shape, on float32 operands with all 24
+    # mantissa bits (bf16 values would leave the small tf32 parts zero),
+    # against the plain float32 conv (TF32 off): 1e-4; library yardstick
+    # cuDNN's float32 conv with TF32 off; the bound counts the three TF32
+    # products of each 3xTF32 product
+    x = torch.randn(1, 4, 480, 832, 96, generator=g, device=dev)
+    cache = torch.randn(1, 2, 480, 832, 96, generator=g, device=dev)
+    w = (torch.randn(96, 96, 3, 3, 3, generator=g, device=dev)
+         * (27 * 96) ** -0.5)
+    b = torch.randn(96, generator=g, device=dev) * 0.1
     out = tconv.conv3d_fused(x, cache, w, b)
     ref = tconv.conv3d_ref(x, cache, w, b)
     err, mae = check_kernel("conv3d_f32", out, ref, tol=1e-4)
@@ -1866,8 +1874,8 @@ def phase_conv_kernels(tconv, g) -> dict:
     print(f"kernel conv3d_f32 (float32 [1, 4, 480, 832, 96]->96, 1 "
           f"launch): rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} cudnn_f32_ms={lib:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) tflops={flops / ms / 1e9:.1f}",
-          flush=True)
+          f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
+          f"tflops={flops / ms / 1e9:.1f}", flush=True)
     table["conv3d_f32"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                                bound_ms=b_ms, bound_by=b_by, max_abs_err=mae)
     del x, cache, w, b

@@ -1,14 +1,6 @@
 // Device helpers shared by the attention kernels: cp.async tile loads,
-// ldmatrix, the m16n8k16 bf16 tensor-core product and small conversions;
-// the 3xTF32 split and m16n8k8 TF32 product of the float32 kernels.
-//
-// Register layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major) a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
-//                        a2: (g, 2t+8..)     a3: (g+8, 2t+8..)
-//   B (16x8, col)        b0: (k 2t..2t+1, n g)  b1: (k 2t+8.., n g)
-//   C (16x8, f32)        c0,c1: (g, 2t..2t+1)   c2,c3: (g+8, 2t..)
-// so the accumulators of two adjacent 8-wide key tiles, packed to bf16
-// pairs, are the A operand of the next product over those 16 keys.
+// the live-tile walk, small conversions, the 3xTF32 split of the float32
+// kernels (decode_window_f32, conv3d_f32) and the int8 helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,23 +30,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The next tile index >= t (tiles of BK columns: cache tiles first, then
@@ -92,8 +67,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 3xTF32 helpers (the float32 kernels: decode_window_f32, conv3d_f32)
 // ---------------------------------------------------------------------
 
-// x = big + small with both parts rounded to TF32 (the residual of the
-// split is ~2^-22 of |x|)
+// x = big + small with both parts rounded to TF32 (round to nearest, ties
+// away: cvt.rna), small = tf32(x - big); the residual of the split is
+// ~2^-22 of |x|.  a . b is then small_a big_b + big_a small_b + big_a big_b
+// (3xTF32; ops/cuda_conv.py::split_tf32 splits the conv weights alike).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
@@ -101,15 +78,18 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(r));
 }
 
-// c += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.  a0 (g, t)
-// a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4); b0 (k t, n g) b1 (k t+4, n g).
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// split_tf32 of each of four values
+__device__ __forceinline__ void split_tf32(float4 x, float4& big,
+                                           float4& small) {
+  uint32_t b[4], s[4];
+  split_tf32(x.x, b[0], s[0]);
+  split_tf32(x.y, b[1], s[1]);
+  split_tf32(x.z, b[2], s[2]);
+  split_tf32(x.w, b[3], s[3]);
+  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                    __uint_as_float(b[2]), __uint_as_float(b[3]));
+  small = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                      __uint_as_float(s[2]), __uint_as_float(s[3]));
 }
 
 // ---------------------------------------------------------------------

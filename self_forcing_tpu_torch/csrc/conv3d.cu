@@ -70,6 +70,10 @@
 // wgmma with A from registers over K packed as 27 taps x C (96), one
 // output row of 64 pixels an item, its halo loaded by one TMA box a
 // temporal tap (the section below).  No NORM, no split.
+//
+// FLOAT32 (conv3d_f32_launch: float32 x, C % 4 == 0): the wide route's
+// halo tiles, persistent grid and K split in 3xTF32 on tf32 wgmma (the
+// last section).
 
 #include <cstring>
 
@@ -77,10 +81,6 @@
 #include "hopper.cuh"
 
 using sf_attn::bf16;
-using sf_attn::cp_async16;
-using sf_attn::cp_async_commit;
-using sf_attn::cp_async_wait;
-using sf_attn::mma_tf32;
 using sf_attn::split_tf32;
 using namespace sf_hopper;
 
@@ -154,8 +154,8 @@ struct Item {
   int b, t, h0, w0, n0, k0, k1, s;
 };
 
-template <int BN>
-__device__ __forceinline__ Item decode_item(const WideArgs& a, int i) {
+template <int BN, class Args>
+__device__ __forceinline__ Item decode_item(const Args& a, int i) {
   Item it;
   it.s = i % a.splits;
   i /= a.splits;
@@ -506,12 +506,13 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
-// out = bf16(sum_s ws[s] (in split order) + bias); 8 channels a thread
-// (Cout % 8 == 0)
+// out = sum_s ws[s] (in split order) + bias, rounded to bf16 once (F32:
+// kept float32); 8 channels a thread (Cout % 8 == 0)
+template <bool F32>
 __global__ void conv_igemm_reduce(const float* __restrict__ ws, int splits,
                                   long long MN, int Cout,
                                   const float* __restrict__ bias,
-                                  bf16* __restrict__ out) {
+                                  void* __restrict__ out) {
   const long long i =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
   if (i >= MN) return;
@@ -532,10 +533,18 @@ __global__ void conv_igemm_reduce(const float* __restrict__ ws, int splits,
   if (bias != nullptr)
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] += bias[n + e];
-  __align__(16) __nv_bfloat162 o[4];
+  if constexpr (F32) {
+    float* o = reinterpret_cast<float*>(out) + i;
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    __align__(16) __nv_bfloat162 o[4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  *reinterpret_cast<uint4*>(out + i) = *reinterpret_cast<const uint4*>(o);
+    for (int e = 0; e < 4; ++e)
+      o[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(out) + i) =
+        *reinterpret_cast<const uint4*>(o);
+  }
 }
 
 template <int BN, bool NORM, bool RES>
@@ -576,8 +585,9 @@ int launch_wide(const void* x, const void* cache, const void* w, int Cp,
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   const long long MN = (long long)a.B * a.T * a.H * a.W * a.Cout;
   const int threads = 256;
-  conv_igemm_reduce<<<(unsigned)((MN / 8 + threads - 1) / threads), threads,
-                      0, st>>>(a.ws, a.splits, MN, a.Cout, a.bias, a.out);
+  conv_igemm_reduce<false><<<(unsigned)((MN / 8 + threads - 1) / threads),
+                             threads, 0, st>>>(a.ws, a.splits, MN, a.Cout,
+                                               a.bias, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -952,231 +962,325 @@ __global__ void conv_igemm_rms_inv(const bf16* x, const bf16* cache,
   if (lane == 0) inv[pix] = rsqrtf(s + eps);
 }
 
-// ---------------------------------------------------------------------
-// float32 inputs (the TPU kernels' f32 mode: f32 products, f32 sums).  An
-// implicit GEMM of 128-pixel x BN tiles, 8 warps, 3-stage cp.async
-// gathers of each tap's shifted pixels with BK = 16 channels a step (64
-// bytes a row), on mma.sync.m16n8k8 in 3xTF32:
-// each operand x is split into big = tf32(x) and small = tf32(x - big) and
-// a . b is summed as small_a * big_b + big_a * small_b + big_a * big_b (the
-// dropped terms are ~2^-22 of |a||b|, float32 accuracy; one TF32 pass
-// would leave ~5e-4).  Each 8-channel step's three products go to a zeroed
-// accumulator added to the running sum with one rounded f32 add: the
+// =====================================================================
+// FLOAT32 route: the wide route's halo tiles in 3xTF32 on tf32 wgmma
+// =====================================================================
+//
+// float32 inputs (the TPU kernels' f32 mode: f32 products, f32 sums).
+// Every product in 3xTF32: an operand x is split into big = tf32(x) and
+// small = tf32(x - big) (rounded to nearest: split_tf32) and a . b is
+// summed as small_a big_b + big_a small_b + big_a big_b (the dropped terms
+// are ~2^-22 of |a||b|: float32 accuracy; one TF32 pass leaves ~5e-4).
+// What bounds it: 2 * 27 * C * Cout products a pixel at 495 / 3 TFLOP/s
+// (4.8 ms at [1, 4, 480, 832, 96] -> 96).  The wide route's plan with
+// f32 operands: a tile of 4 x 64 pixels by bn (96, 64 or 32) channels,
+// K steps of one temporal tap x 16 channels (64 bytes a pixel, so a halo
+// box of 4 channels lands as the bf16 route's 8-channel one: the same
+// unswizzled core matrices and shifted tap descriptors; the weights' box
+// of 16 channels the same 64-byte swizzle), persistent CTAs, the same
+// deterministic K split.  The weights are split once per parameter on
+// the host (ops/cuda_conv.py::f32_weight: big and small [Cout, 27, Cp]
+// copies, one TMA box each a tap); a halo box is split once where it is
+// staged, by three warps of the producer warpgroup (big in place, small
+// beside it) while the consumers run the stage before, so every one of
+// the 9 taps' 3 products reads both operands from shared memory (N = bn:
+// 15 KB read for 144 clocks of products at bn 96).  Accumulation: the
 // tensor cores' f32 accumulation truncates, with an error that grows with
-// the running sum over the 27 * C terms.  Rows padded to 20 floats: the
-// (g, t) scalar fragment reads hit 32 distinct banks.  Weights: the f32
-// K-contiguous copy [Cout, 27, Cp] (Cp = C rounded up to 4).  No norm
-// prologue or residual (the fused norm + SiLU kernel takes bf16 only, as
-// its TPU rule declines float32).
-// ---------------------------------------------------------------------
+// the chain, so each K step's products (9 taps x 2 k-steps x 3 = 54 wgmma
+// a row) form one chain that is added to the running sum with one
+// rounded f32 add (the running sums and the chains: 4 x bn / 2
+// registers).  The output is stored as f32 pairs from the accumulator
+// layout.  No norm prologue or residual (the fused norm + SiLU kernel
+// takes bf16 only, as its TPU rule declines float32).
 
-constexpr int BM = 128;              // output pixels of a tile
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
+constexpr int FCK = 16;                  // channels of an f32 K step
+constexpr int F_GROUPS = FCK / 4;        // 4-channel TMA boxes of a step
+constexpr int F_PART = F_GROUPS * A_LBO; // a halo part (big or small)
+constexpr int F_A_STRIDE = 2 * F_PART;   // a halo stage: big, then small
+constexpr int F_A_BYTES = F_GROUPS * A_BOX;   // TMA bytes of a stage
+constexpr int F_SPLITTERS = 96;          // producer threads that split
+static_assert(F_A_STRIDE % 1024 == 0, "halo stage alignment");
 
-// 16-byte async copy through L1 (the tap gathers re-read their
-// neighbours' pixels); bytes == 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
-                                              int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sf_attn::smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-constexpr int BKF = 16;              // channels of one f32 K step
-constexpr int LDF = BKF + 4;         // shared row stride (80 bytes)
-constexpr int F_CHUNKS = BKF / 4;    // 16-byte chunks of a row
-constexpr int F_PASS = THREADS / F_CHUNKS;
-constexpr int F_ITERS = BM / F_PASS;
-
-struct ConvArgsF {
-  const float* x;      // [B, T, H, W, C]
-  const float* cache;  // [B, 2, H, W, C]
-  const float* w;      // [Cout, ., Cp] at the first tap used, row w_stride
-  const float* bias;   // [Cout] or null
-  float* out;          // [B, T, H, W, Cout]
-  int B, T, H, W, C, Cp, Cout;
-  int taps_t, tau0, w_stride;
+template <int BN>
+struct WideF {
+  // ring depths: 2 halo and 10 tap stages (3 and 6, 2 and 8 measured
+  // 8% and 2% slower at [1, 4, 480, 832, 96] -> 96: PERF.md)
+  static constexpr int A_STAGES = 2;
+  static constexpr int B_STAGES = 10;
+  static constexpr int B_PART = BN * FCK * 4;   // a tap's weights, one part
+  static constexpr int B_BYTES = 2 * B_PART;
+  static constexpr int SMEM = 1024 + A_STAGES * F_A_STRIDE +
+                              B_STAGES * B_BYTES +
+                              (3 * A_STAGES + 2 * B_STAGES) * 8;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(B_PART % 512 == 0, "64-byte swizzle alignment");
 };
 
-__device__ __forceinline__ const float* tap_pixel_f(const ConvArgsF& a,
-                                                    int b, int t, int h,
-                                                    int w, int kt, int di,
-                                                    int dj) {
-  const int hh = h + di - 1, ww = w + dj - 1;
-  if (hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) return nullptr;
-  const int f = t + a.tau0 + kt;
-  const long long p = (long long)hh * a.W + ww;
-  const long long HW = (long long)a.H * a.W;
-  if (f < NCACHE) return a.cache + ((b * NCACHE + f) * HW + p) * a.C;
-  return a.x + (((long long)b * a.T + f - NCACHE) * HW + p) * a.C;
+struct WideMapsF {
+  CUtensorMap x;      // f32 (C, W, H, B*T), box (4, HC, HR, 1)
+  CUtensorMap cache;  // f32 (C, W, H, B*2), box (4, HC, HR, 1)
+  CUtensorMap wb;     // f32 (Cp, 27, Cout), box (FCK, 1, BN), 64B swizzle:
+  CUtensorMap ws;     //   the weights' big and small parts
+};
+
+struct WideArgsF {
+  const float* bias;   // [Cout] or null
+  float* out;          // [B, T, H, W, Cout]
+  float* part;         // [splits, B*T*H*W, Cout] f32 partials (splits > 1)
+  int B, T, H, W, C, Cout, taps_t, tau0, splits;
+  int mt, wt, nt, nch, items;   // as WideArgs (nch: 16-channel steps)
+};
+
+// d (+)= small_a big_b + big_a small_b + big_a big_b (accumulate 0 starts
+// the chain)
+template <int BN>
+__device__ __forceinline__ void mma3(float (&d)[BN / 2], uint64_t a_big,
+                                     uint64_t a_small, uint64_t b_big,
+                                     uint64_t b_small, int accumulate) {
+  WgmmaTf32<BN>::ss(d, a_small, b_big, accumulate);
+  WgmmaTf32<BN>::ss(d, a_big, b_small, 1);
+  WgmmaTf32<BN>::ss(d, a_big, b_big, 1);
 }
 
-template <int BN, int WARPS_M, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    conv_igemm_f32(const ConvArgsF a) {
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
-  constexpr int MT = WTM / 16, NT = WTN / 8;
-  static_assert(MT >= 1 && NT >= 1, "warp tile");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);   // [STAGES][BM][LDF]
-  float* Bs = As + STAGES * BM * LDF;               // [STAGES][BN][LDF]
+template <int BN>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    conv_igemm_f32(const __grid_constant__ WideMapsF maps,
+                   const WideArgsF a) {
+  using L = WideF<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Bs = As + L::A_STAGES * F_A_STRIDE;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(Bs + L::B_STAGES * L::B_BYTES);
+  uint64_t* a_split = a_full + L::A_STAGES;
+  uint64_t* a_empty = a_split + L::A_STAGES;
+  uint64_t* b_full = a_empty + L::A_STAGES;
+  uint64_t* b_empty = b_full + L::B_STAGES;
+  const int wg = threadIdx.x / 128;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int g = lane >> 2, t4 = lane & 3;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::A_STAGES; ++s) {
+      mbar_init(&a_full[s], 1);
+      mbar_init(&a_split[s], F_SPLITTERS / 32);
+      mbar_init(&a_empty[s], 2);
+    }
+    for (int s = 0; s < L::B_STAGES; ++s) {
+      mbar_init(&b_full[s], 1);
+      mbar_init(&b_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      // ---- producer: each item's raw halo boxes and both weight parts
+      int sa = 0, sb = 0;
+      uint32_t aph = 1, bph = 1;   // empty waits start at parity 1
+      for (int i = blockIdx.x; i < a.items; i += gridDim.x) {
+        const Item it = decode_item<BN>(a, i);
+        for (int k = it.k0; k < it.k1; ++k) {
+          const int kt = k / a.nch, c0 = (k % a.nch) * FCK;
+          const int f = it.t + a.tau0 + kt;
+          unsigned char* dst = As + sa * F_A_STRIDE;
+          mbar_wait(&a_empty[sa], aph);
+          mbar_expect_tx(&a_full[sa], F_A_BYTES);
+          const CUtensorMap* m = f < NCACHE ? &maps.cache : &maps.x;
+          const int fr = f < NCACHE ? it.b * NCACHE + f
+                                    : it.b * a.T + f - NCACHE;
+#pragma unroll
+          for (int g = 0; g < F_GROUPS; ++g)
+            tma_load_4d(dst + g * A_LBO, m, &a_full[sa], c0 + 4 * g,
+                        it.w0 - 1, it.h0 - 1, fr);
+          if (++sa == L::A_STAGES) sa = 0, aph ^= 1;
+          const int tap0 = 9 * (kt + a.tau0);
+          for (int s = 0; s < 9; ++s) {
+            unsigned char* bd = Bs + sb * L::B_BYTES;
+            mbar_wait(&b_empty[sb], bph);
+            mbar_expect_tx(&b_full[sb], L::B_BYTES);
+            tma_load_3d(bd, &maps.wb, &b_full[sb], c0, tap0 + s, it.n0);
+            tma_load_3d(bd + L::B_PART, &maps.ws, &b_full[sb], c0, tap0 + s,
+                        it.n0);
+            if (++sb == L::B_STAGES) sb = 0, bph ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 256 + 32) {
+      // ---- splitters (warps 1-3): each landed halo box into its big
+      // part, in place, and its small part beside it
+      const int u0 = threadIdx.x - (256 + 32);
+      int sa = 0;
+      uint32_t ph = 0;
+      for (int i = blockIdx.x; i < a.items; i += gridDim.x) {
+        const Item it = decode_item<BN>(a, i);
+        for (int k = it.k0; k < it.k1; ++k) {
+          mbar_wait(&a_full[sa], ph);
+          unsigned char* st = As + sa * F_A_STRIDE;
+          for (int u = u0; u < F_GROUPS * HPIX; u += F_SPLITTERS) {
+            unsigned char* p = st + (u / HPIX) * A_LBO + (u % HPIX) * 16;
+            float4 big, small;
+            split_tf32(*reinterpret_cast<const float4*>(p), big, small);
+            *reinterpret_cast<float4*>(p) = big;
+            *reinterpret_cast<float4*>(p + F_PART) = small;
+          }
+          fence_async_smem();
+          __syncwarp();
+          if (threadIdx.x % 32 == 0) mbar_arrive(&a_split[sa]);
+          if (++sa == L::A_STAGES) sa = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 2 wg, 2 wg + 1 of each tile
+  regs_alloc<232>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t a_base = smem_u32(As) + 2 * wg * HC * 16;
+  const uint32_t b_base = smem_u32(Bs);
   const long long M = (long long)a.B * a.T * a.H * a.W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
 
-  const int aj = tid % F_CHUNKS;
-  int pb[F_ITERS], pt[F_ITERS], ph[F_ITERS], pw[F_ITERS];
-  bool pv[F_ITERS];
+  float acc0[BN / 2], acc1[BN / 2];   // a K step's chains (rows 0, 1)
+  float run0[BN / 2], run1[BN / 2];   // the running sums
+  int sa = 0, sb = 0, psb = 0;
+  uint32_t aph = 0, bph = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x) {
+    const Item it = decode_item<BN>(a, i);
 #pragma unroll
-  for (int i = 0; i < F_ITERS; ++i) {
-    const long long m = m0 + tid / F_CHUNKS + F_PASS * i;
-    pv[i] = m < M;
-    long long r = pv[i] ? m : 0;
-    pw[i] = (int)(r % a.W);
-    r /= a.W;
-    ph[i] = (int)(r % a.H);
-    r /= a.H;
-    pt[i] = (int)(r % a.T);
-    pb[i] = (int)(r / a.T);
-  }
-  const int taps = a.taps_t * 9;
-  const int ksteps = taps * ((a.Cp + BKF - 1) / BKF);
-
-  auto load_stage = [&](int stage, int kk) {
-    const int tap = kk % taps, c0 = (kk / taps) * BKF;
-    const int kt = tap / 9, di = (tap % 9) / 3, dj = tap % 3;
-    float* as = As + stage * BM * LDF;
+    for (int j = 0; j < BN / 2; ++j) run0[j] = run1[j] = 0.f;
+    for (int k = it.k0; k < it.k1; ++k) {
+      mbar_wait(&a_split[sa], aph);
+      // descriptors of this warpgroup's first row at tap (0, 0), big
+      // part; a tap, a row, an 8-channel k-step and the small part each
+      // add a constant (in 16-byte units)
+      const uint64_t da = desc_plain(a_base + sa * F_A_STRIDE, A_LBO, 128);
 #pragma unroll
-    for (int i = 0; i < F_ITERS; ++i) {
-      const int row = tid / F_CHUNKS + F_PASS * i, c = c0 + aj * 4;
-      const float* src = pv[i] ? tap_pixel_f(a, pb[i], pt[i], ph[i], pw[i],
-                                             kt, di, dj)
-                               : nullptr;
-      float* dst = as + row * LDF + aj * 4;
-      if (VEC) {
-        const bool ok = src != nullptr && c < a.C;
-        cp_async16_ca(dst, ok ? src + c : a.x, ok ? 16 : 0);
-      } else {
-        __align__(16) float v[4];
+      for (int s = 0; s < 9; ++s) {
+        constexpr uint32_t ROW = HC, KSTEP = 2 * A_LBO / 16;
+        constexpr uint32_t SMALL_A = F_PART / 16, SMALL_B = L::B_PART / 16;
+        const uint32_t tap = (s / 3) * HC + s % 3;
+        const uint64_t db = desc_sw64(b_base + sb * L::B_BYTES);
+        mbar_wait(&b_full[sb], bph);
+        wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = (src != nullptr && c + e < a.C) ? src[c + e] : 0.f;
-        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(v);
-      }
-    }
-    float* bs = Bs + stage * BN * LDF;
-    const float* wt = a.w + (long long)tap * a.Cp;
-    for (int idx = tid; idx < BN * F_CHUNKS; idx += THREADS) {
-      const int r = idx / F_CHUNKS, j = idx % F_CHUNKS, c = c0 + j * 4;
-      const int n = n0 + r;
-      const bool ok = n < a.Cout && c < a.Cp;
-      cp_async16(bs + r * LDF + j * 4,
-                 ok ? wt + (long long)n * a.w_stride + c : a.w, ok ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ksteps) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kk = 0; kk < ksteps; ++kk) {
-    const int stage = kk % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kk + STAGES - 1 < ksteps)
-      load_stage((kk + STAGES - 1) % STAGES, kk + STAGES - 1);
-    cp_async_commit();
-
-    const float* as = As + stage * BM * LDF;
-    const float* bs = Bs + stage * BN * LDF;
-#pragma unroll
-    for (int ks = 0; ks < BKF / 8; ++ks) {
-      const int c = ks * 8 + t4;
-      uint32_t ab[MT][4], asm_[MT][4], bb[NT][2], bsm[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* r = as + (wm * WTM + mt * 16 + g) * LDF + c;
-        split_tf32(r[0], ab[mt][0], asm_[mt][0]);
-        split_tf32(r[8 * LDF], ab[mt][1], asm_[mt][1]);
-        split_tf32(r[4], ab[mt][2], asm_[mt][2]);
-        split_tf32(r[8 * LDF + 4], ab[mt][3], asm_[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float* r = bs + (wn * WTN + nt * 8 + g) * LDF + c;
-        split_tf32(r[0], bb[nt][0], bsm[nt][0]);
-        split_tf32(r[4], bb[nt][1], bsm[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          float t[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(t, asm_[mt], bb[nt]);
-          mma_tf32(t, ab[mt], bsm[nt]);
-          mma_tf32(t, ab[mt], bb[nt]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint64_t a0 = da + tap + kk * KSTEP, a1 = a0 + ROW;
+          const int more = s > 0 || kk > 0;   // 0: the chain's first product
+          mma3<BN>(acc0, a0, a0 + SMALL_A, db + 2 * kk,
+                   db + SMALL_B + 2 * kk, more);
+          mma3<BN>(acc1, a1, a1 + SMALL_A, db + 2 * kk,
+                   db + SMALL_B + 2 * kk, more);
         }
+        wgmma_commit();
+        // the previous tap's products are done: hand back its stage
+        wgmma_wait<1>();
+        fence_regs(acc0);
+        fence_regs(acc1);
+        if (leader && s > 0) mbar_arrive(&b_empty[psb]);
+        psb = sb;
+        if (++sb == L::B_STAGES) sb = 0, bph ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (leader) {
+        mbar_arrive(&b_empty[psb]);
+        mbar_arrive(&a_empty[sa]);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        run0[j] += acc0[j];
+        run1[j] += acc1[j];
+      }
+      if (++sa == L::A_STAGES) sa = 0, aph ^= 1;
     }
-  }
-  cp_async_wait<0>();
 
-  // epilogue: + bias in f32
+    // ---- epilogue.  Running sum d[4 j + e] of row r: tile column
+    // 16 warp + g (+ 8 for e >= 2), channel n0 + 8 j + 2 t4 + (e & 1);
+    // + bias (no split) or this split's partial; channels past Cout are
+    // not stored
+    const long long frame = (long long)(it.b * a.T + it.t) * a.H;
+    const bool pair = a.Cout % 2 == 0;
+    float* dst0 = a.splits == 1 ? a.out : a.part + (long long)it.s * M * a.Cout;
+    auto store_row = [&](const float(&r)[BN / 2], int rr) {
+      const int h = it.h0 + 2 * wg + rr;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int half = 0; half < 2; ++half) {
+        const int w = it.w0 + warp * 16 + g + 8 * half;
+        if (h < a.H && w < a.W) {
+          float* dst = dst0 + ((frame + h) * a.W + w) * a.Cout;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * WTM + mt * 16 + g + 8 * half;
-      if (m >= M) continue;
-      float* orow = a.out + m * a.Cout;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = n0 + wn * WTN + nt * 8 + 2 * t4;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= a.Cout) continue;
-          float v = acc[mt][nt][2 * half + e];
-          if (a.bias != nullptr) v += a.bias[n + e];
-          orow[n + e] = v;
+          for (int j = 0; j < BN / 8; ++j) {
+            const int n = it.n0 + 8 * j + 2 * t4;
+            float v0 = r[4 * j + 2 * half], v1 = r[4 * j + 2 * half + 1];
+            if (a.splits == 1 && a.bias != nullptr) {
+              v0 += n < a.Cout ? __ldg(a.bias + n) : 0.f;
+              v1 += n + 1 < a.Cout ? __ldg(a.bias + n + 1) : 0.f;
+            }
+            if (pair && n < a.Cout) {
+              *reinterpret_cast<float2*>(dst + n) = make_float2(v0, v1);
+            } else {
+              if (n < a.Cout) dst[n] = v0;
+              if (n + 1 < a.Cout) dst[n + 1] = v1;
+            }
+          }
         }
       }
-    }
+    };
+    store_row(run0, 0);
+    store_row(run1, 1);
   }
 }
 
-template <int BN, int WARPS_M, bool VEC>
-int launch_f32(const ConvArgsF& a, cudaStream_t st) {
-  auto kern = conv_igemm_f32<BN, WARPS_M, VEC>;
-  const int smem = STAGES * (BM + BN) * LDF * (int)sizeof(float);
+template <int BN>
+int launch_f32(const void* x, const void* cache, const void* wb,
+               const void* ws, int Cp, WideArgsF a, int grid,
+               cudaStream_t st) {
+  using L = WideF<BN>;
+  auto kern = conv_igemm_f32<BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const long long M = (long long)a.B * a.T * a.H * a.W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (a.Cout + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, st>>>(a);
+  WideMapsF maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t px = 4ull * a.C;   // bytes a pixel
+  {
+    uint64_t dims[4] = {(uint64_t)a.C, (uint64_t)a.W, (uint64_t)a.H,
+                        (uint64_t)a.B * a.T};
+    const uint64_t strides[3] = {px, px * a.W, px * a.W * a.H};
+    const uint32_t box[4] = {4, HC, HR, 1};
+    if (int e = tile_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 4,
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return e;
+    dims[3] = (uint64_t)a.B * NCACHE;
+    if (int e = tile_map(&maps.cache, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cache,
+                         4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return e;
+  }
+  {
+    // rows past Cout (a tile wider than a narrow Cout) read zeros
+    const uint64_t dims[3] = {(uint64_t)Cp, 27, (uint64_t)a.Cout};
+    const uint64_t strides[2] = {4ull * Cp, 4ull * 27 * Cp};
+    const uint32_t box[3] = {FCK, 1, BN};
+    if (int e = tile_map(&maps.wb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wb, 3,
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B))
+      return e;
+    if (int e = tile_map(&maps.ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, 3,
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B))
+      return e;
+  }
+  kern<<<grid, WTHREADS, L::SMEM, st>>>(maps, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const long long MN = (long long)a.B * a.T * a.H * a.W * a.Cout;
+  const int threads = 256;
+  conv_igemm_reduce<true><<<(unsigned)((MN / 8 + threads - 1) / threads),
+                            threads, 0, st>>>(a.part, a.splits, MN, a.Cout,
+                                              a.bias, a.out);
   return (int)cudaGetLastError();
-}
-
-template <bool VEC>
-int launch_plain_f32(const ConvArgsF& a, cudaStream_t st) {
-  if (a.Cout <= 32) return launch_f32<32, 8, VEC>(a, st);
-  if (a.Cout <= 64) return launch_f32<64, 4, VEC>(a, st);
-  return launch_f32<128, 2, VEC>(a, st);
 }
 
 }  // namespace
@@ -1263,23 +1367,44 @@ extern "C" int rms_inv_launch(const void* x, const void* cache, void* inv,
   return (int)cudaGetLastError();
 }
 
-// The float32 conv (3xTF32 products): x [B, T, H, W, C] and cache
-// [B, 2, H, W, C] f32; w the f32 K-contiguous weight copy at its first used
-// tap (row stride w_stride elements, taps of Cp channels, Cp % 4 == 0);
-// bias f32 [Cout] or null; out f32 [B, T, H, W, Cout].
+// The float32 conv (3xTF32 products on tf32 wgmma): x [B, T, H, W, C] and
+// cache [B, 2, H, W, C] f32 with C % 4 == 0 (ops/cuda_conv.py pads other
+// C); w_big and w_small the big and small tf32 parts of the f32 weight
+// copy [Cout, 27, Cp] (Cp = C rounded up to 4; ops/cuda_conv.py::
+// f32_weight); bias f32 [Cout] or null; out f32 [B, T, H, W, Cout];
+// taps_t 3 (tau0 0) or 1 (temporal tap tau0 alone).  Tiles of bn output
+// channels (32, 64 or 96; the last tile masked where bn does not divide
+// Cout) with `splits` K splits (1, or up to taps_t * ceil(C / 16) where bn
+// divides Cout and Cout % 8 == 0; partials in ws f32 [splits, B*T*H*W,
+// Cout]) on a persistent grid of `grid` CTAs (1 to the item count);
+// ops/cuda_conv.py::conv_plan(f32=True) picks them.  Returns the CUDA
+// error code (0 on success).
 extern "C" int conv3d_f32_launch(const void* x, const void* cache,
-                                 const void* w, const void* bias, void* out,
+                                 const void* w_big, const void* w_small,
+                                 const void* bias, void* out, void* ws,
                                  int B, int T, int H, int W, int C, int Cp,
-                                 int Cout, int taps_t, int tau0, int w_stride,
-                                 void* stream) {
+                                 int Cout, int taps_t, int tau0, int bn,
+                                 int splits, int grid, void* stream) {
+  const bool even = bn > 0 && Cout % bn == 0;
+  const int nch = (C + FCK - 1) / FCK;
   if (B <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 ||
-      Cp % 4 || Cp < C || (taps_t != 1 && taps_t != 3) || tau0 < 0 ||
-      tau0 + taps_t > 3 || w_stride < taps_t * 9 * Cp)
+      C % 4 || Cp % 4 || Cp < C || (taps_t != 1 && taps_t != 3) ||
+      tau0 < 0 || tau0 + taps_t > 3 || (taps_t == 3 && tau0 != 0) ||
+      (bn != 32 && bn != 64 && bn != 96) || splits < 1 ||
+      (splits > 1 && (!even || Cout % 8 || ws == nullptr ||
+                      splits > taps_t * nch)) ||
+      grid < 1)
     return (int)cudaErrorInvalidValue;
-  ConvArgsF a{(const float*)x, (const float*)cache, (const float*)w,
-              (const float*)bias, (float*)out, B, T, H, W, C, Cp, Cout,
-              taps_t, tau0, w_stride};
+  WideArgsF a{(const float*)bias, (float*)out, (float*)ws, B, T, H, W, C,
+              Cout, taps_t, tau0, splits, (H + TR - 1) / TR,
+              (W + TW - 1) / TW, (Cout + bn - 1) / bn, nch, 0};
+  const long long items = (long long)B * T * a.mt * a.wt * a.nt * splits;
+  if (items > 0x7fffffff || grid > items) return (int)cudaErrorInvalidValue;
+  a.items = (int)items;
   cudaStream_t st = (cudaStream_t)stream;
-  return C % 4 == 0 ? launch_plain_f32<true>(a, st)
-                    : launch_plain_f32<false>(a, st);
+  switch (bn) {
+    case 96: return launch_f32<96>(x, cache, w_big, w_small, Cp, a, grid, st);
+    case 64: return launch_f32<64>(x, cache, w_big, w_small, Cp, a, grid, st);
+  }
+  return launch_f32<32>(x, cache, w_big, w_small, Cp, a, grid, st);
 }

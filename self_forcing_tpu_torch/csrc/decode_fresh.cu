@@ -12,7 +12,8 @@
 // (neither).  decode_window_launch replaces _decode_kernel (through
 // decode_attention_pallas): the online mode with no fresh keys and the
 // window bounds read on the device (bf16), and a float32 kernel of its
-// own (3xTF32 products; see decode_window_f32_kernel).
+// own (decode_window_f32_launch: 3xTF32 products on tf32 wgmma; see
+// decode_window_f32_kernel).
 // cross_attention_launch replaces _cross_kernel (cross_attention_pallas):
 // the online mode with no cache and the text / CLIP K/V as the fresh keys.
 // int8qk_attend_launch replaces the attention of _decode_fresh_int8_kernel
@@ -907,209 +908,476 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
 
 // ---------------------------------------------------------------------
 // decode_window_f32: the cache-window attention in float32 (the TPU
-// kernel's f32 mode).  Products in 3xTF32: each f32 operand x is split
-// into big = tf32(x) and small = tf32(x - big), and a . b is summed as
-// small_a * big_b + big_a * small_b + big_a * big_b in f32 on
-// mma.sync.m16n8k8 (the dropped small * small term and the residual of the
-// split are ~2^-22 of |a||b|: float32 accuracy at 3x the TF32 work).  The
-// tensor cores' f32 accumulation truncates, and its error grows with the
-// running sum, so each k-step's (QK^T) or key tile's (P.V) products go to
-// a zeroed accumulator that is added to the running sum with one rounded
-// f32 add (one running accumulator over 28080 keys read 2e-4 off).
-// CTA: 4 warps of 16 query rows; K / V tiles of 32 keys double-buffered;
-// the online softmax in base e (expf) on the accumulator layout; p goes
-// through a per-warp shared tile to become the A operand of P.V.
+// kernel's f32 mode), every product in 3xTF32 on tf32 wgmma: each f32
+// operand x is split into big = tf32(x) and small = tf32(x - big) (both
+// rounded to nearest, split_tf32) and a . b is summed as small_a big_b +
+// big_a small_b + big_a big_b (the dropped small * small term and the
+// split's residual are ~2^-22 of |a||b|: float32 accuracy at 3x the TF32
+// work).  The online softmax runs base 2 on scores times scale * log2(e).
+//
+// What bounds it on the H100: 4 Lq D keys N products (0.81 TFLOP at 4680
+// queries onto 28080 keys, 12 heads) at 495 / 3 TFLOP/s, 4.9 ms; a tf32
+// wgmma m64nNk8 reads 2 KB of A and 32 N bytes of B from shared memory
+// for 1024 N flops, so at the SM's ~128 B and ~2048 TF32 flops a clock
+// shared memory is as scarce as the tensor cores, and the design keeps
+// operands out of it:
+//  - a pre-pass (window_split_f32) splits the window's K into big and
+//    small parts [B*N, S, D] and writes V^T's parts [B*N, D, S_pad], each
+//    group of 8 keys stored in the order 0, 2, 4, 6, 1, 3, 5, 7: tf32
+//    wgmma reads B K-major only, and in that order a thread's P
+//    accumulators (columns 2 t, 2 t + 1 of each 8) are the register A
+//    fragment of P.V as they stand (k-columns t, t + 4);
+//  - Q's big part lives in registers (the A operand of two of the three
+//    Q.K^T products), its small part in shared memory (the consumers
+//    split the TMA'd Q tile in place once an item), and P.V takes P from
+//    registers: per 32-key stage a consumer warpgroup reads 80 KB for
+//    Q.K^T and 48 KB for P.V against 1536 clocks of products.
+// CTA: two consumer warpgroups (64 query rows each, BM = 128) and a
+// producer thread; stages of 32 keys, K and V^T each in two parts (32 KB
+// a stage: Q's small part, 3 K stages and 2 V stages fill 224 KB), with
+// separate K / V rings, so a K stage goes back once Q.K^T has read it.
+// Each step issues stage t's Q.K^T (48 wgmma m64n32k8) and stage t - 1's
+// P.V (12 wgmma m64n128k8) together and runs t's softmax under P.V (the
+// two warpgroups taking turns at issuing, as decode_fresh_kernel does,
+// measured no faster: PERF.md).  Accumulation: the tensor cores' f32
+// accumulation truncates, with an error that grows with the chain (one
+// chain over the 28080 keys of phase 2 read 1.97e-4 off), so an O chain
+// sums FLUSH stages (384 wgmma; 7.9e-6) and is then folded into the
+// output rows in device memory with one rounded FMA each, out = out *
+// 2^(m_fold - m) + O (the first fold writes O); the last fold divides by
+// l.  An S tile is its own chain of 48 wgmma.  The grid is persistent:
+// one CTA an SM walks the (query tile, b*n) items.
 // ---------------------------------------------------------------------
 
-constexpr int WF_BM = 64, WF_BK = 32, WF_THREADS = 128;
-constexpr int LDQ = D + 4;       // A (g, t) reads of Q / B reads of K:
-constexpr int LDV = D + 8;       // conflict-free; B (t, g) reads of V
-constexpr int LDP = WF_BK + 4;   // the per-warp P tile
-constexpr size_t WF_SMEM = sizeof(float) * (size_t)(
-    WF_BM * LDQ + 2 * WF_BK * LDQ + 2 * WF_BK * LDV + 4 * 16 * LDP);
+namespace wf {
 
-// c += a . b in 3xTF32 from the four f32 A values and two f32 B values
-__device__ __forceinline__ void mma_3xtf32(float* c, const float* a,
-                                           const float* b) {
-  uint32_t ab[4], as[4], bb[2], bs[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split_tf32(b[i], bb[i], bs[i]);
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
+constexpr int BM = 128;                  // query rows a CTA
+constexpr int BK = 32;                   // keys a stage
+constexpr int KST = 3, VST = 2;          // K and V ring depths
+constexpr int FLUSH = 32;                // stages an O chain sums
+constexpr int Q_BOX = BM * 128;          // 32 columns of the Q tile (16 KB)
+constexpr int Q_BYTES = 4 * Q_BOX;
+constexpr int K_BOX = BK * 128;          // 32 columns of a stage's keys
+constexpr int PART = 4 * K_BOX;          // a K or V^T part of a stage (16 KB)
+constexpr int STAGE = 2 * PART;          // big part, then small part
+constexpr int N_BARS = 2 + 2 * KST + 2 * VST;
+constexpr size_t SMEM = 1024 + Q_BYTES + (KST + VST) * STAGE + N_BARS * 8;
+static_assert(D * 128 == PART, "a V^T part: 32 keys of D rows");
+static_assert(SMEM <= 232448, "shared memory");
 
-template <int ROWS, int LD>
-__device__ __forceinline__ void load_f32_rows(float* dst, const float* src,
-                                              long long stride, int valid) {
-  for (int i = threadIdx.x; i < ROWS * (D / 4); i += WF_THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, ok ? src + r * stride + c : src,
-               ok ? 16 : 0);
+struct Maps {
+  CUtensorMap q;    // f32 (D, N, Lq, B), box (32, 1, BM, 1)
+  CUtensorMap kb;   // f32 (D, S, B*N), box (32, BK, 1): K's big part
+  CUtensorMap ks;   //   and its small part
+  CUtensorMap vb;   // f32 (S_pad, D, B*N), box (BK, D, 1): V^T's big part
+  CUtensorMap vs;   //   and its small part
+};
+
+// The pre-pass: one CTA a (32-key stage, b*n) that the window [lo, hi)
+// meets; keys outside it as zeros (so the masked columns of an edge
+// stage multiply finite values).  Bound by its bytes (each window
+// element read once, written twice as K parts and twice as V^T parts).
+__global__ void __launch_bounds__(256)
+window_split_f32(const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ kb, float* __restrict__ ks,
+                 float* __restrict__ vb, float* __restrict__ vs, int S,
+                 int S_pad, const int* __restrict__ bounds) {
+  __shared__ __align__(16) float tile[BK][D + 4];
+  const int lo = max(__ldg(bounds), 0), hi = min(__ldg(bounds + 1), S);
+  const int j0 = blockIdx.x * BK;
+  if (lo >= hi || j0 >= hi || j0 + BK <= lo) return;
+  const long long bn = blockIdx.y;
+  for (int u = threadIdx.x; u < BK * D / 4; u += 256) {
+    const int r = u / (D / 4), c = 4 * (u % (D / 4)), j = j0 + r;
+    const bool in = j >= lo && j < hi;
+    const long long off = (bn * S + j) * D + c;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 big, small;
+    split_tf32(in ? __ldg(reinterpret_cast<const float4*>(k + off)) : zero,
+               big, small);
+    if (j < S) {
+      *reinterpret_cast<float4*>(kb + off) = big;
+      *reinterpret_cast<float4*>(ks + off) = small;
+    }
+    *reinterpret_cast<float4*>(&tile[r][c]) =
+        in ? __ldg(reinterpret_cast<const float4*>(v + off)) : zero;
+  }
+  __syncthreads();
+  // V^T row d, positions 4 q .. 4 q + 3 of the stage: keys key0 + 0, 2,
+  // 4, 6 of group q / 2 (key0 = 8 (q / 2) + q % 2)
+  for (int u = threadIdx.x; u < D * BK / 4; u += 256) {
+    const int d = u / (BK / 4), q = u % (BK / 4);
+    const int key0 = 8 * (q / 2) + q % 2;
+    float4 big, small;
+    split_tf32(make_float4(tile[key0][d], tile[key0 + 2][d],
+                           tile[key0 + 4][d], tile[key0 + 6][d]),
+               big, small);
+    const long long off = (bn * D + d) * S_pad + j0 + 4 * q;
+    *reinterpret_cast<float4*>(vb + off) = big;
+    *reinterpret_cast<float4*>(vs + off) = small;
   }
 }
 
-__global__ void __launch_bounds__(WF_THREADS, 2)
-decode_window_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k_cache,
-                         const float* __restrict__ v_cache,
-                         float* __restrict__ out, int N, int Lq, int S,
+}  // namespace wf
+
+__global__ void __launch_bounds__(THREADS, 1)
+decode_window_f32_kernel(const __grid_constant__ wf::Maps maps,
+                         float* __restrict__ out, int B, int N, int Lq, int S,
                          float scale, const int* __restrict__ bounds) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + WF_BM * LDQ;          // 2 buffers of WF_BK x LDQ
-  float* sV = sK + 2 * WF_BK * LDQ;      // 2 buffers of WF_BK x LDV
-  float* sP = sV + 2 * WF_BK * LDV;      // 4 warps x 16 x LDP
-  const int kv_start = max(__ldg(bounds), 0);
-  const int kv_end = min(__ldg(bounds + 1), S);
-  const int bn = blockIdx.y, b = bn / N, n = bn % N;
-  const int q0 = blockIdx.x * WF_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
+  constexpr int BM = wf::BM, BK = wf::BK, KST = wf::KST, VST = wf::VST;
+  constexpr int Q_BOX = wf::Q_BOX, Q_BYTES = wf::Q_BYTES, K_BOX = wf::K_BOX;
+  constexpr int PART = wf::PART, STAGE = wf::STAGE, FLUSH = wf::FLUSH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // [Q: its small part, in place | K: KST stages | V^T: VST stages |
+  //  barriers]
+  unsigned char* sQ = base;
+  unsigned char* sK = sQ + Q_BYTES;
+  unsigned char* sV = sK + KST * STAGE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + VST * STAGE);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* k_empty = k_full + KST;
+  uint64_t* v_full = k_empty + KST;
+  uint64_t* v_empty = v_full + VST;
+
+  const int lo = max(__ldg(bounds), 0), hi = min(__ldg(bounds + 1), S);
+  const int t0 = lo / BK;                             // the window's stages
+  const int n_st = lo < hi ? (hi + BK - 1) / BK - t0 : 0;
+  const int BN = B * N, n_qt = (Lq + BM - 1) / BM, n_work = n_qt * BN;
   const long long ld_tok = (long long)N * D;
-  const float* kcb = k_cache + (long long)bn * S * D;
-  const float* vcb = v_cache + (long long)bn * S * D;
-  float* pw = sP + warp * 16 * LDP;
+  const int wg = threadIdx.x / 128;
+  if (n_st == 0) {   // an empty window: every output row is 0
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int bn = w / n_qt, r0 = (w % n_qt) * BM;
+      float* ob = out + ((long long)(bn / N) * Lq + r0) * ld_tok + bn % N * D;
+      for (int e = threadIdx.x; e < BM * D / 4; e += THREADS)
+        if (r0 + e / (D / 4) < Lq)
+          *reinterpret_cast<float4*>(ob + e / (D / 4) * ld_tok +
+                                     4 * (e % (D / 4))) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
 
-  load_f32_rows<WF_BM, LDQ>(sQ, q + ((long long)b * Lq + q0) * ld_tok + n * D,
-                            ld_tok, min(WF_BM, Lq - q0));
-  cp_async_commit();
-  const float* qw = sQ + warp * 16 * LDQ;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS);
+    for (int s = 0; s < KST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
-
-  const int n_tiles = (S + WF_BK - 1) / WF_BK;
-  auto fetch = [&](int t, int buf) {
-    const int j0 = t * WF_BK, valid = min(WF_BK, S - j0);
-    load_f32_rows<WF_BK, LDQ>(sK + buf * WF_BK * LDQ, kcb + (long long)j0 * D,
-                              D, valid);
-    load_f32_rows<WF_BK, LDV>(sV + buf * WF_BK * LDV, vcb + (long long)j0 * D,
-                              D, valid);
-  };
-  int t = next_live<WF_BK>(0, n_tiles, n_tiles, kv_start, kv_end, 0);
-  if (t < n_tiles) fetch(t, 0);
-  cp_async_commit();
-  int buf = 0;
-  while (t < n_tiles) {
-    const int tn = next_live<WF_BK>(t + 1, n_tiles, n_tiles, kv_start,
-                                    kv_end, 0);
-    if (tn < n_tiles) fetch(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* k_s = sK + buf * WF_BK * LDQ;
-    const float* v_s = sV + buf * WF_BK * LDV;
-
-    float s[WF_BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < WF_BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const int c = kk * 8 + t4;
-      const float a[4] = {qw[g * LDQ + c], qw[(g + 8) * LDQ + c],
-                          qw[g * LDQ + c + 4], qw[(g + 8) * LDQ + c + 4]};
-#pragma unroll
-      for (int nt = 0; nt < WF_BK / 8; ++nt) {
-        const float* kr = k_s + (nt * 8 + g) * LDQ + c;
-        const float bv[2] = {kr[0], kr[4]};
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_3xtf32(t, a, bv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] += t[e];
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread loads each item's Q (one buffer: the
+    // next item's waits until both warpgroups' last Q.K^T), then its
+    // stages' K and V^T parts ----
+    regs_dealloc<24>();
+    if (threadIdx.x != 128 * CONSUMERS) return;
+    int i = 0;   // stages loaded so far: the ring position
+    for (int k = 0, w = blockIdx.x; w < n_work; ++k, w += gridDim.x) {
+      const int qt = w % n_qt, bn = w / n_qt, b = bn / N, n = bn % N;
+      mbar_wait(q_empty, (k & 1) ^ 1);
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int j = 0; j < 4; ++j)
+        tma_load_4d(sQ + j * Q_BOX, &maps.q, q_full, 32 * j, n, qt * BM, b);
+      for (int t = t0; t < t0 + n_st; ++t, ++i) {
+        const int sk = i % KST, sv = i % VST;
+        unsigned char* dk = sK + sk * STAGE;
+        mbar_wait(&k_empty[sk], ((i / KST) & 1) ^ 1);
+        mbar_expect_tx(&k_full[sk], STAGE);
+        for (int j = 0; j < 4; ++j) {
+          tma_load_3d(dk + j * K_BOX, &maps.kb, &k_full[sk], 32 * j, t * BK,
+                      bn);
+          tma_load_3d(dk + PART + j * K_BOX, &maps.ks, &k_full[sk], 32 * j,
+                      t * BK, bn);
+        }
+        unsigned char* dv = sV + sv * STAGE;
+        mbar_wait(&v_empty[sv], ((i / VST) & 1) ^ 1);
+        mbar_expect_tx(&v_full[sv], STAGE);
+        tma_load_3d(dv, &maps.vb, &v_full[sv], t * BK, 0, bn);
+        tma_load_3d(dv + PART, &maps.vs, &v_full[sv], t * BK, 0, bn);
       }
     }
-    // visibility, the new row maxima, the rescale of l and o
-    const int j0 = t * WF_BK;
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of the tile
+  regs_alloc<240>();
+  const int c = wg;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int rt = c * 64 + 16 * warp + g;   // rows rt, rt + 8 of the tile
+  const float mul = scale * LOG2E;
+  const uint64_t dqs = desc_sw128(sQ + c * 64 * 128, 16, 1024);
+  const uint64_t dk0 = desc_sw128(sK, 16, 1024);
+  const uint64_t dv0 = desc_sw128(sV, 16, 1024);
+
+  uint32_t qb[D / 8][4];          // Q's big part: A of k-step kk
+  float o[64];                    // the O chain
+  float s[BK / 2];                // S of the stage, then p
+  uint32_t pb[BK / 8][4], ps[BK / 8][4];   // p's parts: A of P.V
+  // rows rt, rt + 8: the running max, sum, out's max (mf), the rescale
+  float m[2] = {}, l[2] = {}, mf[2] = {}, corr[2] = {};
+
+  // S = Q.K^T of K stage sk: small_q big_k + big_q small_k + big_q big_k
+  auto qk = [&](int sk) {
+    const uint64_t db = dk0 + ((sk * STAGE) >> 4);
 #pragma unroll
-    for (int nt = 0; nt < WF_BK / 8; ++nt)
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ko = ((kk / 4) * K_BOX + (kk % 4) * 32) >> 4;
+      WgmmaTf32<BK>::ss(
+          s, dqs + (((kk / 4) * Q_BOX + (kk % 4) * 32) >> 4), db + ko,
+          kk > 0);
+      WgmmaTf32<BK>::rs(s, qb[kk], db + (PART >> 4) + ko, 1);
+      WgmmaTf32<BK>::rs(s, qb[kk], db + ko, 1);
+    }
+  };
+  // O (+)= P.V of V stage sv (accumulate 0 starts a chain)
+  auto pv = [&](int sv, int accumulate) {
+    const uint64_t db = dv0 + ((sv * STAGE) >> 4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + nt * 8 + 2 * t4 + (e & 1);
-        const bool vis = j < S && j >= kv_start && j < kv_end;
-        s[nt][e] = vis ? s[nt][e] * scale : -INFINITY;
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      WgmmaTf32<D>::rs(o, ps[kk], db + 2 * kk, kk > 0 || accumulate);
+      WgmmaTf32<D>::rs(o, pb[kk], db + (PART >> 4) + 2 * kk, 1);
+      WgmmaTf32<D>::rs(o, pb[kk], db + 2 * kk, 1);
+    }
+  };
+  // p = 2^(s mul - m) of stage t in place, -inf outside [lo, hi) on an
+  // edge stage; the new running max, corr and l
+  auto softmax = [&](int t) {
+    const int j0 = t * BK;
+    if (j0 < lo || j0 + BK > hi) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int j = j0 + 8 * (e / 4) + 2 * tq + (e & 1);
+        if (j < lo || j >= hi) s[e] = -INFINITY;
       }
+    }
+    float sub[2];
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
+    for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < WF_BK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+      for (int e = 0; e < BK / 8; ++e)
+        mx = fmaxf(mx, fmaxf(s[4 * e + 2 * h], s[4 * e + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[hr] - m_use);
-      l[hr] *= corr;
+      const float m_new = fmaxf(m[h], mx * mul);
+      sub[h] = m_new == -INFINITY ? 0.f : m_new;
+      corr[h] = fast_exp2(m[h] - sub[h]);
+      m[h] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[i][2 * hr] *= corr;
-        o[i][2 * hr + 1] *= corr;
+    for (int e = 0; e < BK / 2; ++e) {
+      s[e] = fast_exp2(fmaf(s[e], mul, -sub[(e >> 1) & 1]));
+      ls[(e >> 1) & 1] += s[e];
+    }
+    l[0] = l[0] * corr[0] + ls[0];
+    l[1] = l[1] * corr[1] + ls[1];
+  };
+  // p's parts as the A fragments of P.V: k-columns tq and tq + 4 of step
+  // kk are keys 8 kk + 2 tq and + 1 (the pre-pass's V^T order)
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float v[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1],
+                          s[4 * kk + 3]};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_tf32(v[r], pb[kk][r], ps[kk][r]);
+    }
+  };
+  // out = out * cf + O * inv on item w's rows (out read when `read`, a
+  // row's 16 loads issued before its stores: one latency, not 16; rows
+  // past Lq are not touched)
+  auto fold = [&](int w, bool read, const float (&cf)[2],
+                  const float (&inv)[2]) {
+    const int bn = w / n_qt, r0 = (w % n_qt) * BM + rt;
+    float* ob = out + ((long long)(bn / N) * Lq + r0) * ld_tok +
+                bn % N * D + 2 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r0 + 8 * h < Lq) {
+        float* row = ob + 8 * h * ld_tok;
+        float2 x[D / 8];
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          x[j] = read ? *reinterpret_cast<const float2*>(row + 8 * j)
+                      : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(row + 8 * j) = make_float2(
+              fmaf(x[j].x, cf[h], o[4 * j + 2 * h]) * inv[h],
+              fmaf(x[j].y, cf[h], o[4 * j + 2 * h + 1]) * inv[h]);
       }
-      m[hr] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < WF_BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[nt][2 * hr + e] - m_use);
-          l[hr] += p;
-          pw[(g + 8 * hr) * LDP + nt * 8 + 2 * t4 + e] = p;
-        }
     }
-    __syncwarp();
-    // o += P . V: the tile's product in its own accumulator, then one
-    // round-to-nearest add into o
-    float pa[WF_BK / 8][4];
+  };
+  // item k's Q: its big part into registers, its small part back in place
+  // (this warpgroup's rows; the swizzled box layout of hopper.cuh)
+  auto take_q = [&](int k) {
+    mbar_wait(q_full, k & 1);
 #pragma unroll
-    for (int kk = 0; kk < WF_BK / 8; ++kk) {
-      const int c = kk * 8 + t4;
-      pa[kk][0] = pw[g * LDP + c];
-      pa[kk][1] = pw[(g + 8) * LDP + c];
-      pa[kk][2] = pw[g * LDP + c + 4];
-      pa[kk][3] = pw[(g + 8) * LDP + c + 4];
-    }
+    for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < WF_BK / 8; ++kk) {
-        const int c = kk * 8 + t4;
-        const float bv[2] = {v_s[c * LDV + dt * 8 + g],
-                             v_s[(c + 4) * LDV + dt * 8 + g]};
-        mma_3xtf32(acc, pa[kk], bv);
+      for (int r = 0; r < 4; ++r) {
+        const int row = rt + 8 * (r & 1), cc = 8 * (kk % 4) + tq + 4 * (r >> 1);
+        float* p = reinterpret_cast<float*>(
+            sQ + (kk / 4) * Q_BOX + row * 128 + ((cc / 4) ^ (row % 8)) * 16 +
+            (cc % 4) * 4);
+        uint32_t small;
+        split_tf32(*p, qb[kk][r], small);
+        *p = __uint_as_float(small);
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] += acc[e];
-    }
-    __syncthreads();  // every warp is done with this buffer and its P
-    buf ^= 1;
-    t = tn;
-  }
-  cp_async_wait<0>();
+    fence_async_smem();
+    named_sync(1 + c, 128);
+  };
+  const float one[2] = {1.f, 1.f};
 
-  float l0 = l[0], l1 = l[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  float* ob = out + (long long)b * Lq * ld_tok + n * D;
+  int i = 0;   // stages consumed so far: the ring position
+  for (int k = 0, w = blockIdx.x; w < n_work; ++k, w += gridDim.x) {
+    take_q(k);
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    bool folded = false;   // out holds this item's earlier chains
+    int since = 0;         // stages in the O chain
+    int accumulate = 0;    // the next P.V adds to the chain
+    {   // the first stage: Q.K^T alone
+      const int sk = i % KST;
+      mbar_wait(&k_full[sk], (i / KST) & 1);
+      wgmma_fence();
+      qk(sk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (leader) {
+        mbar_arrive(&k_empty[sk]);
+        if (n_st == 1) mbar_arrive(q_empty);
+      }
+      softmax(t0);
+      pack();
+      ++i;
+    }
+    for (int t = t0 + 1; t < t0 + n_st; ++t, ++i) {
+      const int sk = i % KST, sv = (i - 1) % VST;
+      mbar_wait(&k_full[sk], (i / KST) & 1);
+      mbar_wait(&v_full[sv], ((i - 1) / VST) & 1);
+      wgmma_fence();
+      qk(sk);
+      wgmma_commit();
+      pv(sv, accumulate);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (leader) {
+        mbar_arrive(&k_empty[sk]);
+        if (t == t0 + n_st - 1) mbar_arrive(q_empty);
+      }
+      softmax(t);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (leader) mbar_arrive(&v_empty[sv]);
+      accumulate = 1;
+      // O to the new max unless no row of the warp raised it
+      if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t4;
-    if (r0 < Lq)
-      *reinterpret_cast<float2*>(ob + r0 * ld_tok + col) =
-          make_float2(o[dt][0] / d0, o[dt][1] / d0);
-    if (r1 < Lq)
-      *reinterpret_cast<float2*>(ob + r1 * ld_tok + col) =
-          make_float2(o[dt][2] / d1, o[dt][3] / d1);
+        for (int e = 0; e < 64; ++e) o[e] *= corr[(e >> 1) & 1];
+      }
+      if (++since == FLUSH) {   // fold the chain into out; start a new one
+        const float cf[2] = {folded ? fast_exp2(mf[0] - m[0]) : 0.f,
+                             folded ? fast_exp2(mf[1] - m[1]) : 0.f};
+        fold(w, folded, cf, one);
+        mf[0] = m[0];
+        mf[1] = m[1];
+        folded = true;
+        since = 0;
+        accumulate = 0;
+      }
+      pack();
+    }
+    {   // the last stage's P.V, then out = (out 2^(mf - m) + O) / l
+      const int sv = (i - 1) % VST;
+      mbar_wait(&v_full[sv], ((i - 1) / VST) & 1);
+      wgmma_fence();
+      pv(sv, accumulate);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (leader) mbar_arrive(&v_empty[sv]);
+    }
+    float cf[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = l[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      inv[h] = 1.f / fmaxf(x, 1e-30f);
+      cf[h] = folded ? fast_exp2(mf[h] - m[h]) : 0.f;
+    }
+    fold(w, folded, cf, inv);
   }
+}
+
+// The float32 window attention: the pre-pass, then the kernel (tensor
+// maps encoded on the host at every launch); kb / ks [B*N, S, D] and vb /
+// vs [B*N, D, S_pad] (S_pad = S rounded up to 32) are its workspace.
+int window_f32(const float* q, const float* k, const float* v,
+               const int* bounds, float* out, float* kb, float* ks,
+               float* vb, float* vs, int B, int N, int Lq, int S,
+               float scale, cudaStream_t st) {
+  constexpr int BK = wf::BK;
+  const int BN = B * N, S_pad = (S + BK - 1) / BK * BK;
+  wf::window_split_f32<<<dim3(S_pad / BK, BN), 256, 0, st>>>(
+      k, v, kb, ks, vb, vs, S, S_pad, bounds);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wf::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t row = D * sizeof(float);
+  {
+    const uint64_t dims[4] = {D, (uint64_t)N, (uint64_t)Lq, (uint64_t)B};
+    const uint64_t strides[3] = {row, row * N, row * N * Lq};
+    const uint32_t box[4] = {32, 1, wf::BM, 1};
+    if (int e = f32_map(&maps.q, q, 4, dims, strides, box)) return e;
+  }
+  {
+    const uint64_t dims[3] = {D, (uint64_t)S, (uint64_t)BN};
+    const uint64_t strides[2] = {row, row * S};
+    const uint32_t box[3] = {32, BK, 1};
+    if (int e = f32_map(&maps.kb, kb, 3, dims, strides, box)) return e;
+    if (int e = f32_map(&maps.ks, ks, 3, dims, strides, box)) return e;
+  }
+  {
+    const uint64_t dims[3] = {(uint64_t)S_pad, D, (uint64_t)BN};
+    const uint64_t strides[2] = {(uint64_t)S_pad * 4, (uint64_t)S_pad * 4 * D};
+    const uint32_t box[3] = {BK, D, 1};
+    if (int e = f32_map(&maps.vb, vb, 3, dims, strides, box)) return e;
+    if (int e = f32_map(&maps.vs, vs, 3, dims, strides, box)) return e;
+  }
+  err = cudaFuncSetAttribute(decode_window_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wf::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  static int sms = 0;   // the persistent grid: one CTA an SM
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = min((Lq + wf::BM - 1) / wf::BM * BN, sms);
+  decode_window_f32_kernel<<<grid, THREADS, wf::SMEM, st>>>(
+      maps, out, B, N, Lq, S, scale, bounds);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1142,33 +1410,41 @@ extern "C" int decode_fresh_launch(const void* q, const void* k_cache,
 }
 
 // The cache-window attention of decode_attention (the TPU kernel
-// _decode_kernel): every query of q [B, Lq, N*D] (heads-packed; the folded
-// [B*N, Lq, D] layout is N = 1) attends the keys [lo, hi) of one layer's
-// cache [B*N, S, D], lo / hi the two int32 at `bounds` on the device (an
-// empty window gives 0), online softmax at `scale`; out like q.  bf16
-// (f32 = 0: the online mode of decode_fresh_kernel with no fresh tiles,
-// p rounded to bf16 for P.V) or float32 (f32 = 1: 3xTF32 products).
+// _decode_kernel) in bf16: every query of q [B, Lq, N*D] (heads-packed;
+// the folded [B*N, Lq, D] layout is N = 1) attends the keys [lo, hi) of
+// one layer's cache [B*N, S, D], lo / hi the two int32 at `bounds` on the
+// device (an empty window gives 0), online softmax at `scale`; out like
+// q.  The online mode of decode_fresh_kernel with no fresh tiles, p
+// rounded to bf16 for P.V.
 extern "C" int decode_window_launch(const void* q, const void* k_cache,
                                     const void* v_cache, const void* bounds,
                                     void* out, int B, int N, int Lq, int S,
-                                    float scale, int f32, void* stream) {
+                                    float scale, void* stream) {
   if (bounds == nullptr || S <= 0) return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
-  if (!f32)
-    return launch<ONLINE, WINDOW, false>(q, k_cache, v_cache, nullptr,
-                                         nullptr, nullptr, out, B, N, Lq, 0,
-                                         S, 0, 0, 0, S, scale,
-                                         (const int*)bounds, st);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_window_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)WF_SMEM);
-  if (err != cudaSuccess) return (int)err;
+  return launch<ONLINE, WINDOW, false>(q, k_cache, v_cache, nullptr, nullptr,
+                                       nullptr, out, B, N, Lq, 0, S, 0, 0, 0,
+                                       S, scale, (const int*)bounds,
+                                       (cudaStream_t)stream);
+}
+
+// The same in float32 (3xTF32 products; decode_window_f32_kernel): q, the
+// cache and out float32, 16-byte aligned; kb, ks [B*N, S, D] and vb, vs
+// [B*N, D, S_pad] float32 (S_pad = S rounded up to 32) the workspace of
+// its pre-pass.  Returns the CUDA error code (0 on success).
+extern "C" int decode_window_f32_launch(const void* q, const void* k_cache,
+                                        const void* v_cache,
+                                        const void* bounds, void* out,
+                                        void* kb, void* ks, void* vb,
+                                        void* vs, int B, int N, int Lq,
+                                        int S, float scale, void* stream) {
+  if (bounds == nullptr || S <= 0 || kb == nullptr || ks == nullptr ||
+      vb == nullptr || vs == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (Lq <= 0 || B * N <= 0) return 0;
-  dim3 grid((Lq + WF_BM - 1) / WF_BM, B * N);
-  decode_window_f32_kernel<<<grid, WF_THREADS, WF_SMEM, st>>>(
-      (const float*)q, (const float*)k_cache, (const float*)v_cache,
-      (float*)out, N, Lq, S, scale, (const int*)bounds);
-  return (int)cudaGetLastError();
+  return window_f32((const float*)q, (const float*)k_cache,
+                    (const float*)v_cache, (const int*)bounds, (float*)out,
+                    (float*)kb, (float*)ks, (float*)vb, (float*)vs, B, N, Lq,
+                    S, scale, (cudaStream_t)stream);
 }
 
 // The cross attention (the TPU kernel _cross_kernel): softmax(scale *

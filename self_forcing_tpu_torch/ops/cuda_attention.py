@@ -20,11 +20,13 @@ that the streaming sampler and the training step run:
 - ``cross_attention`` (csrc/decode_fresh.cu's ``cross_attention_launch``:
   the decode kernel's online mode with no cache, P.V from the hi and lo
   bf16 parts of p) replaces ``_cross_kernel`` (``cross_attention_pallas``);
-- ``decode_window`` (csrc/decode_fresh.cu's ``decode_window_launch``)
-  replaces ``_decode_kernel`` (``decode_attention_pallas``): the cache
-  window alone, bounds read on the device, in bf16 (the online decode
-  kernel with no fresh keys, counted as ``decode_window``) or float32 (a
-  3xTF32 kernel, ``decode_window_f32``);
+- ``decode_window`` (csrc/decode_fresh.cu's ``decode_window_launch`` /
+  ``decode_window_f32_launch``) replaces ``_decode_kernel``
+  (``decode_attention_pallas``): the cache window alone, bounds read on
+  the device, in bf16 (the online decode kernel with no fresh keys,
+  counted as ``decode_window``) or float32 (3xTF32 on tf32 wgmma after a
+  pre-pass that splits the window's K and V^T into tf32 parts, counted
+  once as ``decode_window_f32``);
 - ``flash_fwd`` (csrc/decode_fresh.cu's ``flash_fwd_launch``: the decode
   kernel's pipeline on one K/V under a per-row interval mask, writing
   lse) replaces ``_flash_kernel`` in its free, bounded and online modes
@@ -961,8 +963,10 @@ def decode_window(q, k_cache, v_cache, kv_start, kv_end, *,
     caches [B, S, N, D] or folded [B*N, S, D], or folded q [BN, Lq, D];
     returns q's layout and dtype.  bf16 operands run the online
     decode kernel with no fresh keys (p rounded to bf16 for P.V); float32
-    operands the 3xTF32 kernel (float32-accurate products).  All three
-    share one dtype."""
+    operands the 3xTF32 kernel (float32-accurate products), its pre-pass
+    writing the window's K parts [B*N, S, D] and V^T parts [B*N, D,
+    S rounded up to 32] into a workspace allocated here.  All three share
+    one dtype."""
     if not q.is_cuda:
         return decode_window_ref(q, k_cache, v_cache, kv_start, kv_end,
                                  scale=scale)
@@ -987,15 +991,26 @@ def decode_window(q, k_cache, v_cache, kv_start, kv_end, *,
     scale = D ** -0.5 if scale is None else scale
     bounds = _window_bounds(kv_start, kv_end, q.device)
     out = torch.empty_like(qp)
-    fn = build.function("decode_fresh", "decode_window_launch",
-                        [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P])
-    err = fn(qp.data_ptr(), kc.data_ptr(), vc.data_ptr(), bounds.data_ptr(),
-             out.data_ptr(), B, N, Lq, S, float(scale),
-             int(dt == torch.float32),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.raise_on("decode_window", err)
-    launch_counts["decode_window" if dt == torch.bfloat16
-                  else "decode_window_f32"] += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if dt == torch.bfloat16:
+        fn = build.function("decode_fresh", "decode_window_launch",
+                            [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P])
+        err = fn(qp.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                 bounds.data_ptr(), out.data_ptr(), B, N, Lq, S,
+                 float(scale), stream)
+        name = "decode_window"
+    else:
+        k_parts = kc.new_empty(2, BN, S, D)
+        v_parts = kc.new_empty(2, BN, D, -(-S // 32) * 32)
+        fn = build.function("decode_fresh", "decode_window_f32_launch",
+                            [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P])
+        err = fn(qp.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                 bounds.data_ptr(), out.data_ptr(), k_parts[0].data_ptr(),
+                 k_parts[1].data_ptr(), v_parts[0].data_ptr(),
+                 v_parts[1].data_ptr(), B, N, Lq, S, float(scale), stream)
+        name = "decode_window_f32"
+    build.raise_on(name, err)
+    launch_counts[name] += 1
     return out.reshape(q.shape)
 
 

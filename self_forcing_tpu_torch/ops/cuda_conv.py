@@ -14,8 +14,13 @@ launches under the name of the entry point it serves:
 
 Float32 inputs of :func:`conv3d` and :func:`conv2d_tap` (the TPU kernels'
 f32 mode, which the fused and split rules accept at some shapes) run the
-3xTF32 kernel ``conv3d_f32_launch`` (float32-accurate products) and count
-as ``conv3d_f32`` whichever entry point they serve.
+3xTF32 kernel ``conv3d_f32_launch`` (float32-accurate products on tf32
+wgmma: the wide route's halo tiles, with the tile, K split and grid of
+``conv_plan(f32=True)`` and the weights split once per parameter,
+:func:`f32_weight`) and count as ``conv3d_f32`` whichever entry point
+they serve.  Every C takes that route: C % 4 != 0 (the RGB input in
+float32) is zero padded to a multiple of 4 channels first (a copy of x
+and the cache, counted in ``layout_copies``).
 
 Inside ``conv3d_launch`` a bf16 conv takes one of two routes, by shape,
 as :func:`conv_plan` decides and the launcher checks: 'wide' (C % 8 ==
@@ -36,9 +41,10 @@ whose storage is not contiguous in that order is copied first, and each
 such copy adds one to ``layout_copies`` (the first few are listed in
 ``copied``: wrapper, shape and strides).  Weights [Cout, C, 3, 3, 3]
 (OIDHW) become the kernel's K-contiguous copy [Cout, 27, Cp] (bf16 with Cp
-= C rounded up to 8, or float32 with Cp = C rounded up to 4) once per
-parameter and dtype: :func:`kernel_weight` keeps it for as long as the
-parameter lives and is not written in place.
+= C rounded up to 8, or float32 with Cp = C rounded up to 4, then split
+into its tf32 parts) once per parameter and dtype: :func:`kernel_weight`
+and :func:`f32_weight` keep it for as long as the parameter lives and is
+not written in place.
 """
 from __future__ import annotations
 
@@ -58,8 +64,8 @@ layout_copies = {"activations": 0}
 copied: list = []
 
 # the wide route's tile (csrc/conv3d.cu): output rows and columns, and the
-# channels of one K step
-TR, TW, CK = 4, 64, 32
+# channels of one K step (bf16; float32: CK_F32)
+TR, TW, CK, CK_F32 = 4, 64, 32, 16
 MAX_SPLITS = 16
 # the narrow route: inputs of at most RGB_MAX_C channels, K packed to RGB_K
 RGB_MAX_C, RGB_K = 3, 96
@@ -110,6 +116,28 @@ def kernel_weight(w: torch.Tensor,
     return _made_once(w, dtype, make)
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``x`` as big = tf32(x) and small = tf32(x - big), each
+    rounded to nearest with ties away from zero (the device's
+    ``cvt.rna.tf32.f32``, csrc/attention_common.cuh::split_tf32): float32
+    words whose low 13 mantissa bits are zero; big + small is x to ~2^-22
+    of |x|."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def f32_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 kernel's weights: :func:`kernel_weight` in float32
+    ([Cout, 27, Cp], Cp = C rounded up to 4) as its big and small tf32
+    parts (:func:`split_tf32`), made once per parameter, as
+    :func:`kernel_weight`."""
+    return _made_once(w, "tf32",
+                      lambda: split_tf32(kernel_weight(w, torch.float32)))
+
+
 def rgb_weight(w: torch.Tensor) -> torch.Tensor:
     """The narrow route's weight [Cout, C <= 3, 3, 3, 3] as bf16 [Cout,
     RGB_K], K packed as k = ((kt * 3 + di) * 3 + dj) * C + c and zero
@@ -125,8 +153,9 @@ def rgb_weight(w: torch.Tensor) -> torch.Tensor:
 
 
 def conv_plan(B: int, T: int, H: int, W: int, C: int, Cout: int,
-              taps_t: int, sms: int, norm: bool = False) -> dict:
-    """The bf16 kernel's route and work split on a card of ``sms`` SMs:
+              taps_t: int, sms: int, norm: bool = False,
+              f32: bool = False) -> dict:
+    """The kernel's route and work split on a card of ``sms`` SMs:
     ``route`` 'narrow' for C <= 3 (bn 0, splits 1, grid 0: the launcher
     sizes its grid), else 'wide' (at C rounded up to 8, the channels the
     wrapper pads to).  The wide route's output-channel tile ``bn``,
@@ -142,19 +171,23 @@ def conv_plan(B: int, T: int, H: int, W: int, C: int, Cout: int,
     tiles of 192 channels, 120 of 96), else 32 (the last tile masked
     where 32 does not divide Cout: the RGB head).  A K split writes f32
     partials that a second pass sums: it is taken where it beats no split
-    by SPLIT_GAIN."""
-    if C <= RGB_MAX_C:
+    by SPLIT_GAIN.  ``f32``: the float32 kernel, the wide route at every C
+    (rounded up to 4, the channels the wrapper pads to), K steps of
+    CK_F32 channels, bn 96 or 64 (a running sum beside each chain holds
+    twice the accumulators), else 32."""
+    if C <= RGB_MAX_C and not f32:
         return dict(route="narrow", bn=0, tiles=None, ksteps=None,
                     splits=1, grid=0)
-    C = -(-C // 8) * 8
+    C = -(-C // 4) * 4 if f32 else -(-C // 8) * 8
     mtiles = B * T * -(-H // TR) * -(-W // TW)
-    ksteps = taps_t * -(-C // CK)
+    ksteps = taps_t * -(-C // (CK_F32 if f32 else CK))
 
     def cost(bn, s):
         return (-(-mtiles * -(-Cout // bn) * s // sms)
                 * (-(-ksteps // s) + 1) * (bn + 32))
 
-    bn = min([b for b in (192, 128, 96, 64) if Cout % b == 0] or [32],
+    tiles = (96, 64) if f32 else (192, 128, 96, 64)
+    bn = min([b for b in tiles if Cout % b == 0] or [32],
              key=lambda b: cost(b, 1))
     splits = 1
     if not norm and Cout % bn == 0 and Cout % 8 == 0:
@@ -244,19 +277,25 @@ def _run(name: str, x, cache, w, b, taps_t: int, tau0: int,
         launch_counts[name] += 1
         launch_counts["conv3d_rgb"] += 1
         return out
-    if not f32 and C % 8 and not norm:
-        pad = -C % 8   # zero channels, the weight copy's padding
+    step = 4 if f32 else 8
+    if C % step and not norm:
+        pad = -C % step   # zero channels, the weight copy's padding
         x, cache = (_copy(name, t, F.pad(t, (0, pad))) for t in (x, cache))
         C += pad
-    wk = kernel_weight(w, x.dtype)
-    Cp = wk.shape[2]
+    plan = conv_plan(B, T, H, W, C, Cout, taps_t, _sm_count(x.device), norm,
+                     f32)
     if f32:
-        # wk[:, 9 * tau0]: the weight rows from the first temporal tap used
-        _launch(name, "conv3d_f32_launch", x, cache, wk[:, 9 * tau0], bias,
-                out, B, T, H, W, C, Cp, Cout, taps_t, tau0, 27 * Cp)
+        w_big, w_small = f32_weight(w)
+        splits = plan["splits"]
+        ws = None if splits == 1 else torch.empty(
+            splits, B * T * H * W, Cout, dtype=torch.float32, device=x.device)
+        _launch(name, "conv3d_f32_launch", x, cache, w_big, w_small, bias,
+                out, ws, B, T, H, W, C, w_big.shape[2], Cout, taps_t, tau0,
+                plan["bn"], splits, plan["grid"])
         launch_counts["conv3d_f32"] += 1
         return out
-    plan = conv_plan(B, T, H, W, C, Cout, taps_t, _sm_count(x.device), norm)
+    wk = kernel_weight(w, x.dtype)
+    Cp = wk.shape[2]
     inv = g = None
     if norm:
         if plan["route"] != "wide" or Cout % plan["bn"]:

@@ -1531,13 +1531,17 @@ def _window_operands(g, dev, B, N, Lq, S, dtype):
     (2, 3, 130, 700, 0, 700, True),      # ragged tiles, the whole cache
     (1, 2, 33, 512, 100, 101, False),    # one key
     (1, 1, 200, 256, -5, 300, True),     # bounds past the cache: clamped
+    (2, 3, 200, 700, 37, 611, False),    # bounds inside 32-key stages
+    (1, 2, 130, 2600, 5, 2590, True),    # 81 stages: O chains folded
 ])
 def test_decode_window_matches_plain(dev, dtype, B, N, Lq, S, lo, hi,
                                      folded):
     """The cache-window kernel against ``decode_attention_xla``'s port
     (float32, TF32 off), bounds as device scalars.  bf16: 1e-2 relative
     L2 (p rounded to bf16 for P.V); float32: 1e-4 (3xTF32 products, each
-    within ~2^-21 of the f32 product, and sums in another order)."""
+    within ~2^-21 of the f32 product, and sums in another order; the
+    float32 kernel folds each 32-stage O chain into the output, which the
+    81-stage case crosses twice).  Two runs are equal."""
     g = torch.Generator(device=dev).manual_seed(34)
     q, k, v = _window_operands(g, dev, B, N, Lq, S, dtype)
     if folded:
@@ -1553,6 +1557,7 @@ def test_decode_window_matches_plain(dev, dtype, B, N, Lq, S, lo, hi,
     assert ca.launch_counts[name] == 1
     assert out.shape == q.shape and out.dtype == dtype
     assert _rel_l2(out, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(ca.decode_window(q, k, v, lo_t, hi_t), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -1596,20 +1601,35 @@ def test_decode_attention_gradient_kernels_vs_plain(dev):
         assert _rel_l2(a, b) < 1e-4
 
 
+def _f32_conv_operands(g, dev, B, T, H, W, C, Cout):
+    """float32 operands with all 24 mantissa bits (bf16 values would leave
+    the small tf32 parts zero)."""
+    x = torch.randn(B, T, H, W, C, generator=g, device=dev)
+    cache = torch.randn(B, 2, H, W, C, generator=g, device=dev)
+    w = torch.randn(Cout, C, 3, 3, 3, generator=g, device=dev) * (
+        27 * C) ** -0.5
+    b = torch.randn(Cout, generator=g, device=dev) * 0.1
+    return x, cache, w, b
+
+
 @pytest.mark.parametrize("B,T,H,W,C,Cout", [
-    (1, 1, 7, 13, 3, 96),      # scalar A loads (C % 4 != 0)
-    (1, 2, 9, 10, 16, 384),
-    (1, 3, 5, 6, 96, 3),       # BN 32, odd Cout
-    (2, 1, 4, 5, 40, 64),      # BN 64
+    (1, 1, 7, 13, 3, 96),      # C % 4 != 0: padded to 4 channels
+    (1, 2, 9, 10, 16, 384),    # bn 64, a K split
+    (1, 3, 5, 6, 96, 3),       # bn 32, odd Cout
+    (2, 1, 4, 5, 40, 64),      # bn 64
     (1, 4, 12, 20, 96, 96),
+    (1, 2, 6, 70, 8, 32),      # bn 32, two column tiles
+    (1, 1, 5, 9, 6, 64),       # C % 4 != 0
+    (1, 1, 8, 64, 384, 96),    # 15 K splits
+    (1, 1, 5, 16, 96, 32),     # bn 32, 9 K splits
 ])
 def test_conv3d_float32_matches_plain(dev, B, T, H, W, C, Cout):
-    """The float32 conv (3xTF32 products) against the plain float32
-    version with TF32 off: 1e-4 relative L2 (the products are float32-
-    accurate; the sums run in another order)."""
+    """The float32 conv (3xTF32 products on tf32 wgmma) against the plain
+    float32 version with TF32 off: 1e-4 relative L2 (the products are
+    float32-accurate; the sums run in another order, each K step's chain
+    of products added to the running sum once).  Two runs are equal."""
     g = torch.Generator(device=dev).manual_seed(37)
-    x, cache, w, b = (t.float() for t in _conv_operands(g, dev, B, T, H, W,
-                                                         C, Cout))
+    x, cache, w, b = _f32_conv_operands(g, dev, B, T, H, W, C, Cout)
     cc.reset_launch_counts()
     out = cc.conv3d(x, cache, w, b)
     ref = tconv.conv3d_ref(x, cache, w, b)
@@ -1617,16 +1637,31 @@ def test_conv3d_float32_matches_plain(dev, B, T, H, W, C, Cout):
     assert cc.launch_counts["conv3d_f32"] == 1
     assert out.dtype == torch.float32 and out.shape == (B, T, H, W, Cout)
     assert _rel_l2(out, ref) < 1e-4
+    assert torch.equal(cc.conv3d(x, cache, w, b), out)
 
 
-def test_conv_float32_split_route_matches_plain(dev):
-    """384 channels at float32: the fused rule declines, the split route
-    runs one float32 launch a temporal tap."""
+@pytest.mark.parametrize("B,T,H,W,C,Cout", [
+    (1, 2, 6, 8, 384, 384),    # bn 96
+    (1, 2, 6, 70, 3, 32),      # C % 4 != 0, bn 32
+    (1, 1, 8, 64, 384, 96),    # 12 K splits a tap
+])
+def test_conv_float32_split_route_matches_plain(dev, B, T, H, W, C, Cout):
+    """The split route at float32 (at 384 channels the fused rule
+    declines): one float32 launch a temporal tap, each tap (taps_t 1 at
+    its frame offset tau0) against its plain version, and the route
+    against ``split_ref``: 1e-4 relative L2.  Two runs are equal."""
     g = torch.Generator(device=dev).manual_seed(38)
-    x, cache, w, b = (t.float() for t in _conv_operands(g, dev, 1, 2, 6, 8,
-                                                         384, 384))
+    x, cache, w, b = _f32_conv_operands(g, dev, B, T, H, W, C, Cout)
+    for tau in range(3):
+        y = cc.conv2d_tap(x, cache, w, b, tau)
+        assert _rel_l2(y, tconv.conv2d_tap_ref(x, cache, w, b, tau)) < 1e-4
+        assert torch.equal(cc.conv2d_tap(x, cache, w, b, tau), y)
     cc.reset_launch_counts()
-    out = tconv.causal_conv3d_pallas(x, cache, w, b)
+    # where the fused rule declines, causal_conv3d_pallas takes the route
+    route = (tconv.causal_conv3d_pallas
+             if tconv.fused_tile(H, W, C, Cout, 4) is None
+             else tconv.conv3d_split)
+    out = route(x, cache, w, b)
     ref = tconv.split_ref(x, cache, w, b)
     torch.cuda.synchronize()
     assert cc.launch_counts["conv3d_f32"] == 3
