@@ -86,6 +86,20 @@ path; its DiT ms per block).
    a 4-layer cut, then ``--blocks`` blocks at 40 layers (per-block DiT /
    TAEHV ms, pixel frames/s, TTFF, peak memory, launches: fc1 from
    pre-quantized x, ``w8a8_ffn1_xq``, must launch), and a profile.
+10. The text-to-video main path through the modules a user calls:
+   umT5-XXL at full width (random bf16 weights from the seed) encodes
+   seeded ids with a padding mask at L = 512 (``encode_for_dit``: ms busy
+   and wall beside its bound, padded rows exactly zero); the encoder, the
+   1.3B DiT and a float32 Wan VAE exported to the reference's state
+   dicts, saved with ``torch.save`` into a model directory and read back
+   by one ``load_wan_models`` call with ``t5_on_host`` (every leaf
+   equal); ``encode_text`` streaming that encoder (bit-equal, with its
+   peak memory); then the CLI's per-prompt function
+   ``inference.generate`` on that context with the loaded DiT and float32
+   VAE: ``--blocks`` blocks of 3 latent frames at 60x104 (t2v) and an
+   i2v run from a seeded 720x1280 image, uint8 frames [F, 480, 832, 3],
+   TTFF and ms a block, the decode / cross kernels' launches; the video
+   writer the machine has, if any.
 Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
@@ -1615,6 +1629,248 @@ def phase_wan14b(ca, cm, dit, taehv, pipe_mod, quant, chip, blocks,
     return launches
 
 
+def t5_bound(cfg, L: int) -> tuple[float, str]:
+    """The umT5 encode's bound at L tokens: its bf16 products (the linears
+    and the two attention products) at the bf16 rate against the weights
+    read once (the embedding rows gathered, not the table) and the
+    context written."""
+    per_layer = 4 * cfg.dim * cfg.dim_attn + 3 * cfg.dim * cfg.dim_ffn
+    flops = cfg.num_layers * (2 * L * per_layer
+                              + 2 * 2 * L * L * cfg.dim_attn)
+    nbytes = 2 * (cfg.num_layers * per_layer + 2 * L * cfg.dim)
+    return bound(flops, nbytes)
+
+
+def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
+    """10. The text-to-video main path at full width through the modules a
+    user calls.  umT5-XXL (random bf16 weights from the seed) encodes
+    seeded ids with a padding mask at L = 512 (``encode_for_dit``, on the
+    card).  The encoder, the 1.3B DiT and a float32 Wan VAE are then
+    exported to the reference's state dicts, saved with ``torch.save``
+    into a model directory and read back by one ``load_wan_models`` call,
+    as the CLI reads them (the T5 kept in pinned host memory,
+    ``t5_on_host``), each leaf equal to what was saved.  ``encode_text``
+    streams that encoder to the card a layer at a time (a stand-in for
+    the tokenizer, whose files are not in the repository, gives the
+    seeded ids) and must equal the resident context.  Then the CLI's
+    per-prompt function (``inference.generate``) turns the context into
+    uint8 frames with the loaded DiT and VAE, as the CLI's ``main`` does:
+    ``--blocks`` blocks of 3 latent frames at 60x104, t2v, and one i2v run
+    from a seeded 720x1280 image (resized, encoded by the float32 VAE, an
+    independent first frame and 2 blocks); bf16 latents reach the float32
+    VAE promoted, its convs on the default torch route under PyTorch's
+    default cuDNN TF32, as the CLI leaves it."""
+    import importlib.util
+    import tempfile
+    from self_forcing_tpu_torch import inference as cli
+    from self_forcing_tpu_torch import runtime
+    from self_forcing_tpu_torch.config import Config
+    from self_forcing_tpu_torch.models.wan import t5 as t5_mod
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.pipelines.causal_inference import (
+        CausalInferencePipeline)
+    from self_forcing_tpu_torch.utils import checkpoints as ckpt
+    from self_forcing_tpu_torch.utils import tree
+    from self_forcing_tpu_torch.utils.video_io import save_video
+    bf = torch.bfloat16
+    # the CLI's settings: the default conv route, PyTorch's default TF32
+    # for cuDNN's float32 convs (the float32 VAE) and none for matmuls
+    vae.set_conv_backend(None)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the T5 encoder, resident
+    cfg5, L, n_valid = t5_mod.UMT5_XXL, 512, 120
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    t = time.perf_counter()
+    t5p = t5_mod.init_params(cfg5, seed=seed + 31, dtype=bf, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    ids = torch.randint(1, cfg5.vocab_size, (1, L), generator=g,
+                        device="cuda")
+    mask = torch.zeros(1, L, dtype=torch.int64, device="cuda")
+    mask[:, :n_valid] = 1
+    ids = ids * mask
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = t5_mod.encode_for_dit(t5p, cfg5, ids, mask)
+    torch.cuda.synchronize()
+    act_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    if tuple(ctx.shape) != (1, L, cfg5.dim) or ctx.dtype != bf:
+        fail(f"t5: context {tuple(ctx.shape)} {ctx.dtype}")
+    if not torch.isfinite(ctx.float()).all():
+        fail("t5: non-finite context")
+    if not bool((ctx[:, n_valid:] == 0).all()) or \
+            not bool((ctx[:, :n_valid] != 0).any()):
+        fail("t5: the padded rows are not exactly zero (or all rows are)")
+    # device busy = the kernels' time under torch.profiler: the encode's
+    # host enqueue outlasts time_ms's spin, so events would count its gaps
+    _, rows, _, _ = profile_ms(
+        lambda: t5_mod.encode_for_dit(t5p, cfg5, ids, mask))
+    busy = sum(ms for _, ms in rows)
+    top = "; ".join(f"{name[:40]}={ms:.2f}" for name, ms in rows[:5])
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        t5_mod.encode_for_dit(t5p, cfg5, ids, mask)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    b_ms, b_by = t5_bound(cfg5, L)
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in tree.leaves(t5p)) / 1e9
+    print(f"t5 umt5-xxl encode_for_dit L={L} ({n_valid} tokens, the rest "
+          f"padding), bf16: device_busy_ms={busy:.4f} wall_ms="
+          f"{statistics.median(walls):.3f} (median of 5; walls "
+          f"{[round(w, 2) for w in walls]}) bound_ms={b_ms:.4f} "
+          f"({b_by}; {b_ms / max(busy, 1e-9):.3f} of it) weights_gb="
+          f"{weights_gb:.2f} "
+          f"activations_peak_gb={act_gb:.3f} init_s={init_s:.1f} top "
+          f"kernels (ms): {top}", flush=True)
+
+    # the models through the reference's files, read back by one
+    # load_wan_models call as the CLI reads them
+    cfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=3)
+    params = make_params(dit, cfg, seed + 32)
+    vae_src = vae.init_params(vae.WAN_VAE, seed=seed + 33,
+                              dtype=torch.float32, device="cuda")
+    exports = {
+        "models_t5_umt5-xxl-enc-bf16.pth":
+            lambda: ckpt.export_t5_state_dict(t5p),
+        os.path.join("Wan2.1-T2V-1.3B", "model.pt"):
+            lambda: ckpt.export_dit_state_dict(params, cfg),
+        "Wan2.1_VAE.pth": lambda: ckpt.export_vae_state_dict(vae_src)}
+    with tempfile.TemporaryDirectory() as model_dir:
+        t, sizes = time.perf_counter(), {}
+        for name, export in exports.items():
+            path = os.path.join(model_dir, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(export(), path)
+            sizes[name] = round(os.path.getsize(path) / 1e9, 3)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        models = runtime.load_wan_models(model_dir, model_cfg=cfg, dtype=bf,
+                                         t5_on_host=True, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    for label, got, want in (("dit", models.generator, params),
+                             ("vae", models.vae_params, vae_src),
+                             ("t5", models.t5_params, t5p)):
+        mine, theirs = dict(tree.items(want)), dict(tree.items(got))
+        if mine.keys() != theirs.keys() or not all(
+                theirs[k].dtype == v.dtype
+                and torch.equal(theirs[k].to(v.device), v)
+                for k, v in mine.items()):
+            fail(f"{label} checkpoint: the loaded params differ from the "
+                 "saved ones")
+    if not all(x.device.type == "cpu" and x.is_pinned()
+               for x in tree.leaves(models.t5_params)):
+        fail("t5_on_host: the encoder is not in pinned host memory")
+    print(f"checkpoints: export + torch.save {save_s:.1f} s (GB: {sizes}), "
+          f"load_wan_models(t5_on_host=True) {load_s:.1f} s; the DiT "
+          f"({len(tree.leaves(params))} leaves, bf16), the VAE (float32) "
+          f"and the T5 (pinned host memory) equal to what was saved",
+          flush=True)
+    del params, vae_src, t5p
+    torch.cuda.empty_cache()
+
+    # encode_text streams the host-resident encoder, one layer on the card
+    # at a time
+    models.tokenizer = lambda prompts: (ids.cpu(), mask.cpu())
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    streamed_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = models.encode_text(["a prompt"])
+        torch.cuda.synchronize()
+        streamed_ms.append((time.perf_counter() - t) * 1e3)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    equal = torch.equal(out, ctx)
+    print(f"t5 encode_text -> encode_streamed (pinned host weights, one "
+          f"layer on the card at a time): wall_ms="
+          f"{[round(x, 1) for x in streamed_ms]} (first, second) "
+          f"peak_gb_above_held={peak_gb:.3f} bit_equal={equal} "
+          f"rel_l2={rel_l2(out, ctx):.3e}", flush=True)
+    if not equal:
+        fail("t5: encode_text (streamed) differs from encode_for_dit")
+    del out
+    models.t5_params = None
+    torch.cuda.empty_cache()
+
+    # the CLI's per-prompt function, t2v then i2v
+    common = {"denoising_step_list": [1000, 750, 500, 250],
+              "warp_denoising_step": True, "timestep_shift": 8.0,
+              "num_frame_per_block": 3, "context_noise": 0}
+    image = torch.rand(720, 1280, 3, generator=g, device="cuda") * 2 - 1
+    launches = {}
+    runs = {"t2v": (False, 3 * blocks, None), "i2v": (True, 7, image)}
+    for name, (iff, frames, img) in runs.items():
+        pipe = CausalInferencePipeline(
+            Config({**common, "independent_first_frame": iff}),
+            models.generator, cfg, vae_params=models.vae_params,
+            vae_cfg=models.vae_cfg, device="cuda", dtype=bf)
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        t = time.perf_counter()
+        with HostStalls() as stalls:
+            px = cli.generate(pipe, ctx, frames, (60, 104), seed + 34,
+                              image=img, profile=True)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        launches[name] = dict(ca.launch_counts)
+        check_launches(f"cli {name}", launches[name], PARITY_KERNELS)
+        want = (1 + 4 * (frames - 1), 480, 832, 3)
+        if tuple(px.shape) != want or px.dtype != torch.uint8:
+            fail(f"cli {name}: frames {tuple(px.shape)} {px.dtype}, "
+                 f"expected {want} uint8")
+        if float(px.float().std()) < 1:
+            fail(f"cli {name}: the frames are (nearly) constant")
+        gen_blocks = (frames - iff) // 3
+        prof = pipe.profile_ms
+        print(f"cli {name} (inference.generate, the 1.3B DiT and the "
+              f"float32 VAE from load_wan_models, umT5 context, {frames} "
+              f"latent frames, {want[0]} pixel frames 480x832): ttff_ms="
+              f"{wall:.1f} (the CLI holds no frame before the decode ends) "
+              f"ms_per_block={prof['diffusion_ms'] / gen_blocks:.1f} "
+              f"({gen_blocks} blocks of 3; the first of them after "
+              f"init) init_ms={prof['init_ms']:.1f} vae_ms="
+              f"{prof['vae_ms']:.1f} {stalls} launches="
+              f"{{'decode_fresh_free': "
+              f"{launches[name]['decode_fresh_free']}, 'cross_attention': "
+              f"{launches[name]['cross_attention']}}} (host clock, "
+              f"synchronised per phase)", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+
+    # the video writer the machine has, if any, and the CLI's other
+    # optional packages
+    found = {m: importlib.util.find_spec(m) is not None for m in (
+        "cv2", "imageio", "PIL", "transformers", "safetensors")}
+    print(f"optional packages here: {found}", flush=True)
+    writers = [m for m in ("cv2", "imageio") if found[m]]
+    if writers:
+        with tempfile.TemporaryDirectory() as out_dir:
+            path = save_video(px.cpu().numpy(),
+                              os.path.join(out_dir, "i2v.mp4"), fps=16)
+            print(f"video writer: {writers[0]} wrote "
+                  f"{os.path.getsize(path)} bytes", flush=True)
+    else:
+        print("video writer: neither cv2 nor imageio is installed here; "
+              "no mp4 written (the frames above are the CLI's output)",
+              flush=True)
+    del models, ctx, px
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    return launches
+
+
 def _unique_leaves(tree):
     """Tensor leaves of a parameter tree, each storage once (``w_qa`` is a
     view of ``w_qa_t``)."""
@@ -2526,6 +2782,11 @@ def main() -> None:
     launches.update({k: wan14b[k] for k in (
         "w8a8_ffn1_xq", "w8a8_matmul_bf16x", "decode_window",
         "decode_window_f32")})
+
+    # 10. the text-to-video main path: umT5, the checkpoint loaders and
+    # the CLI's per-prompt function (its launches are checked there; the
+    # kernel line keeps phase 4's)
+    phase_text_to_video(ca, dit, vae, a.blocks, a.seed)
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -66,6 +66,23 @@ class RopeTables:
         return combine(cf, ch, cw), combine(sf, sh, sw)
 
 
+def qk_half_perm(head_dim: int, num_heads: int) -> np.ndarray:
+    """Column permutation from interleaved RoPE pairs to the half layout.
+
+    The reference rotates adjacent feature pairs (2i, 2i+1) of each head;
+    the DiT's parameters store the self-attention q/k columns (and their
+    RMS-norm weights) permuted per head, pair element 0 at i and element 1
+    at i + head_dim/2, so RoPE is ``x*cos + rotate_half(x)*sin``.  QK^T is
+    invariant under a permutation shared by q and k.  The checkpoint
+    converters apply it (``utils/checkpoints.py``); random init needs
+    none."""
+    half = np.empty(head_dim, np.int64)
+    half[:head_dim // 2] = np.arange(0, head_dim, 2)
+    half[head_dim // 2:] = np.arange(1, head_dim, 2)
+    return (np.arange(num_heads)[:, None] * head_dim
+            + half[None, :]).reshape(-1)
+
+
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     """[cos | sin] sinusoidal time embedding: [...] -> [..., dim] f32."""
     assert dim % 2 == 0

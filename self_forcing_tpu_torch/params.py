@@ -6,7 +6,8 @@ halves: the encoder's 2D stride-2 resample convs and (3, 1, 1)
 ``time_conv`` too) conv weights go from JAX's DHWIO / HWIO to torch's
 OIDHW / OIHW, in the TAEHV tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
 weights, float8_e4m3fn weights (through their uint8 view) and f32 scales
-(``w_scale`` keeps float32 whatever ``dtype`` says).  A W8A8 linear
+(``w_scale`` keeps float32 whatever ``dtype`` says), and so does the T5
+tree's relative-position table ``pos_emb``.  A W8A8 linear
 (``w_qa``) is stored once in the kernels' K-contiguous layout ``w_qa_t``,
 ``w_qa`` becoming its transposed view (ops/quant.py).
 """
@@ -21,11 +22,13 @@ from self_forcing_tpu_torch.ops.quant import kernel_layout
 def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None):
     """Convert a nested dict/list tree of numpy arrays (``kind`` 'dit',
-    'vae' or 'taehv') into the same tree of tensors on ``device``;
-    floating leaves other than scales are cast to ``dtype`` when given."""
-    if kind not in ("dit", "vae", "taehv"):
-        raise ValueError(f"kind must be 'dit', 'vae' or 'taehv', got "
+    'vae', 'taehv' or 't5') into the same tree of tensors on ``device``;
+    floating leaves other than scales and T5's ``pos_emb`` are cast to
+    ``dtype`` when given."""
+    if kind not in ("dit", "vae", "taehv", "t5"):
+        raise ValueError(f"kind must be 'dit', 'vae', 'taehv' or 't5', got "
                          f"{kind!r}")
+    keep_f32 = ("w_scale", "pos_emb") if kind == "t5" else ("w_scale",)
 
     def leaf(key, a):
         a = np.asarray(a)
@@ -39,7 +42,8 @@ def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
         elif kind in ("vae", "taehv") and key == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)         # HWIO -> OIHW
         t = torch.tensor(a, device=device)
-        if dtype is not None and t.is_floating_point() and key != "w_scale":
+        if dtype is not None and t.is_floating_point() and \
+                key not in keep_f32:
             t = t.to(dtype)
         return t
 

@@ -15,6 +15,7 @@ compact.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -98,6 +99,29 @@ def prime_block(params, cfg: WanConfig, rope: RopeTables, ctx_kv: dict,
     return cache
 
 
+class _PhaseClock:
+    """Host-clock ms of consecutive phases, each ended by a device
+    synchronise; does nothing when off."""
+
+    def __init__(self, device: torch.device, on: bool):
+        self.device, self.on, self.ms = device, on, {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.on:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            self.ms[name] = (now - self._t) * 1e3
+            self._t = now
+
+    def report(self) -> dict:
+        self.ms["total_ms"] = sum(self.ms.values())
+        print("Profiling results: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in self.ms.items()), flush=True)
+        return dict(self.ms)
+
+
 class CausalInferencePipeline:
     """Few-step chunk-wise AR sampler.  ``args`` holds the config keys
     denoising_step_list, warp_denoising_step, timestep_shift,
@@ -133,6 +157,7 @@ class CausalInferencePipeline:
         self._cache: dit.KVCache | None = None
         self._cache_sig = None
         self.compactions = 0  # windowed buffer compactions of the last stream
+        self.profile_ms: dict = {}  # the last inference(profile=True)
 
     def _init_cache(self, batch: int, fs: int, num_frames: int,
                     slack: bool = True) -> dit.KVCache:
@@ -213,12 +238,19 @@ class CausalInferencePipeline:
                   initial_latent: torch.Tensor | None = None,
                   return_latents: bool = False,
                   eps: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  profile: bool = False):
         """noise [B, F, C, H, W] -> video [B, F_pix, 3, H*8, W*8] in [0, 1]
         (None without VAE parameters).  ``initial_latent`` [B, F0, C, H,
         W]: clean context frames primed into the cache first (timestep 0)
         and put in front of the output.  Every generated block, the last
-        included, is refreshed into the cache."""
+        included, is refreshed into the cache.  The latents reach the VAE
+        in the wider of their dtype and the VAE's, as ``jnp`` promotes
+        them.  ``profile=True`` synchronises the device at the ends of the
+        set-up (context K/V, cache, priming), the generation and the
+        decode, prints each one's host-clock ms and keeps them in
+        ``self.profile_ms``."""
+        clock = _PhaseClock(noise.device, profile)
         B, F, C, H, W = noise.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
         ctx_kv = dit.precompute_context(self.params, self.cfg, context)
@@ -230,6 +262,7 @@ class CausalInferencePipeline:
             for lo, n in self._blocks(F0):
                 cache = prime_block(self.params, self.cfg, self.rope, ctx_kv,
                                     cache, initial_latent[:, lo:lo + n], lo)
+        clock.lap("init_ms")
         windowed = self.cfg.local_attn_size != -1
         for i, (lo, n) in enumerate(self._blocks(F, first=F0)):
             hint = None if windowed else lo * fs
@@ -245,11 +278,17 @@ class CausalInferencePipeline:
             outs.append(blk)
         self._cache = cache
         latents = torch.cat(outs, dim=1)
+        clock.lap("diffusion_ms")
         video = None
         if self.vae_params is not None:
+            vdt = self.vae_params["conv2"]["w"].dtype
             lat = latents.permute(0, 1, 3, 4, 2)
+            lat = lat.to(torch.promote_types(lat.dtype, vdt))
             video = vae_mod.decode(self.vae_params, self.vae_cfg, lat)
             video = (video * 0.5 + 0.5).clamp(0, 1).permute(0, 1, 4, 2, 3)
+            clock.lap("vae_ms")
+        if profile:
+            self.profile_ms = clock.report()
         if return_latents:
             return video, latents
         return video

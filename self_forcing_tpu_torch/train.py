@@ -5,10 +5,11 @@
 
 The config is merged over ``default_config.yaml`` beside it.  Only
 ``trainer: score_distillation`` (the DMD objective) is ported.  The models
-start from random weights drawn from the config's seed, at the config's
-``model_size`` (loading checkpoints and the T5 text encoder is not
-ported: a model directory or T5 file that exists raises).  Text contexts
-are pseudo-embeddings, ``randn(512, text_dim)`` from a ``torch.Generator``
+load from ``model_dir`` where it exists (``runtime.load_dit_params``; the
+tiny size always draws), else start from random weights drawn from the
+config's seed, at the config's ``model_size``.  Text contexts come from
+the T5 encoder where ``model_dir`` holds it, else they are
+pseudo-embeddings, ``randn(512, text_dim)`` from a ``torch.Generator``
 seeded by the prompt's crc32; prompts come from ``data_path`` (one per
 line, in a seeded shuffled order) or are placeholders.  Metrics go to
 ``<logdir>/metrics.jsonl``; checkpoints (``torch.save``) every
@@ -30,21 +31,31 @@ from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan.configs import (WAN_1_3B, WAN_14B,
                                                        WAN_TINY,
                                                        apply_model_kwargs)
+from self_forcing_tpu_torch.runtime import load_dit_params, load_wan_models
 from self_forcing_tpu_torch.training.trainer_distillation import (
     ScoreDistillationTrainer)
 
 
 def build_models(config, dtype: torch.dtype, device: torch.device):
-    """(cfg, generator, fake, real): random weights from the seed."""
+    """(cfg, generator, fake, real): the Wan weights of ``model_dir`` (the
+    generator with ``generator_ckpt``'s 'generator' laid over them, where
+    that file exists) when the directory exists and the size is not tiny,
+    else random weights from the seed."""
     size = str(getattr(config, "model_size", "1.3b")).lower()
     cfg = apply_model_kwargs({"1.3b": WAN_1_3B, "14b": WAN_14B,
                               "tiny": WAN_TINY}[size], config)
     model_dir = str(getattr(config, "model_dir", "wan_models"))
     if size != "tiny" and os.path.isdir(model_dir):
-        raise NotImplementedError(
-            f"loading the weights in {model_dir} is not ported to the "
-            "PyTorch package; move the directory away to train from random "
-            "weights")
+        gen_ckpt = getattr(config, "generator_ckpt", None)
+        generator = load_dit_params(
+            model_dir, cfg,
+            gen_ckpt if gen_ckpt and os.path.exists(gen_ckpt) else None,
+            checkpoint_key="generator", dtype=dtype, device=device)
+        fake = load_dit_params(model_dir, cfg, dtype=dtype, device=device)
+        real = load_dit_params(model_dir, cfg, dtype=dtype, device=device)
+        return cfg, generator, fake, real
+    if size != "tiny":
+        print(f"[train] no weights at {model_dir}; random init", flush=True)
     seed = int(getattr(config, "seed", 0))
     generator = dit.init_params(cfg, seed, dtype, device, causal=True)
     fake = dit.init_params(cfg, seed + 1, dtype, device, causal=False)
@@ -53,12 +64,14 @@ def build_models(config, dtype: torch.dtype, device: torch.device):
 
 
 def make_context_fn(config, cfg, device: torch.device):
-    """Prompts -> pseudo text contexts [B, 512, text_dim] (fp32)."""
-    t5 = os.path.join(str(getattr(config, "model_dir", "wan_models")),
-                      "models_t5_umt5-xxl-enc-bf16.pth")
-    if os.path.exists(t5):
-        raise NotImplementedError(f"the T5 encoder ({t5}) is not ported to "
-                                  "the PyTorch package")
+    """Prompts -> text contexts [B, 512, text_dim]: the T5 encoder of
+    ``model_dir`` where its file exists (bf16), else pseudo embeddings
+    (fp32)."""
+    model_dir = str(getattr(config, "model_dir", "wan_models"))
+    if os.path.exists(os.path.join(model_dir,
+                                   "models_t5_umt5-xxl-enc-bf16.pth")):
+        return load_wan_models(model_dir, load_vae=False, load_dit=False,
+                               device=device).encode_text
 
     def pseudo(prompts):
         out = []

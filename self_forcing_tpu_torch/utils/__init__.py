@@ -1,1 +1,2 @@
-"""Training utilities of the port."""
+"""Utilities of the port: parameter trees, losses, checkpoint files,
+video files."""

@@ -1,7 +1,8 @@
 """The port's streaming sampler against the JAX pipeline on the CPU: a
 2-block tiny rollout with the JAX package's noise draws injected as
 ``eps`` (float32, tolerance 1e-4); and a scan of the port's sources for
-imports of JAX or of the JAX package."""
+imports of JAX or of the JAX package, and for module-level imports of the
+packages the card's machine lacks."""
 import ast
 import dataclasses
 import os
@@ -118,7 +119,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "training/objectives/dmd.py", "utils/loss.py",
                  "pipelines/self_forcing_training.py", "lora.py",
                  "train.py", "ops/masks.py", "ops/conv.py",
-                 "ops/cuda_conv.py", "models/wan/vae.py"):
+                 "ops/cuda_conv.py", "models/wan/vae.py",
+                 "models/wan/t5.py", "tokenizer.py", "utils/checkpoints.py",
+                 "runtime.py", "wrappers.py", "utils/video_io.py",
+                 "data/datasets.py", "inference.py"):
         assert os.path.join("self_forcing_tpu_torch", part) in rel, part
     bad = []
     for path in files:
@@ -126,4 +130,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             if top in ("jax", "jaxlib", "flax", "self_forcing_tpu"):
                 bad.append((os.path.relpath(path, REPO), mod))
+    assert not bad, bad
+
+
+def _top_level_imports(path):
+    """Imports a module runs when it is imported: those outside every
+    function and class body."""
+    with open(path) as f:
+        body = ast.parse(f.read(), path).body
+    stack = list(body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            stack += [n for n in ast.iter_child_nodes(node)
+                      if isinstance(n, ast.stmt)]
+            for h in getattr(node, "handlers", []):
+                stack += h.body
+
+
+def test_port_imports_no_optional_package_at_module_level():
+    """The card's machine has no transformers, PIL, cv2, imageio or
+    safetensors: the port imports them where they are used."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "self_forcing_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = [(os.path.relpath(p, REPO), mod) for p in files
+           for mod in _top_level_imports(p)
+           if mod.split(".")[0] in ("transformers", "tokenizers", "PIL",
+                                    "cv2", "imageio", "safetensors")]
     assert not bad, bad
