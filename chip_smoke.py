@@ -100,6 +100,19 @@ path; its DiT ms per block).
    i2v run from a seeded 720x1280 image, uint8 frames [F, 480, 832, 3],
    TTFF and ms a block, the decode / cross kernels' launches; the video
    writer the machine has, if any.
+11. The pose-conditioned 50-step causal path through the CLI's functions
+   (random pose-CNN weights through a UniAnimate ``torch.save`` file and
+   ``load_pose_weights``, a seeded 480x832 pose video and reference pose
+   through an ``.npz`` and ``load_pose_npz``): the DWPose embedding's ms
+   and its distance to TF32 off; one CFG UniPC step of block 1 at full
+   width with pose tokens, each branch's flow kernels vs plain; then
+   ``inference.generate`` with ``CausalDiffusionInferencePipeline`` on
+   ``configs/causal_diffusion.yaml`` (50 steps, guidance 5, shift 5), 2
+   blocks of 3 latent frames and a float32 VAE: ms a block and a step,
+   the prompt's wall, peak memory, and exactly 2 x 102 x 30 decode and
+   cross launches; then the bidirectional samplers over 21 latent frames
+   (few-step at 4 steps, CFG cut to 4 DPM-Solver++ steps) with their
+   ``flash_fwd`` launches, forwards x 30.
 Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
@@ -1871,6 +1884,308 @@ def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
     return launches
 
 
+def print_profile(tag: str, fn) -> None:
+    """One call of ``fn`` (warmed) under torch.profiler: wall, device busy,
+    idle share and the top kernels by device time."""
+    fn()
+    wall, rows, stalls, _ = profile_ms(fn)
+    busy = sum(ms for _, ms in rows)
+    top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
+                    for name, ms in rows[:8])
+    print(f"profile {tag}: wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
+          f"idle_share={1 - busy / wall:.3f} {stalls} top: {top}",
+          flush=True)
+
+
+def phase_pose_diffusion(ca, dit, vae, seed) -> dict:
+    """11. The pose-conditioned 50-step causal path and the bidirectional
+    samplers at full Wan-1.3B width (random weights from the seed), with
+    PyTorch's default cuDNN TF32 for the float32 convs, as the CLI runs.
+
+    The pose weights (random, seeded) are saved with ``torch.save`` under
+    the UniAnimate key names and read back by the CLI's
+    ``load_pose_weights``; a seeded uint8 pose video [3, 4F - 3, 480, 832]
+    and reference pose [480, 832, 3] go through an ``.npz`` and the CLI's
+    ``load_pose_npz``.  The DWPose embedding is timed and held against the
+    same embedding with TF32 off, whole and on the part that depends on
+    the pose video (a black video's embedding subtracted: the random
+    layers shrink that part layer by layer while each bias adds a
+    constant, so the whole is mostly bias).  11a: one CFG solver step of
+    block 1 (the caches hold block 0) with the block's pose tokens through
+    ``pose_proj``, seeded context and negative context [1, 512, 4096]:
+    the positive and the negative flow with the kernels against their
+    plain versions (<= 2e-2 relative L2), the guided flow's distance, and
+    the step's time.  11b: ``inference.generate`` with the
+    ``CausalDiffusionInferencePipeline`` on ``configs/causal_diffusion.yaml``
+    (50 UniPC steps, guidance 5.0, shift 5.0), 2 blocks of 3 latent
+    frames, the pose video and reference pose, a float32 Wan VAE:
+    uint8 frames, ms a block and a step, VAE ms, the prompt's wall, peak
+    memory, and the decode / cross launches, which must be blocks x (2 x
+    50 + 2) x 30 each (2 blocks of a video's 7, cut for time).  11c: 21
+    latent frames (32760 tokens): ``BidirectionalInferencePipeline`` at 4
+    steps and ``BidirectionalDiffusionInferencePipeline`` cut to 4
+    DPM-Solver++ steps (50 in use; cut for time), ms a forward and
+    ``flash_fwd`` launches, which must be forwards x 30."""
+    import tempfile
+    import numpy as np
+    from self_forcing_tpu_torch import conditioning as cond
+    from self_forcing_tpu_torch import inference as cli
+    from self_forcing_tpu_torch.config import Config, load_config
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.models.wan.rope import RopeTables
+    from self_forcing_tpu_torch.pipelines import (
+        bidirectional_diffusion_inference as bd, bidirectional_inference as bi,
+        causal_diffusion_inference as cd)
+    from self_forcing_tpu_torch.solvers import init_solver_state, make_solver
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    vae.set_conv_backend(None)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    config = load_config(os.path.join(CONFIGS, "causal_diffusion.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    nb = int(config.num_frame_per_block)
+    cfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=nb)
+    blocks, H, W = 2, 60, 104
+    fs = (H // 2) * (W // 2)
+    F = blocks * nb
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    params = make_params(dit, cfg, seed + 51)
+    if "pose_proj" not in params:
+        fail("pose: the causal DiT has no pose_proj")
+
+    # the pose weights through a UniAnimate file and the CLI's loader; the
+    # pose video through an .npz and the CLI's reader
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(cond.export_pose_state_dict(
+            cond.init_dwpose_params(seed + 52, device=dev),
+            cond.init_randomref_params(seed + 53, device=dev)),
+            os.path.join(tmp, "unianimate_pose.pt"))
+        config.pose_weights_path = os.path.join(tmp, "unianimate_pose.pt")
+        dw_params, rr_params = cli.load_pose_weights(config, "1.3b", dev)
+        gcpu = torch.Generator().manual_seed(seed + 54)
+        np.savez(os.path.join(tmp, "pose.npz"),
+                 dwpose_data=torch.randint(
+                     0, 256, (3, 4 * F - 3, 8 * H, 8 * W), generator=gcpu,
+                     dtype=torch.uint8).numpy(),
+                 random_ref_dwpose=torch.randint(
+                     0, 256, (8 * H, 8 * W, 3), generator=gcpu,
+                     dtype=torch.uint8).numpy())
+        dwpose, ref = cli.load_pose_npz(os.path.join(tmp, "pose.npz"), dev)
+    if len(dw_params["layers"]) != 7 or len(rr_params["layers"]) != 6:
+        fail("pose: the CLI's loader did not read every pose conv")
+
+    # the DWPose embedding: its time, its distance to TF32 off, whole and
+    # on the part that depends on the pose video (x0: a black video)
+    x_in = cond.prepare_dwpose_input(dwpose)
+    x0 = torch.zeros_like(x_in)
+    emb, emb0 = (cond.dwpose_embedding(dw_params, v) for v in (x_in, x0))
+    torch.backends.cudnn.allow_tf32 = False
+    emb_f32, emb0_f32 = (cond.dwpose_embedding(dw_params, v)
+                         for v in (x_in, x0))
+    torch.backends.cudnn.allow_tf32 = True
+    want = (1, cond.POSE_CHANNELS, F, H // 2, W // 2)
+    if tuple(emb.shape) != want or not torch.isfinite(emb).all():
+        fail(f"pose: dwpose embedding {tuple(emb.shape)}, expected {want} "
+             "finite")
+    share = float((emb - emb0).norm() / emb.norm())
+    if not share > 0:
+        fail("pose: the dwpose embedding does not depend on the pose video")
+    emb_ms = time_ms(lambda: cond.dwpose_embedding(dw_params, x_in), reps=3)
+    print(f"pose dwpose_embedding [1, 3, {4 * F}, {8 * H}, {8 * W}] -> "
+          f"{list(emb.shape)} float32 (cuDNN, TF32 on as the CLI runs): "
+          f"ms={emb_ms:.3f} (CUDA events, median of 3) rel_l2 vs TF32 "
+          f"off={rel_l2(emb, emb_f32):.3e}; the pose video's own part "
+          f"(minus a black video's embedding) is {share:.3e} of the "
+          f"embedding's norm, its rel_l2 vs TF32 off="
+          f"{rel_l2(emb - emb0, emb_f32 - emb0_f32):.3e}", flush=True)
+    del x_in, x0, emb_f32, emb0_f32
+
+    # 11a: one CFG step of block 1, kernels vs plain
+    ctx = torch.randn(1, N_CTX, cfg.text_dim, generator=g,
+                      device="cuda").to(bf)
+    neg = torch.randn(1, N_CTX, cfg.text_dim, generator=g,
+                      device="cuda").to(bf)
+    rope = RopeTables.create(cfg.head_dim, device=dev)
+    ctx_pos = dit.precompute_context(params, cfg, ctx)
+    ctx_neg = dit.precompute_context(params, cfg, neg)
+    caches = [dit.init_kv_cache(cfg, 1, fs, 21, bf, dev) for _ in range(2)]
+    x_prev = torch.randn(1, nb, 16, H, W, generator=g, device="cuda")
+    caches = cd.prime_block_cfg(params, cfg, rope, ctx_pos, ctx_neg, *caches,
+                                x_prev.to(bf), 0, 0, static_kv_hi=0)
+    x = torch.randn(1, nb, 16, H, W, generator=g, device="cuda")
+    pose_tok = cond.pose_tokens_for_block(emb, nb, nb).to(bf)
+    solver = make_solver("unipc", 50, float(config.timestep_shift),
+                         device=dev)
+    t = torch.full((1, nb), float(solver.timesteps[0]), device="cuda")
+    flows = {}
+    for kernels in (True, False):
+        flows[kernels] = cd._forward_pair(
+            params, cfg, rope, x.to(bf), t, ctx_pos, ctx_neg, *caches, nb,
+            cache_start_frame=nb, static_kv_hi=nb * fs, write_cache=False,
+            kernels=kernels, add_condition=pose_tok)[:2]
+    errs = [rel_l2(flows[True][i], flows[False][i]) for i in range(2)]
+    guided = [cd.guided_flow(*flows[k], 5.0) for k in (True, False)]
+    bare, black = (dit.forward_inference(
+        params, cfg, x.to(bf), t, ctx_pos, caches[0], nb, rope,
+        cache_start_frame=nb, static_kv_hi=nb * fs, write_cache=False,
+        add_condition=pose)[0] for pose in (
+            None, cond.pose_tokens_for_block(emb0, nb, nb).to(bf)))
+    for flow in flows[True]:
+        if not torch.isfinite(flow.float()).all():
+            fail("pose step: non-finite flow")
+
+    def cfg_step():
+        state = init_solver_state(x.shape, dev)
+        fc, fu, _, _ = cd._forward_pair(
+            params, cfg, rope, x.to(bf), t, ctx_pos, ctx_neg, *caches, nb,
+            cache_start_frame=nb, static_kv_hi=nb * fs,
+            add_condition=pose_tok)
+        solver.step(0, state, cd.guided_flow(fc, fu, 5.0), x)
+
+    step_ms = time_ms(cfg_step, reps=5)
+    print(f"pose 11a: one CFG step of block 1 (1.3B, 30 layers, pose tokens "
+          f"through pose_proj, caches hold block 0): kernels vs plain "
+          f"rel_l2 positive={errs[0]:.3e} negative={errs[1]:.3e} guided "
+          f"(g 5.0, float32)={rel_l2(guided[0], guided[1]):.3e}; pose "
+          f"tokens move the positive flow by rel_l2="
+          f"{rel_l2(bare, flows[True][0]):.3e}, those of a black video "
+          f"instead by {rel_l2(black, flows[True][0]):.3e}; step_ms="
+          f"{step_ms:.1f} (2 "
+          f"forwards + combine + UniPC step, CUDA events around the "
+          f"enqueue, median of 5)", flush=True)
+    print_profile("pose 11a CFG step", cfg_step)
+    for name, err in zip(("positive", "negative"), errs):
+        if err > 2e-2:
+            fail(f"pose step: {name} flow kernels vs plain relative L2 "
+                 f"{err:.3e} > 2e-2")
+    del flows, guided, bare, black, caches, ctx_pos, ctx_neg, emb, emb0, \
+        pose_tok
+    torch.cuda.empty_cache()
+
+    # 11b: the CLI's per-prompt function on the 50-step pose path
+    vae_params = vae.init_params(vae.WAN_VAE, seed=seed + 55,
+                                 dtype=torch.float32, device="cuda")
+    pipe = cd.CausalDiffusionInferencePipeline(
+        config, params, cfg, vae_params=vae_params, vae_cfg=vae.WAN_VAE,
+        dwpose_params=dw_params, randomref_params=rr_params, device=dev,
+        dtype=bf)
+    finite, latents = [], []
+    inner = pipe.inference
+
+    def spy(*a, **k):
+        video, lat = inner(*a, return_latents=True, **k)
+        finite.append(bool(torch.isfinite(video).all()))
+        latents.append(lat)
+        return video
+
+    pipe.inference = spy
+    steps = pipe.solver.num_steps
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    with HostStalls() as stalls:
+        px = cli.generate(pipe, ctx, F, (H, W), seed + 56, neg_context=neg,
+                          dwpose_data=dwpose, random_ref_dwpose=ref,
+                          profile=True)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(ca.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_px = (1 + 4 * (F - 1), 8 * H, 8 * W, 3)
+    if tuple(px.shape) != want_px or px.dtype != torch.uint8:
+        fail(f"pose cli: frames {tuple(px.shape)} {px.dtype}, expected "
+             f"{want_px} uint8")
+    if finite != [True]:
+        fail("pose cli: the decoded video is not finite")
+    if float(px.float().std()) < 1:
+        fail("pose cli: the frames are (nearly) constant")
+    want_n = blocks * (2 * steps + 2) * cfg.num_layers
+    for name in PARITY_KERNELS:
+        if launches[name] != want_n:
+            fail(f"pose cli: {name} launched {launches[name]} times, "
+                 f"expected {blocks} x (2 x {steps} + 2) x "
+                 f"{cfg.num_layers} = {want_n}")
+    # the VAE decode's own peak: the same latents decoded again
+    torch.cuda.synchronize()
+    vae_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vae.decode(vae_params, vae.WAN_VAE, latents[0].permute(0, 1, 3, 4, 2))
+    torch.cuda.synchronize()
+    vae_peak = (torch.cuda.max_memory_allocated() - vae_held) / 1e9
+    prof = pipe.profile_ms
+    blk = [prof[f"block{b}_ms"] for b in range(blocks)]
+    print(f"pose 11b (inference.generate, CausalDiffusionInferencePipeline, "
+          f"causal_diffusion.yaml: {steps} UniPC steps, guidance "
+          f"{pipe.guidance_scale}, shift {pipe.shift}; {blocks} blocks of "
+          f"{nb} latent frames at {H}x{W}, {want_px[0]} pixel frames "
+          f"{8 * H}x{8 * W}, pose + reference pose, float32 VAE): "
+          f"prompt_wall_ms={wall:.1f} init_ms={prof['init_ms']:.1f} (context "
+          f"K/V, two caches, DWPose embedding) block_ms="
+          f"{[round(b_, 1) for b_ in blk]} ms_per_step="
+          f"{[round(b_ / (steps + 1), 2) for b_ in blk]} (a block over its "
+          f"{steps} steps + the refresh) vae_ms={prof['vae_ms']:.1f} "
+          f"peak_gb={peak_gb:.2f} (held before {held / 1e9:.2f}; the "
+          f"decode alone {vae_peak:.2f} above what it found) {stalls} "
+          f"launches={{'decode_fresh_free': "
+          f"{launches['decode_fresh_free']}, 'cross_attention': "
+          f"{launches['cross_attention']}}} = {blocks} x (2 x {steps} + 2) "
+          f"x {cfg.num_layers} (host clock, synchronised per block)",
+          flush=True)
+    del pipe, inner, px, vae_params, dwpose, ref, latents
+    torch.cuda.empty_cache()
+
+    # 11c: the bidirectional samplers over 21 latent frames
+    noise = torch.randn(1, 21, 16, H, W, generator=g, device="cuda")
+    few = bi.BidirectionalInferencePipeline(Config(
+        {"denoising_step_list": [1000, 750, 500, 250],
+         "warp_denoising_step": True,
+         "timestep_shift": float(config.timestep_shift)}),
+        params, cfg, device=dev, dtype=bf)
+    many = bd.BidirectionalDiffusionInferencePipeline(Config(
+        {"sampling_steps": 4, "sample_solver": "dpm++", "shift": 8.0,
+         "guidance_scale": 5.0}), params, cfg, device=dev, dtype=bf)
+    runs = {"few-step": (lambda: few.inference(noise, ctx, generator=g), 4),
+            "dpm++ CFG": (lambda: many.inference(
+                noise, context=ctx, neg_context=neg,
+                return_latents=True)[1], 2 * many.sampling_steps)}
+    bi_launches = {}
+    for name, (run, forwards) in runs.items():
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        lat = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n = ca.launch_counts["flash_fwd"]
+        bi_launches[name] = n
+        if tuple(lat.shape) != tuple(noise.shape) or \
+                not torch.isfinite(lat).all():
+            fail(f"bidirectional {name}: latents {tuple(lat.shape)} not "
+                 "finite or misshapen")
+        if n != forwards * cfg.num_layers:
+            fail(f"bidirectional {name}: flash_fwd launched {n} times, "
+                 f"expected {forwards} x {cfg.num_layers}")
+        print(f"bidirectional {name} (21 latent frames, {21 * fs} tokens, "
+              f"1.3B, no mask): {forwards} forwards wall_ms={wall:.1f} "
+              f"ms_per_forward={wall / forwards:.1f} flash_fwd launches={n} "
+              f"= {forwards} x {cfg.num_layers} cross_attention="
+              f"{ca.launch_counts['cross_attention']} (host clock, "
+              f"synchronised)", flush=True)
+    t = torch.full((1, 21), 500.0, device="cuda")
+    print_profile("bidirectional forward", lambda: dit.forward_train(
+        params, cfg, noise.to(bf), t, ctx, None, few.rope, remat=False))
+    del runs, few, many, noise, lat, params
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    return {"pose": launches, "bidirectional": bi_launches}
+
+
 def _unique_leaves(tree):
     """Tensor leaves of a parameter tree, each storage once (``w_qa`` is a
     view of ``w_qa_t``)."""
@@ -2787,6 +3102,11 @@ def main() -> None:
     # the CLI's per-prompt function (its launches are checked there; the
     # kernel line keeps phase 4's)
     phase_text_to_video(ca, dit, vae, a.blocks, a.seed)
+
+    # 11. the pose-conditioned 50-step causal path (the CLI's
+    # --dwpose_path) and the bidirectional samplers (their launches are
+    # checked there; the kernel line keeps phase 4's)
+    phase_pose_diffusion(ca, dit, vae, a.seed)
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -4,11 +4,17 @@ or image-to-video over a prompt file, one mp4 a prompt at 16 fps.
     python -m self_forcing_tpu_torch.inference --config_path configs/self_forcing_dmd.yaml \\
         --checkpoint_path checkpoints/self_forcing_dmd.pt \\
         --data_path prompts/MovieGenVideoBench.txt --output_folder videos/ \\
-        [--i2v] [--device cuda]
+        [--i2v] [--dwpose_path pose.npz] [--device cuda]
 
 The config is merged over ``default_config.yaml`` beside it.  A config
-with ``denoising_step_list`` runs the few-step ``CausalInferencePipeline``
-(the only pipeline ported).  ``model_size: tiny`` draws random weights
+with ``denoising_step_list`` runs the few-step ``CausalInferencePipeline``;
+any other config the 50-step ``CausalDiffusionInferencePipeline`` (CFG
+against the config's ``negative_prompt``, encoded once a run), which
+``--dwpose_path`` conditions on a pose video: an ``.npz`` with
+``dwpose_data`` [3, 4F - 3, H*8, W*8] uint8 and optionally
+``random_ref_dwpose`` [H*8, W*8, 3] uint8, through the pose CNNs whose
+weights ``pose_weights_path`` names (a UniAnimate checkpoint; random
+weights on ``model_size: tiny``).  ``model_size: tiny`` draws random weights
 (WAN_TINY, a tiny VAE widened to 16 latent channels) and a pseudo text
 context from the prompt's crc32; any other size loads Wan2.1-T2V-1.3B,
 the T5 encoder, its tokenizer and the VAE from ``model_dir``
@@ -18,9 +24,10 @@ independent first latent frame.  The prompts are split over the ranks of
 an initialised ``torch.distributed`` group (else rank 0 of 1).  It runs on
 the card unless ``--device cpu`` is given.  Writing the mp4 needs ``cv2``
 or ``imageio``; the tokenizer needs ``transformers``, ``--i2v`` PIL.
-On the card the DiT runs bf16 activations (the noise and context are cast
-to the parameters' dtype), where the JAX CLI's float32 noise promotes
-them to float32.
+On the card the DiT runs bf16 activations (the context and the DiT's input
+are cast to the parameters' dtype), where the JAX CLI's float32 noise
+promotes them to float32; the 50-step path keeps its sample and solver
+state in float32.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import zlib
 import numpy as np
 import torch
 
+from self_forcing_tpu_torch import conditioning as cond_mod
 from self_forcing_tpu_torch.config import load_config
 from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan import vae as vae_mod
@@ -38,6 +46,8 @@ from self_forcing_tpu_torch.models.wan.configs import (LATENT_HEIGHT,
                                                        LATENT_WIDTH,
                                                        WAN_1_3B, WAN_TINY,
                                                        apply_model_kwargs)
+from self_forcing_tpu_torch.pipelines.causal_diffusion_inference import (
+    CausalDiffusionInferencePipeline)
 from self_forcing_tpu_torch.pipelines.causal_inference import (
     CausalInferencePipeline)
 
@@ -90,25 +100,32 @@ def resize_cubic(image: torch.Tensor, height: int, width: int
     return x
 
 
-def generate(pipeline: CausalInferencePipeline, context: torch.Tensor,
-             num_frames: int, latent_hw: tuple[int, int], seed: int,
+def generate(pipeline, context: torch.Tensor, num_frames: int,
+             latent_hw: tuple[int, int], seed: int,
              image: torch.Tensor | None = None,
              noise: torch.Tensor | None = None, eps=None,
-             profile: bool = False) -> torch.Tensor:
+             profile: bool = False, neg_context: torch.Tensor | None = None,
+             dwpose_data: torch.Tensor | None = None,
+             random_ref_dwpose: torch.Tensor | None = None) -> torch.Tensor:
     """One prompt, from its text context [1, Lc, text_dim] to uint8 frames
     [F_px, H*8, W*8, 3] on the pipeline's device.
 
-    The noise [1, n, C, H, W] is drawn from a ``torch.Generator`` seeded
-    with ``seed`` on the device (float32, then cast to the pipeline's
-    dtype), and the same generator draws the re-noising steps.  With an
-    ``image`` [H0, W0, 3] in [-1, 1] (image to video), the image is resized
-    to the video's size, encoded by the pipeline's VAE as the first latent
-    frame, and ``num_frames - 1`` frames are generated after it.  A given
-    ``noise`` (float32, shaped as drawn) and ``eps`` (the pipeline's
+    The noise [1, n, C, H, W] is drawn in float32 from a
+    ``torch.Generator`` seeded with ``seed`` on the device.  The few-step
+    pipeline gets it cast to its dtype and draws its re-noising steps from
+    the same generator; the 50-step ``CausalDiffusionInferencePipeline``
+    keeps it in float32 and takes ``neg_context`` and the pose inputs
+    (``dwpose_data`` [1, 3, F_px, H*8, W*8], ``random_ref_dwpose``
+    [1, H*8, W*8, 3], both uint8).  With an ``image`` [H0, W0, 3] in
+    [-1, 1] (image to video), the image is resized to the video's size,
+    encoded by the pipeline's VAE as the first latent frame, and
+    ``num_frames - 1`` frames are generated after it.  A given ``noise``
+    (float32, shaped as drawn) and ``eps`` (the few-step pipeline's
     re-noising draws) replace the seeded ones, as another sampler's draws
     are replayed."""
     H, W = latent_hw
     dev, dtype = pipeline.device, pipeline.dtype
+    diffusion = isinstance(pipeline, CausalDiffusionInferencePipeline)
     initial_latent = None
     n_noise = num_frames
     if image is not None:
@@ -116,18 +133,57 @@ def generate(pipeline: CausalInferencePipeline, context: torch.Tensor,
         img = resize_cubic(image.to(dev), H * 8, W * 8).to(vdt)
         z = vae_mod.encode(pipeline.vae_params, pipeline.vae_cfg,
                            img[None, None])
-        initial_latent = z.permute(0, 1, 4, 2, 3).to(dtype)
+        initial_latent = z.permute(0, 1, 4, 2, 3)
         n_noise = num_frames - 1
     g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (1, n_noise, pipeline.cfg.in_dim, H, W)
+    shape = (1, n_noise, pipeline.cfg.out_dim, H, W)
     if noise is None:
         noise = torch.randn(shape, generator=g, device=dev)
     elif tuple(noise.shape) != shape:
         raise ValueError(f"noise {tuple(noise.shape)}: expected {shape}")
-    video = pipeline.inference(noise.to(dev, dtype), context.to(dev, dtype),
-                               initial_latent=initial_latent, eps=eps,
-                               generator=g, profile=profile)
+    if diffusion:
+        video = pipeline.inference(
+            noise.to(dev), context=context, neg_context=neg_context,
+            initial_latent=initial_latent, dwpose_data=dwpose_data,
+            random_ref_dwpose=random_ref_dwpose, profile=profile)
+    else:
+        video = pipeline.inference(
+            noise.to(dev, dtype), context.to(dev, dtype),
+            initial_latent=None if initial_latent is None
+            else initial_latent.to(dtype),
+            eps=eps, generator=g, profile=profile)
     return frames_uint8(video[0])
+
+
+def load_pose_weights(config, size: str, device: torch.device):
+    """(dwpose, randomref) pose-CNN weights for ``--dwpose_path``: from the
+    checkpoint ``config.pose_weights_path`` names (its
+    ``dwpose_embedding.*`` / ``randomref_embedding_pose.*`` keys), drawn
+    from seeds 7 and 8 on ``model_size: tiny``; any other model without
+    that file raises."""
+    path = getattr(config, "pose_weights_path", None)
+    if path and os.path.exists(str(path)):
+        from self_forcing_tpu_torch.utils import checkpoints as ckpt
+        return cond_mod.load_pose_embedding_weights(
+            ckpt.load_torch_state_dict(str(path)), device=device)
+    if size == "tiny":
+        return (cond_mod.init_dwpose_params(7, device=device),
+                cond_mod.init_randomref_params(8, device=device))
+    raise ValueError(
+        "--dwpose_path given but config.pose_weights_path is missing "
+        "(UniAnimate LoRA checkpoint with the dwpose_embedding. weights)")
+
+
+def load_pose_npz(path: str, device: torch.device):
+    """An ``.npz`` of ``dwpose_data`` [3, F_px, H, W] uint8 and optionally
+    ``random_ref_dwpose`` [H, W, 3] uint8 -> both with a batch axis of 1
+    on ``device`` (None for a missing reference pose)."""
+    with np.load(path) as pose:
+        dwpose = torch.from_numpy(pose["dwpose_data"])[None].to(device)
+        ref = None
+        if "random_ref_dwpose" in pose:
+            ref = torch.from_numpy(pose["random_ref_dwpose"])[None].to(device)
+    return dwpose, ref
 
 
 def frames_uint8(video: torch.Tensor) -> torch.Tensor:
@@ -182,17 +238,10 @@ def main(argv=None) -> None:
     config = load_config(args.config_path, os.path.join(
         os.path.dirname(args.config_path), "default_config.yaml"))
     few_step = bool(getattr(config, "denoising_step_list", None))
-    if args.dwpose_path:
-        if few_step:
-            raise ValueError(
-                "--dwpose_path needs the 50-step diffusion pipeline "
-                "(a config without denoising_step_list)")
-        raise NotImplementedError(
-            "pose conditioning is not ported (ROADMAP Queue A item 6)")
-    if not few_step:
-        raise NotImplementedError(
-            "the 50-step diffusion pipeline (a config without "
-            "denoising_step_list) is not ported (ROADMAP Queue A item 8)")
+    if args.dwpose_path and few_step:
+        raise ValueError(
+            "--dwpose_path needs the 50-step diffusion pipeline "
+            "(a config without denoising_step_list)")
     if args.tp and args.tp > 1:
         raise NotImplementedError(
             "--tp: tensor parallelism is not ported (ROADMAP Queue A "
@@ -227,10 +276,22 @@ def main(argv=None) -> None:
         encode = models.encode_text
         H, W = LATENT_HEIGHT, LATENT_WIDTH
     cfg = apply_model_kwargs(cfg, config)
-    pipeline = CausalInferencePipeline(config, params, cfg,
-                                       vae_params=vae_params,
-                                       vae_cfg=vae_cfg, device=device,
-                                       dtype=dtype)
+    dwpose = random_ref = None
+    if few_step:
+        pipeline = CausalInferencePipeline(config, params, cfg,
+                                           vae_params=vae_params,
+                                           vae_cfg=vae_cfg, device=device,
+                                           dtype=dtype)
+    else:
+        dwpose_params = randomref_params = None
+        if args.dwpose_path:
+            dwpose, random_ref = load_pose_npz(args.dwpose_path, device)
+            dwpose_params, randomref_params = load_pose_weights(
+                config, size, device)
+        pipeline = CausalDiffusionInferencePipeline(
+            config, params, cfg, vae_params=vae_params, vae_cfg=vae_cfg,
+            dwpose_params=dwpose_params, randomref_params=randomref_params,
+            device=device, dtype=dtype)
 
     data_path = args.data_path or str(getattr(config, "data_path", ""))
     if args.i2v:
@@ -263,12 +324,17 @@ def main(argv=None) -> None:
             f"{F + nb - n_gen % nb} output frames")
 
     from self_forcing_tpu_torch.utils.video_io import save_video
+    # the same for every prompt: one encode a run
+    neg = None if few_step else encode(
+        [str(getattr(config, "negative_prompt", ""))])
     for idx in range(rank, len(dataset), world):
         item = dataset[idx]
         prompt = item["prompts"]
         frames = generate(pipeline, encode([prompt]), F, (H, W),
                           args.seed + idx,
-                          image=item["image"] if args.i2v else None)
+                          image=item["image"] if args.i2v else None,
+                          neg_context=neg, dwpose_data=dwpose,
+                          random_ref_dwpose=random_ref)
         name = f"output_{idx:03d}.mp4" if args.save_with_index else \
             f"{prompt[:100].replace('/', '_')}.mp4"
         out_path = os.path.join(args.output_folder, name)

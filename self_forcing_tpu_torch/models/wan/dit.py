@@ -44,6 +44,12 @@ Under autograd the stacked block parameters are split once per forward
 backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
 package's per-layer ``jax.checkpoint`` does.
 
+Both forwards take the UniAnimate conditioning: ``y`` is concatenated to
+the latent's channels before the patch embedding (a y-consuming model has
+``in_dim`` = 16 + its y channels), and ``add_condition`` (pose tokens
+[B, L, 5120]) is projected by ``pose_proj`` and added to the tokens (on
+the teacher-forcing path to the noisy half only).
+
 Activations take the dtype ``jnp`` promotion gives them: float32 latents
 or text context over bf16 weights run a float32 residual stream with
 float32 linears, as the JAX trainer does.  The attention kernels take
@@ -467,6 +473,20 @@ def head_forward(params: Params, cfg: WanConfig, x: torch.Tensor,
     return linear(hp["head"], _modulate(xn, shift, scale_, frame_seqlen))
 
 
+def _maybe_add_condition(params: Params, x: torch.Tensor,
+                         add_condition: torch.Tensor | None,
+                         kernels: bool = True) -> torch.Tensor:
+    """Pose conditioning: tokens + pose_proj(add_condition) (5120 -> dim,
+    in the tokens' dtype; added as it is where the model has no
+    ``pose_proj``, dim 5120)."""
+    if add_condition is None:
+        return x
+    cond = add_condition.to(x.dtype)
+    if "pose_proj" in params:
+        cond = linear(params["pose_proj"], cond, kernels)
+    return x + cond
+
+
 # =====================================================================
 # KV cache
 # =====================================================================
@@ -689,7 +709,10 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
                       write_cache: bool = True,
                       assume_compacted: bool = False,
                       kernels: bool = True,
-                      remat: bool = False) -> tuple[torch.Tensor, KVCache]:
+                      remat: bool = False,
+                      y: torch.Tensor | None = None,
+                      add_condition: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, KVCache]:
     """KV-cached streaming forward of one chunk.
 
     x: [B, F_blk, C, H, W]; t: [B, F_blk]; ``ctx_kv`` from
@@ -712,11 +735,16 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     kernels' plain versions on CUDA.  ``remat=True`` checkpoints each
     layer (a with-grad forward recomputes it in the backward); the cache
     is read by reference, so it must not be written inside the window
-    before the backward.
+    before the backward.  ``y`` [B, F_blk, C_y, H, W]: channels
+    concatenated to x; ``add_condition`` [B, F_blk*h*w, 5120]: pose
+    tokens (:func:`_maybe_add_condition`).
     Returns (flow_pred [B, F_blk, C, H, W], cache)."""
+    if y is not None:
+        x = torch.cat([x, y], dim=2)
     tokens, grid = patchify(params, cfg, x)
     Fb, h, w = grid
     frame_seqlen = h * w
+    tokens = _maybe_add_condition(params, tokens, add_condition, kernels)
     e, e0 = time_embed(params, cfg, t, tokens.dtype)
     cos, sin = rope.angles_for_grid(Fb, h, w, int(start_frame))
     if cache_start_frame is None:
@@ -832,17 +860,25 @@ def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
                   mask: IntervalMask | None, rope: RopeTables,
                   clean_x: torch.Tensor | None = None,
                   aug_t: torch.Tensor | None = None,
-                  remat: bool = True, kernels: bool = True) -> torch.Tensor:
+                  remat: bool = True, kernels: bool = True,
+                  y: torch.Tensor | None = None,
+                  add_condition: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """No-cache forward: bidirectional (``mask=None``, the score models)
     or masked causal training, with the teacher-forcing [clean | noisy]
     doubled sequence when ``clean_x`` is given (its timestep ``aug_t``,
     default 0; both halves get the same RoPE positions).
 
     x: [B, F, C, H, W]; t: [B, F]; context: [B, <=512, text_dim].
-    ``remat``: recompute each layer in the backward.  Returns the flow
-    prediction [B, F, C, H, W]."""
+    ``remat``: recompute each layer in the backward.  ``y`` is
+    concatenated to x's channels (not to ``clean_x``); ``add_condition``
+    goes onto x's tokens before the clean half is put in front.  Returns
+    the flow prediction [B, F, C, H, W]."""
+    if y is not None:
+        x = torch.cat([x, y], dim=2)
     tokens, grid = patchify(params, cfg, x)
     frame_seqlen = grid[1] * grid[2]
+    tokens = _maybe_add_condition(params, tokens, add_condition, kernels)
     e, e0 = time_embed(params, cfg, t, tokens.dtype)
     cos, sin = rope.angles_for_grid(*grid, 0)
     if clean_x is not None:

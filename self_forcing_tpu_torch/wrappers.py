@@ -3,9 +3,10 @@ of ``self_forcing_tpu/wrappers.py``): ``WanTextEncoder``,
 ``WanVAEWrapper`` and ``WanDiffusionWrapper``, thin callables over
 ``models/wan/{t5,vae,dit}.py`` and ``scheduler.py``.
 
-Only the t2v DiT is ported: the classify mode and its GAN head, the CLIP
-image features, the i2v ``y`` conditioning and pose conditioning raise
-``NotImplementedError`` (ROADMAP Queue A item 6).
+The DiT facade passes the UniAnimate conditioning through (``y`` channels
+and ``add_condition`` pose tokens, as arguments or keys of the
+conditional dict); the classify mode and its GAN head and the CLIP image
+features raise ``NotImplementedError`` (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -129,14 +130,18 @@ class WanDiffusionWrapper:
                 y: Optional[torch.Tensor] = None):
         if classify_mode or concat_time_embeddings:
             raise NotImplementedError(f"the classify mode {_ITEM_6}")
-        for name, v in (("add_condition", add_condition),
-                        ("clip_feature", clip_feature), ("y", y)):
-            if v is not None or conditional_dict.get(name) is not None:
-                raise NotImplementedError(f"{name} conditioning {_ITEM_6}")
+        if clip_feature is not None or \
+                conditional_dict.get("clip_feature") is not None:
+            raise NotImplementedError(f"clip_feature conditioning {_ITEM_6}")
         x = noisy_image_or_video
         B, F, C, H, W = x.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
         context = conditional_dict["prompt_embeds"]
+        if add_condition is None:
+            add_condition = conditional_dict.get("add_condition")
+        if y is None:
+            y = conditional_dict.get("y")
+        cond = {"y": y, "add_condition": add_condition}
         t = torch.as_tensor(timestep, dtype=torch.float32, device=x.device)
         if t.ndim == 1:
             t = t[:, None].expand(B, F)
@@ -150,16 +155,16 @@ class WanDiffusionWrapper:
                 self.params, self.cfg, x, t, ctx_kv, kv_cache,
                 (current_start or 0) // fs, self.rope,
                 cache_start_frame=(None if cache_start is None
-                                   else cache_start // fs))
+                                   else cache_start // fs), **cond)
         elif clean_x is not None:
             mask = teacher_forcing_mask(F, fs, self.cfg.num_frame_per_block)
             flow = dit.forward_train(self.params, self.cfg, x, t, context,
                                      mask, self.rope, clean_x=clean_x,
-                                     aug_t=aug_t)
+                                     aug_t=aug_t, **cond)
         else:
             mask = self._mask_for(F, fs) if self.is_causal else None
             flow = dit.forward_train(self.params, self.cfg, x, t, context,
-                                     mask, self.rope)
+                                     mask, self.rope, **cond)
 
         def flat(a):
             return a.reshape((B * F,) + a.shape[2:])

@@ -12,8 +12,9 @@ counts are asserted: at most 1e-3 of the values, none by more than 1).
 same frames with the same draws passed in, and its bf16 activations
 (the card's route) to within a stated gap of float32 activations.  Then
 the wrappers (``WanTextEncoder``, ``WanVAEWrapper``'s streaming
-decode, ``WanDiffusionWrapper``'s cached and cache-free forwards) against
-the JAX package's, and the unported conditioning raising."""
+decode, ``WanDiffusionWrapper``'s cached and cache-free forwards, with
+and without the pose conditioning ``add_condition`` / ``y``) against the
+JAX package's, and the unported conditioning (classify, CLIP) raising."""
 import dataclasses
 import functools
 
@@ -304,9 +305,7 @@ def test_vae_wrapper_and_text_encoder_match_jax():
 
 
 @pytest.mark.parametrize("kwargs", [{"classify_mode": True},
-                                    {"clip_feature": torch.zeros(1)},
-                                    {"add_condition": torch.zeros(1)},
-                                    {"y": torch.zeros(1)}])
+                                    {"clip_feature": torch.zeros(1)}])
 def test_diffusion_wrapper_unported_conditioning_raises(kwargs):
     params = tdit.init_params(WAN_TINY, seed=0, dtype=torch.float32,
                               device="cpu")
@@ -317,3 +316,54 @@ def test_diffusion_wrapper_unported_conditioning_raises(kwargs):
            torch.from_numpy(t), **kwargs)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         tw.adding_cls_branch()
+
+
+@pytest.mark.parametrize("path", ["cached", "teacher_forcing", "cache_free"])
+def test_diffusion_wrapper_conditioning_matches_jax(path):
+    """``add_condition`` (pose tokens) and ``y`` through the wrapper, as
+    arguments (cached, teacher forcing) or in the conditional dict (cache
+    free), on a y-consuming model (in_dim 36; teacher forcing: pose tokens
+    only, on the t2v model, since the clean half has no y channels)."""
+    tf = path == "teacher_forcing"
+    in_dim = C if tf else 36
+    rng = np.random.default_rng(11)
+    cfg_j = dataclasses.replace(J_TINY, in_dim=in_dim, num_frame_per_block=1)
+    cfg_t = dataclasses.replace(WAN_TINY, in_dim=in_dim,
+                                num_frame_per_block=1)
+    dp = _perturbed(jdit.init_params(jax.random.PRNGKey(12), cfg_j,
+                                     jnp.float32), rng)
+    x, ctx, t = _forward_inputs(13, 2)
+    fs = (H // 2) * (W // 2)
+    pose = rng.standard_normal((B, 2 * fs, 5120)).astype(np.float32)
+    y = rng.standard_normal((B, 2, 20, H, W)).astype(np.float32)
+    jw = jwrap.WanDiffusionWrapper(dp, cfg_j)
+    tw = twrap.WanDiffusionWrapper(params_from_jax(dp, "dit", device="cpu"),
+                                   cfg_t)
+    jcond = {"prompt_embeds": jnp.asarray(ctx)}
+    tcond = {"prompt_embeds": torch.from_numpy(ctx)}
+    jkw, tkw = {}, {}
+    if path == "cache_free":
+        jcond.update(add_condition=jnp.asarray(pose), y=jnp.asarray(y))
+        tcond.update(add_condition=torch.from_numpy(pose),
+                     y=torch.from_numpy(y))
+    else:
+        jkw["add_condition"] = jnp.asarray(pose)
+        tkw["add_condition"] = torch.from_numpy(pose)
+        if not tf:
+            jkw["y"], tkw["y"] = jnp.asarray(y), torch.from_numpy(y)
+    if tf:
+        clean = rng.standard_normal(x.shape).astype(np.float32)
+        jkw["clean_x"], tkw["clean_x"] = jnp.asarray(clean), \
+            torch.from_numpy(clean)
+    if path == "cached":
+        jkw["kv_cache"] = jdit.init_kv_cache(cfg_j, B, fs, 21, jnp.float32)
+        tkw["kv_cache"] = tdit.init_kv_cache(cfg_t, B, fs, 21, torch.float32,
+                                             "cpu")
+        jkw["current_start"] = tkw["current_start"] = 2 * fs
+    jout = jw(jnp.asarray(x), jcond, jnp.asarray(t), **jkw)
+    tout = tw(torch.from_numpy(x), tcond, torch.from_numpy(t), **tkw)
+    if path == "cached":
+        jout, tout = jout[0], tout[0]
+    for got, want in zip(tout, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=TOL, atol=TOL)
