@@ -113,6 +113,19 @@ path; its DiT ms per block).
    cross launches; then the bidirectional samplers over 21 latent frames
    (few-step at 4 steps, CFG cut to 4 DPM-Solver++ steps) with their
    ``flash_fwd`` launches, forwards x 30.
+12. The streaming demo server built by ``python -m
+   self_forcing_tpu_torch.demo``'s own ``demo.build_app`` (with
+   ``--warmup``) on phase 10's model files plus a random TAEHV checkpoint
+   in ``taew2_1.pth``'s key layout and a stand-in tokenizer, serving on
+   127.0.0.1 in a thread: through a WebSocket client, (a) a parity
+   request (3 blocks, Wan VAE), (b) a demo request (``quantize``:
+   W8A8 + int8-QK, ``taehv``), (c) a second connection refused ``busy``
+   during (b), (d) a 7-block request stopped after its first block, (e)
+   (a) again (within 1 uint8 level of (a)), the demo request under
+   torch.profiler (device idle share, the host's synchronize waits), (f)
+   ``/api/status``; each request's ms to ``generation_started``, to the
+   first ``block_ready`` and ``frame_ready``, ``block_s``, frames and
+   pushed frames/s, with exact launch counts.
 Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
@@ -133,9 +146,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1654,7 +1669,40 @@ def t5_bound(cfg, L: int) -> tuple[float, str]:
     return bound(flops, nbytes)
 
 
-def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
+def export_model_dir(model_dir: str, t5p, params, cfg, vae_params) -> dict:
+    """The T5, the DiT and the VAE exported to the reference's state dicts
+    and saved with ``torch.save`` under the file names
+    ``runtime.load_wan_models`` looks for; returns the GB of each file."""
+    from self_forcing_tpu_torch.utils import checkpoints as ckpt
+    exports = {
+        "models_t5_umt5-xxl-enc-bf16.pth":
+            lambda: ckpt.export_t5_state_dict(t5p),
+        os.path.join("Wan2.1-T2V-1.3B", "model.pt"):
+            lambda: ckpt.export_dit_state_dict(params, cfg),
+        "Wan2.1_VAE.pth": lambda: ckpt.export_vae_state_dict(vae_params)}
+    sizes = {}
+    for name, export in exports.items():
+        path = os.path.join(model_dir, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(export(), path)
+        sizes[name] = round(os.path.getsize(path) / 1e9, 3)
+    return sizes
+
+
+def model_dir_params(dit, vae, seed):
+    """Phase 10's random umT5-XXL, 1.3B DiT (and its config) and float32
+    VAE, drawn from the seed."""
+    from self_forcing_tpu_torch.models.wan import t5 as t5_mod
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    t5p = t5_mod.init_params(t5_mod.UMT5_XXL, seed=seed + 31,
+                             dtype=torch.bfloat16, device="cuda")
+    cfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=3)
+    return (t5p, make_params(dit, cfg, seed + 32), cfg,
+            vae.init_params(vae.WAN_VAE, seed=seed + 33,
+                            dtype=torch.float32, device="cuda"))
+
+
+def phase_text_to_video(ca, dit, vae, blocks, seed, model_dir) -> dict:
     """10. The text-to-video main path at full width through the modules a
     user calls.  umT5-XXL (random bf16 weights from the seed) encodes
     seeded ids with a padding mask at L = 512 (``encode_for_dit``, on the
@@ -1672,17 +1720,16 @@ def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
     from a seeded 720x1280 image (resized, encoded by the float32 VAE, an
     independent first frame and 2 blocks); bf16 latents reach the float32
     VAE promoted, its convs on the default torch route under PyTorch's
-    default cuDNN TF32, as the CLI leaves it."""
+    default cuDNN TF32, as the CLI leaves it.  The model directory
+    ``model_dir`` stays for phase 12."""
     import importlib.util
     import tempfile
     from self_forcing_tpu_torch import inference as cli
     from self_forcing_tpu_torch import runtime
     from self_forcing_tpu_torch.config import Config
     from self_forcing_tpu_torch.models.wan import t5 as t5_mod
-    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
     from self_forcing_tpu_torch.pipelines.causal_inference import (
         CausalInferencePipeline)
-    from self_forcing_tpu_torch.utils import checkpoints as ckpt
     from self_forcing_tpu_torch.utils import tree
     from self_forcing_tpu_torch.utils.video_io import save_video
     bf = torch.bfloat16
@@ -1696,13 +1743,14 @@ def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # the T5 encoder, resident
+    # the T5 encoder, resident (with the DiT and the VAE that phase 12
+    # draws from the same seeds when it runs alone)
     cfg5, L, n_valid = t5_mod.UMT5_XXL, 512, 120
     g = torch.Generator(device="cuda").manual_seed(seed + 30)
     t = time.perf_counter()
-    t5p = t5_mod.init_params(cfg5, seed=seed + 31, dtype=bf, device="cuda")
+    t5p, params, cfg, vae_src = model_dir_params(dit, vae, seed)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    init_s = time.perf_counter() - t   # the T5, the DiT and the VAE
     ids = torch.randint(1, cfg5.vocab_size, (1, L), generator=g,
                         device="cuda")
     mask = torch.zeros(1, L, dtype=torch.int64, device="cuda")
@@ -1742,34 +1790,20 @@ def phase_text_to_video(ca, dit, vae, blocks, seed) -> dict:
           f"{[round(w, 2) for w in walls]}) bound_ms={b_ms:.4f} "
           f"({b_by}; {b_ms / max(busy, 1e-9):.3f} of it) weights_gb="
           f"{weights_gb:.2f} "
-          f"activations_peak_gb={act_gb:.3f} init_s={init_s:.1f} top "
+          f"activations_peak_gb={act_gb:.3f} init_s={init_s:.1f} (the T5, "
+          f"DiT and VAE drawn) top "
           f"kernels (ms): {top}", flush=True)
 
     # the models through the reference's files, read back by one
     # load_wan_models call as the CLI reads them
-    cfg = dataclasses.replace(WAN_1_3B, num_frame_per_block=3)
-    params = make_params(dit, cfg, seed + 32)
-    vae_src = vae.init_params(vae.WAN_VAE, seed=seed + 33,
-                              dtype=torch.float32, device="cuda")
-    exports = {
-        "models_t5_umt5-xxl-enc-bf16.pth":
-            lambda: ckpt.export_t5_state_dict(t5p),
-        os.path.join("Wan2.1-T2V-1.3B", "model.pt"):
-            lambda: ckpt.export_dit_state_dict(params, cfg),
-        "Wan2.1_VAE.pth": lambda: ckpt.export_vae_state_dict(vae_src)}
-    with tempfile.TemporaryDirectory() as model_dir:
-        t, sizes = time.perf_counter(), {}
-        for name, export in exports.items():
-            path = os.path.join(model_dir, name)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            torch.save(export(), path)
-            sizes[name] = round(os.path.getsize(path) / 1e9, 3)
-        save_s = time.perf_counter() - t
-        t = time.perf_counter()
-        models = runtime.load_wan_models(model_dir, model_cfg=cfg, dtype=bf,
-                                         t5_on_host=True, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sizes = export_model_dir(model_dir, t5p, params, cfg, vae_src)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    models = runtime.load_wan_models(model_dir, model_cfg=cfg, dtype=bf,
+                                     t5_on_host=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
     for label, got, want in (("dit", models.generator, params),
                              ("vae", models.vae_params, vae_src),
                              ("t5", models.t5_params, t5p)):
@@ -2926,6 +2960,442 @@ def phase_profile(dit, cfg, params, last, tag) -> None:
               f"{1 - busy / plain_wall:.3f} top: {top}", flush=True)
 
 
+def save_stand_in_tokenizer(path: str) -> None:
+    """A word-level stand-in for google/umt5-xxl (pad 0, eos 1 appended,
+    unk 2), saved where ``load_wan_models`` looks for the tokenizer: the
+    real tokenizer's files are not in the repository."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+    from transformers import PreTrainedTokenizerFast
+    words = ("a fox runs through fresh snow at night in a neon city street "
+             "rain reflections cinematic warmup").split()
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    vocab.update({w: i + 3 for i, w in enumerate(dict.fromkeys(words))})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Sequence(
+        [pre_tokenizers.WhitespaceSplit(), pre_tokenizers.Punctuation()])
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", special_tokens=[("</s>", 1)])
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="<pad>",
+                            eos_token="</s>", unk_token="<unk>"
+                            ).save_pretrained(path)
+
+
+def prepare_demo_dir(dit, vae, seed: int, model_dir: str) -> tuple:
+    """What the demo server needs under ``model_dir``: phase 10's model
+    files (drawn from the seeds where they are missing), a random TAEHV
+    (decoder and encoder) saved in ``taew2_1.pth``'s key layout, a
+    stand-in tokenizer, and copies of ``configs/self_forcing_dmd.yaml``
+    (naming ``model_dir``) and ``default_config.yaml``.  Returns (config
+    path, TAEHV checkpoint path)."""
+    from self_forcing_tpu_torch.models import taehv
+    if not os.path.exists(os.path.join(model_dir, "Wan2.1_VAE.pth")):
+        t5p, params, cfg, vae_src = model_dir_params(dit, vae, seed)
+        export_model_dir(model_dir, t5p, params, cfg, vae_src)
+        del t5p, params, vae_src
+        torch.cuda.empty_cache()
+    tae_path = os.path.join(model_dir, "taew2_1.pth")
+    torch.save(taehv.export_taehv_state_dict({
+        **taehv.init_decoder_params(seed=seed + 40, device="cuda"),
+        **taehv.init_encoder_params(seed=seed + 41, device="cuda")}),
+        tae_path)
+    save_stand_in_tokenizer(os.path.join(model_dir, "google", "umt5-xxl"))
+    cfg_dir = os.path.join(model_dir, "configs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    for name in ("self_forcing_dmd.yaml", "default_config.yaml"):
+        with open(os.path.join(CONFIGS, name)) as f:
+            text = f.read()
+        if name == "self_forcing_dmd.yaml":
+            text += f"\nmodel_dir: {json.dumps(model_dir)}\n"
+        with open(os.path.join(cfg_dir, name), "w") as f:
+            f.write(text)
+    return os.path.join(cfg_dir, "self_forcing_dmd.yaml"), tae_path
+
+
+class WsClient:
+    """A WebSocket client on the port's frame helpers (its frames go out
+    unmasked, which the server's ``decode_frame`` takes); every read has a
+    timeout."""
+
+    def __init__(self, port: int, timeout: float = 300.0):
+        import base64
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((
+            f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            byte = self.sock.recv(1)
+            if not byte:
+                fail("serving: the server closed the handshake")
+            head += byte
+        if b" 101 " not in head.split(b"\r\n")[0]:
+            fail(f"serving: handshake answered {head.splitlines()[0]!r}")
+
+    def send(self, event: str, data: dict) -> None:
+        from self_forcing_tpu_torch.serving.websocket import encode_frame
+        self.sock.sendall(encode_frame(json.dumps(
+            {"event": event, "data": data}).encode()))
+
+    def recv(self) -> dict:
+        from self_forcing_tpu_torch.serving.websocket import decode_frame
+        frame = decode_frame(self.sock)
+        if frame is None:
+            fail("serving: the server closed the connection")
+        return json.loads(frame[1].decode())
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def serve_request(client, app, payload, counters, stop_after_block=False,
+                  keep_jpegs=0, during=None):
+    """One ``start_generation`` through ``client`` and every event up to
+    ``generation_complete`` (and ``generation_stopped`` when this request
+    is stopped after its first ``block_ready``), each stamped with the ms
+    since the request was sent; any ``error`` fails the phase.  The
+    kernels' launch counts are reset before and read after.  ``during``
+    runs once ``generation_started`` has arrived."""
+    import base64
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    client.send("start_generation", payload)
+    events, jpegs, stopped = [], [], False
+    while True:
+        msg = client.recv()
+        ms = (time.perf_counter() - t0) * 1e3
+        ev, data = msg["event"], msg["data"] or {}
+        if ev == "error":
+            fail(f"serving: request {payload} answered error {data}")
+        events.append((ms, ev, data))
+        if ev == "generation_started" and during is not None:
+            during()
+        if ev == "frame_ready" and len(jpegs) < keep_jpegs:
+            jpegs.append(base64.b64decode(data["jpeg"]))
+        if ev == "block_ready" and stop_after_block and not stopped:
+            client.send("stop_generation", {})
+            stopped = True
+        names = [e[1] for e in events]
+        if "generation_complete" in names and (
+                not stopped or "generation_stopped" in names):
+            break
+    deadline = time.time() + 60
+    while app.busy and time.time() < deadline:
+        time.sleep(0.01)
+    if app.busy:
+        fail("serving: the app stayed busy after generation_complete")
+    torch.cuda.synchronize()
+    launches = {}
+    for c in counters:
+        launches.update(c.launch_counts)
+    return events, jpegs, launches
+
+
+def request_line(tag, events, launches) -> tuple[int, dict]:
+    """Print one request's readings; returns (pixel frames, the first
+    timings)."""
+    first = {}
+    for ms, ev, _ in events:
+        first.setdefault(ev, ms)
+    frames = [ms for ms, ev, _ in events if ev == "frame_ready"]
+    blocks = [d["block_s"] for _, ev, d in events if ev == "block_ready"]
+    span = (frames[-1] - first["generation_started"]) / 1e3 if frames \
+        else float("nan")
+    fps = len(frames) / span if frames else 0.0
+    ms = {ev: first.get(ev, float("nan")) for ev in (
+        "generation_started", "block_ready", "frame_ready",
+        "generation_complete")}
+    print(f"serving {tag}: ms_to_generation_started="
+          f"{ms['generation_started']:.1f} ms_to_first_block_ready="
+          f"{ms['block_ready']:.1f} ms_to_first_frame_ready="
+          f"{ms['frame_ready']:.1f} ms_to_generation_complete="
+          f"{ms['generation_complete']:.1f} block_s={blocks} frames="
+          f"{len(frames)} pushed_fps={fps:.3f} "
+          f"(frames over the seconds from generation_started to the last "
+          f"frame_ready, host clock of the client) launches="
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return len(frames), first
+
+
+def phase_serving(ca, cm, dit, vae, seed, model_dir) -> dict:
+    """12. The streaming demo server (``python -m
+    self_forcing_tpu_torch.demo``) serving a few requests on the card.
+
+    The model directory is phase 10's ``torch.save`` export (random T5,
+    1.3B DiT, float32 VAE; made here from the same seeds when phase 10
+    did not run), plus a random TAEHV (decoder and encoder) saved in
+    ``taew2_1.pth``'s key layout and a word-level stand-in tokenizer
+    (``prepare_demo_dir``).  A copy of ``configs/self_forcing_dmd.yaml``
+    names that directory; the demo's own ``parse_args`` and ``build_app``
+    (``--warmup``: kernels and one throwaway 7-block stream) build the
+    app as its ``main`` does, and it serves on 127.0.0.1 at an ephemeral
+    port in a thread, with
+    PyTorch's default cuDNN TF32 and the default conv route, as the CLI
+    runs.  Two instruments are added: the Wan decoder keeps a copy of
+    each request's first decoded block (on the card), for (e), and the
+    generation thread's wait for each block's pixels is timed (the
+    lookahead hides it behind the next block's work).  A client on the
+    port's frame helpers sends ``set_fps`` 1000, then: (a) parity, 3
+    blocks with the Wan VAE; (b) the demo, ``quantize`` and ``taehv``, 3
+    blocks, during which (c) a second connection's ``start_generation``
+    must be refused ``busy``; (d) 7 blocks (the global cap), stopped after
+    its first ``block_ready``, must answer ``generation_stopped``; (e) (a)
+    again, its first block's frames within 1 uint8 level of (a)'s; (a')
+    (a) with ``.cpu()`` at the flush in place of the pinned copy (the
+    A/B of the lookahead's fetch); a demo request under torch.profiler
+    (its device idle share and the host's synchronize waits); (f) ``GET
+    /api/status``: not busy, memory from torch.cuda.  (a), (a'), (b),
+    (e) and the profiled request must push every frame (33) in 3
+    ``block_ready`` events with the exact launch counts of 3 blocks."""
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+    from self_forcing_tpu_torch import demo
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.serving import demo_server as ds
+    from torch.profiler import ProfilerActivity, profile
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    vae.set_conv_backend(None)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cfg_path, tae_path = prepare_demo_dir(dit, vae, seed, model_dir)
+    prep_s = time.perf_counter() - t
+
+    t = time.perf_counter()
+    args = demo.parse_args([
+        "--config_path", cfg_path, "--taehv_checkpoint", tae_path,
+        "--host", "127.0.0.1", "--port", "0", "--fps", "1000", "--warmup"])
+    app = demo.build_app(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    pipe = app.pipeline
+    if pipe.cfg.dim != WAN_1_3B.dim or pipe.cfg.num_layers != 30 or \
+            pipe.device.type != "cuda" or app.latent_shape != (
+                1, 21, 16, 60, 104) or "taehv" not in app._decoders:
+        fail(f"serving: the demo built {pipe.cfg} on {pipe.device}, latent "
+             f"shape {app.latent_shape}, decoders {list(app._decoders)}")
+    print(f"serving: model dir ready in {prep_s:.1f} s (TAEHV checkpoint "
+          f"{os.path.getsize(tae_path) / 1e6:.1f} MB); demo.build_app "
+          f"(load_wan_models with t5_on_host, --warmup: one 7-block stream "
+          f"with the Wan VAE) {build_s:.1f} s", flush=True)
+
+    first_px, current = {}, [None]
+    wan_decode, wan_reset = app._decoders["wan"]
+
+    def keep_first(latents):
+        px = wan_decode(latents)
+        first_px.setdefault(current[0], px.clone())
+        return px
+
+    app._decoders["wan"] = (keep_first, wan_reset)
+    # the second instrument: how long the generation thread waits for
+    # each block's pixels (its CUDA event), after queueing the next
+    # block's work; the last block has no next block to hide behind
+    waits = []
+    host_copy_numpy = ds._HostCopy.numpy
+
+    def timed_numpy(self):
+        t0 = time.perf_counter()
+        out = host_copy_numpy(self)
+        waits.append(round((time.perf_counter() - t0) * 1e3, 2))
+        return out
+
+    ds._HostCopy.numpy = timed_numpy
+    server = app.server(args.host, args.port)
+    port = server.server_address[1]
+    serve_t = threading.Thread(target=server.serve_forever, daemon=True)
+    serve_t.start()
+    forwards = 5 * 3 - 1
+    attn = 30 * forwards
+    parity_want = {"decode_fresh_free": attn, "cross_attention": attn}
+    demo_want = {"int8qk_quantize": attn, "decode_fresh_int8qk": attn,
+                 "cross_attention": attn, "quantize_rows": 4 * attn + 60,
+                 "w8a8_matmul": 4 * attn + 60, "w8a8_ffn1": attn,
+                 "w8a8_ffn2": attn}
+    readings = {}
+    client = WsClient(port)
+    try:
+        client.send("set_fps", {"fps": 1000})
+
+        def run(tag, payload, want, **kw):
+            current[0] = tag
+            waits.clear()
+            events, jpegs, launches = serve_request(
+                client, app, dict(payload, prompt="a fox runs through "
+                                  "fresh snow at night", seed=seed + 50),
+                (ca, cm), **kw)
+            n, first = request_line(tag, events, launches)
+            print(f"serving {tag}: the generation thread's wait for each "
+                  f"block's pixels (ms, host clock): {waits}", flush=True)
+            if want is not None:   # a whole 3-block request
+                got = {k: v for k, v in launches.items() if v}
+                started = [d for _, e, d in events
+                           if e == "generation_started"][0]
+                blocks = sum(e == "block_ready" for _, e, _ in events)
+                done = [d for _, e, d in events
+                        if e == "generation_complete"][0]
+                if n != 33 or blocks != 3 or \
+                        started["expected_frames"] != 33 or \
+                        done["frames"] != 33:
+                    fail(f"serving {tag}: {n} frames in {blocks} blocks "
+                         f"(started {started}, complete {done}); expected "
+                         f"33 in 3")
+                if got != want:
+                    fail(f"serving {tag}: launches {got}, expected {want}")
+                if len(waits) != 3:
+                    fail(f"serving {tag}: {len(waits)} blocks fetched "
+                         f"through pinned memory, expected 3")
+            readings[tag] = (events, jpegs, launches, first)
+            return events, jpegs
+
+        plain = {"blocks": 3, "taehv": False, "quantize": False}
+        fast = {"blocks": 3, "taehv": True, "quantize": True}
+        _, jpegs_a = run("(a) parity: Wan VAE, bf16 DiT, 3 blocks", plain,
+                         parity_want, keep_jpegs=9)
+        busy = {}
+
+        def second_connection():
+            other = WsClient(port)
+            try:
+                other.send("start_generation", {"prompt": "y", "seed": 1})
+                busy["reply"] = other.recv()
+            finally:
+                other.close()
+
+        run("(b) demo: quantize (W8A8 + int8-QK) + TAEHV, 3 blocks", fast,
+            demo_want, during=second_connection)
+        reply = busy.get("reply", {})
+        print(f"serving (c) a second connection during (b): {reply}",
+              flush=True)
+        if reply.get("event") != "error" or \
+                (reply.get("data") or {}).get("message") != "busy":
+            fail(f"serving (c): expected error busy, got {reply}")
+        events_d, _ = run("(d) 7 blocks, stopped after the first "
+                          "block_ready", {"blocks": 7, "taehv": False,
+                                          "quantize": False}, None,
+                          stop_after_block=True)
+        started_d = [d for _, e, d in events_d if e == "generation_started"]
+        stopped_d = [ms for ms, e, _ in events_d if e == "generation_stopped"]
+        blocks_d = sum(e == "block_ready" for _, e, _ in events_d)
+        print(f"serving (d): generation_stopped {stopped_d[0]:.1f} ms after "
+              f"start_generation (latent_frames "
+              f"{started_d[0]['latent_frames']}), {blocks_d} of 7 blocks "
+              f"pushed", flush=True)
+        if started_d[0]["latent_frames"] != 21 or blocks_d >= 7:
+            fail(f"serving (d): {started_d}, {blocks_d} blocks")
+        _, jpegs_e = run("(e) (a) again", plain, parity_want, keep_jpegs=9)
+        a_px = first_px["(a) parity: Wan VAE, bf16 DiT, 3 blocks"]
+        e_px = first_px["(e) (a) again"]
+        diff = int((a_px.int() - e_px.int()).abs().max())
+        same_jpegs = sum(x == y for x, y in zip(jpegs_a, jpegs_e))
+        print(f"serving (e) against (a): first block {tuple(e_px.shape)} "
+              f"uint8, max abs difference {diff} levels (limit 1); "
+              f"{same_jpegs} of {len(jpegs_a)} first-block JPEGs "
+              f"byte-equal", flush=True)
+        if tuple(a_px.shape) != (9, 480, 832, 3) or diff > 1:
+            fail(f"serving (e): first block {tuple(a_px.shape)}, "
+                 f"{diff} levels from (a)'s")
+        img = cv2.imdecode(np.frombuffer(jpegs_e[0], np.uint8),
+                           cv2.IMREAD_COLOR)
+        if img is None or img.shape != (480, 832, 3) or img.std() < 1:
+            fail(f"serving: a pushed JPEG decodes to "
+                 f"{None if img is None else img.shape}")
+
+        # the A/B behind the pinned copy: (a) with each block's pixels
+        # fetched by .cpu() at the flush, which waits for every kernel
+        # queued on the stream, the next block's included
+        class CpuAtFlush:
+            def __init__(self, px):
+                self.px = px
+
+            def __array__(self, dtype=None, copy=None):
+                t0 = time.perf_counter()
+                out = self.px.cpu().numpy()
+                waits.append(round((time.perf_counter() - t0) * 1e3, 2))
+                return out
+
+        start_fetch = ds._start_fetch
+        ds._start_fetch = CpuAtFlush
+        try:
+            run("(a') (a) with .cpu() at the flush", plain, parity_want)
+        finally:
+            ds._start_fetch = start_fetch
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run("(b) profiled", fast, demo_want)
+            wall = (time.perf_counter() - t) * 1e3
+        rows, waits = [], 0.0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                rows.append((e.key, getattr(e, "self_device_time_total",
+                                            0) / 1e3))
+            elif e.key in ("cudaEventSynchronize", "cudaStreamSynchronize",
+                           "cudaDeviceSynchronize"):
+                waits += e.self_cpu_time_total / 1e3
+        del prof
+        gc.collect()
+        rows.sort(key=lambda r: -r[1])
+        dev_busy = sum(ms for _, ms in rows)
+        top = "; ".join(f"{k[:40]}={ms:.1f}ms" for k, ms in rows[:6])
+        print(f"serving profile (the demo request, start_generation to "
+              f"generation_complete): wall_ms={wall:.1f} device_busy_ms="
+              f"{dev_busy:.1f} idle_share={1 - dev_busy / wall:.3f} "
+              f"host_sync_wait_ms={waits:.1f} (the host's CUDA "
+              f"synchronize calls: the lookahead's event waits, the T5's "
+              f"copies) top: {top}", flush=True)
+        if dev_busy <= 0:
+            fail("serving profile: no device time recorded")
+
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/status", timeout=60).read()
+        status = json.loads(body)
+        free, total = torch.cuda.mem_get_info()
+        print(f"serving (f) /api/status: {status} (torch.cuda.mem_get_info: "
+              f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB)",
+              flush=True)
+        if status["busy"] or not status["taehv_available"] or \
+                not status["quantize_available"] or \
+                abs(status["hbm_in_use_gb"] - (total - free) / 2 ** 30) > 1 \
+                or status["hbm_in_use_gb"] <= 0:
+            fail(f"serving (f): status {status}")
+        index = urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                       timeout=60).read()
+        if b"<html" not in index.lower():
+            fail("serving: / did not answer the demo page")
+    finally:
+        ds._HostCopy.numpy = host_copy_numpy
+        client.close()
+        stopper = threading.Thread(target=server.shutdown, daemon=True)
+        stopper.start()
+        stopper.join(60)
+        server.server_close()
+        serve_t.join(60)
+    if stopper.is_alive() or serve_t.is_alive():
+        fail("serving: the server did not shut down")
+    del app, pipe, first_px
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    return {tag: r[2] for tag, r in readings.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=3,
@@ -3100,13 +3570,21 @@ def main() -> None:
 
     # 10. the text-to-video main path: umT5, the checkpoint loaders and
     # the CLI's per-prompt function (its launches are checked there; the
-    # kernel line keeps phase 4's)
-    phase_text_to_video(ca, dit, vae, a.blocks, a.seed)
+    # kernel line keeps phase 4's); its model directory stays for 12
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    try:
+        phase_text_to_video(ca, dit, vae, a.blocks, a.seed, model_dir)
 
-    # 11. the pose-conditioned 50-step causal path (the CLI's
-    # --dwpose_path) and the bidirectional samplers (their launches are
-    # checked there; the kernel line keeps phase 4's)
-    phase_pose_diffusion(ca, dit, vae, a.seed)
+        # 11. the pose-conditioned 50-step causal path (the CLI's
+        # --dwpose_path) and the bidirectional samplers (their launches
+        # are checked there; the kernel line keeps phase 4's)
+        phase_pose_diffusion(ca, dit, vae, a.seed)
+
+        # 12. the streaming demo server serving a few requests (its
+        # launches are checked there; the kernel line keeps phase 4's)
+        phase_serving(ca, cm, dit, vae, a.seed, model_dir)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -4,7 +4,8 @@ The keys and the stacked-block layout (blocks on axis 0) stay as they
 are.  Linear weights keep their [in, out] layout.  In the VAE tree (both
 halves: the encoder's 2D stride-2 resample convs and (3, 1, 1)
 ``time_conv`` too) conv weights go from JAX's DHWIO / HWIO to torch's
-OIDHW / OIHW, in the TAEHV tree from HWIO to OIHW.  Quantized leaves are carried as they are: int8
+OIDHW / OIHW, in the TAEHV tree from HWIO to OIHW (its int8 ``w_q``
+too).  Other quantized leaves are carried as they are: int8
 weights, float8_e4m3fn weights (through their uint8 view) and f32 scales
 (``w_scale`` keeps float32 whatever ``dtype`` says), and so does the T5
 tree's relative-position table ``pos_emb``.  A W8A8 linear
@@ -39,7 +40,8 @@ def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
             a = a.astype(np.float32)
         if kind == "vae" and key == "w" and a.ndim == 5:
             a = a.transpose(4, 3, 0, 1, 2)      # DHWIO -> OIDHW
-        elif kind in ("vae", "taehv") and key == "w" and a.ndim == 4:
+        elif kind in ("vae", "taehv") and a.ndim == 4 and (
+                key == "w" or (kind == "taehv" and key == "w_q")):
             a = a.transpose(3, 2, 0, 1)         # HWIO -> OIHW
         t = torch.tensor(a, device=device)
         if dtype is not None and t.is_floating_point() and \

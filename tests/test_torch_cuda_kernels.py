@@ -1666,3 +1666,31 @@ def test_conv_float32_split_route_matches_plain(dev, B, T, H, W, C, Cout):
     torch.cuda.synchronize()
     assert cc.launch_counts["conv3d_f32"] == 3
     assert _rel_l2(out, ref) < 1e-4
+
+
+@pytest.mark.parametrize("n,H,W,cin,cout,k,stride", [
+    (2, 6, 7, 512, 256, 3, 1),     # the decoder's widest conv: sums > 2^24
+    (3, 5, 9, 64, 3, 3, 1),        # conv_out: 3 columns padded to 8
+    (4, 9, 11, 3, 64, 3, 2),       # the encoder's RGB input, stride 2
+    (1, 2, 3, 128, 256, 1, 1),     # a 1x1 TGrow, 6 rows padded to 17
+])
+def test_taehv_int8_conv_on_the_card_equals_the_cpu(dev, n, H, W, cin,
+                                                    cout, k, stride):
+    """The opt-in int8 TAEHV conv (``taehv._conv_q``): ``torch._int_mm``
+    on the unfolded input on the card, a float64 product on the CPU; both
+    sum the int8 products exactly, so the outputs are bit-equal (the
+    largest positive inputs and weights make the 3x3 x 512 sums pass
+    2^24, where a float32 sum would round)."""
+    from self_forcing_tpu_torch.models import taehv
+    g = torch.Generator().manual_seed(n + k + cin)
+    x = torch.rand(n, H, W, cin, generator=g) * 3
+    p = {"w_q": torch.randint(90, 128, (cout, cin, k, k), generator=g,
+                              dtype=torch.int8),
+         "w_scale": torch.rand(cout, generator=g) * 1e-3 + 1e-4,
+         "b": torch.randn(cout, generator=g)}
+    pad = (k - 1) // 2
+    ref = taehv._conv_q(p, x, stride, pad)
+    out = taehv._conv_q({key: v.to(dev) for key, v in p.items()},
+                        x.to(dev), stride, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)

@@ -8,6 +8,10 @@ the JAX package on the CPU:
   noise draws injected as ``eps`` (float32, tolerance 1e-4), through
   several compactions, with and without an independent first frame, and
   ``inference`` priming context frames (``prime_block``);
+- a long horizon: 16 blocks through an 8-frame slack buffer (4
+  compactions) against the rolled cache (buffer == window, compacted
+  before each of the last 14 blocks; 2e-5) and against the JAX stream
+  (1e-4), the late blocks included;
 - one W8A8 + int8-QK windowed forward at dim 256 (2 heads of 128) against
   the JAX package's TPU route run interpreted.
 """
@@ -184,6 +188,61 @@ def test_inference_priming_matches_jax_with_injected_eps(windowed):
                                atol=TOL)
     if windowed:
         assert tpipe._cache.k.shape[2] == 4 * FS
+
+
+def test_windowed_long_horizon_matches_rolled_cache_and_jax():
+    """tests/test_pipeline.py's long-horizon check for the port: a
+    16-block stream (2-frame blocks, window 4, sink 1) through the 8-frame
+    slack buffer compacts 4 times and must match the rolled cache (the
+    reference's sizing: buffer == window, 14 compactions) on every block,
+    the last four (behind every compaction) named again, within float32
+    rounding (2e-5); and the JAX package's slack stream with its draws
+    injected within 1e-4."""
+    base = dict(dim=96, ffn_dim=192, num_heads=2, num_layers=2,
+                text_dim=32, freq_dim=16, num_frame_per_block=2,
+                local_attn_size=4, sink_size=1)
+    cfg_roll = dataclasses.replace(WAN_TINY, **base)
+    cfg_slack = dataclasses.replace(cfg_roll, windowed_buffer_frames=8)
+    args = {"denoising_step_list": [1000, 500], "warp_denoising_step": False,
+            "timestep_shift": 5.0, "num_frame_per_block": 2,
+            "independent_first_frame": False, "context_noise": 0}
+    rng = np.random.default_rng(3)
+    jp = jdit.init_params(jax.random.PRNGKey(0), _jcfg(cfg_roll),
+                          dtype=jnp.float32)
+    jp = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
+        a.shape).astype(np.float32), jp)
+    tp = params_from_jax(jp, "dit", device="cpu")
+    F = 32
+    noise = rng.standard_normal((B, F, C, H, W)).astype(np.float32)
+    ctx = rng.standard_normal((B, 8, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    jblocks = list(JPipe(JConfig(args), jp, _jcfg(cfg_slack)).stream(
+        noise, ctx, rng=key))
+    eps = []
+    for i in range(16):
+        key, k1 = jax.random.split(key)
+        eps.append(_draws(k1, (B, 2, C, H, W), n_steps=2))
+        if i < 15:
+            key, _ = jax.random.split(key)
+    outs, compactions = {}, {}
+    for name, cfg in (("roll", cfg_roll), ("slack", cfg_slack)):
+        pipe = TPipe(TConfig(args), tp, cfg, device="cpu",
+                     dtype=torch.float32)
+        chunks = list(pipe.stream(torch.from_numpy(noise),
+                                  torch.from_numpy(ctx), eps=eps))
+        assert len(chunks) == 16
+        outs[name] = torch.cat(chunks, dim=1).numpy()
+        compactions[name] = pipe.compactions
+        assert pipe._cache.k.shape[2] == cfg.buffer_frames * FS
+    assert compactions == {"roll": 14, "slack": 4}
+    np.testing.assert_allclose(outs["slack"], outs["roll"], rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(outs["slack"][:, -8:], outs["roll"][:, -8:],
+                               rtol=2e-5, atol=2e-5)
+    jout = np.concatenate([np.asarray(b) for b in jblocks], axis=1)
+    np.testing.assert_allclose(outs["slack"], jout, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(outs["slack"][:, -8:], jout[:, -8:],
+                               rtol=TOL, atol=TOL)
 
 
 # ------------------------------------------- W8A8 + int8-QK, windowed
