@@ -123,9 +123,23 @@ path; its DiT ms per block).
    during (b), (d) a 7-block request stopped after its first block, (e)
    (a) again (within 1 uint8 level of (a)), the demo request under
    torch.profiler (device idle share, the host's synchronize waits), (f)
-   ``/api/status``; each request's ms to ``generation_started``, to the
-   first ``block_ready`` and ``frame_ready``, ``block_s``, frames and
-   pushed frames/s, with exact launch counts.
+   ``/api/status`` (``hbm_in_use_gb`` the allocator's live bytes); each
+   request's ms to ``generation_started``, to the first ``block_ready``
+   and ``frame_ready``, ``block_s``, frames and pushed frames/s, with
+   exact launch counts.
+13. The image-to-video path at Wan-I2V-14B's full width (last, every
+   earlier tensor freed, the peak counter reset): (a) CLIP ViT-H/14 in
+   float32 through the reference's ``visual.*`` file and
+   ``runtime.load_clip_vision``, ``encode_image`` of a 480x832 image
+   against the CPU (1e-4); (b) ``WanI2V.generate`` at 40 layers, 81
+   frames at 832x480, 2 of 40 UniPC steps (cut for time): ms of CLIP,
+   the y encode, each CFG step and forward, the decode, peak memory, and
+   exactly 160 ``flash_fwd`` and 320 ``cross_attention`` launches; (c)
+   one 4-layer i2v forward kernels vs plain (2e-2); (e) one full-depth
+   forward under torch.profiler; (d) the causal 50-step pipeline's
+   ``input_image`` with pose at 20 of 40 layers, 2 blocks, 4 steps (cut
+   for time): ms a block and a step, peak memory, exact decode and cross
+   launches.
 Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
@@ -134,7 +148,10 @@ conv; the W8A8 kernels at the Wan-14B shapes (fc1 from int8 x, fc2 at
 768-column groups, the K = 5120 qkv and o GEMMs) and the GEMM from raw
 bf16 x (every GEMM bit-equal to its plain version);
 and the cache-window attention (``decode_attention``) at the 1.3B global
-window in bf16 and float32, beside SDPA.
+window in bf16 and float32, beside SDPA; and the image-to-video path's
+two kernels at Wan-I2V-14B's shapes: the unmasked flash forward at
+32760 tokens and 40 heads, the cross attention of 32760 queries onto
+257 image keys and onto 512 text keys.
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -1144,6 +1161,68 @@ def phase_flash_kernels(ca, masks, g) -> dict:
     return table
 
 
+def phase_i2v_kernels(ca, g) -> None:
+    """The two kernels of the image-to-video path at the Wan-I2V-14B shapes
+    no earlier row holds: the unmasked flash forward at L 32760 and 40
+    heads of 128 (q carrying the folded head_dim**-0.5 * log2(e)), and the
+    cross attention of 32760 heads-packed queries [1, L, 5120] onto the 257
+    image keys and onto the 512 text keys.  Each against its plain version
+    (1e-2 relative L2; lse 1e-3 absolute), timed with CUDA events beside
+    its bound and SDPA on the same inputs."""
+    dev, bf = "cuda", torch.bfloat16
+    D, N, L = HEAD_DIM, 40, SEQ_TRAIN
+    q = (torch.randn(1, L, N, D, generator=g, device=dev)
+         * (D ** -0.5 * LOG2E)).to(bf)
+    k, v = (torch.randn(1, L, N, D, generator=g, device=dev, dtype=bf)
+            for _ in range(2))
+    out, lse = ca.flash_fwd(q, k, v, None)
+    ref, ref_lse = ca.flash_fwd_ref(q, k, v, None)
+    err, mae = check_kernel("flash_fwd (40 heads)", out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    if lse_err > 1e-3:
+        fail(f"flash_fwd (40 heads): lse max abs error {lse_err:.3e} > 1e-3")
+    del out, ref, lse, ref_lse
+    ms = time_ms(lambda: ca.flash_fwd(q, k, v, None))
+    pms = time_ms(lambda: ca.flash_fwd_ref(q, k, v, None), reps=3)
+    lib, _, _ = sdpa_yardsticks(q, k, v, None, None)
+    ops = 4.0 * L * L * D * N
+    b_ms, b_by = bound(ops, 4 * 2.0 * L * N * D + 4.0 * L * N)
+    print(f"kernel flash_fwd (i2v: no mask, L={L}, {N} heads): "
+          f"rel_l2={err:.3e} max_abs={mae:.3e} lse_max_abs={lse_err:.3e} "
+          f"ms={ms:.4f} plain_ms={pms:.4f} "
+          f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
+          f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
+          f"tflops={ops / ms / 1e9:.1f}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    qx = torch.randn(1, L, N * D, generator=g, device=dev, dtype=bf)
+    for Lk, what in ((257, "image"), (512, "text")):
+        k = torch.randn(1, Lk, N, D, generator=g, device=dev, dtype=bf)
+        v = torch.randn(1, Lk, N, D, generator=g, device=dev, dtype=bf)
+        out = ca.cross_attention(qx, k, v, num_heads=N)
+        ref = ca.cross_attention_ref(qx, k, v, num_heads=N)
+        err, mae = check_kernel(f"cross_attention (Lk={Lk})", out, ref)
+        del out, ref
+        ms = time_ms(lambda: ca.cross_attention(qx, k, v, num_heads=N))
+        pms = time_ms(lambda: ca.cross_attention_ref(qx, k, v, num_heads=N),
+                      reps=3)
+        qh, kh, vh = (qx.reshape(1, L, N, D).transpose(1, 2),
+                      k.transpose(1, 2), v.transpose(1, 2))
+        lib = library_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        flops = 4.0 * L * Lk * D * N
+        b_ms, b_by = bound(flops, 2.0 * (2 * L * N * D + 2 * Lk * N * D))
+        print(f"kernel cross_attention (i2v: Lq={L}, {N} heads, Lk={Lk} "
+              f"{what} keys): rel_l2={err:.3e} max_abs={mae:.3e} "
+              f"ms={ms:.4f} plain_ms={pms:.4f} "
+              f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
+              f"tflops={flops / ms / 1e9:.1f}", flush=True)
+        del k, v, qh, kh, vh
+    del qx
+    torch.cuda.empty_cache()
+
+
 def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
     """SDPA's forward and, with ``do`` given, its backward (one autograd
     call for dq, dk, dv) at ``scale`` on [1, L, N, D] operands: with no
@@ -1920,14 +1999,25 @@ def phase_text_to_video(ca, dit, vae, blocks, seed, model_dir) -> dict:
 
 def print_profile(tag: str, fn) -> None:
     """One call of ``fn`` (warmed) under torch.profiler: wall, device busy,
-    idle share and the top kernels by device time."""
+    idle share, the shares of busy time of the attention kernel
+    (``decode_fresh_kernel``: decode, cross and flash forward), the GEMMs
+    (cuBLAS / CUTLASS) and the rest (elementwise, norms, copies), and the
+    top kernels by device time."""
     fn()
     wall, rows, stalls, _ = profile_ms(fn)
     busy = sum(ms for _, ms in rows)
-    top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / max(busy, 1e-9):.0%})"
+    if busy <= 0:
+        fail(f"profile {tag}: no device time recorded")
+    attn = sum(ms for n, ms in rows if "decode_fresh_kernel" in n)
+    gemm = sum(ms for n, ms in rows if "decode_fresh_kernel" not in n and any(
+        w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                 "sm90_")))
+    top = "; ".join(f"{name[:48]}={ms:.2f}ms({ms / busy:.0%})"
                     for name, ms in rows[:8])
     print(f"profile {tag}: wall_ms={wall:.1f} device_busy_ms={busy:.1f} "
-          f"idle_share={1 - busy / wall:.3f} {stalls} top: {top}",
+          f"idle_share={1 - busy / wall:.3f} attention_share="
+          f"{attn / busy:.3f} gemm_share={gemm / busy:.3f} other_share="
+          f"{(busy - attn - gemm) / busy:.3f} {stalls} top: {top}",
           flush=True)
 
 
@@ -3148,9 +3238,10 @@ def phase_serving(ca, cm, dit, vae, seed, model_dir) -> dict:
     (a) with ``.cpu()`` at the flush in place of the pinned copy (the
     A/B of the lookahead's fetch); a demo request under torch.profiler
     (its device idle share and the host's synchronize waits); (f) ``GET
-    /api/status``: not busy, memory from torch.cuda.  (a), (a'), (b),
-    (e) and the profiled request must push every frame (33) in 3
-    ``block_ready`` events with the exact launch counts of 3 blocks."""
+    /api/status``: not busy, ``hbm_in_use_gb`` the allocator's live
+    bytes within 0.05 GB.  (a), (a'), (b), (e) and the profiled request
+    must push every frame (33) in 3 ``block_ready`` events with the exact
+    launch counts of 3 blocks."""
     import threading
     import urllib.request
 
@@ -3365,15 +3456,18 @@ def phase_serving(ca, cm, dit, vae, seed, model_dir) -> dict:
         body = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/api/status", timeout=60).read()
         status = json.loads(body)
+        live = torch.cuda.memory_allocated() / 2 ** 30
         free, total = torch.cuda.mem_get_info()
-        print(f"serving (f) /api/status: {status} (torch.cuda.mem_get_info: "
-              f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB)",
-              flush=True)
+        print(f"serving (f) /api/status: {status} (live tensors "
+              f"torch.cuda.memory_allocated: {live:.2f} GiB; "
+              f"torch.cuda.mem_get_info: free {free / 2 ** 30:.2f} of "
+              f"{total / 2 ** 30:.2f} GiB)", flush=True)
         if status["busy"] or not status["taehv_available"] or \
                 not status["quantize_available"] or \
-                abs(status["hbm_in_use_gb"] - (total - free) / 2 ** 30) > 1 \
+                abs(status["hbm_in_use_gb"] - live) > 0.05 \
                 or status["hbm_in_use_gb"] <= 0:
-            fail(f"serving (f): status {status}")
+            fail(f"serving (f): status {status}: hbm_in_use_gb is not the "
+                 f"allocator's live {live:.2f} GiB within 0.05")
         index = urllib.request.urlopen(f"http://127.0.0.1:{port}/",
                                        timeout=60).read()
         if b"<html" not in index.lower():
@@ -3394,6 +3488,361 @@ def phase_serving(ca, cm, dit, vae, seed, model_dir) -> dict:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
     return {tag: r[2] for tag, r in readings.items()}
+
+
+class CudaMarks:
+    """CUDA events recorded around wrapped calls, read after a
+    synchronize: ``wrap(label, fn)`` records "label>" before and "label<"
+    after each call of ``fn``."""
+
+    def __init__(self):
+        self.events = []
+
+    def mark(self, label: str) -> None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append((label, e))
+
+    def wrap(self, label: str, fn):
+        def run(*a, **k):
+            self.mark(label + ">")
+            out = fn(*a, **k)
+            self.mark(label + "<")
+            return out
+        return run
+
+    def spans(self, label: str) -> list:
+        """ms of each call of ``label``, in order."""
+        starts = [e for n, e in self.events if n == label + ">"]
+        ends = [e for n, e in self.events if n == label + "<"]
+        return [a.elapsed_time(b) for a, b in zip(starts, ends)]
+
+    def starts(self, label: str) -> list:
+        return [e for n, e in self.events if n == label + ">"]
+
+
+def export_clip_vision(params, cfg) -> dict:
+    """The CLIP vision tree -> the reference's ``visual.*`` state dict on
+    the host: the inverse of ``clip.convert_clip_vision_state_dict``
+    (linear weights back to [out, in], the patch matrix back to the conv's
+    [D, 3, ph, pw])."""
+    from self_forcing_tpu_torch.utils import tree
+    d, ph = cfg.vision_dim, cfg.patch_size
+
+    def host(t):
+        return t.detach().contiguous().cpu()
+
+    sd = {"visual.patch_embedding.weight": host(
+        params["patch_embedding"]["w"].reshape(ph, ph, 3, d).permute(
+            3, 2, 0, 1)),
+          "visual.cls_embedding": host(params["cls_embedding"]),
+          "visual.pos_embedding": host(params["pos_embedding"])}
+    if "b" in params["patch_embedding"]:
+        sd["visual.patch_embedding.bias"] = host(
+            params["patch_embedding"]["b"])
+    for n in ("pre_norm", "post_norm"):
+        sd[f"visual.{n}.weight"] = host(params[n]["w"])
+        sd[f"visual.{n}.bias"] = host(params[n]["b"])
+    for i in range(cfg.vision_layers):
+        bp, pre = tree.index(params["blocks"], i), f"visual.transformer.{i}."
+        for name, p in (("attn.to_qkv", bp["attn"]["to_qkv"]),
+                        ("attn.proj", bp["attn"]["proj"]),
+                        ("mlp.0", bp["mlp"]["fc1"]),
+                        ("mlp.2", bp["mlp"]["fc2"])):
+            sd[pre + name + ".weight"] = host(p["w"].T)
+            sd[pre + name + ".bias"] = host(p["b"])
+        for n in ("norm1", "norm2"):
+            sd[pre + n + ".weight"] = host(bp[n]["w"])
+            sd[pre + n + ".bias"] = host(bp[n]["b"])
+    return sd
+
+
+class Patched:
+    """``setattr(obj, name, wrapper(getattr(obj, name)))`` for the span of
+    a ``with``, restored after."""
+
+    def __init__(self, obj, name, wrapper):
+        self.obj, self.name, self.wrapper = obj, name, wrapper
+
+    def __enter__(self):
+        self.old = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.wrapper(self.old))
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.old)
+
+
+# the image-to-video path: WanI2V's forwards (flash_fwd and both cross
+# attentions) and the causal pipeline's (decode and both cross attentions)
+I2V_STEPS = 2          # WanI2V's 40 UniPC steps, cut for time
+I2V_CAUSAL_STEPS = 4   # the causal pipeline's 50 steps, cut for time
+I2V_CAUSAL_LAYERS = 20  # of 40: two 21-frame caches beside the weights
+
+
+def phase_image_to_video(ca, dit, vae, seed) -> dict:
+    """13. The image-to-video path at Wan-I2V-14B's full width (random
+    weights from the seed; every earlier tensor freed and the peak
+    counter reset), with PyTorch's default TF32 settings (cuDNN on, matmul
+    off: CLIP runs float32 products).
+
+    13a: CLIP ViT-H/14 drawn in float32, exported to the reference's
+    ``visual.*`` state dict, ``torch.save``d under the reference's file
+    name and read back by ``runtime.load_clip_vision`` (every leaf
+    equal); ``encode_image`` of a seeded [1, 3, 480, 832] image: shape
+    [1, 257, 1280], ms, and the same call on the CPU within 1e-4 relative
+    L2.  13b: ``WanI2V.generate`` at ``WAN_I2V_14B``, all 40 layers, bf16
+    DiT, float32 Wan VAE, 13a's CLIP, seeded context and negative context
+    [1, 512, 4096] and a seeded 720x1280 image; 832x480, 81 frames (21
+    latent frames, 32760 tokens), UniPC, shift 5, guidance 5, steps cut
+    from 40 to 2: ms of CLIP, the y encode (81 frames through the VAE),
+    each CFG step and forward (CUDA events) and the decode, the wall and
+    peak memory; launches exactly 2 x 2 x 40 ``flash_fwd`` and 2 x 2 x 40
+    x 2 ``cross_attention``, no decode; the video [81, 3, 480, 832]
+    finite.  13c: one ``forward_train`` (no mask, y and CLIP tokens) on a
+    4-layer cut at 32760 tokens with the kernels and with their plain
+    versions (<= 2e-2 relative L2).  13e: one full-depth forward under
+    torch.profiler.  13d: ``CausalDiffusionInferencePipeline`` on
+    ``configs/causal_diffusion.yaml`` with ``image_encoder``, the i2v model
+    at full width with 20 of its 40 layers (two 21-frame caches would
+    need 53.7 GB beside 32.8 GB of weights at 40), the seeded image and a
+    seeded pose video and reference pose (random pose CNNs), 2 blocks of
+    3 latent frames, steps cut to 4: ms a block and a step, peak memory,
+    launches exactly blocks x (2 x steps + 2) x 20 decode and twice that
+    cross (the image keys)."""
+    import tempfile
+    from self_forcing_tpu_torch import conditioning as cond
+    from self_forcing_tpu_torch import runtime, wan_generate
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.models import clip
+    from self_forcing_tpu_torch.models.wan.configs import WAN_I2V_14B
+    from self_forcing_tpu_torch.models.wan.rope import RopeTables
+    from self_forcing_tpu_torch.pipelines import (
+        causal_diffusion_inference as cd)
+    from self_forcing_tpu_torch.utils import tree
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    vae.set_conv_backend(None)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"i2v: start with {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 60)
+
+    # 13a: CLIP through the reference's file and the loader
+    ccfg = clip.CLIP_XLM_ROBERTA_VIT_H_14
+    with tempfile.TemporaryDirectory() as tmp:
+        drawn = clip.init_vision_params(ccfg, seed + 61, device=dev)
+        t0 = time.perf_counter()
+        torch.save(export_clip_vision(drawn, ccfg),
+                   os.path.join(tmp, clip.CLIP_WEIGHTS))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clip_params, lcfg = runtime.load_clip_vision(tmp)
+        load_s = time.perf_counter() - t0
+    got, want = dict(tree.items(clip_params)), dict(tree.items(drawn))
+    if lcfg != ccfg or got.keys() != want.keys() or not all(
+            got[k].dtype == torch.float32 and torch.equal(got[k], want[k])
+            for k in got):
+        fail("i2v 13a: load_clip_vision did not read back the saved CLIP")
+    del drawn, got, want
+    img = torch.rand(1, 3, 480, 832, generator=g, device=dev) * 2 - 1
+    tokens = clip.encode_image(clip_params, ccfg, img)
+    clip_ms = time_ms(lambda: clip.encode_image(clip_params, ccfg, img))
+    t0 = time.perf_counter()
+    cpu_tokens = clip.encode_image(
+        tree.map_tree(lambda t: t.cpu(), clip_params), ccfg, img.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = rel_l2(tokens.cpu(), cpu_tokens)
+    n_par = sum(t.numel() for t in tree.leaves(clip_params))
+    print(f"i2v 13a CLIP ViT-H/14 ({n_par / 1e6:.1f} M float32 parameters, "
+          f"saved in {save_s:.1f} s, loaded by load_clip_vision in "
+          f"{load_s:.1f} s, every leaf equal): encode_image [1, 3, 480, 832] "
+          f"-> {list(tokens.shape)} ms={clip_ms:.3f} (CUDA events, median of "
+          f"7; TF32 off) rel_l2 vs the CPU={err:.3e} (CPU {cpu_s:.1f} s)",
+          flush=True)
+    if tuple(tokens.shape) != (1, 257, 1280) or \
+            not torch.isfinite(tokens).all() or err > 1e-4:
+        fail(f"i2v 13a: CLIP tokens {tuple(tokens.shape)}, rel_l2 vs the "
+             f"CPU {err:.3e} (want [1, 257, 1280] finite, <= 1e-4)")
+    del img, tokens, cpu_tokens
+
+    # 13b: WanI2V.generate at full width and depth
+    cfg = WAN_I2V_14B
+    t0 = time.perf_counter()
+    params = make_params(dit, cfg, seed + 62)
+    vae_params = vae.init_params(vae.WAN_VAE, seed=seed + 63,
+                                 dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    ctx, neg = (torch.randn(1, N_CTX, cfg.text_dim, generator=g,
+                            device=dev).to(bf) for _ in range(2))
+    image = torch.rand(1, 3, 720, 1280, generator=g, device=dev) * 2 - 1
+    model = wan_generate.WanI2V(params, cfg, vae_params=vae_params,
+                                vae_cfg=vae.WAN_VAE, clip_params=clip_params,
+                                clip_cfg=ccfg)
+    marks, caught = CudaMarks(), {}
+
+    def decode_peak(fn):
+        # the sampling's peak, read before the decode adds its own
+        def run(*a, **k):
+            caught["peak_sampling"] = torch.cuda.max_memory_allocated()
+            return marks.wrap("decode", fn)(*a, **k)
+        return run
+
+    def catch(label, fn):
+        def run(*a, **k):
+            caught[label] = out = marks.wrap(label, fn)(*a, **k)
+            return out
+        return run
+
+    model._forward = marks.wrap("forward", model._forward)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Patched(wan_generate.clip_mod, "encode_image",
+                 lambda f: catch("clip", f)), \
+            Patched(wan_generate, "first_frame_condition",
+                    lambda f: catch("y", f)), \
+            Patched(wan_generate.vae_mod, "decode", decode_peak), \
+            HostStalls() as st:
+        video = model.generate(img=image, size=(832, 480), frame_num=81,
+                               shift=5.0, sample_solver="unipc",
+                               sampling_steps=I2V_STEPS, guide_scale=5.0,
+                               seed=seed + 64, context=ctx, neg_context=neg)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(ca.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms = marks.spans("forward")
+    bounds = marks.starts("forward")[::2] + marks.starts("decode")
+    step_ms = [a.elapsed_time(b) for a, b in zip(bounds, bounds[1:])]
+    print(f"i2v 13b WanI2V.generate (WAN_I2V_14B: 40 layers, dim 5120, 40 "
+          f"heads, bf16, random weights drawn in {draw_s:.1f} s; float32 Wan "
+          f"VAE; 13a's CLIP; a seeded 720x1280 image; 832x480, 81 frames = "
+          f"21 latent frames of 1560 tokens; UniPC, shift 5, guidance 5, "
+          f"{I2V_STEPS} steps of 40, cut for time): wall_ms={wall:.1f} "
+          f"clip_ms={marks.spans('clip')[0]:.1f} y_encode_ms (81 frames "
+          f"through the VAE)={marks.spans('y')[0]:.1f} cfg_step_ms="
+          f"{[round(x, 1) for x in step_ms]} forward_ms="
+          f"{[round(x, 1) for x in fwd_ms]} decode_ms="
+          f"{marks.spans('decode')[0]:.1f} (CUDA events) peak_gb="
+          f"{peak_gb:.2f} (before the decode "
+          f"{caught['peak_sampling'] / 1e9:.2f}; held before "
+          f"{held / 1e9:.2f}) {st} launches="
+          f"{{'flash_fwd': {launches['flash_fwd']}, 'cross_attention': "
+          f"{launches['cross_attention']}}}", flush=True)
+    want_n = 2 * I2V_STEPS * cfg.num_layers
+    decode_n = sum(n for k, n in launches.items()
+                   if k.startswith("decode_"))
+    if launches["flash_fwd"] != want_n or decode_n or \
+            launches["cross_attention"] != 2 * want_n:
+        fail(f"i2v 13b: launches {launches}: expected flash_fwd {want_n}, "
+             f"cross_attention {2 * want_n}, no decode")
+    if tuple(video.shape) != (81, 3, 480, 832) or \
+            not torch.isfinite(video).all():
+        fail(f"i2v 13b: video {tuple(video.shape)} not [81, 3, 480, 832] "
+             "finite")
+    clip_fea, y = caught["clip"].to(bf), caught["y"].to(bf)
+    del video, model, caught, marks
+    torch.cuda.empty_cache()
+
+    # 13c: one i2v forward on a 4-layer cut, kernels vs plain
+    rope = RopeTables.create(cfg.head_dim, device=dev)
+    cut_cfg = dataclasses.replace(cfg, num_layers=4)
+    cut = dict(params, blocks=tree.map_tree(lambda t: t[:4],
+                                            params["blocks"]))
+    x = torch.randn(1, 21, 16, 60, 104, generator=g, device=dev).to(bf)
+    t = torch.full((1, 21), 700.0, device=dev)
+    flows = {k: dit.forward_train(cut, cut_cfg, x, t, ctx, None, rope,
+                                  remat=False, kernels=k, y=y,
+                                  clip_fea=clip_fea) for k in (True, False)}
+    err = rel_l2(flows[True], flows[False])
+    print(f"i2v 13c forward_train (4 of 40 layers, 32760 tokens, no mask, y "
+          f"and CLIP tokens): kernels vs plain rel_l2={err:.3e}", flush=True)
+    if not torch.isfinite(flows[True].float()).all() or err > 2e-2:
+        fail(f"i2v 13c: kernels vs plain relative L2 {err:.3e} > 2e-2")
+    del flows, cut
+
+    # 13e: where a full-depth forward's time goes
+    print_profile("i2v forward (40 layers, 32760 tokens, y and CLIP "
+                  "tokens)", lambda: dit.forward_train(
+                      params, cfg, x, t, ctx, None, rope, remat=False,
+                      y=y, clip_fea=clip_fea))
+    del params, x, t, rope, clip_fea, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13d: the causal 50-step pipeline's input_image, 20 of 40 layers
+    config = load_config(os.path.join(CONFIGS, "causal_diffusion.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.sampling_steps = I2V_CAUSAL_STEPS
+    nb, blocks, H, W = int(config.num_frame_per_block), 2, 60, 104
+    F = blocks * nb
+    cfg20 = dataclasses.replace(cfg, num_layers=I2V_CAUSAL_LAYERS)
+    params = make_params(dit, cfg20, seed + 65)
+    gcpu = torch.Generator().manual_seed(seed + 66)
+    dwpose = torch.randint(0, 256, (1, 3, 4 * F - 3, 8 * H, 8 * W),
+                           generator=gcpu, dtype=torch.uint8).to(dev)
+    ref = torch.randint(0, 256, (8 * H, 8 * W, 3), generator=gcpu,
+                        dtype=torch.uint8).to(dev)
+    pipe = cd.CausalDiffusionInferencePipeline(
+        config, params, cfg20, vae_params=vae_params, vae_cfg=vae.WAN_VAE,
+        dwpose_params=cond.init_dwpose_params(seed + 67, device=dev),
+        randomref_params=cond.init_randomref_params(seed + 68, device=dev),
+        image_encoder=(clip_params, ccfg), device=dev, dtype=bf)
+    noise = torch.randn(1, F, 16, H, W, generator=g, device=dev)
+    steps = pipe.solver.num_steps
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    video, lat = pipe.inference(noise, context=ctx, neg_context=neg,
+                                input_image=image, dwpose_data=dwpose,
+                                random_ref_dwpose=ref, return_latents=True,
+                                profile=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    causal = dict(ca.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = pipe.profile_ms
+    blk = [prof[f"block{b}_ms"] for b in range(blocks)]
+    want_n = blocks * (2 * steps + 2) * cfg20.num_layers
+    print(f"i2v 13d CausalDiffusionInferencePipeline (causal_diffusion.yaml, "
+          f"{steps} UniPC steps of 50, cut for time; WAN_I2V_14B width, "
+          f"{cfg20.num_layers} of 40 layers; input_image 720x1280 + pose "
+          f"video + reference pose; {blocks} blocks of {nb} latent frames "
+          f"at {H}x{W}, float32 VAE): wall_ms={wall:.1f} init_ms="
+          f"{prof['init_ms']:.1f} (CLIP, the y encode, context K/V, caches, "
+          f"DWPose) block_ms={[round(b_, 1) for b_ in blk]} ms_per_step="
+          f"{[round(b_ / (steps + 1), 1) for b_ in blk]} (a block over its "
+          f"{steps} steps + the refresh) vae_ms={prof['vae_ms']:.1f} "
+          f"peak_gb={peak_gb:.2f} (held before {held / 1e9:.2f}) launches="
+          f"{{'decode_fresh_free': {causal['decode_fresh_free']}, "
+          f"'cross_attention': {causal['cross_attention']}}} (host clock, "
+          f"synchronised per block)", flush=True)
+    if causal["decode_fresh_free"] != want_n or \
+            causal["cross_attention"] != 2 * want_n:
+        fail(f"i2v 13d: launches {causal}: expected decode_fresh_free "
+             f"{want_n} = {blocks} x (2 x {steps} + 2) x "
+             f"{cfg20.num_layers}, cross_attention {2 * want_n}")
+    want_px = (1, 1 + 4 * (F - 1), 3, 8 * H, 8 * W)
+    if tuple(video.shape) != want_px or not torch.isfinite(video).all() \
+            or not torch.isfinite(lat).all():
+        fail(f"i2v 13d: video {tuple(video.shape)} not {want_px} finite")
+    del pipe, params, video, lat, noise, dwpose, ref, vae_params, \
+        clip_params, image, ctx, neg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    return {"wan_i2v": launches, "causal_i2v": causal}
 
 
 def main() -> None:
@@ -3457,6 +3906,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     table.update(phase_flash_kernels(ca, masks, g))
     torch.cuda.empty_cache()
+    phase_i2v_kernels(ca, g)
     table.update(phase_conv_kernels(tconv, g))
     torch.cuda.empty_cache()
     if a.kernels_only:
@@ -3585,6 +4035,11 @@ def main() -> None:
         phase_serving(ca, cm, dit, vae, a.seed, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+
+    # 13. the image-to-video path at Wan-I2V-14B width, last, with every
+    # earlier tensor freed (its launches are checked there; the kernel
+    # line keeps phases 4 and 7's)
+    phase_image_to_video(ca, dit, vae, a.seed)
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -19,7 +19,8 @@ weights on ``model_size: tiny``).  ``model_size: tiny`` draws random weights
 context from the prompt's crc32; any other size loads Wan2.1-T2V-1.3B,
 the T5 encoder, its tokenizer and the VAE from ``model_dir``
 (``runtime.load_wan_models``).  ``--i2v`` reads a ``TextImagePairDataset``
-directory: each image is resized (``resize_cubic``) and encoded as an
+directory: each image is resized (``utils.resize.resize_cubic``, the
+``jax.image.resize`` cubic) and encoded as an
 independent first latent frame.  The prompts are split over the ranks of
 an initialised ``torch.distributed`` group (else rank 0 of 1).  It runs on
 the card unless ``--device cpu`` is given.  Writing the mp4 needs ``cv2``
@@ -50,54 +51,12 @@ from self_forcing_tpu_torch.pipelines.causal_diffusion_inference import (
     CausalDiffusionInferencePipeline)
 from self_forcing_tpu_torch.pipelines.causal_inference import (
     CausalInferencePipeline)
+from self_forcing_tpu_torch.utils.resize import resize_cubic
 
 # the tiny model's VAE: VAE_TINY's geometry widened to the DiT's 16
 # latent channels
 TINY_VAE = vae_mod.VAEConfig(dim=8, z_dim=16, dim_mult=(1, 2, 2, 2),
                              num_res_blocks=1)
-
-
-def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
-    """The Keys cubic kernel (a = -0.5) at distances x >= 0."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros_like(x), out)
-
-
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] float32 weights of ``jax.image.resize``'s "cubic"
-    along one axis: half-pixel centres, the kernel stretched by the
-    shrink factor when shrinking (antialiasing), each column renormalised
-    to sum 1 (the borders), columns whose sample falls outside the input
-    zero."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = max(inv_scale, 1.0)
-    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
-              * inv_scale - 0.5)
-    pos = torch.arange(n_in, dtype=torch.float32, device=device)
-    w = _keys_cubic((sample[None, :] - pos[:, None]).abs() / kernel_scale)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
-def resize_cubic(image: torch.Tensor, height: int, width: int
-                 ) -> torch.Tensor:
-    """``jax.image.resize(image, (height, width, C), "cubic")`` of an
-    [H, W, C] image, in float32: separable Keys-cubic weights, applied as
-    two products."""
-    x = image.float()
-    H, W = x.shape[:2]
-    if H != height:
-        x = torch.einsum("hwc,hH->Hwc", x,
-                         _resize_weights(H, height, x.device))
-    if W != width:
-        x = torch.einsum("hwc,wW->hWc", x,
-                         _resize_weights(W, width, x.device))
-    return x
 
 
 def generate(pipeline, context: torch.Tensor, num_frames: int,
@@ -130,7 +89,8 @@ def generate(pipeline, context: torch.Tensor, num_frames: int,
     n_noise = num_frames
     if image is not None:
         vdt = pipeline.vae_params["conv2"]["w"].dtype
-        img = resize_cubic(image.to(dev), H * 8, W * 8).to(vdt)
+        img = resize_cubic(image.to(dev).permute(2, 0, 1), H * 8,
+                           W * 8).permute(1, 2, 0).to(vdt)
         z = vae_mod.encode(pipeline.vae_params, pipeline.vae_cfg,
                            img[None, None])
         initial_latent = z.permute(0, 1, 4, 2, 3)

@@ -6,6 +6,8 @@ package.
 
 - Wan2.1-T2V-1.3B: dim 1536, 30 layers, 12 heads, ffn 8960
 - Wan2.1 14B: dim 5120, 40 layers, 40 heads, ffn 13824
+- Wan2.1-I2V-14B: the 14B with ``model_type='i2v'`` and ``in_dim`` 36 (16
+  latent channels + the 4-channel first-frame mask + its 16-channel latent)
 - tiny: a CPU-testable geometry
 """
 from __future__ import annotations
@@ -103,3 +105,37 @@ LATENT_HEIGHT = 60
 LATENT_WIDTH = 104
 FRAME_SEQLEN = (LATENT_HEIGHT // 2) * (LATENT_WIDTH // 2)  # 1560
 SEQ_LEN = LATENT_FRAMES * FRAME_SEQLEN                     # 32760
+
+# The reference's registries of models and sizes (WAN_CONFIGS /
+# SIZE_CONFIGS / MAX_AREA_CONFIGS / SUPPORTED_SIZES), so that callers of
+# wan_generate.py select a model and a size by the same keys.
+WAN_I2V_14B = dataclasses.replace(WAN_14B, model_type="i2v", in_dim=36)
+
+WAN_CONFIGS = {
+    "t2v-14B": WAN_14B,
+    "t2v-1.3B": WAN_1_3B,
+    "i2v-14B": WAN_I2V_14B,
+    "t2i-14B": WAN_14B,
+}
+
+SIZE_CONFIGS = {
+    "720*1280": (720, 1280),
+    "1280*720": (1280, 720),
+    "480*832": (480, 832),
+    "832*480": (832, 480),
+    "1024*1024": (1024, 1024),
+}
+
+MAX_AREA_CONFIGS = {
+    "720*1280": 720 * 1280,
+    "1280*720": 1280 * 720,
+    "480*832": 480 * 832,
+    "832*480": 832 * 480,
+}
+
+SUPPORTED_SIZES = {
+    "t2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "t2v-1.3B": ("480*832", "832*480"),
+    "i2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "t2i-14B": tuple(SIZE_CONFIGS.keys()),
+}

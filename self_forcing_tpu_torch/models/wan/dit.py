@@ -48,7 +48,12 @@ Both forwards take the UniAnimate conditioning: ``y`` is concatenated to
 the latent's channels before the patch embedding (a y-consuming model has
 ``in_dim`` = 16 + its y channels), and ``add_condition`` (pose tokens
 [B, L, 5120]) is projected by ``pose_proj`` and added to the tokens (on
-the teacher-forcing path to the noisy half only).
+the teacher-forcing path to the noisy half only).  The image-to-video
+model (``model_type='i2v'``) also attends to 257 CLIP image tokens:
+``img_emb`` embeds them (:func:`embed_image`), each layer's cross
+attention projects them with its own ``k_img`` / ``v_img``, and the
+layer adds a second cross attention onto those keys to the text one
+(two softmaxes, not one over both key sets).
 
 Activations take the dtype ``jnp`` promotion gives them: float32 latents
 or text context over bf16 weights run a float32 residual stream with
@@ -139,6 +144,10 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+# CLIP ViT-H/14's token width: the image embedding's input at any DiT width
+CLIP_DIM = 1280
+
+
 # =====================================================================
 # parameter init (random weights at any width)
 # =====================================================================
@@ -159,16 +168,23 @@ def _linear_init(g: torch.Generator, d_in: int, d_out: int, dtype, device,
 def _block_init(g, cfg: WanConfig, dtype, device) -> Params:
     d = cfg.dim
 
-    def attn():
+    def ones():
+        return {"w": torch.ones(d, dtype=dtype, device=device)}
+
+    def attn(cross: bool):
         p = {n: _linear_init(g, d, d, dtype, device) for n in "qkvo"}
         if cfg.qk_norm:
-            p["norm_q"] = {"w": torch.ones(d, dtype=dtype, device=device)}
-            p["norm_k"] = {"w": torch.ones(d, dtype=dtype, device=device)}
+            p["norm_q"], p["norm_k"] = ones(), ones()
+        if cross and cfg.model_type == "i2v":
+            p["k_img"] = _linear_init(g, d, d, dtype, device)
+            p["v_img"] = _linear_init(g, d, d, dtype, device)
+            if cfg.qk_norm:
+                p["norm_k_img"] = ones()
         return p
 
     p = {
-        "self_attn": attn(),
-        "cross_attn": attn(),
+        "self_attn": attn(False),
+        "cross_attn": attn(True),
         "ffn": {"fc1": _linear_init(g, d, cfg.ffn_dim, dtype, device),
                 "fc2": _linear_init(g, cfg.ffn_dim, d, dtype, device)},
         "modulation": (torch.randn(1, 6, d, generator=g, device=device)
@@ -183,9 +199,11 @@ def _block_init(g, cfg: WanConfig, dtype, device) -> Params:
 def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: str | torch.device = "cuda",
                 causal: bool = True, block_fn=None) -> Params:
-    """Random t2v DiT parameters (blocks stacked on axis 0), drawn from a
+    """Random DiT parameters (blocks stacked on axis 0), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  As in the
-    JAX package the output layer starts at zero, and a causal model
+    JAX package the output layer starts at zero, an i2v model carries the
+    image embedding ``img_emb`` (CLIP's 1280-wide tokens -> dim) and each
+    layer's ``k_img`` / ``v_img`` / ``norm_k_img``, and a causal model
     (the generator) carries the pose-conditioning projection 5120 -> dim
     (``pose_proj``, absent when dim is 5120), which the optimizer's weight
     decay moves even without a gradient.
@@ -196,8 +214,9 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
     ``quantize_dit_params(init_params(...))``, from the same random
     stream).  Each layer is copied into the preallocated stack as it is
     made."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError("only the t2v model is ported")
+    if cfg.model_type not in ("t2v", "i2v"):
+        raise ValueError(f"model_type must be 't2v' or 'i2v', got "
+                         f"{cfg.model_type!r}")
     g = torch.Generator(device=device).manual_seed(seed)
     d = cfg.dim
     patch_in = cfg.in_dim * int(np.prod(cfg.patch_size))
@@ -220,6 +239,15 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
     params["blocks"] = tree.stack(
         (fn(_block_init(g, cfg, dtype, device))
          for _ in range(cfg.num_layers)), cfg.num_layers)
+    if cfg.model_type == "i2v":
+        def norm(n):
+            return {"w": torch.ones(n, dtype=dtype, device=device),
+                    "b": torch.zeros(n, dtype=dtype, device=device)}
+        params["img_emb"] = {
+            "norm1": norm(CLIP_DIM),
+            "fc1": _linear_init(g, CLIP_DIM, CLIP_DIM, dtype, device),
+            "fc2": _linear_init(g, CLIP_DIM, d, dtype, device),
+            "norm2": norm(d)}
     if causal and d != 5120:
         params["pose_proj"] = _linear_init(g, 5120, d, dtype, device)
     return params
@@ -287,6 +315,16 @@ def embed_text(params: Params, cfg: WanConfig,
         context = F.pad(context, (0, 0, 0, cfg.text_len - L))
     h = gelu_tanh(linear(params["text_embedding"]["fc1"], context))
     return linear(params["text_embedding"]["fc2"], h)
+
+
+def embed_image(params: Params, clip_fea: torch.Tensor) -> torch.Tensor:
+    """The i2v model's projection of the CLIP image tokens [B, 257, 1280]
+    -> [B, 257, dim]: LayerNorm (eps 1e-5, affine), exact-GELU MLP,
+    LayerNorm."""
+    p = params["img_emb"]
+    x = layer_norm(clip_fea, 1e-5, p["norm1"]["w"], p["norm1"]["b"])
+    x = linear(p["fc2"], F.gelu(linear(p["fc1"], x), approximate="none"))
+    return layer_norm(x, 1e-5, p["norm2"]["w"], p["norm2"]["b"])
 
 
 def _heads(cfg: WanConfig, x: torch.Tensor) -> torch.Tensor:
@@ -404,35 +442,66 @@ def _qkv_rope_folded(p: Params, cfg: WanConfig, x: torch.Tensor,
 
 
 def precompute_context(params: Params, cfg: WanConfig,
-                       context: torch.Tensor) -> dict:
+                       context: torch.Tensor,
+                       clip_fea: torch.Tensor | None = None) -> dict:
     """Per-prompt cross-attention K/V of every layer, stacked
-    [layers, B, Lc, N, D] under "k_txt" / "v_txt"."""
-    ctx = embed_text(params, cfg, context)
-    ks, vs = [], []
-    for p in split_layers(params["blocks"]["cross_attn"]):
-        k = linear(p["k"], ctx)
-        if cfg.qk_norm:
-            k = rms_norm(k, p["norm_k"]["w"], cfg.eps)
-        ks.append(_heads(cfg, k))
-        vs.append(_heads(cfg, linear(p["v"], ctx)))
-    return {"k_txt": torch.stack(ks), "v_txt": torch.stack(vs)}
+    [layers, B, Lc, N, D] under "k_txt" / "v_txt"; for an i2v model given
+    ``clip_fea`` [B, 257, 1280] also the image K/V under "k_img" /
+    "v_img", from the layers' own ``k_img`` / ``v_img`` projections of
+    :func:`embed_image`'s tokens."""
+    layers = split_layers(params["blocks"]["cross_attn"])
+
+    def kv(ctx, k_name, v_name, norm_name):
+        ks, vs = [], []
+        for p in layers:
+            k = linear(p[k_name], ctx)
+            if cfg.qk_norm:
+                k = rms_norm(k, p[norm_name]["w"], cfg.eps)
+            ks.append(_heads(cfg, k))
+            vs.append(_heads(cfg, linear(p[v_name], ctx)))
+        return torch.stack(ks), torch.stack(vs)
+
+    out = dict(zip(("k_txt", "v_txt"), kv(embed_text(params, cfg, context),
+                                          "k", "v", "norm_k")))
+    if clip_fea is not None and cfg.model_type == "i2v":
+        out.update(zip(("k_img", "v_img"),
+                       kv(embed_image(params, clip_fea), "k_img", "v_img",
+                          "norm_k_img")))
+    return out
+
+
+def layer_context(ctx_kv: dict) -> list[dict]:
+    """:func:`precompute_context`'s stacked K/V split into one dict a
+    layer (the text keys, and the image keys where there are any)."""
+    per = {k: v.unbind(0) for k, v in ctx_kv.items()}
+    return [{k: v[i] for k, v in per.items()}
+            for i in range(len(per["k_txt"]))]
 
 
 def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
                      ctx_kv_layer: dict, kernels: bool = True
                      ) -> torch.Tensor:
-    """Text cross-attention with precomputed K/V."""
+    """Cross-attention with precomputed K/V: onto the text keys, plus (an
+    i2v layer context) a second attention onto the image keys, the two
+    outputs summed before the output projection."""
     p = bp["cross_attn"]
     q = linear(p["q"], x, kernels)
     if cfg.qk_norm:
         q = rms_norm(q, p["norm_q"]["w"], cfg.eps)
-    if _packed_ok(cfg):
-        out = cross_attention(q, ctx_kv_layer["k_txt"],
-                              ctx_kv_layer["v_txt"],
-                              heads_packed=cfg.num_heads, kernels=kernels)
+    packed = _packed_ok(cfg)
+    if not packed:
+        q = _heads(cfg, q)
+
+    def attend(kind):
+        return cross_attention(
+            q, ctx_kv_layer["k_" + kind], ctx_kv_layer["v_" + kind],
+            heads_packed=cfg.num_heads if packed else None, kernels=kernels)
+
+    out = attend("txt")
+    if "k_img" in ctx_kv_layer:
+        out = out + attend("img")
+    if packed:
         return linear(p["o"], out, kernels)
-    out = cross_attention(_heads(cfg, q), ctx_kv_layer["k_txt"],
-                          ctx_kv_layer["v_txt"], kernels=kernels)
     B, Lq = out.shape[:2]
     return linear(p["o"], out.reshape(B, Lq, cfg.num_heads * cfg.head_dim),
                   kernels)
@@ -779,10 +848,9 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     kmax = None if window else cache.kmax
     block = (partial(checkpoint, _block_decode_fresh, use_reentrant=False)
              if remat else _block_decode_fresh)
-    kts, vts = ctx_kv["k_txt"].unbind(0), ctx_kv["v_txt"].unbind(0)
     kn_norms = []
-    for li, bp in enumerate(split_layers(params["blocks"])):
-        layer_ctx = {"k_txt": kts[li], "v_txt": vts[li]}
+    for li, (bp, layer_ctx) in enumerate(zip(split_layers(params["blocks"]),
+                                             layer_context(ctx_kv))):
         tokens, k_new, v_new, kn_norm = block(
             bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
             write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
@@ -862,7 +930,8 @@ def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
                   aug_t: torch.Tensor | None = None,
                   remat: bool = True, kernels: bool = True,
                   y: torch.Tensor | None = None,
-                  add_condition: torch.Tensor | None = None
+                  add_condition: torch.Tensor | None = None,
+                  clip_fea: torch.Tensor | None = None
                   ) -> torch.Tensor:
     """No-cache forward: bidirectional (``mask=None``, the score models)
     or masked causal training, with the teacher-forcing [clean | noisy]
@@ -872,8 +941,9 @@ def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
     x: [B, F, C, H, W]; t: [B, F]; context: [B, <=512, text_dim].
     ``remat``: recompute each layer in the backward.  ``y`` is
     concatenated to x's channels (not to ``clean_x``); ``add_condition``
-    goes onto x's tokens before the clean half is put in front.  Returns
-    the flow prediction [B, F, C, H, W]."""
+    goes onto x's tokens before the clean half is put in front;
+    ``clip_fea`` [B, 257, 1280]: an i2v model's CLIP image tokens.
+    Returns the flow prediction [B, F, C, H, W]."""
     if y is not None:
         x = torch.cat([x, y], dim=2)
     tokens, grid = patchify(params, cfg, x)
@@ -890,14 +960,13 @@ def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
         e0 = torch.cat([e0_clean, e0], dim=1)
         cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
 
-    ctx_kv = precompute_context(params, cfg, context)
+    ctx_kv = precompute_context(params, cfg, context, clip_fea)
     block = (partial(checkpoint, _block_train, use_reentrant=False)
              if remat else _block_train)
-    kts, vts = ctx_kv["k_txt"].unbind(0), ctx_kv["v_txt"].unbind(0)
-    for li, bp in enumerate(split_layers(params["blocks"])):
-        tokens = block(bp, cfg, tokens, e0, cos, sin, mask,
-                       {"k_txt": kts[li], "v_txt": vts[li]}, frame_seqlen,
-                       kernels)
+    for bp, layer_ctx in zip(split_layers(params["blocks"]),
+                             layer_context(ctx_kv)):
+        tokens = block(bp, cfg, tokens, e0, cos, sin, mask, layer_ctx,
+                       frame_seqlen, kernels)
     if clean_x is not None:
         tokens = tokens[:, tokens.shape[1] // 2:]
     out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)

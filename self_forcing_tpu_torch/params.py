@@ -23,12 +23,14 @@ from self_forcing_tpu_torch.ops.quant import kernel_layout
 def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None):
     """Convert a nested dict/list tree of numpy arrays (``kind`` 'dit',
-    'vae', 'taehv' or 't5') into the same tree of tensors on ``device``;
-    floating leaves other than scales and T5's ``pos_emb`` are cast to
-    ``dtype`` when given."""
-    if kind not in ("dit", "vae", "taehv", "t5"):
-        raise ValueError(f"kind must be 'dit', 'vae', 'taehv' or 't5', got "
-                         f"{kind!r}")
+    'vae', 'taehv', 't5' or 'clip') into the same tree of tensors on
+    ``device``; floating leaves other than scales and T5's ``pos_emb`` are
+    cast to ``dtype`` when given.  The CLIP tree's linear weights stay
+    [in, out] and its patch embedding is already a [ph * pw * 3, dim]
+    matrix, so nothing in it is transposed."""
+    if kind not in ("dit", "vae", "taehv", "t5", "clip"):
+        raise ValueError(f"kind must be 'dit', 'vae', 'taehv', 't5' or "
+                         f"'clip', got {kind!r}")
     keep_f32 = ("w_scale", "pos_emb") if kind == "t5" else ("w_scale",)
 
     def leaf(key, a):

@@ -12,6 +12,10 @@ Against the few-step pipeline (``causal_inference.py``):
 - optional pose conditioning: the DWPose 3D-CNN embedding sliced a block
   into ``add_condition`` tokens (by the block's RoPE frame), the
   reference-pose 2D-CNN map folded into a y-consuming model's ``y``;
+- optional image conditioning (``input_image`` with an ``image_encoder``):
+  CLIP image tokens, which both contexts carry on an i2v model, and the
+  masked first-frame VAE latent as ``y`` (the reference-pose map added
+  to it);
 - ``start_frame_index`` moves the RoPE positions away from the cache
   positions.
 
@@ -36,8 +40,6 @@ from self_forcing_tpu_torch.models.wan.rope import RopeTables
 from self_forcing_tpu_torch.pipelines.causal_inference import _PhaseClock
 from self_forcing_tpu_torch.solvers import (CoeffSolver, init_solver_state,
                                             make_solver)
-
-_ITEM_6 = "is not ported (ROADMAP Queue A item 6)"
 
 
 def guided_flow(flow_c: torch.Tensor, flow_u: torch.Tensor,
@@ -114,13 +116,15 @@ class CausalDiffusionInferencePipeline:
     sampling_steps (50), sample_solver ('unipc'), timestep_shift (8.0),
     guidance_scale (5.0), num_frame_per_block, independent_first_frame and
     negative_prompt.  ``dwpose_params`` / ``randomref_params``: the pose
-    CNNs' weights (``conditioning.py``).  ``dtype``: the DiT's activations
-    and the caches'."""
+    CNNs' weights (``conditioning.py``); ``image_encoder``: the CLIP
+    vision tower as (clip_params, clip_cfg), or its bare params.
+    ``dtype``: the DiT's activations and the caches'."""
 
     def __init__(self, args, generator_params, model_cfg: WanConfig,
                  text_encoder=None, vae_params=None,
                  vae_cfg: vae_mod.VAEConfig = vae_mod.WAN_VAE,
                  dwpose_params=None, randomref_params=None,
+                 image_encoder=None,
                  device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.bfloat16):
         self.args = args
@@ -135,6 +139,7 @@ class CausalDiffusionInferencePipeline:
         self.text_encoder = text_encoder
         self.vae_params = vae_params
         self.vae_cfg = vae_cfg
+        self.image_encoder = image_encoder
         self.dwpose_params = dwpose_params
         self.randomref_params = randomref_params
         self.sampling_steps = int(getattr(args, "sampling_steps", 50))
@@ -148,8 +153,28 @@ class CausalDiffusionInferencePipeline:
         self.independent_first_frame = self.cfg.independent_first_frame
         self.profile_ms: dict = {}  # the last inference(profile=True)
 
-    def encode_image(self, *args, **kwargs):
-        raise NotImplementedError(f"image conditioning (CLIP) {_ITEM_6}")
+    def encode_image(self, image: torch.Tensor, num_frames: int,
+                     height: int, width: int):
+        """CLIP image tokens and the masked first-frame latent ``y`` of
+        ``image`` ([B, 3, H, W] in [-1, 1], or [B, H, W, 3] uint8) for
+        ``num_frames`` latent frames at height x width pixels.  Returns
+        (clip_fea [B, 257, 1280], y [B, F, 20, h, w])."""
+        if self.image_encoder is None:
+            raise ValueError(
+                "input_image given but the pipeline has no image_encoder "
+                "(pass image_encoder=(clip_params, clip_cfg))")
+        if self.vae_params is None:
+            raise ValueError("input_image conditioning needs vae_params for "
+                             "the first-frame latent")
+        enc = self.image_encoder
+        clip_params, clip_cfg = enc if isinstance(enc, tuple) else (enc, None)
+        conditioner = cond_mod.PoseImageConditioner(
+            dwpose_params=self.dwpose_params,
+            randomref_params=self.randomref_params, clip_params=clip_params,
+            clip_cfg=clip_cfg, vae_params=self.vae_params,
+            vae_cfg=self.vae_cfg)
+        return conditioner.encode_image(image.to(self.device), num_frames,
+                                        height, width)
 
     def _check_frames(self, F: int, initial_latent) -> None:
         """Raise where the block schedule would drop noise frames or leave
@@ -172,25 +197,30 @@ class CausalDiffusionInferencePipeline:
                     f"{n_prime % nb} context frames would never be primed "
                     "into the KV cache")
 
-    def _pose_inputs(self, B: int, F: int, dwpose_data, random_ref_dwpose):
-        """(the DWPose embedding or None, the reference pose's y or
-        None).  The reference pose map alone becomes ``y`` (repeated a
-        frame) on a y-consuming model only: a t2v model (in_dim ==
-        out_dim) has no y channels, so there it is dropped."""
-        emb = y = None
+    def _pose_inputs(self, B: int, F: int, dwpose_data, random_ref_dwpose,
+                     image_y=None):
+        """(the DWPose embedding or None, ``y`` or None).  The reference
+        pose map is added to the image's ``y`` where there is one; alone
+        it becomes ``y`` (repeated a frame) on a y-consuming model only: a
+        t2v model (in_dim == out_dim) has no y channels, so there it is
+        dropped."""
+        emb, y = None, image_y
         if dwpose_data is not None:
             emb = cond_mod.dwpose_embedding(
                 self.dwpose_params,
                 cond_mod.prepare_dwpose_input(dwpose_data.to(self.device)))
         if (random_ref_dwpose is not None
                 and self.randomref_params is not None
-                and self.cfg.in_dim > self.cfg.out_dim):
+                and (y is not None or self.cfg.in_dim > self.cfg.out_dim)):
             ref = random_ref_dwpose.to(self.device).float() / 255.0
             if ref.dim() == 3:
                 ref = ref[None]
             rr = cond_mod.randomref_embedding(self.randomref_params,
                                               ref.permute(0, 3, 1, 2))
-            y = rr[:, None].to(self.dtype).expand(B, F, *rr.shape[1:])
+            if y is not None:
+                y = y + rr[:, None].to(y.dtype)
+            else:
+                y = rr[:, None].to(self.dtype).expand(B, F, *rr.shape[1:])
         return emb, y
 
     def inference(self, noise: torch.Tensor,
@@ -204,15 +234,16 @@ class CausalDiffusionInferencePipeline:
                   return_latents: bool = False,
                   start_frame_index: int = 0, profile: bool = False):
         """noise [B, F, C, H, W] -> video [B, F_pix, 3, H*8, W*8] in [0, 1]
-        (None without VAE parameters).  ``dwpose_data`` [B, 3, 4F' - 3,
+        (None without VAE parameters).  ``input_image`` [B, 3, H0, W0] in
+        [-1, 1] or [B, H0, W0, 3] uint8 (needs ``image_encoder`` and the
+        VAE): its CLIP tokens and first-frame ``y`` condition every block.
+        ``dwpose_data`` [B, 3, 4F' - 3,
         H*8, W*8] uint8 (F' >= the last block's RoPE frame + 1);
         ``random_ref_dwpose`` [(B,) H*8, W*8, 3] uint8; ``initial_latent``
         [B, F0, C, H, W]: clean frames primed into both caches first and
         put in front of the output.  ``profile=True`` synchronises the
         device after the set-up, each block and the decode, prints each
         one's host-clock ms and keeps them in ``self.profile_ms``."""
-        if input_image is not None:
-            raise NotImplementedError(f"input_image (CLIP) {_ITEM_6}")
         clock = _PhaseClock(noise.device, profile)
         B, F, C, H, W = noise.shape
         nb = self.num_frame_per_block
@@ -228,16 +259,27 @@ class CausalDiffusionInferencePipeline:
                     "text encoder to encode the negative prompt")
             neg_context = self.text_encoder(
                 [getattr(self.args, "negative_prompt", "")] * B)
-        ctx_pos = dit.precompute_context(self.params, self.cfg,
-                                         context.to(self.device, self.dtype))
+        # the image's CLIP tokens ride both contexts (an i2v model's); its
+        # y conditions every generated frame
+        clip_fea = image_y = None
+        if input_image is not None:
+            clip_fea, image_y = self.encode_image(input_image, F, H * 8,
+                                                  W * 8)
+            image_y = image_y.to(self.dtype)
+            clip_fea = (clip_fea.to(self.dtype)
+                        if self.cfg.model_type == "i2v" else None)
+        ctx_pos = dit.precompute_context(
+            self.params, self.cfg, context.to(self.device, self.dtype),
+            clip_fea)
         ctx_neg = dit.precompute_context(
-            self.params, self.cfg, neg_context.to(self.device, self.dtype))
+            self.params, self.cfg, neg_context.to(self.device, self.dtype),
+            clip_fea)
         F0 = 0 if initial_latent is None else initial_latent.shape[1]
         caches = [dit.init_kv_cache(self.cfg, B, fs, max(F + F0, 21),
                                     self.dtype, self.device)
                   for _ in range(2)]
         dwpose_emb, y = self._pose_inputs(B, F, dwpose_data,
-                                          random_ref_dwpose)
+                                          random_ref_dwpose, image_y)
         windowed = self.cfg.local_attn_size != -1
 
         def hint(cache_start):  # tokens already cached (global cache)

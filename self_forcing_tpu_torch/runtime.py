@@ -8,6 +8,8 @@ The layout looked for:
 - Wan2.1_VAE.pth
 - google/umt5-xxl/  (the tokenizer)
 - self_forcing_dmd.pt  ({'generator', 'generator_ema'[, 'critic']})
+- models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth  (CLIP, for
+  image conditioning: ``load_clip_vision``)
 
 A missing DiT raises; a missing T5, tokenizer or VAE leaves its field
 None.  Everything lands on ``device`` ("cuda" unless the caller asks for
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from self_forcing_tpu_torch.models import clip as clip_mod
 from self_forcing_tpu_torch.models.wan import t5 as t5_mod
 from self_forcing_tpu_torch.models.wan import vae as vae_mod
 from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B, WanConfig
@@ -156,3 +159,20 @@ def load_wan_models(model_dir: str, model_cfg: WanConfig | None = None,
                      t5_params=t5_params, t5_cfg=t5_cfg,
                      vae_params=vae_params, vae_cfg=vae_cfg,
                      tokenizer=tokenizer, device=device)
+
+
+def load_clip_vision(model_dir: str, dtype=torch.float32,
+                     device: str | torch.device = "cuda"):
+    """The CLIP vision tower of image-to-video and pose conditioning from
+    the reference's ``models_clip_open-clip-xlm-roberta-large-vit-huge-14
+    .pth`` under ``model_dir`` (its ``visual.`` subtree), in float32.
+    Returns (clip_params, clip_cfg), or (None, None) when the file is
+    absent."""
+    path = _find(model_dir, clip_mod.CLIP_WEIGHTS,
+                 "**/" + clip_mod.CLIP_WEIGHTS)
+    if path is None:
+        return None, None
+    cfg = clip_mod.CLIP_XLM_ROBERTA_VIT_H_14
+    params = clip_mod.convert_clip_vision_state_dict(
+        ckpt.load_torch_state_dict(path), cfg, dtype, device=device)
+    return params, cfg

@@ -139,11 +139,9 @@ def convert_dit_state_dict(sd: Mapping[str, Any], cfg,
                            dtype=torch.bfloat16,
                            lora_scale: float | None = None,
                            device: str | torch.device = "cuda") -> Params:
-    """Torch WanModel / CausalWanModel state dict -> the DiT's tree."""
-    if "img_emb.proj.0.weight" in sd:
-        raise NotImplementedError(
-            "the i2v DiT (img_emb, k_img / v_img) is not ported "
-            "(ROADMAP Queue A item 6)")
+    """Torch WanModel / CausalWanModel state dict -> the DiT's tree (the
+    i2v model's image projections ``k_img`` / ``v_img`` / ``norm_k_img``
+    and ``img_emb`` included where the state dict holds them)."""
     d = cfg.dim
 
     def lin(name):
@@ -181,6 +179,11 @@ def convert_dit_state_dict(sd: Mapping[str, Any], cfg,
                 if cfg.qk_norm:
                     norm = p["norm_" + proj]
                     norm["w"] = norm["w"][pd]
+        if cross and prefix + ".k_img.weight" in sd:
+            p["k_img"] = lin(prefix + ".k_img")
+            p["v_img"] = lin(prefix + ".v_img")
+            if cfg.qk_norm:
+                p["norm_k_img"] = {"w": vec(prefix + ".norm_k_img.weight")}
         return p
 
     def block(i):
@@ -198,6 +201,14 @@ def convert_dit_state_dict(sd: Mapping[str, Any], cfg,
                                   cfg.num_layers)
     if "pose_proj.weight" in sd:
         params["pose_proj"] = lin("pose_proj")
+    if "img_emb.proj.0.weight" in sd:
+        params["img_emb"] = {
+            "norm1": {"w": vec("img_emb.proj.0.weight"),
+                      "b": vec("img_emb.proj.0.bias")},
+            "fc1": lin("img_emb.proj.1"),
+            "fc2": lin("img_emb.proj.3"),
+            "norm2": {"w": vec("img_emb.proj.4.weight"),
+                      "b": vec("img_emb.proj.4.bias")}}
     if lora_scale is not None:
         for path, leaf in tree.items(params):
             if path[-1] == "lora_scale":
@@ -260,6 +271,12 @@ def export_dit_state_dict(params: Params, cfg) -> dict:
         if nq is not None:
             sd[prefix + ".norm_q.weight"] = _host(nq["w"])
             sd[prefix + ".norm_k.weight"] = _host(nk["w"])
+        if cross and "k_img" in p:
+            put_lin(sd, prefix + ".k_img", p["k_img"])
+            put_lin(sd, prefix + ".v_img", p["v_img"])
+            if "norm_k_img" in p:
+                sd[prefix + ".norm_k_img.weight"] = _host(
+                    p["norm_k_img"]["w"])
 
     blocks = params["blocks"]
     for i in range(len(tree.leaves(blocks)[0])):
@@ -275,6 +292,14 @@ def export_dit_state_dict(params: Params, cfg) -> dict:
             sd[pre + ".norm3.bias"] = _host(bp["norm3"]["b"])
     if "pose_proj" in params:
         put_lin(sd, "pose_proj", params["pose_proj"])
+    if "img_emb" in params:
+        ie = params["img_emb"]
+        sd["img_emb.proj.0.weight"] = _host(ie["norm1"]["w"])
+        sd["img_emb.proj.0.bias"] = _host(ie["norm1"]["b"])
+        put_lin(sd, "img_emb.proj.1", ie["fc1"])
+        put_lin(sd, "img_emb.proj.3", ie["fc2"])
+        sd["img_emb.proj.4.weight"] = _host(ie["norm2"]["w"])
+        sd["img_emb.proj.4.bias"] = _host(ie["norm2"]["b"])
     return sd
 
 

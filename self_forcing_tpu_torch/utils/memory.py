@@ -1,10 +1,11 @@
 """Device-memory tools of the demo server (port of
 ``self_forcing_tpu/utils/memory.py``).
 
-``get_hbm_stats`` keeps the JAX package's key names, which
-``templates/demo.html`` reads through ``/api/status``; on a CUDA device
-they come from ``torch.cuda.mem_get_info`` (the device's free and total
-memory) and the caching allocator (``torch.cuda.memory_stats``).
+``get_hbm_stats`` keeps the JAX package's key names and meanings, which
+``templates/demo.html`` reads through ``/api/status``: on a CUDA device
+the in-use and peak figures are the caching allocator's live tensor
+bytes (``torch.cuda.memory_allocated`` / ``memory_stats``), the limit the card's total memory
+(``torch.cuda.mem_get_info``).
 """
 from __future__ import annotations
 
@@ -15,19 +16,21 @@ from self_forcing_tpu_torch.utils import tree as tree_mod
 
 def get_hbm_stats(device=None) -> dict:
     """bytes_in_use / bytes_limit / peak_bytes_in_use of a CUDA device
-    (CUDA device 0 by default): the card's total memory, the part of it in
-    use device-wide (this process's reserved segments, its CUDA context
-    and any other process), and the allocator's peak of allocated tensor
-    bytes.  Zeros where there is no CUDA device."""
+    (CUDA device 0 by default): the bytes of this process's live tensors
+    (``torch.cuda.memory_allocated``, as the JAX package reports its
+    allocator's live buffers; not the cached segments the allocator keeps,
+    the CUDA context or other processes), the card's total memory, and the
+    allocator's peak of allocated tensor bytes.  Zeros where there is no
+    CUDA device."""
     if device is None:
         device = "cuda:0" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     if device.type != "cuda":
         return {"bytes_in_use": 0, "bytes_limit": 0, "peak_bytes_in_use": 0}
-    free, total = torch.cuda.mem_get_info(device)
+    _, total = torch.cuda.mem_get_info(device)
     stats = torch.cuda.memory_stats(device)
     return {
-        "bytes_in_use": int(total - free),
+        "bytes_in_use": int(torch.cuda.memory_allocated(device)),
         "bytes_limit": int(total),
         "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
     }

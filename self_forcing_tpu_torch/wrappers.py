@@ -3,10 +3,11 @@ of ``self_forcing_tpu/wrappers.py``): ``WanTextEncoder``,
 ``WanVAEWrapper`` and ``WanDiffusionWrapper``, thin callables over
 ``models/wan/{t5,vae,dit}.py`` and ``scheduler.py``.
 
-The DiT facade passes the UniAnimate conditioning through (``y`` channels
-and ``add_condition`` pose tokens, as arguments or keys of the
-conditional dict); the classify mode and its GAN head and the CLIP image
-features raise ``NotImplementedError`` (ROADMAP Queue A item 6).
+The DiT facade passes the conditioning through (``y`` channels,
+``add_condition`` pose tokens and an i2v model's ``clip_feature`` CLIP
+image tokens, as arguments or keys of the conditional dict); the
+classify mode and its GAN head raise ``NotImplementedError`` (ROADMAP
+Queue A item 6, with the GAN trainer of item 7).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from self_forcing_tpu_torch.ops.masks import (block_causal_mask,
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
 from self_forcing_tpu_torch.utils import tree
 
-_ITEM_6 = "is not ported (ROADMAP Queue A item 6)"
+_ITEM_6 = ("is not ported (ROADMAP Queue A item 6, with the GAN trainer "
+           "of item 7)")
 
 
 class WanTextEncoder:
@@ -86,7 +88,7 @@ class WanVAEWrapper:
 
 
 class WanDiffusionWrapper:
-    """One facade over the causal / bidirectional t2v DiT: the KV-cached
+    """One facade over the causal / bidirectional t2v / i2v DiT: the KV-cached
     streaming forward, teacher forcing (``clean_x``) and the cache-free
     forward, returning (flow_pred, pred_x0) as the reference does, with
     the new cache beside them on the cached path."""
@@ -130,9 +132,6 @@ class WanDiffusionWrapper:
                 y: Optional[torch.Tensor] = None):
         if classify_mode or concat_time_embeddings:
             raise NotImplementedError(f"the classify mode {_ITEM_6}")
-        if clip_feature is not None or \
-                conditional_dict.get("clip_feature") is not None:
-            raise NotImplementedError(f"clip_feature conditioning {_ITEM_6}")
         x = noisy_image_or_video
         B, F, C, H, W = x.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
@@ -141,6 +140,8 @@ class WanDiffusionWrapper:
             add_condition = conditional_dict.get("add_condition")
         if y is None:
             y = conditional_dict.get("y")
+        if clip_feature is None:
+            clip_feature = conditional_dict.get("clip_feature")
         cond = {"y": y, "add_condition": add_condition}
         t = torch.as_tensor(timestep, dtype=torch.float32, device=x.device)
         if t.ndim == 1:
@@ -150,7 +151,7 @@ class WanDiffusionWrapper:
         if kv_cache is not None:
             ctx_kv = (crossattn_cache if crossattn_cache is not None
                       else dit.precompute_context(self.params, self.cfg,
-                                                  context))
+                                                  context, clip_feature))
             flow, new_cache = dit.forward_inference(
                 self.params, self.cfg, x, t, ctx_kv, kv_cache,
                 (current_start or 0) // fs, self.rope,
@@ -160,11 +161,13 @@ class WanDiffusionWrapper:
             mask = teacher_forcing_mask(F, fs, self.cfg.num_frame_per_block)
             flow = dit.forward_train(self.params, self.cfg, x, t, context,
                                      mask, self.rope, clean_x=clean_x,
-                                     aug_t=aug_t, **cond)
+                                     aug_t=aug_t, clip_fea=clip_feature,
+                                     **cond)
         else:
             mask = self._mask_for(F, fs) if self.is_causal else None
             flow = dit.forward_train(self.params, self.cfg, x, t, context,
-                                     mask, self.rope, **cond)
+                                     mask, self.rope, clip_fea=clip_feature,
+                                     **cond)
 
         def flat(a):
             return a.reshape((B * F,) + a.shape[2:])

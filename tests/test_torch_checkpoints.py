@@ -130,9 +130,14 @@ def test_dit_export_keeps_bf16_and_round_trips():
 
 
 def test_dit_converter_rejects_the_i2v_model():
+    """An i2v state dict converts since the i2v DiT was ported
+    (tests/test_torch_i2v.py); one whose image embedding is incomplete
+    is rejected, as the JAX converter rejects it."""
     sd = jckpt.export_dit_state_dict(_jax_dit(2, False), J_CFG)
     sd["img_emb.proj.0.weight"] = np.zeros(4, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(KeyError, match="img_emb.proj.0.bias"):
+        jckpt.convert_dit_state_dict(sd, J_CFG)
+    with pytest.raises(KeyError, match="img_emb.proj.0.bias"):
         tckpt.convert_dit_state_dict(_tsd(sd), T_CFG, device="cpu")
 
 

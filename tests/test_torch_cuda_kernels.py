@@ -286,6 +286,27 @@ def test_cross_attention_key_lengths(dev, B, N, Lq, Lk):
     assert _rel_l2(out, ref) < 2e-3, _rel_l2(out, ref)
 
 
+def test_cross_attention_i2v_pair(dev):
+    """The i2v DiT's cross attention at Wan-I2V-14B's shapes: 32760
+    heads-packed queries, 40 heads, one call onto the 512 text keys and
+    one onto the 257 image keys, summed (two softmaxes).  Each call and
+    the sum within 2e-3 relative L2 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(45)
+    N, D, Lq = 40, 128, 32760
+    q = _bf16(g, 1, Lq, N * D, dev=dev)
+    outs, refs = [], []
+    for Lk in (512, 257):
+        k = _bf16(g, 1, Lk, N, D, dev=dev)
+        v = _bf16(g, 1, Lk, N, D, dev=dev)
+        outs.append(ca.cross_attention(q, k, v, num_heads=N))
+        refs.append(ca.cross_attention_ref(q, k, v, num_heads=N))
+        torch.cuda.synchronize()
+        assert torch.isfinite(outs[-1].float()).all()
+        assert _rel_l2(outs[-1], refs[-1]) < 2e-3, (Lk, _rel_l2(
+            outs[-1], refs[-1]))
+    assert _rel_l2(outs[0] + outs[1], refs[0] + refs[1]) < 2e-3
+
+
 # (B, N, Lq, Lf, S, lo, hi, sink, static_hi, tiles or tk_align)
 INT8QK_CASES = {
     # ragged Lq and Lf against 100-row q tiles and 96-row fresh tiles;

@@ -173,7 +173,7 @@ def test_non_divisible_frames_raise():
         tpipe.inference(torch.zeros(B, 2, C, H, W), context=ctx,
                         neg_context=neg,
                         initial_latent=torch.zeros(B, 1, C, H, W))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(ValueError, match="image_encoder"):
         tpipe.inference(torch.zeros(B, 2, C, H, W), context=ctx,
                         neg_context=neg, input_image=torch.zeros(1, 3, 8, 8))
     with pytest.raises(ValueError, match="fewer frames than required"):

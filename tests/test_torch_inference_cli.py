@@ -24,6 +24,7 @@ import torch
 import yaml
 
 from self_forcing_tpu_torch import inference as tinf
+from self_forcing_tpu_torch.utils.resize import resize_cubic
 from self_forcing_tpu_torch.utils.video_io import load_video
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
@@ -229,7 +230,8 @@ def test_resize_cubic_matches_jax(src, dst):
     img = np.random.default_rng(sum(src)).uniform(
         -1, 1, (*src, 3)).astype(np.float32)
     ref = jax.image.resize(jnp.asarray(img), (*dst, 3), "cubic")
-    out = tinf.resize_cubic(torch.from_numpy(img), *dst)
+    out = resize_cubic(torch.from_numpy(img).permute(2, 0, 1),
+                       *dst).permute(1, 2, 0)
     assert out.shape == (*dst, 3) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=2e-5)

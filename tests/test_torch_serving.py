@@ -571,6 +571,37 @@ def test_demo_runs_on_the_card_unless_asked(monkeypatch):
 
 # -------------------------------------------------------------- memory
 
+def test_hbm_stats_read_the_allocators_live_bytes(monkeypatch):
+    """On a card, bytes_in_use is the caching allocator's live tensor
+    bytes (the JAX package's meaning), not total - free of the device;
+    bytes_limit the card's total, peak_bytes_in_use the allocator's
+    peak."""
+    gib = 1024 ** 3
+    seen = []
+
+    def stat(name, value):
+        def fn(device=None):
+            seen.append((name, torch.device(device)))
+            return value
+        return fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        stat("mem_get_info", (30 * gib, 80 * gib)))
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        stat("memory_allocated", 7 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_stats", stat("memory_stats", {
+        "allocated_bytes.all.current": 7 * gib,
+        "allocated_bytes.all.peak": 12 * gib,
+        "reserved_bytes.all.current": 40 * gib}))
+    stats = memory.get_hbm_stats()
+    assert stats == {"bytes_in_use": 7 * gib, "bytes_limit": 80 * gib,
+                     "peak_bytes_in_use": 12 * gib}
+    assert {d for _, d in seen} == {torch.device("cuda:0")}
+    assert memory.get_free_memory_gb("cuda:1") == 73.0
+    assert ("memory_allocated", torch.device("cuda:1")) in seen
+
+
 def test_memory_helpers_without_a_card(monkeypatch):
     """No CUDA device: zero stats (the JAX package's keys), free memory
     0; the tree helpers move every tensor leaf."""

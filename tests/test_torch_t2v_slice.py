@@ -3,7 +3,7 @@ package on the CPU: token ids -> tiny umT5 (``encode_for_dit``) ->
 context -> ``CausalInferencePipeline.inference`` at WAN_TINY with the JAX
 package's noise and re-noising draws injected -> Wan VAE decode -> uint8
 frames, text to video (2 blocks of 3 frames) and image to video (a 48x48
-image resized to 64x64 by ``inference.resize_cubic``, encoded as an
+image resized to 64x64 by ``utils.resize.resize_cubic``, encoded as an
 independent first frame, 2 one-frame blocks).  float32 weights crossed
 over by ``params_from_jax``.  The video in [0, 1] within 1e-4; the uint8
 frames may differ by 1 where a value sits at a truncation edge (the
@@ -42,6 +42,7 @@ from self_forcing_tpu_torch.models.wan.configs import WAN_TINY
 from self_forcing_tpu_torch.params import params_from_jax
 from self_forcing_tpu_torch.pipelines.causal_inference import (
     CausalInferencePipeline as TPipe)
+from self_forcing_tpu_torch.utils.resize import resize_cubic
 
 TOL = 1e-4
 B, C, H, W = 1, 16, 8, 8
@@ -146,7 +147,8 @@ def test_text_to_frames_matches_jax(case):
     tctx, tpipe = _port_side(j)
     tinit = None
     if case == "i2v":
-        timg = tinf.resize_cubic(torch.from_numpy(j["img"]), 8 * H, 8 * W)
+        timg = resize_cubic(torch.from_numpy(j["img"]).permute(2, 0, 1),
+                            8 * H, 8 * W).permute(1, 2, 0)
         tinit = tvae.encode(tpipe.vae_params, tinf.TINY_VAE,
                             timg[None, None]).permute(0, 1, 4, 2, 3)
         np.testing.assert_allclose(tinit.numpy(), j["jinit"], rtol=TOL,
@@ -305,8 +307,10 @@ def test_vae_wrapper_and_text_encoder_match_jax():
 
 
 @pytest.mark.parametrize("kwargs", [{"classify_mode": True},
-                                    {"clip_feature": torch.zeros(1)}])
+                                    {"concat_time_embeddings": True}])
 def test_diffusion_wrapper_unported_conditioning_raises(kwargs):
+    """The classify mode and its GAN head are not ported (the CLIP image
+    features are since the i2v DiT was: tests/test_torch_i2v.py)."""
     params = tdit.init_params(WAN_TINY, seed=0, dtype=torch.float32,
                               device="cpu")
     tw = twrap.WanDiffusionWrapper(params, WAN_TINY)
