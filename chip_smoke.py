@@ -140,6 +140,26 @@ path; its DiT ms per block).
    ``input_image`` with pose at 20 of 40 layers, 2 blocks, 4 steps (cut
    for time): ms a block and a step, peak memory, exact decode and cross
    launches.
+14. The other trainers at full Wan-1.3B width and depth (random float32
+   weights, TF32 products, as ``python -m self_forcing_tpu_torch.train``
+   runs them), through the CLI's functions (``train.build_models``,
+   ``data_batches``, ``make_batch``, ``make_trainer``) on seeded stand-in
+   data that the port's ``RecordWriter`` writes (an ODE shard of 5-snapshot
+   trajectories [5, 21, 16, 60, 104] fp16, a directory of latent shards)
+   and its datasets and ``DataLoader`` read back: (a) ODE regression
+   (``ode_init.yaml``) and (b) causal diffusion with teacher forcing
+   (``causal_diffusion.yaml``), two steps each; (c) GAN
+   (``self_forcing_gan.yaml``, update ratio 2: step 0 the generator and
+   the critic, step 1 the critic); (d) SiD (``self_forcing_sid.yaml``, a
+   generator + critic step); each step's ms, losses (finite), exact
+   launches of the flash, decode and cross kernels and the decode / cross
+   backward (derived from the code, the exits from a copy of the
+   trainer's host RNG), the leaves that moved and the peak memory; (f)
+   at 2 layers the GAN critic-loss and the causal-diffusion loss
+   gradients (teacher-forcing mask) with the kernels and with their
+   plain versions (1e-2); (e) a 2-layer GAN trainer's ``save_state`` ->
+   ``load_state`` round trip and a ``save_reference_checkpoint`` read
+   back through the converter, every leaf equal.
 Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
@@ -151,7 +171,10 @@ and the cache-window attention (``decode_attention``) at the 1.3B global
 window in bf16 and float32, beside SDPA; and the image-to-video path's
 two kernels at Wan-I2V-14B's shapes: the unmasked flash forward at
 32760 tokens and 40 heads, the cross attention of 32760 queries onto
-257 image keys and onto 512 text keys.
+257 image keys and onto 512 text keys; and the flash forward and
+backward at the other trainers' shapes: the teacher-forcing mask over
+the doubled 65520-token sequence, and the GAN discriminator's unmasked
+fake|real batch (B = 2, L = 32760).
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -1082,83 +1105,147 @@ def phase_window_kernels(ca, g) -> dict:
     return table
 
 
+def mask_visible(mask, Lq: int, Lk: int) -> float:
+    """The share of the Lq x Lk (query, key) pairs an IntervalMask (or
+    None: all) leaves visible."""
+    if mask is None:
+        return 1.0
+    return float((mask.end1 - mask.start1).astype("int64").sum()
+                 + (mask.end2 - mask.start2).astype("int64").sum()) / Lq / Lk
+
+
+def once_ms(fn):
+    """(fn's result, the ms of that one call by CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def flash_pair_rows(ca, q, k, v, do, mask, label,
+                    plain_reps: int = 3) -> dict:
+    """``flash_fwd`` and ``flash_bwd`` on q, k, v [B, L, 12, 128] bf16 (q
+    carrying the folded head_dim**-0.5 * log2(e)) under ``mask``: each
+    against its plain version (out 1e-2 relative L2, lse 1e-3 absolute,
+    dq / dk / dv 2e-2), timed with CUDA events beside the bound and
+    SDPA's forward and backward on the same inputs; one line each.  The
+    plain versions are timed over ``plain_reps`` calls, or (0) by their
+    one call of the check.  Returns the two rows."""
+    B, L, N, D = q.shape
+    frac = mask_visible(mask, L, L)
+    out, lse = ca.flash_fwd(q, k, v, mask)
+    (ref, ref_lse), fwd_once = once_ms(lambda: ca.flash_fwd_ref(q, k, v,
+                                                                mask))
+    err, mae = check_kernel("flash_fwd", out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    if lse_err > 1e-3:
+        fail(f"flash_fwd ({label}): lse max abs error {lse_err:.3e} > 1e-3")
+    delta = ca.flash_delta(ref, do)
+    args = (q, k, v, do, ref_lse, delta, mask)
+    grads = ca.flash_bwd(*args)
+    plain_grads, bwd_once = once_ms(lambda: (
+        ca.flash_bwd_dq_ref(*args), *ca.flash_bwd_dkv_ref(*args)))
+    bwd_errs = [check_kernel(f"flash_bwd {name} ({label})", a, b, tol=2e-2)
+                for name, a, b in zip(("dq", "dk", "dv"), grads,
+                                      plain_grads)]
+    del out, ref, grads, plain_grads
+
+    prod = 2.0 * B * L * L * D * N * frac    # one product over the pairs
+    row_bytes = 2.0 * B * L * N * D          # one [B, L, 12, 128] bf16
+    fwd_ms = time_ms(lambda: ca.flash_fwd(q, k, v, mask))
+    bwd_ms = time_ms(lambda: ca.flash_bwd(*args))
+    plain = [fwd_once, bwd_once] if not plain_reps else [
+        time_ms(lambda: ca.flash_fwd_ref(q, k, v, mask), reps=plain_reps),
+        time_ms(lambda: (ca.flash_bwd_dq_ref(*args),
+                         ca.flash_bwd_dkv_ref(*args)), reps=plain_reps)]
+    lib_fwd, lib_bwd, backend = sdpa_yardsticks(q, k, v, do, mask)
+    # bound: operations at the bf16 peak (2 products forward; 5
+    # backward: s, dp, p^T.do, ds^T.q, ds.k) against each input read
+    # once and each output written once (backward: q, k, v, do, lse,
+    # delta in; dq, dk, dv out)
+    rows = [("flash_fwd", fwd_ms, plain[0], lib_fwd, 2 * prod,
+             4 * row_bytes + 4.0 * B * L * N, err, mae),
+            ("flash_bwd", bwd_ms, plain[1], lib_bwd, 5 * prod,
+             7 * row_bytes + 8.0 * B * L * N,
+             max(e for e, _ in bwd_errs), max(m for _, m in bwd_errs))]
+    table = {}
+    for name, ms, pms, lms, ops, nbytes, e, m in rows:
+        b_ms, b_by = bound(ops, nbytes)
+        lib = "none" if lms is None else f"{lms:.4f}"
+        print(f"kernel {name} ({label}, B={B}, L={L}, visible {frac:.4f}): "
+              f"rel_l2={e:.3e} max_abs={m:.3e} ms={ms:.4f} "
+              f"plain_ms={pms:.4f} sdpa_ms={lib} ({backend}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound_share="
+              f"{b_ms / ms:.3f} tflops={ops / ms / 1e9:.1f}", flush=True)
+        table[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                           bound_ms=b_ms, bound_by=b_by, max_abs_err=m)
+    (dq_err, _), (dk_err, _), (dv_err, _) = bwd_errs
+    print(f"flash {label}: lse max_abs={lse_err:.3e} flash_bwd rel_l2 "
+          f"dq={dq_err:.3e} dk={dk_err:.3e} dv={dv_err:.3e}", flush=True)
+    return table
+
+
+def flash_operands(B: int, L: int, N: int, g):
+    """Seeded bf16 q (with the folded head_dim**-0.5 * log2(e)), k, v and
+    an output gradient, [B, L, N, 128] on the card."""
+    D = HEAD_DIM
+    q = (torch.randn(B, L, N, D, generator=g, device="cuda")
+         * (D ** -0.5 * LOG2E)).to(torch.bfloat16)
+    k, v, do = (torch.randn(B, L, N, D, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(3))
+    return q, k, v, do
+
+
 def phase_flash_kernels(ca, masks, g) -> dict:
     """The training path's flash kernels against their plain versions at
     B 1, L 32760, 12 heads of 128 in bf16 (q carrying the folded
     head_dim**-0.5 * log2(e)), with no mask (the DMD path's score models)
-    and with the 7-block block-causal mask of 3-frame blocks.  Tolerance
-    1e-2 relative L2 for out (both round p to bf16), 2e-2 for each of dq,
-    dk, dv of the one backward kernel (both round p and ds to bf16 for the
-    products; ds is a difference of near-equal terms, so its rounding may
-    differ by an ulp), 1e-3 absolute for lse (fp32 sums).  Library
-    yardsticks: SDPA forward on the same inputs at scale ln 2 (base-2
-    scores), and SDPA's backward (one autograd call computing dq, dk and
-    dv, its backend named); under the mask SDPA takes it as a dense
-    boolean [L, L] mask."""
-    dev, bf = "cuda", torch.bfloat16
-    D, N, L = HEAD_DIM, N_HEADS, SEQ_TRAIN
-    q = (torch.randn(1, L, N, D, generator=g, device=dev)
-         * (D ** -0.5 * 1.4426950408889634)).to(bf)
-    k, v, do = (torch.randn(1, L, N, D, generator=g, device=dev, dtype=bf)
-                for _ in range(3))
+    and with the 7-block block-causal mask of 3-frame blocks
+    (:func:`flash_pair_rows`: tolerance 1e-2 relative L2 for out (both
+    round p to bf16), 2e-2 for each of dq, dk, dv of the one backward
+    kernel (both round p and ds to bf16 for the products; ds is a
+    difference of near-equal terms, so its rounding may differ by an
+    ulp), 1e-3 absolute for lse (fp32 sums)).  Library yardsticks: SDPA
+    forward on the same inputs at scale ln 2 (base-2 scores), and SDPA's
+    backward (one autograd call computing dq, dk and dv, its backend
+    named); under the mask SDPA takes it as a dense boolean [L, L]
+    mask."""
+    L = SEQ_TRAIN
+    q, k, v, do = flash_operands(1, L, N_HEADS, g)
     table = {}
     for label, mask in (("no mask", None),
                         ("block-causal 7x3 frames",
                          masks.block_causal_mask(21, 1560, 3))):
-        frac = 1.0 if mask is None else float(
-            (mask.end1 - mask.start1).astype("int64").sum()
-            + (mask.end2 - mask.start2).astype("int64").sum()) / L / L
-        out, lse = ca.flash_fwd(q, k, v, mask)
-        ref, ref_lse = ca.flash_fwd_ref(q, k, v, mask)
-        err, mae = check_kernel("flash_fwd", out, ref)
-        lse_err = float((lse - ref_lse).abs().max())
-        if lse_err > 1e-3:
-            fail(f"flash_fwd: lse max abs error {lse_err:.3e} > 1e-3")
-        delta = ca.flash_delta(ref, do)
-        args = (q, k, v, do, ref_lse, delta, mask)
-        grads = ca.flash_bwd(*args)
-        plain_grads = (ca.flash_bwd_dq_ref(*args),
-                       *ca.flash_bwd_dkv_ref(*args))
-        bwd_errs = [check_kernel(f"flash_bwd {name}", a, b, tol=2e-2)
-                    for name, a, b in zip(("dq", "dk", "dv"), grads,
-                                          plain_grads)]
-        del out, ref, grads, plain_grads
-
-        prod = 2.0 * L * L * D * N * frac    # one product over the pairs
-        row_bytes = 2.0 * L * N * D          # one [1, L, 12, 128] bf16
-        fwd_ms = time_ms(lambda: ca.flash_fwd(q, k, v, mask))
-        bwd_ms = time_ms(lambda: ca.flash_bwd(*args))
-        plain = [time_ms(lambda: ca.flash_fwd_ref(q, k, v, mask), reps=3),
-                 time_ms(lambda: (ca.flash_bwd_dq_ref(*args),
-                                  ca.flash_bwd_dkv_ref(*args)), reps=3)]
-        lib_fwd, lib_bwd, backend = sdpa_yardsticks(q, k, v, do, mask)
-        # bound: operations at the bf16 peak (2 products forward; 5
-        # backward: s, dp, p^T.do, ds^T.q, ds.k) against each input read
-        # once and each output written once (backward: q, k, v, do, lse,
-        # delta in; dq, dk, dv out)
-        rows = [("flash_fwd", fwd_ms, plain[0], lib_fwd, 2 * prod,
-                 4 * row_bytes + 4.0 * L * N, err, mae),
-                ("flash_bwd", bwd_ms, plain[1], lib_bwd, 5 * prod,
-                 7 * row_bytes + 8.0 * L * N,
-                 max(e for e, _ in bwd_errs), max(m for _, m in bwd_errs))]
-        for name, ms, pms, lms, ops, nbytes, e, m in rows:
-            b_ms, b_by = bound(ops, nbytes)
-            lib = "none" if lms is None else f"{lms:.4f}"
-            print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}): "
-                  f"rel_l2={e:.3e} max_abs={m:.3e} ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} sdpa_ms={lib} ({backend}) "
-                  f"bound_ms={b_ms:.4f} ({b_by}) bound_share="
-                  f"{b_ms / ms:.3f} tflops={ops / ms / 1e9:.1f}", flush=True)
-            if mask is None:   # the DMD path's shape is the table's row
-                table[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   max_abs_err=m)
-        (dq_err, _), (dk_err, _), (dv_err, _) = bwd_errs
-        print(f"flash {label}: lse max_abs={lse_err:.3e} flash_bwd rel_l2 "
-              f"dq={dq_err:.3e} dk={dk_err:.3e} dv={dv_err:.3e}",
-              flush=True)
-        table.update(flash_mode_rows(ca, q, k, v, mask, label, frac))
+        rows = flash_pair_rows(ca, q, k, v, do, mask, label)
+        if mask is None:   # the DMD path's shape is the table's row
+            table.update(rows)
+        table.update(flash_mode_rows(ca, q, k, v, mask, label,
+                                     mask_visible(mask, L, L)))
     return table
+
+
+def phase_trainer_flash_kernels(ca, masks, g) -> dict:
+    """The flash kernels at the shapes the other trainers give them (12
+    heads of 128): the causal-diffusion trainer's teacher-forcing mask
+    over the doubled [clean | noisy] sequence of 2 x 21 frames (L =
+    65520, 3-frame blocks) and the GAN discriminator's unmasked fake|real
+    pass (B = 2, L = 32760); as :func:`flash_pair_rows`, the plain
+    versions (seconds a call at these sizes) timed by their one call of
+    the check.  Returns the rows by shape."""
+    out = {}
+    for label, B, L, mask in (
+            ("teacher forcing 2x21 frames", 1, 2 * SEQ_TRAIN,
+             masks.teacher_forcing_mask(21, 1560, 3)),
+            ("no mask, fake|real batch", 2, SEQ_TRAIN, None)):
+        q, k, v, do = flash_operands(B, L, N_HEADS, g)
+        out[label] = flash_pair_rows(ca, q, k, v, do, mask, label,
+                                     plain_reps=0)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_i2v_kernels(ca, g) -> None:
@@ -2866,7 +2953,7 @@ def phase_training(ca, seed: int, softmax: str = "free",
     trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg0, cfg0,
                                        cfg0, neg, device="cuda",
                                        timing=True)
-    batches = train.prompt_batches(config, 1)
+    batches = train.data_batches(config, "score_distillation", 1)
     gen_before, fake_before = (_norms(trainer.gen_leaves),
                                _norms(trainer.fake_leaves))
     torch.cuda.synchronize()
@@ -2877,7 +2964,7 @@ def phase_training(ca, seed: int, softmax: str = "free",
              if k == "decode_fresh_free" else k for k in TRAIN_KERNELS]
     shown = names + list(TRAIN_BWD)
     for step in steps:
-        ctx = context_fn(next(batches))
+        ctx = context_fn(list(next(batches)["prompts"]))
         trainer.state.step = step
         ca.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2978,6 +3065,378 @@ def phase_training_grad(ca, dit, seed: int, softmax: str = "free") -> dict:
     check_launches(f"critic-loss gradient ({softmax})", launches,
                    (fwd, "flash_bwd"))
     return launches
+
+
+# ---------------------------------------------------------------------
+# 14. the other trainers: ODE regression, causal diffusion, GAN, SiD
+# ---------------------------------------------------------------------
+
+TRAIN_LATENT = (21, 16, 60, 104)   # a training video's latent [F, C, H, W]
+OTHER_TRAINER_KERNELS = ("flash_fwd", "flash_bwd", "decode_fresh_free",
+                         "cross_attention", "decode_fresh_bwd",
+                         "cross_attention_bwd")
+
+
+def score_launches(layers: int, grad: bool) -> dict:
+    """Launches of one forward_train / forward_classify of ``layers``
+    layers: a layer's flash and cross attention once; under autograd
+    (``remat``) once more when the backward recomputes the layer, and
+    one backward each."""
+    n = 2 if grad else 1
+    out = {"flash_fwd": n * layers, "cross_attention": n * layers}
+    if grad:
+        out.update(flash_bwd=layers, cross_attention_bwd=layers)
+    return out
+
+
+def rollout_launches(layers: int, exits, grad: bool) -> dict:
+    """Launches of a training rollout (``inference_with_trajectory``): a
+    block with exit e runs e + 1 denoise forwards and the cache refresh,
+    each layer one decode and one cross attention; with gradient the
+    exit forward, checkpointed whole and per layer, runs twice more in
+    the backward (the whole forward replayed, then each layer replayed
+    for its backward), and each layer has one decode and one cross
+    backward."""
+    fwd = sum(e + 2 for e in exits) + (2 * len(exits) if grad else 0)
+    out = {"decode_fresh_free": fwd * layers,
+           "cross_attention": fwd * layers}
+    if grad:
+        out.update(decode_fresh_bwd=len(exits) * layers,
+                   cross_attention_bwd=len(exits) * layers)
+    return out
+
+
+def add_launches(*parts) -> dict:
+    out = {k: 0 for k in OTHER_TRAINER_KERNELS}
+    for p in parts:
+        for k, v in p.items():
+            out[k] += v
+    return out
+
+
+def expected_step_launches(kind: str, trainer, layers: int) -> dict:
+    """The exact launches of ``trainer``'s next ``train_step``, derived
+    from the code: the exits come from a copy of the trainer's host RNG,
+    drawn in the order ``train_step`` draws them."""
+    import copy
+    if kind in ("ode", "diffusion"):
+        return add_launches(score_launches(layers, True))
+    rng = copy.deepcopy(trainer.host_rng)
+    pipe = trainer.bundle.pipeline
+    if kind == "gan":
+        blocks = trainer.obj.num_training_frames // trainer.obj.num_frame_per_block
+        parts = []
+        gen = (trainer.step >= trainer.discriminator_warmup_steps and
+               trainer.step % trainer.dfake_gen_update_ratio == 0)
+        if gen:
+            e = pipe.sample_exit_index(rng)
+            rng.integers(2 ** 31)
+            parts += [rollout_launches(layers, [e] * blocks, True),
+                      score_launches(layers, True)]
+        e = pipe.sample_exit_index(rng)
+        parts += [rollout_launches(layers, [e] * blocks, False),
+                  score_launches(layers, True)]
+        return add_launches(*parts)
+    # the SiD ScoreDistillationTrainer draws the rollout length and the
+    # exit(s) for each update, and a seed for the generator update: its
+    # own methods, run on the copy
+    live = trainer.host_rng
+    trainer.host_rng = rng
+    try:
+        def draw():
+            shape = trainer._sample_rollout_shape([1, *TRAIN_LATENT])
+            blocks = shape[1] // trainer.obj.num_frame_per_block
+            e = pipe.sample_exit_index(rng, num_blocks=blocks)
+            return [e] * blocks if isinstance(e, int) else list(e)
+        parts = []
+        exits = draw()
+        if trainer.state.step % trainer.dfake_gen_update_ratio == 0:
+            rng.integers(2 ** 31)
+            parts += [rollout_launches(layers, exits, True)] + [
+                score_launches(layers, True)] * 3
+        exits = draw()
+    finally:
+        trainer.host_rng = live
+    parts += [rollout_launches(layers, exits, False),
+              score_launches(layers, True)]
+    return add_launches(*parts)
+
+
+def write_stand_in_shards(d: str, seed: int) -> tuple[str, str]:
+    """Seeded stand-in data through the port's ``RecordWriter``: an ODE
+    shard of 2 trajectories of 5 snapshots [5, 21, 16, 60, 104] fp16 and
+    a directory holding one shard of 2 latents [21, 16, 60, 104] fp16
+    (and a stray file the dataset skips).  Returns (shard, directory)."""
+    import numpy as np
+    from self_forcing_tpu_torch.data.recordstore import (
+        RecordWriter, store_arrays, write_shape_header)
+    rng = np.random.default_rng(seed)
+    ode = os.path.join(d, "ode_pairs.rs")
+    with RecordWriter(ode) as w:
+        lat = rng.standard_normal((2, 5, *TRAIN_LATENT), np.float32
+                                  ).astype(np.float16)
+        store_arrays(w, {"latents": lat,
+                         "prompts": ["a red fox in snow", "a city at night"]})
+        write_shape_header(w, "latents", lat.shape)
+    shards = os.path.join(d, "latent_shards")
+    os.makedirs(shards)
+    with RecordWriter(os.path.join(shards, "shard_000.rs")) as w:
+        lat = rng.standard_normal((2, *TRAIN_LATENT), np.float32
+                                  ).astype(np.float16)
+        store_arrays(w, {"latents": lat,
+                         "prompts": ["waves on a beach", "a cat on a sofa"]})
+        write_shape_header(w, "latents", lat.shape)
+    with open(os.path.join(shards, "README"), "w") as f:
+        f.write("not a shard\n")
+    return ode, shards
+
+
+def _trainer_groups(kind: str, trainer) -> dict:
+    """{name: leaves} of the models a trainer updates."""
+    if kind in ("ode", "diffusion"):
+        return {"generator": trainer.leaves}
+    if kind == "gan":
+        return {"generator": trainer.gen_leaves,
+                "critic": trainer.fake_leaves, "cls": trainer.cls_leaves}
+    return {"generator": trainer.gen_leaves, "critic": trainer.fake_leaves}
+
+
+def run_other_trainer(ca, kind: str, config_name: str, seed: int,
+                      data_path: str | None, steps, **overrides) -> dict:
+    """``kind``'s trainer at full Wan-1.3B width and depth through the
+    CLI's functions (``train.build_models`` / ``make_context_fn`` /
+    ``data_batches`` / ``make_batch`` / ``make_trainer``) on the config
+    ``config_name`` (float32 weights, TF32 products, random weights with
+    random output layers): ``steps`` train steps (each a step index: the
+    step count is set to it first), each with its ms, the losses (finite)
+    and the exact launch counts of :func:`expected_step_launches`; the
+    leaves that moved; the peak memory.  Returns the launches."""
+    import numpy as np
+    from self_forcing_tpu_torch import train
+    from self_forcing_tpu_torch.config import load_config
+    dev = torch.device("cuda")
+    config = load_config(os.path.join(CONFIGS, config_name),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.update(seed=seed, image_or_video_shape=[1, *TRAIN_LATENT],
+                  **overrides)
+    if data_path is not None:
+        config.data_path = data_path
+    dtype = torch.bfloat16 if config.get("mixed_precision") \
+        else torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, gen, fake, real = train.build_models(config, dtype, dev)
+    if kind != "sid":
+        real = None         # only the SiD trainer holds the real score
+    if kind in ("ode", "diffusion"):
+        fake = None
+    with torch.no_grad():
+        _randomize_heads([p for p in (gen, fake, real) if p is not None],
+                         seed + 7)
+    context_fn = train.make_context_fn(config, cfg, dev)
+    B = 1
+    trainer = train.make_trainer(config, config.trainer, cfg, gen, fake,
+                                 real, context_fn, B, dev, visualize=False,
+                                 timing=kind in ("gan", "sid"))
+    del gen, fake, real
+    batches = train.data_batches(config, config.trainer, B)
+    rng = np.random.default_rng(seed)
+    shape = [B] + list(config.image_or_video_shape)[1:]
+    groups = _trainer_groups(kind, trainer)
+    before = {k: _norms(v) for k, v in groups.items()}
+    layers = cfg.num_layers
+    total = {k: 0 for k in ca.launch_counts}
+    for step in steps:
+        if kind == "sid":
+            trainer.state.step = step
+        else:
+            trainer.step = step
+        batch = train.make_batch(config, config.trainer, next(batches),
+                                 context_fn, shape, rng, dev)
+        want = expected_step_launches(kind, trainer, layers)
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(ca.launch_counts)
+        for k, v in got.items():
+            total[k] += v
+        shown = {k: got[k] for k in OTHER_TRAINER_KERNELS}
+        if shown != want or any(v for k, v in got.items()
+                                if k not in OTHER_TRAINER_KERNELS):
+            fail(f"{kind} train step {step}: launches "
+                 f"{ {k: v for k, v in got.items() if v} }, expected {want}")
+        bad = [k for k, v in log.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{kind} train step {step}: non-finite {bad}")
+        split = {k: round(v, 1) for k, v in log.items() if k.endswith("_ms")}
+        vals = {k: round(v, 6) for k, v in log.items()
+                if not k.endswith("_ms")}
+        lat = batch.get("ode_latent", batch.get("latents"))
+        data = "prompts only" if lat is None else list(lat.shape)
+        print(f"{kind} train step {step} ({config_name}, Wan-1.3B width, "
+              f"{layers} layers, {str(dtype)[6:]} weights, data {data}): "
+              f"step_ms={ms:.1f} split_ms={split} {vals} "
+              f"launches={shown} (exact; host clock, synchronised)",
+              flush=True)
+    batches.close()
+    moved = {k: sum(a != b for a, b in zip(before[k], _norms(v)))
+             for k, v in groups.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{kind} trainer: peak_mem_gb={peak_gb:.2f} leaves moved "
+          f"{ {k: f'{moved[k]}/{len(groups[k])}' for k in groups} }",
+          flush=True)
+    still = [k for k, v in moved.items() if not v]
+    if still:
+        fail(f"{kind} trainer: no leaf of {still} moved")
+    del trainer, groups, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def other_trainers_vs_plain(ca, dit, seed: int, d: str) -> None:
+    """At full Wan-1.3B width and 2 layers (float32 weights, random output
+    layers): the GAN critic-loss gradient (no-grad rollout, the batch-2
+    discriminator) and the causal-diffusion loss gradient (the
+    teacher-forcing mask over 2 x 21 frames) with the kernels and with
+    their plain versions on the same draws; 1e-2 relative L2 over all the
+    trained leaves.  Then the checkpoints: a 2-layer GAN trainer's
+    ``save_state`` -> ``load_state`` into a fresh trainer (every leaf and
+    moment equal), and ``save_reference_checkpoint`` read back through
+    ``load_torch_state_dict`` + ``convert_dit_state_dict`` (every leaf
+    equal)."""
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.models.wan.rope import RopeTables
+    from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
+    from self_forcing_tpu_torch.training.objectives import (
+        causal_diffusion, gan)
+    from self_forcing_tpu_torch.training.trainer_gan import GANTrainer
+    from self_forcing_tpu_torch.utils import checkpoints as ckpt
+    from self_forcing_tpu_torch.utils.tree import items, leaves
+    dev = "cuda"
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2, num_frame_per_block=3)
+    config = load_config(os.path.join(CONFIGS, "self_forcing_gan.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.update(seed=seed, ema_weight=0.9)
+
+    def gan_trainer():
+        gen, fake = (dit.init_params(cfg, seed + i, torch.float32, dev,
+                                     causal=i == 0) for i in range(2))
+        with torch.no_grad():
+            _randomize_heads((gen, fake), seed + 8)
+        return GANTrainer(config, gen, fake, cfg, cfg, device=dev)
+    trainer = gan_trainer()
+    g = torch.Generator(dev).manual_seed(seed)
+    ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device=dev)
+    noise, real = (torch.randn(1, *TRAIN_LATENT, generator=g, device=dev)
+                   for _ in range(2))
+    for name in ("gan critic loss", "causal diffusion loss"):
+        grads = []
+        for kernels in (True, False):
+            gg = torch.Generator(dev).manual_seed(seed + 9)
+            ca.reset_launch_counts()
+            if name.startswith("gan"):
+                loss, _ = gan.critic_loss(
+                    trainer.bundle, trainer.obj, trainer.generator,
+                    trainer.fake_score, trainer.cls_params, noise, real, ctx,
+                    None, 2, generator=gg, kernels=kernels)
+                wrt = trainer.fake_leaves + trainer.cls_leaves
+            else:
+                loss, _ = causal_diffusion.generator_loss(
+                    trainer.generator, cfg,
+                    RopeTables.create(cfg.head_dim, device=dev),
+                    FlowMatchScheduler.create(1000, shift=5.0, training=True,
+                                              device=dev),
+                    real, ctx, 3, generator=gg, kernels=kernels)
+                wrt = trainer.gen_leaves
+            gr = torch.autograd.grad(loss, wrt, allow_unused=True)
+            if kernels:
+                launches = {k: v for k, v in ca.launch_counts.items() if v}
+            grads.append((float(loss.detach()), torch.cat(
+                [x.float().flatten() for x in gr if x is not None])))
+            del gr
+        (lk, gk), (lp, gp) = grads
+        err = rel_l2(gk, gp)
+        print(f"{name} gradient (Wan-1.3B width, 2 layers, float32 "
+              f"weights): loss kernels={lk:.6f} plain={lp:.6f} grad "
+              f"rel_l2={err:.3e} grad_norm={float(gk.norm()):.4e} "
+              f"launches={launches}", flush=True)
+        if not math.isfinite(err) or err > 1e-2:
+            fail(f"{name} gradient: kernels vs plain relative L2 "
+                 f"{err:.3e} > 1e-2")
+        check_launches(name, launches, ("flash_fwd", "flash_bwd",
+                                        "cross_attention"))
+
+    trainer.train_step({"context": ctx, "latents": real})
+    path = os.path.join(d, "gan_state.pt")
+    t0 = time.perf_counter()
+    trainer.save_state(path)
+    fresh = gan_trainer()
+    fresh.load_state(path)
+    ms = (time.perf_counter() - t0) * 1e3
+    pairs = list(zip(trainer.gen_leaves + trainer.fake_leaves
+                     + trainer.cls_leaves,
+                     fresh.gen_leaves + fresh.fake_leaves + fresh.cls_leaves))
+    pairs += list(zip(leaves(trainer.cls_opt_state["nu"]),
+                      leaves(fresh.cls_opt_state["nu"])))
+    pairs += list(zip(leaves(trainer.generator_ema),
+                      leaves(fresh.generator_ema)))
+    if fresh.step != trainer.step or not all(
+            a.device == b.device and torch.equal(a.detach(), b.detach())
+            for a, b in pairs):
+        fail("GAN trainer save_state -> load_state changed a leaf")
+    size_gb = os.path.getsize(path) / 2 ** 30
+    os.remove(path)
+    ref = os.path.join(d, "reference.pt")
+    ckpt.save_reference_checkpoint(ref, {"generator": trainer.generator},
+                                   cfg)
+    back = ckpt.convert_dit_state_dict(
+        ckpt.load_torch_state_dict(ref, "generator"), cfg,
+        dtype=torch.float32, device=dev)
+    got = dict(items(back))
+    if set(got) != {p for p, _ in items(trainer.generator)} or not all(
+            torch.equal(got[p], t.detach()) for p, t in
+            items(trainer.generator)):
+        fail("save_reference_checkpoint did not read back equal")
+    os.remove(ref)
+    print(f"checkpoints (2-layer GAN trainer, float32): save_state -> "
+          f"load_state of {len(pairs)} leaves equal ({size_gb:.2f} GB, "
+          f"{ms:.0f} ms); reference checkpoint of the generator read back "
+          f"equal ({len(got)} leaves)", flush=True)
+    del trainer, fresh, back, got, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_other_trainers(ca, dit, seed: int) -> dict:
+    """Phase 14: the ODE, causal-diffusion, GAN and SiD trainers at full
+    Wan-1.3B width and depth on seeded stand-in data (the port's record
+    shards read back through its datasets and DataLoader), then the
+    2-layer kernels-vs-plain gradients and the checkpoints.  Returns the
+    launches of the four trainers' steps."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_trainers_")
+    total = {k: 0 for k in ca.launch_counts}
+    try:
+        ode, shards = write_stand_in_shards(d, seed)
+        runs = (("ode", "ode_init.yaml", ode, (0, 1), {}),
+                ("diffusion", "causal_diffusion.yaml", shards, (0, 1), {}),
+                # ratio 2: step 1 is the critic-only update
+                ("gan", "self_forcing_gan.yaml", shards, (0, 1),
+                 {"dfake_gen_update_ratio": 2}),
+                ("sid", "self_forcing_sid.yaml", None, (0,), {}))
+        for kind, name, data, steps, over in runs:
+            got = run_other_trainer(ca, kind, name, seed, data, steps,
+                                    **over)
+            for k, v in got.items():
+                total[k] += v
+        other_trainers_vs_plain(ca, dit, seed, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return total
 
 
 def profile_ms(fn) -> tuple:
@@ -3906,6 +4365,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     table.update(phase_flash_kernels(ca, masks, g))
     torch.cuda.empty_cache()
+    phase_trainer_flash_kernels(ca, masks, g)
     phase_i2v_kernels(ca, g)
     table.update(phase_conv_kernels(tconv, g))
     torch.cuda.empty_cache()
@@ -4040,6 +4500,14 @@ def main() -> None:
     # earlier tensor freed (its launches are checked there; the kernel
     # line keeps phases 4 and 7's)
     phase_image_to_video(ca, dit, vae, a.seed)
+    torch.cuda.empty_cache()
+
+    # 14. the ODE, causal-diffusion, GAN and SiD trainers (float32 weights,
+    # TF32 products as train.py runs them; their launches are checked
+    # there; the kernel line keeps phases 4 and 7's)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    phase_other_trainers(ca, dit, a.seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -38,7 +38,9 @@ not computed, as in the JAX package off the TPU.
 ``forward_train`` is the no-cache forward of the score models and the
 teacher-forcing generator: full-sequence self-attention under an
 ``IntervalMask`` (or none), through the flash attention of
-``ops/attention.py``.
+``ops/attention.py``.  ``forward_classify`` is the GAN discriminator: the
+unmasked forward with its GAN head (``init_cls_branch_params``) reading
+three tapped layers into logits.
 Under autograd the stacked block parameters are split once per forward
 (:func:`split_layers`), and ``remat=True`` recomputes each layer in the
 backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
@@ -971,3 +973,123 @@ def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,
         tokens = tokens[:, tokens.shape[1] // 2:]
     out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
     return unpatchify(cfg, out_tokens, grid)
+
+
+# =====================================================================
+# GAN discriminator extras: the register tokens, the three 1-query
+# cross-attention blocks and the classifier over the tapped layers
+# =====================================================================
+
+GAN_FFN_DIM = 8192  # the hidden width of a GAN attention block's FFN
+
+
+def default_gan_taps(num_layers: int) -> tuple[int, ...]:
+    """The feature-tap layers: 13 / 21 / 29 of the 30-layer 1.3B, scaled
+    to other depths and clamped to the last layer (so a shallow model
+    taps one layer more than once)."""
+    return tuple(min(num_layers - 1, round(f * num_layers))
+                 for f in (13 / 30, 21 / 30, 29 / 30))
+
+
+def init_cls_branch_params(cfg: WanConfig, seed: int = 0,
+                           num_class: int = 1, time_embed_dim: int = 0,
+                           dtype=torch.float32,
+                           device: str | torch.device = "cuda") -> Params:
+    """The GAN head, drawn from a ``torch.Generator`` seeded with
+    ``seed``: 3 register tokens (std 0.02) with their RMSNorm gain, 3 GAN
+    attention blocks (LayerNorm, 1-query cross attention with q / k
+    RMSNorms, an FFN of width :data:`GAN_FFN_DIM`) and the classifier
+    (LayerNorm + MLP over the 3 taps' tokens, plus ``time_embed_dim``
+    inputs for the time embedding)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, num_registers = cfg.dim, 3
+
+    def ones(n=d):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def ca_block():
+        attn = {n: _linear_init(g, d, d, dtype, device) for n in "qkvo"}
+        attn.update(norm_q={"w": ones()}, norm_k={"w": ones()})
+        return {
+            "norm3": {"w": ones(), "b": torch.zeros_like(ones())},
+            "cross_attn": attn,
+            "ffn": {"fc1": _linear_init(g, d, GAN_FFN_DIM, dtype, device),
+                    "fc2": _linear_init(g, GAN_FFN_DIM, d, dtype, device)},
+        }
+
+    in_dim = d * num_registers + time_embed_dim
+    registers = (torch.randn(num_registers, d, generator=g, device=device)
+                 * 0.02).to(dtype)
+    return {
+        "registers": registers,
+        "register_norm": {"w": ones()},
+        "ca_blocks": [ca_block() for _ in range(num_registers)],
+        "cls": {"ln": {"w": ones(in_dim), "b": torch.zeros_like(ones(in_dim))},
+                "fc1": _linear_init(g, in_dim, d, dtype, device),
+                "fc2": _linear_init(g, d, num_class, dtype, device)},
+    }
+
+
+def _gan_ca_block(bp: Params, cfg: WanConfig, x: torch.Tensor,
+                  token: torch.Tensor) -> torch.Tensor:
+    """One GAN attention block: the register token [B, 1, D] attends to
+    the tapped tokens x (plain attention: one query), then an FFN
+    residual."""
+    B = x.shape[0]
+    xn = layer_norm(x, cfg.eps, bp["norm3"]["w"], bp["norm3"]["b"])
+    p = bp["cross_attn"]
+    q = rms_norm(linear(p["q"], token), p["norm_q"]["w"], cfg.eps)
+    k = rms_norm(linear(p["k"], xn), p["norm_k"]["w"], cfg.eps)
+    v = linear(p["v"], xn)
+    out = attn_ops.dense_attention(_heads(cfg, q), _heads(cfg, k),
+                                   _heads(cfg, v))
+    tok = token + linear(p["o"], out.reshape(B, 1, cfg.dim))
+    y = linear(bp["ffn"]["fc2"], gelu_tanh(linear(
+        bp["ffn"]["fc1"], layer_norm(tok, cfg.eps))))
+    return y + tok
+
+
+def forward_classify(params: Params, cls_params: Params, cfg: WanConfig,
+                     x: torch.Tensor, t: torch.Tensor,
+                     context: torch.Tensor, rope: RopeTables,
+                     concat_time_embeddings: bool = False,
+                     remat: bool = True, kernels: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bidirectional forward with the GAN feature taps: returns (the
+    flow prediction [B, F, C, H, W], logits [B, num_class]).
+
+    The layers run unmasked (the flash attention with no mask); after
+    each tap layer of :func:`default_gan_taps` its register token reads
+    the tokens through a GAN attention block, and the classifier takes
+    the three outputs (and ``10 * e[:, 0]``, the first frame's time
+    embedding, with ``concat_time_embeddings``).  ``remat``: recompute
+    each layer in the backward."""
+    B = x.shape[0]
+    tokens, grid = patchify(params, cfg, x)
+    frame_seqlen = grid[1] * grid[2]
+    e, e0 = time_embed(params, cfg, t, tokens.dtype)
+    cos, sin = rope.angles_for_grid(*grid, 0)
+    ctx_kv = precompute_context(params, cfg, context)
+    block = (partial(checkpoint, _block_train, use_reentrant=False)
+             if remat else _block_train)
+    registers = rms_norm(cls_params["registers"],
+                         cls_params["register_norm"]["w"]).to(tokens.dtype)
+    taps = default_gan_taps(cfg.num_layers)
+    feats = []
+    for i, (bp, layer_ctx) in enumerate(zip(split_layers(params["blocks"]),
+                                            layer_context(ctx_kv))):
+        tokens = block(bp, cfg, tokens, e0, cos, sin, None, layer_ctx,
+                       frame_seqlen, kernels)
+        for j, tap in enumerate(taps):
+            if tap == i:
+                token = registers[j][None, None].expand(B, 1, cfg.dim)
+                feats.append(_gan_ca_block(cls_params["ca_blocks"][j], cfg,
+                                           tokens, token))
+    h = torch.cat(feats, dim=1).reshape(B, -1)              # [B, 3D]
+    if concat_time_embeddings:
+        h = torch.cat([h, 10.0 * e[:, 0]], dim=-1)
+    c = cls_params["cls"]
+    h = layer_norm(h, 1e-5, c["ln"]["w"], c["ln"]["b"])
+    logits = linear(c["fc2"], F.silu(linear(c["fc1"], h)))
+    out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
+    return unpatchify(cfg, out_tokens, grid), logits

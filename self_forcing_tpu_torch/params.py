@@ -27,7 +27,10 @@ def params_from_jax(tree, kind: str, device: str | torch.device = "cuda",
     ``device``; floating leaves other than scales and T5's ``pos_emb`` are
     cast to ``dtype`` when given.  The CLIP tree's linear weights stay
     [in, out] and its patch embedding is already a [ph * pw * 3, dim]
-    matrix, so nothing in it is transposed."""
+    matrix, so nothing in it is transposed.  The GAN discriminator head
+    (``dit.init_cls_branch_params``: register tokens, norms, linears and
+    a list of attention blocks) holds nothing 'dit' transposes, so
+    ``kind='dit'`` carries it too."""
     if kind not in ("dit", "vae", "taehv", "t5", "clip"):
         raise ValueError(f"kind must be 'dit', 'vae', 'taehv', 't5' or "
                          f"'clip', got {kind!r}")

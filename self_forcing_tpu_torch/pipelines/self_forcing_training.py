@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import RopeTables
+from self_forcing_tpu_torch.ops import attention as attn_ops
 from self_forcing_tpu_torch.pipelines.causal_inference import prime_block
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
 
@@ -198,8 +199,13 @@ class SelfForcingTrainingPipeline:
         fs = (H // cfg.patch_size[1]) * (W // cfg.patch_size[2])
         num_input = initial_latent.shape[1] if initial_latent is not None \
             else 0
+        # the decode kernels read a bf16 cache (they round float32 q / k /
+        # v to bf16 at their inputs); off the kernel route the cache
+        # keeps the parameters' dtype, as the JAX package's does
+        cache_dtype = (torch.bfloat16 if attn_ops._kernel_route(noise)
+                       else dit._param_dtype(params))
         cache = dit.init_kv_cache(cfg, B, fs, self.num_max_frames,
-                                  dit._param_dtype(params), noise.device)
+                                  cache_dtype, noise.device)
         per_block = not isinstance(exit_idx, int)
         exits = ([int(e) for e in exit_idx] if per_block
                  else [exit_idx] * num_blocks)

@@ -18,3 +18,10 @@ def update_ema(ema, params, decay: float):
         e.mul_(decay).add_(p.detach().float(), alpha=1.0 - decay)
     return ema
 
+
+def ema_to_params(ema, like):
+    """The EMA tree as parameters: each leaf in the dtype of ``like``'s
+    leaf at its place."""
+    out = iter(tree.leaves(like))
+    return tree.map_tree(lambda e: e.detach().to(next(out).dtype).clone(),
+                         ema)

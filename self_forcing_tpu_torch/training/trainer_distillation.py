@@ -1,6 +1,6 @@
 """Score-distillation trainer, the main Self-Forcing trainer (port of
-``self_forcing_tpu/training/trainer_distillation.py``) with the DMD
-objective.
+``self_forcing_tpu/training/trainer_distillation.py``) with the DMD or
+the SiD objective (``distribution_loss``).
 
 ``train_step`` updates the generator every ``dfake_gen_update_ratio``
 steps and the critic (fake score) every step.  The rollout length and the
@@ -10,8 +10,10 @@ eps from a ``torch.Generator`` seeded by that RNG.  Gradients are
 ``torch.autograd.grad`` of the loss with respect to the updated model's
 leaves; a leaf without a gradient (``pose_proj``) gets a zero one.
 
-Not ported: the SiD objective, pose conditioning, meshes, and loading
-LoRA weights from a file; they raise ``NotImplementedError``.
+Pose conditioning in the trainer and loading LoRA weights from a file
+raise ``NotImplementedError`` (ROADMAP Queue A item 7); the port has no
+meshes.  Checkpoints go through ``utils/checkpoints.py``'s
+``save_pytree`` / ``restore_pytree`` (``torch.save`` files).
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from self_forcing_tpu_torch import lora as lora_mod
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.scheduler import warp_denoising_steps
 from self_forcing_tpu_torch.training import ema as ema_lib
-from self_forcing_tpu_torch.training.objectives import dmd
+from self_forcing_tpu_torch.training.objectives import dmd, sid
 from self_forcing_tpu_torch.training.objectives.base import (ModelBundle,
                                                             ObjectiveConfig)
 from self_forcing_tpu_torch.training.optim import AdamW
 from self_forcing_tpu_torch.utils import tree
+from self_forcing_tpu_torch.utils.checkpoints import (restore_pytree,
+                                                      save_pytree)
 
 _QUEUED = "is not ported to the PyTorch package (ROADMAP Queue A item 7)"
 
@@ -115,13 +119,16 @@ class ScoreDistillationTrainer:
             context_noise=float(getattr(config, "context_noise", 0)),
             denoising_loss_type=str(getattr(config, "denoising_loss_type",
                                             "flow")),
+            sid_alpha=float(getattr(config, "sid_alpha", 1.0)),
         )
         self.obj = obj
         self.objective = objective or str(
             getattr(config, "distribution_loss", "dmd"))
-        if self.objective != "dmd":
-            raise NotImplementedError(f"the {self.objective!r} objective "
-                                      f"{_QUEUED}")
+        if self.objective not in ("dmd", "sid"):
+            raise ValueError(f"unknown distribution_loss "
+                             f"{self.objective!r}")
+        self._generator_loss = (dmd if self.objective == "dmd"
+                                else sid).generator_loss
         if getattr(config, "use_pose_conditioning", False):
             raise NotImplementedError(f"pose conditioning {_QUEUED}")
 
@@ -223,7 +230,7 @@ class ScoreDistillationTrainer:
         if self.state.step % self.dfake_gen_update_ratio == 0:
             g, noise = self._draw(shape)
             mark = _Marks(self.timing, self.device, "generator", log)
-            loss, glog = dmd.generator_loss(
+            loss, glog = self._generator_loss(
                 self.bundle, self.obj, self.state.generator,
                 self.state.fake_score, self.real_params, noise, context,
                 self.neg_context, exit_idx, generator=g, mark=mark)
@@ -274,39 +281,42 @@ class ScoreDistillationTrainer:
     def save(self, path: str) -> None:
         """The weights under the reference's keys (generator, critic,
         generator_ema), one ``torch.save`` file."""
-        def detach(t):
-            return tree.map_tree(lambda x: x.detach(), t)
-        out = {"generator": detach(self.state.generator),
-               "critic": detach(self.state.fake_score)}
+        out = {"generator": self.state.generator,
+               "critic": self.state.fake_score}
         if self.state.generator_ema is not None:
             out["generator_ema"] = self.state.generator_ema
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        torch.save(out, path)
+        save_pytree(path, out)
+
+    def _state_tree(self, ema_like) -> dict:
+        s = self.state
+        return {"generator": s.generator, "fake_score": s.fake_score,
+                "gen_opt_state": s.gen_opt_state,
+                "critic_opt_state": s.critic_opt_state,
+                "generator_ema": ema_like, "step": s.step}
 
     def save_state(self, path: str) -> None:
         """The whole training state, optimizer moments and step
         included."""
-        s = self.state
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        torch.save({"generator": tree.map_tree(lambda x: x.detach(),
-                                               s.generator),
-                    "fake_score": tree.map_tree(lambda x: x.detach(),
-                                                s.fake_score),
-                    "gen_opt_state": s.gen_opt_state,
-                    "critic_opt_state": s.critic_opt_state,
-                    "generator_ema": s.generator_ema, "step": s.step}, path)
+        save_pytree(path, self._state_tree(self.state.generator_ema))
 
     def load_state(self, path: str) -> None:
         """Restore a :meth:`save_state` file into this trainer (the
         parameters in place, so the optimizers keep their leaves)."""
-        saved = torch.load(path, map_location=self.device,
-                           weights_only=False)
-        with torch.no_grad():
-            for leaves, key in ((self.gen_leaves, "generator"),
-                                (self.fake_leaves, "fake_score")):
-                for p, v in zip(leaves, tree.leaves(saved[key])):
-                    p.copy_(v)
+        saved = restore_pytree(path, self._state_tree(None), self.device)
+        _copy_leaves(self.gen_leaves, saved["generator"])
+        _copy_leaves(self.fake_leaves, saved["fake_score"])
         self.state.gen_opt_state = saved["gen_opt_state"]
         self.state.critic_opt_state = saved["critic_opt_state"]
         self.state.generator_ema = saved["generator_ema"]
         self.state.step = int(saved["step"])
+
+
+@torch.no_grad()
+def _copy_leaves(leaves: list[torch.Tensor], saved) -> None:
+    """Write a restored tree's leaves into the live ones, in order."""
+    new = tree.leaves(saved)
+    if len(new) != len(leaves):
+        raise ValueError(f"restored tree has {len(new)} leaves, the model "
+                         f"{len(leaves)}")
+    for p, v in zip(leaves, new):
+        p.copy_(v)

@@ -19,10 +19,16 @@ linear weights [out, in] -> [in, out], DiT self-attention q / k columns
 and their norms in the RoPE half layout (``rope.qk_half_perm``), the
 patch embedding flattened, blocks stacked on axis 0; VAE conv weights
 stay OIDHW / OIHW, the layout the port's VAE takes.
+
+The trainers' own checkpoints (``save_pytree`` / ``restore_pytree``) are
+``torch.save`` files of the port's trees, where the JAX package writes
+orbax directories; ``save_reference_checkpoint`` writes trained DiT trees
+in the reference's state-dict layout.
 """
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any, Mapping
 
@@ -473,3 +479,65 @@ def export_vae_state_dict(params: Params) -> dict:
     conv("conv1", params["conv1"])
     conv("conv2", params["conv2"])
     return sd
+
+
+# =====================================================================
+# the trainers' own checkpoints
+# =====================================================================
+
+def save_pytree(path: str, params) -> None:
+    """``torch.save`` a tree of dicts, lists, tensors (detached) and
+    Python scalars or None: the port's counterpart of the JAX package's
+    orbax checkpoints (a trainer's state, its weights)."""
+    out_dir = os.path.dirname(os.path.abspath(path))
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(tree.detached(params), path)
+
+
+def _restore_like(saved, like, where: str):
+    if isinstance(like, dict):
+        if not isinstance(saved, dict) or set(saved) != set(like):
+            got = sorted(saved) if isinstance(saved, dict) \
+                else type(saved).__name__
+            raise ValueError(f"restore_pytree: {where or 'the root'} holds "
+                             f"{got}, the template {sorted(like)}")
+        return {k: _restore_like(saved[k], v, f"{where}/{k}")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(saved, (list, tuple)) or len(saved) != len(like):
+            raise ValueError(f"restore_pytree: {where} does not have the "
+                             f"template's {len(like)} entries")
+        return type(like)(_restore_like(s, v, f"{where}/{i}")
+                          for i, (s, v) in enumerate(zip(saved, like)))
+    if isinstance(like, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != like.shape:
+            raise ValueError(f"restore_pytree: {where} is not a tensor of "
+                             f"the template's shape {tuple(like.shape)}")
+        return saved.to(device=like.device, dtype=like.dtype)
+    return saved
+
+
+def restore_pytree(path: str, like=None, device: str | torch.device = "cpu"):
+    """Read a :func:`save_pytree` file (``torch.load`` with
+    ``weights_only=True``: tensors and containers only).  With ``like``,
+    a template tree of the same structure, each tensor comes back on the
+    template leaf's device and in its dtype (a None in the template takes
+    the saved value as it is, on ``device``)."""
+    saved = torch.load(path, map_location=device, weights_only=True)
+    return saved if like is None else _restore_like(saved, like, "")
+
+
+def save_reference_checkpoint(path: str, trees: Mapping[str, Params], cfg,
+                              dtype: torch.dtype | None = None) -> None:
+    """``torch.save`` DiT trees in the reference's layout, e.g.
+    {'generator': ..., 'generator_ema': ..., 'critic': ...}: each through
+    :func:`export_dit_state_dict` (cast to ``dtype`` when given), readable
+    by :func:`load_torch_state_dict` + :func:`convert_dit_state_dict`."""
+    out = {}
+    for key, params in trees.items():
+        sd = export_dit_state_dict(params, cfg)
+        out[key] = {k: v if dtype is None else v.to(dtype)
+                    for k, v in sd.items()}
+    out_dir = os.path.dirname(os.path.abspath(path))
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(out, path)

@@ -35,6 +35,12 @@ def map_tree(fn, tree):
     return tree
 
 
+def detached(tree):
+    """The same tree with every tensor leaf detached from autograd (views,
+    no copies): parameters a loss reads but does not train."""
+    return map_tree(lambda t: t.detach(), tree)
+
+
 def index(tree, i: int):
     """The same tree with every tensor leaf replaced by ``leaf[i]`` (one
     layer of a stacked block tree: views, no copies)."""

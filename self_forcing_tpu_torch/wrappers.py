@@ -5,9 +5,9 @@ of ``self_forcing_tpu/wrappers.py``): ``WanTextEncoder``,
 
 The DiT facade passes the conditioning through (``y`` channels,
 ``add_condition`` pose tokens and an i2v model's ``clip_feature`` CLIP
-image tokens, as arguments or keys of the conditional dict); the
-classify mode and its GAN head raise ``NotImplementedError`` (ROADMAP
-Queue A item 6, with the GAN trainer of item 7).
+image tokens, as arguments or keys of the conditional dict).  Its
+classify mode runs the GAN discriminator (``dit.forward_classify``) on
+the head that ``adding_cls_branch`` attaches.
 """
 from __future__ import annotations
 
@@ -25,10 +25,6 @@ from self_forcing_tpu_torch.ops.masks import (block_causal_mask,
                                               teacher_forcing_mask)
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
 from self_forcing_tpu_torch.utils import tree
-
-_ITEM_6 = ("is not ported (ROADMAP Queue A item 6, with the GAN trainer "
-           "of item 7)")
-
 
 class WanTextEncoder:
     """umt5-xxl callable: prompts -> {'prompt_embeds': [B, 512, 4096]}
@@ -90,12 +86,15 @@ class WanVAEWrapper:
 class WanDiffusionWrapper:
     """One facade over the causal / bidirectional t2v / i2v DiT: the KV-cached
     streaming forward, teacher forcing (``clean_x``) and the cache-free
-    forward, returning (flow_pred, pred_x0) as the reference does, with
-    the new cache beside them on the cached path."""
+    forward and the classify mode, returning (flow_pred, pred_x0) as the
+    reference does, with the new cache beside them on the cached path and
+    the logits after them in the classify mode."""
 
     def __init__(self, params, model_cfg: WanConfig = WAN_1_3B,
-                 is_causal: bool = True, timestep_shift: float = 5.0):
+                 is_causal: bool = True, timestep_shift: float = 5.0,
+                 cls_params=None):
         self.params = params
+        self.cls_params = cls_params
         self.cfg = model_cfg
         self.is_causal = is_causal
         self.uniform_timestep = not is_causal
@@ -130,8 +129,6 @@ class WanDiffusionWrapper:
                 add_condition: Optional[torch.Tensor] = None,
                 clip_feature: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None):
-        if classify_mode or concat_time_embeddings:
-            raise NotImplementedError(f"the classify mode {_ITEM_6}")
         x = noisy_image_or_video
         B, F, C, H, W = x.shape
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
@@ -147,7 +144,7 @@ class WanDiffusionWrapper:
         if t.ndim == 1:
             t = t[:, None].expand(B, F)
 
-        new_cache = None
+        new_cache = logits = None
         if kv_cache is not None:
             ctx_kv = (crossattn_cache if crossattn_cache is not None
                       else dit.precompute_context(self.params, self.cfg,
@@ -163,6 +160,13 @@ class WanDiffusionWrapper:
                                      mask, self.rope, clean_x=clean_x,
                                      aug_t=aug_t, clip_fea=clip_feature,
                                      **cond)
+        elif classify_mode:
+            if self.cls_params is None:
+                raise ValueError("the classify mode needs the GAN head: "
+                                 "call adding_cls_branch() first")
+            flow, logits = dit.forward_classify(
+                self.params, self.cls_params, self.cfg, x, t, context,
+                self.rope, concat_time_embeddings=concat_time_embeddings)
         else:
             mask = self._mask_for(F, fs) if self.is_causal else None
             flow = dit.forward_train(self.params, self.cfg, x, t, context,
@@ -173,9 +177,22 @@ class WanDiffusionWrapper:
             return a.reshape((B * F,) + a.shape[2:])
         pred_x0 = self.scheduler.convert_flow_pred_to_x0(
             flat(flow), flat(x), t.reshape(-1)).reshape(x.shape)
+        if logits is not None:
+            return flow, pred_x0, logits
         if new_cache is not None:
             return (flow, pred_x0), new_cache
         return flow, pred_x0
 
-    def adding_cls_branch(self, *args, **kwargs):
-        raise NotImplementedError(f"the GAN classify branch {_ITEM_6}")
+    def adding_cls_branch(self, atten_dim: int | None = None,
+                          num_class: int = 1, time_embed_dim: int = 0,
+                          seed: int = 0):
+        """Attach a float32 GAN discriminator head drawn from ``seed``
+        (``dit.init_cls_branch_params``) on the parameters' device;
+        ``atten_dim`` is the reference's argument and unused, as in the
+        JAX package."""
+        del atten_dim
+        self.cls_params = dit.init_cls_branch_params(
+            self.cfg, seed, num_class=num_class,
+            time_embed_dim=time_embed_dim,
+            device=tree.leaves(self.params)[0].device)
+        return self.cls_params

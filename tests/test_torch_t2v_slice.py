@@ -309,17 +309,28 @@ def test_vae_wrapper_and_text_encoder_match_jax():
 @pytest.mark.parametrize("kwargs", [{"classify_mode": True},
                                     {"concat_time_embeddings": True}])
 def test_diffusion_wrapper_unported_conditioning_raises(kwargs):
-    """The classify mode and its GAN head are not ported (the CLIP image
-    features are since the i2v DiT was: tests/test_torch_i2v.py)."""
+    """The classify mode (ported with the GAN trainer; against the JAX
+    package in tests/test_torch_gan.py) raises until
+    ``adding_cls_branch`` attaches the GAN head, then returns (flow,
+    pred_x0, logits); ``concat_time_embeddings`` feeds the head's
+    time-embedding inputs.  (The CLIP image features are ported since the
+    i2v DiT was: tests/test_torch_i2v.py.)"""
     params = tdit.init_params(WAN_TINY, seed=0, dtype=torch.float32,
                               device="cpu")
     tw = twrap.WanDiffusionWrapper(params, WAN_TINY)
     x, ctx, t = _forward_inputs(10, 1)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tw(torch.from_numpy(x), {"prompt_embeds": torch.from_numpy(ctx)},
-           torch.from_numpy(t), **kwargs)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tw.adding_cls_branch()
+    args = (torch.from_numpy(x), {"prompt_embeds": torch.from_numpy(ctx)},
+            torch.from_numpy(t))
+    kw = {"classify_mode": True, **kwargs}
+    with pytest.raises(ValueError, match="adding_cls_branch"):
+        tw(*args, **kw)
+    head = tw.adding_cls_branch(time_embed_dim=WAN_TINY.dim if kwargs.get(
+        "concat_time_embeddings") else 0)
+    assert tw.cls_params is head
+    with torch.no_grad():
+        flow, x0, logits = tw(*args, **kw)
+    assert flow.shape == x0.shape == x.shape and logits.shape == (B, 1)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("path", ["cached", "teacher_forcing", "cache_free"])
