@@ -160,7 +160,27 @@ path; its DiT ms per block).
    plain versions (1e-2); (e) a 2-layer GAN trainer's ``save_state`` ->
    ``load_state`` round trip and a ``save_reference_checkpoint`` read
    back through the converter, every leaf equal.
-Phase 2 also holds each conv kernel (the 27-tap conv, its RGB input's
+15. Pose-conditioned Self-Forcing distillation and the data-prep chain
+   (every earlier tensor freed, the peak counter reset, cuDNN in TF32
+   as ``train.py`` leaves it): (a) the port's
+   ``generate_ode_pairs`` on phase 10's model directory (2 prompts,
+   latents [1, 21, 16, 60, 104], guidance 6, 4 of its 48 steps) with
+   exact launches, then ``create_sharded_dataset`` and
+   ``create_shards_iterative``, whose rows the datasets read back equal
+   to the snapshots; (b) ``self_forcing_dmd.yaml`` with
+   ``use_pose_conditioning`` (bf16, LoRA rank 128 from a random
+   ``lora_path`` file, random UniAnimate pose weights, dropout 0.1) on
+   pose shards ``create_pose_shards`` wrote, the DiT, VAE and CLIP from a
+   model directory, through ``train``'s functions: step 0 (generator and
+   critic) and step 1 (critic) with the ms split (the conditioning's
+   parts too), losses, exact launches, the LoRA and ``pose_proj`` leaves
+   moved, the peak; (c) a 24-frame rollout (the first block a no-grad
+   prefix, the 37440-key window, the VAE trim) with its backward: ms,
+   the trim's ms, the 21 frames and mask, exact launches; (d) the 2-layer
+   pose critic-loss gradient with the kernels and with their plain
+   versions (1e-2).
+Phase 2 also holds ``decode_fresh`` and its backward on the last block
+of a 24-frame rollout (37440 keys), and each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
 conv, and the 27-tap conv at float32)
 against its plain version at the VAE's full-width shapes, beside cuDNN's
@@ -367,7 +387,10 @@ def phase_kernels(ca, g) -> dict:
     table = {}
 
     maes = []
-    for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END)):
+    # the last block of a 24-frame training rollout reads 21 cached frames
+    # and its own 3: a 37440-key window
+    for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END),
+                          ("block 8 of 24 frames", 21 * 1560)):
         args = dict(layer_idx=7, kv_start=0, kv_end=kv_end, sink_end=0,
                     static_hi=kv_end, num_heads=N)
         out = ca.decode_fresh_free(q, kc, vc, kn, vn, **args)
@@ -397,9 +420,10 @@ def phase_kernels(ca, g) -> dict:
               f"bound_ms={b_ms:.4f} ({b_by}) "
               f"tflops={flops / ms / 1e9:.1f} "
               f"bound_share={b_ms / ms:.3f}", flush=True)
-        table["decode_fresh_free"] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by)
+        if label == "block 7":
+            table["decode_fresh_free"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
     table["decode_fresh_free"]["max_abs_err"] = max(maes)
     table.update(phase_int8qk_kernels(ca, q, kc, vc, kn, vn, g))
     table.update(phase_mode_kernels(ca, q, kc, vc, kn, vn, g))
@@ -455,7 +479,10 @@ def phase_attention_backward(ca, q, kc, vc, kn, vn, g) -> None:
                  f"plain version")
         return max(errs)
 
-    for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END)):
+    # the last block of a 24-frame training rollout reads 21 cached frames
+    # and its own 3: a 37440-key window
+    for label, kv_end in (("block 1", 0), ("block 7", LAST_KV_END),
+                          ("block 8 of 24 frames", 21 * 1560)):
         kw = dict(layer_idx=7, kv_start=0, kv_end=kv_end, num_heads=N,
                   scale=math.log(2.0))
         err = check(f"decode_fresh_bwd {label}",
@@ -3114,10 +3141,14 @@ def add_launches(*parts) -> dict:
     return out
 
 
-def expected_step_launches(kind: str, trainer, layers: int) -> dict:
+def expected_step_launches(kind: str, trainer, layers: int,
+                           pose: bool = False) -> dict:
     """The exact launches of ``trainer``'s next ``train_step``, derived
     from the code: the exits come from a copy of the trainer's host RNG,
-    drawn in the order ``train_step`` draws them."""
+    drawn in the order ``train_step`` draws them (a pose batch's
+    conditioning draws first).  ``kind`` 'dmd' / 'sid': the score
+    distillation trainer, whose DMD score forwards run without
+    gradient."""
     import copy
     if kind in ("ode", "diffusion"):
         return add_launches(score_launches(layers, True))
@@ -3137,11 +3168,13 @@ def expected_step_launches(kind: str, trainer, layers: int) -> dict:
         parts += [rollout_launches(layers, [e] * blocks, False),
                   score_launches(layers, True)]
         return add_launches(*parts)
-    # the SiD ScoreDistillationTrainer draws the rollout length and the
+    # the ScoreDistillationTrainer draws the rollout length and the
     # exit(s) for each update, and a seed for the generator update: its
     # own methods, run on the copy
     live = trainer.host_rng
     trainer.host_rng = rng
+    if pose:
+        rng.integers(2 ** 31)
     try:
         def draw():
             shape = trainer._sample_rollout_shape([1, *TRAIN_LATENT])
@@ -3153,7 +3186,7 @@ def expected_step_launches(kind: str, trainer, layers: int) -> dict:
         if trainer.state.step % trainer.dfake_gen_update_ratio == 0:
             rng.integers(2 ** 31)
             parts += [rollout_launches(layers, exits, True)] + [
-                score_launches(layers, True)] * 3
+                score_launches(layers, kind == "sid")] * 3
         exits = draw()
     finally:
         trainer.host_rng = live
@@ -3436,6 +3469,493 @@ def phase_other_trainers(ca, dit, seed: int) -> dict:
         other_trainers_vs_plain(ca, dit, seed, d)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------
+# 15. pose-conditioned Self-Forcing distillation and the data-prep chain
+# ---------------------------------------------------------------------
+
+POSE_PIX = (480, 832)   # a pose video's pixel height and width
+ODE_PAIR_STEPS = 4      # generate_ode_pairs' steps a prompt (default 48)
+
+
+def write_lora_file(path: str, cfg, rank: int, seed: int) -> None:
+    """A random rank-``rank`` LoRA of every target linear of ``cfg``'s
+    layers in the diffusers key format under the ``diffusion_model.``
+    prefix (``lora_A.default.weight`` [r, in], ``lora_B.default.weight``
+    [out, r], bf16), saved with ``torch.save``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dims = {"q": (cfg.dim, cfg.dim), "k": (cfg.dim, cfg.dim),
+            "v": (cfg.dim, cfg.dim), "o": (cfg.dim, cfg.dim)}
+    sd = {}
+    for i in range(cfg.num_layers):
+        for mod, proj, (din, dout) in (
+                [("self_attn.", p, d) for p, d in dims.items()]
+                + [("cross_attn.", p, d) for p, d in dims.items()]
+                + [("", "ffn.0", (cfg.dim, cfg.ffn_dim)),
+                   ("", "ffn.2", (cfg.ffn_dim, cfg.dim))]):
+            key = f"diffusion_model.blocks.{i}.{mod}{proj}."
+            sd[key + "lora_A.default.weight"] = (torch.randn(
+                rank, din, generator=g, device="cuda") * din ** -0.5).to(
+                torch.bfloat16).cpu()
+            sd[key + "lora_B.default.weight"] = (torch.randn(
+                dout, rank, generator=g, device="cuda") * 1e-3).to(
+                torch.bfloat16).cpu()
+    torch.save(sd, path)
+
+
+def write_pose_samples(d: str, seed: int, n: int = 2,
+                       frames: int = 21) -> str:
+    """``n`` seeded pose samples as ``.npz`` files: latents [frames, 16,
+    60, 104], a DWPose video [3, 4 * frames - 3, 480, 832] (height before
+    width, the orientation of the 60x104 latent grid), a reference pose
+    and a first frame [480, 832, 3] (uint8)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = os.path.join(d, "pose_samples")
+    os.makedirs(out)
+    Hp, Wp = POSE_PIX
+    for i in range(n):
+        np.savez(os.path.join(out, f"{i:05d}.npz"),
+                 prompt=f"a dancer turning, take {i}",
+                 latents=rng.standard_normal(
+                     (frames, *TRAIN_LATENT[1:]), np.float32),
+                 dwpose_data=rng.integers(0, 256, (3, 4 * frames - 3, Hp, Wp),
+                                          dtype=np.uint8),
+                 random_ref_dwpose=rng.integers(0, 256, (Hp, Wp, 3),
+                                                dtype=np.uint8),
+                 first_frame=rng.integers(0, 256, (Hp, Wp, 3),
+                                          dtype=np.uint8))
+    return out
+
+
+def phase_ode_pairs(ca, dit, vae, seed: int, model_dir: str, d: str) -> dict:
+    """15a. The data-prep chain on phase 10's model directory (the T5, the
+    1.3B DiT, the VAE and the stand-in tokenizer): the port's
+    ``generate_ode_pairs`` (2 prompts, latents [1, 21, 16, 60, 104],
+    guidance 6, ``--num_steps 4 --snapshots 0 1 2 3 -1`` where the default
+    is 48 steps) with exact launches, then ``create_sharded_dataset`` and
+    ``create_shards_iterative`` over its ``.npz`` files, whose rows the
+    port's datasets read back equal to the snapshots.  Returns the
+    launches."""
+    import numpy as np
+    from self_forcing_tpu_torch.data.datasets import (ODERegressionDataset,
+                                                      ShardingDataset)
+    from self_forcing_tpu_torch.scripts import (create_sharded_dataset,
+                                                create_shards_iterative,
+                                                generate_ode_pairs)
+    if not os.path.exists(os.path.join(model_dir, "google", "umt5-xxl")):
+        prepare_demo_dir(dit, vae, seed, model_dir)
+        torch.cuda.empty_cache()
+    prompts = os.path.join(d, "prompts.txt")
+    with open(prompts, "w") as f:
+        f.write("a fox runs through fresh snow\na neon city street at "
+                "night in rain\n")
+    pairs = os.path.join(d, "ode_pairs")
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    per_prompt = generate_ode_pairs.main([
+        "--output_folder", pairs, "--caption_path", prompts, "--model_dir",
+        model_dir, "--guidance_scale", "6", "--num_steps",
+        str(ODE_PAIR_STEPS), "--snapshots", "0", "1", "2", "3", "-1",
+        "--seed", str(seed), "--latent_shape", "1",
+        *[str(n) for n in TRAIN_LATENT]])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(ca.launch_counts)
+    layers = N_LAYERS
+    fwd = 2 * len(per_prompt) * ODE_PAIR_STEPS * layers
+    want = {"flash_fwd": fwd, "cross_attention": fwd}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"generate_ode_pairs: launches {got}, expected {want}")
+    shards = os.path.join(d, "ode_shards")
+    create_sharded_dataset.main(["--data_path", pairs, "--output_dir",
+                                 shards, "--rows_per_shard", "1"])
+    single = os.path.join(d, "ode_pairs.rs")
+    create_shards_iterative.main(["--data_path", pairs, "--output_path",
+                                  single])
+    files = sorted(os.listdir(pairs))
+    for ds in (ShardingDataset(shards), ODERegressionDataset(single)):
+        if len(ds) != len(files):
+            fail(f"ode shards: {len(ds)} rows for {len(files)} prompts")
+        for i, name in enumerate(files):
+            npz = np.load(os.path.join(pairs, name))
+            row = ds[i]
+            snaps = npz["latents"][0].astype(np.float32)
+            if row["prompts"] != str(npz["prompt"]) or not np.array_equal(
+                    row["ode_latent"], snaps):
+                fail(f"ode shards: row {i} differs from {name}")
+            if not np.isfinite(snaps).all() or snaps.shape != (
+                    5, *TRAIN_LATENT):
+                fail(f"ode pairs: {name} snapshots {snaps.shape}")
+    print(f"generate_ode_pairs (Wan-1.3B width, {layers} layers, "
+          f"{len(per_prompt)} prompts, latents [1, 21, 16, 60, 104], "
+          f"guidance 6, {ODE_PAIR_STEPS} steps, snapshots 0 1 2 3 -1): "
+          f"ms_per_prompt={[round(x, 1) for x in per_prompt]} total_s="
+          f"{total_s:.1f} (the models' load included) launches={got} "
+          f"(exact); create_sharded_dataset {len(os.listdir(shards))} "
+          f"shards and create_shards_iterative read back equal to the "
+          f"snapshots (host clock, synchronised)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pose_config(d: str, seed: int, model_dir: str, data_path: str,
+                pose_path: str, lora_path: str):
+    """``configs/self_forcing_dmd.yaml`` with the pose keys, through a
+    temporary YAML and ``load_config`` as the CLI reads it."""
+    import yaml
+    from self_forcing_tpu_torch.config import load_config
+    with open(os.path.join(CONFIGS, "self_forcing_dmd.yaml")) as f:
+        c = yaml.safe_load(f)
+    c.update(seed=seed, use_pose_conditioning=True, pose_drop_prob=0.1,
+             pose_weights_path=pose_path, lora_path=lora_path,
+             data_path=data_path, model_dir=model_dir,
+             image_or_video_shape=[1, *TRAIN_LATENT])
+    c.pop("generator_ckpt", None)
+    path = os.path.join(d, "self_forcing_dmd_pose.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    return load_config(path, os.path.join(CONFIGS, "default_config.yaml"))
+
+
+def conditioning_split(trainer, batch, shape) -> dict:
+    """Milliseconds of the conditioner's parts on ``batch`` (synchronised
+    host clock): the DWPose CNN, the reference-pose CNN, CLIP, and the
+    first frame's VAE encode."""
+    from self_forcing_tpu_torch import conditioning as cond
+    from self_forcing_tpu_torch.models import clip
+    con = trainer.conditioner
+    dev = torch.device("cuda")
+    dw = torch.as_tensor(batch["dwpose_data"], device=dev)
+    ref = torch.as_tensor(batch["random_ref_dwpose"], device=dev).permute(
+        0, 3, 1, 2)
+    img = torch.as_tensor(batch["first_frame"], device=dev).permute(
+        0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
+    parts = {
+        "dwpose_cnn": lambda: cond.dwpose_embedding(
+            con.dwpose_params, cond.prepare_dwpose_input(dw)),
+        "randomref_cnn": lambda: cond.randomref_embedding(
+            con.randomref_params, ref.float() / 255.0),
+        "clip": lambda: clip.encode_image(con.clip_params, con.clip_cfg,
+                                          img),
+        "vae_encode": lambda: cond.first_frame_condition(
+            con.vae_params, con.vae_cfg, img, trainer.obj.num_training_frames,
+            shape[3] * 8, shape[4] * 8)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name] = round((time.perf_counter() - t0) * 1e3, 1)
+    return out
+
+
+def run_pose_trainer(ca, dit, vae, seed: int, model_dir: str, d: str):
+    """15b. Pose distillation through the entry point's functions
+    (``build_models``, ``make_context_fn``, ``make_trainer``,
+    ``data_batches``, ``make_batch``) on ``configs/self_forcing_dmd.yaml``
+    (bf16, LoRA rank 128, 7 blocks of 3 frames, update ratio 5) with
+    ``use_pose_conditioning``, ``pose_drop_prob`` 0.1, a random
+    UniAnimate-layout ``pose_weights_path``, a random rank-128
+    ``lora_path``, pose shards that ``create_pose_shards`` wrote from
+    seeded samples, and a model directory holding the DiT, the VAE and
+    CLIP (links to phase 10's files and a random CLIP): step 0 (generator
+    and critic) and step 1 (critic), each with its ms split, losses and
+    exact launches; the leaves that moved; the peak.  Returns (trainer,
+    batch, launches)."""
+    import numpy as np
+    from self_forcing_tpu_torch import conditioning as cond
+    from self_forcing_tpu_torch import train
+    from self_forcing_tpu_torch.models import clip
+    from self_forcing_tpu_torch.models.wan.configs import (WAN_1_3B,
+                                                           apply_model_kwargs)
+    from self_forcing_tpu_torch.scripts import create_pose_shards
+    from self_forcing_tpu_torch.utils import tree
+    dev = torch.device("cuda")
+    mdir = os.path.join(d, "pose_models")
+    os.makedirs(os.path.join(mdir, "Wan2.1-T2V-1.3B"))
+    for name in (os.path.join("Wan2.1-T2V-1.3B", "model.pt"),
+                 "Wan2.1_VAE.pth"):
+        os.symlink(os.path.join(model_dir, name), os.path.join(mdir, name))
+    ccfg = clip.CLIP_XLM_ROBERTA_VIT_H_14
+    drawn = clip.init_vision_params(ccfg, seed + 81, device=dev)
+    torch.save(export_clip_vision(drawn, ccfg),
+               os.path.join(mdir, clip.CLIP_WEIGHTS))
+    del drawn
+    pose_path = os.path.join(d, "unianimate_pose.pt")
+    torch.save(cond.export_pose_state_dict(
+        cond.init_dwpose_params(seed + 82, device=dev),
+        cond.init_randomref_params(seed + 83, device=dev)), pose_path)
+    shards = os.path.join(d, "pose_shards")
+    create_pose_shards.main(["--data_path", write_pose_samples(d, seed + 84),
+                             "--output_dir", shards])
+    lora_path = os.path.join(d, "lora_rank128.pt")
+    config = pose_config(d, seed, mdir, shards, pose_path, lora_path)
+    write_lora_file(lora_path, apply_model_kwargs(WAN_1_3B, config),
+                    int(config.lora_rank), seed + 85)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, gen, fake, real = train.build_models(config, torch.bfloat16, dev)
+    with torch.no_grad():
+        _randomize_heads((gen, fake, real), seed + 7)
+    context_fn = train.make_context_fn(config, cfg, dev)
+    trainer = train.make_trainer(config, "score_distillation", cfg, gen,
+                                 fake, real, context_fn, 1, dev,
+                                 timing=True)
+    del gen, fake, real
+    if trainer.conditioner is None or trainer.conditioner.clip_params is None \
+            or trainer.bundle.vae_params is None:
+        fail("pose trainer: no conditioner, CLIP or VAE")
+    batches = train.data_batches(config, "score_distillation", 1)
+    rng = np.random.default_rng(seed)
+    shape = [1, *TRAIN_LATENT]
+    before = {p: float(torch.linalg.vector_norm(t.detach().float()))
+              for p, t in tree.items(trainer.state.generator)}
+    before_f = _norms(trainer.fake_leaves)
+    layers = cfg.num_layers
+    total = {k: 0 for k in ca.launch_counts}
+    for step in (0, 1):
+        trainer.state.step = step
+        batch = train.make_batch(config, "score_distillation", next(batches),
+                                 context_fn, shape, rng, dev)
+        if tuple(batch["dwpose_data"].shape) != (1, 3, 81, *POSE_PIX):
+            fail(f"pose batch: dwpose_data {batch['dwpose_data'].shape}")
+        want = expected_step_launches("dmd", trainer, layers, pose=True)
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(ca.launch_counts)
+        for k, v in got.items():
+            total[k] += v
+        shown = {k: got[k] for k in OTHER_TRAINER_KERNELS}
+        if shown != want or any(v for k, v in got.items()
+                                if k not in OTHER_TRAINER_KERNELS):
+            fail(f"pose train step {step}: launches "
+                 f"{ {k: v for k, v in got.items() if v} }, expected {want}")
+        bad = [k for k, v in log.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"pose train step {step}: non-finite {bad}")
+        split = {k: round(v, 1) for k, v in log.items() if k.endswith("_ms")}
+        vals = {k: round(v, 6) for k, v in log.items()
+                if not k.endswith("_ms")}
+        sub = conditioning_split(trainer, batch, shape) if step == 0 else {}
+        print(f"pose train step {step} (self_forcing_dmd.yaml + pose, "
+              f"Wan-1.3B width, {layers} layers, bf16, LoRA rank "
+              f"{config.lora_rank} from lora_path, pose video [1, 3, 81, "
+              f"480, 832]): step_ms={ms:.1f} split_ms={split} "
+              f"{'conditioning_parts_ms=' + str(sub) + ' ' if sub else ''}"
+              f"{vals} launches={shown} (exact; host clock, synchronised)",
+              flush=True)
+    batches.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = [p for p, t in tree.items(trainer.state.generator)
+             if float(torch.linalg.vector_norm(t.detach().float()))
+             != before[p]]
+    moved_f = sum(a != b for a, b in zip(before_f,
+                                         _norms(trainer.fake_leaves)))
+    lora_moved = [p for p in moved if "lora_A" in p or "lora_B" in p]
+    pose_moved = [p for p in moved if "pose_proj" in p]
+    print(f"pose trainer: peak_mem_gb={peak_gb:.2f} generator leaves moved "
+          f"{len(moved)}/{len(before)} (LoRA {len(lora_moved)}, pose_proj "
+          f"{len(pose_moved)}) critic leaves moved {moved_f}/"
+          f"{len(before_f)}", flush=True)
+    if not lora_moved or not pose_moved or not moved_f:
+        fail("pose trainer: the LoRA, pose_proj or critic leaves did not "
+             "move")
+    if peak_gb >= 80:
+        fail(f"pose trainer: peak {peak_gb:.2f} GB")
+    return trainer, batch, total
+
+
+def long_rollout(ca, trainer, batch, seed: int) -> dict:
+    """15c. A 24-frame rollout at full width with the trainer's generator
+    (``num_training_frames`` 24: the cache holds 24 frames, the first
+    block runs as a no-grad prefix) through ``run_generator``, the pose
+    tokens of a 93-frame pose video, then the backward of a loss on the
+    trimmed output: the trim's VAE decode + re-encode timed, the output's
+    21 frames and mask checked, the decode launches exact on the 37440-key
+    window.  Returns the launches."""
+    import dataclasses as dc
+    from self_forcing_tpu_torch.models.wan import dit
+    from self_forcing_tpu_torch.training.objectives.base import ModelBundle
+    obj = dc.replace(trainer.obj, num_training_frames=24)
+    b0 = trainer.bundle
+    bundle = ModelBundle.create(b0.generator_cfg, b0.critic_cfg,
+                                b0.teacher_cfg, obj,
+                                [int(s) for s in
+                                 trainer.config.denoising_step_list],
+                                vae_params=b0.vae_params, vae_cfg=b0.vae_cfg,
+                                device="cuda")
+    bundle.pipeline.denoising_step_list = b0.pipeline.denoising_step_list
+    gen = trainer.state.generator
+    g = torch.Generator(device="cuda").manual_seed(seed + 90)
+    Hp, Wp = POSE_PIX
+    dw = torch.randint(0, 256, (1, 3, 93, Hp, Wp), generator=g,
+                       device="cuda", dtype=torch.uint8)
+    with torch.no_grad():
+        cond = trainer.conditioner.build_conditioning(
+            dw, num_frames=24, height=Hp, width=Wp)
+    ctx = torch.randn(1, 512, bundle.generator_cfg.text_dim, generator=g,
+                      device="cuda")
+    noise = torch.randn(1, 24, *TRAIN_LATENT[1:], generator=g, device="cuda")
+    exit_idx = 2
+    layers = bundle.generator_cfg.num_layers
+    trims = []
+    trim = bundle.trim_rollout
+
+    def timed_trim(pred):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trim(pred)
+        torch.cuda.synchronize()
+        trims.append((time.perf_counter() - t0) * 1e3)
+        return out
+    bundle.trim_rollout = timed_trim
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx_kv = dit.precompute_context(gen, bundle.generator_cfg, ctx)
+    pred, mask, _, _ = bundle.run_generator(gen, noise, ctx_kv, exit_idx,
+                                            generator=g, cond=cond)
+    loss = (pred.float().square() * mask).sum() / mask.sum()
+    grads = torch.autograd.grad(loss, trainer.gen_leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in ca.launch_counts.items() if v}
+    gnorm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(x.float()) for x in grads
+         if x is not None])))
+    del grads
+    want = {k: v for k, v in add_launches(
+        rollout_launches(layers, [exit_idx], False),
+        rollout_launches(layers, [exit_idx] * 7, True)).items() if v}
+    keys = 24 * 1560
+    S = dit.init_kv_cache(bundle.generator_cfg, 1, 1560, 24,
+                          device="meta").k.shape[2]
+    if got != want:
+        fail(f"24-frame rollout: launches {got}, expected {want}")
+    if tuple(pred.shape) != (1, 21, *TRAIN_LATENT[1:]) or \
+            not torch.isfinite(pred.float()).all() or \
+            int(mask[:, :3].sum()) or not bool(mask[:, 3:].all()) or \
+            not math.isfinite(gnorm) or gnorm == 0:
+        fail(f"24-frame rollout: output {tuple(pred.shape)}, mask "
+             f"{mask.float().mean(dim=(2, 3, 4)).tolist()}, grad norm "
+             f"{gnorm}")
+    print(f"24-frame rollout (Wan-1.3B width, {layers} layers, bf16, exit "
+          f"{exit_idx}, the first block a no-grad prefix, pose tokens of a "
+          f"93-frame pose video): ms={ms:.1f} (rollout, trim, backward) "
+          f"trim_vae_decode_reencode_ms={trims[0]:.1f} output "
+          f"{list(pred.shape)} mask frames {int(mask[0, :, 0, 0, 0].sum())}"
+          f"/21 (the first block masked) grad_norm={gnorm:.4e} "
+          f"last block's decode window {keys} keys (cache buffer {S}) "
+          f"launches={got} (exact)", flush=True)
+    return got
+
+
+def pose_grad_vs_plain(ca, dit, seed: int, batch) -> None:
+    """15d. The pose-conditioned critic-loss gradient at full Wan-1.3B
+    width and 2 layers (the conditioning from the trainer's conditioner on
+    the phase's pose batch) with the kernels and with their plain
+    versions, the same draws; 1e-2 relative L2 (phase 7's limit)."""
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B
+    from self_forcing_tpu_torch.training.objectives import dmd
+    from self_forcing_tpu_torch.training.trainer_distillation import (
+        ScoreDistillationTrainer)
+    config = load_config(os.path.join(CONFIGS, "self_forcing_dmd.yaml"),
+                         os.path.join(CONFIGS, "default_config.yaml"))
+    config.update(seed=seed, lora_rank=0, use_pose_conditioning=True)
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    gen, fake, real = (dit.init_params(cfg, seed + i, torch.bfloat16, "cuda",
+                                       causal=i == 0) for i in range(3))
+    with torch.no_grad():
+        _randomize_heads((gen, fake, real), seed + 8)
+    g = torch.Generator("cuda").manual_seed(seed)
+    ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device="cuda")
+    trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg, cfg,
+                                       cfg, ctx, device="cuda")
+    cond = trainer._build_cond({k: batch[k] for k in
+                                ("dwpose_data", "random_ref_dwpose")},
+                               [1, *TRAIN_LATENT], keep=torch.ones(1))
+    noise = torch.randn(1, *TRAIN_LATENT, device="cuda", generator=g)
+    grads = []
+    for kernels in (True, False):
+        gg = torch.Generator("cuda").manual_seed(seed + 9)
+        ca.reset_launch_counts()
+        loss, _ = dmd.critic_loss(trainer.bundle, trainer.obj, gen, fake,
+                                  noise, ctx, ctx, 2, generator=gg,
+                                  kernels=kernels, cond=cond)
+        gr = torch.autograd.grad(loss, trainer.fake_leaves,
+                                 allow_unused=True)
+        if kernels:
+            launches = {k: v for k, v in ca.launch_counts.items() if v}
+        grads.append((float(loss.detach()), torch.cat(
+            [x.float().flatten() for x in gr if x is not None])))
+        del gr
+    (lk, gk), (lp, gp) = grads
+    err = rel_l2(gk, gp)
+    print(f"pose critic-loss gradient (Wan-1.3B width, 2 layers, bf16, exit "
+          f"2, pose tokens and the reference-pose y): loss kernels={lk:.6f} "
+          f"plain={lp:.6f} grad rel_l2={err:.3e} grad_norm="
+          f"{float(gk.norm()):.4e} launches={launches}", flush=True)
+    if not math.isfinite(err) or err > 1e-2:
+        fail(f"pose critic-loss gradient: kernels vs plain relative L2 "
+             f"{err:.3e} > 1e-2")
+    check_launches("pose critic-loss gradient", launches,
+                   ("flash_fwd", "flash_bwd", "decode_fresh_free",
+                    "cross_attention"))
+    del trainer, gen, fake, real, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_pose_training(ca, dit, vae, seed: int, model_dir: str) -> dict:
+    """Phase 15: the data-prep chain (a), pose distillation through the
+    entry point's functions (b), a 24-frame rollout (c) and the 2-layer
+    gradient against the plain versions (d), every earlier tensor freed
+    first.  Returns the launches of (a)-(c)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # train.py's settings: the default conv route and PyTorch's default
+    # cuDNN TF32 for the float32 VAE, CLIP and pose CNNs
+    vae.set_conv_backend(None)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_pose_")
+    total = {k: 0 for k in ca.launch_counts}
+    try:
+        parts = [phase_ode_pairs(ca, dit, vae, seed, model_dir, d)]
+        trainer, batch, launches = run_pose_trainer(ca, dit, vae, seed,
+                                                    model_dir, d)
+        parts.append(launches)
+        parts.append(long_rollout(ca, trainer, batch, seed))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        pose_grad_vs_plain(ca, dit, seed, batch)
+        for p in parts:
+            for k, v in p.items():
+                total[k] += v
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"phase 15 ({smi}): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return total
 
 
@@ -4493,21 +5013,27 @@ def main() -> None:
         # 12. the streaming demo server serving a few requests (its
         # launches are checked there; the kernel line keeps phase 4's)
         phase_serving(ca, cm, dit, vae, a.seed, model_dir)
+
+        # 13. the image-to-video path at Wan-I2V-14B width, with every
+        # earlier tensor freed (its launches are checked there; the
+        # kernel line keeps phases 4 and 7's)
+        phase_image_to_video(ca, dit, vae, a.seed)
+        torch.cuda.empty_cache()
+
+        # 14. the ODE, causal-diffusion, GAN and SiD trainers (float32
+        # weights, TF32 products as train.py runs them; their launches
+        # are checked there; the kernel line keeps phases 4 and 7's)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        phase_other_trainers(ca, dit, a.seed)
+
+        # 15. the data-prep chain on phase 10's model directory and pose
+        # distillation (bf16, TF32 products as train.py runs them; the
+        # launches are checked there; the kernel line keeps phases 4 and
+        # 7's)
+        phase_pose_training(ca, dit, vae, a.seed, model_dir)
+        torch.backends.cuda.matmul.allow_tf32 = False
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
-
-    # 13. the image-to-video path at Wan-I2V-14B width, last, with every
-    # earlier tensor freed (its launches are checked there; the kernel
-    # line keeps phases 4 and 7's)
-    phase_image_to_video(ca, dit, vae, a.seed)
-    torch.cuda.empty_cache()
-
-    # 14. the ODE, causal-diffusion, GAN and SiD trainers (float32 weights,
-    # TF32 products as train.py runs them; their launches are checked
-    # there; the kernel line keeps phases 4 and 7's)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    phase_other_trainers(ca, dit, a.seed)
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"

@@ -15,6 +15,11 @@ only rows [attn_lo, write_at) and later blocks write only at or past
 that, so the replay reads what the forward read (the decode attention's
 backward checks the window's edge rows, ``ops/attention.py``).
 
+The i2v / pose conditioning (``y`` [B, F, Cy, H, W], ``add_condition``
+[B, F*frame_seqlen, 5120]) covers the generated frames; each block's
+forwards take its slice, detached wherever the forward runs without
+gradient.
+
 Randomness: the re-noising draws come from a ``torch.Generator``, or are
 injected per block as ``eps[b] = (denoise_draws, refresh_draw)``, where
 ``denoise_draws`` holds the exit's draws (one per step before it).
@@ -44,14 +49,16 @@ def _draw(shape, like: torch.Tensor, generator: torch.Generator | None,
 
 
 def _exit_forward(params, cfg: WanConfig, noisy, t, ctx_kv, cache,
-                  start_frame: int, rope, kernels: bool):
+                  start_frame: int, rope, kernels: bool, y_blk=None,
+                  cond_blk=None):
     """The with-grad exit-step forward, checkpointed as a whole (and per
     layer inside): the backward replays it from (params, noisy) and the
     cache."""
     def fwd(p, nz):
         flow, _ = dit.forward_inference(p, cfg, nz, t, ctx_kv, cache,
                                         start_frame, rope, write_cache=False,
-                                        remat=True, kernels=kernels)
+                                        remat=True, kernels=kernels,
+                                        y=y_blk, add_condition=cond_blk)
         return flow
     return checkpoint(fwd, params, noisy, use_reentrant=False)
 
@@ -61,10 +68,12 @@ def _denoise_to_exit(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                      noise_blk: torch.Tensor, steps: Sequence[float],
                      exit_idx: int, with_grad: bool, start_frame: int,
                      eps: Sequence[torch.Tensor] | None,
-                     generator: torch.Generator | None, kernels: bool):
+                     generator: torch.Generator | None, kernels: bool,
+                     y_blk=None, cond_blk=None):
     """Denoise one block through steps[0..exit_idx]; only the exit-step
     forward carries gradient (iff ``with_grad``).  The cache is read only.
-    Returns x0 [B, nb, C, H, W]."""
+    ``y_blk`` / ``cond_blk``: this block's conditioning.  Returns x0
+    [B, nb, C, H, W]."""
     B, nb, C, H, W = noise_blk.shape
     noisy = x0 = noise_blk
     for i in range(exit_idx + 1):
@@ -72,12 +81,13 @@ def _denoise_to_exit(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                        device=noise_blk.device)
         if i == exit_idx and with_grad:
             flow = _exit_forward(params, cfg, noisy, t, ctx_kv, cache,
-                                 start_frame, rope, kernels)
+                                 start_frame, rope, kernels, y_blk, cond_blk)
         else:
             with torch.no_grad():
                 flow, _ = dit.forward_inference(
                     params, cfg, noisy, t, ctx_kv, cache, start_frame, rope,
-                    write_cache=False, kernels=kernels)
+                    write_cache=False, kernels=kernels, y=y_blk,
+                    add_condition=cond_blk)
         x0 = scheduler.convert_flow_pred_to_x0(
             flow.reshape(B * nb, C, H, W), noisy.reshape(B * nb, C, H, W),
             t.reshape(-1)).reshape(B, nb, C, H, W)
@@ -97,21 +107,28 @@ def _rollout_blocks(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                     rope: RopeTables, ctx_kv: dict, cache: dit.KVCache,
                     noise: torch.Tensor, steps: Sequence[float], exits,
                     context_noise: float, with_grad: bool, start_frame0: int,
-                    eps, generator, kernels: bool):
+                    eps, generator, kernels: bool, y=None,
+                    add_condition=None):
     """Blocks of ``noise`` one after another, each denoised to its exit
-    (``exits[b]``) and then refreshed into the cache without gradient.
+    (``exits[b]``) and then refreshed into the cache without gradient;
+    ``y`` / ``add_condition`` cover these blocks and are sliced a block.
     Returns (frames [B, F, C, H, W], cache)."""
     B, F, C, H, W = noise.shape
     nb = F // len(exits)
+    lb = None if add_condition is None \
+        else add_condition.shape[1] // len(exits)
     outs = []
     for blk, exit_idx in enumerate(exits):
         start = start_frame0 + blk * nb
         draws = None if eps is None else eps[blk]
+        y_blk = None if y is None else y[:, blk * nb:(blk + 1) * nb]
+        cond_blk = None if add_condition is None \
+            else add_condition[:, blk * lb:(blk + 1) * lb]
         x0 = _denoise_to_exit(params, cfg, scheduler, rope, ctx_kv, cache,
                               noise[:, blk * nb:(blk + 1) * nb], steps,
                               int(exit_idx), with_grad, start,
                               None if draws is None else draws[0],
-                              generator, kernels)
+                              generator, kernels, y_blk, cond_blk)
         with torch.no_grad():
             e = _draw(x0.shape, x0, generator,
                       None if draws is None else draws[1])
@@ -124,7 +141,8 @@ def _rollout_blocks(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                 params, cfg, renoised,
                 torch.full((B, nb), context_noise, dtype=torch.float32,
                            device=x0.device),
-                ctx_kv, cache, start, rope, kernels=kernels)
+                ctx_kv, cache, start, rope, kernels=kernels, y=y_blk,
+                add_condition=cond_blk)
         outs.append(x0)
     return torch.cat(outs, dim=1), cache
 
@@ -185,12 +203,17 @@ class SelfForcingTrainingPipeline:
                                   generator: torch.Generator | None = None,
                                   eps: Optional[Sequence] = None,
                                   initial_latent: torch.Tensor | None = None,
-                                  kernels: bool = True):
+                                  kernels: bool = True,
+                                  y: torch.Tensor | None = None,
+                                  add_condition: torch.Tensor | None = None):
         """Returns (trajectory [B, F_out, C, H, W], denoised_timestep_from,
         denoised_timestep_to).  Gradient flows (when grad mode is on) only
         through the exit-step forwards of the blocks in the final 21
         frames.  ``exit_idx``: an int shared by every block or one exit a
-        block.  ``eps[b]``: block b's (denoise_draws, refresh_draw)."""
+        block.  ``eps[b]``: block b's (denoise_draws, refresh_draw).
+        ``y`` [B, F, Cy, H, W] and ``add_condition`` [B, F*fs, 5120]
+        cover the noise frames; gradient reaches them only through the
+        exit forwards of the grad suffix."""
         B, F, C, H, W = noise.shape
         nb = self.num_frame_per_block
         if F % nb:
@@ -224,6 +247,9 @@ class SelfForcingTrainingPipeline:
         grad_start_block = max(
             0, -(-max(0, start_gradient_frame - num_input) // nb))
         split = grad_start_block * nb
+
+        def cut(a, lo, hi):
+            return None if a is None else a[:, lo:hi]
         steps, cn = self.denoising_step_list, self.context_noise
         if grad_start_block > 0:
             with torch.no_grad():
@@ -231,7 +257,8 @@ class SelfForcingTrainingPipeline:
                     params, cfg, self.scheduler, rope, ctx_kv, cache,
                     noise[:, :split], steps, exits[:grad_start_block], cn,
                     False, start, None if eps is None
-                    else eps[:grad_start_block], generator, kernels)
+                    else eps[:grad_start_block], generator, kernels,
+                    cut(y, 0, split), cut(add_condition, 0, split * fs))
             outputs.append(pre)
             start += split
         post, cache = _rollout_blocks(
@@ -239,7 +266,8 @@ class SelfForcingTrainingPipeline:
             noise[:, split:], steps, exits[grad_start_block:], cn,
             torch.is_grad_enabled(), start,
             None if eps is None else eps[grad_start_block:], generator,
-            kernels)
+            kernels, cut(y, split, None), cut(add_condition, split * fs,
+                                                None))
         outputs.append(post)
         trajectory = torch.cat(outputs, dim=1)
         if self.same_step_across_blocks and not per_block:

@@ -16,12 +16,19 @@ seeded by the prompt's crc32.
 The data (:func:`data_batches`): the ODE trainer reads the record shard
 at ``data_path`` (it raises without one), the diffusion and GAN trainers
 a directory of shards there (without one they train on stand-in latents
-drawn from the seed), and otherwise ``data_path`` is a prompt file, or
-the prompts are placeholders.  Metrics go to ``<logdir>/metrics.jsonl``;
-checkpoints (``torch.save``) every ``log_iters`` steps and at the end
-unless ``--no_save``.  ``--no_visualize`` drops the ODE trainer's latent
-triplet (``last_visual``); decoding it into a logged video is not ported
-(ROADMAP Queue A item 11).
+drawn from the seed), pose distillation (``use_pose_conditioning``) a
+directory of pose shards there (``PoseShardingDataset``: each row's
+``dwpose_data``, ``random_ref_dwpose`` and ``first_frame`` reach the
+trainer's conditioner), and otherwise ``data_path`` is a prompt file, or
+the prompts are placeholders.  Pose distillation also loads the VAE and
+CLIP of ``model_dir`` (``load_wan_models(load_t5=False,
+load_dit=False)``, ``load_clip_vision``); without them the first-frame
+image conditioning raises and rollouts past 21 frames cannot trim.
+Metrics go to ``<logdir>/metrics.jsonl``; checkpoints (``torch.save``)
+every ``log_iters`` steps and at the end unless ``--no_save``.
+``--no_visualize`` drops the ODE trainer's latent triplet
+(``last_visual``); decoding it into a logged video is not ported (ROADMAP
+Queue A item 11).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 
 from self_forcing_tpu_torch.config import load_config
 from self_forcing_tpu_torch.data.datasets import (ODERegressionDataset,
+                                                  PoseShardingDataset,
                                                   ShardingDataset,
                                                   TextDataset)
 from self_forcing_tpu_torch.data.loader import DataLoader
@@ -43,7 +51,8 @@ from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan.configs import (WAN_1_3B, WAN_14B,
                                                        WAN_TINY,
                                                        apply_model_kwargs)
-from self_forcing_tpu_torch.runtime import load_dit_params, load_wan_models
+from self_forcing_tpu_torch.runtime import (load_clip_vision,
+                                            load_dit_params, load_wan_models)
 from self_forcing_tpu_torch.training.trainer_diffusion import (
     DiffusionTrainer)
 from self_forcing_tpu_torch.training.trainer_distillation import (
@@ -104,14 +113,18 @@ def make_context_fn(config, cfg, device: torch.device):
 
 def data_batches(config, trainer_kind: str, batch_size: int):
     """Endless batches of the config's data, numpy (collated): the ODE
-    shard at ``data_path`` for the ODE trainer, the shard directory there
-    for the diffusion and GAN trainers, else the prompt file there
-    (through ``TextDataset`` and the prefetching ``DataLoader``), else
-    placeholder prompts from the seed."""
+    shard at ``data_path`` for the ODE trainer, the pose shard directory
+    there for pose distillation, the shard directory there for the
+    diffusion and GAN trainers, else the prompt file there (through
+    ``TextDataset`` and the prefetching ``DataLoader``), else placeholder
+    prompts from the seed."""
     path = str(getattr(config, "data_path", ""))
     ds = None
     if trainer_kind == "ode" and os.path.exists(path):
         ds = ODERegressionDataset(path)
+    elif trainer_kind == "score_distillation" and getattr(
+            config, "use_pose_conditioning", False) and os.path.isdir(path):
+        ds = PoseShardingDataset(path)
     elif trainer_kind in ("diffusion", "gan") and os.path.isdir(path):
         ds = ShardingDataset(path)
     elif os.path.exists(path):
@@ -125,6 +138,24 @@ def data_batches(config, trainer_kind: str, batch_size: int):
                            for _ in range(batch_size)]}
 
 
+def pose_models(config, device: torch.device) -> dict:
+    """The VAE and CLIP of ``model_dir`` for pose distillation, as the
+    trainer's keyword arguments (None where a file is missing, with a
+    warning)."""
+    model_dir = str(getattr(config, "model_dir", "wan_models"))
+    m = load_wan_models(model_dir, load_t5=False, load_dit=False,
+                        device=device)
+    clip_params, clip_cfg = load_clip_vision(model_dir, device=device)
+    missing = [n for n, p in (("VAE", m.vae_params), ("CLIP", clip_params))
+               if p is None]
+    if missing:
+        print(f"[train] pose conditioning without {'/'.join(missing)} "
+              f"weights: first_frame image conditioning will raise if the "
+              f"dataset provides images", flush=True)
+    return dict(vae_params=m.vae_params, vae_cfg=m.vae_cfg,
+                clip_params=clip_params, clip_cfg=clip_cfg)
+
+
 def make_trainer(config, trainer_kind: str, cfg, generator, fake, real,
                  context_fn, batch_size: int, device: torch.device,
                  visualize: bool = True, timing: bool = False):
@@ -132,9 +163,11 @@ def make_trainer(config, trainer_kind: str, cfg, generator, fake, real,
     if trainer_kind == "score_distillation":
         neg = context_fn([str(getattr(config, "negative_prompt", ""))]
                          * batch_size)
+        extra = pose_models(config, device) if getattr(
+            config, "use_pose_conditioning", False) else {}
         return ScoreDistillationTrainer(config, generator, fake, real, cfg,
                                         cfg, cfg, neg, device=device,
-                                        timing=timing)
+                                        timing=timing, **extra)
     if trainer_kind == "gan":
         return GANTrainer(config, generator, fake, cfg, cfg, device=device,
                           timing=timing)
@@ -149,10 +182,15 @@ def make_trainer(config, trainer_kind: str, cfg, generator, fake, real,
 def make_batch(config, trainer_kind: str, raw: dict, context_fn, shape,
                rng: np.random.Generator, device: torch.device) -> dict:
     """A trainer's batch from a :func:`data_batches` batch: the prompts'
-    text context, an ODE shard's trajectories (``ode_latent``, and their
-    last snapshot as ``latents``), and for the diffusion and GAN trainers
-    without shards stand-in latents of ``shape`` drawn from ``rng``."""
+    text context, a pose shard's ``dwpose_data`` / ``random_ref_dwpose`` /
+    ``first_frame`` (numpy, as read), an ODE shard's trajectories
+    (``ode_latent``, and their last snapshot as ``latents``), and for the
+    diffusion and GAN trainers without shards stand-in latents of
+    ``shape`` drawn from ``rng``."""
     out = {"context": context_fn(list(raw["prompts"]))}
+    for k in ("dwpose_data", "random_ref_dwpose", "first_frame"):
+        if k in raw:
+            out[k] = np.asarray(raw[k])
     if "ode_latent" in raw:
         out["ode_latent"] = torch.as_tensor(raw["ode_latent"], device=device)
         out["latents"] = out["ode_latent"][:, -1]

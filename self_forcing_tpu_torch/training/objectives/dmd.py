@@ -11,7 +11,11 @@ Draws (rollout eps, the DMD / critic timestep and noise) come from a
 ``eps`` (the rollout's, see ``SelfForcingTrainingPipeline``), ``t`` (the
 integer timestep [B, 1] before the shift) and ``noise``.  ``mark(name)``,
 when given, is called after the rollout and after the score forwards
-(the trainer's timing).
+(the trainer's timing).  ``cond`` ({add_condition, y, clip_fea}, from
+``PoseImageConditioner.build_conditioning``) reaches the rollout, the
+score forwards and the critic, each model taking what it consumes
+(``base.model_cond``); after a trimmed rollout the score models see the
+trailing window of ``y`` (``base.align_cond_window``).
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ import torch
 
 from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.training.objectives.base import (
-    ModelBundle, ObjectiveConfig, cfg_combined_score, sample_timestep,
-    score_x0)
+    ModelBundle, ObjectiveConfig, align_cond_window, cfg_combined_score,
+    model_cond, sample_timestep, score_x0)
 from self_forcing_tpu_torch.utils.loss import get_denoising_loss
 
 
@@ -53,21 +57,37 @@ def _mark(mark, name):
         mark(name)
 
 
+def _lead_y(cond, F: int):
+    """``cond`` with ``y`` cut to the first ``F`` frames (a no-op after
+    :func:`align_cond_window`; it covers direct short-rollout callers)."""
+    if cond and cond.get("y") is not None:
+        return dict(cond, y=cond["y"][:, :F])
+    return cond
+
+
+def make_ctx(gen_params, cfg, context, cond=None) -> dict:
+    """The generator's cross-attention K/V, with the image K/V of
+    ``cond['clip_fea']`` for an i2v generator."""
+    clip_fea = (cond or {}).get("clip_fea") \
+        if cfg.model_type == "i2v" else None
+    return dit.precompute_context(gen_params, cfg, context, clip_fea)
+
+
 @torch.no_grad()
 def compute_kl_grad(bundle: ModelBundle, obj: ObjectiveConfig,
                     fake_params, real_params, noisy, pred, t, context,
-                    neg_context, kernels: bool = True):
+                    neg_context, kernels: bool = True, cond=None):
     """The DMD gradient direction (fp32), from no-grad score forwards:
     the fake score (guidance ``fake_guidance_scale``) and the real score
     with CFG, normalised by mean |pred - real_x0| per sample."""
     fake_x0 = cfg_combined_score(
         fake_params, bundle.critic_cfg, bundle.rope_c, bundle.scheduler,
         noisy, t, context, neg_context, obj.fake_guidance_scale,
-        kernels=kernels)
+        kernels=kernels, cond=cond)
     real_x0 = cfg_combined_score(
         real_params, bundle.teacher_cfg, bundle.rope_t, bundle.scheduler,
         noisy, t, context, neg_context, obj.real_guidance_scale,
-        kernels=kernels)
+        kernels=kernels, cond=cond)
     grad = fake_x0.float() - real_x0.float()
     p_real = pred.detach().float() - real_x0.float()
     normalizer = p_real.abs().mean(dim=(1, 2, 3, 4), keepdim=True)
@@ -81,11 +101,12 @@ def distribution_matching_loss(bundle: ModelBundle, obj: ObjectiveConfig,
                                gradient_mask=None,
                                generator: torch.Generator | None = None,
                                draws: dict | None = None,
-                               kernels: bool = True, mark=None):
+                               kernels: bool = True, mark=None, cond=None):
     """The DMD loss of a rollout ``pred`` that carries the generator's
     gradient."""
     draws = draws or {}
     B, F = pred.shape[:2]
+    cond = _lead_y(cond, F)
     min_t, max_t = _timestep_range(obj, t_from, t_to)
     t = sample_timestep(min_t, max_t, B, F, obj.timestep_shift,
                         obj.min_step, obj.max_step, generator=generator,
@@ -95,7 +116,7 @@ def distribution_matching_loss(bundle: ModelBundle, obj: ObjectiveConfig,
         noisy = _add_noise_bf(bundle.scheduler, pred.detach(), noise, t)
     grad, log = compute_kl_grad(bundle, obj, fake_params, real_params,
                                 noisy, pred, t, context, neg_context,
-                                kernels)
+                                kernels, cond)
     _mark(mark, "score_forwards")
     target = (pred.float() - grad).detach()
     diff = (pred.float() - target) ** 2
@@ -112,36 +133,36 @@ def generator_loss(bundle: ModelBundle, obj: ObjectiveConfig, gen_params,
                    fake_params, real_params, noise, context, neg_context,
                    exit_idx, generator: torch.Generator | None = None,
                    draws: dict | None = None, gradient_mask=None,
-                   kernels: bool = True, mark=None):
+                   kernels: bool = True, mark=None, cond=None):
     """Rollout with gradient, then the DMD loss."""
     draws = draws or {}
-    ctx_kv = dit.precompute_context(gen_params, bundle.generator_cfg,
-                                    context)
+    ctx_kv = make_ctx(gen_params, bundle.generator_cfg, context, cond)
     pred, roll_mask, t_from, t_to = bundle.run_generator(
         gen_params, noise, ctx_kv, exit_idx, generator=generator,
-        eps=draws.get("eps"), kernels=kernels)
+        eps=draws.get("eps"), kernels=kernels, cond=cond)
     _mark(mark, "rollout")
     if gradient_mask is None:
         gradient_mask = roll_mask
+    cond = align_cond_window(cond, noise.shape[1], pred.shape[1])
     return distribution_matching_loss(
         bundle, obj, fake_params, real_params, pred, context, neg_context,
         t_from, t_to, gradient_mask, generator=generator, draws=draws,
-        kernels=kernels, mark=mark)
+        kernels=kernels, mark=mark, cond=cond)
 
 
 def critic_loss(bundle: ModelBundle, obj: ObjectiveConfig, gen_params,
                 fake_params, noise, context, neg_context, exit_idx,
                 generator: torch.Generator | None = None,
-                draws: dict | None = None, kernels: bool = True, mark=None):
+                draws: dict | None = None, kernels: bool = True, mark=None,
+                cond=None):
     """No-grad rollout, then the fake score's denoising loss on it (the
     gradient goes to ``fake_params``)."""
     draws = draws or {}
     with torch.no_grad():
-        ctx_kv = dit.precompute_context(gen_params, bundle.generator_cfg,
-                                        context)
+        ctx_kv = make_ctx(gen_params, bundle.generator_cfg, context, cond)
         pred, _, t_from, t_to = bundle.run_generator(
             gen_params, noise, ctx_kv, exit_idx, generator=generator,
-            eps=draws.get("eps"), kernels=kernels)
+            eps=draws.get("eps"), kernels=kernels, cond=cond)
     _mark(mark, "rollout")
     B, F = pred.shape[:2]
     min_t, max_t = _timestep_range(obj, t_from, t_to)
@@ -150,9 +171,11 @@ def critic_loss(bundle: ModelBundle, obj: ObjectiveConfig, gen_params,
                         device=pred.device, draws=draws.get("t"))
     critic_noise = _noise_like(pred, generator, draws.get("noise"))
     noisy = _add_noise_bf(bundle.scheduler, pred, critic_noise, t)
+    y_c, clip_c = model_cond(bundle.critic_cfg, align_cond_window(
+        cond, noise.shape[1], F))
     pred_fake = score_x0(fake_params, bundle.critic_cfg, bundle.rope_c,
                          bundle.scheduler, noisy, t, context,
-                         kernels=kernels)
+                         kernels=kernels, y=y_c, clip_fea=clip_c)
     _mark(mark, "score_forwards")
 
     def flat(a):

@@ -10,18 +10,19 @@ one with CFG) into the generator, so the generator update runs the flash
 backward.  The score models' parameters get no gradient.  The critic loss
 is DMD's.
 
-Draws as in ``objectives/dmd.py``: ``eps``, ``t`` and ``noise``.
+Draws as in ``objectives/dmd.py``: ``eps``, ``t`` and ``noise``; so is
+``cond``.
 """
 from __future__ import annotations
 
 import torch
 
-from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.training.objectives.base import (
-    ModelBundle, ObjectiveConfig, cfg_combined_score, sample_timestep,
-    score_x0)
+    ModelBundle, ObjectiveConfig, align_cond_window, cfg_combined_score,
+    model_cond, sample_timestep, score_x0)
 from self_forcing_tpu_torch.training.objectives.dmd import (
-    _add_noise_bf, _mark, _noise_like, _timestep_range, critic_loss)
+    _add_noise_bf, _lead_y, _mark, _noise_like, _timestep_range,
+    critic_loss, make_ctx)
 from self_forcing_tpu_torch.utils import tree
 
 __all__ = ["generator_loss", "critic_loss", "distribution_matching_loss"]
@@ -33,24 +34,27 @@ def distribution_matching_loss(bundle: ModelBundle, obj: ObjectiveConfig,
                                gradient_mask=None,
                                generator: torch.Generator | None = None,
                                draws: dict | None = None,
-                               kernels: bool = True, mark=None):
+                               kernels: bool = True, mark=None, cond=None):
     """The SiD loss of a rollout ``pred`` that carries the generator's
     gradient."""
     draws = draws or {}
     B, F = pred.shape[:2]
+    cond = _lead_y(cond, F)
     min_t, max_t = _timestep_range(obj, t_from, t_to)
     t = sample_timestep(min_t, max_t, B, F, obj.timestep_shift,
                         obj.min_step, obj.max_step, generator=generator,
                         device=pred.device, draws=draws.get("t"))
     noise = _noise_like(pred, generator, draws.get("noise"))
     noisy = _add_noise_bf(bundle.scheduler, pred, noise, t)
+    y_c, clip_c = model_cond(bundle.critic_cfg, cond)
     fake_x0 = score_x0(tree.detached(fake_params),
                        bundle.critic_cfg, bundle.rope_c, bundle.scheduler,
-                       noisy, t, context, kernels=kernels)
+                       noisy, t, context, kernels=kernels, y=y_c,
+                       clip_fea=clip_c)
     real_x0 = cfg_combined_score(
         tree.detached(real_params), bundle.teacher_cfg,
         bundle.rope_t, bundle.scheduler, noisy, t, context, neg_context,
-        obj.real_guidance_scale, kernels=kernels)
+        obj.real_guidance_scale, kernels=kernels, cond=cond)
     _mark(mark, "score_forwards")
     rf, ff, pf = real_x0.float(), fake_x0.float(), pred.float()
     sid = (rf - ff) * ((rf - pf) - obj.sid_alpha * (rf - ff))
@@ -69,18 +73,18 @@ def generator_loss(bundle: ModelBundle, obj: ObjectiveConfig, gen_params,
                    fake_params, real_params, noise, context, neg_context,
                    exit_idx, generator: torch.Generator | None = None,
                    draws: dict | None = None, gradient_mask=None,
-                   kernels: bool = True, mark=None):
+                   kernels: bool = True, mark=None, cond=None):
     """Rollout with gradient, then the SiD loss."""
     draws = draws or {}
-    ctx_kv = dit.precompute_context(gen_params, bundle.generator_cfg,
-                                    context)
+    ctx_kv = make_ctx(gen_params, bundle.generator_cfg, context, cond)
     pred, roll_mask, t_from, t_to = bundle.run_generator(
         gen_params, noise, ctx_kv, exit_idx, generator=generator,
-        eps=draws.get("eps"), kernels=kernels)
+        eps=draws.get("eps"), kernels=kernels, cond=cond)
     _mark(mark, "rollout")
     if gradient_mask is None:
         gradient_mask = roll_mask
+    cond = align_cond_window(cond, noise.shape[1], pred.shape[1])
     return distribution_matching_loss(
         bundle, obj, fake_params, real_params, pred, context, neg_context,
         t_from, t_to, gradient_mask, generator=generator, draws=draws,
-        kernels=kernels, mark=mark)
+        kernels=kernels, mark=mark, cond=cond)

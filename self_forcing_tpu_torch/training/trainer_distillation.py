@@ -8,11 +8,18 @@ exit steps come from a host numpy RNG seeded with the config's seed, as
 in the JAX package; every update draws its noise, timesteps and rollout
 eps from a ``torch.Generator`` seeded by that RNG.  Gradients are
 ``torch.autograd.grad`` of the loss with respect to the updated model's
-leaves; a leaf without a gradient (``pose_proj``) gets a zero one.
+leaves; a leaf without a gradient (``pose_proj`` without pose
+conditioning) gets a zero one.
 
-Pose conditioning in the trainer and loading LoRA weights from a file
-raise ``NotImplementedError`` (ROADMAP Queue A item 7); the port has no
-meshes.  Checkpoints go through ``utils/checkpoints.py``'s
+With ``use_pose_conditioning`` a ``PoseImageConditioner`` (the DWPose
+and reference-pose CNNs from ``pose_weights_path``, else drawn from seeds
+7 / 8; CLIP and the VAE when given) turns a batch's ``dwpose_data``,
+``random_ref_dwpose`` and ``first_frame`` into the conditioning dict,
+once a step, shared by the generator and the critic update; its dropout
+mask (``pose_drop_prob``) is drawn from the host RNG before the rollout
+length, as in the JAX package.  A LoRA file at ``lora_path`` /
+``generator_lora_path`` is loaded over the fresh adapters.  The port has
+no meshes.  Checkpoints go through ``utils/checkpoints.py``'s
 ``save_pytree`` / ``restore_pytree`` (``torch.save`` files).
 """
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from self_forcing_tpu_torch import conditioning as cond_mod
 from self_forcing_tpu_torch import lora as lora_mod
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.scheduler import warp_denoising_steps
@@ -34,10 +42,9 @@ from self_forcing_tpu_torch.training.objectives.base import (ModelBundle,
                                                             ObjectiveConfig)
 from self_forcing_tpu_torch.training.optim import AdamW
 from self_forcing_tpu_torch.utils import tree
-from self_forcing_tpu_torch.utils.checkpoints import (restore_pytree,
+from self_forcing_tpu_torch.utils.checkpoints import (load_torch_state_dict,
+                                                      restore_pytree,
                                                       save_pytree)
-
-_QUEUED = "is not ported to the PyTorch package (ROADMAP Queue A item 7)"
 
 
 @dataclasses.dataclass
@@ -86,14 +93,17 @@ class ScoreDistillationTrainer:
     and a trained fake score.  Parameter trees come in as the port's
     dicts; ``neg_context`` is the negative prompt's text context.
     ``timing=True`` adds per-phase milliseconds (synchronised) to the
-    log: rollout, score forwards, backward and optimizer of each update."""
+    log: the step's conditioning, and rollout, score forwards, backward
+    and optimizer of each update.  ``vae_params`` serve rollouts past 21
+    frames and, with ``clip_params``, the conditioner's first frame."""
 
     def __init__(self, config, generator_params, fake_params, real_params,
                  generator_cfg: WanConfig, critic_cfg: WanConfig,
                  teacher_cfg: WanConfig, neg_context,
                  objective: str | None = None,
                  device: str | torch.device = "cuda",
-                 timing: bool = False):
+                 timing: bool = False, vae_params=None, vae_cfg=None,
+                 clip_params=None, clip_cfg=None):
         self.config = config
         self.device = torch.device(device)
         self.timing = timing
@@ -129,8 +139,6 @@ class ScoreDistillationTrainer:
                              f"{self.objective!r}")
         self._generator_loss = (dmd if self.objective == "dmd"
                                 else sid).generator_loss
-        if getattr(config, "use_pose_conditioning", False):
-            raise NotImplementedError(f"pose conditioning {_QUEUED}")
 
         gen_cfg = dataclasses.replace(
             generator_cfg, num_frame_per_block=obj.num_frame_per_block,
@@ -139,6 +147,7 @@ class ScoreDistillationTrainer:
         self.bundle = ModelBundle.create(
             gen_cfg, critic_cfg, teacher_cfg, obj,
             [int(s) for s in config.denoising_step_list],
+            vae_params=vae_params, vae_cfg=vae_cfg,
             independent_first_frame=gen_cfg.independent_first_frame,
             device=self.device)
         if getattr(config, "warp_denoising_step", False):
@@ -160,7 +169,10 @@ class ScoreDistillationTrainer:
             lora_path = getattr(config, "lora_path", None) or \
                 getattr(config, "generator_lora_path", None)
             if lora_path and os.path.exists(str(lora_path)):
-                raise NotImplementedError(f"loading LoRA weights {_QUEUED}")
+                generator_params = lora_mod.load_lora_weights(
+                    generator_params, load_torch_state_dict(str(lora_path)),
+                    alpha=float(getattr(config, "lora_alpha", lora_rank)),
+                    head_dim=gen_cfg.head_dim)
 
         self.gen_leaves = _trainable(generator_params)
         self.fake_leaves = _trainable(fake_params)
@@ -194,6 +206,58 @@ class ScoreDistillationTrainer:
             getattr(config, "dfake_gen_update_ratio", 5))
         self.host_rng = np.random.default_rng(int(getattr(config, "seed",
                                                           0)))
+        self.conditioner = None
+        if getattr(config, "use_pose_conditioning", False):
+            self.conditioner = self._build_conditioner(
+                config, clip_params, clip_cfg, vae_params, vae_cfg,
+                self.device)
+
+    @staticmethod
+    def _build_conditioner(config, clip_params, clip_cfg, vae_params,
+                           vae_cfg, device):
+        """The pose CNNs of ``pose_weights_path`` (a UniAnimate
+        checkpoint; with ``pose_weights_strict`` a file without them
+        raises), the missing ones drawn from seeds 7 / 8."""
+        dw = rr = None
+        pose_path = getattr(config, "pose_weights_path", None)
+        if pose_path and os.path.exists(str(pose_path)):
+            dw, rr = cond_mod.load_pose_embedding_weights(
+                load_torch_state_dict(str(pose_path)), device=device)
+            if dw is None and rr is None and bool(
+                    getattr(config, "pose_weights_strict", True)):
+                raise ValueError(
+                    f"no dwpose_embedding. / randomref_embedding_pose. "
+                    f"weights in {pose_path}")
+        if dw is None:
+            dw = cond_mod.init_dwpose_params(7, device=device)
+        if rr is None:
+            rr = cond_mod.init_randomref_params(8, device=device)
+        return cond_mod.PoseImageConditioner(
+            dw, rr, drop_prob=float(getattr(config, "pose_drop_prob", 0.0)),
+            clip_params=clip_params, clip_cfg=clip_cfg,
+            vae_params=vae_params, vae_cfg=vae_cfg)
+
+    @torch.no_grad()
+    def _build_cond(self, batch: dict, shape, keep=None) -> dict | None:
+        """The step's conditioning dict from the batch's pose / image
+        inputs, None without a conditioner or ``dwpose_data``.  Draws one
+        integer from the host RNG (the dropout mask's seed) whether or not
+        ``keep`` [B] is given."""
+        if self.conditioner is None or "dwpose_data" not in batch:
+            return None
+        g = torch.Generator(device=self.device).manual_seed(
+            int(self.host_rng.integers(2 ** 31)))
+
+        def dev(name):
+            v = batch.get(name)
+            return None if v is None else torch.as_tensor(
+                v, device=self.device)
+        return self.conditioner.build_conditioning(
+            dev("dwpose_data"), first_frame=dev("first_frame"),
+            random_ref_dwpose=dev("random_ref_dwpose"),
+            num_frames=self.obj.num_training_frames,
+            height=int(shape[3]) * 8, width=int(shape[4]) * 8, generator=g,
+            keep=keep)
 
     # -------------------------------------------------------------- api
     def _sample_rollout_shape(self, base_shape):
@@ -222,6 +286,11 @@ class ScoreDistillationTrainer:
         nb = self.obj.num_frame_per_block
         base_shape = list(getattr(self.config, "image_or_video_shape",
                                   [B, 21, 16, 60, 104]))
+        cond = None
+        if self.conditioner is not None:
+            mark = _Marks(self.timing, self.device, "step", log)
+            cond = self._build_cond(batch, base_shape)
+            mark("conditioning")
         shape = self._sample_rollout_shape(base_shape)
         shape[0] = B
         exit_idx = self.bundle.pipeline.sample_exit_index(
@@ -233,7 +302,8 @@ class ScoreDistillationTrainer:
             loss, glog = self._generator_loss(
                 self.bundle, self.obj, self.state.generator,
                 self.state.fake_score, self.real_params, noise, context,
-                self.neg_context, exit_idx, generator=g, mark=mark)
+                self.neg_context, exit_idx, generator=g, mark=mark,
+                cond=cond)
             grads = torch.autograd.grad(loss, self.gen_leaves,
                                         allow_unused=True)
             mark("backward")
@@ -263,7 +333,7 @@ class ScoreDistillationTrainer:
         loss, clog = dmd.critic_loss(
             self.bundle, self.obj, self.state.generator,
             self.state.fake_score, noise, context, self.neg_context,
-            exit_idx, generator=g, mark=mark)
+            exit_idx, generator=g, mark=mark, cond=cond)
         grads = torch.autograd.grad(loss, self.fake_leaves,
                                     allow_unused=True)
         mark("backward")

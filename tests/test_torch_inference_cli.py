@@ -27,6 +27,18 @@ from self_forcing_tpu_torch import inference as tinf
 from self_forcing_tpu_torch.utils.resize import resize_cubic
 from self_forcing_tpu_torch.utils.video_io import load_video
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "tiny_test.yaml")
 

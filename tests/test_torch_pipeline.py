@@ -122,7 +122,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ops/cuda_conv.py", "models/wan/vae.py",
                  "models/wan/t5.py", "tokenizer.py", "utils/checkpoints.py",
                  "runtime.py", "wrappers.py", "utils/video_io.py",
-                 "data/datasets.py", "inference.py"):
+                 "data/datasets.py", "inference.py", "conditioning.py",
+                 "training/objectives/sid.py", "scripts/__init__.py",
+                 "scripts/generate_ode_pairs.py",
+                 "scripts/create_sharded_dataset.py",
+                 "scripts/create_shards_iterative.py",
+                 "scripts/create_pose_shards.py", "scripts/merge_lora.py"):
         assert os.path.join("self_forcing_tpu_torch", part) in rel, part
     bad = []
     for path in files:

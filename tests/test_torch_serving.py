@@ -34,6 +34,18 @@ from self_forcing_tpu_torch.serving import demo_server as tserver
 from self_forcing_tpu_torch.serving.websocket import make_server
 from self_forcing_tpu_torch.utils import memory
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
 TIMEOUT = 20.0

@@ -49,6 +49,18 @@ from self_forcing_tpu_torch.params import params_from_jax
 from self_forcing_tpu_torch.pipelines import causal_inference as tci
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler as TSched
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 N, D, LQ = 2, 128, 96
 SCALE = D ** -0.5
 LOG2E = 1.4426950408889634

@@ -44,6 +44,18 @@ from self_forcing_tpu_torch.pipelines.causal_inference import (
     CausalInferencePipeline as TPipe)
 from self_forcing_tpu_torch.utils.resize import resize_cubic
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 B, C, H, W = 1, 16, 8, 8
 J_VAE = jvae.VAEConfig(dim=8, z_dim=16, dim_mult=(1, 2, 2, 2),

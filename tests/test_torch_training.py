@@ -60,6 +60,18 @@ from self_forcing_tpu_torch.training.trainer_distillation import (
     ScoreDistillationTrainer)
 from self_forcing_tpu_torch.utils import tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
 B, C, H, W = 1, 16, 8, 8

@@ -22,6 +22,18 @@ from self_forcing_tpu_torch.models.wan import vae as tvae
 from self_forcing_tpu_torch.ops import conv as tconv
 from self_forcing_tpu_torch.params import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this module runs: under the suite's six
+    workers the default (one a core) oversubscribes the machine, and the
+    idle threads' spinning slowed these tests ~20x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 
 
