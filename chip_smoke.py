@@ -179,6 +179,25 @@ path; its DiT ms per block).
    the trim's ms, the 21 frames and mask, exact launches; (d) the 2-layer
    pose critic-loss gradient with the kernels and with their plain
    versions (1e-2).
+16. Tensor and sequence parallelism (last, every earlier tensor freed;
+   the ranks are processes that ``parallel/launch.py`` spawns and
+   ``parallel/card_checks.py`` runs): (a) an NCCL group of one rank:
+   block 2 at full Wan-1.3B width through ``forward_inference_tp``
+   beside ``dit.forward_inference`` (1e-3, the same launches); (b) two
+   ranks on cuda:0 over gloo (NCCL refuses two ranks on one device;
+   every collective is staged through pinned host memory, so no time
+   here is an NCCL or NVLink time) at Wan-14B's full width: block 2 on a
+   4-layer cut against the single-process forward, the rank caches
+   against the dense cache (2e-2), then the tensor-parallel
+   ``CausalInferencePipeline.stream`` over 2 blocks at 40 layers with a
+   21-frame cache, each rank drawing the model layer by layer and
+   keeping its shard (ms a block, the host-staged all-reduces' ms, each
+   rank's peak beside ``parallel/fit.py``'s estimate, exactly 9 x 40
+   decode and cross launches a rank); (c) ``forward_train_sp`` at
+   Wan-I2V-14B's width, 20 of 40 layers, 21 latent frames (padded to
+   22) at 60x104 with seeded ``y`` and ``clip_fea`` against the
+   single-process ``forward_train`` (2e-2), exactly 40
+   ``cross_attention`` launches a rank.
 Phase 2 also holds ``decode_fresh`` and its backward on the last block
 of a 24-frame rollout (37440 keys), and each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
@@ -194,7 +213,8 @@ two kernels at Wan-I2V-14B's shapes: the unmasked flash forward at
 257 image keys and onto 512 text keys; and the flash forward and
 backward at the other trainers' shapes: the teacher-forcing mask over
 the doubled 65520-token sequence, and the GAN discriminator's unmasked
-fake|real batch (B = 2, L = 32760).
+fake|real batch (B = 2, L = 32760); and the decode and cross attention
+at 20 heads, one rank of Wan-14B at tp 2 (phase 16).
 Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -1335,6 +1355,79 @@ def phase_i2v_kernels(ca, g) -> None:
         del k, v, qh, kh, vh
     del qx
     torch.cuda.empty_cache()
+
+
+def phase_tp_kernels(ca, g) -> dict:
+    """The decode and cross attention kernels at the head count one rank
+    of Wan-14B runs under tensor parallelism over 2 ranks (phase 16): 20
+    heads of 128, heads-packed queries [1, 4680, 2560].  The decode at
+    block 7's window (28080 cached keys + the 4680 fresh, one layer of
+    the cache), the cross onto 512 text keys; each against its plain
+    version (1e-2 relative L2), timed with CUDA events beside its bound
+    and SDPA on the same inputs.  Returns their rows of the kernel
+    table."""
+    dev, bf = "cuda", torch.bfloat16
+    D, N = HEAD_DIM, 40 // TP_RANKS
+    q = (torch.randn(1, LQ, N * D, generator=g, device=dev)
+         * (D ** -0.5 * LOG2E)).to(bf)
+    kc, vc = (torch.randn(1, N, S_CACHE, D, generator=g, device=dev,
+                          dtype=bf) for _ in range(2))
+    kn, vn = (torch.randn(1, LQ, N * D, generator=g, device=dev, dtype=bf)
+              for _ in range(2))
+    args = dict(layer_idx=0, kv_start=0, kv_end=LAST_KV_END, sink_end=0,
+                static_hi=LAST_KV_END, num_heads=N)
+    err, mae = check_kernel("decode_fresh_free (20 heads)",
+                            ca.decode_fresh_free(q, kc, vc, kn, vn, **args),
+                            ca.decode_fresh_free_ref(q, kc, vc, kn, vn,
+                                                     **args))
+    ms = time_ms(lambda: ca.decode_fresh_free(q, kc, vc, kn, vn, **args))
+    pms = time_ms(lambda: ca.decode_fresh_free_ref(q, kc, vc, kn, vn,
+                                                   **args), reps=3)
+    heads = lambda t: t.reshape(1, -1, N, D).transpose(1, 2)  # noqa: E731
+    kv_k = torch.cat([kc[0, :, :LAST_KV_END][None], heads(kn)], dim=2)
+    kv_v = torch.cat([vc[0, :, :LAST_KV_END][None], heads(vn)], dim=2)
+    qh = heads(q)
+    lib = library_ms(lambda: F.scaled_dot_product_attention(
+        qh, kv_k, kv_v, scale=math.log(2.0)))
+    n_keys = LAST_KV_END + LQ
+    flops = 4.0 * LQ * n_keys * D * N
+    b_ms, b_by = bound(flops, 2.0 * (2 * LQ * N * D + 2 * n_keys * N * D))
+    print(f"kernel decode_fresh_free (14B tp 2: {N} heads, kv_end="
+          f"{LAST_KV_END} + {LQ} fresh): rel_l2={err:.3e} max_abs={mae:.3e} "
+          f"ms={ms:.4f} plain_ms={pms:.4f} "
+          f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
+          f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
+          f"tflops={flops / ms / 1e9:.1f}", flush=True)
+    table = {"decode_fresh_free_tp2": dict(
+        ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=mae)}
+    del kc, vc, kn, vn, kv_k, kv_v, qh
+
+    Lk = 512
+    k, v = (torch.randn(1, Lk, N, D, generator=g, device=dev, dtype=bf)
+            for _ in range(2))
+    err, mae = check_kernel("cross_attention (20 heads)",
+                            ca.cross_attention(q, k, v, num_heads=N),
+                            ca.cross_attention_ref(q, k, v, num_heads=N))
+    ms = time_ms(lambda: ca.cross_attention(q, k, v, num_heads=N))
+    pms = time_ms(lambda: ca.cross_attention_ref(q, k, v, num_heads=N),
+                  reps=3)
+    qh, kh, vh = heads(q), k.transpose(1, 2), v.transpose(1, 2)
+    lib = library_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    flops = 4.0 * LQ * Lk * D * N
+    b_ms, b_by = bound(flops, 2.0 * (2 * LQ * N * D + 2 * Lk * N * D))
+    print(f"kernel cross_attention (14B tp 2: {N} heads, Lk={Lk}): "
+          f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} "
+          f"plain_ms={pms:.4f} "
+          f"sdpa_ms={'none' if lib is None else f'{lib:.4f}'} "
+          f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / ms:.3f} "
+          f"tflops={flops / ms / 1e9:.1f}", flush=True)
+    table["cross_attention_tp2"] = dict(
+        ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=mae)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return table
 
 
 def sdpa_yardsticks(q, k, v, do, mask, scale=math.log(2.0)):
@@ -4824,6 +4917,154 @@ def phase_image_to_video(ca, dit, vae, seed) -> dict:
     return {"wan_i2v": launches, "causal_i2v": causal}
 
 
+TP_RANKS = 2         # phase 16: ranks sharing the card
+TP_BLOCKS = 2        # phase 16(b): 3-frame blocks of the 40-layer stream
+SP_LAYERS = 10       # phase 16(c): the i2v model's depth on each rank
+SP_FRAMES = 21       # phase 16(c): latent frames (padded to 22 at sp 2)
+
+
+def _rank_results(d: str, name: str, world: int) -> list[dict]:
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"{name}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_parallel(seed: int) -> dict:
+    """16. Tensor and sequence parallelism on the card (last, every earlier
+    tensor freed), the ranks spawned by ``parallel.launch.spawn`` and run
+    by ``parallel/card_checks.py``: (a) an NCCL group of one rank, block 2
+    at full Wan-1.3B width through ``forward_inference_tp`` beside
+    ``dit.forward_inference`` (<= 1e-3 relative L2, the same launches);
+    (b) two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device; gloo stages every collective through pinned host memory) at
+    Wan-14B's full width: block 2 on a 4-layer cut against the
+    single-process forward and the rank caches against the dense cache
+    (<= 2e-2), then ``CausalInferencePipeline(mesh=...).stream`` over
+    TP_BLOCKS blocks at 40 layers with a 21-frame cache (ms a block, the
+    host-staged all-reduces' ms, each rank's peak beside the fit estimate,
+    exact launches); (c) ``forward_train_sp`` at Wan-I2V-14B's width and
+    SP_LAYERS layers over 21 latent frames at 60x104 with seeded ``y`` and
+    ``clip_fea`` against the single-process ``forward_train`` (<= 2e-2),
+    exact ``cross_attention`` launches.  A rank that fails fails the
+    phase.  Returns the tensor-parallel rows' launches for the kernel
+    line."""
+    from self_forcing_tpu_torch.models.wan.configs import (WAN_1_3B,
+                                                           WAN_14B,
+                                                           WAN_I2V_14B)
+    from self_forcing_tpu_torch.parallel import card_checks, fit, launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for row in fit.table():
+        print(f"parallel fit estimate {row['label']} (a rank, GB): " + " ".join(
+            f"{k}={row[k] / 1e9:.2f}" for k in (
+                "params", "kv_cache", "context", "activations", "total",
+                "limit")) + f" fits={row['fits']}", flush=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        launch.spawn(card_checks.nccl_one_rank, 1, "nccl", dict(
+            device="cuda", model=WAN_1_3B, layers=N_LAYERS,
+            latent_hw=(60, 104), seed=seed), d)
+        a = _rank_results(d, "nccl", 1)[0]
+        if a["backend"] != "nccl" or not a["finite"]:
+            fail(f"parallel (a): backend {a['backend']}, finite "
+                 f"{a['finite']}")
+        if a["launches_tp"] != a["launches_single"] or any(
+                a["launches_tp"].get(k, 0) != N_LAYERS
+                for k in PARITY_KERNELS):
+            fail(f"parallel (a): launches {a['launches_tp']} vs single "
+                 f"{a['launches_single']}")
+        print(f"parallel (a) NCCL world 1, 1.3B block 2 "
+              f"forward_inference_tp vs dit.forward_inference: "
+              f"rel_l2={a['rel_l2']:.3e} max_abs={a['max_abs']:.3e} "
+              f"launches tp={a['launches_tp']} single="
+              f"{a['launches_single']}", flush=True)
+        if a["rel_l2"] > 1e-3:
+            fail(f"parallel (a): relative L2 {a['rel_l2']:.3e} > 1e-3")
+
+        spec = dict(device="cuda", model=WAN_14B, layers=WAN_14B.num_layers,
+                    cut_layers=4, latent_hw=(60, 104), blocks=TP_BLOCKS,
+                    seed=seed, sp_model=WAN_I2V_14B, sp_layers=SP_LAYERS,
+                    sp_frames=SP_FRAMES)
+        launch.spawn(card_checks.gloo_two_ranks, TP_RANKS, "gloo", spec, d)
+        rs = _rank_results(d, "gloo", TP_RANKS)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # (b) the 4-layer cut, then the stream: each block's 4 denoise
+    # forwards, and the refresh of every block but the last
+    forwards = TP_BLOCKS * len(card_checks.STEPS) + TP_BLOCKS - 1
+    want = {k: forwards * WAN_14B.num_layers for k in PARITY_KERNELS}
+    for r, res in enumerate(rs):
+        c, s = res["cut"], res["stream"]
+        print(f"parallel (b) rank {r}/{TP_RANKS} {res['backend']}: 14B "
+              f"block 2, {c['layers']} of 40 layers, tp vs single "
+              f"rel_l2={c['rel_l2']:.3e} cache k/v vs dense heads "
+              f"rel_l2={c['cache_k_rel_l2']:.3e}/{c['cache_v_rel_l2']:.3e} "
+              f"launches={c['launches']}", flush=True)
+        for key in ("rel_l2", "cache_k_rel_l2", "cache_v_rel_l2"):
+            if not c["finite"] or c[key] > 2e-2:
+                fail(f"parallel (b) rank {r}: {key} {c[key]:.3e} > 2e-2 "
+                     f"(finite {c['finite']})")
+        fit_gb = s["fit_gb"]
+        print(f"parallel (b) rank {r}: 14B stream tp {TP_RANKS}, "
+              f"{s['layers']} layers, {s['blocks']} blocks (cache "
+              f"{s['cache_frames']} frames, {s['cache_heads']} heads a "
+              f"rank): block_ms={[round(x, 1) for x in s['block_ms']]} "
+              f"total_ms={s['total_ms']:.1f} host_staged_allreduce_ms="
+              f"{s['allreduce_ms']:.1f} ({s['allreduce_calls']} calls; "
+              f"gloo on one card, not NCCL) weights_gb="
+              f"{s['weights_gb']:.2f} (drawn in {s['init_s']:.1f} s) "
+              f"peak_gb={s['peak_gb']:.2f} fit_estimate_gb="
+              f"{fit_gb['total']:.2f} (params {fit_gb['params']:.2f}, cache "
+              f"{fit_gb['kv_cache']:.2f}, context {fit_gb['context']:.2f}, "
+              f"activations {fit_gb['activations']:.2f}; card "
+              f"{fit_gb['limit']:.2f}) launches={s['launches']} "
+              f"(host clock, synchronised a block)", flush=True)
+        if s["launches"] != want:
+            fail(f"parallel (b) rank {r}: launches {s['launches']}, "
+                 f"expected {want}")
+        if not s["finite"] or s["shape"] != [1, 3 * TP_BLOCKS, 16, 60, 104] \
+                or s["cache_heads"] != WAN_14B.num_heads // TP_RANKS \
+                or s["cache_frames"] != 21:
+            fail(f"parallel (b) rank {r}: stream finite {s['finite']} "
+                 f"shape {s['shape']} cache heads {s['cache_heads']} "
+                 f"frames {s['cache_frames']}")
+    if rs[0]["stream"]["checksum"] != rs[1]["stream"]["checksum"]:
+        fail("parallel (b): the ranks' streams differ")
+
+    # (c) one sequence-parallel forward: 2 cross attentions a layer (the
+    # text keys and the image keys), no flash attention (the ring)
+    want = {"cross_attention": 2 * SP_LAYERS}
+    for r, res in enumerate(rs):
+        sp = res["sp"]
+        print(f"parallel (c) rank {r}/{TP_RANKS}: I2V-14B forward_train_sp, "
+              f"{sp['layers']} of 40 layers, {sp['frames']} latent frames "
+              f"(padded to {sp['frames_padded']}) at 60x104: "
+              f"ms={sp['ms']:.1f} host_staged_ring_ms={sp['ring_ms']:.1f} "
+              f"({sp['ring_calls']} calls) peak_gb={sp['peak_gb']:.2f} "
+              f"fit_estimate_gb={sp['fit_gb']:.2f} "
+              f"launches={sp['launches']}"
+              + (f" vs single-process forward_train rel_l2="
+                 f"{sp['rel_l2']:.3e}" if "rel_l2" in sp else ""),
+              flush=True)
+        if sp["launches"] != want or not sp["finite"] \
+                or sp["shape"] != [1, SP_FRAMES, 16, 60, 104]:
+            fail(f"parallel (c) rank {r}: launches {sp['launches']} "
+                 f"(expected {want}), finite {sp['finite']}, shape "
+                 f"{sp['shape']}")
+        if sp.get("rel_l2", 0.0) > 2e-2:
+            fail(f"parallel (c): relative L2 {sp['rel_l2']:.3e} > 2e-2")
+    print(f"parallel: phase 16 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"decode_fresh_free_tp2": rs[0]["stream"]["launches"][
+                "decode_fresh_free"],
+            "cross_attention_tp2": rs[0]["stream"]["launches"][
+                "cross_attention"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=3,
@@ -4887,6 +5128,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_trainer_flash_kernels(ca, masks, g)
     phase_i2v_kernels(ca, g)
+    table.update(phase_tp_kernels(ca, g))
     table.update(phase_conv_kernels(tconv, g))
     torch.cuda.empty_cache()
     if a.kernels_only:
@@ -5035,6 +5277,10 @@ def main() -> None:
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
+    # 16. tensor and sequence parallelism, last (its ranks are processes
+    # of their own; they check their launches there)
+    launches.update(phase_parallel(a.seed))
+
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
     pconv = "self_forcing_tpu/ops/pallas_conv.py"
@@ -5062,6 +5308,10 @@ def main() -> None:
                                      attn + ":1367"),
                "cross_attention": (csrc + "decode_fresh.cu",
                                    attn + ":1224"),
+               "decode_fresh_free_tp2": (csrc + "decode_fresh.cu",
+                                         attn + ":275"),
+               "cross_attention_tp2": (csrc + "decode_fresh.cu",
+                                       attn + ":1224"),
                "quantize_rows": (csrc + "w8a8.cu", w8a8 + ":201"),
                "w8a8_matmul": (csrc + "w8a8_fc1.cu", w8a8 + ":27"),
                "w8a8_ffn1": (csrc + "w8a8_fc1.cu", w8a8 + ":71"),

@@ -6,6 +6,9 @@ or image-to-video over a prompt file, one mp4 a prompt at 16 fps.
         --data_path prompts/MovieGenVideoBench.txt --output_folder videos/ \\
         [--i2v] [--dwpose_path pose.npz] [--device cuda]
 
+    torchrun --nproc_per_node N -m self_forcing_tpu_torch.inference --tp N \\
+        [--dist_backend nccl|gloo] --config_path ... (as above)
+
 The config is merged over ``default_config.yaml`` beside it.  A config
 with ``denoising_step_list`` runs the few-step ``CausalInferencePipeline``;
 any other config the 50-step ``CausalDiffusionInferencePipeline`` (CFG
@@ -22,7 +25,14 @@ the T5 encoder, its tokenizer and the VAE from ``model_dir``
 directory: each image is resized (``utils.resize.resize_cubic``, the
 ``jax.image.resize`` cubic) and encoded as an
 independent first latent frame.  The prompts are split over the ranks of
-an initialised ``torch.distributed`` group (else rank 0 of 1).  It runs on
+an initialised ``torch.distributed`` group (else rank 0 of 1).  ``--tp N``
+(the few-step pipeline only; N must divide the model's heads and ffn
+width) runs the DiT tensor-parallel over N ranks launched by
+``torchrun``: each rank reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``,
+joins a process group of ``--dist_backend`` (NCCL by default; gloo for
+ranks that share one card, which NCCL refuses, and on the CPU), loads the
+models, keeps its shard of the DiT and samples every prompt with the
+others; rank 0 writes the videos.  It runs on
 the card unless ``--device cpu`` is given.  Writing the mp4 needs ``cv2``
 or ``imageio``; the tokenizer needs ``transformers``, ``--i2v`` PIL.
 On the card the DiT runs bf16 activations (the context and the DiT's input
@@ -191,10 +201,49 @@ def main(argv=None) -> None:
                     help=".npz of pose data for the 50-step diffusion "
                          "pipeline")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel degree of the few-step pipeline")
+                    help="tensor-parallel degree of the few-step pipeline "
+                         "(launch N ranks with torchrun)")
+    ap.add_argument("--dist_backend", default="nccl",
+                    choices=("nccl", "gloo"),
+                    help="the --tp process group's backend")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    dist = torch.distributed
+    joined = dist.is_initialized()
+    try:
+        _run(args)
+    finally:
+        if not joined and dist.is_initialized():  # --tp joined a group
+            dist.destroy_process_group()
 
+
+def _join_tp_group(tp: int, backend: str, device: torch.device):
+    """This process's rank of the --tp group: the one the caller
+    initialised, else one joined now from torchrun's environment (after
+    picking the card ``LOCAL_RANK`` names, modulo the cards there are).
+    Returns the device."""
+    dist = torch.distributed
+    launch = (f"launch {tp} ranks: torchrun --nproc_per_node {tp} -m "
+              f"self_forcing_tpu_torch.inference --tp {tp} ...")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        device = torch.device("cuda", torch.cuda.current_device())
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", 1)) != tp:
+            raise SystemExit(f"--tp {tp} needs {tp} ranks: {launch}")
+        dist.init_process_group(backend)
+    if dist.get_world_size() != tp:
+        raise SystemExit(f"--tp {tp} needs {tp} ranks, the group has "
+                         f"{dist.get_world_size()}: {launch}")
+    if dist.get_backend() != backend:
+        raise SystemExit(f"--dist_backend {backend}: the group's backend "
+                         f"is {dist.get_backend()}")
+    return device
+
+
+def _run(args) -> None:
+    """The CLI's work on the parsed arguments."""
     config = load_config(args.config_path, os.path.join(
         os.path.dirname(args.config_path), "default_config.yaml"))
     few_step = bool(getattr(config, "denoising_step_list", None))
@@ -202,18 +251,24 @@ def main(argv=None) -> None:
         raise ValueError(
             "--dwpose_path needs the 50-step diffusion pipeline "
             "(a config without denoising_step_list)")
-    if args.tp and args.tp > 1:
-        raise NotImplementedError(
-            "--tp: tensor parallelism is not ported (ROADMAP Queue A "
-            "item 10); one H100 holds the models")
+    tp = args.tp if args.tp > 1 else 0
+    if tp and not few_step:
+        raise SystemExit("--tp is supported on the few-step pipeline "
+                         "(configs with denoising_step_list)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
 
     size = str(getattr(config, "model_size", "1.3b")).lower()
+    cfg = WAN_TINY if size == "tiny" else WAN_1_3B
+    if tp:
+        if cfg.num_heads % tp or cfg.ffn_dim % tp:
+            raise SystemExit(f"--tp {tp} does not divide num_heads="
+                             f"{cfg.num_heads} / ffn_dim={cfg.ffn_dim}")
+        device = _join_tp_group(tp, args.dist_backend, device)
     if size == "tiny":
-        cfg, dtype = WAN_TINY, torch.float32
+        dtype = torch.float32
         params = dit.init_params(cfg, 0, dtype, device, causal=True)
         vae_cfg = TINY_VAE
         vae_params = vae_mod.init_params(vae_cfg, seed=1, dtype=dtype,
@@ -222,7 +277,7 @@ def main(argv=None) -> None:
         encode = _pseudo_encoder(cfg.text_dim, device)
     else:
         from self_forcing_tpu_torch.runtime import load_wan_models
-        cfg, dtype = WAN_1_3B, torch.bfloat16
+        dtype = torch.bfloat16
         models = load_wan_models(
             str(getattr(config, "model_dir", "wan_models")), model_cfg=cfg,
             checkpoint_path=args.checkpoint_path,
@@ -237,11 +292,16 @@ def main(argv=None) -> None:
         H, W = LATENT_HEIGHT, LATENT_WIDTH
     cfg = apply_model_kwargs(cfg, config)
     dwpose = random_ref = None
+    mesh = None
+    if tp:
+        from self_forcing_tpu_torch.parallel import tensor as tpmod
+        mesh = tpmod.tp_mesh(tp, device.type)
+        params = tpmod.shard_params_tp(params, mesh)
     if few_step:
         pipeline = CausalInferencePipeline(config, params, cfg,
                                            vae_params=vae_params,
                                            vae_cfg=vae_cfg, device=device,
-                                           dtype=dtype)
+                                           dtype=dtype, mesh=mesh)
     else:
         dwpose_params = randomref_params = None
         if args.dwpose_path:
@@ -260,7 +320,10 @@ def main(argv=None) -> None:
     else:
         from self_forcing_tpu_torch.data.datasets import TextDataset
         dataset = TextDataset(data_path)
-    rank, world = _rank_world()
+    # the ranks of a --tp group sample every prompt together; rank 0
+    # writes
+    rank, world = (0, 1) if tp else _rank_world()
+    writes = not tp or torch.distributed.get_rank() == 0
     os.makedirs(args.output_folder, exist_ok=True)
 
     # the frame arithmetic, checked before any prompt runs: blocks of
@@ -295,6 +358,8 @@ def main(argv=None) -> None:
                           image=item["image"] if args.i2v else None,
                           neg_context=neg, dwpose_data=dwpose,
                           random_ref_dwpose=random_ref)
+        if not writes:
+            continue
         name = f"output_{idx:03d}.mp4" if args.save_with_index else \
             f"{prompt[:100].replace('/', '_')}.mp4"
         out_path = os.path.join(args.output_folder, name)

@@ -54,9 +54,21 @@ class WanConfig:
     # recent] to the front.  With buffer == window it compacts every
     # steady-state block, as the reference's per-block eviction does.
     windowed_buffer_frames: int | None = None
+    # Tensor parallelism (parallel/tensor.py): the process group whose
+    # ranks each hold a shard of the heads and ffn columns.  When set,
+    # num_heads / ffn_dim are the rank's own shares, and the blocks
+    # all-reduce the row-sharded products (attention o, ffn fc2) and the
+    # q/k RMS-norm statistics over it.  None: one device.
+    tp_group: object | None = None
+    # set by parallel/tensor.tp_local_config: under tensor parallelism
+    # num_heads is the rank's head count while dim stays the model width,
+    # so head_dim is no longer dim // num_heads
+    head_dim_override: int | None = None
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.dim // self.num_heads
 
     def max_attention_size(self, frame_seqlen: int) -> int:

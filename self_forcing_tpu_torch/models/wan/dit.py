@@ -82,6 +82,7 @@ from self_forcing_tpu_torch.ops.attention import (cross_attention,
                                                   decode_attention_fresh,
                                                   flash_attention)
 from self_forcing_tpu_torch.ops.masks import IntervalMask
+from self_forcing_tpu_torch.parallel import comm
 from self_forcing_tpu_torch.utils import tree
 
 Params = dict
@@ -127,6 +128,44 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     n = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return n.to(x.dtype) * weight.to(x.dtype)
+
+
+def _qk_rms_norm(x: torch.Tensor, weight: torch.Tensor,
+                 cfg: WanConfig) -> torch.Tensor:
+    """The q / k RMSNorm, over the full packed width of the heads.  Under
+    tensor parallelism x holds only the rank's head columns (every rank
+    the same width), so the float32 mean of squares over the full width
+    is the all-reduced sum of the ranks' means over their columns,
+    divided by the ranks: at one rank, ``rms_norm``'s own arithmetic."""
+    if cfg.tp_group is None:
+        return rms_norm(x, weight, cfg.eps)
+    xf = x.float()
+    ms = comm.all_reduce(xf.pow(2).mean(dim=-1, keepdim=True), cfg.tp_group)
+    tp = torch.distributed.get_world_size(cfg.tp_group)
+    if tp > 1:
+        ms = ms / tp
+    n = xf * torch.rsqrt(ms + cfg.eps)
+    return n.to(x.dtype) * weight.to(x.dtype)
+
+
+def _out_linear(p: Params, x: torch.Tensor, cfg: WanConfig,
+                kernels: bool = True) -> torch.Tensor:
+    """A row-sharded output projection (attention o, ffn fc2).  Under
+    tensor parallelism each rank holds a row shard of w: its product is a
+    partial sum, all-reduced over ``cfg.tp_group``; the replicated bias is
+    added once after the reduction, then the all-reduced LoRA term."""
+    if cfg.tp_group is None:
+        return linear(p, x, kernels)
+    if "w_q" in p or "w_qa" in p or "w_f8" in p:
+        raise ValueError("tensor parallelism takes no quantized linear")
+    out = comm.all_reduce(_matmul(x, p["w"]), cfg.tp_group)
+    if "b" in p:
+        out = out + p["b"]
+    if "lora_A" in p:
+        delta = comm.all_reduce(_matmul(_matmul(x, p["lora_A"]),
+                                        p["lora_B"]), cfg.tp_group)
+        out = out + delta * p["lora_scale"]
+    return out
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6,
@@ -215,11 +254,13 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
     W8A8 tree never holds its bf16 stack: the result equals
     ``quantize_dit_params(init_params(...))``, from the same random
     stream).  Each layer is copied into the preallocated stack as it is
-    made."""
+    made.  On the ``meta`` device the tree has its shapes and dtypes and
+    no values (the memory estimate's input)."""
     if cfg.model_type not in ("t2v", "i2v"):
         raise ValueError(f"model_type must be 't2v' or 'i2v', got "
                          f"{cfg.model_type!r}")
-    g = torch.Generator(device=device).manual_seed(seed)
+    g = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     d = cfg.dim
     patch_in = cfg.in_dim * int(np.prod(cfg.patch_size))
     params: Params = {
@@ -411,8 +452,8 @@ def _qk_normed(p: Params, cfg: WanConfig, x: torch.Tensor,
         wq = p["norm_q"]["w"]
         if q_gain is not None:
             wq = wq * torch.tensor(q_gain, dtype=wq.dtype, device=wq.device)
-        q = rms_norm(q, wq, cfg.eps)
-        k = rms_norm(k, p["norm_k"]["w"], cfg.eps)
+        q = _qk_rms_norm(q, wq, cfg)
+        k = _qk_rms_norm(k, p["norm_k"]["w"], cfg)
     elif q_gain is not None:
         q = q * torch.tensor(q_gain, dtype=q.dtype, device=q.device)
     return q, k, v
@@ -458,7 +499,7 @@ def precompute_context(params: Params, cfg: WanConfig,
         for p in layers:
             k = linear(p[k_name], ctx)
             if cfg.qk_norm:
-                k = rms_norm(k, p[norm_name]["w"], cfg.eps)
+                k = _qk_rms_norm(k, p[norm_name]["w"], cfg)
             ks.append(_heads(cfg, k))
             vs.append(_heads(cfg, linear(p[v_name], ctx)))
         return torch.stack(ks), torch.stack(vs)
@@ -489,7 +530,7 @@ def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
     p = bp["cross_attn"]
     q = linear(p["q"], x, kernels)
     if cfg.qk_norm:
-        q = rms_norm(q, p["norm_q"]["w"], cfg.eps)
+        q = _qk_rms_norm(q, p["norm_q"]["w"], cfg)
     packed = _packed_ok(cfg)
     if not packed:
         q = _heads(cfg, q)
@@ -503,10 +544,11 @@ def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
     if "k_img" in ctx_kv_layer:
         out = out + attend("img")
     if packed:
-        return linear(p["o"], out, kernels)
+        return _out_linear(p["o"], out, cfg, kernels)
     B, Lq = out.shape[:2]
-    return linear(p["o"], out.reshape(B, Lq, cfg.num_heads * cfg.head_dim),
-                  kernels)
+    return _out_linear(p["o"], out.reshape(B, Lq,
+                                           cfg.num_heads * cfg.head_dim),
+                       cfg, kernels)
 
 
 def _modulate(x: torch.Tensor, shift: torch.Tensor, scale_: torch.Tensor,
@@ -517,13 +559,14 @@ def _modulate(x: torch.Tensor, shift: torch.Tensor, scale_: torch.Tensor,
     return (xf * (1.0 + scale_) + shift).reshape(B, L, D)
 
 
-def _ffn(bp: Params, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-    """fc2(gelu_tanh(fc1(x))); the fused W8A8 FFN when both linears are
-    ``w_qa``."""
+def _ffn(bp: Params, cfg: WanConfig, x: torch.Tensor,
+         kernels: bool = True) -> torch.Tensor:
+    """fc2(gelu_tanh(fc1(x))), fc2 row-sharded under tensor parallelism;
+    the fused W8A8 FFN when both linears are ``w_qa``."""
     fc1, fc2 = bp["ffn"]["fc1"], bp["ffn"]["fc2"]
     if "w_qa" in fc1 and "w_qa" in fc2:
         return quant.quantized_ffn(fc1, fc2, x, kernels)
-    return linear(fc2, gelu_tanh(linear(fc1, x, kernels)), kernels)
+    return _out_linear(fc2, gelu_tanh(linear(fc1, x, kernels)), cfg, kernels)
 
 
 def _gate(x: torch.Tensor, g: torch.Tensor,
@@ -742,7 +785,7 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
         attn = decode_attention_fresh(qp, k_cache, v_cache, kp, vp, attn_lo,
                                       cache_hi, heads_packed=cfg.num_heads,
                                       fixed_m0=m0, **attn_args)
-        y = linear(bp["self_attn"]["o"], attn, kernels)
+        y = _out_linear(bp["self_attn"]["o"], attn, cfg, kernels)
         kf = vf = None
     else:
         qf, kf, vf = _qkv_rope_folded(bp["self_attn"], cfg, xn, rope_cos,
@@ -750,7 +793,8 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
         m0 = bound(qf, kf, None) if bounded else None
         attn = decode_attention_fresh(qf, k_cache, v_cache, kf, vf, attn_lo,
                                       cache_hi, fixed_m0=m0, **attn_args)
-        y = linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn), kernels)
+        y = _out_linear(bp["self_attn"]["o"], _unfold_heads(cfg, attn), cfg,
+                        kernels)
     x = x + _gate(y, e_gate, frame_seqlen)
 
     if "norm3" in bp:
@@ -760,7 +804,7 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
     x = x + _cross_attention(bp, cfg, xc, ctx_kv_layer, kernels)
 
     xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
-    x = x + _gate(_ffn(bp, xn, kernels), f_gate, frame_seqlen)
+    x = x + _gate(_ffn(bp, cfg, xn, kernels), f_gate, frame_seqlen)
     if not emit_kv:
         return x, None, None, kn_norm
     if kf is None:
@@ -884,35 +928,47 @@ def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
                  e0: torch.Tensor, rope_cos: torch.Tensor,
                  rope_sin: torch.Tensor, mask: IntervalMask | None,
                  ctx_kv_layer: dict, frame_seqlen: int,
-                 kernels: bool = True) -> torch.Tensor:
+                 kernels: bool = True, attn_fn=None) -> torch.Tensor:
     """One block with full-sequence self-attention under ``mask``.  On the
     kernel route, as the JAX package on its Pallas route: 'free' folds
     head_dim**-0.5 * log2(e) into the q-norm gain (the flash kernels at
     scale 1, their backward at ln 2); 'bounded' passes the bound m0 =
     head_dim**-0.5 * max|q_row| * max|k_row|; anything else runs the
     online softmax.  Off the route the base-e reference at
-    head_dim**-0.5, as the JAX package off the TPU."""
+    head_dim**-0.5, as the JAX package off the TPU.
+
+    ``attn_fn(q, k, v) -> [B, L, N, D]`` (q, k, v [B, L, N, D], RoPE
+    applied, no gain folded) replaces the flash attention: the
+    sequence-parallel ring attention plugs in here, so the block's math
+    is not forked."""
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
     f_shift, f_scale, f_gate = e[:, :, 3:4], e[:, :, 4:5], e[:, :, 5:6]
 
     xn = _modulate(layer_norm(x, cfg.eps), e_shift, e_scale, frame_seqlen)
-    free = _free_softmax(cfg, x)
+    free = attn_fn is None and _free_softmax(cfg, x)
     q_gain = (cfg.head_dim ** -0.5) * LOG2E if free else None
     q, k, v = _qk_normed(bp["self_attn"], cfg, xn, q_gain, kernels)
     q = _rope_half(_heads(cfg, q), rope_cos, rope_sin)
     k = _rope_half(_heads(cfg, k), rope_cos, rope_sin)
-    m0 = None
-    if not free and cfg.attn_softmax == "bounded" \
-            and attn_ops._kernel_route(x):
-        m0 = (cfg.head_dim ** -0.5) * _max_row_norm(q, None) \
-            * _max_row_norm(k, None)
-    attn = flash_attention(q, k, _heads(cfg, v), mask, fixed_m0=m0,
-                           softmax="free" if free else None, kernels=kernels)
+    if attn_fn is not None:
+        attn = attn_fn(q, k, _heads(cfg, v))
+    else:
+        m0 = None
+        if not free and cfg.attn_softmax == "bounded" \
+                and attn_ops._kernel_route(x):
+            m0 = (cfg.head_dim ** -0.5) * _max_row_norm(q, None) \
+                * _max_row_norm(k, None)
+        attn = flash_attention(q, k, _heads(cfg, v), mask, fixed_m0=m0,
+                               softmax="free" if free else None,
+                               kernels=kernels)
     B, L = attn.shape[:2]
-    y = linear(bp["self_attn"]["o"],
-               attn.reshape(B, L, cfg.num_heads * cfg.head_dim), kernels)
+    # num_heads * head_dim, not dim: under tensor parallelism only the
+    # rank's heads are here
+    y = _out_linear(bp["self_attn"]["o"],
+                    attn.reshape(B, L, cfg.num_heads * cfg.head_dim), cfg,
+                    kernels)
     x = x + _gate(y, e_gate, frame_seqlen)
 
     if "norm3" in bp:
@@ -922,7 +978,7 @@ def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
     x = x + _cross_attention(bp, cfg, xc, ctx_kv_layer, kernels)
 
     xn = _modulate(layer_norm(x, cfg.eps), f_shift, f_scale, frame_seqlen)
-    return x + _gate(_ffn(bp, xn, kernels), f_gate, frame_seqlen)
+    return x + _gate(_ffn(bp, cfg, xn, kernels), f_gate, frame_seqlen)
 
 
 def forward_train(params: Params, cfg: WanConfig, x: torch.Tensor,

@@ -10,7 +10,8 @@ comes from a ``torch.Generator`` or is injected as ``eps``.  With a
 windowed config ``stream`` tracks the buffer's fill on the host and
 compacts it exactly before the block that would overflow it;
 ``inference`` sizes the buffer to the window and lets each forward
-compact.
+compact.  With a ``("tp",)`` mesh every step runs tensor-parallel
+(``parallel/tensor.py``) on parameters sharded by ``shard_params_tp``.
 """
 from __future__ import annotations
 
@@ -99,6 +100,36 @@ def prime_block(params, cfg: WanConfig, rope: RopeTables, ctx_kv: dict,
     return cache
 
 
+def generate_blocks(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
+                    rope: RopeTables, ctx_kv: dict, cache: dit.KVCache,
+                    noise: torch.Tensor, blocks, steps: Sequence[float],
+                    context_noise: float,
+                    eps: Sequence[Sequence[torch.Tensor]] | None = None,
+                    generator: torch.Generator | None = None):
+    """The whole video's blocks: for each (first frame, frames) of
+    ``blocks`` a denoise and a cache refresh, the windowed buffer
+    compacted inside the forwards.  ``noise`` holds the blocks' frames
+    from ``blocks[0][0]`` on; ``eps[i]`` are block i's re-noising draws.
+    Returns (the denoised blocks, the cache)."""
+    F0 = blocks[0][0]
+    fs = (noise.shape[3] // cfg.patch_size[1]) * (
+        noise.shape[4] // cfg.patch_size[2])
+    windowed = cfg.local_attn_size != -1
+    outs = []
+    for i, (lo, n) in enumerate(blocks):
+        hint = None if windowed else lo * fs
+        blk, cache = denoise_block(
+            params, cfg, scheduler, rope, ctx_kv, cache,
+            noise[:, lo - F0:lo - F0 + n], steps, lo, static_kv_hi=hint,
+            eps=None if eps is None else eps[i], generator=generator,
+            assume_compacted=False)
+        cache = refresh_block(params, cfg, rope, ctx_kv, cache, blk,
+                              context_noise, lo, static_kv_hi=hint,
+                              assume_compacted=False)
+        outs.append(blk)
+    return outs, cache
+
+
 class _PhaseClock:
     """Host-clock ms of consecutive phases, each ended by a device
     synchronise; does nothing when off."""
@@ -125,15 +156,27 @@ class _PhaseClock:
 class CausalInferencePipeline:
     """Few-step chunk-wise AR sampler.  ``args`` holds the config keys
     denoising_step_list, warp_denoising_step, timestep_shift,
-    num_frame_per_block, independent_first_frame and context_noise."""
+    num_frame_per_block, independent_first_frame and context_noise.
+
+    ``mesh``: a ``DeviceMesh`` with a ``tp_axis`` dimension; the sampler
+    then runs tensor-parallel over it (``parallel/tensor.py``) on
+    ``generator_params`` already sharded with ``shard_params_tp``, batch
+    1, and every rank must draw the same noise (a generator seeded alike
+    on each rank, or ``eps``)."""
 
     def __init__(self, args, generator_params, model_cfg: WanConfig,
                  vae_params=None, vae_cfg: vae_mod.VAEConfig = vae_mod.WAN_VAE,
                  scheduler: FlowMatchScheduler | None = None,
                  device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 mesh=None, tp_axis: str = "tp"):
         self.args = args
         self.params = generator_params
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self._tp = None
+        if mesh is not None:
+            from self_forcing_tpu_torch.parallel import tensor
+            self._tp = tensor
         self.device = torch.device(device)
         self.dtype = dtype
         self.cfg = dataclasses.replace(
@@ -175,9 +218,66 @@ class CausalInferencePipeline:
             return dit.reset_kv_cache(self._cache)
         self._cache = None  # free the old buffers before allocating
         self._cache_sig = sig
-        self._cache = dit.init_kv_cache(cfg, batch, fs, num_frames,
-                                        self.dtype, self.device)
+        if self._tp is not None:
+            self._cache = self._tp.init_kv_cache_tp(
+                cfg, self.mesh, batch, fs, num_frames, self.dtype,
+                self.device, axis=self.tp_axis)
+        else:
+            self._cache = dit.init_kv_cache(cfg, batch, fs, num_frames,
+                                            self.dtype, self.device)
         return self._cache
+
+    # the tensor-parallel seams: the single-card step, or its twin in
+    # parallel/tensor.py when the pipeline has a mesh
+    def _check_batch(self, batch: int) -> None:
+        if self._tp is not None and batch != 1:
+            raise ValueError("tensor-parallel sampling takes batch 1")
+
+    def _precompute_context(self, context: torch.Tensor) -> dict:
+        if self._tp is not None:
+            return self._tp.precompute_context_tp(
+                self.params, self.cfg, context, self.mesh, axis=self.tp_axis)
+        return dit.precompute_context(self.params, self.cfg, context)
+
+    def _prime(self, ctx_kv, cache, latents, start):
+        if self._tp is not None:
+            return self._tp.prime_block_tp(self.params, self.cfg, self.rope,
+                                           ctx_kv, cache, latents, start,
+                                           self.mesh, axis=self.tp_axis)
+        return prime_block(self.params, self.cfg, self.rope, ctx_kv, cache,
+                           latents, start)
+
+    def _denoise(self, ctx_kv, cache, noise_blk, start, hint, eps,
+                 generator):
+        kw = dict(static_kv_hi=hint, eps=eps, generator=generator)
+        if self._tp is not None:
+            return self._tp.denoise_block_tp(
+                self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
+                cache, noise_blk, self.denoising_step_list, start, self.mesh,
+                axis=self.tp_axis, **kw)
+        return denoise_block(self.params, self.cfg, self.scheduler,
+                             self.rope, ctx_kv, cache, noise_blk,
+                             self.denoising_step_list, start, **kw)
+
+    def _refresh(self, ctx_kv, cache, blk, start, hint):
+        if self._tp is not None:
+            return self._tp.refresh_block_tp(
+                self.params, self.cfg, self.rope, ctx_kv, cache, blk,
+                self.context_noise, start, self.mesh, axis=self.tp_axis,
+                static_kv_hi=hint)
+        return refresh_block(self.params, self.cfg, self.rope, ctx_kv,
+                             cache, blk, self.context_noise, start,
+                             static_kv_hi=hint)
+
+    def _generate(self, ctx_kv, cache, noise, blocks, eps, generator):
+        args = (self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
+                cache, noise, blocks, self.denoising_step_list,
+                self.context_noise)
+        if self._tp is not None:
+            return self._tp.generate_blocks_tp(
+                *args, self.mesh, axis=self.tp_axis, eps=eps,
+                generator=generator)
+        return generate_blocks(*args, eps=eps, generator=generator)
 
     def _blocks(self, F: int, first: int = 0):
         """(first frame, frames) of each generated block of frames
@@ -203,8 +303,9 @@ class CausalInferencePipeline:
         buffer is compacted exactly when the next block would overflow
         it."""
         B, F, C, H, W = noise.shape
+        self._check_batch(B)
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
-        ctx_kv = dit.precompute_context(self.params, self.cfg, context)
+        ctx_kv = self._precompute_context(context)
         cache = self._init_cache(B, fs, max(F, 21))
         blocks = self._blocks(F)
         windowed = self.cfg.local_attn_size != -1
@@ -221,17 +322,13 @@ class CausalInferencePipeline:
                     self.compactions += 1
                     content = post
                 content += n * fs
-            blk, cache = denoise_block(
-                self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
-                cache, noise[:, lo:lo + n], self.denoising_step_list, lo,
-                static_kv_hi=hint, eps=None if eps is None else eps[i],
-                generator=generator)
+            blk, cache = self._denoise(ctx_kv, cache, noise[:, lo:lo + n],
+                                       lo, hint,
+                                       None if eps is None else eps[i],
+                                       generator)
             yield blk
             if i < len(blocks) - 1:
-                cache = refresh_block(self.params, self.cfg, self.rope,
-                                      ctx_kv, cache, blk,
-                                      self.context_noise, lo,
-                                      static_kv_hi=hint)
+                cache = self._refresh(ctx_kv, cache, blk, lo, hint)
         self._cache = cache
 
     def inference(self, noise: torch.Tensor, context: torch.Tensor,
@@ -252,30 +349,22 @@ class CausalInferencePipeline:
         ``self.profile_ms``."""
         clock = _PhaseClock(noise.device, profile)
         B, F, C, H, W = noise.shape
+        self._check_batch(B)
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
-        ctx_kv = dit.precompute_context(self.params, self.cfg, context)
+        ctx_kv = self._precompute_context(context)
         F0 = 0 if initial_latent is None else initial_latent.shape[1]
         cache = self._init_cache(B, fs, max(F + F0, 21), slack=False)
         outs = []
         if initial_latent is not None:
             outs.append(initial_latent)
             for lo, n in self._blocks(F0):
-                cache = prime_block(self.params, self.cfg, self.rope, ctx_kv,
-                                    cache, initial_latent[:, lo:lo + n], lo)
+                cache = self._prime(ctx_kv, cache,
+                                    initial_latent[:, lo:lo + n], lo)
         clock.lap("init_ms")
-        windowed = self.cfg.local_attn_size != -1
-        for i, (lo, n) in enumerate(self._blocks(F, first=F0)):
-            hint = None if windowed else lo * fs
-            blk, cache = denoise_block(
-                self.params, self.cfg, self.scheduler, self.rope, ctx_kv,
-                cache, noise[:, lo - F0:lo - F0 + n],
-                self.denoising_step_list, lo, static_kv_hi=hint,
-                eps=None if eps is None else eps[i], generator=generator,
-                assume_compacted=False)
-            cache = refresh_block(self.params, self.cfg, self.rope, ctx_kv,
-                                  cache, blk, self.context_noise, lo,
-                                  static_kv_hi=hint, assume_compacted=False)
-            outs.append(blk)
+        blks, cache = self._generate(ctx_kv, cache, noise,
+                                     self._blocks(F, first=F0), eps,
+                                     generator)
+        outs += blks
         self._cache = cache
         latents = torch.cat(outs, dim=1)
         clock.lap("diffusion_ms")

@@ -12,8 +12,11 @@ parameters' dtype (bf16 on the card, where the JAX package's float32
 noise would promote a bf16 DiT to float32 activations).  The noise
 [1, F, 16, h, w] is drawn in float32 from a ``torch.Generator`` seeded
 with ``seed`` on the device; ``noise=`` replaces it (the JAX package
-draws it inside ``generate``).  The sequence-parallel route (``mesh``)
-is not ported (ROADMAP Queue A item 10).
+draws it inside ``generate``).  With a mesh whose ``sp_axis`` holds more
+than one rank each forward runs sequence-parallel
+(``parallel/sequence.forward_train_sp``: the frames split over the
+ranks, ring attention); every rank then draws the same noise from the
+same seed and returns the whole video.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan import vae as vae_mod
 from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B, WanConfig
 from self_forcing_tpu_torch.models.wan.rope import RopeTables
+from self_forcing_tpu_torch.parallel.sequence import forward_train_sp
 from self_forcing_tpu_torch.pipelines.causal_diffusion_inference import (
     guided_flow)
 from self_forcing_tpu_torch.solvers import init_solver_state, make_solver
@@ -36,16 +40,19 @@ from self_forcing_tpu_torch.utils import tree
 class WanT2V:
     """Text-to-video CFG generation.  ``generate`` returns the pixel video
     [T, 3, H, W] in [-1, 1], or the latents [1, F, 16, h, w] without VAE
-    parameters."""
+    parameters.  ``mesh``: a ``DeviceMesh`` with an ``sp_axis`` dimension
+    (``parallel/mesh.create_mesh``), the whole model on every rank."""
 
     def __init__(self, params, model_cfg: WanConfig = WAN_1_3B,
                  text_encoder=None, vae_params=None,
                  vae_cfg: vae_mod.VAEConfig = vae_mod.WAN_VAE,
-                 mesh=None, negative_prompt: str = ""):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sequence-parallel route (mesh) is not ported (ROADMAP "
-                "Queue A item 10)")
+                 mesh=None, sp_axis: str = "sp",
+                 negative_prompt: str = ""):
+        if mesh is not None and sp_axis not in (
+                getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(f"mesh: a DeviceMesh with an {sp_axis!r} "
+                             f"dimension expected")
+        self.mesh, self.sp_axis = mesh, sp_axis
         self.params = params
         self.cfg = model_cfg
         self.text_encoder = text_encoder
@@ -57,6 +64,11 @@ class WanT2V:
         self.rope = RopeTables.create(model_cfg.head_dim, device=self.device)
 
     def _forward(self, x, t, context, y=None, clip_fea=None):
+        if self.mesh is not None and \
+                self.mesh.get_group(self.sp_axis).size() > 1:
+            return forward_train_sp(self.params, self.cfg, x.to(self.dtype),
+                                    t, context, self.rope, self.mesh,
+                                    self.sp_axis, y=y, clip_fea=clip_fea)
         return dit.forward_train(self.params, self.cfg, x.to(self.dtype), t,
                                  context, None, self.rope, y=y,
                                  clip_fea=clip_fea, remat=False)

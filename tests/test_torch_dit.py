@@ -28,8 +28,11 @@ FS = (H // 2) * (W // 2)
 
 
 def _jcfg(cfg: WanConfig):
+    # every field but the port's tp_group (a process group; the JAX
+    # package names its mesh axis instead, tp_axis)
     return dataclasses.replace(J_TINY, **{
-        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "tp_group"})
 
 
 def _setup(cfg, seed):

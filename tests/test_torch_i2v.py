@@ -186,9 +186,11 @@ def _t(a):
 
 
 def _fields(cfg):
-    """A config's values of the port's WanConfig fields."""
+    """A config's values of the port's WanConfig fields (but tp_group, a
+    process group the JAX config has no counterpart of)."""
     return {f.name: getattr(cfg, f.name)
-            for f in dataclasses.fields(tconfigs.WanConfig)}
+            for f in dataclasses.fields(tconfigs.WanConfig)
+            if f.name != "tp_group"}
 
 
 def test_configs_and_init_params_match_jax():
@@ -552,6 +554,9 @@ def test_wan_generate_matches_jax(kind, monkeypatch):
 
 
 def test_wan_generate_mesh_raises():
+    """The sequence-parallel route (ROADMAP Queue A item 10, ported:
+    tests/test_torch_sequence_parallel.py) takes a DeviceMesh with an
+    'sp' dimension; anything else is refused."""
     _, tp = _dit()
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(ValueError, match="'sp' dimension"):
         tgen.WanI2V(tp, T_I2V, mesh=object())

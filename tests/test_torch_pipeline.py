@@ -127,7 +127,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "scripts/generate_ode_pairs.py",
                  "scripts/create_sharded_dataset.py",
                  "scripts/create_shards_iterative.py",
-                 "scripts/create_pose_shards.py", "scripts/merge_lora.py"):
+                 "scripts/create_pose_shards.py", "scripts/merge_lora.py",
+                 "parallel/__init__.py", "parallel/comm.py",
+                 "parallel/tensor.py", "parallel/sequence.py",
+                 "parallel/mesh.py", "parallel/fit.py",
+                 "parallel/launch.py"):
         assert os.path.join("self_forcing_tpu_torch", part) in rel, part
     bad = []
     for path in files:

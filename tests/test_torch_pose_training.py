@@ -120,9 +120,11 @@ def _jitted_jax_encoders():
 
 
 def _tcfg(jcfg):
-    """The port's WanConfig with a JAX config's values."""
+    """The port's WanConfig with a JAX config's values (every field but
+    tp_group, a process group the JAX config has no counterpart of)."""
     return dataclasses.replace(WAN_TINY, **{
-        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(WAN_TINY)})
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(WAN_TINY)
+        if f.name != "tp_group"})
 
 
 def _jax_layout(node, key=None):

@@ -80,8 +80,11 @@ STEPS = [1000.0, 500.0]   # the rollout's denoising steps
 
 
 def _jcfg(cfg):
+    # every field but the port's tp_group (a process group; the JAX
+    # package names its mesh axis instead, tp_axis)
     return dataclasses.replace(J_TINY, **{
-        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "tp_group"})
 
 
 GEN_CFG = dataclasses.replace(WAN_TINY, num_frame_per_block=NB)

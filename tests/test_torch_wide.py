@@ -234,8 +234,11 @@ def test_wide_w8a8_forward_matches_jax(pallas_route, monkeypatch):
 
     monkeypatch.setattr(tquant, "quantized_ffn", spy)
     rng = np.random.default_rng(23)
+    # every field but the port's tp_group (a process group; the JAX
+    # package names its mesh axis instead, tp_axis)
     jc = dataclasses.replace(J_TINY, **{
-        f.name: getattr(WIDE, f.name) for f in dataclasses.fields(WIDE)})
+        f.name: getattr(WIDE, f.name) for f in dataclasses.fields(WIDE)
+        if f.name != "tp_group"})
     jp = jdit.init_params(jax.random.PRNGKey(0), jc, dtype=jnp.float32)
     jp = jax.tree.map(lambda a: np.asarray(a) + 0.02 * rng.standard_normal(
         a.shape).astype(np.float32), jp)
