@@ -198,6 +198,42 @@ path; its DiT ms per block).
    22) at 60x104 with seeded ``y`` and ``clip_fea`` against the
    single-process ``forward_train`` (2e-2), exactly 40
    ``cross_attention`` launches a rank.
+17. Parallel training (``parallel/fsdp.py``: ZeRO-3 by hand; the
+   trainers' ``mesh=``; bf16 as ``self_forcing_dmd.yaml`` runs, random
+   weights, latents [1, 21, 16, 60, 104]): (a) in this process, an NCCL
+   group of one rank: phase 7's full-depth Wan-1.3B DMD step 0
+   (generator and critic, LoRA rank 128) again, through the sharded
+   trainer on a mesh of one, against phase 7's one-process step
+   (``card_checks.dmd_distances``: losses and updated trees 1e-5, both
+   models' first moments GRAD_TOL, their updates UPDATE_TOL: two runs
+   of a step differ there, the flash backward's dq sums in a
+   run-dependent order; the same launches), its peak beside
+   ``fit.sp_dmd_fit``'s estimate; two ranks on cuda:0 over gloo
+   (staged through pinned host memory: no time here is an NCCL or
+   NVLink time), started before (a), run (d) and (e) beside it and the
+   rest after it: (b) on an fsdp-2 mesh a DMD step at TRAIN_LAYERS of 30
+   layers (batch 1, whole on both ranks; as (a)) and two
+   causal-diffusion steps with batch 2 split over the ranks (1e-3),
+   each against one process on rank 0, each rank's parameter +
+   optimizer bytes beside one process's (the trainer's rollout cache
+   constraint set aside in (b) and (c): on one card gloo moves each
+   layer's cache through host memory at every forward; (e) runs it);
+   (c) on an sp-2 mesh a DMD step whose teacher is Wan-14B wide at
+   TEACHER_LAYERS of 40 layers, its weights sliced over ("fsdp", "sp")
+   (``teacher_zero3_sp``) and gathered a layer at a time in the ring
+   forward, against one process with the whole teacher (3e-3: the ring
+   runs float32 attention, the flash kernel bf16; updates UPDATE_TOL),
+   each rank's teacher bytes; (d) ``forward_train_tp``'s gradients at tp
+   2, Wan-14B width, 2 layers, float32, against the single-process
+   gradients (TP_GRAD_TOL over all leaves, TP_LEAF_TOL for the worst
+   leaf, which is named); (e) the 21-frame rollout with gradient at
+   CACHE_LAYERS layers with and without the rollout cache constraint:
+   the same loss, gradients within 1e-3, and the cache bytes a rank
+   holds halved; then ``train.main`` (``causal_diffusion.yaml``) for 2
+   steps on both ranks (CLI_LAYERS layers) against one process: rank 0
+   alone writes metrics.jsonl and the checkpoint, equal to one
+   process's.  Every step's ms (host clock, synchronised), collective ms
+   and launches; the launches equal one process's.
 Phase 2 also holds ``decode_fresh`` and its backward on the last block
 of a 24-frame rollout (37440 keys), and each conv kernel (the 27-tap conv, its RGB input's
 route at 4 frames and 1, the split route, v2 and the fused norm + SiLU +
@@ -244,6 +280,7 @@ PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+GB = 1e9
 
 LQ = 3 * 1560          # tokens of one 3-frame block at 60x104 latents
 SEQ_TRAIN = 21 * 1560  # tokens of the 21-frame training sequence
@@ -1172,15 +1209,14 @@ def once_ms(fn):
     return out, a.elapsed_time(b)
 
 
-def flash_pair_rows(ca, q, k, v, do, mask, label,
-                    plain_reps: int = 3) -> dict:
+def flash_pair_rows(ca, q, k, v, do, mask, label) -> dict:
     """``flash_fwd`` and ``flash_bwd`` on q, k, v [B, L, 12, 128] bf16 (q
     carrying the folded head_dim**-0.5 * log2(e)) under ``mask``: each
     against its plain version (out 1e-2 relative L2, lse 1e-3 absolute,
     dq / dk / dv 2e-2), timed with CUDA events beside the bound and
     SDPA's forward and backward on the same inputs; one line each.  The
-    plain versions are timed over ``plain_reps`` calls, or (0) by their
-    one call of the check.  Returns the two rows."""
+    plain versions (seconds a call) are timed by their one call of the
+    check.  Returns the two rows."""
     B, L, N, D = q.shape
     frac = mask_visible(mask, L, L)
     out, lse = ca.flash_fwd(q, k, v, mask)
@@ -1204,18 +1240,14 @@ def flash_pair_rows(ca, q, k, v, do, mask, label,
     row_bytes = 2.0 * B * L * N * D          # one [B, L, 12, 128] bf16
     fwd_ms = time_ms(lambda: ca.flash_fwd(q, k, v, mask))
     bwd_ms = time_ms(lambda: ca.flash_bwd(*args))
-    plain = [fwd_once, bwd_once] if not plain_reps else [
-        time_ms(lambda: ca.flash_fwd_ref(q, k, v, mask), reps=plain_reps),
-        time_ms(lambda: (ca.flash_bwd_dq_ref(*args),
-                         ca.flash_bwd_dkv_ref(*args)), reps=plain_reps)]
     lib_fwd, lib_bwd, backend = sdpa_yardsticks(q, k, v, do, mask)
     # bound: operations at the bf16 peak (2 products forward; 5
     # backward: s, dp, p^T.do, ds^T.q, ds.k) against each input read
     # once and each output written once (backward: q, k, v, do, lse,
     # delta in; dq, dk, dv out)
-    rows = [("flash_fwd", fwd_ms, plain[0], lib_fwd, 2 * prod,
+    rows = [("flash_fwd", fwd_ms, fwd_once, lib_fwd, 2 * prod,
              4 * row_bytes + 4.0 * B * L * N, err, mae),
-            ("flash_bwd", bwd_ms, plain[1], lib_bwd, 5 * prod,
+            ("flash_bwd", bwd_ms, bwd_once, lib_bwd, 5 * prod,
              7 * row_bytes + 8.0 * B * L * N,
              max(e for e, _ in bwd_errs), max(m for _, m in bwd_errs))]
     table = {}
@@ -1288,8 +1320,7 @@ def phase_trainer_flash_kernels(ca, masks, g) -> dict:
              masks.teacher_forcing_mask(21, 1560, 3)),
             ("no mask, fake|real batch", 2, SEQ_TRAIN, None)):
         q, k, v, do = flash_operands(B, L, N_HEADS, g)
-        out[label] = flash_pair_rows(ca, q, k, v, do, mask, label,
-                                     plain_reps=0)
+        out[label] = flash_pair_rows(ca, q, k, v, do, mask, label)
         del q, k, v, do
         torch.cuda.empty_cache()
     return out
@@ -1310,14 +1341,13 @@ def phase_i2v_kernels(ca, g) -> None:
     k, v = (torch.randn(1, L, N, D, generator=g, device=dev, dtype=bf)
             for _ in range(2))
     out, lse = ca.flash_fwd(q, k, v, None)
-    ref, ref_lse = ca.flash_fwd_ref(q, k, v, None)
+    (ref, ref_lse), pms = once_ms(lambda: ca.flash_fwd_ref(q, k, v, None))
     err, mae = check_kernel("flash_fwd (40 heads)", out, ref)
     lse_err = float((lse - ref_lse).abs().max())
     if lse_err > 1e-3:
         fail(f"flash_fwd (40 heads): lse max abs error {lse_err:.3e} > 1e-3")
     del out, ref, lse, ref_lse
     ms = time_ms(lambda: ca.flash_fwd(q, k, v, None))
-    pms = time_ms(lambda: ca.flash_fwd_ref(q, k, v, None), reps=3)
     lib, _, _ = sdpa_yardsticks(q, k, v, None, None)
     ops = 4.0 * L * L * D * N
     b_ms, b_by = bound(ops, 4 * 2.0 * L * N * D + 4.0 * L * N)
@@ -1507,14 +1537,14 @@ def flash_mode_rows(ca, q, k, v, mask, label, frac) -> dict:
                   m0=m0 if mode == "bounded" else None)
         name = f"flash_fwd_{mode}"
         out, lse = ca.flash_fwd(qu, k, v, mask, **kw)
-        ref, ref_lse = ca.flash_fwd_ref(qu, k, v, mask, **kw)
+        (ref, ref_lse), pms = once_ms(
+            lambda: ca.flash_fwd_ref(qu, k, v, mask, **kw))
         err, mae = check_kernel(name, out, ref)
         lse_err = float((lse - ref_lse).abs().max())
         if lse_err > 1e-3:
             fail(f"{name}: lse max abs error {lse_err:.3e} > 1e-3")
         del out, ref, lse, ref_lse
         ms = time_ms(lambda: ca.flash_fwd(qu, k, v, mask, **kw))
-        pms = time_ms(lambda: ca.flash_fwd_ref(qu, k, v, mask, **kw), reps=3)
         print(f"kernel {name} ({label}, L={L}, visible {frac:.4f}"
               f"{', m0=%.4f' % float(m0) if mode == 'bounded' else ''}): "
               f"rel_l2={err:.3e} max_abs={mae:.3e} lse_max_abs={lse_err:.3e} "
@@ -3046,14 +3076,13 @@ def _norms(leaves):
             for t in leaves]
 
 
-def phase_training(ca, seed: int, softmax: str = "free",
-                   steps=(0, 1)) -> dict:
-    """Self-Forcing DMD training at full Wan-1.3B width and depth (the
-    config of ``configs/self_forcing_dmd.yaml``, ``model_kwargs``
-    attn_softmax = ``softmax``): the train ``steps`` through
-    ``ScoreDistillationTrainer`` (step 0 updates the generator and the
-    critic, step 1 the critic), launch counts reset just before and read
-    just after each.  Returns the launches."""
+def dmd_trainer(seed: int, softmax: str = "free", mesh=None,
+                timing: bool = True):
+    """The DMD trainer of ``configs/self_forcing_dmd.yaml`` at full
+    Wan-1.3B width and depth (``model_kwargs`` attn_softmax =
+    ``softmax``; random bf16 weights with random output layers, pseudo
+    text context), on ``mesh`` when given: (trainer, context_fn, batches,
+    layers, lora_rank)."""
     from self_forcing_tpu_torch import train
     from self_forcing_tpu_torch.config import load_config
     from self_forcing_tpu_torch.training.trainer_distillation import (
@@ -3065,15 +3094,31 @@ def phase_training(ca, seed: int, softmax: str = "free",
                            "attn_softmax": softmax}
     cfg0, gen, fake, real = train.build_models(
         config, torch.bfloat16, torch.device("cuda"))
-    layers = cfg0.num_layers
     with torch.no_grad():
         _randomize_heads((gen, fake, real), seed + 7)
     context_fn = train.make_context_fn(config, cfg0, torch.device("cuda"))
     neg = context_fn([str(config.negative_prompt)])
     trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg0, cfg0,
                                        cfg0, neg, device="cuda",
-                                       timing=True)
+                                       timing=timing, mesh=mesh)
     batches = train.data_batches(config, "score_distillation", 1)
+    return trainer, context_fn, batches, cfg0.num_layers, config.lora_rank
+
+
+def phase_training(ca, seed: int, softmax: str = "free",
+                   steps=(0, 1), keep: dict | None = None) -> dict:
+    """Self-Forcing DMD training at full Wan-1.3B width and depth (the
+    config of ``configs/self_forcing_dmd.yaml``, ``model_kwargs``
+    attn_softmax = ``softmax``): the train ``steps`` through
+    ``ScoreDistillationTrainer`` (step 0 updates the generator and the
+    critic, step 1 the critic), launch counts reset just before and read
+    just after each.  ``keep``: filled with step 0's log, ms, launches and
+    ``card_checks.dmd_state`` on the host (phase 17(a)'s one-process
+    reference).  Returns the launches."""
+    from self_forcing_tpu_torch.parallel import card_checks
+    trainer, context_fn, batches, layers, lora_rank = dmd_trainer(
+        seed, softmax)
+    before = card_checks.dmd_weights(trainer) if keep is not None else None
     gen_before, fake_before = (_norms(trainer.gen_leaves),
                                _norms(trainer.fake_leaves))
     torch.cuda.synchronize()
@@ -3094,6 +3139,11 @@ def phase_training(ca, seed: int, softmax: str = "free",
         got = dict(ca.launch_counts)
         for k, v in got.items():
             launches[k] += v
+        if keep is not None and step == 0:
+            keep.update(log=log, ms=ms, launches=dict(got),
+                        peak_gb=torch.cuda.max_memory_allocated() / GB,
+                        **card_checks.dmd_state(trainer, before))
+            del before
         want = dict(CRITIC_FLASH)
         if step % trainer.dfake_gen_update_ratio == 0:
             want = {k: want[k] + GEN_FLASH[k] for k in want}
@@ -3110,7 +3160,7 @@ def phase_training(ca, seed: int, softmax: str = "free",
                 if not k.endswith("_ms")}
         print(f"train step {step} (Wan-1.3B width, {layers} layers, DMD, "
               f"attn_softmax={softmax}, 21 frames 60x104, LoRA rank "
-              f"{config.lora_rank}): step_ms={ms:.1f} split_ms={split} "
+              f"{lora_rank}): step_ms={ms:.1f} split_ms={split} "
               f"{vals} launches={ {k: got[k] for k in shown} } "
               f"(host clock, synchronised per phase)", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4917,6 +4967,11 @@ def phase_image_to_video(ca, dit, vae, seed) -> dict:
     return {"wan_i2v": launches, "causal_i2v": causal}
 
 
+TRAIN_LAYERS = 1     # phase 17(b, c): the students' depth (of 30)
+TEACHER_LAYERS = 2   # phase 17(c): the Wan-14B-wide teacher's depth
+CACHE_LAYERS = 1     # phase 17(e): the rollout's depth
+CACHE_EXIT = 0       # phase 17(e): every block's exit step
+CLI_LAYERS = 1       # phase 17: train.main's depth
 TP_RANKS = 2         # phase 16: ranks sharing the card
 TP_BLOCKS = 2        # phase 16(b): 3-frame blocks of the 40-layer stream
 SP_LAYERS = 10       # phase 16(c): the i2v model's depth on each rank
@@ -5065,6 +5120,310 @@ def phase_parallel(seed: int) -> dict:
                 "cross_attention"]}
 
 
+# Two one-process runs of phase 7's step 0 (scripts/dmd_step_spread.py,
+# NVIDIA H100 80GB HBM3, 700.00 W) differ by 2.5e-4 in the generator's
+# first moment and 5.6e-4 in the critic's: the flash backward adds dq by
+# TMA reduce-add in a run-dependent order.  A gradient halved, doubled,
+# zeroed or negated by a broken reduce reads 0.5 or more.
+GRAD_TOL = 2e-3
+# Adam's first step moves an element by lr * g / (|g| + eps), about lr *
+# sign(g), so where that spread flips a near-zero gradient's sign the
+# element moves by 2 lr: the same two runs' updates differ by 4.7e-3
+# (generator) and 9.8e-3 (critic), phase 17 (c)'s by up to 1.6e-2; a
+# zeroed or negated gradient reads 1 or 2
+UPDATE_TOL = 5e-2
+# (d): forward_train_tp's float32 gradients against one process's: a
+# sound run reads 5.5e-5 over all leaves and 1.6e-2 at its worst leaf,
+# the cross-attention key bias (its gradient sums over the context
+# tokens through the all-reduced RMS norm of the keys); with one of the
+# tensor-parallel backward rules broken (the norm's or copy_to's
+# all-reduce dropped, reduce_from's added) the worst leaf moves by about
+# half or more, all leaves together by several times TP_GRAD_TOL
+TP_GRAD_TOL = 1e-3   # all leaves together
+TP_LEAF_TOL = 1e-1   # the worst leaf
+
+
+def _limit(key: str, tol: float) -> float:
+    """The limit of a reading against one process: ``tol``, at least
+    GRAD_TOL for a moment (a gradient) and UPDATE_TOL for an update."""
+    if "moment" in key:
+        return max(tol, GRAD_TOL)
+    if "update" in key:
+        return max(tol, UPDATE_TOL)
+    return tol
+
+
+def _vs_one(tag: str, res: dict, tol: float) -> None:
+    """Fail unless a sharded run's readings agree with one process's
+    (``card_checks.dmd_distances``, the logs) within ``_limit``."""
+    v = res["vs_one_process"]
+    bad = {k: x for k, x in v.items()
+           if (k.endswith("rel_l2") or k == "log_rel")
+           and not x <= _limit(k, tol)}
+    if not res.get("finite", True) or bad:
+        fail(f"{tag}: vs one process {bad} over their limits (tolerance "
+             f"{tol}; {v})")
+
+
+def _shown(launches: dict) -> dict:
+    return {k: launches.get(k, 0) for k in TRAIN_KERNELS + TRAIN_BWD}
+
+
+def phase_parallel_training(ca, seed: int, one: dict) -> None:
+    """17. Parallel training (see the module's docstring): (a) here in an
+    NCCL group of one rank against phase 7's step 0 (``one``), (b) - (e)
+    and the CLI in two gloo ranks that ``parallel/card_checks.py`` runs;
+    the one-process CLI run here."""
+    import torch.distributed as dist
+    from self_forcing_tpu_torch import train
+    from self_forcing_tpu_torch.models.wan.configs import WAN_1_3B, WAN_14B
+    from self_forcing_tpu_torch.parallel import card_checks, fit, launch
+    from self_forcing_tpu_torch.parallel import mesh as mesh_mod
+    from self_forcing_tpu_torch.utils import tree
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_ranks_")
+    spec = dict(device="cuda", model=WAN_1_3B, layers=TRAIN_LAYERS,
+                latent_hw=(60, 104), seed=seed, configs=CONFIGS,
+                teacher=WAN_14B, teacher_layers=TEACHER_LAYERS,
+                tp_model=WAN_14B, tp_layers=2, cache_layers=CACHE_LAYERS,
+                cache_exit=CACHE_EXIT)
+    try:
+        # (b) - (e) and the CLI in two gloo ranks, which start up and run
+        # (d) and (e) (a few GB of the card) while (a) runs here, then
+        # wait for the go file
+        cli_cfg = os.path.join(d, "cli.yaml")
+        import yaml
+        with open(os.path.join(CONFIGS, "causal_diffusion.yaml")) as f:
+            c = yaml.safe_load(f)
+        c.update(seed=seed, image_or_video_shape=[1, *TRAIN_LATENT],
+                 data_path=os.path.join(d, "no_shards"),
+                 model_dir=os.path.join(d, "no_models"), log_iters=1000)
+        with open(cli_cfg, "w") as f:
+            yaml.safe_dump(c, f)
+        shutil.copy(os.path.join(CONFIGS, "default_config.yaml"), d)
+        argv = ["--config_path", cli_cfg, "--max_steps", "2",
+                "--no_visualize", "--disable-wandb", "--dist_backend",
+                "gloo"]
+        go = os.path.join(d, "go")
+        spec2 = dict(spec, go=go, cli_layers=CLI_LAYERS,
+                     cli_argv=argv + ["--logdir", os.path.join(d, "cli2")])
+        t_ranks = time.perf_counter()
+        ranks = launch.start(card_checks.train_gloo_two_ranks, 2, "gloo",
+                             spec2, d)
+        verdict = "stop"
+        try:
+            # (a) one NCCL rank in this process: phase 7's step 0 again,
+            # through the sharded trainer on a mesh of one
+            dist.init_process_group("nccl", store=dist.FileStore(
+                os.path.join(d, "store_a"), 1), rank=0, world_size=1)
+            try:
+                backend = dist.get_backend()
+                torch.cuda.reset_peak_memory_stats()
+                trainer, context_fn, batches, layers, _ = dmd_trainer(
+                    seed, mesh=mesh_mod.create_mesh(dp=1, fsdp=1, sp=1),
+                    timing=False)
+                ctx = context_fn(list(next(batches)["prompts"]))
+                batches.close()
+                trainer.state.step = 0
+                before = card_checks.dmd_weights(trainer)
+                torch.cuda.synchronize()
+                ca.reset_launch_counts()
+                t0 = time.perf_counter()
+                log = trainer.train_step({"context": ctx})
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = dict(ca.launch_counts)
+                peak = torch.cuda.max_memory_allocated() / GB
+                state = card_checks.dmd_state(trainer, before, host=False)
+                del trainer, before
+            finally:
+                dist.destroy_process_group()
+            torch.cuda.empty_cache()
+            rel = card_checks.dmd_distances(state, one)
+            del state
+            log_rel = card_checks._log_rel(
+                {k: v for k, v in log.items() if not k.endswith("_ms")},
+                {k: v for k, v in one["log"].items()
+                 if not k.endswith("_ms")})
+            est = fit.sp_dmd_fit(WAN_1_3B, WAN_1_3B, 1, 1,
+                                 limit=fit.card_limit())
+            print(f"parallel training (a) {backend} world 1, mesh (1, 1, "
+                  f"1): phase 7's DMD step 0 (generator + critic, {layers} "
+                  f"layers, bf16, LoRA 128) through the sharded trainer "
+                  f"(the gloo ranks running (d) and (e) meanwhile): step_ms="
+                  f"{ms:.1f} (phase 7's one-process step "
+                  f"{one['ms']:.1f}, timed per phase) losses "
+                  f"{ {k: v for k, v in log.items()} } "
+                  f"max_rel_vs_one_process="
+                  f"{log_rel:.2e} rel_l2 "
+                  f"{ {k: float(f'{v:.3e}') for k, v in rel.items()} } "
+                  f"launches={_shown(got)} (one "
+                  f"process {_shown(one['launches'])}) peak_gb={peak:.2f} "
+                  f"(one process, both steps' trainer {one['peak_gb']:.2f}) "
+                  f"sp_dmd_fit_gb={est['total'] / GB:.2f} (" + " ".join(
+                      f"{k} {est[k] / GB:.2f}" for k in est
+                      if isinstance(est[k], int) and k not in ("total",)
+                      and not isinstance(est[k], bool)) +
+                  f") [{smi}] (host clock, synchronised)", flush=True)
+            if not log_rel <= 1e-5 or any(not v <= _limit(k, 1e-5)
+                                          for k, v in rel.items()) \
+                    or not all(math.isfinite(v) for v in log.values()):
+                fail(f"parallel training (a): vs one process {log_rel}, "
+                     f"{rel}")
+            if {k: got.get(k, 0) for k in one["launches"]} \
+                    != one["launches"] or any(
+                        not got.get(k) for k in TRAIN_KERNELS + TRAIN_BWD):
+                fail(f"parallel training (a): launches {got} vs one "
+                     f"process {one['launches']}")
+            verdict = "go"
+        finally:
+            with open(go, "w") as f:
+                f.write(verdict)
+            if verdict == "stop":   # (a) failed: the ranks read it and end
+                ranks.join()
+        t0 = time.perf_counter()
+        ranks.join()
+        join_s, ranks_s = time.perf_counter() - t0, \
+            time.perf_counter() - t_ranks
+        rs = _rank_results(d, "train_gloo", 2)
+        # the one-process CLI run
+        full = train.WAN_1_3B
+        train.WAN_1_3B = dataclasses.replace(full, num_layers=CLI_LAYERS)
+        try:
+            t0 = time.perf_counter()
+            train.main(argv + ["--logdir", os.path.join(d, "cli1")])
+            cli1_s = time.perf_counter() - t0
+        finally:
+            train.WAN_1_3B = full
+        cli = {k: torch.load(os.path.join(d, k, "final.pt"),
+                             weights_only=True) for k in ("cli1", "cli2")}
+        cli_rel = max(card_checks._tree_rel_l2(
+            [t.float() for t in tree.leaves(cli["cli2"][k])],
+            [t.float() for t in tree.leaves(cli["cli1"][k])])
+            for k in cli["cli1"])
+        lines = {k: open(os.path.join(d, k, "metrics.jsonl")).read()
+                 .splitlines() for k in ("cli1", "cli2")}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    for r, res in enumerate(rs):
+        b = res["dmd"]
+        print(f"parallel training (b) rank {r}/2 {res['backend']} fsdp 2: "
+              f"DMD step, {b['layers']} of 30 layers (cut for the time "
+              f"limit), batch 1 on both ranks: step_ms={b['ms']:.1f} "
+              f"gloo_staged_collectives_ms={b['comm_ms']:.1f} "
+              f"({b['comm_calls']} calls) losses {b['log']} "
+              f"param_and_optimizer_gb={b['state_bytes'] / GB:.3f}"
+              + (f" (one process {b['vs_one_process']['state_bytes'] / GB:.3f}"
+                 f", ratio {b['state_bytes'] / b['vs_one_process']['state_bytes']:.3f}"
+                 f"; one-process step_ms={b['vs_one_process']['ms']:.1f} "
+                 f"vs_one_process {b['vs_one_process']})" if r == 0 else "")
+              + f" peak_gb={b['peak_gb']:.2f} launches={_shown(b['launches'])}"
+              f" [{smi}]", flush=True)
+        if r == 0:
+            _vs_one("parallel training (b) dmd", b, 1e-5)
+            if b["launches"] != b["vs_one_process"]["launches"]:
+                fail(f"parallel training (b): launches {b['launches']} vs "
+                     f"one process {b['vs_one_process']['launches']}")
+            if not 0.4 < b["state_bytes"] / b["vs_one_process"][
+                    "state_bytes"] < 0.6:
+                fail("parallel training (b): a rank's parameter + "
+                     "optimizer bytes are not about half of one process's")
+        elif b["launches"] != rs[0]["dmd"]["launches"]:
+            fail("parallel training (b): the ranks' launches differ")
+        df = res["diffusion"]
+        print(f"parallel training (b) rank {r}/2: causal diffusion, "
+              f"{TRAIN_LAYERS} layers, batch 2 split (a row a rank), 2 "
+              f"steps: step_ms={[round(x, 1) for x in df['ms']]} "
+              f"gloo_staged_collectives_ms={df['comm_ms']:.1f} logs "
+              f"{df['logs']} param_and_optimizer_gb="
+              f"{df['state_bytes'] / GB:.3f} peak_gb={df['peak_gb']:.2f} "
+              f"launches={df['launches']}"
+              + (f" vs_one_process {df['vs_one_process']}" if r == 0
+                 else "") + f" [{smi}]", flush=True)
+        if r == 0:
+            _vs_one("parallel training (b) diffusion", df, 1e-3)
+            # a kernel launch takes the whole batch: one process's
+            # launches over 2 rows are a rank's over 1
+            if df["launches"] != df["vs_one_process"]["launches"]:
+                fail(f"parallel training (b) diffusion: launches "
+                     f"{df['launches']} vs {df['vs_one_process']['launches']}")
+        c = res["sp"]
+        print(f"parallel training (c) rank {r}/2 sp 2, teacher_zero3_sp: "
+              f"DMD step, students {c['layers']} layers, teacher Wan-14B "
+              f"width {c['teacher_layers']} of 40 layers sliced over "
+              f"(fsdp, sp): step_ms={c['ms']:.1f} gloo_staged_ms="
+              f"{c['comm_ms']:.1f} teacher_gb_this_rank="
+              f"{c['teacher_bytes'] / GB:.3f} losses {c['log']} "
+              f"peak_gb={c['peak_gb']:.2f} launches={c['launches']}"
+              + (f" (whole teacher {c['vs_one_process']['teacher_bytes'] / GB:.3f}"
+                 f" GB in one process; vs_one_process "
+                 f"{c['vs_one_process']})" if r == 0 else "")
+              + f" [{smi}]", flush=True)
+        if r == 0:
+            _vs_one("parallel training (c)", c, 3e-3)
+            one = c["vs_one_process"]["launches"]
+            teacher_flash = 2 * TEACHER_LAYERS   # cond + uncond, no ring
+            if c["launches"].get("flash_fwd", 0) + teacher_flash != \
+                    one.get("flash_fwd", 0) or any(
+                        c["launches"].get(k, 0) != one.get(k, 0)
+                        for k in TRAIN_BWD + ("decode_fresh_free",
+                                              "cross_attention")):
+                fail(f"parallel training (c): launches {c['launches']} vs "
+                     f"one process {one}")
+        tp = res["tp"]
+        print(f"parallel training (d) rank {r}/2 tp 2: forward_train_tp "
+              f"gradients, Wan-14B width, {tp['layers']} layers, 3 frames: "
+              f"ms={tp['ms']:.1f} gloo_staged_allreduce_ms="
+              f"{tp['comm_ms']:.1f} ({tp['comm_calls']} calls) out_rel_l2="
+              f"{tp['out_rel_l2']:.2e} grad_rel_l2 over all "
+              f"{tp['leaves']} leaves={tp['grad_rel_l2_all']:.2e}, the "
+              f"worst leaves {tp['grad_worst_leaves']} launches="
+              f"{tp['launches']} [{smi}]", flush=True)
+        if not tp["out_rel_l2"] <= 1e-2 \
+                or not tp["grad_rel_l2_all"] <= TP_GRAD_TOL \
+                or not tp["grad_rel_l2_max"] <= TP_LEAF_TOL:
+            fail(f"parallel training (d) rank {r}: {tp}")
+        ce = res["cache"]
+        want = rollout_launches(CACHE_LAYERS, [CACHE_EXIT] * 7, True)
+        got = {k: ce["constrained"]["launches"].get(k, 0) for k in want}
+        print(f"parallel training (e) rank {r}/2 fsdp 2: 21-frame rollout "
+              f"with gradient, {CACHE_LAYERS} layers: cache_gb_held "
+              f"without={ce['free']['cache_bytes'] / GB:.3f} with the "
+              f"constraint={ce['constrained']['cache_bytes'] / GB:.3f} loss "
+              f"{ce['free']['loss']!r} / {ce['constrained']['loss']!r} "
+              f"grad_rel_l2={ce['grad_rel_l2']:.2e} ms="
+              f"{ce['free']['ms']:.1f} / {ce['constrained']['ms']:.1f} "
+              f"peak_gb={ce['free']['peak_gb']:.2f} / "
+              f"{ce['constrained']['peak_gb']:.2f} launches={got} "
+              f"(exact) [{smi}]", flush=True)
+        if ce["free"]["loss"] != ce["constrained"]["loss"] \
+                or ce["grad_rel_l2"] > 1e-3 or got != want \
+                or ce["free"]["launches"] != ce["constrained"]["launches"] \
+                or ce["constrained"]["cache_bytes"] * 2 \
+                != ce["free"]["cache_bytes"]:
+            fail(f"parallel training (e) rank {r}: {ce}, launches {got} vs "
+                 f"{want}")
+    n1, n2 = len(lines["cli1"]), len(lines["cli2"])
+    print(f"parallel training CLI: train.main 2 steps (causal_diffusion.yaml, "
+          f"stand-in latents from the seed), {CLI_LAYERS} layers, "
+          f"2 gloo ranks ({rs[0]['cli_s']:.1f} s) vs one process "
+          f"({cli1_s:.1f} s): metrics.jsonl lines {n2} (one process {n1}), "
+          f"final.pt rel_l2={cli_rel:.2e}", flush=True)
+    if n1 != 2 or n2 != 2 or cli_rel > 1e-5:
+        fail("parallel training CLI: rank 0 alone must log 2 steps and "
+             "write the one-process checkpoint")
+    print(f"parallel training: phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s (the gloo ranks "
+          f"{ranks_s:.1f} s from their start, {join_s:.1f} s of it after "
+          f"(a); (d) and (e) ran beside (a))", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=3,
@@ -5095,6 +5454,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     GC_CLOCK.install()
+    t_start = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s after "
+              f"{done} (host clock)", flush=True)
 
     # 1. environment and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5134,6 +5498,8 @@ def main() -> None:
     if a.kernels_only:
         print("kernels only: the main path was not run", flush=True)
         return
+
+    elapsed("phases 1-2")
 
     # 3-5 for the parity configuration: one forward kernels vs plain, the
     # stream, where the time goes
@@ -5209,11 +5575,14 @@ def main() -> None:
     del win_i8, qparams
     torch.cuda.empty_cache()
 
+    elapsed("phases 3-6")
+
     # 7. the training path, with float32 products in TF32 as train.py
     # runs them; then a critic-only step under the bounded softmax and
     # the critic-loss gradient under each softmax
     torch.backends.cuda.matmul.allow_tf32 = True
-    train_launches = phase_training(ca, a.seed)
+    dmd_one = {}    # step 0 in one process: phase 17(a)'s reference
+    train_launches = phase_training(ca, a.seed, keep=dmd_one)
     launches.update({k: train_launches[k] for k in
                      ("flash_fwd", "flash_bwd")})
     torch.cuda.empty_cache()
@@ -5225,10 +5594,14 @@ def main() -> None:
         torch.cuda.empty_cache()
     launches["flash_fwd_online"] = grad_launches["flash_fwd_online"]
 
+    elapsed("phase 7")
+
     # 8. the Wan VAE under its conv backends, and the i2v path
     torch.backends.cuda.matmul.allow_tf32 = False
     launches.update(phase_vae(cc, tconv, vae, dit, pipe_mod, a.seed))
     torch.cuda.empty_cache()
+
+    elapsed("phase 8")
 
     # 9. the Wan-14B demo stream, last, with every earlier tensor freed
     wan14b = phase_wan14b(ca, cm, dit, taehv, pipe_mod, quant, chip,
@@ -5240,6 +5613,8 @@ def main() -> None:
         "w8a8_ffn1_xq", "w8a8_matmul_bf16x", "decode_window",
         "decode_window_f32")})
 
+    elapsed("phase 9")
+
     # 10. the text-to-video main path: umT5, the checkpoint loaders and
     # the CLI's per-prompt function (its launches are checked there; the
     # kernel line keeps phase 4's); its model directory stays for 12
@@ -5247,14 +5622,20 @@ def main() -> None:
     try:
         phase_text_to_video(ca, dit, vae, a.blocks, a.seed, model_dir)
 
+        elapsed("phase 10")
+
         # 11. the pose-conditioned 50-step causal path (the CLI's
         # --dwpose_path) and the bidirectional samplers (their launches
         # are checked there; the kernel line keeps phase 4's)
         phase_pose_diffusion(ca, dit, vae, a.seed)
 
+        elapsed("phase 11")
+
         # 12. the streaming demo server serving a few requests (its
         # launches are checked there; the kernel line keeps phase 4's)
         phase_serving(ca, cm, dit, vae, a.seed, model_dir)
+
+        elapsed("phase 12")
 
         # 13. the image-to-video path at Wan-I2V-14B width, with every
         # earlier tensor freed (its launches are checked there; the
@@ -5262,11 +5643,15 @@ def main() -> None:
         phase_image_to_video(ca, dit, vae, a.seed)
         torch.cuda.empty_cache()
 
+        elapsed("phase 13")
+
         # 14. the ODE, causal-diffusion, GAN and SiD trainers (float32
         # weights, TF32 products as train.py runs them; their launches
         # are checked there; the kernel line keeps phases 4 and 7's)
         torch.backends.cuda.matmul.allow_tf32 = True
         phase_other_trainers(ca, dit, a.seed)
+
+        elapsed("phase 14")
 
         # 15. the data-prep chain on phase 10's model directory and pose
         # distillation (bf16, TF32 products as train.py runs them; the
@@ -5277,10 +5662,21 @@ def main() -> None:
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    # 16. tensor and sequence parallelism, last (its ranks are processes
-    # of their own; they check their launches there)
+    elapsed("phase 15")
+
+    # 16. tensor and sequence parallelism (its ranks are processes of
+    # their own; they check their launches there)
     launches.update(phase_parallel(a.seed))
 
+    elapsed("phase 16")
+
+    # 17. parallel training, last (its launches are checked there; the
+    # kernel line keeps phases 4 and 7's)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    phase_parallel_training(ca, a.seed, dmd_one)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    elapsed("phase 17")
     attn, w8a8 = "self_forcing_tpu/ops/pallas_attention.py", \
         "self_forcing_tpu/ops/pallas_matmul.py"
     pconv = "self_forcing_tpu/ops/pallas_conv.py"

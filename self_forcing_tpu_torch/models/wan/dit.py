@@ -136,11 +136,14 @@ def _qk_rms_norm(x: torch.Tensor, weight: torch.Tensor,
     tensor parallelism x holds only the rank's head columns (every rank
     the same width), so the float32 mean of squares over the full width
     is the all-reduced sum of the ranks' means over their columns,
-    divided by the ranks: at one rank, ``rms_norm``'s own arithmetic."""
+    divided by the ranks: at one rank, ``rms_norm``'s own arithmetic.
+    Under autograd the sum's gradient is all-reduced too (every rank's
+    heads use it)."""
     if cfg.tp_group is None:
         return rms_norm(x, weight, cfg.eps)
     xf = x.float()
-    ms = comm.all_reduce(xf.pow(2).mean(dim=-1, keepdim=True), cfg.tp_group)
+    ms = comm.all_reduce_both(xf.pow(2).mean(dim=-1, keepdim=True),
+                              cfg.tp_group)
     tp = torch.distributed.get_world_size(cfg.tp_group)
     if tp > 1:
         ms = ms / tp
@@ -153,19 +156,28 @@ def _out_linear(p: Params, x: torch.Tensor, cfg: WanConfig,
     """A row-sharded output projection (attention o, ffn fc2).  Under
     tensor parallelism each rank holds a row shard of w: its product is a
     partial sum, all-reduced over ``cfg.tp_group``; the replicated bias is
-    added once after the reduction, then the all-reduced LoRA term."""
+    added once after the reduction, then the all-reduced LoRA term.  The
+    reduced output is replicated, so its gradient reaches each rank's
+    partial product as it is (``comm.reduce_from``)."""
     if cfg.tp_group is None:
         return linear(p, x, kernels)
     if "w_q" in p or "w_qa" in p or "w_f8" in p:
         raise ValueError("tensor parallelism takes no quantized linear")
-    out = comm.all_reduce(_matmul(x, p["w"]), cfg.tp_group)
+    out = comm.reduce_from(_matmul(x, p["w"]), cfg.tp_group)
     if "b" in p:
         out = out + p["b"]
     if "lora_A" in p:
-        delta = comm.all_reduce(_matmul(_matmul(x, p["lora_A"]),
-                                        p["lora_B"]), cfg.tp_group)
+        delta = comm.reduce_from(_matmul(_matmul(x, p["lora_A"]),
+                                         p["lora_B"]), cfg.tp_group)
         out = out + delta * p["lora_scale"]
     return out
+
+
+def _tp_in(x: torch.Tensor, cfg: WanConfig) -> torch.Tensor:
+    """A replicated activation entering the rank's column-sharded
+    products under tensor parallelism: its gradient is the sum of the
+    ranks' (``comm.copy_to``)."""
+    return x if cfg.tp_group is None else comm.copy_to(x, cfg.tp_group)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6,
@@ -296,11 +308,21 @@ def init_params(cfg: WanConfig, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
+def _layer_params(bp: Params) -> Params:
+    """A layer's parameters as a plain dict: a ZeRO-3 layer view
+    (``parallel/fsdp.py``) gathers them here, in one collective."""
+    return bp.materialize() if hasattr(bp, "materialize") else bp
+
+
 def split_layers(blocks: Params) -> list[Params]:
     """Every layer's parameters out of the stacked block tree, from one
     ``unbind`` of each leaf: under autograd the stacked gradient is then
     assembled once per forward, where an index per layer would build a
-    zero tensor the size of the whole stack for every layer."""
+    zero tensor the size of the whole stack for every layer.  A ZeRO-3
+    tree (``parallel/fsdp.py``) returns its layers' views, which a block
+    gathers as it starts (:func:`_layer_params`)."""
+    if hasattr(blocks, "layers"):
+        return blocks.layers()
     per = tree.map_tree(lambda t: t.unbind(0), blocks)
     return [_pick(per, i) for i in range(len(tree.leaves(blocks)[0]))]
 
@@ -447,7 +469,7 @@ def _qkv_project(p: Params, x: torch.Tensor, kernels: bool = True):
 
 def _qk_normed(p: Params, cfg: WanConfig, x: torch.Tensor,
                q_gain: float | None, kernels: bool = True):
-    q, k, v = _qkv_project(p, x, kernels)
+    q, k, v = _qkv_project(p, _tp_in(x, cfg), kernels)
     if cfg.qk_norm:
         wq = p["norm_q"]["w"]
         if q_gain is not None:
@@ -495,8 +517,10 @@ def precompute_context(params: Params, cfg: WanConfig,
     layers = split_layers(params["blocks"]["cross_attn"])
 
     def kv(ctx, k_name, v_name, norm_name):
+        ctx = _tp_in(ctx, cfg)
         ks, vs = [], []
         for p in layers:
+            p = _layer_params(p)
             k = linear(p[k_name], ctx)
             if cfg.qk_norm:
                 k = _qk_rms_norm(k, p[norm_name]["w"], cfg)
@@ -528,7 +552,7 @@ def _cross_attention(bp: Params, cfg: WanConfig, x: torch.Tensor,
     i2v layer context) a second attention onto the image keys, the two
     outputs summed before the output projection."""
     p = bp["cross_attn"]
-    q = linear(p["q"], x, kernels)
+    q = linear(p["q"], _tp_in(x, cfg), kernels)
     if cfg.qk_norm:
         q = _qk_rms_norm(q, p["norm_q"]["w"], cfg)
     packed = _packed_ok(cfg)
@@ -566,7 +590,8 @@ def _ffn(bp: Params, cfg: WanConfig, x: torch.Tensor,
     fc1, fc2 = bp["ffn"]["fc1"], bp["ffn"]["fc2"]
     if "w_qa" in fc1 and "w_qa" in fc2:
         return quant.quantized_ffn(fc1, fc2, x, kernels)
-    return _out_linear(fc2, gelu_tanh(linear(fc1, x, kernels)), cfg, kernels)
+    return _out_linear(fc2, gelu_tanh(linear(fc1, _tp_in(x, cfg), kernels)),
+                       cfg, kernels)
 
 
 def _gate(x: torch.Tensor, g: torch.Tensor,
@@ -615,13 +640,17 @@ class KVCache:
     bound on the cached keys; zero when empty, raised by the global
     cache's writes under the bounded softmax on the kernel route.  None
     (a cache built without it) knows no bound: 'bounded' then runs the
-    online softmax, as on the windowed cache."""
+    online softmax, as on the windowed cache.  ``shard`` (the training
+    rollout's cache constraint, ``parallel/fsdp.ShardedCache``): k / v
+    hold this rank's slice, a layer is all-gathered where a block reads it
+    and a write goes to the slice's rows."""
 
     k: torch.Tensor
     v: torch.Tensor
     global_end: int = 0
     local_end: int = 0
     kmax: torch.Tensor | None = None
+    shard: object | None = None
 
 
 def init_kv_cache(cfg: WanConfig, batch_size: int, frame_seqlen: int,
@@ -746,7 +775,13 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
     layer's ``KVCache.kmax``) passes m0 = head_dim**-0.5 * max|q_row| *
     max(kmax_layer, max|k_new_row|); everything else is the online
     softmax.  Off the route the unfolded base-e reference runs (quant
-    ignored)."""
+    ignored).  A sharded cache layer (``KVCache.shard``'s ``layer``) is
+    all-gathered here, inside a remat'd block, and the attention saves
+    the gathered layer for its backward (a recompute gathers it again)."""
+    save_cache = hasattr(k_cache, "gathered")
+    if save_cache:
+        k_cache, v_cache, layer_idx = k_cache.gathered(), v_cache.gathered(), 0
+    bp = _layer_params(bp)
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]
@@ -767,6 +802,8 @@ def _block_decode_fresh(bp: Params, cfg: WanConfig, x: torch.Tensor,
                      sink_end=sink_hi, tk_align=tk_align,
                      window_static=window_static, quant=quant_mode,
                      kernels=kernels)
+    if save_cache:
+        attn_args["save_cache"] = True
     kn_norm = None
 
     def bound(q_, k_, heads):
@@ -869,6 +906,9 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     current_end = int(cache_start_frame) * frame_seqlen + Lq
     window = {}
     if cfg.local_attn_size != -1:
+        if cache.shard is not None:
+            raise ValueError("a sharded KV cache is global: the windowed "
+                             "cache's compaction moves rows across slices")
         if not assume_compacted and current_end > cache.global_end:
             cache = _windowed_compact(cfg, cache, Lq, frame_seqlen)
         sink_tokens = cfg.sink_size * frame_seqlen
@@ -897,12 +937,16 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
     kn_norms = []
     for li, (bp, layer_ctx) in enumerate(zip(split_layers(params["blocks"]),
                                              layer_context(ctx_kv))):
+        kc, vc = (cache.k, cache.v) if cache.shard is None \
+            else cache.shard.layer(cache, li)
         tokens, k_new, v_new, kn_norm = block(
-            bp, cfg, tokens, e0, cos, sin, cache.k, cache.v, attn_lo,
+            bp, cfg, tokens, e0, cos, sin, kc, vc, attn_lo,
             write_at, layer_ctx, frame_seqlen, static_kv_hi, layer_idx=li,
             emit_kv=write_cache, kernels=kernels,
             kmax_layer=None if kmax is None else kmax[li], **window)
-        if write_cache:
+        if write_cache and cache.shard is not None:
+            cache.shard.write(cache, li, write_at, k_new, v_new)
+        elif write_cache:
             # later layers read only their own layer: writing now is the
             # same as the JAX package's single write after the layer scan
             cache.k[li, :, write_at:write_at + Lq] = k_new
@@ -914,7 +958,7 @@ def forward_inference(params: Params, cfg: WanConfig, x: torch.Tensor,
         if kn_norms:   # the incremental update of the cached-K bound
             kmax = torch.maximum(kmax, torch.stack(kn_norms))
         cache = KVCache(k=cache.k, v=cache.v, global_end=current_end,
-                        local_end=local_end, kmax=kmax)
+                        local_end=local_end, kmax=kmax, shard=cache.shard)
 
     out_tokens = head_forward(params, cfg, tokens, e, frame_seqlen)
     return unpatchify(cfg, out_tokens, grid), cache
@@ -941,6 +985,7 @@ def _block_train(bp: Params, cfg: WanConfig, x: torch.Tensor,
     applied, no gain folded) replaces the flash attention: the
     sequence-parallel ring attention plugs in here, so the block's math
     is not forked."""
+    bp = _layer_params(bp)
     mod = bp["modulation"].float()[:, None]
     e = (mod + e0.float()).to(x.dtype)
     e_shift, e_scale, e_gate = e[:, :, 0:1], e[:, :, 1:2], e[:, :, 2:3]

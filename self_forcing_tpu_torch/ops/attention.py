@@ -313,7 +313,8 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
                            tk_align: int | None = None,
                            window_static: tuple[int, int] | None = None,
                            fixed_m0=None, int8_bound: str = "tile",
-                           kernels: bool = True) -> torch.Tensor:
+                           kernels: bool = True,
+                           save_cache: bool = False) -> torch.Tensor:
     """KV-cache attention where the current block's K/V are not in the
     cache yet: queries see ``cache[kv_start:kv_end)`` (plus
     ``[0, sink_end)``) and all of k_new/v_new.
@@ -337,7 +338,10 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
     (``'global'``), or against the running max (no bound).  The tiles
     are the Pallas kernel's (:func:`decode_tiles`).  ``tk_align`` aligns
     the cache tiles to whole frames (the windowed caller passes
-    frame_seqlen).  ``window_static``: the windowed caller's
+    frame_seqlen).  ``save_cache``: under autograd the backward's cache
+    is saved with ``save_for_backward`` (a gathered copy that nothing
+    writes, which a remat'd layer drops and regathers), not held by
+    reference.  ``window_static``: the windowed caller's
     (sink_tokens, recent_tokens) promise that the window holds at most
     that many tokens in each interval; the Pallas kernel sizes a
     compressed grid from it, the CUDA kernels skip dead tiles anyway, so
@@ -359,7 +363,8 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_fresh(
             q_bf, k_cache, v_cache, kn_bf, vn_bf, kv_start, kv_end, scale,
             static_hi, layer_idx, heads_packed, softmax, sink_end, quant,
-            tk_align, window_static, fixed_m0, int8_bound, kernels).to(wide)
+            tk_align, window_static, fixed_m0, int8_bound, kernels,
+            save_cache).to(wide)
     args = dict(kv_start=int(kv_start), kv_end=int(kv_end), scale=scale,
                 static_hi=static_hi, layer_idx=layer_idx,
                 heads_packed=heads_packed, softmax=softmax, sink_end=sk,
@@ -367,7 +372,8 @@ def decode_attention_fresh(q: torch.Tensor, k_cache: torch.Tensor,
                 fixed_m0=_bound(fixed_m0, q.device), int8_bound=int8_bound,
                 kernels=kernels)
     if _needs_grad(q, k_new, v_new):
-        return _DecodeFresh.apply(q, k_new, v_new, k_cache, v_cache, args)
+        return _DecodeFresh.apply(q, k_new, v_new, k_cache, v_cache, args,
+                                  save_cache)
     return _decode_dispatch(q, k_cache, v_cache, k_new, v_new, **args)
 
 
@@ -392,12 +398,18 @@ class _DecodeFresh(torch.autograd.Function):
     v_new only, as the cache is stop-gradient in the JAX package."""
 
     @staticmethod
-    def forward(ctx, q, k_new, v_new, k_cache, v_cache, args):
+    def forward(ctx, q, k_new, v_new, k_cache, v_cache, args,
+                save_cache=False):
         if q.dim() != 3:
             raise ValueError("the decode attention's gradient takes "
                              "heads-packed or folded 3-D operands")
-        ctx.save_for_backward(q, k_new, v_new)
-        ctx.cache, ctx.args = (k_cache, v_cache), args
+        if save_cache:
+            ctx.save_for_backward(q, k_new, v_new, k_cache, v_cache)
+            ctx.cache = None
+        else:
+            ctx.save_for_backward(q, k_new, v_new)
+            ctx.cache = (k_cache, v_cache)
+        ctx.args = args
         li = args["layer_idx"] or 0
         ctx.witness = _window_rows(k_cache, v_cache, li, args["kv_start"],
                                    args["kv_end"], args["sink_end"])
@@ -405,8 +417,8 @@ class _DecodeFresh(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k_new, v_new = ctx.saved_tensors
-        (k_cache, v_cache), a = ctx.cache, ctx.args
+        q, k_new, v_new, *saved = ctx.saved_tensors
+        (k_cache, v_cache), a = ctx.cache or saved, ctx.args
         li = a["layer_idx"] or 0
         now = _window_rows(k_cache, v_cache, li, a["kv_start"], a["kv_end"],
                            a["sink_end"])
@@ -431,7 +443,7 @@ class _DecodeFresh(torch.autograd.Function):
             q, k_cache, v_cache, k_new, v_new, g.contiguous(),
             layer_idx=li, kv_start=a["kv_start"], kv_end=a["kv_end"],
             sink_end=a["sink_end"], num_heads=N, scale=scale)
-        return dq, dkn, dvn, None, None, None
+        return dq, dkn, dvn, None, None, None, None
 
 
 def _decode_kernel(softmax, quant, fixed_m0, int8_bound) -> tuple[str, str]:

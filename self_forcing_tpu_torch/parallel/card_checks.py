@@ -20,12 +20,21 @@ on the CPU.
   shard; then ``sequence.forward_train_sp`` on a cut of Wan-I2V-14B
   (both ranks holding the weights) against the single-process
   ``dit.forward_train``.
+
+Phase 17 (parallel training): :func:`train_gloo_two_ranks` on two gloo
+ranks: the ZeRO-3 DMD and diffusion steps on an fsdp-2 mesh, the
+ZeRO-3-over-sp teacher's DMD step on an sp-2 mesh, ``forward_train_tp``'s
+gradients, the rollout with and without the cache constraint and
+``train.main``, each against one process where the check names one;
+``chip_smoke.py`` runs phase 17(a) in its own process with
+:func:`_tree_rel_l2` / :func:`_log_rel`.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
+import math
 import os
 import time
 
@@ -299,3 +308,422 @@ def gloo_two_ranks(rank: int, world: int, spec: dict, out_dir: str) -> None:
     res["stream"] = _tp_stream(spec, dev, mesh)
     res["sp"] = _sp_forward(spec, dev)
     _write(out_dir, "gloo", rank, res)
+
+
+# ---------------------------------------------------------------------
+# phase 17: parallel training (ZeRO-3 trainers, the cache constraint,
+# tp gradients, the ZeRO-3-over-sp teacher, the CLI)
+# ---------------------------------------------------------------------
+
+def _dmd_config(spec: dict, **over) -> Config:
+    """``configs/self_forcing_dmd.yaml`` (spec['configs'] is its
+    directory) with the seed and ``over``."""
+    from self_forcing_tpu_torch.config import load_config
+    config = load_config(os.path.join(spec["configs"],
+                                      "self_forcing_dmd.yaml"),
+                         os.path.join(spec["configs"],
+                                      "default_config.yaml"))
+    config.update(seed=spec["seed"], **over)
+    return config
+
+
+def _context(config, cfg, dev, n: int = 1):
+    """(the batch's text context [n, 512, text_dim], the negative
+    prompt's [1, ...]) from ``train``'s pseudo embeddings."""
+    from self_forcing_tpu_torch import train
+    fn = train.make_context_fn(config, cfg, dev)
+    return (fn([f"placeholder prompt {i}" for i in range(n)]),
+            fn([str(config.negative_prompt)]))
+
+
+def _whole_cpu(tree_) -> list[torch.Tensor]:
+    return [t.detach().float().cpu() for t in tree.leaves(tree_)]
+
+
+def _l2_parts(a: list, b: list) -> tuple[float, float]:
+    """(||a - b||, ||b||) over two lists of leaves, in float32 on ``a``'s
+    leaves' device (``b``'s are moved there one by one)."""
+    num = den = 0.0
+    for x, y in zip(a, b):
+        x = x.float()
+        y = y.to(x.device).float()
+        num += float((x - y).pow(2).sum())
+        den += float(y.pow(2).sum())
+    return num ** 0.5, den ** 0.5
+
+
+def _tree_rel_l2(a: list, b: list) -> float:
+    """Relative L2 distance of two lists of leaves over all of them."""
+    num, den = _l2_parts(a, b)
+    return num / max(den, 1e-30)
+
+
+def dmd_weights(trainer) -> dict:
+    """A DMD trainer's whole generator and critic leaves (ZeRO-3 slices
+    gathered) on the host: the ``before`` of :func:`dmd_state`."""
+    return {name: [t.detach().to("cpu", copy=True)
+                   for t in tree.leaves(model.full())]
+            for name, model in (("generator", trainer.gen),
+                                ("critic", trainer.fake))}
+
+
+def dmd_state(trainer, before: dict, host: bool = True) -> dict:
+    """A DMD trainer's state after a step, for the generator and the
+    critic: the update of the whole tree (its leaves less ``before``'s,
+    :func:`dmd_weights`, in each leaf's dtype: a step of a few ulps is
+    exact there), the updated tree's L2 norm and the first AdamW moment
+    (ZeRO-3 slices gathered); on the host unless ``host`` is False.  At
+    lr 2e-6 (4e-7 for the critic) a step moves a bf16 weight by less
+    than its rounding, so only the update and the moment (the gradient,
+    with beta1 0) show what the step did."""
+    out = {}
+    for name, model, opt in (
+            ("generator", trainer.gen, trainer.state.gen_opt_state),
+            ("critic", trainer.fake, trainer.state.critic_opt_state)):
+        upd, sq = [], 0.0
+        for a, b in zip(tree.leaves(model.full()), before[name]):
+            a = a.detach()
+            sq += float(a.float().pow(2).sum())
+            u = (a.float() - b.to(a.device).float()).to(a.dtype)
+            upd.append(u.cpu() if host else u)
+        out[name + "_update"], out[name + "_norm"] = upd, sq ** 0.5
+        out[name + "_moment"] = [
+            m.detach().to("cpu" if host else m.device, copy=True)
+            for m in model.full_opt(opt)["mu"] if m is not None]
+    return out
+
+
+def dmd_distances(state: dict, ref: dict) -> dict:
+    """A DMD step's :func:`dmd_state` against a reference step's from the
+    same weights: for the generator and the critic the relative L2
+    distance of the updated trees (``<model>_rel_l2``: the updates'
+    difference over the reference tree's norm), of the updates
+    (``<model>_update_rel_l2``) and of the first moments
+    (``<model>_moment_rel_l2``)."""
+    out = {}
+    for m in ("generator", "critic"):
+        num, den = _l2_parts(state[m + "_update"], ref[m + "_update"])
+        out[m + "_rel_l2"] = num / max(ref[m + "_norm"], 1e-30)
+        out[m + "_update_rel_l2"] = num / max(den, 1e-30)
+        out[m + "_moment_rel_l2"] = _tree_rel_l2(state[m + "_moment"],
+                                                 ref[m + "_moment"])
+    return out
+
+
+def _log_rel(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b
+               if not k.endswith("_ms"))
+
+
+def _state_bytes(trainer) -> int:
+    """This rank's bytes of the generator's and the critic's parameters
+    and AdamW moments (ZeRO-3 slices on a mesh)."""
+    s = trainer.state
+    n = 0
+    for leaves, opt in ((trainer.gen_leaves, s.gen_opt_state),
+                        (trainer.fake_leaves, s.critic_opt_state)):
+        for t in leaves + [m for m in opt["mu"] + opt["nu"]
+                           if m is not None]:
+            n += t.numel() * t.element_size()
+    return n
+
+
+def _dmd_run(spec: dict, dev, mesh, layers: int, config,
+             teacher_cfg=None, stamp: int = 0) -> dict:
+    """One ``ScoreDistillationTrainer.train_step`` (the generator and the
+    critic) on weights drawn from the seed: its log, ms (host clock,
+    synchronised), launches, peak, the gloo collectives' ms and the
+    state's bytes on this rank; and its :func:`dmd_state` (on the
+    host)."""
+    from self_forcing_tpu_torch.training.trainer_distillation import (
+        ScoreDistillationTrainer)
+    cfg = dataclasses.replace(spec["model"], num_layers=layers,
+                              num_frame_per_block=3)
+    tcfg = cfg if teacher_cfg is None else teacher_cfg
+    seed = spec["seed"] + stamp
+    gen = _params(cfg, seed, dev)
+    fake = _params(cfg, seed + 1, dev, causal=False)
+    real = _params(tcfg, seed + 2, dev, causal=False)
+    ctx, neg = _context(config, cfg, dev)
+    _reset_peak(dev)
+    trainer = ScoreDistillationTrainer(config, gen, fake, real, cfg, cfg,
+                                       tcfg, neg, device=dev, mesh=mesh)
+    # the cache constraint is (e)'s: with it every forward would gather
+    # each layer's cache through host memory
+    trainer.bundle.rollout_act_shard = None
+    real_bytes = trainer.real.nbytes() if mesh is not None \
+        else int(_gb(real) * 1e9)
+    del gen, fake, real
+    before = dmd_weights(trainer)
+    trainer.state.step = 0
+    _sync(dev)
+    comm.CLOCK.on = True
+    comm.CLOCK.reset()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    log = trainer.train_step({"context": ctx})
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    comm.CLOCK.on = False
+    launches = {k: v for k, v in ca.launch_counts.items() if v}
+    peak = _peak_gb(dev)
+    out = {"log": log, "ms": ms, "launches": launches, "peak_gb": peak,
+           "comm_ms": comm.CLOCK.ms, "comm_calls": comm.CLOCK.calls,
+           "state_bytes": _state_bytes(trainer), "teacher_bytes": real_bytes,
+           "layers": layers, "teacher_layers": tcfg.num_layers,
+           "finite": all(math.isfinite(v) for v in log.values())}
+    state = dmd_state(trainer, before)
+    del trainer
+    _reset_peak(dev)
+    return out, state
+
+
+def _compare(out: dict, state: dict, ref: dict, ref_state: dict) -> None:
+    out["vs_one_process"] = {
+        "log_rel": _log_rel(out["log"], ref["log"]),
+        **dmd_distances(state, ref_state),
+        "launches": ref["launches"], "ms": ref["ms"],
+        "peak_gb": ref["peak_gb"], "state_bytes": ref["state_bytes"],
+        "teacher_bytes": ref["teacher_bytes"]}
+
+
+def _diffusion_run(spec: dict, dev, mesh, layers: int) -> tuple:
+    """Two ``DiffusionTrainer`` steps (teacher forcing, blocks of 3) on a
+    batch of 2 seeded latents, split over the ranks on a mesh."""
+    from self_forcing_tpu_torch.config import load_config
+    from self_forcing_tpu_torch.training.trainer_diffusion import (
+        DiffusionTrainer)
+    config = load_config(os.path.join(spec["configs"],
+                                      "causal_diffusion.yaml"),
+                         os.path.join(spec["configs"],
+                                      "default_config.yaml"))
+    config.update(seed=spec["seed"])
+    cfg = dataclasses.replace(spec["model"], num_layers=layers)
+    gen = _params(cfg, spec["seed"] + 3, dev)
+    H, W = spec["latent_hw"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 4)
+    batch = {"latents": torch.randn(2, 21, 16, H, W, generator=g,
+                                    device=dev),
+             "context": torch.randn(2, 512, cfg.text_dim, generator=g,
+                                    device=dev)}
+    _reset_peak(dev)
+    trainer = DiffusionTrainer(config, gen, cfg, device=dev, mesh=mesh)
+    del gen
+    logs, ms = [], []
+    ca.reset_launch_counts()
+    comm.CLOCK.on = True
+    comm.CLOCK.reset()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logs.append(trainer.train_step(batch))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    comm.CLOCK.on = False
+    out = {"logs": logs, "ms": ms, "peak_gb": _peak_gb(dev),
+           "comm_ms": comm.CLOCK.ms,
+           "launches": {k: v for k, v in ca.launch_counts.items() if v},
+           "state_bytes": sum(t.numel() * t.element_size() for t in
+                              trainer.leaves + [
+                                  m for m in trainer.opt_state["mu"]
+                                  + trainer.opt_state["nu"]
+                                  if m is not None])}
+    whole = _whole_cpu(trainer.model.full())
+    del trainer
+    _reset_peak(dev)
+    return out, whole
+
+
+def _cache_run(spec: dict, dev, mesh, constrained: bool) -> dict:
+    """The with-grad 21-frame rollout (exit spec['cache_exit'] in every
+    block, blocks of 3)
+    on the fsdp-2 mesh with and without the cache constraint: the loss of
+    a seeded weighting of the trajectory, the generator's gradient slices
+    (on the host), the cache bytes this rank held and the peak."""
+    from self_forcing_tpu_torch.training.objectives.base import (
+        ModelBundle, ObjectiveConfig)
+    from self_forcing_tpu_torch.training.trainer_distillation import (
+        TrainedModel)
+    cfg = dataclasses.replace(spec["model"],
+                              num_layers=spec["cache_layers"],
+                              num_frame_per_block=3)
+    obj = ObjectiveConfig(num_frame_per_block=3, num_training_frames=21)
+    bundle = ModelBundle.create(cfg, cfg, cfg, obj, STEPS, device=dev)
+    model = TrainedModel(_params(cfg, spec["seed"] + 8, dev), mesh, 2 ** 16)
+    held = {}
+
+    def act(cache):
+        if constrained:
+            cache = mesh_mod.rollout_cache_constraint(mesh)(cache)
+        held["bytes"] = cache.k.nbytes + cache.v.nbytes
+        return cache
+    bundle.rollout_act_shard = act
+    H, W = spec["latent_hw"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 9)
+    noise = torch.randn(1, 21, 16, H, W, generator=g, device=dev)
+    w = torch.randn(noise.shape, generator=g, device=dev)
+    ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device=dev)
+    _reset_peak(dev)
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = model.fwd()
+    ctx_kv = dit.precompute_context(params, cfg, ctx)
+    traj, _, _, _ = bundle.run_generator(params, noise, ctx_kv,
+                                         spec["cache_exit"],
+                                         generator=torch.Generator(
+                                             device=dev).manual_seed(1))
+    loss = (traj.float() * w).mean()
+    grads = model.reduce(torch.autograd.grad(loss, model.leaves,
+                                             allow_unused=True))
+    _sync(dev)
+    return {"loss": float(loss.detach()),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "grads": [x.detach().float().cpu() for x in grads],
+            "cache_bytes": held["bytes"], "peak_gb": _peak_gb(dev),
+            "launches": {k: v for k, v in ca.launch_counts.items() if v}}
+
+
+def _wait_for(path: str, timeout_s: float = 1800.0) -> str:
+    """The text of the file at ``path`` once it exists (polled every
+    0.1 s; 'stop' after ``timeout_s``)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout_s:
+            return "stop"
+        time.sleep(0.1)
+    with open(path) as f:
+        return f.read().strip()
+
+
+def _tp_grads_check(spec: dict, dev) -> dict:
+    """``tensor.forward_train_tp`` at tp 2 on a cut of Wan-14B (float32
+    weights, inputs and products, TF32 off, so that the comparison sees
+    the collectives and not rounded partial products; the attention
+    kernels round their operands to bf16 alike; 3 latent frames at
+    60x104, one step of 500) and its gradients with respect to the
+    rank's shard, against the single-process ``dit.forward_train``
+    gradients (rank's slice) of the same weights: all leaves together
+    and the three worst leaves by name."""
+    mesh = tensor.tp_mesh(torch.distributed.get_world_size(), dev.type)
+    r, tp = tensor.mesh_rank_size(mesh)
+    cfg = dataclasses.replace(spec["tp_model"], num_layers=spec["tp_layers"])
+    full = tree.map_tree(lambda t: t.float(),
+                         _params(cfg, spec["seed"] + 10, dev, causal=False))
+    rope = RopeTables.create(cfg.head_dim, device=dev)
+    H, W = spec["latent_hw"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 11)
+    x = torch.randn(1, 3, 16, H, W, generator=g, device=dev)
+    ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device=dev)
+    t = torch.full((1, 3), 500.0, device=dev)
+
+    def grads(params, fwd):
+        leaves = tree.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        out = fwd(params)
+        gs = torch.autograd.grad(out.float().pow(2).mean(), leaves,
+                                 allow_unused=True)
+        return out.detach(), [torch.zeros_like(p) if x_ is None else x_
+                              for p, x_ in zip(leaves, gs)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ca.reset_launch_counts()
+    comm.CLOCK.on = True
+    comm.CLOCK.reset()
+    t0 = time.perf_counter()
+    out_tp, g_tp = grads(tensor.shard_params(full, r, tp),
+                         lambda p: tensor.forward_train_tp(
+                             p, cfg, x, t, ctx, None, rope, mesh))
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    comm.CLOCK.on = False
+    launches = {k: v for k, v in ca.launch_counts.items() if v}
+    out_1, g_1 = grads(full, lambda p: dit.forward_train(
+        p, cfg, x, t, ctx, None, rope))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    per_leaf, mine = {}, []
+    for (path, sp), a, b in zip(tree.items(tensor.tp_param_specs(full)),
+                                g_tp, g_1):
+        b = b if sp is None else b.chunk(tp, sp)[r]
+        mine.append(b)
+        if float(b.float().norm()) > 0:
+            per_leaf["/".join(map(str, path))] = _rel_l2(a, b)
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    return {"layers": cfg.num_layers, "ms": ms, "comm_ms": comm.CLOCK.ms,
+            "comm_calls": comm.CLOCK.calls, "launches": launches,
+            "out_rel_l2": _rel_l2(out_tp, out_1),
+            "grad_rel_l2_max": worst[0][1], "grad_worst_leaves": worst,
+            "grad_rel_l2_all": _tree_rel_l2(g_tp, mine),
+            "leaves": len(g_tp)}
+
+
+def train_gloo_two_ranks(rank: int, world: int, spec: dict,
+                         out_dir: str) -> None:
+    """(b) - (e) over a gloo group of two ranks sharing the card: a
+    reduced-depth DMD step and two diffusion steps with batch 2 split on
+    an fsdp-2 mesh, each against one process (rank 0) on the same
+    weights; (c) a DMD step on an sp-2 mesh whose Wan-14B-width teacher
+    is sliced over ("fsdp", "sp") (``teacher_zero3_sp``) against one
+    process with the whole teacher; (d) tp-2 gradients; (e) the rollout
+    with and without the cache constraint (spec['cache_layers'] layers);
+    then ``train.main`` for two steps (``train.WAN_1_3B`` cut to
+    spec['cli_layers'] layers).  (d) and (e), which hold little of the
+    card, run first; then, with spec['go'] (a file path), the ranks wait
+    for that file before the rest (the caller's own work goes on
+    meanwhile) and stop if it reads 'stop'."""
+    from self_forcing_tpu_torch import train
+    dev = torch.device(spec["device"])
+    # the float32 products in TF32, as train.py and phase 7 run them
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    d = torch.distributed
+    mesh = mesh_mod.create_mesh(dp=1, fsdp=world, sp=1, device_type=dev.type)
+    res = {"backend": d.get_backend(), "world": world}
+    res["tp"] = _tp_grads_check(spec, dev)
+    _reset_peak(dev)
+    res["cache"] = {c: _cache_run(spec, dev, mesh, c) for c in (False, True)}
+    a, b = res["cache"][False], res["cache"][True]
+    res["cache"] = {"free": a, "constrained": b,
+                    "grad_rel_l2": _tree_rel_l2(b.pop("grads"),
+                                                a.pop("grads"))}
+    _reset_peak(dev)
+    if spec.get("go") and _wait_for(spec["go"]) == "stop":
+        return
+    config = _dmd_config(spec)
+    out, state = _dmd_run(spec, dev, mesh, spec["layers"], config)
+    if rank == 0:
+        ref, ref_state = _dmd_run(spec, dev, None, spec["layers"], config)
+        _compare(out, state, ref, ref_state)
+    d.barrier()
+    res["dmd"] = out
+    out, whole = _diffusion_run(spec, dev, mesh, spec["layers"])
+    if rank == 0:
+        ref, ref_whole = _diffusion_run(spec, dev, None, spec["layers"])
+        out["vs_one_process"] = {
+            "log_rel": max(_log_rel(a, b) for a, b in zip(out["logs"],
+                                                          ref["logs"])),
+            "generator_rel_l2": _tree_rel_l2(whole, ref_whole),
+            "launches": ref["launches"], "ms": ref["ms"],
+            "state_bytes": ref["state_bytes"], "peak_gb": ref["peak_gb"]}
+    d.barrier()
+    res["diffusion"] = out
+    # (c) the ZeRO-3-over-sp teacher
+    sp_mesh = mesh_mod.create_mesh(dp=1, fsdp=1, sp=world,
+                                   device_type=dev.type)
+    tcfg = dataclasses.replace(spec["teacher"],
+                               num_layers=spec["teacher_layers"])
+    out, state = _dmd_run(spec, dev, sp_mesh, spec["layers"],
+                          _dmd_config(spec, teacher_zero3_sp=True),
+                          teacher_cfg=tcfg, stamp=20)
+    if rank == 0:
+        ref, ref_state = _dmd_run(spec, dev, None, spec["layers"], config,
+                                  teacher_cfg=tcfg, stamp=20)
+        _compare(out, state, ref, ref_state)
+    d.barrier()
+    res["sp"] = out
+    train.WAN_1_3B = dataclasses.replace(train.WAN_1_3B,
+                                         num_layers=spec["cli_layers"])
+    t0 = time.perf_counter()
+    train.main(spec["cli_argv"])
+    res["cli_s"] = time.perf_counter() - t0
+    _write(out_dir, "train_gloo", rank, res)

@@ -14,6 +14,8 @@ shard on to the next rank, ``sp - 1`` times, accumulating an online
 softmax.  The attention is plain PyTorch in float32, as the JAX package
 computes it in XLA outside any Pallas kernel.  The output frames are
 all-gathered, so every rank returns the whole prediction.  Forward only.
+With ``param_specs`` the weights are ZeRO-3 slices over ("fsdp", "sp"),
+gathered a layer at a time (the 14B teacher of the DMD trainer).
 """
 from __future__ import annotations
 
@@ -87,7 +89,8 @@ def forward_train_sp(params, cfg: WanConfig, x: torch.Tensor,
                      t: torch.Tensor, context: torch.Tensor,
                      rope: RopeTables, mesh, axis_name: str = "sp",
                      y: torch.Tensor | None = None,
-                     clip_fea: torch.Tensor | None = None) -> torch.Tensor:
+                     clip_fea: torch.Tensor | None = None,
+                     param_specs=None) -> torch.Tensor:
     """The bidirectional no-cache forward (``dit.forward_train`` with no
     mask) with the frames sharded over ``axis_name`` of ``mesh``.
 
@@ -96,7 +99,26 @@ def forward_train_sp(params, cfg: WanConfig, x: torch.Tensor,
     masked out of the ring).  An i2v model's ``y`` [B, F, Cy, H, W] is
     concatenated to x's channels before the frames are split, and
     ``clip_fea`` [B, 257, 1280] is replicated.  Returns the whole flow
-    prediction [B, F, C_out, H, W] on every rank."""
+    prediction [B, F, C_out, H, W] on every rank.
+
+    ``param_specs``: the ZeRO-3-over-sp teacher (the JAX package's
+    ``_sp_gather`` schedule).  ``params`` then holds this rank's slices of
+    a tree laid out by ``param_specs`` (``mesh.combined_fsdp_specs`` over
+    ("fsdp", "sp")); each layer's leaves are all-gathered over their
+    axes inside the layer loop and freed after it, the other leaves
+    where they are read.  ``params`` may also be a ZeRO-3 view
+    (``fsdp.ShardedParams.view``), which gathers the same way.  Forward
+    only: the ring and the gathers carry no gradient rule, so a call
+    under autograd with inputs that need one raises."""
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in (x, context, y,
+                                                        clip_fea)):
+        raise ValueError("forward_train_sp is forward only (the frozen "
+                         "teacher): call it under torch.no_grad()")
+    if param_specs is not None and isinstance(params, dict):
+        from self_forcing_tpu_torch.parallel import fsdp
+        params = fsdp.ShardedParams(params, param_specs, mesh).view(
+            detached=True)
     if y is not None:
         x = torch.cat([x, y.to(x.dtype)], dim=2)
     group = mesh.get_group(axis_name)

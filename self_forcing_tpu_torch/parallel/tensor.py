@@ -10,7 +10,9 @@ column-sharded, o / fc2 row-sharded, the q / k norm gains sliced with
 their heads, everything else replicated.  The blocks then make the only
 collectives tensor parallelism needs (``models/wan/dit.py``): the
 all-reduce of the row-sharded products (``_out_linear``) and of the
-q / k RMS-norm statistics (``_qk_rms_norm``).  Tokens, timesteps and
+q / k RMS-norm statistics (``_qk_rms_norm``), with their gradient rules
+(``_tp_in`` where a replicated activation enters the column-sharded
+products).  Tokens, timesteps and
 the latents stay replicated; each rank's KV cache holds its own heads of
 the folded [L, B*N, S, D] layout, which needs B = 1 (the fold b*N + n is
 then head-contiguous).  ``KVCache.kmax`` is a bound over the rank's own
@@ -202,8 +204,14 @@ def forward_train_tp(params: dict, cfg: WanConfig, x: torch.Tensor,
                      t: torch.Tensor, context: torch.Tensor, mask, rope,
                      mesh, axis: str = AXIS, **kw) -> torch.Tensor:
     """The no-cache forward (:func:`dit.forward_train`) tensor-parallel
-    over ``axis``, every activation replicated.  Forward only: the
-    all-reduces carry no gradient rule."""
+    over ``axis``, every activation replicated.  Differentiable: the
+    row-sharded products' all-reduce passes its gradient through as it is
+    (the output is replicated), a replicated activation entering the
+    column-sharded products sums the ranks' gradients, and the q / k
+    norm's all-reduced statistic all-reduces its gradient
+    (``comm.reduce_from`` / ``copy_to`` / ``all_reduce_both``).  Each
+    rank's gradient of a split leaf is its shard of the one-card
+    gradient, of a replicated leaf the whole one."""
     return dit.forward_train(params, _mesh_config(cfg, mesh, axis), x, t,
                              context, mask, rope, **kw)
 

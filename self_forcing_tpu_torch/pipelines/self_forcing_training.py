@@ -38,14 +38,14 @@ from self_forcing_tpu_torch.models.wan.rope import RopeTables
 from self_forcing_tpu_torch.ops import attention as attn_ops
 from self_forcing_tpu_torch.pipelines.causal_inference import prime_block
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
+from self_forcing_tpu_torch.utils import draws as rand
 
 
 def _draw(shape, like: torch.Tensor, generator: torch.Generator | None,
           given: torch.Tensor | None) -> torch.Tensor:
     if given is not None:
         return given.to(device=like.device, dtype=like.dtype)
-    return torch.randn(shape, generator=generator, device=like.device,
-                       dtype=torch.float32).to(like.dtype)
+    return rand.randn(shape, generator, like.device).to(like.dtype)
 
 
 def _exit_forward(params, cfg: WanConfig, noisy, t, ctx_kv, cache,
@@ -205,7 +205,8 @@ class SelfForcingTrainingPipeline:
                                   initial_latent: torch.Tensor | None = None,
                                   kernels: bool = True,
                                   y: torch.Tensor | None = None,
-                                  add_condition: torch.Tensor | None = None):
+                                  add_condition: torch.Tensor | None = None,
+                                  act_shard=None):
         """Returns (trajectory [B, F_out, C, H, W], denoised_timestep_from,
         denoised_timestep_to).  Gradient flows (when grad mode is on) only
         through the exit-step forwards of the blocks in the final 21
@@ -213,7 +214,11 @@ class SelfForcingTrainingPipeline:
         block.  ``eps[b]``: block b's (denoise_draws, refresh_draw).
         ``y`` [B, F, Cy, H, W] and ``add_condition`` [B, F*fs, 5120]
         cover the noise frames; gradient reaches them only through the
-        exit forwards of the grad suffix."""
+        exit forwards of the grad suffix.  ``act_shard`` (the cache
+        constraint of ``parallel/mesh.py``): the rollout's KV cache is
+        held as this rank's slice, each layer gathered where it is read;
+        the values are unchanged.  The windowed cache (whose compaction
+        moves rows) stays whole."""
         B, F, C, H, W = noise.shape
         nb = self.num_frame_per_block
         if F % nb:
@@ -229,6 +234,8 @@ class SelfForcingTrainingPipeline:
                        else dit._param_dtype(params))
         cache = dit.init_kv_cache(cfg, B, fs, self.num_max_frames,
                                   cache_dtype, noise.device)
+        if act_shard is not None and cfg.local_attn_size == -1:
+            cache = act_shard(cache)
         per_block = not isinstance(exit_idx, int)
         exits = ([int(e) for e in exit_idx] if per_block
                  else [exit_idx] * num_blocks)

@@ -3,8 +3,10 @@
 (causal generator, bidirectional real and fake scores), timestep
 sampling and the generator rollout.
 
-Random draws come from a ``torch.Generator`` or are handed in (``draws``),
-so that tests can give both packages the same numbers.
+Random draws come from a ``torch.Generator`` (or a
+``utils.draws.SplitGenerator``: the global batch's draws, this rank's
+rows) or are handed in (``draws``), so that tests can give both packages
+the same numbers.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from self_forcing_tpu_torch.models.wan.rope import RopeTables
 from self_forcing_tpu_torch.pipelines.self_forcing_training import (
     SelfForcingTrainingPipeline)
 from self_forcing_tpu_torch.scheduler import FlowMatchScheduler
+from self_forcing_tpu_torch.utils import draws as rand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +61,7 @@ def sample_timestep(min_t: int, max_t: int, batch: int, num_frame: int,
     (``draws`` [batch, 1] when given), broadcast over the frames, shifted
     and clamped.  Returns float32 [batch, num_frame]."""
     if draws is None:
-        draws = torch.randint(min_t, max_t, (batch, 1), generator=generator,
-                              device=device)
+        draws = rand.randint(min_t, max_t, (batch, 1), generator, device)
     t = draws.to(device=device, dtype=torch.float32).reshape(batch, 1)
     t = t.expand(batch, num_frame)
     if shift > 1:
@@ -77,8 +79,7 @@ def sample_timestep_per_block(min_t: int, max_t: int, batch: int,
     first frame on its own with ``independent_first_frame``).  Returns
     int64 [batch, num_frame]."""
     def draw(*shape):
-        return torch.randint(min_t, max_t, shape, generator=generator,
-                             device=device)
+        return rand.randint(min_t, max_t, shape, generator, device)
     if independent_first_frame:
         nb = (num_frame - 1) // num_frame_per_block
         tb = draw(batch, nb, 1).expand(batch, nb, num_frame_per_block)
@@ -114,13 +115,26 @@ def score_x0(params, cfg: WanConfig, rope: RopeTables,
              scheduler: FlowMatchScheduler, noisy: torch.Tensor,
              t: torch.Tensor, context: torch.Tensor, remat: bool = True,
              kernels: bool = True, y: torch.Tensor | None = None,
-             clip_fea: torch.Tensor | None = None) -> torch.Tensor:
+             clip_fea: torch.Tensor | None = None, sp_mesh=None,
+             sp_axis: str = "sp", sp_param_specs=None) -> torch.Tensor:
     """A bidirectional score model's x0 prediction of ``noisy`` at
-    timesteps ``t`` [B, F]."""
+    timesteps ``t`` [B, F].  ``sp_mesh``: the forward runs
+    sequence-parallel over that mesh's ``sp_axis`` (ring attention, the
+    14B teacher's route: ``ModelBundle.teacher_sp_mesh``; forward only);
+    ``sp_param_specs``: the ZeRO-3-over-sp layout of ``params``
+    (``mesh.combined_fsdp_specs``), gathered a layer at a time."""
     B, F, C, H, W = noisy.shape
-    flow = dit.forward_train(params, cfg, noisy, t, context, None, rope,
-                             remat=remat, kernels=kernels, y=y,
-                             clip_fea=clip_fea)
+    if sp_mesh is not None:
+        from self_forcing_tpu_torch.parallel.sequence import (
+            forward_train_sp)
+        flow = forward_train_sp(params, cfg, noisy, t, context, rope,
+                                sp_mesh, axis_name=sp_axis, y=y,
+                                clip_fea=clip_fea,
+                                param_specs=sp_param_specs)
+    else:
+        flow = dit.forward_train(params, cfg, noisy, t, context, None, rope,
+                                 remat=remat, kernels=kernels, y=y,
+                                 clip_fea=clip_fea)
     return scheduler.convert_flow_pred_to_x0(
         flow.reshape(B * F, C, H, W), noisy.reshape(B * F, C, H, W),
         t.reshape(-1)).reshape(B, F, C, H, W)
@@ -130,24 +144,33 @@ def cfg_combined_score(params, cfg: WanConfig, rope: RopeTables,
                        scheduler: FlowMatchScheduler, noisy, t, context,
                        neg_context, guidance_scale: float,
                        remat: bool = True, kernels: bool = True,
-                       cond: Optional[dict] = None):
+                       cond: Optional[dict] = None, sp_mesh=None,
+                       sp_axis: str = "sp", sp_param_specs=None):
     """Classifier-free guidance: cond + (cond - uncond) * scale (one
     forward when the scale is 0).  The image / pose conditioning rides
-    both branches."""
+    both branches; ``sp_*`` as :func:`score_x0`."""
     y, clip_fea = model_cond(cfg, cond)
+    sp = dict(sp_mesh=sp_mesh, sp_axis=sp_axis,
+              sp_param_specs=sp_param_specs)
     pos = score_x0(params, cfg, rope, scheduler, noisy, t, context, remat,
-                   kernels, y, clip_fea)
+                   kernels, y, clip_fea, **sp)
     if guidance_scale == 0.0:
         return pos
     uncond = score_x0(params, cfg, rope, scheduler, noisy, t, neg_context,
-                      remat, kernels, y, clip_fea)
+                      remat, kernels, y, clip_fea, **sp)
     return pos + (pos - uncond) * guidance_scale
 
 
 @dataclasses.dataclass
 class ModelBundle:
     """Configs, scheduler, RoPE tables and rollout pipeline of one
-    distillation setup (generator causal, real and fake bidirectional)."""
+    distillation setup (generator causal, real and fake bidirectional).
+
+    On a mesh (the trainer sets them): ``teacher_sp_mesh`` runs the real
+    score sequence-parallel over its ``teacher_sp_axis``;
+    ``teacher_param_sp_specs`` is the real score's ZeRO-3-over-sp layout;
+    ``rollout_act_shard`` (``mesh.rollout_cache_constraint``) shards the
+    rollout's KV cache."""
 
     generator_cfg: WanConfig
     critic_cfg: WanConfig          # fake_score
@@ -161,6 +184,10 @@ class ModelBundle:
     vae_params: Optional[dict] = None
     vae_cfg: Optional[object] = None
     independent_first_frame: bool = False
+    teacher_sp_mesh: Optional[object] = None
+    teacher_sp_axis: str = "sp"
+    teacher_param_sp_specs: Optional[object] = None
+    rollout_act_shard: Optional[object] = None
 
     @classmethod
     def create(cls, generator_cfg: WanConfig, critic_cfg: WanConfig,
@@ -211,7 +238,7 @@ class ModelBundle:
         pred, t_from, t_to = self.pipeline.inference_with_trajectory(
             gen_params, self.generator_cfg, self.rope_g, noise, ctx_kv,
             exit_idx, generator=generator, eps=eps, kernels=kernels, y=y,
-            add_condition=add_condition)
+            add_condition=add_condition, act_shard=self.rollout_act_shard)
         pred, gradient_mask = self.trim_rollout(pred)
         return pred, gradient_mask, t_from, t_to
 

@@ -25,6 +25,7 @@ from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.training.objectives.base import (
     ModelBundle, ObjectiveConfig, align_cond_window, cfg_combined_score,
     model_cond, sample_timestep, score_x0)
+from self_forcing_tpu_torch.utils import draws as rand
 from self_forcing_tpu_torch.utils.loss import get_denoising_loss
 
 
@@ -48,8 +49,14 @@ def _timestep_range(obj: ObjectiveConfig, t_from, t_to):
 def _noise_like(x, generator, given):
     if given is not None:
         return given.to(device=x.device, dtype=x.dtype)
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=torch.float32).to(x.dtype)
+    return rand.randn(x.shape, generator, x.device).to(x.dtype)
+
+
+def teacher_sp(bundle: ModelBundle) -> dict:
+    """The real score's sequence-parallel arguments of ``bundle``."""
+    return dict(sp_mesh=bundle.teacher_sp_mesh,
+                sp_axis=bundle.teacher_sp_axis,
+                sp_param_specs=bundle.teacher_param_sp_specs)
 
 
 def _mark(mark, name):
@@ -87,7 +94,7 @@ def compute_kl_grad(bundle: ModelBundle, obj: ObjectiveConfig,
     real_x0 = cfg_combined_score(
         real_params, bundle.teacher_cfg, bundle.rope_t, bundle.scheduler,
         noisy, t, context, neg_context, obj.real_guidance_scale,
-        kernels=kernels, cond=cond)
+        kernels=kernels, cond=cond, **teacher_sp(bundle))
     grad = fake_x0.float() - real_x0.float()
     p_real = pred.detach().float() - real_x0.float()
     normalizer = p_real.abs().mean(dim=(1, 2, 3, 4), keepdim=True)

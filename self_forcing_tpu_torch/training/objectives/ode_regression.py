@@ -63,10 +63,14 @@ def generator_loss(gen_params, cfg: WanConfig, rope: RopeTables,
                    num_frame_per_block: int,
                    generator: torch.Generator | None = None,
                    i2v: bool = False, draws: dict | None = None,
-                   kernels: bool = True):
+                   kernels: bool = True, split=None):
     """The regression loss and its log: the per-sample MSE
     (``unnormalized_loss`` [B]), the mean timestep per sample
-    (``timestep`` [B]) and the input / output latents."""
+    (``timestep`` [B]) and the input / output latents.  ``split`` (a
+    ``parallel.mesh.DataSharding``: this rank holds its rows of the
+    batch): the masked sum is divided by the whole batch's count, times
+    the ranks that split it, so the ranks' mean is the whole batch's
+    loss."""
     B, T, F, C, H, W = ode_latent.shape
     target = ode_latent[:, -1]
     noisy, t = prepare_generator_input(ode_latent, step_list,
@@ -83,8 +87,12 @@ def generator_loss(gen_params, cfg: WanConfig, rope: RopeTables,
         flat(flow), flat(noisy), t.reshape(-1)).reshape(noisy.shape)
     m = (t != 0.0).float()[..., None, None, None]
     diff = (pred.float() - target.float()) ** 2
-    loss = (diff * m).sum() / torch.clamp_min((m * torch.ones_like(diff)
-                                               ).sum(), 1.0)
+    count = (m * torch.ones_like(diff)).sum()
+    if split is not None and split.count > 1:
+        loss = (diff * m).sum() / torch.clamp_min(split.sum(count), 1.0) \
+            * split.count
+    else:
+        loss = (diff * m).sum() / torch.clamp_min(count, 1.0)
     log = {"unnormalized_loss": diff.detach().mean(dim=(1, 2, 3, 4)),
            "timestep": t.mean(dim=1), "input": noisy.detach(),
            "output": pred.detach()}

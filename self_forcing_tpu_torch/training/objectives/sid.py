@@ -22,7 +22,7 @@ from self_forcing_tpu_torch.training.objectives.base import (
     model_cond, sample_timestep, score_x0)
 from self_forcing_tpu_torch.training.objectives.dmd import (
     _add_noise_bf, _lead_y, _mark, _noise_like, _timestep_range,
-    critic_loss, make_ctx)
+    critic_loss, make_ctx, teacher_sp)
 from self_forcing_tpu_torch.utils import tree
 
 __all__ = ["generator_loss", "critic_loss", "distribution_matching_loss"]
@@ -54,7 +54,8 @@ def distribution_matching_loss(bundle: ModelBundle, obj: ObjectiveConfig,
     real_x0 = cfg_combined_score(
         tree.detached(real_params), bundle.teacher_cfg,
         bundle.rope_t, bundle.scheduler, noisy, t, context, neg_context,
-        obj.real_guidance_scale, kernels=kernels, cond=cond)
+        obj.real_guidance_scale, kernels=kernels, cond=cond,
+        **teacher_sp(bundle))
     _mark(mark, "score_forwards")
     rf, ff, pf = real_x0.float(), fake_x0.float(), pred.float()
     sid = (rf - ff) * ((rf - pf) - obj.sid_alpha * (rf - ff))

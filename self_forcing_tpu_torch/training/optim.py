@@ -14,6 +14,9 @@ weight_decay=wd))`` computes:
   parameter in its dtype.
 
 The global norm is taken in float32 (optax sums in the leaves' dtype).
+Under ZeRO-3 (``parallel/fsdp.py``) the parameters, gradients and moments
+are this rank's slices and the clip takes the whole tree's norm
+(``update``'s ``norm_fn``), so the step equals the one-process step.
 A leaf without a gradient counts as a zero gradient: it still decays.
 ``trainable`` (the LoRA-only variant, ``make_lora_optimizer``): the other
 leaves are frozen, as ``optax.set_to_zero`` freezes them, and the clip
@@ -54,13 +57,19 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor],
-               grads: list[torch.Tensor | None], state: dict) -> dict:
-        """One step on ``params`` in place; returns the new state."""
+               grads: list[torch.Tensor | None], state: dict,
+               norm_fn=None) -> dict:
+        """One step on ``params`` in place; returns the new state.
+        ``norm_fn(grads, index)``: the global norm of the gradients at
+        ``index`` (ZeRO-3 slices: ``fsdp.ShardedParams.global_norm``, which
+        sums the slices' squares over the ranks), else
+        :meth:`global_norm` of the given ones."""
         mask = self._mask(len(params))
         idx = [i for i, m in enumerate(mask) if m]
         g = {i: grads[i] if grads[i] is not None
              else torch.zeros_like(params[i]) for i in idx}
-        norm = self.global_norm([g[i] for i in idx])
+        norm = (norm_fn(g, idx) if norm_fn is not None
+                else self.global_norm([g[i] for i in idx]))
         if not bool(norm < self.max_norm):
             g = {i: (x / norm.to(x.dtype)) * self.max_norm
                  for i, x in g.items()}

@@ -18,9 +18,24 @@ and reference-pose CNNs from ``pose_weights_path``, else drawn from seeds
 once a step, shared by the generator and the critic update; its dropout
 mask (``pose_drop_prob``) is drawn from the host RNG before the rollout
 length, as in the JAX package.  A LoRA file at ``lora_path`` /
-``generator_lora_path`` is loaded over the fresh adapters.  The port has
-no meshes.  Checkpoints go through ``utils/checkpoints.py``'s
-``save_pytree`` / ``restore_pytree`` (``torch.save`` files).
+``generator_lora_path`` is loaded over the fresh adapters.  Checkpoints
+go through ``utils/checkpoints.py``'s ``save_pytree`` / ``restore_pytree``
+(``torch.save`` files).
+
+``mesh`` (a ``("dp", "fsdp", "sp")`` mesh of ``parallel/mesh.py``): the
+generator, the critic and their optimizer moments and EMA are ZeRO-3
+slices (``parallel/fsdp.py``; parameters that come in whole are sharded
+over "fsdp" with ``fsdp_min_param_size``); a batch whose size dp x fsdp
+(else dp) divides is split over those ranks, each drawing the whole
+batch's numbers from the same seed and keeping its rows
+(``utils/draws.py``), so a sharded step equals the one-process step.
+With sp > 1 and ``teacher_sequence_parallel`` (default on) the real score
+runs sequence-parallel (``parallel/sequence.py``), and with
+``teacher_zero3_sp`` its weights are slices over ("fsdp", "sp") gathered
+a layer at a time; the rollout's KV cache is sharded
+(``mesh.rollout_cache_constraint``, laid out once for the configured
+batch: ``batch_size``, else ``image_or_video_shape``'s).  ``save`` gathers the weights and
+rank 0 writes the file a one-process trainer writes.
 """
 from __future__ import annotations
 
@@ -35,6 +50,8 @@ import torch
 from self_forcing_tpu_torch import conditioning as cond_mod
 from self_forcing_tpu_torch import lora as lora_mod
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
+from self_forcing_tpu_torch.parallel import fsdp
+from self_forcing_tpu_torch.parallel import mesh as mesh_mod
 from self_forcing_tpu_torch.scheduler import warp_denoising_steps
 from self_forcing_tpu_torch.training import ema as ema_lib
 from self_forcing_tpu_torch.training.objectives import dmd, sid
@@ -45,6 +62,7 @@ from self_forcing_tpu_torch.utils import tree
 from self_forcing_tpu_torch.utils.checkpoints import (load_torch_state_dict,
                                                       restore_pytree,
                                                       save_pytree)
+from self_forcing_tpu_torch.utils.draws import split_generator
 
 
 @dataclasses.dataclass
@@ -88,6 +106,108 @@ def _trainable(params) -> list[torch.Tensor]:
     return out
 
 
+def min_param_size(config) -> int:
+    """The size below which a leaf stays replicated under ZeRO-3."""
+    return int(getattr(config, "fsdp_min_param_size", 2 ** 16))
+
+
+class TrainedModel:
+    """A trained parameter tree: whole (no mesh) or this rank's ZeRO-3
+    slices (``fsdp.ShardedParams``; a whole tree given with a mesh is
+    sharded over "fsdp").  ``tree`` is what the optimizer and the EMA
+    hold, :meth:`fwd` what the forwards read."""
+
+    def __init__(self, params, mesh=None, min_size: int = 2 ** 16):
+        if mesh is not None and not isinstance(params, fsdp.ShardedParams):
+            params = mesh_mod.shard_params(params, mesh, min_size=min_size)
+        self.sharded = params if isinstance(params, fsdp.ShardedParams) \
+            else None
+        self.tree = params.shards if self.sharded else params
+        self.leaves = _trainable(self.tree)
+
+    def fwd(self):
+        return self.sharded.view() if self.sharded else self.tree
+
+    def reduce(self, grads) -> list:
+        """The loss's gradients as the optimizer takes them (this rank's
+        slices of the mesh-wide mean under ZeRO-3)."""
+        return self.sharded.reduce_grads(grads) if self.sharded \
+            else list(grads)
+
+    def norm(self, grads) -> torch.Tensor:
+        if self.sharded:
+            return self.sharded.global_norm(
+                [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.leaves, grads)])
+        return AdamW.global_norm(grads)
+
+    @property
+    def norm_fn(self):
+        return self.sharded.global_norm if self.sharded else None
+
+    def full(self, shards=None):
+        """The whole tree (or of ``shards``, a tree of its layout: the
+        EMA), gathered under ZeRO-3 (a collective)."""
+        if self.sharded is None:
+            return self.tree if shards is None else shards
+        return self.sharded.full(shards)
+
+    def full_opt(self, state: dict) -> dict:
+        """An AdamW state with whole moments."""
+        if self.sharded is None:
+            return state
+        return dict(state, mu=self.sharded.full_list(state["mu"]),
+                    nu=self.sharded.full_list(state["nu"]))
+
+    def shard_opt(self, state: dict) -> dict:
+        if self.sharded is None:
+            return state
+        return dict(state, mu=self.sharded.slice_list(state["mu"]),
+                    nu=self.sharded.slice_list(state["nu"]))
+
+    def shard_tree(self, full):
+        return full if self.sharded is None or full is None \
+            else self.sharded.shard_like(full)
+
+
+def grads_of(loss: torch.Tensor, *models: TrainedModel) -> list[list]:
+    """The reduced gradients of ``loss`` for each model's leaves."""
+    leaves = [t for m in models for t in m.leaves]
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out, i = [], 0
+    for m in models:
+        out.append(m.reduce(gs[i:i + len(m.leaves)]))
+        i += len(m.leaves)
+    return out
+
+
+def batch_split(mesh, batch: int):
+    """The split of a batch of ``batch`` rows over ``mesh`` (None
+    without one): ``mesh.batch_sharding``."""
+    return None if mesh is None else mesh_mod.batch_sharding(mesh, batch)
+
+
+def local_rows(split, t):
+    """This rank's rows of a batch-leading tensor (as it is without a
+    split, or when its leading size is not the batch's)."""
+    if split is None or split.count == 1 or t is None:
+        return t
+    return split.slice(t)
+
+
+def mean_log(split, log: dict) -> dict:
+    """Per-rank scalars averaged over the ranks that split the batch."""
+    if split is None or split.count == 1:
+        return {k: float(v.detach() if isinstance(v, torch.Tensor) else v)
+                for k, v in log.items()}
+    vals = torch.stack([torch.as_tensor(v, dtype=torch.float32).detach()
+                        .reshape(()).cpu() for v in log.values()])
+    dev = next((v.device for v in log.values()
+                if isinstance(v, torch.Tensor)), torch.device("cpu"))
+    vals = split.mean(vals.to(dev)).cpu()
+    return {k: float(v) for k, v in zip(log, vals)}
+
+
 class ScoreDistillationTrainer:
     """DMD distillation of a causal generator against a frozen real score
     and a trained fake score.  Parameter trees come in as the port's
@@ -103,8 +223,9 @@ class ScoreDistillationTrainer:
                  objective: str | None = None,
                  device: str | torch.device = "cuda",
                  timing: bool = False, vae_params=None, vae_cfg=None,
-                 clip_params=None, clip_cfg=None):
+                 clip_params=None, clip_cfg=None, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.device = torch.device(device)
         self.timing = timing
         obj = ObjectiveConfig(
@@ -150,6 +271,19 @@ class ScoreDistillationTrainer:
             vae_params=vae_params, vae_cfg=vae_cfg,
             independent_first_frame=gen_cfg.independent_first_frame,
             device=self.device)
+        min_size = min_param_size(config)
+        if mesh is not None:
+            real_params = self._place_teacher(config, real_params, mesh,
+                                              min_size)
+            # the rollout's cache residuals sharded over the mesh, less
+            # the axes that split the batch (train.py's: batch_size, else
+            # image_or_video_shape's)
+            split = batch_split(mesh, int(getattr(
+                config, "batch_size",
+                getattr(config, "image_or_video_shape", [1])[0])))
+            self._cache_axes = split.axes if split.count > 1 else ()
+            self.bundle.rollout_act_shard = \
+                mesh_mod.rollout_cache_constraint(mesh, self._cache_axes)
         if getattr(config, "warp_denoising_step", False):
             warped = warp_denoising_steps(
                 self.bundle.scheduler,
@@ -160,6 +294,11 @@ class ScoreDistillationTrainer:
         lora_rank = int(getattr(config, "lora_rank", 0) or 0)
         self.train_lora_only = bool(
             getattr(config, "train_lora_only", False)) and lora_rank > 0
+        if lora_rank > 0 and isinstance(generator_params,
+                                        fsdp.ShardedParams):
+            # the adapters are added to the whole tree, which is then
+            # sliced again by the same rule
+            generator_params = generator_params.full()
         if lora_rank > 0 and not lora_mod.has_lora(generator_params):
             generator_params = lora_mod.apply_lora(
                 generator_params, rank=lora_rank,
@@ -174,13 +313,14 @@ class ScoreDistillationTrainer:
                     alpha=float(getattr(config, "lora_alpha", lora_rank)),
                     head_dim=gen_cfg.head_dim)
 
-        self.gen_leaves = _trainable(generator_params)
-        self.fake_leaves = _trainable(fake_params)
-        wd = float(getattr(config, "weight_decay", 0.01))
         labels = None
         if self.train_lora_only:
             labels = [lab == "train" for lab in tree.leaves(
                 lora_mod.lora_label_tree(generator_params))]
+        self.gen = TrainedModel(generator_params, mesh, min_size)
+        self.fake = TrainedModel(fake_params, mesh, min_size)
+        self.gen_leaves, self.fake_leaves = self.gen.leaves, self.fake.leaves
+        wd = float(getattr(config, "weight_decay", 0.01))
         self.gen_optimizer = AdamW(
             lr=float(config.lr), beta1=float(getattr(config, "beta1", 0.0)),
             beta2=float(getattr(config, "beta2", 0.999)), weight_decay=wd,
@@ -194,7 +334,7 @@ class ScoreDistillationTrainer:
             max_grad_norm=float(getattr(config, "max_grad_norm_critic",
                                         10.0)))
         self.state = TrainState(
-            generator=generator_params, fake_score=fake_params,
+            generator=self.gen.tree, fake_score=self.fake.tree,
             gen_opt_state=self.gen_optimizer.init(self.gen_leaves),
             critic_opt_state=self.critic_optimizer.init(self.fake_leaves),
             generator_ema=None)
@@ -211,6 +351,42 @@ class ScoreDistillationTrainer:
             self.conditioner = self._build_conditioner(
                 config, clip_params, clip_cfg, vae_params, vae_cfg,
                 self.device)
+
+    def _place_teacher(self, config, real_params, mesh, min_size):
+        """The real score's layout on ``mesh``, the bundle's sequence
+        parallelism set: with sp > 1 and ``teacher_sequence_parallel``
+        it runs sequence-parallel, and under ``teacher_zero3_sp`` its
+        weights are slices over ("fsdp", "sp") (a whole tree is cut so,
+        a tree sharded otherwise is regathered and cut) whose specs go to
+        the bundle; else it is sharded over "fsdp" like the students.
+        Returns what the trainer holds: the slices under ZeRO-3 over sp
+        (which ``sequence.forward_train_sp`` gathers by the bundle's
+        specs), else the ``fsdp.ShardedParams`` (a view of it each
+        step)."""
+        sp = mesh_mod.mesh_shape(mesh)["sp"]
+        seq = sp > 1 and bool(getattr(config, "teacher_sequence_parallel",
+                                      True))
+        zero3 = seq and bool(getattr(config, "teacher_zero3_sp", False))
+        if seq:
+            self.bundle.teacher_sp_mesh = mesh
+        if zero3:
+            if isinstance(real_params, fsdp.ShardedParams):
+                if all(s is None or s.axes == ("fsdp", "sp") for s in
+                       real_params.spec_list()):
+                    self.real = real_params
+                else:
+                    real_params = real_params.full()
+            if not isinstance(real_params, fsdp.ShardedParams):
+                self.real = fsdp.ShardedParams.from_full(
+                    real_params, mesh_mod.combined_fsdp_specs(
+                        real_params, mesh, min_size=min_size), mesh)
+            self.bundle.teacher_param_sp_specs = self.real.specs
+            return self.real.shards
+        if not isinstance(real_params, fsdp.ShardedParams):
+            real_params = mesh_mod.shard_params(real_params, mesh,
+                                                min_size=min_size)
+        self.real = real_params
+        return real_params
 
     @staticmethod
     def _build_conditioner(config, clip_params, clip_cfg, vae_params,
@@ -270,19 +446,38 @@ class ScoreDistillationTrainer:
         shape[1] = n * nb
         return shape
 
-    def _draw(self, shape):
-        """A generator seeded from the host RNG, and the update's noise."""
+    def _draw(self, shape, split=None, given: dict | None = None):
+        """A generator seeded from the host RNG, and the update's noise
+        (``given['noise_in']``, already this rank's rows, when given): the
+        whole batch's, this rank's rows under a split, whose generator
+        then draws likewise."""
         g = torch.Generator(device=self.device).manual_seed(
             int(self.host_rng.integers(2 ** 31)))
+        if given is not None and "noise_in" in given:
+            return split_generator(g, split), \
+                given["noise_in"].to(self.device)
         noise = torch.randn(shape, generator=g, device=self.device)
-        return g, noise
+        return split_generator(g, split), local_rows(split, noise)
 
-    def train_step(self, batch: dict) -> dict:
+    def train_step(self, batch: dict, draws: dict | None = None) -> dict:
         """One alternating update: the generator every
-        dfake_gen_update_ratio steps, the critic every step."""
+        dfake_gen_update_ratio steps, the critic every step.  ``draws``
+        ({'generator': ..., 'critic': ...}, each the objective's draws
+        and the update's input ``noise``) replaces the updates' draws (the
+        host RNG is drawn all the same)."""
         context = batch["context"]
         log: dict = {}
         B = context.shape[0]
+        split = batch_split(self.mesh, B)
+        draws = {k: tree.map_tree(lambda t: local_rows(split, t), v)
+                 for k, v in (draws or {}).items()}
+        if split is not None and (split.axes if split.count > 1
+                                  else ()) != self._cache_axes:
+            raise ValueError(
+                f"a batch of {B} rows splits over {split.axes} x "
+                f"{split.count}, the configured batch over "
+                f"{self._cache_axes}: the rollout cache constraint was "
+                f"laid out for the latter")
         nb = self.obj.num_frame_per_block
         base_shape = list(getattr(self.config, "image_or_video_shape",
                                   [B, 21, 16, 60, 104]))
@@ -291,29 +486,34 @@ class ScoreDistillationTrainer:
             mark = _Marks(self.timing, self.device, "step", log)
             cond = self._build_cond(batch, base_shape)
             mark("conditioning")
+        if cond is not None:
+            cond = {k: local_rows(split, v) for k, v in cond.items()}
+        ctx = local_rows(split, context)
+        neg = self.neg_context
+        if neg is not None and neg.shape[0] == B:
+            neg = local_rows(split, neg)
         shape = self._sample_rollout_shape(base_shape)
         shape[0] = B
         exit_idx = self.bundle.pipeline.sample_exit_index(
             self.host_rng, num_blocks=shape[1] // nb)
 
         if self.state.step % self.dfake_gen_update_ratio == 0:
-            g, noise = self._draw(shape)
+            g, noise = self._draw(shape, split, draws.get("generator"))
             mark = _Marks(self.timing, self.device, "generator", log)
             loss, glog = self._generator_loss(
-                self.bundle, self.obj, self.state.generator,
-                self.state.fake_score, self.real_params, noise, context,
-                self.neg_context, exit_idx, generator=g, mark=mark,
-                cond=cond)
-            grads = torch.autograd.grad(loss, self.gen_leaves,
-                                        allow_unused=True)
+                self.bundle, self.obj, self.gen.fwd(), self.fake.fwd(),
+                fsdp.view(self.real_params), noise, ctx, neg, exit_idx,
+                generator=g,
+                mark=mark, cond=cond, draws=draws.get("generator"))
+            grads, = grads_of(loss, self.gen)
             mark("backward")
-            gnorm = AdamW.global_norm(grads)
+            gnorm = self.gen.norm(grads)
             self.state.gen_opt_state = self.gen_optimizer.update(
-                self.gen_leaves, grads, self.state.gen_opt_state)
+                self.gen_leaves, grads, self.state.gen_opt_state,
+                norm_fn=self.gen.norm_fn)
             del grads
             mark("optimizer")
-            log.update({k: float(v) for k, v in glog.items()},
-                       generator_loss=float(loss.detach()),
+            log.update(mean_log(split, dict(glog, generator_loss=loss)),
                        generator_grad_norm=float(gnorm))
             if self.ema_weight > 0 and self.state.step >= self.ema_start_step:
                 if self.state.generator_ema is None:
@@ -328,57 +528,79 @@ class ScoreDistillationTrainer:
         shape[0] = B
         exit_idx = self.bundle.pipeline.sample_exit_index(
             self.host_rng, num_blocks=shape[1] // nb)
-        g, noise = self._draw(shape)
+        g, noise = self._draw(shape, split, draws.get("critic"))
         mark = _Marks(self.timing, self.device, "critic", log)
         loss, clog = dmd.critic_loss(
-            self.bundle, self.obj, self.state.generator,
-            self.state.fake_score, noise, context, self.neg_context,
-            exit_idx, generator=g, mark=mark, cond=cond)
-        grads = torch.autograd.grad(loss, self.fake_leaves,
-                                    allow_unused=True)
+            self.bundle, self.obj, self.gen.fwd(), self.fake.fwd(), noise,
+            ctx, neg, exit_idx, generator=g, mark=mark, cond=cond,
+            draws=draws.get("critic"))
+        grads, = grads_of(loss, self.fake)
         mark("backward")
-        gnorm = AdamW.global_norm(grads)
+        gnorm = self.fake.norm(grads)
         self.state.critic_opt_state = self.critic_optimizer.update(
-            self.fake_leaves, grads, self.state.critic_opt_state)
+            self.fake_leaves, grads, self.state.critic_opt_state,
+            norm_fn=self.fake.norm_fn)
         del grads
         mark("optimizer")
-        log.update({k: float(v) for k, v in clog.items()},
-                   critic_loss=float(loss.detach()), critic_grad_norm=float(gnorm))
+        log.update(mean_log(split, dict(clog, critic_loss=loss)),
+                   critic_grad_norm=float(gnorm))
         self.state.step += 1
         return log
 
     # ------------------------------------------------------ checkpoints
     def save(self, path: str) -> None:
         """The weights under the reference's keys (generator, critic,
-        generator_ema), one ``torch.save`` file."""
-        out = {"generator": self.state.generator,
-               "critic": self.state.fake_score}
+        generator_ema), one ``torch.save`` file.  On a mesh every rank
+        calls it (the slices are gathered) and rank 0 writes the file a
+        one-process trainer writes."""
+        out = {"generator": self.gen.full(),
+               "critic": self.fake.full()}
         if self.state.generator_ema is not None:
-            out["generator_ema"] = self.state.generator_ema
-        save_pytree(path, out)
-
-    def _state_tree(self, ema_like) -> dict:
-        s = self.state
-        return {"generator": s.generator, "fake_score": s.fake_score,
-                "gen_opt_state": s.gen_opt_state,
-                "critic_opt_state": s.critic_opt_state,
-                "generator_ema": ema_like, "step": s.step}
+            out["generator_ema"] = self.gen.full(self.state.generator_ema)
+        if fsdp.is_main():
+            save_pytree(path, out)
 
     def save_state(self, path: str) -> None:
         """The whole training state, optimizer moments and step
-        included."""
-        save_pytree(path, self._state_tree(self.state.generator_ema))
+        included (whole trees on a mesh: gathered, rank 0 writes)."""
+        s = self.state
+        out = {"generator": self.gen.full(),
+               "fake_score": self.fake.full(),
+               "gen_opt_state": self.gen.full_opt(s.gen_opt_state),
+               "critic_opt_state": self.fake.full_opt(s.critic_opt_state),
+               "generator_ema": None if s.generator_ema is None
+               else self.gen.full(s.generator_ema), "step": s.step}
+        if fsdp.is_main():
+            save_pytree(path, out)
 
     def load_state(self, path: str) -> None:
         """Restore a :meth:`save_state` file into this trainer (the
-        parameters in place, so the optimizers keep their leaves)."""
-        saved = restore_pytree(path, self._state_tree(None), self.device)
-        _copy_leaves(self.gen_leaves, saved["generator"])
-        _copy_leaves(self.fake_leaves, saved["fake_score"])
-        self.state.gen_opt_state = saved["gen_opt_state"]
-        self.state.critic_opt_state = saved["critic_opt_state"]
-        self.state.generator_ema = saved["generator_ema"]
+        parameters in place, so the optimizers keep their leaves; on a
+        mesh every rank reads the whole file and keeps its slices)."""
+        saved = restore_pytree(path, device=self.device)
+        _copy_leaves(self.gen_leaves, self.gen.shard_tree(
+            saved["generator"]))
+        _copy_leaves(self.fake_leaves, self.fake.shard_tree(
+            saved["fake_score"]))
+        self.state.gen_opt_state = self.gen.shard_opt(
+            _like_opt(saved["gen_opt_state"], self.state.gen_opt_state))
+        self.state.critic_opt_state = self.fake.shard_opt(
+            _like_opt(saved["critic_opt_state"],
+                      self.state.critic_opt_state))
+        self.state.generator_ema = self.gen.shard_tree(
+            saved["generator_ema"])
         self.state.step = int(saved["step"])
+
+
+def _like_opt(saved: dict, like: dict) -> dict:
+    """A restored AdamW state with each moment in the dtype of the live
+    one at its place."""
+    def cast(vals, ref):
+        return [None if v is None else v.to(r.dtype if r is not None
+                                           else v.dtype)
+                for v, r in zip(vals, ref)]
+    return dict(saved, mu=cast(saved["mu"], like["mu"]),
+                nu=cast(saved["nu"], like["nu"]))
 
 
 @torch.no_grad()

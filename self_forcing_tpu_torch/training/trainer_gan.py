@@ -14,7 +14,9 @@ EMA weights (``force_start_w_ema``) and restart the step count
 ``train_step`` takes {'context': [B, L, text_dim], 'latents': real clean
 latents [B, F, C, H, W]}.  The exit steps come from the host numpy RNG
 (the config's seed), and each update's draws from a ``torch.Generator``
-seeded by it.
+seeded by it.  ``mesh``: the generator, the critic and its GAN head are
+ZeRO-3 slices (``parallel/fsdp.py``) and the batch is split as in the
+distillation trainer (``trainer_distillation.py``).
 """
 from __future__ import annotations
 
@@ -31,8 +33,12 @@ from self_forcing_tpu_torch.training.objectives import gan as gan_obj
 from self_forcing_tpu_torch.training.objectives.base import (ModelBundle,
                                                             ObjectiveConfig)
 from self_forcing_tpu_torch.training.optim import AdamW
+from self_forcing_tpu_torch.parallel import fsdp
 from self_forcing_tpu_torch.training.trainer_distillation import (
-    _copy_leaves, _Marks, _trainable)
+    TrainedModel, _copy_leaves, _like_opt, _Marks, batch_split, grads_of,
+    local_rows, mean_log, min_param_size)
+from self_forcing_tpu_torch.utils import tree
+from self_forcing_tpu_torch.utils.draws import split_generator
 from self_forcing_tpu_torch.utils.checkpoints import (restore_pytree,
                                                       save_pytree)
 
@@ -41,8 +47,9 @@ class GANTrainer:
     def __init__(self, config, generator_params, fake_params,
                  generator_cfg: WanConfig, critic_cfg: WanConfig,
                  cls_params=None, device: str | torch.device = "cuda",
-                 timing: bool = False):
+                 timing: bool = False, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.device = torch.device(device)
         self.timing = timing
         obj = ObjectiveConfig(
@@ -84,11 +91,15 @@ class GANTrainer:
                 num_class=int(getattr(config, "num_class", 1)),
                 time_embed_dim=critic_cfg.dim if self.concat_te else 0,
                 device=self.device)
-        self.generator, self.fake_score = generator_params, fake_params
-        self.cls_params = cls_params
-        self.gen_leaves = _trainable(generator_params)
-        self.fake_leaves = _trainable(fake_params)
-        self.cls_leaves = _trainable(cls_params)
+        min_size = min_param_size(config)
+        self.gen = TrainedModel(generator_params, mesh, min_size)
+        self.fake = TrainedModel(fake_params, mesh, min_size)
+        self.cls = TrainedModel(cls_params, mesh, min_size)
+        self.generator, self.fake_score = self.gen.tree, self.fake.tree
+        self.cls_params = self.cls.tree
+        self.gen_leaves = self.gen.leaves
+        self.fake_leaves = self.fake.leaves
+        self.cls_leaves = self.cls.leaves
 
         wd = float(getattr(config, "weight_decay", 0.01))
         lr_critic = float(getattr(config, "lr_critic", config.lr))
@@ -140,37 +151,50 @@ class GANTrainer:
         self.host_rng = np.random.default_rng(int(getattr(config, "seed",
                                                           0)))
 
-    def _draw(self, shape):
+    def _draw(self, shape, split=None, given: dict | None = None):
+        """The update's generator and noise (the whole batch's, this
+        rank's rows under a split; ``given['noise_in']``, already this
+        rank's rows, when given)."""
         g = torch.Generator(device=self.device).manual_seed(
             int(self.host_rng.integers(2 ** 31)))
-        return g, torch.randn(shape, generator=g, device=self.device)
+        if given is not None and "noise_in" in given:
+            return split_generator(g, split), \
+                given["noise_in"].to(self.device)
+        noise = torch.randn(shape, generator=g, device=self.device)
+        return split_generator(g, split), local_rows(split, noise)
 
-    def train_step(self, batch: dict) -> dict:
+    def train_step(self, batch: dict, draws: dict | None = None) -> dict:
         """One step: the generator update (outside the warmup, every
-        ``dfake_gen_update_ratio`` steps), then the critic's."""
+        ``dfake_gen_update_ratio`` steps), then the critic's.  ``draws``
+        ({'generator': ..., 'critic': ...}, each the objective's draws and
+        the update's input ``noise_in``, the whole batch's) replaces the
+        updates' draws (the host RNG is drawn all the same)."""
         context, real = batch["context"], batch["latents"]
         log: dict = {}
         in_warmup = self.step < self.discriminator_warmup_steps
         shape = list(real.shape)
+        split = batch_split(self.mesh, shape[0])
+        context, real = local_rows(split, context), local_rows(split, real)
+        draws = {k: tree.map_tree(lambda t: local_rows(split, t), v)
+                 for k, v in (draws or {}).items()}
         if not in_warmup and self.step % self.dfake_gen_update_ratio == 0:
             exit_idx = self.bundle.pipeline.sample_exit_index(self.host_rng)
-            g, noise = self._draw(shape)
+            g, noise = self._draw(shape, split, draws.get("generator"))
             mark = _Marks(self.timing, self.device, "generator", log)
             loss, glog = gan_obj.generator_loss(
-                self.bundle, self.obj, self.generator, self.fake_score,
-                self.cls_params, noise, real, context, None, exit_idx,
-                generator=g, **self.gen_kw)
+                self.bundle, self.obj, self.gen.fwd(), self.fake.fwd(),
+                self.cls.fwd(), noise, real, context, None, exit_idx,
+                generator=g, draws=draws.get("generator"), **self.gen_kw)
             mark("forward")
-            grads = torch.autograd.grad(loss, self.gen_leaves,
-                                        allow_unused=True)
+            grads, = grads_of(loss, self.gen)
             mark("backward")
-            gnorm = AdamW.global_norm(grads)
+            gnorm = self.gen.norm(grads)
             self.gen_opt_state = self.gen_optimizer.update(
-                self.gen_leaves, grads, self.gen_opt_state)
+                self.gen_leaves, grads, self.gen_opt_state,
+                norm_fn=self.gen.norm_fn)
             del grads
             mark("optimizer")
-            log.update({k: float(v) for k, v in glog.items()},
-                       generator_loss=float(loss.detach()),
+            log.update(mean_log(split, dict(glog, generator_loss=loss)),
                        generator_grad_norm=float(gnorm))
             if self.ema_weight > 0 and self.step >= self.ema_start_step:
                 if self.generator_ema is None:
@@ -180,27 +204,25 @@ class GANTrainer:
                                        decay=self.ema_weight)
 
         exit_idx = self.bundle.pipeline.sample_exit_index(self.host_rng)
-        g, noise = self._draw(shape)
+        g, noise = self._draw(shape, split, draws.get("critic"))
         mark = _Marks(self.timing, self.device, "critic", log)
         loss, clog = gan_obj.critic_loss(
-            self.bundle, self.obj, self.generator, self.fake_score,
-            self.cls_params, noise, real, context, None, exit_idx,
-            generator=g, **self.critic_kw)
+            self.bundle, self.obj, self.gen.fwd(), self.fake.fwd(),
+            self.cls.fwd(), noise, real, context, None, exit_idx,
+            generator=g, draws=draws.get("critic"), **self.critic_kw)
         mark("forward")
-        n_fake = len(self.fake_leaves)
-        grads = torch.autograd.grad(loss, self.fake_leaves + self.cls_leaves,
-                                    allow_unused=True)
+        gf, gc = grads_of(loss, self.fake, self.cls)
         mark("backward")
-        gf, gc = list(grads[:n_fake]), list(grads[n_fake:])
-        gnorm = AdamW.global_norm(gf)
+        gnorm = self.fake.norm(gf)
         self.critic_opt_state = self.critic_optimizer.update(
-            self.fake_leaves, gf, self.critic_opt_state)
+            self.fake_leaves, gf, self.critic_opt_state,
+            norm_fn=self.fake.norm_fn)
         self.cls_opt_state = self.cls_optimizer.update(
-            self.cls_leaves, gc, self.cls_opt_state)
-        del grads, gf, gc
+            self.cls_leaves, gc, self.cls_opt_state,
+            norm_fn=self.cls.norm_fn)
+        del gf, gc
         mark("optimizer")
-        log.update({k: float(v) for k, v in clog.items()},
-                   critic_loss=float(loss.detach()),
+        log.update(mean_log(split, dict(clog, critic_loss=loss)),
                    critic_grad_norm=float(gnorm))
         self.step += 1
         return log
@@ -209,48 +231,52 @@ class GANTrainer:
     def save(self, path: str) -> None:
         """The weights: generator, critic, critic_cls (and
         generator_ema)."""
-        out = {"generator": self.generator, "critic": self.fake_score,
-               "critic_cls": self.cls_params}
+        out = {"generator": self.gen.full(), "critic": self.fake.full(),
+               "critic_cls": self.cls.full()}
         if self.generator_ema is not None:
-            out["generator_ema"] = self.generator_ema
-        save_pytree(path, out)
-
-    def _state_tree(self, ema_like) -> dict:
-        return {"generator": self.generator, "critic": self.fake_score,
-                "critic_cls": self.cls_params,
-                "gen_opt_state": self.gen_opt_state,
-                "critic_opt_state": self.critic_opt_state,
-                "cls_opt_state": self.cls_opt_state,
-                "ema": ema_like, "step": self.step}
+            out["generator_ema"] = self.gen.full(self.generator_ema)
+        if fsdp.is_main():
+            save_pytree(path, out)
 
     def save_state(self, path: str) -> None:
         """The whole training state, so that the warmup and the update
-        ratio (both keyed on the step) carry over a restart."""
-        save_pytree(path, self._state_tree(self.generator_ema))
+        ratio (both keyed on the step) carry over a restart (whole trees
+        on a mesh: gathered, rank 0 writes)."""
+        out = {"generator": self.gen.full(), "critic": self.fake.full(),
+               "critic_cls": self.cls.full(),
+               "gen_opt_state": self.gen.full_opt(self.gen_opt_state),
+               "critic_opt_state": self.fake.full_opt(self.critic_opt_state),
+               "cls_opt_state": self.cls.full_opt(self.cls_opt_state),
+               "ema": None if self.generator_ema is None
+               else self.gen.full(self.generator_ema), "step": self.step}
+        if fsdp.is_main():
+            save_pytree(path, out)
 
     def load_state(self, path: str, force_start_w_ema: bool = False,
                    force_reset_zero_step: bool = False) -> None:
-        """Restore a :meth:`save_state` file (the parameters in place).
-        ``force_start_w_ema``: the live generator takes the checkpoint's
-        EMA weights; ``force_reset_zero_step``: the step count restarts
-        at 0, so the warmup and the update ratio replay."""
-        ema_like = self.generator_ema
-        if ema_like is None and self.ema_weight > 0:
-            ema_like = ema_lib.init_ema(self.generator)
-        saved = restore_pytree(path, self._state_tree(ema_like), self.device)
-        _copy_leaves(self.gen_leaves, saved["generator"])
-        _copy_leaves(self.fake_leaves, saved["critic"])
-        _copy_leaves(self.cls_leaves, saved["critic_cls"])
-        self.gen_opt_state = saved["gen_opt_state"]
-        self.critic_opt_state = saved["critic_opt_state"]
-        self.cls_opt_state = saved["cls_opt_state"]
-        self.generator_ema = saved["ema"]
+        """Restore a :meth:`save_state` file (the parameters in place; on
+        a mesh each rank keeps its slices).  ``force_start_w_ema``: the
+        live generator takes the checkpoint's EMA weights;
+        ``force_reset_zero_step``: the step count restarts at 0, so the
+        warmup and the update ratio replay."""
+        saved = restore_pytree(path, device=self.device)
+        _copy_leaves(self.gen_leaves, self.gen.shard_tree(saved["generator"]))
+        _copy_leaves(self.fake_leaves, self.fake.shard_tree(saved["critic"]))
+        _copy_leaves(self.cls_leaves, self.cls.shard_tree(
+            saved["critic_cls"]))
+        self.gen_opt_state = self.gen.shard_opt(
+            _like_opt(saved["gen_opt_state"], self.gen_opt_state))
+        self.critic_opt_state = self.fake.shard_opt(
+            _like_opt(saved["critic_opt_state"], self.critic_opt_state))
+        self.cls_opt_state = self.cls.shard_opt(
+            _like_opt(saved["cls_opt_state"], self.cls_opt_state))
+        self.generator_ema = self.gen.shard_tree(saved["ema"])
         self.step = int(saved["step"])
         if force_start_w_ema:
             if saved["ema"] is None:
                 raise ValueError(
                     "force_start_w_ema: the checkpoint carries no EMA state")
             _copy_leaves(self.gen_leaves, ema_lib.ema_to_params(
-                saved["ema"], self.generator))
+                self.generator_ema, self.generator))
         if force_reset_zero_step:
             self.step = 0

@@ -37,7 +37,10 @@ def map_tree(fn, tree):
 
 def detached(tree):
     """The same tree with every tensor leaf detached from autograd (views,
-    no copies): parameters a loss reads but does not train."""
+    no copies): parameters a loss reads but does not train.  A ZeRO-3
+    view (``parallel/fsdp.py``) returns its detached view."""
+    if hasattr(tree, "detached"):
+        return tree.detached()
     return map_tree(lambda t: t.detach(), tree)
 
 
