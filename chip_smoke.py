@@ -34,7 +34,11 @@ Phases, each printing one line or more (any failure exits non-zero):
    launch counts are reset just before and read just after;
 5. where the time goes: one denoise forward at the last block's window
    and the decode of that block under torch.profiler (device busy and
-   idle share).
+   idle share); for the parity configuration then (5b) the utilities:
+   ``utils/profiling``'s ``PhaseTimer`` around that forward beside CUDA
+   events' ms, ``trace()`` writing a Chrome trace that names the decode
+   kernel, and the Qwen prompt expander's template fallback (a local
+   path with no model) against ``template_extend``, on the host.
 Phases 3-5 run for the parity configuration; then phases 3-4 under
 ``attn_softmax`` 'bounded' and 'online' (the forward kernels vs plain and
 against the free forward; a 3-block stream, denoise and refresh each
@@ -223,8 +227,16 @@ path; its DiT ms per block).
    (``teacher_zero3_sp``) and gathered a layer at a time in the ring
    forward, against one process with the whole teacher (3e-3: the ring
    runs float32 attention, the flash kernel bf16; updates UPDATE_TOL),
-   each rank's teacher bytes; (d) ``forward_train_tp``'s gradients at tp
-   2, Wan-14B width, 2 layers, float32, against the single-process
+   each rank's teacher bytes; then on the same layout a SiD step
+   (``self_forcing_sid.yaml``) whose generator loss differentiates
+   through the ring teacher (the ring's backward; each teacher layer
+   gathered again in the backward under remat) against one process
+   with the whole teacher on the flash kernels (the same limits), the
+   launches exactly SID_RING_FLASH a rank and SID_ONE_FLASH in one
+   process, each rank's teacher bytes about half the whole teacher's
+   and its peak beside ``fit.sp_dmd_fit(sid=True)``; (d)
+   ``forward_train_tp``'s gradients at tp 2, Wan-14B width, 2 layers,
+   float32, against the single-process
    gradients (TP_GRAD_TOL over all leaves, TP_LEAF_TOL for the worst
    leaf, which is named); (e) the 21-frame rollout with gradient at
    CACHE_LAYERS layers with and without the rollout cache constraint:
@@ -4172,6 +4184,84 @@ def phase_profile(dit, cfg, params, last, tag) -> None:
               f"{1 - busy / plain_wall:.3f} top: {top}", flush=True)
 
 
+def phase_utils(dit, cfg, params, last) -> None:
+    """5b. The host-side utilities on the card: ``utils/profiling``'s
+    ``PhaseTimer`` around phase 5's denoise forward (three runs after a
+    warm one) beside CUDA events' ms of the same forward (the timer
+    synchronises the card, so it can read no less); ``trace()`` of that
+    forward, whose Chrome trace must name the decode kernel; the Qwen
+    prompt expander's template fallback on a local model path that does
+    not exist (never a hub name: that would try the network) against
+    ``template_extend``."""
+    import glob
+    from self_forcing_tpu_torch import prompt_extend
+    from self_forcing_tpu_torch.utils import profiling
+    pipe = last["pipe"]
+    ctx_kv = dit.precompute_context(params, cfg, last["context"])
+    x = last["x"]
+    t = torch.full(x.shape[:2], 500.0, device="cuda")
+    fs = (x.shape[3] // 2) * (x.shape[4] // 2)
+    start = last["start"]
+
+    def forward():
+        return dit.forward_inference(params, cfg, x, t, ctx_kv, pipe._cache,
+                                     start, pipe.rope,
+                                     static_kv_hi=start * fs,
+                                     write_cache=False)[0]
+
+    forward()  # warm
+    rows = []
+    for i in range(3):
+        timer = profiling.PhaseTimer()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        with timer.phase("dit_forward") as ph:
+            ev[0].record()
+            flow = forward()
+            ev[1].record()
+            ph.sync(flow)
+        ev[1].synchronize()
+        rows.append((timer.phases["dit_forward"] * 1e3,
+                     ev[0].elapsed_time(ev[1])))
+    d = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.trace(d):
+            forward()
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(d, "*.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        trace_kb = len(text) / 1e3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"profiling: PhaseTimer ms vs CUDA events ms of the 1.3B denoise "
+          f"forward (cache holds {pipe._cache.local_end} tokens): "
+          f"{[(round(a, 3), round(b, 3)) for a, b in rows]}; trace(): "
+          f"{len(files)} file(s), {trace_kb:.0f} kB, names "
+          f"decode_fresh_kernel {'decode_fresh_kernel' in text} "
+          f"[{smi}] (host clock, synchronised; device clock)", flush=True)
+    if any(a + 0.05 < b for a, b in rows):
+        fail("profiling: a PhaseTimer phase read less than the card's own "
+             "time of the same work (its synchronise is missing)")
+    if "decode_fresh_kernel" not in text:
+        fail("profiling: trace() wrote no trace naming decode_fresh_kernel")
+    # the expander on the host: no weights at this path, so the template
+    no_model = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "no_such_qwen_model")
+    exp = prompt_extend.QwenPromptExpander(model_name=no_model)
+    got = exp("a corgi runs on a beach", tar_lang="en", seed=0)
+    want = prompt_extend.template_extend(
+        "a corgi runs on a beach", seed=0,
+        system_prompt=prompt_extend.LM_EN_SYS_PROMPT)
+    print(f"prompt_extend: QwenPromptExpander({no_model!r}) fell back to "
+          f"the template: {got == want} device {exp.device!r} -> "
+          f"{got.prompt!r}", flush=True)
+    if got != want or not got.status or exp._model is not None:
+        fail(f"prompt_extend: {got} vs {want}")
+
+
 def save_stand_in_tokenizer(path: str) -> None:
     """A word-level stand-in for google/umt5-xxl (pad 0, eos 1 appended,
     unk 2), saved where ``load_wan_models`` looks for the tokenizer: the
@@ -4969,6 +5059,17 @@ def phase_image_to_video(ca, dit, vae, seed) -> dict:
 
 TRAIN_LAYERS = 1     # phase 17(b, c): the students' depth (of 30)
 TEACHER_LAYERS = 2   # phase 17(c): the Wan-14B-wide teacher's depth
+# phase 17(c)'s SiD step: every score forward runs with gradient under
+# remat, so a flash layer runs its forward twice (the forward and its
+# recomputation) and its backward once.  A ring rank's flash launches
+# are the students' alone: the generator update's fake score and the
+# critic's, 2 x 2 forwards and 2 backwards a layer; one process adds
+# the teacher's cond and uncond forwards, 2 x 2 forwards and 2
+# backwards a layer.  The decode and cross launches are one process's.
+SID_RING_FLASH = {"flash_fwd": 4 * TRAIN_LAYERS,
+                  "flash_bwd": 2 * TRAIN_LAYERS}
+SID_ONE_FLASH = {"flash_fwd": 4 * (TRAIN_LAYERS + TEACHER_LAYERS),
+                 "flash_bwd": 2 * (TRAIN_LAYERS + TEACHER_LAYERS)}
 CACHE_LAYERS = 1     # phase 17(e): the rollout's depth
 CACHE_EXIT = 0       # phase 17(e): every block's exit step
 CLI_LAYERS = 1       # phase 17: train.main's depth
@@ -5311,6 +5412,12 @@ def phase_parallel_training(ca, seed: int, one: dict) -> None:
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
+    sid_est = fit.sp_dmd_fit(
+        dataclasses.replace(WAN_1_3B, num_layers=TRAIN_LAYERS),
+        dataclasses.replace(WAN_14B, num_layers=TEACHER_LAYERS), fsdp=1,
+        sp=2, teacher_zero3=True, cache_sharded=False, sid=True,
+        limit=fit.card_limit())
+    teacher_layer = fit.layer_bytes(WAN_14B)
     for r, res in enumerate(rs):
         b = res["dmd"]
         print(f"parallel training (b) rank {r}/2 {res['backend']} fsdp 2: "
@@ -5376,6 +5483,42 @@ def phase_parallel_training(ca, seed: int, one: dict) -> None:
                                               "cross_attention")):
                 fail(f"parallel training (c): launches {c['launches']} vs "
                      f"one process {one}")
+        sd = res["sid"]
+        one = sd.get("vs_one_process", {})
+        print(f"parallel training (c) rank {r}/2 sp 2, teacher_zero3_sp: "
+              f"SiD step (self_forcing_sid.yaml), the generator loss "
+              f"differentiating through the ring teacher (Wan-14B width, "
+              f"{sd['teacher_layers']} of 40 layers sliced over (fsdp, sp), "
+              f"each layer gathered again in the backward): step_ms="
+              f"{sd['ms']:.1f} gloo_staged_ms={sd['comm_ms']:.1f} "
+              f"({sd['comm_calls']} calls) teacher_gb_this_rank="
+              f"{sd['teacher_bytes'] / GB:.3f} (one gathered layer "
+              f"{teacher_layer / GB:.3f}) peak_gb={sd['peak_gb']:.2f} "
+              f"(estimate with one teacher layer gathered at a time "
+              f"{sid_est['total'] / GB:.2f}: " + " ".join(
+                  f"{k} {sid_est[k] / GB:.2f}" for k in sid_est
+                  if isinstance(sid_est[k], int) and k != "total"
+                  and not isinstance(sid_est[k], bool)) + ") losses "
+              f"{sd['log']} launches={sd['launches']}"
+              + (f" (whole teacher {one['teacher_bytes'] / GB:.3f} GB in "
+                 f"one process; vs_one_process {one})" if r == 0 else "")
+              + f" [{smi}]", flush=True)
+        if r == 0:
+            _vs_one("parallel training (c) SiD", sd, 3e-3)
+            want = dict(SID_RING_FLASH, **{
+                k: v for k, v in one["launches"].items()
+                if k not in SID_RING_FLASH})
+            if sd["launches"] != want or any(
+                    one["launches"].get(k, 0) != v
+                    for k, v in SID_ONE_FLASH.items()):
+                fail(f"parallel training (c) SiD: launches "
+                     f"{sd['launches']} vs {want}; one process "
+                     f"{one['launches']} vs {SID_ONE_FLASH}")
+            if not 0.4 < sd["teacher_bytes"] / one["teacher_bytes"] < 0.6:
+                fail("parallel training (c) SiD: a rank's teacher bytes "
+                     "are not about half of the whole teacher's")
+        elif sd["launches"] != rs[0]["sid"]["launches"]:
+            fail("parallel training (c) SiD: the ranks' launches differ")
         tp = res["tp"]
         print(f"parallel training (d) rank {r}/2 tp 2: forward_train_tp "
               f"gradients, Wan-14B width, {tp['layers']} layers, 3 frames: "
@@ -5512,6 +5655,7 @@ def main() -> None:
     launches, last = phase_stream(ca, dit, vae, pipe_mod, cfg, params,
                                   a.blocks, a.seed)
     phase_profile(dit, cfg, params, last, "parity")
+    phase_utils(dit, cfg, params, last)
     del last
     torch.cuda.empty_cache()
     # 3-4 under the bounded and online softmax

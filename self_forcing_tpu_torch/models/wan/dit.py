@@ -506,6 +506,25 @@ def _qkv_rope_folded(p: Params, cfg: WanConfig, x: torch.Tensor,
             _fold_heads(cfg, v))
 
 
+def cross_kv(p: Params, cfg: WanConfig, ctx: torch.Tensor,
+             img: torch.Tensor | None = None) -> dict:
+    """One layer's cross-attention K/V from its ``cross_attn`` parameters
+    ``p``: of the embedded text ``ctx`` under "k_txt" / "v_txt", and of
+    the embedded image tokens ``img`` (when given) under "k_img" /
+    "v_img", each [B, Lc, N, D]."""
+    def kv(x, k_name, v_name, norm_name):
+        k = linear(p[k_name], x)
+        if cfg.qk_norm:
+            k = _qk_rms_norm(k, p[norm_name]["w"], cfg)
+        return _heads(cfg, k), _heads(cfg, linear(p[v_name], x))
+
+    out = dict(zip(("k_txt", "v_txt"), kv(ctx, "k", "v", "norm_k")))
+    if img is not None:
+        out.update(zip(("k_img", "v_img"),
+                       kv(img, "k_img", "v_img", "norm_k_img")))
+    return out
+
+
 def precompute_context(params: Params, cfg: WanConfig,
                        context: torch.Tensor,
                        clip_fea: torch.Tensor | None = None) -> dict:
@@ -513,28 +532,14 @@ def precompute_context(params: Params, cfg: WanConfig,
     [layers, B, Lc, N, D] under "k_txt" / "v_txt"; for an i2v model given
     ``clip_fea`` [B, 257, 1280] also the image K/V under "k_img" /
     "v_img", from the layers' own ``k_img`` / ``v_img`` projections of
-    :func:`embed_image`'s tokens."""
-    layers = split_layers(params["blocks"]["cross_attn"])
-
-    def kv(ctx, k_name, v_name, norm_name):
-        ctx = _tp_in(ctx, cfg)
-        ks, vs = [], []
-        for p in layers:
-            p = _layer_params(p)
-            k = linear(p[k_name], ctx)
-            if cfg.qk_norm:
-                k = _qk_rms_norm(k, p[norm_name]["w"], cfg)
-            ks.append(_heads(cfg, k))
-            vs.append(_heads(cfg, linear(p[v_name], ctx)))
-        return torch.stack(ks), torch.stack(vs)
-
-    out = dict(zip(("k_txt", "v_txt"), kv(embed_text(params, cfg, context),
-                                          "k", "v", "norm_k")))
+    :func:`embed_image`'s tokens (:func:`cross_kv` a layer)."""
+    ctx = _tp_in(embed_text(params, cfg, context), cfg)
+    img = None
     if clip_fea is not None and cfg.model_type == "i2v":
-        out.update(zip(("k_img", "v_img"),
-                       kv(embed_image(params, clip_fea), "k_img", "v_img",
-                          "norm_k_img")))
-    return out
+        img = _tp_in(embed_image(params, clip_fea), cfg)
+    per = [cross_kv(_layer_params(p), cfg, ctx, img)
+           for p in split_layers(params["blocks"]["cross_attn"])]
+    return {k: torch.stack([d[k] for d in per]) for k in per[0]}
 
 
 def layer_context(ctx_kv: dict) -> list[dict]:

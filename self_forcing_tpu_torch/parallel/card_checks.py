@@ -23,11 +23,11 @@ on the CPU.
 
 Phase 17 (parallel training): :func:`train_gloo_two_ranks` on two gloo
 ranks: the ZeRO-3 DMD and diffusion steps on an fsdp-2 mesh, the
-ZeRO-3-over-sp teacher's DMD step on an sp-2 mesh, ``forward_train_tp``'s
-gradients, the rollout with and without the cache constraint and
-``train.main``, each against one process where the check names one;
-``chip_smoke.py`` runs phase 17(a) in its own process with
-:func:`_tree_rel_l2` / :func:`_log_rel`.
+ZeRO-3-over-sp teacher's DMD and SiD steps on an sp-2 mesh,
+``forward_train_tp``'s gradients, the rollout with and without the
+cache constraint and ``train.main``, each against one process where the
+check names one; ``chip_smoke.py`` runs phase 17(a) in its own process
+with :func:`_tree_rel_l2` / :func:`_log_rel`.
 """
 from __future__ import annotations
 
@@ -315,12 +315,12 @@ def gloo_two_ranks(rank: int, world: int, spec: dict, out_dir: str) -> None:
 # tp gradients, the ZeRO-3-over-sp teacher, the CLI)
 # ---------------------------------------------------------------------
 
-def _dmd_config(spec: dict, **over) -> Config:
-    """``configs/self_forcing_dmd.yaml`` (spec['configs'] is its
-    directory) with the seed and ``over``."""
+def _dmd_config(spec: dict, name: str = "self_forcing_dmd.yaml",
+                **over) -> Config:
+    """``configs/<name>`` (spec['configs'] is its directory; by default
+    ``self_forcing_dmd.yaml``) with the seed and ``over``."""
     from self_forcing_tpu_torch.config import load_config
-    config = load_config(os.path.join(spec["configs"],
-                                      "self_forcing_dmd.yaml"),
+    config = load_config(os.path.join(spec["configs"], name),
                          os.path.join(spec["configs"],
                                       "default_config.yaml"))
     config.update(seed=spec["seed"], **over)
@@ -666,7 +666,9 @@ def train_gloo_two_ranks(rank: int, world: int, spec: dict,
     is sliced over ("fsdp", "sp") (``teacher_zero3_sp``) against one
     process with the whole teacher; (d) tp-2 gradients; (e) the rollout
     with and without the cache constraint (spec['cache_layers'] layers);
-    then ``train.main`` for two steps (``train.WAN_1_3B`` cut to
+    and a SiD step (``self_forcing_sid.yaml``) on the same layout, whose
+    generator loss differentiates through the ring teacher; then
+    ``train.main`` for two steps (``train.WAN_1_3B`` cut to
     spec['cli_layers'] layers).  (d) and (e), which hold little of the
     card, run first; then, with spec['go'] (a file path), the ranks wait
     for that file before the rest (the caller's own work goes on
@@ -721,6 +723,21 @@ def train_gloo_two_ranks(rank: int, world: int, spec: dict,
         _compare(out, state, ref, ref_state)
     d.barrier()
     res["sp"] = out
+    # (c) SiD on the same layout: the generator's loss differentiates
+    # through the ring teacher, whose layers are gathered again in the
+    # backward (remat)
+    out, state = _dmd_run(spec, dev, sp_mesh, spec["layers"],
+                          _dmd_config(spec, "self_forcing_sid.yaml",
+                                      teacher_zero3_sp=True),
+                          teacher_cfg=tcfg, stamp=20)
+    if rank == 0:
+        ref, ref_state = _dmd_run(
+            spec, dev, None, spec["layers"],
+            _dmd_config(spec, "self_forcing_sid.yaml"), teacher_cfg=tcfg,
+            stamp=20)
+        _compare(out, state, ref, ref_state)
+    d.barrier()
+    res["sid"] = out
     train.WAN_1_3B = dataclasses.replace(train.WAN_1_3B,
                                          num_layers=spec["cli_layers"])
     t0 = time.perf_counter()

@@ -13,9 +13,11 @@ Timing synchronises the card first, so that a staged copy's wait for
 the work queued before it is not counted as the collective's.
 
 The autograd-aware collectives (:func:`gather`, :func:`reduce_from`,
-:func:`copy_to`, :func:`all_reduce_both`) are ``torch.autograd.Function``s:
-the ZeRO-3 parameter gather whose backward reduce-scatters, and the
-tensor-parallel all-reduces with their Megatron backward rules.  A group
+:func:`copy_to`, :func:`all_reduce_both`, :func:`split_replicated`,
+:func:`gather_replicated`) are ``torch.autograd.Function``s: the ZeRO-3
+parameter gather whose backward reduce-scatters, the tensor-parallel
+all-reduces with their Megatron backward rules, and the sequence split
+and gather with ``shard_map``'s.  A group
 of one rank makes no call."""
 from __future__ import annotations
 
@@ -283,6 +285,58 @@ def all_reduce_both(t: torch.Tensor, group) -> torch.Tensor:
     if _needs_rule(t):
         return _AllReduceBoth.apply(t, group)
     return all_reduce(t.clone(), group)
+
+
+class _SplitReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_chunk(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_cat(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.group, ctx.dim), None, None
+
+
+def _own_chunk(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return t.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)]
+
+
+def split_replicated(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of a tensor every rank of ``group``
+    holds alike (a view).  Its backward all-gathers the chunks'
+    gradients, so each rank ends with the whole gradient (``shard_map``'s
+    transpose of a sharded input)."""
+    if _alone(group):
+        return t
+    if _needs_rule(t):
+        return _SplitReplicated.apply(t, group, dim)
+    return _own_chunk(t, group, dim)
+
+
+def gather_replicated(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's chunk concatenated along ``dim``, a result the ranks
+    then use alike (each computing the same loss from it).  Its backward
+    keeps the rank's own chunk of the gradient, with no sum over the
+    ranks (``shard_map``'s transpose of a sharded output): where the
+    parameter gather's backward (:func:`gather`) sums, this one would
+    scale the gradient by the group's size."""
+    if _alone(group):
+        return t
+    if _needs_rule(t):
+        return _GatherReplicated.apply(t, group, dim)
+    return gather_cat(t, group, dim)
 
 
 def gather_many(tensors: list, group, dims: list) -> list:

@@ -13,7 +13,8 @@ A rank holds:
 - the KV cache (the few-step sampler): ``dit.init_kv_cache``'s shape with
   the rank's heads, and its per-layer kmax;
 - the per-prompt cross-attention K/V of every layer (text, and image for
-  an i2v model), the rank's heads;
+  an i2v model), the rank's heads; the sequence-parallel forward computes
+  them inside each layer and holds one layer's at a time;
 - activations, an analytic term for the widest moment of one block (the
   model runs a layer at a time and frees the last): the residual stream
   and the float32 temporaries of its norms (4 x tokens x dim x 4 bytes),
@@ -82,6 +83,16 @@ def _activation_bytes(cfg: WanConfig, tokens: int, tp: int, itemsize: int,
     return a
 
 
+def _ring_backward_bytes(cfg: WanConfig, tokens: int, itemsize: int) -> int:
+    """One layer's ring attention backward over ``tokens`` local queries
+    and keys: the saved q, k, v and the float32 output, the float32 dq,
+    dO and the resident and received dK / dV and K / V, and two score
+    buffers of its chunk."""
+    d = tokens * cfg.dim
+    return (3 * d * itemsize + 2 * d * 4 + 2 * d * 4 + 4 * d * 4
+            + 2 * d * itemsize + 2 * sequence.SCORE_BYTES)
+
+
 def _result(label: str, parts: dict, limit: int | None) -> dict:
     limit = card_limit() if limit is None else limit
     total = sum(parts.values())
@@ -127,7 +138,8 @@ def sp_forward_fit(cfg: WanConfig = WAN_I2V_14B, sp: int = 1,
     return _result(f"sp_forward sp={sp}", {
         "params": param_bytes(cfg, 1, dtype, causal=False),
         "kv_cache": 0,
-        "context": 2 * cfg.num_layers * keys * cfg.dim * item,
+        "context": 2 * (cfg.num_layers if sp == 1 else 1) * keys
+        * cfg.dim * item,
         "activations": _activation_bytes(cfg, local_frames * fs, 1, item,
                                          ring=sp > 1)}, limit)
 
@@ -195,7 +207,7 @@ def dmd_state_bytes(student_cfg: WanConfig, teacher_cfg: WanConfig,
             "generator_ema": gen_b}
 
 
-def _layer_bytes(cfg: WanConfig, dtype) -> int:
+def layer_bytes(cfg: WanConfig, dtype=torch.bfloat16) -> int:
     """One transformer block's parameter bytes, whole."""
     one = dit.init_params(dataclasses.replace(cfg, num_layers=1),
                           dtype=dtype, device="meta", causal=False)
@@ -208,7 +220,8 @@ def sp_dmd_fit(student_cfg: WanConfig, teacher_cfg: WanConfig = WAN_14B,
                width: int = 832, frames: int = 21,
                num_frame_per_block: int = 3, dtype=torch.bfloat16,
                teacher_zero3: bool = False, cache_sharded: bool = True,
-               guidance: bool = True, limit: int | None = None) -> dict:
+               guidance: bool = True, sid: bool = False,
+               limit: int | None = None) -> dict:
     """One rank of the DMD generator step (``aot.py``'s ``sp_dmd_fit``
     program: the student's rollout with gradient, the critic and the
     teacher, CFG, forward) on fsdp x sp ranks: the persistent state
@@ -225,7 +238,14 @@ def sp_dmd_fit(student_cfg: WanConfig, teacher_cfg: WanConfig = WAN_14B,
     critic's whole-sequence forward, and of the teacher's ring forward
     over its sp shard of the frames, with one teacher layer gathered
     (whole under ZeRO-3 over sp, else the fsdp slices gathered); and the
-    port's float32 EMA beyond the bf16 one the state counts."""
+    port's float32 EMA beyond the bf16 one the state counts.
+
+    ``sid``: SiD's generator step, whose loss differentiates through the
+    score models, adds the layer inputs that remat keeps for their
+    backward (float32: the teacher's local tokens for each of its
+    forwards, the fake score's whole sequence) and one teacher layer's
+    ring backward (:func:`_ring_backward_bytes`); the teacher's layers
+    are still gathered one at a time."""
     item = torch.empty((), dtype=dtype).element_size()
     state = dmd_state_bytes(student_cfg, teacher_cfg, fsdp, sp, dtype,
                             teacher_zero3)
@@ -237,8 +257,8 @@ def sp_dmd_fit(student_cfg: WanConfig, teacher_cfg: WanConfig = WAN_14B,
     bn_div = sp if cache_sharded and heads % sp == 0 else 1
     s_div = fsdp if cache_sharded and S % fsdp == 0 else 1
     layer_cache = 2 * heads * S * student_cfg.head_dim * 2
-    stud_layer = _layer_bytes(student_cfg, dtype)
-    teach_layer = _layer_bytes(teacher_cfg, dtype)
+    stud_layer = layer_bytes(student_cfg, dtype)
+    teach_layer = layer_bytes(teacher_cfg, dtype)
     f32 = 4
     rollout = _activation_bytes(student_cfg, num_frame_per_block * fs, 1,
                                 f32)
@@ -257,7 +277,14 @@ def sp_dmd_fit(student_cfg: WanConfig, teacher_cfg: WanConfig = WAN_14B,
         "activations": max(rollout, critic, teacher)
         * (2 if guidance else 1),
     }
-    out = _result(f"sp_dmd fsdp={fsdp} sp={sp}"
+    if sid:
+        local = local_frames * fs
+        parts["sid_backward"] = (
+            (2 if guidance else 1) * teacher_cfg.num_layers * local
+            * teacher_cfg.dim * f32
+            + student_cfg.num_layers * tokens * student_cfg.dim * f32
+            + _ring_backward_bytes(teacher_cfg, local, item))
+    out = _result(f"sp_{'sid' if sid else 'dmd'} fsdp={fsdp} sp={sp}"
                   f"{' zero3' if teacher_zero3 else ''}", parts, limit)
     out["state_bytes_per_device"] = state
     return out

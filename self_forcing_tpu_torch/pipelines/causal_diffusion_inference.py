@@ -37,9 +37,9 @@ from self_forcing_tpu_torch.models.wan import dit
 from self_forcing_tpu_torch.models.wan import vae as vae_mod
 from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import RopeTables
-from self_forcing_tpu_torch.pipelines.causal_inference import _PhaseClock
 from self_forcing_tpu_torch.solvers import (CoeffSolver, init_solver_state,
                                             make_solver)
+from self_forcing_tpu_torch.utils.profiling import PhaseTimer
 
 
 def guided_flow(flow_c: torch.Tensor, flow_u: torch.Tensor,
@@ -244,7 +244,7 @@ class CausalDiffusionInferencePipeline:
         put in front of the output.  ``profile=True`` synchronises the
         device after the set-up, each block and the decode, prints each
         one's host-clock ms and keeps them in ``self.profile_ms``."""
-        clock = _PhaseClock(noise.device, profile)
+        clock = PhaseTimer(noise.device, on=profile)
         B, F, C, H, W = noise.shape
         nb = self.num_frame_per_block
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
@@ -337,7 +337,7 @@ class CausalDiffusionInferencePipeline:
             video = (video * 0.5 + 0.5).clamp(0, 1).permute(0, 1, 4, 2, 3)
             clock.lap("vae_ms")
         if profile:
-            self.profile_ms = clock.report()
+            self.profile_ms = clock.lap_report()
         if return_latents:
             return video, latents
         return video

@@ -16,7 +16,6 @@ compact.  With a ``("tp",)`` mesh every step runs tensor-parallel
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -27,6 +26,7 @@ from self_forcing_tpu_torch.models.wan.configs import WanConfig
 from self_forcing_tpu_torch.models.wan.rope import RopeTables
 from self_forcing_tpu_torch.scheduler import (FlowMatchScheduler,
                                               warp_denoising_steps)
+from self_forcing_tpu_torch.utils.profiling import PhaseTimer
 
 
 def denoise_block(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
@@ -128,29 +128,6 @@ def generate_blocks(params, cfg: WanConfig, scheduler: FlowMatchScheduler,
                               assume_compacted=False)
         outs.append(blk)
     return outs, cache
-
-
-class _PhaseClock:
-    """Host-clock ms of consecutive phases, each ended by a device
-    synchronise; does nothing when off."""
-
-    def __init__(self, device: torch.device, on: bool):
-        self.device, self.on, self.ms = device, on, {}
-        self._t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.on:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            self.ms[name] = (now - self._t) * 1e3
-            self._t = now
-
-    def report(self) -> dict:
-        self.ms["total_ms"] = sum(self.ms.values())
-        print("Profiling results: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in self.ms.items()), flush=True)
-        return dict(self.ms)
 
 
 class CausalInferencePipeline:
@@ -347,7 +324,7 @@ class CausalInferencePipeline:
         set-up (context K/V, cache, priming), the generation and the
         decode, prints each one's host-clock ms and keeps them in
         ``self.profile_ms``."""
-        clock = _PhaseClock(noise.device, profile)
+        clock = PhaseTimer(noise.device, on=profile)
         B, F, C, H, W = noise.shape
         self._check_batch(B)
         fs = (H // self.cfg.patch_size[1]) * (W // self.cfg.patch_size[2])
@@ -377,7 +354,7 @@ class CausalInferencePipeline:
             video = (video * 0.5 + 0.5).clamp(0, 1).permute(0, 1, 4, 2, 3)
             clock.lap("vae_ms")
         if profile:
-            self.profile_ms = clock.report()
+            self.profile_ms = clock.lap_report()
         if return_latents:
             return video, latents
         return video

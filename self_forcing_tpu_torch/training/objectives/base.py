@@ -120,9 +120,11 @@ def score_x0(params, cfg: WanConfig, rope: RopeTables,
     """A bidirectional score model's x0 prediction of ``noisy`` at
     timesteps ``t`` [B, F].  ``sp_mesh``: the forward runs
     sequence-parallel over that mesh's ``sp_axis`` (ring attention, the
-    14B teacher's route: ``ModelBundle.teacher_sp_mesh``; forward only);
-    ``sp_param_specs``: the ZeRO-3-over-sp layout of ``params``
-    (``mesh.combined_fsdp_specs``), gathered a layer at a time."""
+    14B teacher's route: ``ModelBundle.teacher_sp_mesh``; the gradient
+    reaches ``noisy``, not the weights); ``sp_param_specs``: the
+    ZeRO-3-over-sp layout of ``params`` (``mesh.combined_fsdp_specs``),
+    gathered a layer at a time; under grad that route always recomputes
+    each layer, its gather included, in the backward)."""
     B, F, C, H, W = noisy.shape
     if sp_mesh is not None:
         from self_forcing_tpu_torch.parallel.sequence import (

@@ -15,20 +15,34 @@ module) run:
   sp teacher) against the JAX forward, and a DMD step with a wider
   teacher (dim 256, 4 heads) sliced over ("fsdp", "sp") against the JAX
   trainer with the whole teacher;
+- the gradients through the sequence-parallel route: ``ring_attention``'s
+  against ``jax.grad`` of the JAX ring under ``shard_map`` (2 devices),
+  ``forward_train_sp``'s (x and context; whole and sliced weights)
+  against ``jax.grad`` of the one-device forward, the sliced teacher's
+  per-layer gathers with and without the recompute, and a SiD step through the
+  wider teacher, sliced or whole, against the JAX SiD trainer with the
+  whole teacher;
 - ``shard_params`` then a gather, ``train.shard_batch``,
-  ``train.setup_mesh`` and ``train.main`` for two steps.
+  ``train.setup_mesh`` and ``train.main`` for two steps (DMD on fsdp 2,
+  SiD on sp 2).
+
+The ranks run under ``workers.RANKS_TIMEOUT``: a collective one rank
+never joins fails the module instead of hanging it
+(``test_ranks_fail_past_their_time_limit``).
 
 Tolerances: losses 1e-4 relative, the other logs 1e-3 relative (as
 ``tests/test_torch_trainers.py``'s); parameters and EMA after the
 updates 1e-4 absolute; Adam moments 1e-4 relative to each leaf's largest
 entry; the forwards 5e-4 and the tp gradients 5e-4 (the JAX package's
-own tensor- and sequence-parallel tolerances); the
+own tensor- and sequence-parallel tolerances); the ring's gradients
+1e-5 and the sequence-parallel forward's input gradients 1e-4; the
 cache constraint, the gather and the CLI's checkpoint (batch 1, whole on
 both ranks) against one process exactly or within 1e-6.
 """
 import copy
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +80,8 @@ from self_forcing_tpu_torch.utils import tree
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
 TOL, FWD_TOL = 1e-4, 5e-4
+RING_GRAD_TOL, SP_GRAD_TOL = 1e-5, 1e-4
+RING_VALID = (None, 12)   # 12 of the ring's 16 keys: 3 frames of 4 at sp 2
 C, H, W = 16, 8, 8
 WIDE = dict(dim=256, ffn_dim=512, num_heads=4, num_layers=2, text_dim=64,
             freq_dim=32)
@@ -376,6 +392,20 @@ def run(tmp_path_factory):
                              "batch": {"context": torch.from_numpy(ctx)},
                              "draws": _jax_dmd_draws(jtr, 1, 1)}}
     jtrainers["dmd_wide"] = (jtr, {"context": ctx})
+    # SiD differentiates through the ring teacher: sliced over ("fsdp",
+    # "sp") and whole, against one JAX run with the whole teacher
+    for name, zero3 in (("sid_wide", True), ("sid_wide_seq", False)):
+        c, j = _configs("tiny_test.yaml", distribution_loss="sid",
+                        teacher_zero3_sp=zero3, **dist)
+        if name == "sid_wide":
+            jtr = JSDTrainer(j, jm["gen"], jm["fake"], jm["real_wide"],
+                             J_TINY, J_TINY, JConfig(**WIDE), neg)
+            jtrainers["sid_wide"] = (jtr, {"context": ctx})
+            sid_draws = _jax_dmd_draws(jtr, 1, 1)
+        sp_cases[name] = {"kind": "sid", "config": c, "steps": 1,
+                          "real": "real_wide", "teacher_cfg": WIDE,
+                          "batch": {"context": torch.from_numpy(ctx)},
+                          "draws": sid_draws}
 
     # the rollout (3 frames, exit 2) with its draws and weights
     g = torch.Generator().manual_seed(6)
@@ -400,6 +430,17 @@ def run(tmp_path_factory):
     x_sp = rng.standard_normal((1, 4, C, H, W)).astype(np.float32)
     sp = {"cfg": SP_KW, "params": _t(jsp), "x": torch.from_numpy(x_sp),
           "t": torch.full((1, 4), 700.0), "ctx": torch.from_numpy(ctx_tp)}
+    # gradients through the sequence-parallel route: the ring at 16
+    # tokens (4 "frames" of 4, the last one padding past kv_valid 12) and
+    # the forward on 3 frames (padded to 4 at sp 2)
+    qkv = [rng.standard_normal((1, 16, 2, 16)).astype(np.float32)
+           for _ in range(4)]
+    x_g = rng.standard_normal((1, 3, C, H, W)).astype(np.float32)
+    w_g = rng.standard_normal((1, 3, C, H, W)).astype(np.float32)
+    sp_grad = {"qkv": [torch.from_numpy(a) for a in qkv[:3]],
+               "w_ring": torch.from_numpy(qkv[3]), "kv_valid": RING_VALID,
+               "kv_chunk": 4, "x": torch.from_numpy(x_g),
+               "t": torch.full((1, 3), 700.0), "w": torch.from_numpy(w_g)}
 
     cli_cfg = d / "cli.yaml"
     with open(os.path.join(CONFIGS, "tiny_test.yaml")) as f:
@@ -408,18 +449,22 @@ def run(tmp_path_factory):
               dfake_gen_update_ratio=1,
               data_path=os.path.join(REPO, "prompts", "test_prompts.txt"))
     cli_cfg.write_text(yaml.safe_dump(cc))
+    cli_sid_cfg = d / "cli_sid.yaml"
+    cli_sid_cfg.write_text(yaml.safe_dump(dict(
+        cc, distribution_loss="sid", sp_size=2, teacher_zero3_sp=True)))
 
-    def cli_argv(logdir):
-        return ["--config_path", str(cli_cfg), "--max_steps", "2",
+    def cli_argv(logdir, path=cli_cfg):
+        return ["--config_path", str(path), "--max_steps", "2",
                 "--device", "cpu", "--dist_backend", "gloo", "--logdir",
                 str(logdir), "--no_visualize"]
 
     inp = {"models": models, "cases": cases, "sp_cases": sp_cases,
-           "rollout": rollout, "tp": tp, "sp": sp,
-           "cli_argv": cli_argv(d / "cli2")}
+           "rollout": rollout, "tp": tp, "sp": sp, "sp_grad": sp_grad,
+           "cli_argv": cli_argv(d / "cli2"),
+           "cli_sid_argv": cli_argv(d / "cli_sid2", cli_sid_cfg)}
     torch.save(inp, d / "inp.pt")
     ranks = launch.start(workers.training_worker, 2, "gloo",
-                         str(d / "inp.pt"), str(d))
+                         str(d / "inp.pt"), str(d), timeout=workers.RANKS_TIMEOUT)
 
     jout = {}
     for name, (jtr, batch) in jtrainers.items():
@@ -429,9 +474,10 @@ def run(tmp_path_factory):
         jtr, batch = jtrainers[name]
         jout[name]["logs"].append(jtr.train_step(batch))
         jout[name]["state"] = _jax_state(jtr)
-    train.main(["--config_path", str(cli_cfg), "--max_steps", "2",
-                "--device", "cpu", "--logdir", str(d / "cli1"),
-                "--no_visualize"])
+    for path, logdir in ((cli_cfg, "cli1"), (cli_sid_cfg, "cli_sid1")):
+        train.main(["--config_path", str(path), "--max_steps", "2",
+                    "--device", "cpu", "--logdir", str(d / logdir),
+                    "--no_visualize"])
 
     def tp_loss(p):
         return jnp.sum(jdit.forward_train(
@@ -441,11 +487,45 @@ def run(tmp_path_factory):
     jsp_flow = np.asarray(jdit.forward_train(
         jsp, JConfig(**SP_KW), x_sp, np.full((1, 4), 700.0, np.float32),
         ctx_tp, None, JRope.create(64), remat=False))
+    jsp_grads = _jax_sp_grads(jsp, qkv, x_g, w_g, ctx_tp)
     ranks.join()
     outs = [torch.load(d / f"rank{r}.pt", weights_only=False)
             for r in range(2)]
     return {"outs": outs, "jax": jout, "dir": d,
-            "inp": inp, "jtp_grads": jtp_grads, "jsp_flow": jsp_flow}
+            "inp": inp, "jtp_grads": jtp_grads, "jsp_flow": jsp_flow,
+            "jsp_grads": jsp_grads}
+
+
+def _jax_sp_grads(jsp, qkv, x, w, ctx):
+    """jax.grad of the JAX ring attention under ``shard_map`` on a 2-device
+    sp mesh (q, k, v; with and without ``kv_valid``), and of the JAX
+    one-device ``forward_train`` (x and the context)."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from self_forcing_tpu.parallel.sequence import ring_attention
+    mesh = jcreate_mesh(dp=1, fsdp=1, sp=2, devices=jax.devices()[:2])
+    q, k, v, w_ring = (jnp.asarray(a) for a in qkv)
+    out = {"ring": {}}
+    for kv_valid in RING_VALID:
+        ring = shard_map(
+            lambda q_, k_, v_, kv=kv_valid: ring_attention(
+                q_, k_, v_, "sp", kv_valid=kv, kv_chunk=4),
+            mesh=mesh, in_specs=(P(None, "sp"),) * 3,
+            out_specs=P(None, "sp"))
+        out["ring"][kv_valid] = [np.asarray(a) for a in jax.jit(jax.grad(
+            lambda q_, k_, v_: jnp.sum(ring(q_, k_, v_) * w_ring),
+            argnums=(0, 1, 2)))(q, k, v)]
+    cfg = JConfig(**SP_KW)
+    t = np.full((1, x.shape[1]), 700.0, np.float32)
+
+    def loss(x_, ctx_):
+        return jnp.sum(jdit.forward_train(
+            jsp, cfg, x_, t, ctx_, None, JRope.create(64), remat=False) * w)
+    gx, gc = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x),
+                                                     jnp.asarray(ctx))
+    out["x"], out["ctx"] = np.asarray(gx), np.asarray(gc)
+    return out
 
 
 def _logs_close(got, want):
@@ -551,6 +631,72 @@ def test_forward_train_sp_zero3_matches_jax(run):
         assert out["sp"]["bytes"] < 0.6 * out["sp"]["whole_bytes"]
 
 
+@pytest.mark.parametrize("kv_valid", RING_VALID)
+def test_ring_attention_grads_match_jax(run, kv_valid):
+    """Each rank's dq / dk / dv (its shard of q, k, v) against ``jax.grad``
+    of the JAX ring under ``shard_map``; keys past ``kv_valid`` get none."""
+    want = run["jsp_grads"]["ring"][kv_valid]
+    for r, out in enumerate(run["outs"]):
+        for got, w in zip(out["sp_grads"]["ring"][kv_valid], want):
+            w = np.split(w, 2, axis=1)[r]
+            np.testing.assert_allclose(got.numpy(), w, rtol=RING_GRAD_TOL,
+                                       atol=RING_GRAD_TOL)
+    if kv_valid is not None:
+        dk, dv = (run["outs"][1]["sp_grads"]["ring"][kv_valid][i]
+                  for i in (1, 2))
+        assert not dk[:, kv_valid - 8:].any() and \
+            not dv[:, kv_valid - 8:].any()
+
+
+@pytest.mark.parametrize("name", ["whole", "zero3"])
+def test_forward_train_sp_grads_match_jax(run, name):
+    """``forward_train_sp``'s gradient with respect to x (3 frames, padded
+    to 4) and to the context, whole weights and ZeRO-3-over-sp slices,
+    against ``jax.grad`` of the one-device forward: every rank holds the
+    whole gradient, not sp times it."""
+    want = run["jsp_grads"]
+    for out in run["outs"]:
+        got = out["sp_grads"][name]
+        for k in ("x", "ctx"):
+            assert tuple(got[k].shape) == want[k].shape
+            np.testing.assert_allclose(got[k].numpy(), want[k],
+                                       rtol=SP_GRAD_TOL, atol=SP_GRAD_TOL,
+                                       err_msg=k)
+
+
+def test_zero3_sp_teacher_regathers_a_layer_at_a_time(run):
+    """The ZeRO-3-over-sp teacher gathers each of its 2 layers once in a
+    no-grad forward, and again in the backward, which recomputes each
+    layer (2 x layers); with that recompute patched out it keeps them
+    (layers) and the gradients are the same."""
+    layers = SP_KW["num_layers"]
+    for out in run["outs"]:
+        g = out["sp_grads"]
+        assert g["no_grad_gathers"] == layers
+        assert g["zero3"]["gathers"] == 2 * layers
+        assert g["zero3_no_remat"]["gathers"] == layers
+        for k in ("x", "ctx"):
+            np.testing.assert_allclose(g["zero3_no_remat"][k].numpy(),
+                                       g["zero3"][k].numpy(), rtol=0,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["sid_wide", "sid_wide_seq"])
+def test_sid_step_with_sp_teacher_matches_jax(run, name):
+    """sp 2, ``teacher_sequence_parallel``: a SiD step whose generator
+    loss differentiates through the ring teacher (dim 256, 4 heads),
+    sliced over ("fsdp", "sp") (``teacher_zero3_sp``) or whole, against
+    the JAX SiD trainer with the whole teacher on one device."""
+    want = run["jax"]["sid_wide"]
+    for out in run["outs"]:
+        got = out["sp_trainers"][name]
+        _logs_close(got["logs"][0], want["logs"][0])
+        _trees_close(got["state"]["gen"], want["state"]["gen"])
+        _trees_close(got["state"]["fake"], want["state"]["fake"])
+        _moments_close(got["state"]["gen_opt"]["mu"],
+                       want["state"]["gen_opt"]["mu"])
+
+
 def test_forward_train_tp_grads_match_jax(run):
     """Each rank's gradient of every leaf of its tp shard: the JAX
     one-device gradient's slice (split leaves) or the whole of it."""
@@ -632,3 +778,38 @@ def test_train_cli_on_two_ranks(run):
     assert set(two) == set(ref)
     for k in ref:
         _trees_close(two[k], ref[k], 1e-6)
+
+
+def test_train_cli_sid_on_sp_mesh(run):
+    """``train.main`` for 2 SiD steps on an sp-2 mesh (``sp_size: 2``,
+    ``teacher_zero3_sp``): rank 0's metrics and final checkpoint against
+    the one-process run's (the ring reassociates the teacher's sums:
+    the file's TOL)."""
+    d = run["dir"]
+    two = [json.loads(ln) for ln in
+           (d / "cli_sid2" / "metrics.jsonl").read_text().splitlines()]
+    one = [json.loads(ln) for ln in
+           (d / "cli_sid1" / "metrics.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in two] == [0, 1]
+    for a, b in zip(two, one):
+        for k in ("generator_loss", "critic_loss"):
+            np.testing.assert_allclose(a[k], b[k], rtol=TOL)
+    got = torch.load(d / "cli_sid2" / "final.pt", weights_only=True)
+    ref = torch.load(d / "cli_sid1" / "final.pt", weights_only=True)
+    assert set(got) == set(ref)
+    for k in ref:
+        _trees_close(got[k], ref[k])
+
+
+@pytest.mark.parametrize("skip_collective", [True, False])
+def test_ranks_fail_past_their_time_limit(skip_collective):
+    """``launch.start(..., timeout=)``: ranks hung in a barrier that one
+    of them never joins, or simply running past the limit, are ended and
+    ``join`` raises ``TimeoutError``, well before their own 120 s sleep
+    ends."""
+    t0 = time.monotonic()
+    ranks = launch.start(workers.hang_worker, 2, "gloo", skip_collective,
+                         timeout=5.0)
+    with pytest.raises(TimeoutError):
+        ranks.join()
+    assert time.monotonic() - t0 < 60

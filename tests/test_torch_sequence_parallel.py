@@ -103,7 +103,7 @@ def run(tmp_path_factory):
                              "ctx": T(gen["ctx"]), "neg": T(gen["neg"]),
                              "noise": T(gen["noise"])}}, d / "inp.pt")
     ranks = launch.start(workers.sp_worker, 4, "gloo", str(d / "inp.pt"),
-                         str(d))
+                         str(d), timeout=workers.RANKS_TIMEOUT)
 
     mesh = create_mesh(dp=1, fsdp=2, sp=4)
     sp_fn = _jit_sp(mesh)

@@ -113,7 +113,7 @@ def run(tmp_path_factory):
                 "t_train": torch.from_numpy(t_train),
                 "pipe_args": PIPE_ARGS, "pipes": pipes}, d / "inp.pt")
     ranks = launch.start(workers.tp_worker, 4, "gloo", str(d / "inp.pt"),
-                         str(d))
+                         str(d), timeout=workers.RANKS_TIMEOUT)
 
     jref = {}
     for name, (over, _) in PIPES.items():
@@ -283,7 +283,8 @@ def test_cli_tp2_matches_tp0(tmp_path, monkeypatch):
                                       + ".npy"), frames))
     tinf.main(_cli_argv(tmp_path, d1 / "o", 0))
     launch.spawn(workers.cli_worker, 2, "gloo",
-                 _cli_argv(tmp_path, d2 / "o", 2), str(d2))
+                 _cli_argv(tmp_path, d2 / "o", 2), str(d2),
+                 timeout=workers.RANKS_TIMEOUT)
     name = "output_000.mp4.npy"
     assert sorted(os.listdir(d2)) == ["o", f"rank0_{name}"]
     a = np.load(d1 / f"rank0_{name}").astype(int)

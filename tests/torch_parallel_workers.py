@@ -7,9 +7,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from self_forcing_tpu_torch.config import Config
 from self_forcing_tpu_torch.models.wan import dit
@@ -20,6 +22,11 @@ from self_forcing_tpu_torch.parallel import mesh as mesh_mod
 from self_forcing_tpu_torch.parallel import sequence, tensor
 from self_forcing_tpu_torch.pipelines.causal_inference import (
     CausalInferencePipeline)
+
+# seconds a test's ranks may run: a collective that some rank never
+# joins (a backward issuing its collectives in another order on one
+# rank) then fails the test instead of hanging it
+RANKS_TIMEOUT = 600.0
 
 
 def _save(out: dict, out_dir: str, rank: int) -> None:
@@ -314,6 +321,70 @@ def _sp_zero3(inp: dict, mesh) -> dict:
             "whole_bytes": sum(t.nbytes for t in _leaves(s["params"]))}
 
 
+def _sp_grads(inp: dict, mesh) -> dict:
+    """On the sp mesh: ``ring_attention``'s dq / dk / dv of a weighted sum
+    of its output (each rank its own queries' terms), with and without
+    ``kv_valid``; ``forward_train_sp``'s gradients with respect to x and
+    the context of a weighted sum of the whole prediction (3 frames
+    padded to 4), on whole weights and on ZeRO-3-over-sp slices; the
+    teacher's per-layer gathers (``_View.materialize`` calls) of a
+    no-grad forward and of a forward with its backward under remat and
+    without."""
+    from self_forcing_tpu_torch.parallel import fsdp
+    g = inp["sp_grad"]
+    group = mesh.get_group("sp")
+    r, n = mesh.get_local_rank("sp"), group.size()
+    out = {"ring": {}}
+    for kv_valid in g["kv_valid"]:
+        q, k, v = (t.chunk(n, 1)[r].clone().requires_grad_()
+                   for t in g["qkv"])
+        o = sequence.ring_attention(q, k, v, group, kv_valid=kv_valid,
+                                    kv_chunk=g["kv_chunk"])
+        out["ring"][kv_valid] = [t.detach() for t in torch.autograd.grad(
+            (o * g["w_ring"].chunk(n, 1)[r]).sum(), (q, k, v))]
+    s = inp["sp"]
+    cfg = WanConfig(**s["cfg"])
+    rope = RopeTables.create(cfg.head_dim, device="cpu")
+    specs = mesh_mod.combined_fsdp_specs(s["params"], mesh, min_size=1024)
+    sharded = fsdp.ShardedParams.from_full(s["params"], specs, mesh)
+    gathers = [0]
+    materialize = fsdp._View.materialize
+
+    def counted(view):
+        gathers[0] += 1
+        return materialize(view)
+
+    def grads(params, param_specs):
+        x = g["x"].clone().requires_grad_()
+        ctx = s["ctx"].clone().requires_grad_()
+        gathers[0] = 0
+        flow = sequence.forward_train_sp(params, cfg, x, g["t"], ctx, rope,
+                                         mesh, param_specs=param_specs)
+        got = torch.autograd.grad((flow * g["w"]).sum(), (x, ctx))
+        return {"x": got[0], "ctx": got[1], "gathers": gathers[0]}
+
+    checkpoint = sequence.checkpoint
+    fsdp._View.materialize = counted
+    try:
+        out["whole"] = grads(s["params"], None)
+        out["zero3"] = grads(sharded.shards, specs)
+        # the same forward with the per-layer recompute taken out
+        sequence.checkpoint = lambda fn, *a, use_reentrant: fn(*a)
+        try:
+            out["zero3_no_remat"] = grads(sharded.shards, specs)
+        finally:
+            sequence.checkpoint = checkpoint
+        gathers[0] = 0
+        with torch.no_grad():
+            sequence.forward_train_sp(sharded.shards, cfg, g["x"], g["t"],
+                                      s["ctx"], rope, mesh,
+                                      param_specs=specs)
+        out["no_grad_gathers"] = gathers[0]
+    finally:
+        fsdp._View.materialize = materialize
+    return out
+
+
 def _leaves(t):
     from self_forcing_tpu_torch.utils import tree
     return tree.leaves(t)
@@ -354,7 +425,8 @@ def training_worker(rank: int, world: int, inp_path: str,
                     out_dir: str) -> None:
     """The parallel-training checks on two gloo ranks: layouts, the
     trainers on an fsdp-2 mesh, the cache constraint, tp-2 gradients, the
-    sp-2 ZeRO-3 teacher (forward and a DMD step), the CLI."""
+    sp-2 ZeRO-3 teacher (forward, gradients, a DMD and a SiD step), the
+    CLI (DMD on fsdp 2, SiD on sp 2)."""
     from self_forcing_tpu_torch import train
     inp = torch.load(inp_path, weights_only=False)
     out = {}
@@ -366,7 +438,17 @@ def training_worker(rank: int, world: int, inp_path: str,
     sp_mesh = mesh_mod.create_mesh(dp=1, fsdp=1, sp=world,
                                    device_type="cpu")
     out["sp"] = _sp_zero3(inp, sp_mesh)
+    out["sp_grads"] = _sp_grads(inp, sp_mesh)
     out["sp_trainers"] = training_cases({"cases": inp["sp_cases"],
                                          "models": inp["models"]}, sp_mesh)
     train.main(inp["cli_argv"])
+    train.main(inp["cli_sid_argv"])
     _save(out, out_dir, rank)
+
+
+def hang_worker(rank: int, world: int, skip_collective: bool) -> None:
+    """Hangs: rank 0 enters a barrier that rank 1 never joins
+    (``skip_collective``), or every rank sleeps past its time limit."""
+    if rank == 0 and skip_collective:
+        dist.barrier()
+    time.sleep(120)
